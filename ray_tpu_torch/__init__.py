@@ -6,11 +6,13 @@ this package has a hand-written CUDA kernel (``ops/csrc``), built with
 ``nvcc`` on first use.  It imports neither ``jax`` nor ``ray_tpu``; its
 tests hold it against the JAX package.
 
-This slice ports the serving path: the GPT model
-(:mod:`ray_tpu_torch.models.gpt`), the paged-KV inference engine
-(:mod:`ray_tpu_torch.inference`) and the three kernels on that path
-(prefill attention, decode attention, the fused out-proj epilogue).
-Entry points run on the card unless the caller passes ``device="cpu"``.
+Ported so far: the GPT model (:mod:`ray_tpu_torch.models.gpt`), the
+paged-KV inference engine (:mod:`ray_tpu_torch.inference`), the
+single-device training step (:mod:`ray_tpu_torch.models.training`) and
+the seven kernels on those paths (attention forward and backward, decode
+attention, the fused out-proj epilogue forward and backward, flash-CE
+forward and backward).  Entry points run on the card unless the caller
+passes ``device="cpu"``.
 """
 
 from ray_tpu_torch.inference import (InferenceEngine,  # noqa: F401

@@ -60,3 +60,17 @@ def params_from_jax(tree: Dict[str, Any], cfg: GPTConfig,
             raise ValueError(f"{'/'.join(path)} has shape "
                              f"{tuple(node.shape)}, expected {shape}")
     return out
+
+
+def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse direction of :func:`params_from_jax`: the port's tree
+    of tensors -> the same tree of numpy arrays on the host, so a test can
+    hold post-step parameters against the JAX package's leaf by leaf.
+    bf16 leaves come back as f32 (exact: every bf16 value is an f32
+    value), since numpy has no bf16."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return {k: params_to_numpy(v) if isinstance(v, dict) else leaf(v)
+            for k, v in tree.items()}

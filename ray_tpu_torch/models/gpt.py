@@ -6,15 +6,17 @@ weights stacked ``[L, ...]`` (``wq [L, d, H, hd]``, ``wo [L, H, hd,
 d]``), a tied ``embed`` and no biases.  A tree made by the JAX package
 (``convert.params_from_jax``) therefore drives this module unchanged.
 
-This slice ports the main configuration: RMSNorm, SwiGLU, RoPE, dense
-FFNs, tied embeddings, no biases.  Other modes raise
+The port runs the main configuration: RMSNorm, SwiGLU, RoPE, dense
+FFNs, tied embeddings, no biases.  Other modes, and ``remat``, raise
 ``NotImplementedError``.  The layer loop is a Python loop (PyTorch runs
 eagerly; ``lax.scan`` has no counterpart to port).
 
 The out-proj + residual + pre-FFN norm of each layer goes through
 ``ops.fused_norm.matmul_residual_norm`` whenever its gate
 (``out_proj_norm_plan``) passes, as in the JAX package; on a CUDA
-tensor that is the hand-written kernel.
+tensor that is the hand-written kernel, forward and backward.  The
+training loss (:func:`loss_fn`) goes through ``ops.flash_ce``, with the
+final norm fused into its prologue when ``fuse_norm`` allows.
 """
 
 from __future__ import annotations
@@ -25,7 +27,9 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
+from ray_tpu_torch.ops import flash_ce
 from ray_tpu_torch.ops import fused_norm as fnorm
 from ray_tpu_torch.ops.attention import rope_rotate
 from ray_tpu_torch.ops.substrate import resolve_device
@@ -179,7 +183,7 @@ def _dense_ffn(lp, x, cfg: GPTConfig):
 
 
 def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
-                cache=None):
+                cache=None, fuse_norm: Optional[bool] = None):
     """One transformer block: ``(layer params, hidden [B, S, d]) ->
     (hidden, aux)``.
 
@@ -187,24 +191,39 @@ def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
     sequence: the decode path).  With ``cache`` not None, ``attn_fn`` is
     called as ``attn_fn(q, k, v, cache=cache)`` with the *rotated* k and
     returns ``(attn_out, new_cache)``; the block then returns
-    ``(hidden, aux, new_cache)``.
+    ``(hidden, aux, new_cache)``.  An ``attn_fn`` marked ``fused_rope``
+    (``ops.attention.make_flash_attention_fn``) takes q and k unrotated
+    and is called as ``attn_fn(q, k, v, positions=positions)``.
 
     The out-proj epilogue is fused whenever ``out_proj_norm_plan``
-    passes; it declines the S=1 decode step, which keeps the plain
-    matmul + add + norm as the JAX package does."""
+    passes (``fuse_norm=False`` declines it; None means on); it declines
+    the S=1 decode step, which keeps the plain matmul + add + norm as
+    the JAX package does."""
     eps = norm_eps(cfg)
     B, S, d = x.shape
     h = _norm(x, lp["ln1"], cfg.norm, eps=eps)
-    q = _rope(_proj_heads(h, lp["wq"]), positions, cfg.rope_theta)
-    k = _rope(_proj_heads(h, lp["wk"]), positions, cfg.rope_theta)
+    q = _proj_heads(h, lp["wq"])
+    k = _proj_heads(h, lp["wk"])
     v = _proj_heads(h, lp["wv"])
+    fused_rope = cfg.pos == "rope" and getattr(attn_fn, "fused_rope", False)
+    if not fused_rope:
+        q = _rope(q, positions, cfg.rope_theta)
+        k = _rope(k, positions, cfg.rope_theta)
     if cache is not None:
+        if fused_rope:
+            raise ValueError(
+                "cache= requires an attn_fn without fused RoPE: cache "
+                "entries must store post-RoPE keys, but a fused_rope "
+                "attn_fn receives them un-rotated")
         attn, cache = attn_fn(q, k, v, cache=cache)
+    elif fused_rope:
+        attn = attn_fn(q, k, v, positions=positions)
     else:
         attn = attn_fn(q, k, v)
     Hn, hd = attn.shape[2], attn.shape[3]
     plan = fnorm.out_proj_norm_plan(B * S, Hn * hd, d, norm=cfg.norm,
-                                    has_bias=False, seq=S)
+                                    has_bias=False, seq=S,
+                                    enabled=fuse_norm is not False)
     if plan:
         # out-proj + residual add + pre-FFN norm in one kernel
         r2, y2 = fnorm.matmul_residual_norm(
@@ -230,12 +249,20 @@ def embed_tokens(params: Params, tokens, cfg: GPTConfig):
 
 def forward_hidden(params: Params, tokens, cfg: GPTConfig, *,
                    attn_fn: Optional[Callable] = None,
+                   fuse_norm: Optional[bool] = None,
                    final_norm: bool = True, positions=None):
     """tokens [B, S] int -> (final hidden [B, S, d], aux).
 
     ``attn_fn(q, k, v) -> out`` defaults to causal ``local_attention``
-    (as in the JAX package); the engine passes ``flash_attention``."""
+    (as in the JAX package); the engine passes ``flash_attention`` and
+    the trainer ``make_flash_attention_fn``.  ``fuse_norm`` pins the
+    out-proj epilogue; ``final_norm=False`` skips the closing ``ln_f``
+    and returns the raw residual stream (for the fused-norm CE)."""
     check_supported(cfg)
+    if cfg.remat:
+        raise NotImplementedError(
+            "remat=True is not ported yet (ROADMAP Queue 1 item 7: "
+            "activation recompute comes after the single-device step)")
     S = tokens.shape[1]
     if attn_fn is None:
         attn_fn = functools.partial(local_attention, causal=True)
@@ -245,7 +272,8 @@ def forward_hidden(params: Params, tokens, cfg: GPTConfig, *,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         x, aux = layer_apply(layer_params(params, i), x, cfg,
-                             positions=positions, attn_fn=attn_fn)
+                             positions=positions, attn_fn=attn_fn,
+                             fuse_norm=fuse_norm)
         aux_total = aux_total + aux
     if final_norm:
         x = _norm(x, params["ln_f"], cfg.norm, eps=norm_eps(cfg))
@@ -258,12 +286,109 @@ def lm_head(params: Params, cfg: GPTConfig):
 
 
 def forward(params: Params, tokens, cfg: GPTConfig, *,
-            attn_fn: Optional[Callable] = None, positions=None):
+            attn_fn: Optional[Callable] = None,
+            fuse_norm: Optional[bool] = None, positions=None):
     """tokens [B, S] int -> (logits [B, S, V] f32, aux)."""
     x, aux = forward_hidden(params, tokens, cfg, attn_fn=attn_fn,
-                            positions=positions)
+                            fuse_norm=fuse_norm, positions=positions)
     logits = torch.matmul(x, lm_head(params, cfg))
     return logits.float(), aux
+
+
+def loss_from_hidden(params: Params, x, targets, cfg: GPTConfig, *,
+                     ce_mode: Optional[str] = None, norm_scale=None):
+    """(final hidden [B, S, d], targets [B, S]) -> mean NLL over the live
+    (non ``-1``) targets.
+
+    ``norm_scale``: when given, ``x`` is the raw residual stream (before
+    ``ln_f``) and the norm fuses into the flash-CE prologue
+    (``flash_ce.flash_ce_norm_sum``); if that gate declines, the norm
+    runs here and the regular CE dispatch follows."""
+    B, S, d = x.shape
+    if norm_scale is not None:
+        if flash_ce.uses_flash_ce_norm(
+                B * S, d, cfg.vocab_size, mode=ce_mode or "flash",
+                norm=cfg.norm, has_bias=cfg.use_bias, enabled=True):
+            s, n = flash_ce.flash_ce_norm_sum(
+                x.reshape(B * S, d), lm_head(params, cfg),
+                targets.reshape(B * S), norm_scale, eps=norm_eps(cfg))
+            return s / n.clamp_min(1.0)
+        x = _norm(x, norm_scale, cfg.norm, eps=norm_eps(cfg))
+    s, n = _chunked_ce(x.reshape(B * S, d), lm_head(params, cfg),
+                       targets.reshape(B * S), chunk=cfg.ce_chunk,
+                       mode=ce_mode)
+    return s / n.clamp_min(1.0)
+
+
+def _chunked_ce(x, head, targets, *, chunk: int = 4096,
+                mode: Optional[str] = None):
+    """x [N, d], head [d, V], targets [N] -> (sum_nll, n_valid).
+
+    ``mode`` (default ``flash``): ``flash`` takes the streamed kernels
+    for the shapes ``flash_ce.supports``; ``xla`` (or a declined shape)
+    the dense formulation, over row chunks of ``chunk`` (``chunk < 0``:
+    one chunk, logits kept for the backward; ``chunk >= 0``: each chunk
+    recomputed in the backward, as ``jax.checkpoint`` does).  ``fused``
+    (``ops/fused_ce.py``, no-remat only) is not ported and raises."""
+    N, d = x.shape
+    mode = mode or "flash"
+    if mode == "flash" and flash_ce.supports(N, d, head.shape[1]):
+        return flash_ce.flash_ce_sum(x, head.to(x.dtype), targets)
+    remat = chunk >= 0
+    if not remat and mode == "fused":
+        raise NotImplementedError(
+            "ce_mode='fused' (the bf16-resident-logits CE of "
+            "ops/fused_ce.py) is not ported yet (ROADMAP Queue 1 item 7)")
+    if chunk <= 0:
+        chunk = N
+
+    def chunk_loss(xc, tc):
+        logits = torch.matmul(xc.float(), head.float())
+        lse = torch.logsumexp(logits, -1)
+        true = logits.gather(1, tc.clamp_min(0).long()[:, None])[:, 0]
+        mask = (tc >= 0).float()
+        return ((lse - true) * mask).sum(), mask.sum()
+
+    def run(xc, tc):
+        if remat and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(chunk_loss, xc, tc,
+                                                     use_reentrant=False)
+        return chunk_loss(xc, tc)
+
+    if N <= chunk:
+        return run(x, targets)
+    s = n = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, N, chunk):
+        cs, cn = run(x[i:i + chunk], targets[i:i + chunk])
+        s, n = s + cs, n + cn
+    return s, n
+
+
+def loss_fn(params: Params, batch, cfg: GPTConfig, *,
+            attn_fn: Optional[Callable] = None, aux_weight: float = 0.01,
+            ce_mode: Optional[str] = None,
+            fuse_norm: Optional[bool] = None):
+    """batch: dict(tokens [B, S], targets [B, S]) -> scalar loss.
+
+    ``fuse_norm`` (None means on) pins the fused norm epilogues: the
+    per-layer out-proj epilogue, and, when the flash-CE-with-norm gate
+    passes, ``ln_f`` folded into the vocab-matmul kernel's prologue
+    instead of running here."""
+    if batch.get("segment_ids") is not None:
+        raise NotImplementedError(
+            "sample-packed batches (segment_ids) are not ported yet "
+            "(ROADMAP Queue 1 item 10: the data-plane slice)")
+    B, S = batch["tokens"].shape
+    ce_norm = flash_ce.uses_flash_ce_norm(
+        B * S, cfg.d_model, cfg.vocab_size, mode=ce_mode or "flash",
+        norm=cfg.norm, has_bias=cfg.use_bias, enabled=fuse_norm is not False)
+    x, aux = forward_hidden(params, batch["tokens"], cfg, attn_fn=attn_fn,
+                            fuse_norm=fuse_norm, final_norm=not ce_norm,
+                            positions=batch.get("positions"))
+    loss = loss_from_hidden(params, x, batch["targets"], cfg,
+                            ce_mode=ce_mode,
+                            norm_scale=params["ln_f"] if ce_norm else None)
+    return loss + aux_weight * aux
 
 
 def num_params(params: Params) -> int:

@@ -1,14 +1,17 @@
-"""Attention for the port: RoPE, prefill flash attention, decode attention.
+"""Attention for the port: RoPE, flash attention, decode attention.
 
 Counterpart of ``ray_tpu/ops/attention.py``.  Public functions take the
 model layout ``[B, S, H, D]`` as the JAX package does.
 
-- :func:`flash_attention` is causal self-attention for prefill.  On a
-  CUDA tensor it launches ``csrc/flash_attention_fwd.cu``, the port of
-  the Pallas forward kernels ``_fwd_kernel`` and ``_fwd_pack2_kernel``;
-  on a CPU tensor it runs the plain version, the ``local_attention``
-  formulation.  RoPE is applied outside (the in-kernel rotation, the
-  backward and ``segment_ids`` come with the training slice).
+- :func:`flash_attention` is causal self-attention for prefill and
+  training, differentiable through :class:`FlashAttention`.  On a CUDA
+  tensor its forward launches ``csrc/flash_attention_fwd.cu`` (the port
+  of the Pallas ``_fwd_kernel`` / ``_fwd_pack2_kernel``) and its
+  backward ``csrc/flash_attention_bwd.cu`` (``_bwd`` / ``_bwd_pack2``);
+  on a CPU tensor both run their plain versions.  With ``positions`` the
+  RoPE rotation happens inside both kernels (the training path, through
+  :func:`make_flash_attention_fn`); the serving path rotates q and k
+  outside, because its cache stores post-RoPE keys.
 - :func:`decode_attention` is one query token per sequence against the
   gathered paged context, masked by ``lengths``.  On a CUDA tensor it
   launches ``csrc/decode_attention.cu`` (the port of ``_decode_kernel``,
@@ -20,6 +23,7 @@ A CUDA tensor launches the kernel or raises; nothing falls back.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -34,7 +38,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (64,)
 
 flash_attention_kernel = _build.Kernel(
-    "flash_attention_fwd", *[_build.PTR] * 5, *[_build.INT] * 4,
+    "flash_attention_fwd", *[_build.PTR] * 7, *[_build.INT] * 4,
+    _build.FLOAT, _build.INT, _build.PTR)
+flash_attention_bwd_kernel = _build.Kernel(
+    "flash_attention_bwd", *[_build.PTR] * 12, *[_build.INT] * 4,
     _build.FLOAT, _build.INT, _build.PTR)
 decode_attention_kernel = _build.Kernel(
     "decode_attention", *[_build.PTR] * 5, *[_build.INT] * 4,
@@ -92,14 +99,38 @@ def rope_rotate(x: torch.Tensor, positions: torch.Tensor,
     return x * cos2 + torch.roll(x, D // 2, -1) * sinm
 
 
+def _rot(x, cos2, sinm):
+    """``attention.py:_rot``: x [B, S, H, D] rotated by the [S, D] tables
+    in f32, result in x's dtype (the rounding of the in-kernel RoPE, not
+    of :func:`rope_rotate`, which rotates in x's dtype)."""
+    D = x.shape[-1]
+    xf = x.float()
+    c, s = cos2.float()[None, :, None, :], sinm.float()[None, :, None, :]
+    return (xf * c + torch.roll(xf, D // 2, -1) * s).to(x.dtype)
+
+
+def _rot_t(g, cos2, sinm):
+    """``attention.py:_rot_t`` on an f32 gradient: the transposed
+    rotation, in f32."""
+    D = g.shape[-1]
+    c, s = cos2.float()[None, :, None, :], sinm.float()[None, :, None, :]
+    return g * c - torch.roll(g, D // 2, -1) * s
+
+
 # ---------------------------------------------------------------------------
-# prefill: causal flash attention forward
+# causal flash attention: forward, backward, autograd
 # ---------------------------------------------------------------------------
 
-def plain_flash_attention_fwd(q, k, v, *, scale: float
+Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def plain_flash_attention_fwd(q, k, v, *, scale: float, rope: Rope = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's plain version: (o [B,S,H,D] in q's dtype,
-    lse [B,H,S] f32), computed by the ``local_attention`` formulation."""
+    lse [B,H,S] f32), computed by the ``local_attention`` formulation;
+    ``rope`` = (cos2, sinm) [S, D] rotates q and k first."""
+    if rope is not None:
+        q, k = _rot(q, *rope), _rot(k, *rope)
     S = q.shape[1]
     mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
     o, m, l = _block_attn(q, k, v, mask, scale)
@@ -108,42 +139,168 @@ def plain_flash_attention_fwd(q, k, v, *, scale: float
     return (o / lc[..., None]).to(q.dtype), lse
 
 
-def flash_attention_fwd(q, k, v, *, scale: float
+def plain_flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
+                              rope: Rope = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The backward kernel's plain version (``_grad_blocks`` and the
+    products of ``_bwd_fused_kernel`` over the whole sequence): scores
+    and statistics in f32, ``p`` and ``ds`` rounded to the input dtype
+    before their products, ``_rot_t`` on dq and dk under ``rope``."""
+    dt = q.dtype
+    if rope is not None:
+        q, k = _rot(q, *rope), _rot(k, *rope)
+    S = q.shape[1]
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)   # [B, H, S]
+    ds = p * (dp - delta[..., None]) * scale
+    p, ds = p.to(dt).float(), ds.to(dt).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    if rope is not None:
+        dq, dk = _rot_t(dq, *rope), _rot_t(dk, *rope)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def _check_attn_args(name: str, q, k, v, rope: Rope) -> None:
+    B, S, H, D = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)} "
+                         f"and v {tuple(v.shape)} must match "
+                         "(self-attention)")
+    check_cuda_args(name, q, k, v, dtype=q.dtype)
+    _check_kernel_dtype(name, q, D)
+    if rope is not None:
+        check_cuda_args(name, q, *rope, dtype=q.dtype)
+        if any(t.shape != (S, D) for t in rope):
+            raise ValueError(f"{name}: the RoPE tables must be [S, D] = "
+                             f"[{S}, {D}]")
+
+
+def flash_attention_fwd(q, k, v, *, scale: float, rope: Rope = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) of causal attention; the kernel on CUDA tensors."""
     if not is_cuda(q):
-        return plain_flash_attention_fwd(q, k, v, scale=scale)
+        return plain_flash_attention_fwd(q, k, v, scale=scale, rope=rope)
+    _check_attn_args("flash_attention", q, k, v, rope)
     B, S, H, D = q.shape
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)} and v {tuple(v.shape)} must "
-                         "match (self-attention)")
-    check_cuda_args("flash_attention", q, k, v, dtype=q.dtype)
-    _check_kernel_dtype("flash_attention", q, D)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    cos2, sinm = (None, None) if rope is None else rope
     with torch.cuda.device(q.device):
         flash_attention_kernel(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if cos2 is None else cos2.data_ptr(),
+            None if sinm is None else sinm.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, S, H, D, scale, _DTYPE_CODES[q.dtype],
             _stream(q))
     return o, lse
 
 
+def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
+                        rope: Rope = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv); the kernel on CUDA tensors."""
+    if not is_cuda(q):
+        return plain_flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
+                                         rope=rope)
+    _check_attn_args("flash_attention_bwd", q, k, v, rope)
+    check_cuda_args("flash_attention_bwd", q, o, do, dtype=q.dtype)
+    B, S, H, D = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError("flash_attention_bwd: o and do must match q")
+    check_cuda_args("flash_attention_bwd", q, lse, dtype=None)
+    if lse.dtype != torch.float32 or lse.shape != (B, H, S):
+        raise ValueError("flash_attention_bwd: lse must be f32 [B, H, S]")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    cos2, sinm = (None, None) if rope is None else rope
+    with torch.cuda.device(q.device):
+        flash_attention_bwd_kernel(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(),
+            None if cos2 is None else cos2.data_ptr(),
+            None if sinm is None else sinm.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B, S, H, D,
+            scale, _DTYPE_CODES[q.dtype], _stream(q))
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal flash attention with its backward kernel (the custom VJP
+    of ``_flash_bhsd`` / ``_flash_pack2`` and their ``_rope`` twins).
+    Saves q, k, v, o and lse; delta is recomputed in the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos2, sinm, scale):
+        rope = None if cos2 is None else (cos2, sinm)
+        o, lse = flash_attention_fwd(q, k, v, scale=scale, rope=rope)
+        ctx.save_for_backward(q, k, v, o, lse, cos2, sinm)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, cos2, sinm = ctx.saved_tensors
+        rope = None if cos2 is None else (cos2, sinm)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         scale=ctx.scale, rope=rope)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None, positions=None,
+                    rope_theta: float = 10000.0,
+                    segment_ids=None) -> torch.Tensor:
     """Fused causal attention.  q, k, v: [B, S, H, D] -> [B, S, H, D].
 
     Drop-in for ``parallel.ring_attention.local_attention``.  Every
     length takes the kernel on a CUDA tensor: it masks its own ragged
-    edge, so there is no shape-based fallback."""
+    edge, so there is no shape-based fallback.  ``positions`` [S] turns
+    on the in-kernel RoPE (q and k arrive unrotated); the tables are
+    ``rope_tables(positions, D, rope_theta, q.dtype)``, as in the
+    reference (``attention.py:1257``)."""
+    if segment_ids is not None:
+        raise NotImplementedError(
+            "segment_ids (sample-packed batches) is not ported yet "
+            "(ROADMAP Queue 1 item 10: packed-batch attention comes with "
+            "the data-plane slice)")
     if not causal:
         raise NotImplementedError(
             "non-causal flash attention is not ported yet (ROADMAP "
-            "Queue 2, row 1: comes with the training slice)")
+            "Queue 2, row 1: the training path is causal)")
+    B, S, H, D = q.shape
     if scale is None:
-        scale = q.shape[-1] ** -0.5
-    return flash_attention_fwd(q, k, v, scale=scale)[0]
+        scale = D ** -0.5
+    cos2 = sinm = None
+    if positions is not None:
+        if positions.dim() != 1 or positions.shape[0] != S:
+            raise ValueError(f"positions must be [S] = [{S}] for the fused "
+                             f"RoPE, got {tuple(positions.shape)}")
+        cos2, sinm = rope_tables(positions, D, rope_theta, q.dtype)
+    return FlashAttention.apply(q, k, v, cos2, sinm, scale)
+
+
+def make_flash_attention_fn(mesh=None, *, causal: bool = True,
+                            rope_theta: Optional[float] = None):
+    """The training path's attention hook (``attention.py:1496``, the
+    single-device branch).  With ``rope_theta`` the returned function
+    takes ``positions`` and rotates q and k inside the kernels;
+    ``fn.fused_rope`` marks this so the model skips its own rotation."""
+    if mesh is not None and getattr(mesh, "size", 1) > 1:
+        raise NotImplementedError(
+            "flash attention over a multi-device mesh is not ported yet "
+            "(ROADMAP Queue 1 item 9: multi-GPU training)")
+    fn = functools.partial(flash_attention, causal=causal)
+    if rope_theta is not None:
+        fn = functools.partial(fn, rope_theta=rope_theta)
+    fn.fused_rope = rope_theta is not None
+    return fn
 
 
 # ---------------------------------------------------------------------------

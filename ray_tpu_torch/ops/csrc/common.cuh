@@ -54,6 +54,25 @@ __device__ __forceinline__ void unpack16(const uint4& raw, float (&f)[8]) {
   }
 }
 
+// Element c of one (position, head) row of q or k, as the attention
+// kernels load it.  With ROPE it is rotated as attention.py:_rot does:
+// x * cos2 + roll(x, D/2) * sinm in f32 (no fused multiply-add, so the
+// rounding is the reference's), then rounded to the storage type T;
+// cos2 and sinm are the [S, D] tables and pos the row's position.
+template <typename T, int D, bool ROPE>
+__device__ __forceinline__ float load_rot(const T* row, const T* cos2,
+                                          const T* sinm, int pos, int c) {
+  const float x = to_f32(row[c]);
+  if constexpr (!ROPE) {
+    return x;
+  } else {
+    const float xp = to_f32(row[(c + D / 2) % D]);
+    const long t = static_cast<long>(pos) * D + c;
+    return round_to<T>(__fadd_rn(__fmul_rn(x, to_f32(cos2[t])),
+                                 __fmul_rn(xp, to_f32(sinm[t]))));
+  }
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)

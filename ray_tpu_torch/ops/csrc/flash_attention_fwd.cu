@@ -9,10 +9,14 @@
 //
 // Computes, for q, k, v [B, S, H, D] (the model layout, bf16 or f32):
 //   o   [B, S, H, D] = softmax(q k^T * scale, causal) v   (storage dtype)
-//   lse [B, H, S]    = row logsumexp of the scaled scores (f32, for the
-//                      backward that a later slice ports)
+//   lse [B, H, S]    = row logsumexp of the scaled scores (f32, saved for
+//                      flash_attention_bwd.cu)
 // with the reference's rounding points: scores and statistics in f32,
 // p rounded to the value dtype before P.V, l summed from unrounded p.
+// With the RoPE tables cos2, sinm [S, D] (the training path's fused RoPE,
+// attention.py:_rot :151), q and k are rotated as they are loaded: in
+// f32, then rounded to the storage dtype, as the reference rotates its
+// blocks inside the kernel.
 //
 // What bounds it on an H100: at the prefill shapes ([1, S<=1024, 12,
 // 64]) the work is ~4*S^2/2*H*D flops over ~4*S*H*D*2 bytes, i.e. about
@@ -45,10 +49,11 @@ constexpr size_t smem_bytes() {
          (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool ROPE>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
+                     const T* __restrict__ v, const T* __restrict__ cos2,
+                     const T* __restrict__ sinm, T* __restrict__ o,
                      float* __restrict__ lse, int S, int H, float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = BK + 1;
@@ -70,8 +75,10 @@ __global__ void __launch_bounds__(THREADS)
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, c = i % D;
-    qs[r * DP + c] =
-        q0 + r < S ? rtt::to_f32(q[base + (q0 + r) * rs + c]) : 0.f;
+    qs[r * DP + c] = q0 + r < S ? rtt::load_rot<T, D, ROPE>(
+                                      q + base + (q0 + r) * rs, cos2, sinm,
+                                      q0 + r, c)
+                                : 0.f;
   }
 
   float m[4], l[4], acc[4][DJ];
@@ -91,7 +98,10 @@ __global__ void __launch_bounds__(THREADS)
     for (int i = tid; i < BK * D; i += THREADS) {
       const int r = i / D, c = i % D;
       const bool ok = k0 + r < S;
-      ks[r * DP + c] = ok ? rtt::to_f32(k[base + (k0 + r) * rs + c]) : 0.f;
+      ks[r * DP + c] = ok ? rtt::load_rot<T, D, ROPE>(
+                                k + base + (k0 + r) * rs, cos2, sinm, k0 + r,
+                                c)
+                          : 0.f;
       vs[r * D + c] = ok ? rtt::to_f32(v[base + (k0 + r) * rs + c]) : 0.f;
     }
     __syncthreads();
@@ -177,34 +187,51 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int S, int H, float scale, cudaStream_t stream) {
+template <typename T, int D, bool ROPE>
+int launch(const void* q, const void* k, const void* v, const void* cos2,
+           const void* sinm, void* o, void* lse, int B, int S, int H,
+           float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_kernel<T, D, ROPE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, D, ROPE><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      S, H, scale);
+      static_cast<const T*>(v), static_cast<const T*>(cos2),
+      static_cast<const T*>(sinm), static_cast<T*>(o),
+      static_cast<float*>(lse), S, H, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const void* cos2,
+             const void* sinm, void* o, void* lse, int B, int S, int H,
+             float scale, cudaStream_t st) {
+  if (cos2 != nullptr)
+    return launch<T, 64, true>(q, k, v, cos2, sinm, o, lse, B, S, H, scale,
+                               st);
+  return launch<T, 64, false>(q, k, v, cos2, sinm, o, lse, B, S, H, scale,
+                              st);
 }
 
 }  // namespace
 
+// cos2 and sinm [S, D] (storage dtype) select the in-kernel RoPE; pass
+// null for both to take q and k as they are.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, void* lse, int B,
-                                   int S, int H, int D, float scale,
+                                   const void* v, const void* cos2,
+                                   const void* sinm, void* o, void* lse,
+                                   int B, int S, int H, int D, float scale,
                                    int dtype, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == rtt::kBF16)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, S, H, scale, st);
+    return dispatch<__nv_bfloat16>(q, k, v, cos2, sinm, o, lse, B, S, H,
+                                   scale, st);
   if (dtype == rtt::kF32)
-    return launch<float, 64>(q, k, v, o, lse, B, S, H, scale, st);
+    return dispatch<float>(q, k, v, cos2, sinm, o, lse, B, S, H, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,12 +1,14 @@
 """Fused norm epilogue: out-proj matmul + residual add + RMSNorm.
 
-Counterpart of ``ray_tpu/ops/fused_norm.py``, forward only.  On a CUDA
-tensor :func:`matmul_residual_norm` launches
-``csrc/matmul_residual_norm.cu`` (the port of the Pallas ``_fwd_kernel``);
-on a CPU tensor it runs :func:`plain_matmul_residual_norm`.  Dispatch is
-the caller's: :func:`out_proj_norm_plan` is the reasoned gate, with the
-JAX package's reasons minus the mesh clause (a kernel here runs per
-rank, so a mesh does not decline it).
+Counterpart of ``ray_tpu/ops/fused_norm.py``.  :func:`matmul_residual_norm`
+is differentiable in all four operands through :class:`MatmulResidualNorm`.
+On a CUDA tensor its forward launches ``csrc/matmul_residual_norm.cu``
+(the port of the Pallas ``_fwd_kernel``) and its backward
+``csrc/matmul_residual_norm_bwd.cu`` (``_bwd_kernel`` with the partial
+sums of ``_mrn_bwd``); on a CPU tensor both run their plain versions.
+Dispatch is the caller's: :func:`out_proj_norm_plan` is the reasoned
+gate, with the JAX package's reasons minus the mesh clause (a kernel
+here runs per rank, so a mesh does not decline it).
 """
 
 from __future__ import annotations
@@ -27,6 +29,13 @@ _KERNEL_WIDTH = 768
 matmul_residual_norm_kernel = _build.Kernel(
     "matmul_residual_norm_fwd", *[_build.PTR] * 7, *[_build.INT] * 3,
     _build.FLOAT, _build.INT, _build.PTR)
+matmul_residual_norm_bwd_kernel = _build.Kernel(
+    "matmul_residual_norm_bwd", *[_build.PTR] * 13, *[_build.INT] * 4,
+    _build.PTR)
+# the backward kernel's scratch: dscale partials per 64-row block, and
+# dw partials per slice of N (csrc/matmul_residual_norm_bwd.cu)
+_BWD_ROWS = 64
+_BWD_SPLITS = 8
 
 
 def supports(N: int, K: int, d: int) -> Support:
@@ -46,10 +55,13 @@ def supports(N: int, K: int, d: int) -> Support:
 
 
 def out_proj_norm_plan(N: int, K: int, d: int, *, norm: str = "rmsnorm",
-                       has_bias: bool = False, seq: Optional[int] = None
-                       ) -> Support:
-    """The out-proj epilogue dispatch gate, with reasons.  It has only
-    structural reasons: no knob turns the kernel off."""
+                       has_bias: bool = False, seq: Optional[int] = None,
+                       enabled: bool = True) -> Support:
+    """The out-proj epilogue dispatch gate, with reasons.  ``enabled`` is
+    the caller's ``fuse_norm`` choice (an argument: no environment knob
+    reaches the port)."""
+    if not enabled:
+        return unsupported("disabled (fuse_norm=False)")
     if norm != "rmsnorm":
         return unsupported(f"norm={norm!r}: only rmsnorm fuses")
     if has_bias:
@@ -114,13 +126,98 @@ def matmul_residual_norm_fwd(a, w, resid, scale, *, eps: float = 1e-6
     return r, y, rstd
 
 
+def plain_matmul_residual_norm_bwd(a, w, rout, scale, rstd, drout, dy
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor, torch.Tensor]:
+    """The backward kernel's plain version (``_bwd_kernel`` plus the
+    partial sums of ``_mrn_bwd``): ``(da, dw, dresid, dscale)``, the norm
+    backward in f32, ``dr`` rounded to the storage dtype before both
+    products, dscale in f32 cast to the scale's dtype."""
+    r32 = rout.float()
+    xhat = r32 * rstd[:, None]
+    dy32 = dy.float()
+    dxhat = dy32 * scale.float()
+    m = (dxhat * xhat).mean(-1, keepdim=True)
+    dr = rstd[:, None] * (dxhat - xhat * m) + drout.float()
+    dresid = dr.to(rout.dtype)
+    dp = dr.to(w.dtype).float()
+    da = torch.matmul(dp, w.float().T).to(a.dtype)
+    dw = torch.matmul(a.float().T, dp).to(w.dtype)
+    dscale = (dy32 * xhat).sum(0).to(scale.dtype)
+    return da, dw, dresid, dscale
+
+
+def matmul_residual_norm_bwd(a, w, rout, scale, rstd, drout, dy
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor, torch.Tensor]:
+    """``(da, dw, dresid, dscale)``; the kernel on CUDA tensors."""
+    if not is_cuda(a):
+        return plain_matmul_residual_norm_bwd(a, w, rout, scale, rstd,
+                                              drout, dy)
+    N, K = a.shape
+    d = w.shape[1]
+    if (w.shape != (K, d) or rout.shape != (N, d) or drout.shape != (N, d)
+            or dy.shape != (N, d) or scale.shape != (d,)
+            or rstd.shape != (N,)):
+        raise ValueError("matmul_residual_norm_bwd: shapes do not line up")
+    check_cuda_args("matmul_residual_norm_bwd", a, w, rout, scale, drout, dy,
+                    dtype=a.dtype)
+    check_cuda_args("matmul_residual_norm_bwd", a, rstd,
+                    dtype=None)
+    if a.dtype not in _DTYPE_CODES or rstd.dtype != torch.float32:
+        raise ValueError("matmul_residual_norm_bwd: the kernel takes float32"
+                         " or bfloat16 operands and an f32 rstd")
+    if d != _KERNEL_WIDTH or K % 16 or K > 1536:
+        raise ValueError(f"matmul_residual_norm_bwd: the kernel is built for "
+                         f"d={_KERNEL_WIDTH} and K % 16 == 0, K <= 1536; got "
+                         f"K={K}, d={d}")
+    dev = a.device
+    da = torch.empty_like(a)
+    dw = torch.empty_like(w)
+    dresid = torch.empty_like(rout)
+    dscale = torch.empty((d,), dtype=torch.float32, device=dev)
+    dsp = torch.empty((-(-N // _BWD_ROWS), d), dtype=torch.float32,
+                      device=dev)
+    dwp = torch.empty((_BWD_SPLITS, K, d), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        matmul_residual_norm_bwd_kernel(
+            a.data_ptr(), w.data_ptr(), rout.data_ptr(), scale.data_ptr(),
+            rstd.data_ptr(), drout.data_ptr(), dy.data_ptr(), da.data_ptr(),
+            dw.data_ptr(), dresid.data_ptr(), dscale.data_ptr(),
+            dsp.data_ptr(), dwp.data_ptr(), N, K, d, _DTYPE_CODES[a.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+    return da, dw, dresid, dscale.to(scale.dtype)
+
+
+class MatmulResidualNorm(torch.autograd.Function):
+    """The custom VJP of ``fused_norm.py:_mrn``: saves ``(a, w, rout,
+    scale, rstd)`` (the residual stream once, never both sides of the
+    add) and returns ``(da, dw, dresid, dscale)``."""
+
+    @staticmethod
+    def forward(ctx, a, w, resid, scale, eps):
+        r, y, rstd = matmul_residual_norm_fwd(a, w, resid, scale, eps=eps)
+        ctx.save_for_backward(a, w, r, scale, rstd)
+        return r, y
+
+    @staticmethod
+    def backward(ctx, drout, dy):
+        a, w, rout, scale, rstd = ctx.saved_tensors
+        drout = torch.zeros_like(rout) if drout is None else drout
+        dy = torch.zeros_like(rout) if dy is None else dy
+        da, dw, dresid, dscale = matmul_residual_norm_bwd(
+            a, w, rout, scale, rstd, drout.contiguous(), dy.contiguous())
+        return da, dw, dresid, dscale, None
+
+
 def matmul_residual_norm(a, w, resid, scale, *, eps: float = 1e-6
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(resid + a @ w, rmsnorm(resid + a @ w) * scale)``, fused.
 
-    a [N, K], w [K, d], resid [N, d], scale [d].  Shapes
-    :func:`supports` declines raise: dispatch is the caller's job
-    (:func:`out_proj_norm_plan`)."""
-    r, y, _rstd = matmul_residual_norm_fwd(a, w, resid, scale, eps=eps)
-    return r, y
-
+    a [N, K], w [K, d], resid [N, d], scale [d].  Differentiable in all
+    four operands.  Shapes :func:`supports` declines raise: dispatch is
+    the caller's job (:func:`out_proj_norm_plan`)."""
+    ok = supports(a.shape[0], a.shape[1], w.shape[1])
+    if not ok:
+        raise ValueError(f"matmul_residual_norm cannot tile: {ok.reason}")
+    return MatmulResidualNorm.apply(a, w, resid, scale, eps)

@@ -7,6 +7,7 @@ in the matmul's summation order (K = 128 terms of O(1)), ~1e-6, so the
 JAX suite's 2e-5 holds with margin.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -70,3 +71,45 @@ def test_matmul_residual_norm_rejects_untileable():
     with pytest.raises(ValueError, match="cannot tile"):
         TF.matmul_residual_norm(torch.zeros(8, 96), torch.zeros(96, 128),
                                 torch.zeros(8, 128), torch.zeros(128))
+
+
+@pytest.mark.parametrize("N", [64, 200])
+def test_matmul_residual_norm_grads_match_jax(N):
+    """Every gradient of the fused epilogue (da, dw, dresid, dscale),
+    with cotangents into both outputs as in the real block, against the
+    JAX custom VJP ``_mrn`` (its Pallas backward in interpret mode, 128-
+    row blocks, so N = 200 pads and sums two row-block partials; mirrors
+    test_ops.py:849).  The port side runs the autograd.Function the card
+    runs, with the plain bodies.
+
+    Tolerance: each gradient within 1e-4 of its largest value (the JAX
+    suite's grad bound); dw and dscale sum N rows, so summation order
+    moves them by ~1e-6 of their scale."""
+    K = d = 128
+    rng = np.random.default_rng(N + 1)
+    a = (rng.standard_normal((N, K)) * 0.3).astype(np.float32)
+    w = (rng.standard_normal((K, d)) * K ** -0.5).astype(np.float32)
+    resid = rng.standard_normal((N, d)).astype(np.float32)
+    scale = (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    drout = rng.standard_normal((N, d)).astype(np.float32)
+    dy = rng.standard_normal((N, d)).astype(np.float32)
+
+    def jfn(a, w, resid, scale):
+        return JF.matmul_residual_norm(a, w, resid, scale, block_n=128)
+
+    _out, vjp = jax.vjp(jfn, *(jnp.asarray(x) for x in (a, w, resid, scale)))
+    want = vjp((jnp.asarray(drout), jnp.asarray(dy)))
+    args = [torch.from_numpy(x).requires_grad_(True)
+            for x in (a, w, resid, scale)]
+    r, y = TF.matmul_residual_norm(*args)
+    torch.autograd.backward([r, y], [torch.from_numpy(drout),
+                                     torch.from_numpy(dy)])
+    for name, t, ref in zip("da dw dresid dscale".split(), args, want):
+        ref = np.asarray(ref)
+        err = np.abs(t.grad.numpy() - ref).max() / np.abs(ref).max()
+        assert err < 1e-4, (name, err)
+
+
+def test_out_proj_norm_plan_takes_fuse_norm():
+    off = TF.out_proj_norm_plan(128, 768, 768, seq=64, enabled=False)
+    assert not off and "fuse_norm" in off.reason

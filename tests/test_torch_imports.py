@@ -1,8 +1,11 @@
-"""The port stands alone: ``ray_tpu_torch`` and every one of its
-submodules import without ``jax`` or any ``ray_tpu`` module, and its
-entry points never drift to the CPU on their own."""
+"""The port stands alone: ``ray_tpu_torch``, every one of its
+submodules and ``chip_smoke.py`` import without ``jax`` or any
+``ray_tpu`` module, and its entry points never drift to the CPU on their
+own."""
 
+import ast
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -18,6 +21,7 @@ names = ["ray_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
     ray_tpu_torch.__path__, "ray_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu"))
 print(len(names), bad)
@@ -33,7 +37,36 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 14
+    assert n_modules >= 18
+
+
+# the training slice's modules, which the probe above must reach
+_SLICE_MODULES = ("ray_tpu_torch/ops/flash_ce.py",
+                  "ray_tpu_torch/models/training.py",
+                  "ray_tpu_torch/telemetry/flops.py")
+
+
+def _imported_roots(path):
+    tree = ast.parse(pathlib.Path(path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_no_source_of_the_port_names_jax_or_ray_tpu():
+    """Every import statement, including those inside functions (which
+    the probe does not run), in every module of the port and in
+    ``chip_smoke.py``."""
+    root = pathlib.Path(REPO)
+    files = sorted((root / "ray_tpu_torch").rglob("*.py")) + \
+        [root / "chip_smoke.py"]
+    assert all((root / m) in files for m in _SLICE_MODULES)
+    for f in files:
+        bad = {r for r in _imported_roots(f)
+               if r in ("jax", "jaxlib", "ray_tpu")}
+        assert not bad, (str(f), bad)
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
