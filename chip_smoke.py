@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # the checks below
     python3 chip_smoke.py --profile        # where the serving time goes
+    python3 chip_smoke.py --profile int8   # the same on the int8 cache
     python3 chip_smoke.py --profile train  # where a training step's goes
 
 1. Start-up: prints the card (``nvidia-smi`` name and power limit), the
@@ -12,22 +13,34 @@
    its plain PyTorch version (computed in f32 on the same inputs) at the
    main paths' shapes, in bf16 and in f32, with its time, the plain
    version's, one PyTorch library call's as a yardstick, and the least
-   time the card could take (``bound_ms``).
-3. Engine phase: GPT-2 124M (random weights from a seed, bf16) serves
-   16 requests through the paged-KV engine; every request must finish,
-   the engine must be leak-free, and each kernel's launch count must be
-   what the run implies.
+   time the card could take (``bound_ms``): the ten entry points, the
+   int8 decode attention and the RMSNorm forward and backward included.
+3. Engine phase (gpt2-serve-mixed): GPT-2 124M (random weights from a
+   seed, bf16) serves 16 requests through the paged-KV engine with its
+   defaults (prefix caching on; the random prompts share no page, so
+   nothing hits); every request must finish, the engine must be
+   leak-free, and each kernel's launch count must be what the run
+   implies.
 4. Correctness: two greedy requests' logits against the port's
    teacher-forced ``forward`` on the CPU in f32 over the same weights.
-5. Training phase: GPT-2 124M in bf16 trains 10 steps at batch 24 x
+5. Engine phase gpt2-serve-int8-prefix: the same model with the int8 KV
+   cache serves 16 requests behind 4 shared 512-token system prompts;
+   exactly 12 hit the prefix cache, decode runs the int8 kernel only.
+6. int8 correctness: a cold and a prefix-hit greedy request on the int8
+   engine against the f32 teacher-forced reference, and against each
+   other.
+7. The RMSNorm kernels (``gpt._PALLAS_NORM``, ``RAY_TPU_PALLAS_NORM=1``)
+   in serving: the correctness phase again, with exact norm launches.
+8. Training phase: GPT-2 124M in bf16 trains 10 steps at batch 24 x
    1024 through ``build_gpt_train`` (flash attention with in-kernel
    RoPE, the fused epilogue, flash-CE with the norm prologue); prints
    ms/step, tokens/s, MFU and peak memory, checks the loss and the exact
-   launch counts of every step.
-6. Training correctness: one step's loss and every gradient of the
+   launch counts of every step.  Then 6 steps with the RMSNorm kernels.
+9. Training correctness: one step's loss and every gradient of the
    kernel path against the port's plain path (local attention, unfused
    epilogue, dense CE) at full width and depth, batch 2 x 1024: in f32
-   under a summation-order bound, and in bf16 against the f32 plain path.
+   under a summation-order bound, and in bf16 against the f32 plain path;
+   then the same at 2 layers with the RMSNorm kernels.
 
 Any failure raises and the script exits non-zero.  The line before the
 last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
@@ -240,6 +253,44 @@ def kernel_phase(rec: Recorder, dev) -> None:
                "ray_tpu_torch/ops/csrc/decode_attention.cu",
                "ray_tpu/ops/attention.py:1387")
 
+    # the int8 variant at the same shape: codes and scales of fresh K/V
+    # from quantize_block, random codes and NaN scales past each length.
+    # The plain version reads the same codes, so quantization error is
+    # not part of the check.
+    from ray_tpu_torch.quant import quantize_block
+    k8, ks = quantize_block(randn(B, S, H, D, dtype=torch.float32), block=D)
+    v8, vs = quantize_block(randn(B, S, H, D, dtype=torch.float32), block=D)
+    noise = torch.randint(-128, 128, k8.shape, generator=g, device=dev,
+                          dtype=torch.int8)
+    k8, v8 = torch.where(dead, noise, k8), torch.where(dead, noise, v8)
+    ks = ks[..., 0].masked_fill(dead[..., 0], float("nan")).contiguous()
+    vs = vs[..., 0].masked_fill(dead[..., 0], float("nan")).contiguous()
+    scales = dict(k_scale=ks, v_scale=vs)
+    o = A.decode_attention(q, k8, v8, lengths, **scales)
+    o_ref = A.plain_decode_attention(q.float(), k8, v8, lengths, scale=scale,
+                                     **scales)
+    o32 = A.decode_attention(q.float(), k8, v8, lengths, **scales)
+    torch.cuda.synchronize()
+    err = check("decode_attention_int8", o, o_ref, **BF16_TOL)
+    check("decode_attention_int8 f32", o32, o_ref, **F32_TOL)
+
+    def dequant_sdpa():
+        kd = (k8.float() * ks[..., None]).to(bf).transpose(1, 2)
+        vd = (v8.float() * vs[..., None]).to(bf).transpose(1, 2)
+        F.scaled_dot_product_attention(qs, kd, vd, attn_mask=mask)
+
+    rec.record("decode_attention_int8", [B, S, H, D], err,
+               time_ms(lambda: A.decode_attention(q, k8, v8, lengths,
+                                                  **scales)),
+               time_ms(lambda: A.plain_decode_attention(
+                   q, k8, v8, lengths, scale=scale, **scales)),
+               time_ms(dequant_sdpa),
+               2 * B * H * D * 2 + valid * H * (D + 4) * 2 + B * 4,
+               4 * H * D * valid,
+               "ray_tpu_torch/ops/csrc/decode_attention.cu",
+               "ray_tpu/ops/attention.py:1387 (quantized=True, "
+               "body :1319-1344)")
+
     # out-proj + residual + rmsnorm at N in {32, 1024}, K = d = 768
     for N in (32, 1024):
         epilogue_fwd_check(rec, randn, g, dev, N, bf)
@@ -279,6 +330,59 @@ def epilogue_fwd_check(rec: Recorder, randn, g, dev, N: int, bf) -> None:
                "ray_tpu/ops/fused_norm.py:202")
 
 
+def rmsnorm_checks(rec: Recorder, randn, g, dev) -> None:
+    """The RMSNorm kernels (``gpt._PALLAS_NORM``): the forward at the
+    decode step's N = 8, a prefill's 1024 and the training step's 24576
+    rows, the backward at 24576, d = 768."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import rmsnorm as R
+
+    d, eps, bf = 768, 1e-6, torch.bfloat16
+    sc = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(bf)
+    for N in (8, 1024, TRAIN_N):
+        x = randn(N, d)
+        y, rstd = R.rmsnorm_fwd(x, sc, eps=eps)
+        want = R.plain_rmsnorm_fwd(*_f32(x, sc), eps=eps)
+        got32 = R.rmsnorm_fwd(*_f32(x, sc), eps=eps)
+        torch.cuda.synchronize()
+        what = f"rmsnorm_fwd N={N}"
+        err = max(check(f"{what} y", y, want[0], **BF16_TOL),
+                  check(f"{what} rstd", rstd, want[1], **RSTD_TOL))
+        for part, a_, b_ in zip(("y", "rstd"), got32, want):
+            check(f"{what} f32 {part}", a_, b_, **F32_TOL)
+        rec.record("rmsnorm_fwd", [N, d], err,
+                   time_ms(lambda: R.rmsnorm_fwd(x, sc, eps=eps)),
+                   time_ms(lambda: R.plain_rmsnorm_fwd(x, sc, eps=eps)),
+                   time_ms(lambda: F.rms_norm(x, (d,), sc, eps)),
+                   2 * N * d * 2 + d * 2 + N * 4, 4 * N * d,
+                   "ray_tpu_torch/ops/csrc/rmsnorm_fwd.cu",
+                   "ray_tpu/ops/rmsnorm.py:86")
+    # the backward at N = 24576 with the bf16 forward's rstd
+    dy = randn(N, d)
+    got = R.rmsnorm_bwd(x, sc, rstd, dy)
+    want = R.plain_rmsnorm_bwd(*_f32(x, sc), rstd, dy.float())
+    got32 = R.rmsnorm_bwd(*_f32(x, sc), rstd, dy.float())
+    torch.cuda.synchronize()
+    what = f"rmsnorm_bwd N={N}"
+    err = max(check(f"{what} dx", got[0], want[0], **GRAD_BF16_TOL),
+              check(f"{what} dscale", got[1], want[1], **DS_BF16_TOL))
+    check(f"{what} f32 dx", got32[0], want[0], **F32_GRAD_TOL)
+    check(f"{what} f32 dscale", got32[1], want[1], **DS_F32_TOL)
+
+    def lib_norm():
+        xx, ss = (t.detach().requires_grad_(True) for t in (x, sc))
+        F.rms_norm(xx, (d,), ss, eps).backward(dy)
+
+    rec.record("rmsnorm_bwd", [N, d], err,
+               time_ms(lambda: R.rmsnorm_bwd(x, sc, rstd, dy)),
+               time_ms(lambda: R.plain_rmsnorm_bwd(x, sc, rstd, dy)),
+               time_ms(lib_norm),
+               3 * N * d * 2 + N * 4 + 2 * d * 2, 8 * N * d,
+               "ray_tpu_torch/ops/csrc/rmsnorm_bwd.cu",
+               "ray_tpu/ops/rmsnorm.py:117")
+
+
 # the training path's shapes (bench.py:1932-1935): GPT-2 124M at batch
 # 24 x 1024, so N = 24576 rows, d = 768, V = 50304, 12 heads of 64
 TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_D = 24, 1024, 12, 64
@@ -299,6 +403,14 @@ CE_TRUE_TOL = dict(atol=8e-3)
 # f32 gradients from products over up to 50304 terms (flash-CE) or 24576
 # rows (dw): summation order, ~1e-6 of the row scale
 F32_GRAD_TOL = dict(atol=1e-5, rtol=1e-4, row=1e-4)
+# RMSNorm's dscale sums dy * xhat over all N = 24576 rows.  The terms are
+# products of two unit normals (mean |term| = 2/pi), so |dscale| ~
+# sqrt(N) ~ 160, and two errors add: the bf16 rounding of the result, at
+# most 2^-9 of the value (rtol 2^-7 leaves headroom, as BF16_TOL does),
+# and the f32 summation order, at most N * 2^-24 * mean|term| = 9.4e-4
+# for any order (atol 2e-3).  The f32 kernel has the second error only.
+DS_BF16_TOL = dict(rtol=2 ** -7, atol=2e-3)
+DS_F32_TOL = dict(rtol=1e-5, atol=2e-3)
 
 
 def train_kernel_phase(rec: Recorder, dev) -> None:
@@ -441,6 +553,7 @@ def train_kernel_phase(rec: Recorder, dev) -> None:
                "ray_tpu/ops/fused_norm.py:247")
     del a, w, resid, rout, rstd, drout, dy, ins, ins32, got, want, got32
     torch.cuda.empty_cache()
+    rmsnorm_checks(rec, randn, g, dev)
 
     # flash-CE with the final-norm prologue: x the raw residual stream,
     # w the tied embedding [V, d] at its init scale, one target in seven
@@ -525,30 +638,36 @@ ENGINE = dict(slots=8, page_size=128)
 # in the mean first.
 ENGINE_TOL = dict(atol=0.09)
 ENGINE_MEAN_TOL = 0.01
+# int8-cache engine logits vs the same f32 reference: K/V read back as
+# int8 codes add up to half a step of each (position, head) vector's
+# amax / 127 to every cached value.  The first sound run on an H100 read
+# a largest error of 5.25e-2 and a mean error of 7.9e-3 (PERF.md); the
+# limits are about twice and one and a half times those, as for
+# ENGINE_TOL.
+INT8_TOL = dict(atol=0.11)
+INT8_MEAN_TOL = 0.012
 
 
-def engine_phase(params, cfg, dev) -> dict:
-    """16 requests (prompts of 40..900 tokens, 32 new tokens each, half
-    greedy and half sampled) through the engine; prints the serving
-    metrics and returns the launch counts of this run."""
-    from ray_tpu_torch import InferenceEngine, SamplingParams
+def expect_launches(what: str, launches: dict, want: dict) -> None:
+    """Raise unless every kernel launched exactly as ``want`` says, and
+    every kernel ``want`` leaves out not at all."""
+    full = {k: want.get(k, 0) for k in launches}
+    if launches != full:
+        raise AssertionError(f"{what}: launches {launches} != implied "
+                             f"{full}")
+
+
+def serve(engine, prompts, sampling) -> dict:
+    """Submit every prompt at once (32 new tokens each), run the engine
+    dry, and return what the run took: the launches, first-token times,
+    outputs and the engine's call counts and seconds over the run."""
     from ray_tpu_torch.ops import _build
 
-    engine = InferenceEngine(cfg, params, device=dev, **ENGINE)
-    engine.generate([[1, 2, 3]], max_new_tokens=2)        # warm-up
-    rng = np.random.default_rng(0)
-    lengths = np.linspace(40, 900, 16).astype(int)
-    rng.shuffle(lengths)
-    prompts = [rng.integers(0, 50257, n).tolist() for n in lengths]
-    sampled = SamplingParams(temperature=0.8, top_k=50, top_p=0.95)
-    calls0 = dict(engine.call_counts)
-    secs0 = dict(engine.seconds)
+    calls0, secs0 = dict(engine.call_counts), dict(engine.seconds)
     _build.reset_launches()
     t0 = time.monotonic()
-    rids = [engine.submit(p, max_new_tokens=32,
-                          sampling=(None if i % 2 == 0 else
-                                    dataclasses.replace(sampled, seed=i)))
-            for i, p in enumerate(prompts)]
+    rids = [engine.submit(p, max_new_tokens=32, sampling=sp)
+            for p, sp in zip(prompts, sampling)]
     submitted = time.monotonic()
     first, out = {}, {r: [] for r in rids}
     while engine.has_work():
@@ -556,98 +675,258 @@ def engine_phase(params, cfg, dev) -> dict:
             first.setdefault(rid, time.monotonic())
             out[rid].append(tok)
     torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = _build.launch_counts()
-    prefills = engine.call_counts["prefill"] - calls0["prefill"]
-    decodes = engine.call_counts["decode"] - calls0["decode"]
-    L = cfg.n_layers
+    run = dict(
+        launches=_build.launch_counts(), rids=rids, out=out,
+        wall=time.monotonic() - t0,
+        ttft={r: first[r] - submitted for r in first},
+        calls={k: v - calls0[k] for k, v in engine.call_counts.items()},
+        secs={k: v - secs0[k] for k, v in engine.seconds.items()})
     if any(len(out[r]) != 32 for r in rids) or len(first) != len(rids):
         raise AssertionError("not every request finished with 32 tokens")
     if not engine.leak_free():
         raise AssertionError("engine is not leak-free after the run")
-    want = {"flash_attention_fwd": L * prefills,
-            "matmul_residual_norm_fwd": L * prefills,
-            "decode_attention": L * decodes,
-            # serving runs no backward and no loss head
-            "flash_attention_bwd": 0, "matmul_residual_norm_bwd": 0,
-            "flash_ce_fwd": 0, "flash_ce_bwd": 0}
-    if prefills != len(rids) or any(launches[k] != n
-                                    for k, n in want.items()):
-        raise AssertionError(f"launches {launches} != implied {want} "
-                             f"({prefills} prefills, {decodes} decodes)")
-    dec_s = engine.seconds["decode"] - secs0["decode"]
-    pre_s = engine.seconds["prefill"] - secs0["prefill"]
-    dec_tokens = sum(len(v) - 1 for v in out.values())
+    return run
+
+
+def half_sampled(n: int):
+    from ray_tpu_torch import SamplingParams
+    sampled = SamplingParams(temperature=0.8, top_k=50, top_p=0.95)
+    return [None if i % 2 == 0 else dataclasses.replace(sampled, seed=i)
+            for i in range(n)]
+
+
+def engine_phase(params, cfg, dev) -> dict:
+    """16 requests (prompts of 40..900 tokens, 32 new tokens each, half
+    greedy and half sampled) through the engine with its defaults
+    (prefix caching on, nothing to hit); prints the serving metrics and
+    returns the launch counts of this run."""
+    from ray_tpu_torch import InferenceEngine
+
+    engine = InferenceEngine(cfg, params, device=dev, **ENGINE)
+    engine.generate([[1, 2, 3]], max_new_tokens=2)        # warm-up
+    rng = np.random.default_rng(0)
+    lengths = np.linspace(40, 900, 16).astype(int)
+    rng.shuffle(lengths)
+    prompts = [rng.integers(0, 50257, n).tolist() for n in lengths]
+    run = serve(engine, prompts, half_sampled(len(prompts)))
+    prefills, decodes = run["calls"]["prefill"], run["calls"]["decode"]
+    L = cfg.n_layers
+    hits = engine.stats()["prefix"]
+    if not engine.prefix or hits["requests_hit"] or prefills != 16:
+        raise AssertionError(f"expected 16 cold prefills with prefix "
+                             f"caching on and no hit: {hits}, {prefills} "
+                             "prefills")
+    expect_launches("gpt2-serve-mixed", run["launches"], {
+        "flash_attention_fwd": L * prefills,
+        "matmul_residual_norm_fwd": L * prefills,
+        "decode_attention": L * decodes})
+    dec_s, pre_s = run["secs"]["decode"], run["secs"]["prefill"]
+    dec_tokens = sum(len(v) - 1 for v in run["out"].values())
     metrics = {
-        "requests": len(rids), "prefills": prefills, "decode_steps": decodes,
-        "mean_ttft_ms": 1e3 * float(np.mean([first[r] - submitted
-                                             for r in rids])),
+        "cell": "gpt2-serve-mixed", "requests": len(prompts),
+        "prefills": prefills, "decode_steps": decodes,
+        "prefix_requests_hit": hits["requests_hit"],
+        "mean_ttft_ms": 1e3 * float(np.mean(list(run["ttft"].values()))),
         "prefill_ms": 1e3 * pre_s / prefills,
         "decode_step_ms": 1e3 * dec_s / decodes,
         "decode_tokens_per_s": dec_tokens / dec_s,
-        "wall_s": wall,
+        "wall_s": run["wall"],
     }
-    print("engine phase: all 16 requests finished, leak-free; launches "
-          f"{launches} == implied", flush=True)
+    print("engine phase: all 16 requests finished, leak-free, prefix cache "
+          f"on with 0 hits; launches {run['launches']} == implied",
+          flush=True)
     print("engine metrics " + json.dumps(metrics), flush=True)
-    return launches
+    return run["launches"]
 
 
-def correctness_phase(params, cfg, dev) -> None:
-    """Two greedy requests' engine logits (bf16, on the card) against
-    the port's teacher-forced forward on the CPU in f32, same weights:
-    every logit within ``ENGINE_TOL``, their mean error within
-    ``ENGINE_MEAN_TOL``, and greedy tokens equal to the reference argmax
-    wherever its top-2 margin is wider than twice the tolerance (at
-    least one such token must occur)."""
+# gpt2-serve-int8-prefix: 4 system prompts of 512 tokens (4 full pages),
+# each behind 4 of the 16 requests, with a unique suffix of 40..300 tokens
+N_SYSTEM, SYSTEM_LEN = 4, 512
+
+
+def int8_prefix_phase(params, cfg, dev) -> dict:
+    """16 requests behind 4 shared system prompts through the int8-cache
+    engine with prefix caching on, all submitted at once: the first
+    request of each prompt prefills cold and registers its pages, the
+    other 12 hit them and prefill only their suffix.  Checks the hits,
+    the exact launches (decode runs the int8 kernel only; cached
+    prefills attend in plain PyTorch) and the cache's size; prints TTFT
+    for hit and cold requests apart, prefill and decode times."""
     from ray_tpu_torch import InferenceEngine
+
+    engine = InferenceEngine(cfg, params, device=dev, kv_dtype="int8",
+                             **ENGINE)
+    rng = np.random.default_rng(3)
+    warm = rng.integers(0, 50257, 200).tolist()
+    engine.generate([warm, warm], max_new_tokens=2)   # warm-up, one hit
+    systems = [rng.integers(0, 50257, SYSTEM_LEN).tolist()
+               for _ in range(N_SYSTEM)]
+    suffixes = rng.integers(40, 301, 16)
+    prompts = [systems[i % N_SYSTEM] + rng.integers(0, 50257, n).tolist()
+               for i, n in enumerate(suffixes)]
+    hits0 = dict(engine.stats()["prefix"])
+    run = serve(engine, prompts, half_sampled(len(prompts)))
+    st = engine.stats()
+    hit_reqs = st["prefix"]["requests_hit"] - hits0["requests_hit"]
+    hit_tokens = st["prefix"]["hit_tokens"] - hits0["hit_tokens"]
+    calls = run["calls"]
+    L = cfg.n_layers
+    if (hit_reqs, hit_tokens) != (12, 12 * SYSTEM_LEN) or \
+            (calls["prefill"], calls["prefill_cached"]) != (4, 12):
+        raise AssertionError(f"expected 12 hits of {SYSTEM_LEN} tokens and "
+                             f"4 cold prefills: {hit_reqs} hits, "
+                             f"{hit_tokens} tokens, calls {calls}")
+    expect_launches("gpt2-serve-int8-prefix", run["launches"], {
+        "flash_attention_fwd": L * calls["prefill"],
+        "matmul_residual_norm_fwd": L * (calls["prefill"]
+                                         + calls["prefill_cached"]),
+        "decode_attention_int8": L * calls["decode"]})
+    k = engine.cache.k
+    bf16_bytes = 2 * k.numel() * 2
+    if not st["cache_bytes"] < 0.55 * bf16_bytes:
+        raise AssertionError(f"int8 cache {st['cache_bytes']} bytes is not "
+                             f"under 0.55 x the bf16 cache's {bf16_bytes}")
+    cold = [r for i, r in enumerate(run["rids"]) if i < N_SYSTEM]
+    hit = [r for r in run["rids"] if r not in cold]
+    metrics = {
+        "cell": "gpt2-serve-int8-prefix", "requests": len(prompts),
+        "prefix_requests_hit": hit_reqs, "hit_tokens": hit_tokens,
+        "mean_ttft_ms_cold": 1e3 * float(np.mean([run["ttft"][r]
+                                                  for r in cold])),
+        "mean_ttft_ms_hit": 1e3 * float(np.mean([run["ttft"][r]
+                                                 for r in hit])),
+        "prefill_ms_cold": 1e3 * run["secs"]["prefill"] / calls["prefill"],
+        "prefill_ms_cached": (1e3 * run["secs"]["prefill_cached"]
+                              / calls["prefill_cached"]),
+        "decode_steps": calls["decode"],
+        "decode_step_ms": 1e3 * run["secs"]["decode"] / calls["decode"],
+        "cache_bytes": st["cache_bytes"], "cache_bytes_bf16": bf16_bytes,
+        "wall_s": run["wall"],
+    }
+    print("int8-prefix phase: all 16 requests finished, leak-free; 12 hits"
+          f" of {SYSTEM_LEN} tokens; launches {run['launches']} == implied",
+          flush=True)
+    print("int8-prefix metrics " + json.dumps(metrics), flush=True)
+    return run["launches"]
+
+
+def to_cpu32(tree):
+    return {k: to_cpu32(v) if isinstance(v, dict) else v.float().cpu()
+            for k, v in tree.items()}
+
+
+def against_reference(label, engine, params32, cfg32, prompts, outs,
+                      tol, mean_tol) -> dict:
+    """Each request's engine logits against the teacher-forced f32 CPU
+    ``forward`` over its own trajectory: every logit within ``tol``, the
+    mean error within ``mean_tol``, and greedy tokens equal to the
+    reference argmax wherever its top-2 margin is wider than twice the
+    tolerance (at least one such token must occur)."""
     from ray_tpu_torch.models.gpt import forward
 
-    engine = InferenceEngine(cfg, params, device=dev, debug_logits=True,
-                             **ENGINE)
-    rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, 50257, n).tolist() for n in (40, 300)]
-    outs = engine.generate(prompts, max_new_tokens=16)
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-
-    def to_cpu32(tree):
-        return {k: to_cpu32(v) if isinstance(v, dict) else v.float().cpu()
-                for k, v in tree.items()}
-
-    params32 = to_cpu32(params)
     worst, errs, checked, agree, total = 0.0, [], 0, 0, 0
     for rid, (prompt, gen) in enumerate(zip(prompts, outs)):
         full = torch.tensor(prompt + gen[:-1])[None]
         with torch.inference_mode():
             ref = forward(params32, full, cfg32)[0][0, len(prompt) - 1:]
         got = torch.from_numpy(np.stack(engine.logits_trace[rid]))
-        worst = max(worst, check(f"engine logits request {rid}", got, ref,
-                                 **ENGINE_TOL))
+        worst = max(worst, check(f"{label} logits request {rid}", got, ref,
+                                 **tol))
         errs.append((got - ref).abs().flatten())
         top2 = ref.topk(2, -1).values
-        # a margin wider than twice the tolerance fixes the argmax
-        sure = top2[:, 0] - top2[:, 1] > 2 * ENGINE_TOL["atol"]
+        sure = top2[:, 0] - top2[:, 1] > 2 * tol["atol"]
         gen_t = torch.tensor(gen)
         if (ref.argmax(-1)[sure] != gen_t[sure]).any():
-            raise AssertionError(f"request {rid}: a greedy token differs "
-                                 "where the margin is wide")
+            raise AssertionError(f"{label} request {rid}: a greedy token "
+                                 "differs where the margin is wide")
         checked += int(sure.sum())
         agree += int((ref.argmax(-1) == gen_t).sum())
         total += len(gen)
     mean_err = torch.cat(errs).mean().item()
-    if mean_err > ENGINE_MEAN_TOL:
-        raise AssertionError(f"engine logits: mean abs error {mean_err:.3e}"
-                             f" > {ENGINE_MEAN_TOL}")
+    if mean_err > mean_tol:
+        raise AssertionError(f"{label} logits: mean abs error "
+                             f"{mean_err:.3e} > {mean_tol}")
     if checked == 0:
         raise AssertionError("no greedy token has a margin wider than "
                              "twice the tolerance: nothing was checked")
     if not engine.leak_free():
-        raise AssertionError("correctness engine is not leak-free")
-    print(f"correctness: engine logits within atol {ENGINE_TOL['atol']} "
-          f"of the f32 CPU reference (max_abs_err={worst:.3e}, mean "
-          f"{mean_err:.3e} <= {ENGINE_MEAN_TOL}); {checked} greedy tokens "
-          f"with a margin over {2 * ENGINE_TOL['atol']} all agree; "
-          f"{agree}/{total} equal the reference argmax", flush=True)
+        raise AssertionError(f"{label} engine is not leak-free")
+    print(f"{label}: engine logits within atol {tol['atol']} of the f32 CPU "
+          f"reference (max_abs_err={worst:.3e}, mean {mean_err:.3e} <= "
+          f"{mean_tol}); {checked} greedy tokens with a margin over "
+          f"{2 * tol['atol']} all agree; {agree}/{total} equal the "
+          "reference argmax", flush=True)
+    return dict(max_abs_err=worst, mean_abs_err=mean_err)
+
+
+def correctness_phase(params, cfg, dev, *, norm_kernel: bool = False
+                      ) -> dict:
+    """Two greedy requests' engine logits (bf16, on the card) against
+    the port's teacher-forced forward on the CPU in f32, same weights,
+    under ``ENGINE_TOL`` and ``ENGINE_MEAN_TOL``.  With ``norm_kernel``
+    the engine runs the model's RMSNorms through the RMSNorm kernel
+    (``gpt._PALLAS_NORM``): once per layer (``ln1``) and for ``ln_f`` in
+    a prefill, whose ``ln2`` the fused epilogue takes, and twice per
+    layer plus ``ln_f`` in a decode step, where the epilogue declines
+    S = 1.  Returns the run's launches."""
+    from ray_tpu_torch import InferenceEngine
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import _build
+
+    engine = InferenceEngine(cfg, params, device=dev, debug_logits=True,
+                             **ENGINE)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 50257, n).tolist() for n in (40, 300)]
+    _build.reset_launches()
+    gpt._PALLAS_NORM = norm_kernel
+    try:
+        outs = engine.generate(prompts, max_new_tokens=16)
+    finally:
+        gpt._PALLAS_NORM = False
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    L, calls = cfg.n_layers, engine.call_counts
+    norms = ((L + 1) * (calls["prefill"] + calls["prefill_cached"])
+             + (2 * L + 1) * calls["decode"]) if norm_kernel else 0
+    if launches["rmsnorm_fwd"] != norms or launches["rmsnorm_bwd"]:
+        raise AssertionError(f"rmsnorm launches {launches} != {norms} "
+                             f"implied by {calls}")
+    label = "correctness norm kernel" if norm_kernel else "correctness"
+    against_reference(label, engine, to_cpu32(params),
+                      dataclasses.replace(cfg, dtype=torch.float32), prompts,
+                      outs, ENGINE_TOL, ENGINE_MEAN_TOL)
+    if norm_kernel:
+        print(f"correctness norm kernel: rmsnorm_fwd launched {norms} times "
+              f"({L + 1} per prefill, {2 * L + 1} per decode step; "
+              f"{calls}), exact", flush=True)
+    return launches
+
+
+def int8_correctness_phase(params, cfg, dev) -> None:
+    """A greedy request on the int8-cache engine, then the same prompt
+    again as a prefix hit (two of its pages): both against the f32
+    teacher-forced reference under ``INT8_TOL``, and the hit's logits
+    against its cold run's, under the same bound, up to and including
+    the first step where their tokens part (after it their contexts
+    differ)."""
+    from ray_tpu_torch import InferenceEngine
+
+    engine = InferenceEngine(cfg, params, device=dev, kv_dtype="int8",
+                             debug_logits=True, **ENGINE)
+    prompt = np.random.default_rng(4).integers(0, 50257, 300).tolist()
+    outs = [engine.generate([prompt], max_new_tokens=16)[0]
+            for _ in range(2)]
+    prefix = engine.stats()["prefix"]
+    if (prefix["requests_hit"], prefix["hit_tokens"]) != (1, 256):
+        raise AssertionError(f"the second request did not hit: {prefix}")
+    against_reference("int8 correctness", engine, to_cpu32(params),
+                      dataclasses.replace(cfg, dtype=torch.float32),
+                      [prompt, prompt], outs, INT8_TOL, INT8_MEAN_TOL)
+    parted = [i for i, (a, b) in enumerate(zip(*outs)) if a != b]
+    n = parted[0] + 1 if parted else len(outs[0])
+    cold, hit = (np.stack(engine.logits_trace[r][:n]) for r in (0, 1))
+    check(f"int8 hit vs cold logits ({n} steps)", torch.from_numpy(hit),
+          torch.from_numpy(cold), **INT8_TOL)
 
 
 # the training cell "gpt2-train-b24": the JAX package's single-chip
@@ -657,19 +936,28 @@ TRAIN_CFG = dict(vocab_size=50304, max_seq=1024, remat=False,
                  unroll_layers=True, ce_chunk=-1)
 TRAIN_OPT = dict(lr=1e-3, warmup=2, total_steps=100)
 WARMUP_STEPS, TIMED_STEPS = 2, 8
+# the run with the RMSNorm kernels: 2 warm-up and 4 timed steps
+NORM_TIMED_STEPS = 4
 # launches of one training step: per layer one attention forward and
 # backward and one epilogue forward and backward; one flash-CE pass each
 TRAIN_LAUNCHES = {"flash_attention_fwd": 12, "flash_attention_bwd": 12,
                   "matmul_residual_norm_fwd": 12,
                   "matmul_residual_norm_bwd": 12,
                   "flash_ce_fwd": 1, "flash_ce_bwd": 1}
+# with gpt._PALLAS_NORM, one RMSNorm forward and backward per layer
+# besides: ln1 (ln2 is the epilogue's, ln_f the flash-CE prologue's)
+NORM_LAUNCHES = {"rmsnorm_fwd": 12, "rmsnorm_bwd": 12}
 
 
-def train_phase(dev) -> dict:
-    """GPT-2 124M trains WARMUP_STEPS + TIMED_STEPS steps in bf16 at
-    24 x 1024; prints the step metrics and returns the launch counts of
-    the timed steps, which must be exactly TRAIN_LAUNCHES per step."""
+def train_phase(dev, *, norm_kernel: bool = False,
+                timed_steps: int = TIMED_STEPS) -> dict:
+    """GPT-2 124M trains WARMUP_STEPS + ``timed_steps`` steps in bf16 at
+    24 x 1024; prints the step metrics and returns them with the launch
+    counts of the timed steps, which must be exactly TRAIN_LAUNCHES per
+    step (and NORM_LAUNCHES with ``norm_kernel``, the RMSNorm kernels
+    through ``gpt._PALLAS_NORM``)."""
     from ray_tpu_torch import GPTConfig
+    from ray_tpu_torch.models import gpt
     from ray_tpu_torch.models.training import (build_gpt_train,
                                                default_optimizer,
                                                synthetic_lm_batch)
@@ -684,27 +972,29 @@ def train_phase(dev) -> dict:
                                TRAIN_S, cfg.vocab_size, device=dev)
     losses, norms = [], []
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(WARMUP_STEPS):
-        state, m = fns["step_fn"](state, batch)
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    t0 = time.monotonic()
-    timed = []
-    for _ in range(TIMED_STEPS):
-        state, m = fns["step_fn"](state, batch)
-        timed.append(m)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
+    gpt._PALLAS_NORM = norm_kernel
+    try:
+        for _ in range(WARMUP_STEPS):
+            state, m = fns["step_fn"](state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.monotonic()
+        timed = []
+        for _ in range(timed_steps):
+            state, m = fns["step_fn"](state, batch)
+            timed.append(m)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        gpt._PALLAS_NORM = False
     launches = _build.launch_counts()
     losses += [float(m["loss"]) for m in timed]
     norms += [float(m["grad_norm"]) for m in timed]
-    want = {k: n * TIMED_STEPS for k, n in TRAIN_LAUNCHES.items()}
-    got = {k: launches[k] for k in want}
-    if got != want or launches["decode_attention"]:
-        raise AssertionError(f"training launches {launches} != {want} "
-                             f"for {TIMED_STEPS} steps")
+    per_step = dict(TRAIN_LAUNCHES, **(NORM_LAUNCHES if norm_kernel else {}))
+    expect_launches(f"training ({timed_steps} steps)", launches,
+                    {k: n * timed_steps for k, n in per_step.items()})
     if not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError(f"non-finite loss or grad norm: {losses}")
     if abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
@@ -712,11 +1002,12 @@ def train_phase(dev) -> dict:
                              f"ln V = {math.log(cfg.vocab_size):.4f}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
-    step_ms = 1e3 * wall / TIMED_STEPS
-    tok_s = TRAIN_B * TRAIN_S * TIMED_STEPS / wall
+    step_ms = 1e3 * wall / timed_steps
+    tok_s = TRAIN_B * TRAIN_S * timed_steps / wall
     fpt = flops.gpt_train_flops_per_token(cfg, TRAIN_S, ce_recompute=True)
     metrics = {
-        "cell": "gpt2-train-b24", "batch": [TRAIN_B, TRAIN_S],
+        "cell": "gpt2-train-b24", "norm_kernel": norm_kernel,
+        "batch": [TRAIN_B, TRAIN_S],
         "step_ms": step_ms, "tokens_per_s": tok_s,
         "mfu": flops.mfu(tok_s, fpt),
         "train_flops_per_token": fpt,
@@ -724,11 +1015,12 @@ def train_phase(dev) -> dict:
             torch.cuda.max_memory_allocated() / 2 ** 30,
         "losses": losses, "grad_norms": norms,
     }
-    print(f"training phase: {WARMUP_STEPS + TIMED_STEPS} steps, loss "
+    label = "training phase" + (" norm kernel" if norm_kernel else "")
+    print(f"{label}: {WARMUP_STEPS + timed_steps} steps, loss "
           f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches per step "
-          f"{TRAIN_LAUNCHES} exact", flush=True)
-    print("training metrics " + json.dumps(metrics), flush=True)
-    return launches
+          f"{per_step} exact", flush=True)
+    print(f"{label} metrics " + json.dumps(metrics), flush=True)
+    return dict(metrics, launches=launches)
 
 
 # One step's loss and gradients, kernel path against the port's plain
@@ -747,14 +1039,19 @@ TRAIN_F32_TOL = dict(loss_rel=1e-5, grad=1e-4)
 TRAIN_BF16_TOL = dict(loss_abs=2e-4, grad=0.06)
 
 
-def train_correctness_phase(dev) -> None:
+def train_correctness_phase(dev, *, n_layers: int = 12,
+                            norm_kernel: bool = False) -> None:
+    """The step parity above at ``n_layers``; with ``norm_kernel`` the
+    kernel path's RMSNorms go through the RMSNorm kernels while the plain
+    path keeps its plain norms."""
     from ray_tpu_torch import GPTConfig, init_params
     from ray_tpu_torch.models import gpt
     from ray_tpu_torch.models.training import (synthetic_lm_batch,
                                                value_and_grad)
     from ray_tpu_torch.ops.attention import make_flash_attention_fn
 
-    cfg32 = GPTConfig.gpt2(**TRAIN_CFG, dtype=torch.float32)
+    cfg32 = dataclasses.replace(
+        GPTConfig.gpt2(**TRAIN_CFG, dtype=torch.float32), n_layers=n_layers)
     cfg16 = dataclasses.replace(cfg32, dtype=torch.bfloat16)
     params = init_params(cfg32, torch.Generator().manual_seed(2),
                          device=dev)
@@ -784,8 +1081,14 @@ def train_correctness_phase(dev) -> None:
                                  else v.to(torch.bfloat16))
                              for k, v in params.items()}, TRAIN_BF16_TOL))
     for label, cfg, p, tol in runs:
-        loss, grads = value_and_grad(kernel_loss(cfg), p, batch)
-        torch.cuda.synchronize()
+        gpt._PALLAS_NORM = norm_kernel
+        try:
+            loss, grads = value_and_grad(kernel_loss(cfg), p, batch)
+            torch.cuda.synchronize()
+        finally:
+            gpt._PALLAS_NORM = False
+        if norm_kernel:
+            label = f"{label} norm kernel, {n_layers} layers"
         dl = abs(float(loss) - float(ref_loss))
         lim = (tol["loss_rel"] * abs(float(ref_loss)) if "loss_rel" in tol
                else tol["loss_abs"])
@@ -859,29 +1162,37 @@ def report(what, prof, wall, steps, top=8):
               flush=True)
 
 
-def profile_phase(params, cfg, dev) -> None:
+def profile_phase(params, cfg, dev, *, kv_dtype: str = "model") -> None:
     """Where a prefill tick and a decode step spend their time: the
     busiest kernels by device time (torch.profiler), the device's busy
     share of the wall time, and the decode step split into its layer
-    stack and its sampling (host clock around synchronised calls)."""
+    stack and its sampling (host clock around synchronised calls).  The
+    tick admits 8 prompts of 512 tokens; on the int8 cache they share a
+    512-token system prompt and add 64 tokens each, so one prefills cold
+    and 7 prefill their suffix over the cached prefix."""
     from torch.profiler import ProfilerActivity, profile
 
     from ray_tpu_torch import InferenceEngine
 
-    engine = InferenceEngine(cfg, params, device=dev, **ENGINE)
+    engine = InferenceEngine(cfg, params, device=dev, kv_dtype=kv_dtype,
+                             **ENGINE)
     engine.generate([[1, 2, 3]], max_new_tokens=2)        # warm-up
     rng = np.random.default_rng(2)
+    system = rng.integers(0, 50257, SYSTEM_LEN).tolist()
     for _ in range(8):
-        engine.submit(rng.integers(0, 50257, 512).tolist(),
+        engine.submit(system + rng.integers(0, 50257, 64).tolist()
+                      if kv_dtype == "int8"
+                      else rng.integers(0, 50257, 512).tolist(),
                       max_new_tokens=24)
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.monotonic()
-        engine.step()              # 8 prefills of 512 tokens + 1 decode
+        engine.step()              # 8 prefills + 1 decode
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    report("admission tick (8 prefills @512 + 1 decode)", prof, wall, 1)
+    report(f"admission tick ({kv_dtype} cache: 8 prefills + 1 decode)",
+           prof, wall, 1)
     for _ in range(2):
         engine.step()
     with profile(activities=acts) as prof:
@@ -947,11 +1258,12 @@ def main() -> None:
     if sys.argv[1:] == ["--profile", "train"]:
         train_profile_phase(dev)
         return
-    if sys.argv[1:] == ["--profile"]:
+    if sys.argv[1:] in (["--profile"], ["--profile", "int8"]):
         from ray_tpu_torch import GPTConfig, init_params
         cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
         profile_phase(init_params(cfg, torch.Generator().manual_seed(0),
-                                  device=dev), cfg, dev)
+                                  device=dev), cfg, dev,
+                      kv_dtype="int8" if "int8" in sys.argv else "model")
         return
     if sys.argv[1:]:
         raise SystemExit(f"unknown arguments {sys.argv[1:]}")
@@ -961,18 +1273,33 @@ def main() -> None:
     from ray_tpu_torch import GPTConfig, init_params
     cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
     params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
-    serve_launches = engine_phase(params, cfg, dev)
+    # launches: each path driven with the counts at 0 just before it
+    paths = {"serve": engine_phase(params, cfg, dev)}
     correctness_phase(params, cfg, dev)
+    paths["serve_int8_prefix"] = int8_prefix_phase(params, cfg, dev)
+    int8_correctness_phase(params, cfg, dev)
+    paths["serve_norm"] = correctness_phase(params, cfg, dev,
+                                            norm_kernel=True)
     del params
     torch.cuda.empty_cache()
-    train_launches = train_phase(dev)
+    train = train_phase(dev)
+    paths["train"] = train.pop("launches")
+    train_norm = train_phase(dev, norm_kernel=True,
+                             timed_steps=NORM_TIMED_STEPS)
+    paths["train_norm"] = train_norm.pop("launches")
+    print(f"training ms/step: {train['step_ms']:.2f} default, "
+          f"{train_norm['step_ms']:.2f} with the RMSNorm kernels", flush=True)
     train_correctness_phase(dev)
-    # launches: each path driven with the counts at 0 just before it
+    train_correctness_phase(dev, n_layers=2, norm_kernel=True)
     for row in rec.rows.values():
-        by_path = {"serve": serve_launches[row["name"]],
-                   "train": train_launches[row["name"]]}
+        by_path = {p: n[row["name"]] for p, n in paths.items()}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']} never launched on a path")
+    if set(rec.rows) != set(paths["serve"]):
+        raise AssertionError(f"kernels checked {sorted(rec.rows)} != "
+                             f"entry points {sorted(paths['serve'])}")
     print(json.dumps({"kernels": list(rec.rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,11 @@
   ``max_seq``): comma-separated prefill length buckets.
 - ``RAY_TPU_INFER_MAX_QUEUE`` (default ``0`` = unbounded): waiting-queue
   cap; over-cap submits raise ``QueueFullError``.
-- ``RAY_TPU_INFER_PREFIX`` (default ``0``): prefix caching is not ported
-  yet, so it defaults off here and the engine raises when it is on.
+- ``RAY_TPU_INFER_PREFIX`` (default ``1``): prefix caching, on as in
+  the JAX package; ``0`` turns it off.
+- ``RAY_TPU_KV_DTYPE`` (default ``model``): ``int8`` stores the KV cache
+  as int8 codes with per-(position, head) f32 scales; an unknown value
+  falls back to ``model`` with a line on stderr.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ class InferConfig:
     page_size: int = 128
     pages: int = 0
     buckets: Tuple[int, ...] = ()
-    prefix: bool = False
+    kv_dtype: str = "model"
+    prefix: bool = True
     max_queue: int = 0
 
 
@@ -42,6 +46,11 @@ def infer_config(refresh: bool = False) -> InferConfig:
         raw_buckets = env("RAY_TPU_INFER_BUCKETS", "")
         buckets = tuple(sorted(int(b) for b in raw_buckets.split(",")
                                if b.strip())) if raw_buckets else ()
+        kv_dtype = env("RAY_TPU_KV_DTYPE", "model")
+        if kv_dtype not in ("model", "int8"):
+            print(f"RAY_TPU_KV_DTYPE={kv_dtype!r} unknown; "
+                  "using 'model'", file=sys.stderr)
+            kv_dtype = "model"
         max_queue = int(env("RAY_TPU_INFER_MAX_QUEUE", "0"))
         if max_queue < 0:
             print(f"RAY_TPU_INFER_MAX_QUEUE={max_queue} negative; "
@@ -52,7 +61,8 @@ def infer_config(refresh: bool = False) -> InferConfig:
             page_size=int(env("RAY_TPU_INFER_PAGE_SIZE", "128")),
             pages=int(env("RAY_TPU_INFER_PAGES", "0")),
             buckets=buckets,
-            prefix=env("RAY_TPU_INFER_PREFIX", "0") != "0",
+            kv_dtype=kv_dtype,
+            prefix=env("RAY_TPU_INFER_PREFIX", "1") != "0",
             max_queue=max_queue,
         )
     return _CONFIG

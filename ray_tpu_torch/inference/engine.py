@@ -11,10 +11,22 @@ slot; ``generate()`` runs a batch of prompts to completion.
   prefill kernel (``ops/attention.py:flash_attention``) attends over the
   bucket, and the fused out-proj + residual + RMSNorm kernel
   (``ops/fused_norm.py``) closes each layer's attention block.
+- **Prefix caching** (on by default, as in the JAX package): admission
+  installs the pages of a cached prompt prefix into the slot
+  (``scheduler.py``), and the prefill of such a request runs only the
+  suffix: its queries attend over the cached pages and causally over
+  the suffix itself in one softmax (:func:`_cached_context_attention`,
+  plain PyTorch, as the reference's is plain XLA).  Every prefill then
+  registers the prompt's full pages for later requests.
 - **Decode** runs all ``slots`` rows at once: each slot's token K/V is
   written at its length, the slot contexts are gathered from the pages,
   and the decode-attention kernel attends over each context up to its
   length.  Inactive slots ride along writing into the garbage page.
+- **int8 KV cache** (``kv_dtype="int8"``): K/V are stored as int8 codes
+  with one f32 scale per (position, head) (``quant.quantize_block``);
+  prefill attention reads the full-precision prompt K/V, a cached
+  prefix is dequantized to the model dtype, and decode runs the int8
+  decode-attention kernel, which dequantizes inside its strips.
 - **Sampling** is ``inference/sampling.py``, row-independent.
 
 PyTorch runs eagerly, so there is nothing to compile: per-kind call
@@ -23,14 +35,15 @@ of the JAX engine's compile counters.  CUDA-graph capture of the steps
 is later work.
 
 Not ported yet; each raises ``NotImplementedError`` where the JAX engine
-accepts it: prefix caching, the int8 KV cache, speculative decoding,
-LoRA adapter banks, the tiered cache, disaggregated export/import,
-telemetry and deadlines.  The engine runs on the card unless the caller
-passes ``device="cpu"``; without a card it raises.
+accepts it: speculative decoding, LoRA adapter banks, the tiered cache,
+disaggregated export/import, telemetry and deadlines.  The engine runs
+on the card unless the caller passes ``device="cpu"``; without a card
+it raises.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 import threading
 import time
@@ -47,7 +60,8 @@ from ray_tpu_torch.inference.sampling import (SamplingParams,
 from ray_tpu_torch.inference.scheduler import Request, SlotScheduler
 from ray_tpu_torch.models import gpt as gpt_mod
 from ray_tpu_torch.ops.attention import decode_attention, flash_attention
-from ray_tpu_torch.ops.substrate import resolve_device
+from ray_tpu_torch.ops.substrate import NEG_INF, resolve_device
+from ray_tpu_torch.quant import quantize_block
 
 
 def _unported(what: str, item: str):
@@ -84,6 +98,36 @@ def _params_to(tree, device, dtype) -> Dict[str, Any]:
     return t
 
 
+def _cached_context_attention(q, kctx, vctx, ks, vs):
+    """Suffix queries over (cached prefix + causal suffix self).
+
+    q/ks/vs: [1, S, H, D], the suffix's (post-RoPE) queries and its own
+    full-precision keys/values; kctx/vctx: [1, C, H, D], the cached
+    prefix (exactly the hit pages, so every position is live).  One
+    softmax over the concatenated [ctx | self] score axis gives attention
+    over the full ``cached + suffix`` sequence, as
+    ``ray_tpu/inference/engine.py:_cached_context_attention`` computes it:
+    scores in f32, ``p`` rounded to the value dtype before each product,
+    products accumulated in f32, ``l`` clamped at 1e-30."""
+    S, D = q.shape[1], q.shape[3]
+    C = kctx.shape[1]
+    scale = D ** -0.5
+    qf = q.float()
+    sc = torch.einsum("bqhd,bkhd->bhqk", qf, kctx.float()) * scale
+    ss = torch.einsum("bqhd,bkhd->bhqk", qf, ks.float()) * scale
+    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    s = torch.cat([sc, torch.where(causal, ss, NEG_INF)], -1)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)                         # [B, H, S, 1]
+    o = (torch.einsum("bhqk,bkhd->bqhd",
+                      p[..., :C].to(vctx.dtype).float(), vctx.float())
+         + torch.einsum("bhqk,bkhd->bqhd",
+                        p[..., C:].to(vs.dtype).float(), vs.float()))
+    l = l.transpose(1, 2)                               # [B, S, H, 1]
+    return (o / l.clamp_min(1e-30)).to(q.dtype)
+
+
 class InferenceEngine:
     """Continuous-batching decode engine over one GPT parameter set.
 
@@ -110,8 +154,6 @@ class InferenceEngine:
                  debug_logits: bool = False):
         gpt_mod.check_supported(cfg)
         icfg = infer_config()
-        if icfg.prefix if prefix is None else prefix:
-            _unported("prefix caching", "prefix caching")
         if spec:
             _unported("speculative decoding", "speculative decoding")
         if host_pages:
@@ -128,6 +170,7 @@ class InferenceEngine:
                           else icfg.page_size)
         self.max_queue = (icfg.max_queue if max_queue is None
                           else max_queue)
+        self.prefix = icfg.prefix if prefix is None else bool(prefix)
         if self.slots < 1:
             raise ValueError(f"need >= 1 decode slot, got {self.slots} "
                              "(check RAY_TPU_INFER_SLOTS)")
@@ -148,15 +191,16 @@ class InferenceEngine:
         self.scheduler = SlotScheduler(
             slots=self.slots, page_size=self.page_size,
             num_pages=num_pages, max_pages_per_slot=max_pages_per_slot,
-            max_queue=self.max_queue)
+            prefix=self.prefix, max_queue=self.max_queue)
         self.cache = kvc.KVCache(
             n_layers=cfg.n_layers, num_pages=num_pages,
             page_size=self.page_size, n_heads=cfg.n_heads,
             head_dim=cfg.head_dim, dtype=cfg.dtype, device=self.device,
-            kv_dtype=kv_dtype or "model")
+            kv_dtype=kv_dtype or icfg.kv_dtype)
         self.kv_dtype = self.cache.kv_dtype
-        self.call_counts: Dict[str, int] = {"prefill": 0, "decode": 0}
-        self.seconds: Dict[str, float] = {"prefill": 0.0, "decode": 0.0}
+        kinds = ("prefill", "prefill_cached", "decode")
+        self.call_counts: Dict[str, int] = {k: 0 for k in kinds}
+        self.seconds: Dict[str, float] = {k: 0.0 for k in kinds}
         self._requests: Dict[int, Request] = {}
         self._next_rid = 0
         self._cancelled: set = set()
@@ -240,7 +284,10 @@ class InferenceEngine:
 
     def set_params(self, params, *, version: Optional[int] = None) -> int:
         """Swap in a new parameter snapshot (tensors or numpy leaves, same
-        tree and dtype) between ticks; returns the new version."""
+        tree and dtype) between ticks; returns the new version.  The
+        prefix cache is flushed: its pages hold K/V of the old weights,
+        and the index is keyed by tokens alone."""
+        self.scheduler.flush_prefix()
         self.params = _params_to(params, self.device, self.cfg.dtype)
         self.param_version = (self.param_version + 1 if version is None
                               else int(version))
@@ -249,6 +296,12 @@ class InferenceEngine:
     def has_work(self) -> bool:
         with self._lock:
             return self.scheduler.has_work
+
+    def prefix_digest(self) -> frozenset:
+        """The registered prefix chain hashes: a prompt whose chained
+        page hashes appear here would hit this engine's cache."""
+        with self._lock:
+            return self.scheduler.prefix_digest()
 
     def stats(self) -> Dict[str, Any]:
         return {
@@ -264,16 +317,18 @@ class InferenceEngine:
                 self.max_pages_per_slot),
             "max_queue": self.max_queue,
             "param_version": self.param_version,
+            "prefix": self.scheduler.prefix_stats(),
             "ticks": self.ticks,
         }
 
     def leak_free(self) -> bool:
-        """Page audit: the usable pages partition exactly into free and
-        held, and the held pages are exactly the active requests'."""
+        """Page audit: the usable pages partition exactly into free, idle
+        (registered, refcount 0) and held, and each held page's refcount
+        is the number of active requests that hold it."""
         alloc = self.scheduler.allocator
-        held = sorted(p for r in self.scheduler.active.values()
-                      for p in r.pages)
-        return alloc.leak_free() and held == sorted(alloc._refcount)
+        held = collections.Counter(p for r in self.scheduler.active.values()
+                                   for p in r.pages)
+        return alloc.leak_free() and dict(held) == alloc._refcount
 
     # ------------------------------------------------------ engine tick
     @torch.inference_mode()
@@ -321,33 +376,70 @@ class InferenceEngine:
         raise ValueError(f"no prefill bucket fits length {n}")
 
     def _prefill(self, req: Request, events) -> None:
+        """Cold (the whole prompt) or cached (only the suffix past the
+        prefix hits), then the first token, then the prompt's full pages
+        are registered: their K/V are in the cache from here on."""
         sched = self.scheduler
         slot = req.slot
         plen = len(req.prompt)
-        bucket = self._bucket_for(plen)
+        cached = req.cached_tokens
+        fill = req.prompt[cached:]
+        bucket = self._bucket_for(len(fill))
         tokens = torch.zeros((1, bucket), dtype=torch.int64)
-        tokens[0, :plen] = torch.tensor(req.prompt, dtype=torch.int64)
+        tokens[0, :len(fill)] = torch.tensor(fill, dtype=torch.int64)
         t0 = time.monotonic()
         sampling = self._sampling_inputs([req])
-        logits = self._prefill_step(
-            tokens.to(self.device), plen,
-            torch.from_numpy(sched.page_table[slot]).to(self.device))
+        page_row = torch.from_numpy(sched.page_table[slot]).to(self.device)
+        if cached:
+            kind = "prefill_cached"
+            kvc.assert_tail_private(sched.allocator, sched.prefix_index,
+                                    req.pages, cached, plen - 1,
+                                    self.page_size)
+            logits = self._prefill_cached_step(
+                tokens.to(self.device), cached, len(fill), page_row,
+                req.n_hit_pages)
+        else:
+            kind = "prefill"
+            logits = self._prefill_step(tokens.to(self.device), plen,
+                                        page_row)
         toks, logps = self._sample(logits, sampling)
-        self.seconds["prefill"] += time.monotonic() - t0
-        self.call_counts["prefill"] += 1
+        self.seconds[kind] += time.monotonic() - t0
+        self.call_counts[kind] += 1
+        sched.register_prefix(req)
         if self.debug_logits:
             self.logits_trace.setdefault(req.rid, []).append(
                 logits[0].cpu().numpy())
         sched.lengths[slot] = plen
         self._deliver(req, toks[0], logps[0], events)
 
+    def _quantize_kv(self, kv):
+        """[..., H, D] post-RoPE K or V -> (int8 codes, [..., H] f32
+        scales): one scale per head_dim vector, rounded to nearest."""
+        q, s = quantize_block(kv, block=self.cfg.head_dim, axis=-1)
+        return q, s[..., 0]
+
+    def _cache_entries(self, k, v):
+        """K/V [..., H, D] as the cache stores them, in the order of
+        ``KVCache.layer``: ``(k, v)``, or the int8 codes and scales."""
+        if not self.cache.quantized:
+            return (k, v)
+        (kq, ks), (vq, vs) = self._quantize_kv(k), self._quantize_kv(v)
+        return (kq, vq, ks, vs)
+
+    def _write_prompt(self, cache, k, v, page_row, start: int,
+                      valid_len: int) -> None:
+        """Write a prompt's (or suffix's) K/V [S, H, D] at positions
+        ``start..`` of one slot's pages."""
+        for page, new in zip(cache, self._cache_entries(k, v)):
+            kvc.write_prefill_at(page, new, page_row, start, valid_len,
+                                 self.page_size)
+
     def _prefill_attention(self, q, k, v, cache, *, page_row):
         """Write the rotated prompt K/V into the slot's pages, then
-        attend causally over the bucket (the prompt is the whole
-        context, so nothing is read back from the cache)."""
-        ck, cv = cache
-        kvc.write_prefill(ck, k[0], page_row, self.page_size)
-        kvc.write_prefill(cv, v[0], page_row, self.page_size)
+        attend causally over the bucket.  The prompt is the whole
+        context, so nothing is read back from the cache, and attention
+        reads the full-precision K/V even when the cache is int8."""
+        self._write_prompt(cache, k[0], v[0], page_row, 0, k.shape[1])
         return flash_attention(q, k, v, causal=True), cache
 
     def _prefill_step(self, tokens, length: int, page_row):
@@ -358,6 +450,38 @@ class InferenceEngine:
         hook = functools.partial(self._prefill_attention, page_row=page_row)
         x = self._run_layers(self._embed(tokens), positions, hook)
         h = x[0, length - 1][None]                        # [1, d]
+        return torch.matmul(h, gpt_mod.lm_head(self.params, cfg)).float()
+
+    def _cached_prefill_attention(self, q, k, v, cache, *, page_row,
+                                  cached: int, suffix_len: int,
+                                  hit_pages: int):
+        """Write the suffix K/V at ``cached..``, then attend over the hit
+        pages (read back from the cache, dequantized when int8) and the
+        suffix's own full-precision K/V."""
+        self._write_prompt(cache, k[0], v[0], page_row, cached, suffix_len)
+        row = page_row[None, :hit_pages]
+        kctx = kvc.gather_pages(cache[0], row)
+        vctx = kvc.gather_pages(cache[1], row)
+        if self.cache.quantized:
+            kctx = (kctx.float() * kvc.gather_pages(cache[2], row)[..., None]
+                    ).to(q.dtype)
+            vctx = (vctx.float() * kvc.gather_pages(cache[3], row)[..., None]
+                    ).to(q.dtype)
+        return _cached_context_attention(q, kctx, vctx, k, v), cache
+
+    def _prefill_cached_step(self, tokens, cached: int, suffix_len: int,
+                             page_row, hit_pages: int):
+        """(suffix tokens [1, bucket], cached prefix length, valid suffix
+        length, page_row, number of hit pages) -> the last suffix
+        token's logits [1, V] f32."""
+        cfg = self.cfg
+        positions = cached + torch.arange(tokens.shape[1],
+                                          device=self.device)
+        hook = functools.partial(
+            self._cached_prefill_attention, page_row=page_row,
+            cached=cached, suffix_len=suffix_len, hit_pages=hit_pages)
+        x = self._run_layers(self._embed(tokens), positions, hook)
+        h = x[0, suffix_len - 1][None]
         return torch.matmul(h, gpt_mod.lm_head(self.params, cfg)).float()
 
     # ----------------------------------------------------------- decode
@@ -389,12 +513,14 @@ class InferenceEngine:
     def _decode_attention(self, q, k, v, cache, *, page_table, lengths,
                           ctx_lengths):
         """Write each slot's new K/V at its length, gather the slot
-        contexts and attend over each up to its length."""
-        ck, cv = cache
-        kvc.write_decode(ck, k[:, 0], page_table, lengths, self.page_size)
-        kvc.write_decode(cv, v[:, 0], page_table, lengths, self.page_size)
-        o = decode_attention(q[:, 0], kvc.gather_pages(ck, page_table),
-                             kvc.gather_pages(cv, page_table), ctx_lengths)
+        contexts and attend over each up to its length (int8 codes and
+        their scales when the cache is int8)."""
+        for page, new in zip(cache, self._cache_entries(k[:, 0], v[:, 0])):
+            kvc.write_decode(page, new, page_table, lengths, self.page_size)
+        ctx = [kvc.gather_pages(page, page_table) for page in cache]
+        scales = (dict(k_scale=ctx[2], v_scale=ctx[3])
+                  if self.cache.quantized else {})
+        o = decode_attention(q[:, 0], ctx[0], ctx[1], ctx_lengths, **scales)
         return o[:, None], cache
 
     def _decode_step(self, tokens, lengths, page_table):
@@ -420,7 +546,7 @@ class InferenceEngine:
             x, _aux, _cache = gpt_mod.layer_apply(
                 gpt_mod.layer_params(self.params, i), x, cfg,
                 positions=positions, attn_fn=attn_hook,
-                cache=(self.cache.k[i], self.cache.v[i]))
+                cache=self.cache.layer(i))
         return gpt_mod._norm(x, self.params["ln_f"], cfg.norm,
                              eps=gpt_mod.norm_eps(cfg))
 

@@ -1,15 +1,25 @@
 """Continuous-batching scheduler: slots, pages, request lifecycle.
 
-Counterpart of ``ray_tpu/inference/scheduler.py`` without the prefix
-walk.  Requests move ``waiting -> active(slot) -> finished``:
+Counterpart of ``ray_tpu/inference/scheduler.py`` without the tier
+probe.  Requests move ``waiting -> active(slot) -> finished``:
 
 - **admit**: the head of the waiting queue takes a free decode slot and
   reserves ``ceil((prompt + max_new) / page_size)`` pages up front, so a
   running sequence never runs out of cache mid-decode and there is no
   preemption path.  Admission is FIFO: a head that does not fit blocks
-  the queue.
-- **retire**: the request's pages are released, its page-table row
-  resets to the garbage page and the slot frees.
+  the queue.  With prefix caching on, admission first walks the
+  prompt's full pages through the :class:`~.kv_cache.PrefixIndex`: hits
+  are installed into the page-table row with a refcount each and no
+  prefill compute; only the pages past the last hit are allocated, and
+  the engine prefills only the uncached suffix.
+- **retire**: the request's page references are released (shared pages
+  live on under their other owners, registered pages at refcount 0 park
+  in the idle pool), its page-table row resets to the garbage page and
+  the slot frees.
+
+Decode writes land only in pages the slot owns alone: a hit page is a
+full prompt page strictly before the final prompt token, so the suffix
+prefill's first write, at ``cached_tokens``, is past every shared page.
 
 The page table and per-slot lengths live here as numpy arrays; the
 engine owns the device-side cache tensors.
@@ -20,12 +30,12 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Deque, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional
 
 import numpy as np
 
 from ray_tpu_torch.inference.kv_cache import (GARBAGE_PAGE, PageAllocator,
-                                              pages_needed)
+                                              PrefixIndex, pages_needed)
 from ray_tpu_torch.inference.sampling import SamplingParams
 
 
@@ -68,15 +78,26 @@ class Request:
     submitted_ts: float = dataclasses.field(default_factory=time.monotonic)
     admitted_ts: Optional[float] = None
     done: bool = False
+    # prefix-cache state: chained hashes of the prompt's full pages
+    # (computed at the first admission attempt and kept for retries), how
+    # many were index hits, and the tokens those hits cover
+    chain_hashes: Optional[List[bytes]] = None
+    n_hit_pages: int = 0
+    cached_tokens: int = 0
+    # the prefix-chain root (adapter traffic salts it; base traffic keeps
+    # the unsalted root, so its hashes are the JAX package's)
+    hash_salt: bytes = PrefixIndex.ROOT
 
 
 class SlotScheduler:
     def __init__(self, *, slots: int, page_size: int, num_pages: int,
-                 max_pages_per_slot: int, max_queue: int = 0):
+                 max_pages_per_slot: int, prefix: bool = False,
+                 max_queue: int = 0):
         self.slots = slots
         self.page_size = page_size
         self.max_pages_per_slot = max_pages_per_slot
-        self.allocator = PageAllocator(num_pages)
+        self.prefix_index = PrefixIndex() if prefix else None
+        self.allocator = PageAllocator(num_pages, index=self.prefix_index)
         self.max_queue = max_queue
         self.page_table = np.full((slots, max_pages_per_slot),
                                   GARBAGE_PAGE, np.int64)
@@ -84,6 +105,11 @@ class SlotScheduler:
         self.free_slots: List[int] = list(range(slots - 1, -1, -1))
         self.active: Dict[int, Request] = {}          # slot -> request
         self.waiting: Deque[Request] = collections.deque()
+        # prefix-hit accounting (tokens = pages * page_size: the prefill
+        # compute the hits skipped)
+        self.prefix_hit_pages = 0
+        self.prefix_hit_tokens = 0
+        self.prefix_requests_hit = 0
 
     def submit(self, req: Request) -> None:
         need = pages_needed(len(req.prompt) + req.max_new_tokens,
@@ -106,6 +132,27 @@ class SlotScheduler:
                 f"{self.max_queue} (RAY_TPU_INFER_MAX_QUEUE)")
         self.waiting.append(req)
 
+    def _prefix_walk(self, req: Request) -> List[int]:
+        """The hit pages of the prompt's full pages, front to back up to
+        the first miss.  The chain hashes are computed once per request;
+        the lookups re-run on every attempt, since pages registered in
+        between can turn misses into hits.  The page holding the final
+        prompt token is never a hit (``PrefixIndex.hit_eligible``)."""
+        if self.prefix_index is None:
+            req.chain_hashes = req.chain_hashes or []
+            return []
+        if req.chain_hashes is None:
+            req.chain_hashes = PrefixIndex.chain_hashes(
+                req.prompt, self.page_size, salt=req.hash_salt)
+        hits: List[int] = []
+        eligible = PrefixIndex.hit_eligible(len(req.prompt), self.page_size)
+        for h in req.chain_hashes[:eligible]:
+            page = self.prefix_index.lookup(h)
+            if page is None:
+                break
+            hits.append(page)
+        return hits
+
     def try_admit(self) -> Optional[Request]:
         """Move the queue head into a free slot, or None."""
         if not self.waiting or not self.free_slots:
@@ -113,18 +160,55 @@ class SlotScheduler:
         req = self.waiting[0]
         need = pages_needed(len(req.prompt) + req.max_new_tokens,
                             self.page_size)
-        pages = self.allocator.alloc(need)
-        if pages is None:
+        hits = self._prefix_walk(req)
+        # feasibility before touching any state: acquiring the idle hits
+        # takes them out of the allocatable pool
+        idle_hits = sum(1 for p in hits if self.allocator.is_idle(p))
+        if need - len(hits) > self.allocator.free_count - idle_hits:
             return None
+        # hits first: an idle hit must not be evicted by our own
+        # allocation's LRU sweep
+        for p in hits:
+            self.allocator.acquire(p)
+        fresh = self.allocator.alloc(need - len(hits))
+        assert fresh is not None        # guaranteed by the check above
         self.waiting.popleft()
         slot = self.free_slots.pop()
+        pages = hits + fresh
         req.slot, req.pages = slot, pages
+        req.n_hit_pages = len(hits)
+        req.cached_tokens = len(hits) * self.page_size
         req.admitted_ts = time.monotonic()
         self.page_table[slot, :] = GARBAGE_PAGE
         self.page_table[slot, :len(pages)] = pages
         self.lengths[slot] = 0
         self.active[slot] = req
+        if hits:
+            self.prefix_hit_pages += len(hits)
+            self.prefix_hit_tokens += req.cached_tokens
+            self.prefix_requests_hit += 1
         return req
+
+    def register_prefix(self, req: Request) -> None:
+        """Register the request's freshly prefilled full prompt pages
+        (called after the prefill has written their K/V: content must be
+        in the cache before a hash can hand the page to another
+        request)."""
+        if self.prefix_index is None:
+            return
+        for i in range(req.n_hit_pages, len(req.chain_hashes)):
+            self.prefix_index.register(req.chain_hashes[i], req.pages[i])
+
+    def flush_prefix(self) -> None:
+        """Invalidate the whole prefix cache (a weight swap: the index is
+        keyed by tokens alone, so a later hit would attend over K/V of
+        the old weights).  Idle pages return to the free list; pages of
+        active requests stay theirs but are unregistered, so no new
+        request shares them."""
+        if self.prefix_index is None:
+            return
+        self.allocator.flush_idle()
+        self.prefix_index.clear()
 
     def retire(self, slot: int) -> Request:
         req = self.active.pop(slot)
@@ -140,3 +224,21 @@ class SlotScheduler:
     @property
     def has_work(self) -> bool:
         return bool(self.waiting or self.active)
+
+    def prefix_stats(self) -> Dict[str, Any]:
+        return {
+            "enabled": self.prefix_index is not None,
+            "hit_pages": self.prefix_hit_pages,
+            "hit_tokens": self.prefix_hit_tokens,
+            "requests_hit": self.prefix_requests_hit,
+            "registered_pages": (len(self.prefix_index)
+                                 if self.prefix_index is not None else 0),
+            "idle_pages": self.allocator.idle_count,
+            "evictions": self.allocator.evictions,
+        }
+
+    def prefix_digest(self) -> frozenset:
+        """The registered chain hashes (empty with prefix caching off)."""
+        if self.prefix_index is None:
+            return frozenset()
+        return self.prefix_index.digest()

@@ -17,12 +17,20 @@ The out-proj + residual + pre-FFN norm of each layer goes through
 tensor that is the hand-written kernel, forward and backward.  The
 training loss (:func:`loss_fn`) goes through ``ops.flash_ce``, with the
 final norm fused into its prologue when ``fuse_norm`` allows.
+
+With ``_PALLAS_NORM`` on (``RAY_TPU_PALLAS_NORM=1``, read once at
+import as in the JAX package; default off) every RMSNorm that
+:func:`_norm` runs goes through ``ops.rmsnorm.rmsnorm``, the hand-written
+forward and backward kernels: ``ln1`` in every layer, and ``ln2`` and
+``ln_f`` wherever the fused epilogue or the flash-CE prologue does not
+take them (the decode step's ``ln2``, the serving path's ``ln_f``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -31,6 +39,7 @@ import torch.utils.checkpoint
 
 from ray_tpu_torch.ops import flash_ce
 from ray_tpu_torch.ops import fused_norm as fnorm
+from ray_tpu_torch.ops import rmsnorm as rms
 from ray_tpu_torch.ops.attention import rope_rotate
 from ray_tpu_torch.ops.substrate import resolve_device
 from ray_tpu_torch.parallel.ring_attention import local_attention
@@ -156,10 +165,17 @@ def norm_eps(cfg: GPTConfig) -> float:
     return 1e-5 if cfg.use_bias else 1e-6
 
 
+# the RMSNorm kernel path (ops/rmsnorm.py), as at ray_tpu/models/gpt.py:208;
+# _norm reads it at each call, so a caller may set it without the env
+_PALLAS_NORM = os.environ.get("RAY_TPU_PALLAS_NORM", "0") == "1"
+
+
 def _norm(x, scale, kind: str, eps: float = 1e-6):
     """RMSNorm with f32 statistics, result in x's dtype."""
     if kind != "rmsnorm":
         raise NotImplementedError(f"norm={kind!r} is not ported yet")
+    if _PALLAS_NORM:
+        return rms.rmsnorm(x, scale, eps)
     x32 = x.float()
     x32 = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
     return (x32 * scale.float()).to(x.dtype)

@@ -14,9 +14,10 @@ model layout ``[B, S, H, D]`` as the JAX package does.
   outside, because its cache stores post-RoPE keys.
 - :func:`decode_attention` is one query token per sequence against the
   gathered paged context, masked by ``lengths``.  On a CUDA tensor it
-  launches ``csrc/decode_attention.cu`` (the port of ``_decode_kernel``,
-  model-dtype cache); on a CPU tensor it runs
-  :func:`plain_decode_attention`.
+  launches ``csrc/decode_attention.cu`` (the port of ``_decode_kernel``):
+  ``decode_attention`` for a model-dtype cache, ``decode_attention_int8``
+  (``quantized=True``) for int8 codes with ``k_scale``/``v_scale``; on a
+  CPU tensor it runs :func:`plain_decode_attention`.
 
 A CUDA tensor launches the kernel or raises; nothing falls back.
 """
@@ -45,6 +46,10 @@ flash_attention_bwd_kernel = _build.Kernel(
     _build.FLOAT, _build.INT, _build.PTR)
 decode_attention_kernel = _build.Kernel(
     "decode_attention", *[_build.PTR] * 5, *[_build.INT] * 4,
+    _build.FLOAT, _build.INT, _build.PTR)
+# the int8 variant is its own entry point, so its launches count apart
+decode_attention_int8_kernel = _build.Kernel(
+    "decode_attention_int8", *[_build.PTR] * 7, *[_build.INT] * 4,
     _build.FLOAT, _build.INT, _build.PTR)
 
 
@@ -307,12 +312,19 @@ def make_flash_attention_fn(mesh=None, *, causal: bool = True,
 # decode attention over the gathered paged context
 # ---------------------------------------------------------------------------
 
-def plain_decode_attention(q, k, v, lengths, *, scale: float):
+def plain_decode_attention(q, k, v, lengths, *, scale: float,
+                           k_scale=None, v_scale=None):
     """The kernel's plain version (the JAX masked-einsum formulation).
 
     Positions >= ``lengths[b]`` take no part: their scores are masked
     and their values are zeroed before P.V, so garbage there, even NaN,
-    never reaches the output."""
+    never reaches the output.  With ``k_scale``/``v_scale`` [B, S, H] the
+    context is int8 codes, dequantized as the Pallas body does
+    (``attention.py:1341-1344``): q, k and v in f32, and p left in f32
+    before P.V."""
+    if k_scale is not None:
+        k = k.float() * k_scale[..., None]
+        v = v.float() * v_scale[..., None]
     S = k.shape[1]
     s = torch.einsum("bhd,bshd->bhs", q.float(), k.float()) * scale
     mask = (torch.arange(S, device=q.device)[None, None, :]
@@ -326,37 +338,61 @@ def plain_decode_attention(q, k, v, lengths, *, scale: float):
     return (o / l.clamp_min(1e-30)).to(q.dtype)
 
 
-def decode_attention(q, k, v, lengths, *,
-                     scale: Optional[float] = None) -> torch.Tensor:
+def decode_attention(q, k, v, lengths, *, scale: Optional[float] = None,
+                     k_scale=None, v_scale=None) -> torch.Tensor:
     """Single-token decode attention against a padded KV context.
 
     q: [B, H, D], the current token's (rotated) queries; k, v:
     [B, S, H, D], the per-sequence context gathered from the paged
     cache; lengths: [B] int32, valid positions per sequence (including
     the current token, already written).  Returns [B, H, D] in q's
-    dtype."""
+    dtype.  ``k_scale``/``v_scale`` ([B, S, H] f32, both or neither):
+    k and v are int8 codes of the ``kv_dtype="int8"`` cache, dequantized
+    inside the kernel (``decode_attention_int8``)."""
     B, H, D = q.shape
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale/v_scale must be passed together")
+    quantized = k_scale is not None
     if scale is None:
         scale = D ** -0.5
     if not is_cuda(q):
-        return plain_decode_attention(q, k, v, lengths, scale=scale)
+        return plain_decode_attention(q, k, v, lengths, scale=scale,
+                                      k_scale=k_scale, v_scale=v_scale)
     S = k.shape[1]
     if k.shape != (B, S, H, D) or v.shape != k.shape:
         raise ValueError(f"decode_attention: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
     if lengths.dtype != torch.int32 or lengths.shape != (B,):
         raise ValueError("decode_attention: lengths must be int32 [B]")
-    check_cuda_args("decode_attention", q, k, v, dtype=q.dtype)
-    check_cuda_args("decode_attention", q, lengths)
+    check_cuda_args("decode_attention", q, k, v, lengths)
+    if k.dtype != v.dtype or k.dtype != (torch.int8 if quantized
+                                         else q.dtype):
+        raise ValueError(f"decode_attention: k/v of dtype {k.dtype}, "
+                         f"{v.dtype} for q of {q.dtype} (int8 codes take "
+                         "k_scale/v_scale)")
     _check_kernel_dtype("decode_attention", q, D)
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("decode_attention: k/v must be 16-byte aligned "
                          "(the kernel reads rows in 16-byte vectors)")
     o = torch.empty_like(q)
+    stream = _stream(q)
     with torch.cuda.device(q.device):
-        decode_attention_kernel(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            o.data_ptr(), B, S, H, D, scale, _DTYPE_CODES[q.dtype],
-            _stream(q))
+        if quantized:
+            check_cuda_args("decode_attention", q, k_scale, v_scale)
+            if k_scale.dtype != torch.float32 or \
+                    v_scale.dtype != torch.float32:
+                raise ValueError("decode_attention: k_scale/v_scale must "
+                                 "be f32")
+            if k_scale.shape != (B, S, H) or v_scale.shape != (B, S, H):
+                raise ValueError("decode_attention: k_scale/v_scale must be "
+                                 f"f32 [B, S, H] = [{B}, {S}, {H}]")
+            decode_attention_int8_kernel(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+                v_scale.data_ptr(), lengths.data_ptr(), o.data_ptr(), B, S,
+                H, D, scale, _DTYPE_CODES[q.dtype], stream)
+        else:
+            decode_attention_kernel(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+                o.data_ptr(), B, S, H, D, scale, _DTYPE_CODES[q.dtype],
+                stream)
     return o
-

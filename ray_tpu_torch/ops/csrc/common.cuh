@@ -54,6 +54,19 @@ __device__ __forceinline__ void unpack16(const uint4& raw, float (&f)[8]) {
   }
 }
 
+// f32 values rounded to T and packed into 16 bytes: unpack16's inverse
+__device__ __forceinline__ uint4 pack16(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                    __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
+__device__ __forceinline__ uint4 pack16(const float (&f)[8]) {
+  uint4 raw;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  return raw;
+}
+
 // Element c of one (position, head) row of q or k, as the attention
 // kernels load it.  With ROPE it is rotated as attention.py:_rot does:
 // x * cos2 + roll(x, D/2) * sinm in f32 (no fused multiply-add, so the

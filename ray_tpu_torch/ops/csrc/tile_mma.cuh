@@ -181,18 +181,6 @@ __device__ __forceinline__ void block_mma_ksplit(float* C, int ldc,
 // into shared memory is bound by the latency of its global loads
 constexpr int kInFlight = 8;
 
-__device__ __forceinline__ uint4 pack16(const float (&f)[4]) {
-  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                    __float_as_uint(f[2]), __float_as_uint(f[3]));
-}
-__device__ __forceinline__ uint4 pack16(const float (&f)[8]) {
-  uint4 out;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return out;
-}
-
 // rows [r0, r0 + rows) of src [n_rows][d] into dst [rows][ld] (shared),
 // zero past n_rows; 16-byte vectors (d * sizeof(T) % 16 == 0, src rows
 // 16-byte aligned)

@@ -113,6 +113,43 @@ def test_decode_attention_ignores_nan_garbage():
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+@pytest.mark.parametrize("garbage", [False, True])
+def test_decode_attention_int8_matches_jax_pallas(garbage):
+    """The ``quantized=True`` variant: int8 codes with per-(position,
+    head) f32 scales from the JAX ``quantize_block``, through the JAX
+    Pallas body (interpret mode, as ``tests/test_ops.py:766`` runs it)
+    and the port's plain int8 branch, within 2e-5 in f32.  With
+    ``garbage``, the port's codes past each length are overwritten with
+    extreme codes and its scales with NaN: the output must not change."""
+    from ray_tpu.quant import quantize_block
+    rng = np.random.default_rng(7)
+    B, S, H, D = 4, 256, 3, 64
+    q = _rand(rng, B, H, D)
+    k, v = _rand(rng, B, S, H, D), _rand(rng, B, S, H, D)
+    lengths = np.array([1, 100, 129, 256], np.int32)
+    k8, ks = (np.array(a) for a in quantize_block(jnp.asarray(k), block=D))
+    v8, vs = (np.array(a) for a in quantize_block(jnp.asarray(v), block=D))
+    ks, vs = ks[..., 0].copy(), vs[..., 0].copy()
+    want = np.asarray(JA.decode_attention(
+        jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8),
+        jnp.asarray(lengths), impl="pallas", block_k=128,
+        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs)))
+    if garbage:
+        dead = np.arange(S)[None, :] >= lengths[:, None]
+        k8, v8 = k8.copy(), v8.copy()
+        k8[dead], v8[dead] = 127, -128
+        ks[dead], vs[dead] = np.nan, np.nan
+    got = TA.decode_attention(
+        *(torch.from_numpy(a) for a in (q, k8, v8, lengths)),
+        k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs))
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    with pytest.raises(ValueError, match="together"):
+        TA.decode_attention(torch.from_numpy(q), torch.from_numpy(k8),
+                            torch.from_numpy(v8), torch.from_numpy(lengths),
+                            k_scale=torch.from_numpy(ks))
+
+
 # ---------------------------------------------------------------------------
 # the training path: fused RoPE, forward and backward
 # ---------------------------------------------------------------------------

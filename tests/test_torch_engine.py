@@ -2,16 +2,22 @@
 
 Both engines serve the same model (``SMALL``, f32, the JAX weights
 converted by ``params_from_jax``) with ``slots=2, page_size=16,
-buckets=(16, 32, 64, 128)`` and prefix caching off, through the same
-submit/step schedule: requests join and leave mid-stream, and the third
-waits for a slot.  Greedy token streams must be equal token for token,
-and the logits rows each token was drawn from equal within 2e-4 (f32
-through two layers: summation order moves them by ~1e-6).
+buckets=(16, 32, 64, 128)`` through the same submit/step schedule:
+requests join and leave mid-stream, and the third waits for a slot.
+Greedy token streams must be equal token for token, and the logits rows
+each token was drawn from equal within 2e-4 (f32 through two layers:
+summation order moves them by ~1e-6).  The same holds with the int8 KV
+cache (both sides quantize to the same codes, ``test_torch_quant.py``,
+and dequantize them in f32) and with prefix caching over shared-prefix
+traffic, where the prefix counters and the registered hashes must be
+equal as well.
 
 Sampled decoding cannot share the JAX package's ``jax.random`` noise
 through the engine, so the sampler is tested by feeding both sides the
 same Gumbel noise.
 """
+
+import collections
 
 import jax
 import jax.numpy as jnp
@@ -25,13 +31,15 @@ from ray_tpu.inference.sampling import \
 from ray_tpu.models import gpt as jgpt
 from ray_tpu_torch.convert import params_from_jax
 from ray_tpu_torch.inference import (InferenceEngine, PageAllocator,
-                                     SamplingParams)
+                                     Request, SamplingParams, SlotScheduler)
 from ray_tpu_torch.inference.sampling import sample_from_noise
 from ray_tpu_torch.models import gpt as tgpt
 
 SMALL = dict(vocab_size=512, d_model=128, n_layers=2, n_heads=2,
              max_seq=256)
 GEOMETRY = dict(slots=2, page_size=16, buckets=(16, 32, 64, 128))
+# compiled steps of the JAX engines, shared across this file's tests
+_JAX_EXECUTABLES = {}
 
 
 @pytest.fixture(scope="module")
@@ -67,22 +75,84 @@ def _drive(engine):
     return events, rids
 
 
-def test_greedy_streams_match_jax_engine(models):
+def _engines(models, **kw):
     jcfg, jparams, tcfg, tparams = models
-    jeng = JaxEngine(jcfg, jparams, prefix=False, telemetry=False,
-                     debug_logits=True, **GEOMETRY)
+    jeng = JaxEngine(jcfg, jparams, telemetry=False, debug_logits=True,
+                     executable_cache=_JAX_EXECUTABLES, **GEOMETRY, **kw)
     teng = InferenceEngine(tcfg, tparams, device="cpu", debug_logits=True,
-                           **GEOMETRY)
-    jevents, jrids = _drive(jeng)
-    tevents, trids = _drive(teng)
+                           **GEOMETRY, **kw)
+    return jeng, teng
+
+
+def _assert_same_run(jeng, teng, jrun, trun):
+    (jevents, jrids), (tevents, trids) = jrun, trun
     assert tevents == jevents
-    assert len(tevents) == 10 + 5 + 8
     for jr, tr in zip(jrids, trids):
         np.testing.assert_allclose(np.stack(teng.logits_trace[tr]),
                                    np.stack(jeng.logits_trace[jr]),
                                    atol=2e-4, rtol=2e-4)
     assert teng.leak_free()
+
+
+def _greedy_streams(models, kv_dtype):
+    jeng, teng = _engines(models, prefix=False, kv_dtype=kv_dtype)
+    jrun, trun = _drive(jeng), _drive(teng)
+    _assert_same_run(jeng, teng, jrun, trun)
+    assert len(trun[0]) == 10 + 5 + 8
     assert teng.stats()["calls"]["prefill"] == 3
+    assert teng.cache.quantized == (kv_dtype == "int8")
+    for key in ("cache_bytes", "kv_bytes_per_slot", "kv_dtype"):
+        assert teng.stats()[key] == jeng.stats()[key], key
+
+
+def test_greedy_streams_match_jax_engine(models):
+    _greedy_streams(models, "model")
+
+
+def test_int8_greedy_streams_match_jax_engine(models):
+    """kv_dtype="int8": both engines write the same codes and scales and
+    dequantize them in f32."""
+    _greedy_streams(models, "int8")
+
+
+def _drive_shared(engine):
+    """Shared-prefix traffic: a cold request registers two full pages, a
+    second hits both, a third (queued for a slot) hits the first, and a
+    fourth hits the second request's third page too.  Nine usable pages
+    force idle pages to be evicted along the way."""
+    shared = _prompt(32, 11)
+    p2 = shared + _prompt(20, 13)
+    events, rids = [], []
+
+    def tick(n):
+        for _ in range(n):
+            events.extend(tuple(ev) for ev in engine.step())
+
+    rids.append(engine.submit(shared + _prompt(5, 12), max_new_tokens=6))
+    tick(1)
+    rids.append(engine.submit(p2, max_new_tokens=4))
+    rids.append(engine.submit(shared[:16] + _prompt(30, 14),
+                              max_new_tokens=5))
+    tick(2)
+    rids.append(engine.submit(p2 + _prompt(3, 15), max_new_tokens=5))
+    rids.append(engine.submit(_prompt(70, 16), max_new_tokens=3))
+    while engine.has_work():
+        tick(1)
+    return events, rids
+
+
+@pytest.mark.parametrize("kv_dtype", ["model", "int8"])
+def test_prefix_streams_and_counters_match_jax_engine(models, kv_dtype):
+    jeng, teng = _engines(models, prefix=True, kv_dtype=kv_dtype,
+                          num_pages=10)
+    jrun, trun = _drive_shared(jeng), _drive_shared(teng)
+    _assert_same_run(jeng, teng, jrun, trun)
+    got, want = teng.stats()["prefix"], jeng.stats()["prefix"]
+    assert got == want
+    assert got["requests_hit"] == 3 and got["hit_tokens"] == 16 * 6
+    assert got["evictions"] > 0
+    assert teng.prefix_digest() == jeng.prefix_digest()
+    assert teng.stats()["calls"]["prefill_cached"] == 3
 
 
 def test_sampled_rows_independent_of_cobatch(models):
@@ -151,8 +221,7 @@ def test_page_allocator_invariants():
     assert alloc.free_count == 7 and alloc.leak_free()
 
 
-@pytest.mark.parametrize("kw", [dict(prefix=True), dict(kv_dtype="int8"),
-                                dict(spec=True), dict(host_pages=4),
+@pytest.mark.parametrize("kw", [dict(spec=True), dict(host_pages=4),
                                 dict(lora=True), dict(telemetry=True)])
 def test_unported_engine_options_raise(models, kw):
     _j, _jp, tcfg, tparams = models
@@ -220,3 +289,236 @@ def test_engine_cancel_set_params_and_validation(models):
     engine.submit(p2)
     with pytest.raises(QueueFullError):
         engine.submit(p2)
+
+
+@pytest.mark.parametrize("kv_dtype, plen, tol", [
+    ("model", 37, 2e-4),
+    ("model", 48, 2e-4),    # an exact page multiple: the last page prefills
+    # the hit reads the prefix back as int8 codes where the cold prefill
+    # read full precision: the JAX suite's int8 budget
+    # (tests/test_inference.py:371-390)
+    ("int8", 37, 0.05),
+])
+def test_prefix_hit_decode_parity(models, kv_dtype, plen, tol):
+    """A prefix-hit request (suffix-only prefill over shared pages) gives
+    the trajectory and step-by-step logits of the same request run cold
+    (``tests/test_inference.py:342-390``)."""
+    _j, _jp, tcfg, tparams = models
+    engine = InferenceEngine(tcfg, tparams, device="cpu", debug_logits=True,
+                             kv_dtype=kv_dtype, **GEOMETRY)
+    prompt = _prompt(plen, 21)
+    r_cold = engine.generate([prompt], max_new_tokens=5)
+    r_hit = engine.generate([prompt], max_new_tokens=5)
+    st = engine.stats()
+    assert st["prefix"]["hit_tokens"] == 16 * ((plen - 1) // 16)
+    assert st["prefix"]["requests_hit"] == 1
+    assert st["calls"]["prefill_cached"] == 1
+    if kv_dtype == "model":
+        assert r_hit == r_cold
+    np.testing.assert_allclose(np.stack(engine.logits_trace[1]),
+                               np.stack(engine.logits_trace[0]),
+                               atol=tol, rtol=tol)
+    assert engine.leak_free()
+
+
+def test_page_allocator_refcount_and_eviction():
+    """Shared pages free only at refcount 0, registered refcount-0 pages
+    park in the idle LRU pool, and alloc evicts idle pages LRU-first,
+    unregistering them, before it fails
+    (``tests/test_inference.py:222-256``)."""
+    from ray_tpu_torch.inference.kv_cache import PrefixIndex
+    idx = PrefixIndex()
+    alloc = PageAllocator(6, index=idx)        # pages 1..5 usable
+    a = alloc.alloc(2)
+    h = PrefixIndex.chain(PrefixIndex.ROOT, [1, 2, 3])
+    assert idx.register(h, a[0]) and not idx.register(h, a[1])
+    alloc.acquire(a[0])
+    assert alloc.refcount(a[0]) == 2
+    alloc.release([a[0]])
+    assert alloc.refcount(a[0]) == 1 and alloc.free_count == 3
+    alloc.release(a)
+    assert alloc.refcount(a[0]) == 0 and alloc.is_idle(a[0])
+    assert alloc.idle_count == 1 and alloc.free_count == 5
+    assert idx.lookup(h) == a[0] and alloc.leak_free()
+    alloc.acquire(a[0])                        # a hit revives it
+    assert alloc.idle_count == 0 and alloc.refcount(a[0]) == 1
+    alloc.release([a[0]])
+    b = alloc.alloc(5)                         # evicts the idle page
+    assert b is not None and len(set(b)) == 5
+    assert alloc.evictions == 1 and idx.lookup(h) is None
+    assert alloc.alloc(1) is None
+    with pytest.raises(ValueError):
+        alloc.acquire(0)
+    alloc.release(b)
+    with pytest.raises(ValueError):
+        alloc.release([b[0]])
+    assert alloc.leak_free() and alloc.flush_idle() == 0
+
+
+def test_prefix_chain_hashes_match_jax():
+    """The chain hashes and hit eligibility are the JAX package's, byte
+    for byte: the fleet router compares them across replicas."""
+    from ray_tpu.inference.kv_cache import PrefixIndex as JIndex
+    from ray_tpu_torch.inference.kv_cache import PrefixIndex
+    tokens = _prompt(53, 3)
+    assert PrefixIndex.chain_hashes(tokens, 16) == \
+        JIndex.chain_hashes(tokens, 16)
+    assert PrefixIndex.chain_hashes(tokens, 16, salt=b"a") == \
+        JIndex.chain_hashes(tokens, 16, salt=b"a")
+    for n in (1, 16, 17, 48, 49):
+        assert PrefixIndex.hit_eligible(n, 16) == JIndex.hit_eligible(n, 16)
+
+
+def test_prefix_shared_pages_refcounted_concurrently(models):
+    """Two live requests sharing prefix pages: refcount 2 while both
+    decode, alive past the first retire, idle after the second, and a
+    third request revives them (``tests/test_inference.py:425-459``)."""
+    _j, _jp, tcfg, tparams = models
+    engine = InferenceEngine(tcfg, tparams, device="cpu", **GEOMETRY)
+    sched = engine.scheduler
+    free0 = sched.allocator.free_count
+    shared = _prompt(32, 41)
+    r1 = engine.submit(shared + _prompt(3, 42), max_new_tokens=8)
+    engine.step()
+    r2 = engine.submit(shared + _prompt(5, 43), max_new_tokens=3)
+    engine.step()
+    reqs = {r.rid: r for r in sched.active.values()}
+    shared_pages = reqs[r1].pages[:2]
+    assert reqs[r2].pages[:2] == shared_pages
+    assert reqs[r2].cached_tokens == 32
+    assert all(sched.allocator.refcount(p) == 2 for p in shared_pages)
+    assert engine.leak_free()
+    while engine.has_work():
+        engine.step()
+    assert sched.allocator.free_count == free0
+    assert sched.allocator.idle_count > 0 and engine.leak_free()
+    r3 = engine.submit(shared + _prompt(4, 44), max_new_tokens=3)
+    engine.step()
+    (req3,) = sched.active.values()
+    assert req3.rid == r3 and req3.cached_tokens == 32
+    while engine.has_work():
+        engine.step()
+    assert sched.allocator.free_count == free0
+    assert engine.stats()["prefix"]["requests_hit"] == 2
+
+
+def test_scheduler_refcount_fuzz():
+    """Admit/hit/retire/evict interleavings at the scheduler level
+    (``register_prefix`` called as the engine does after a prefill): the
+    refcounts match the active references exactly, every page is in
+    exactly one of free, idle and held, idle pages are registered, the
+    write window past each hit is private, and nothing leaks at drain
+    (``tests/test_inference.py:259-339`` without the tiers)."""
+    from ray_tpu_torch.inference.kv_cache import assert_tail_private
+    rng = np.random.RandomState(42)
+    ps = 8
+    sched = SlotScheduler(slots=3, page_size=ps, num_pages=24,
+                          max_pages_per_slot=8, prefix=True)
+    alloc = sched.allocator
+    prefixes = [list(rng.randint(0, 97, 2 * ps)) for _ in range(3)]
+    rid = 0
+    for step in range(300):
+        op = rng.rand()
+        if op < 0.5 and len(sched.waiting) < 4:
+            prompt = list(prefixes[rng.randint(3)]) if rng.rand() < 0.7 \
+                else list(rng.randint(0, 97, 2 * ps))
+            prompt += list(rng.randint(0, 97, int(rng.randint(1, 2 * ps))))
+            sched.submit(Request(rid=rid, prompt=prompt,
+                                 max_new_tokens=int(rng.randint(1, 8)),
+                                 sampling=SamplingParams()))
+            rid += 1
+        elif op < 0.8:
+            req = sched.try_admit()
+            if req is not None:
+                assert_tail_private(alloc, sched.prefix_index, req.pages,
+                                    req.cached_tokens,
+                                    len(req.prompt) + req.max_new_tokens - 1,
+                                    ps)
+                sched.register_prefix(req)
+        elif sched.active:
+            sched.retire(list(sched.active)[rng.randint(len(sched.active))])
+        held = collections.Counter(p for r in sched.active.values()
+                                   for p in r.pages)
+        assert dict(held) == alloc._refcount, step
+        assert alloc.leak_free(), step
+    assert sched.prefix_hit_pages > 0 and alloc.evictions > 0
+    while sched.active:
+        sched.retire(next(iter(sched.active)))
+    assert not alloc._refcount and alloc.free_count == 23
+
+
+def test_set_params_flushes_the_prefix_cache(models):
+    """A weight swap unregisters every cached page (idle ones return to
+    the free list), so an identical prompt afterwards runs cold."""
+    _j, _jp, tcfg, tparams = models
+    engine = InferenceEngine(tcfg, tparams, device="cpu", **GEOMETRY)
+    prompt = _prompt(40, 51)
+    engine.generate([prompt], max_new_tokens=2)
+    st = engine.stats()["prefix"]
+    assert st["registered_pages"] == 2 and st["idle_pages"] == 2
+    assert len(engine.prefix_digest()) == 2
+    engine.set_params(tparams)
+    st = engine.stats()["prefix"]
+    assert st["registered_pages"] == 0 and st["idle_pages"] == 0
+    assert engine.prefix_digest() == frozenset() and engine.leak_free()
+    engine.generate([prompt], max_new_tokens=2)
+    assert engine.stats()["prefix"]["requests_hit"] == 0
+    assert engine.stats()["calls"] == {"prefill": 2, "prefill_cached": 0,
+                                       "decode": 2}
+
+
+def test_prefix_off_knob(models, monkeypatch):
+    """prefix=False, or RAY_TPU_INFER_PREFIX=0 with no argument: no index,
+    no hits, no cached prefill.  Unset, the knob is on, as in the JAX
+    package."""
+    from ray_tpu_torch.inference.config import infer_config
+    _j, _jp, tcfg, tparams = models
+    prompt = _prompt(37, 52)
+
+    def run(**kw):
+        engine = InferenceEngine(tcfg, tparams, device="cpu", **GEOMETRY,
+                                 **kw)
+        engine.generate([prompt, prompt], max_new_tokens=2)
+        return engine
+
+    assert infer_config().prefix is True
+    assert run().stats()["prefix"]["requests_hit"] == 1
+    engine = run(prefix=False)
+    st = engine.stats()
+    assert st["prefix"] == {"enabled": False, "hit_pages": 0,
+                            "hit_tokens": 0, "requests_hit": 0,
+                            "registered_pages": 0, "idle_pages": 0,
+                            "evictions": 0}
+    assert st["calls"]["prefill"] == 2 and engine.prefix_digest() == set()
+    monkeypatch.setenv("RAY_TPU_INFER_PREFIX", "0")
+    try:
+        assert infer_config(refresh=True).prefix is False
+        assert run().stats()["prefix"]["enabled"] is False
+    finally:
+        monkeypatch.delenv("RAY_TPU_INFER_PREFIX")
+        infer_config(refresh=True)
+
+
+def test_kv_dtype_env_knob(models, monkeypatch, capsys):
+    """RAY_TPU_KV_DTYPE resolves through infer_config; an unknown value
+    falls back to the model dtype with a line on stderr
+    (``tests/test_inference.py:204-218``); an explicit argument wins."""
+    from ray_tpu_torch.inference.config import infer_config
+    _j, _jp, tcfg, tparams = models
+    monkeypatch.setenv("RAY_TPU_KV_DTYPE", "int8")
+    try:
+        infer_config(refresh=True)
+        engine = InferenceEngine(tcfg, tparams, device="cpu", **GEOMETRY)
+        assert engine.kv_dtype == "int8" and engine.cache.quantized
+        assert engine.cache.k.dtype == torch.int8
+        assert InferenceEngine(tcfg, tparams, device="cpu", kv_dtype="model",
+                               **GEOMETRY).kv_dtype == "model"
+        monkeypatch.setenv("RAY_TPU_KV_DTYPE", "fp4")
+        assert infer_config(refresh=True).kv_dtype == "model"
+        assert "RAY_TPU_KV_DTYPE='fp4' unknown" in capsys.readouterr().err
+    finally:
+        monkeypatch.delenv("RAY_TPU_KV_DTYPE")
+        infer_config(refresh=True)
+    with pytest.raises(ValueError, match="kv_dtype"):
+        InferenceEngine(tcfg, tparams, device="cpu", kv_dtype="fp4",
+                        **GEOMETRY)

@@ -111,6 +111,55 @@ def test_loss_fn_grads_match_jax(fuse_norm):
         assert err < 1e-4, (path, err)
 
 
+@pytest.mark.parametrize("fuse_norm", [True, False])
+def test_loss_fn_grads_match_jax_with_the_norm_kernel(fuse_norm,
+                                                      monkeypatch):
+    """``_PALLAS_NORM`` on in both packages (``RAY_TPU_PALLAS_NORM=1``):
+    the JAX side's norms go through its Pallas rmsnorm (interpret mode),
+    the port's through ``ops.rmsnorm``'s autograd.Function.  Loss and
+    every gradient leaf under the bounds above.  On the port side the
+    forward and backward run once per norm that ``_norm`` takes: ``ln1``
+    per layer with the fused epilogues on, and ``ln2`` and ``ln_f`` too
+    with them off."""
+    from ray_tpu_torch.ops import rmsnorm as TR
+    monkeypatch.setattr(jgpt, "_PALLAS_NORM", True)
+    monkeypatch.setattr(tgpt, "_PALLAS_NORM", True)
+    calls = {"fwd": 0, "bwd": 0}
+    for kind in calls:
+        real = getattr(TR, f"rmsnorm_{kind}")
+
+        def spy(*a, _real=real, _kind=kind, **k):
+            calls[_kind] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(TR, f"rmsnorm_{kind}", spy)
+    jcfg, tcfg = _cfgs()
+    mesh = make_mesh(dp=1, devices=jax.devices()[:1])
+    jparams = jgpt.init_params(jcfg, jax.random.PRNGKey(0))
+    batch = _jax_batch(2)
+    jattn = JA.make_flash_attention_fn(mesh, causal=True,
+                                       rope_theta=jcfg.rope_theta)
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jgpt.loss_fn(p, batch, jcfg, attn_fn=jattn, mesh=mesh,
+                               fuse_norm=fuse_norm))(jparams)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                              device="cpu")
+    tattn = TA.make_flash_attention_fn(rope_theta=tcfg.rope_theta)
+    tloss, tgrads = ttrain.value_and_grad(
+        lambda p, b: tgpt.loss_fn(p, b, tcfg, attn_fn=tattn,
+                                  fuse_norm=fuse_norm),
+        tparams, _to_torch(batch))
+    n_norms = SMALL["n_layers"] * (1 if fuse_norm else 2) + \
+        (0 if fuse_norm else 1)
+    assert calls == {"fwd": n_norms, "bwd": n_norms}
+    assert float(tloss) == pytest.approx(float(jloss), abs=2e-5)
+    jl = dict(_leaves(jax.tree.map(np.asarray, jgrads)))
+    tl = dict(_leaves(params_to_numpy(tgrads)))
+    for path, want in jl.items():
+        err = np.abs(tl[path] - want).max() / max(1e-8, np.abs(want).max())
+        assert err < 1e-4, (path, err)
+
+
 def test_train_steps_match_jax():
     """STEPS optimizer steps (clip engaged, warmup then cosine) from the
     same parameters on the same batches: the loss and grad_norm
