@@ -5,6 +5,9 @@
     python3 chip_smoke.py --profile        # where the serving time goes
     python3 chip_smoke.py --profile int8   # the same on the int8 cache
     python3 chip_smoke.py --profile train  # where a training step's goes
+    python3 chip_smoke.py --edges          # the attention kernels' ragged
+                                           # edges alone (small; for
+                                           # compute-sanitizer)
 
 1. Start-up: prints the card (``nvidia-smi`` name and power limit), the
    torch and CUDA versions, and builds the kernels from
@@ -15,6 +18,10 @@
    version's, one PyTorch library call's as a yardstick, and the least
    time the card could take (``bound_ms``): the ten entry points, the
    int8 decode attention and the RMSNorm forward and backward included.
+   The attention kernels also at their ragged edges: the prefill forward
+   at S = 1, 65 and 200, the training forward and backward at [2, S, 12,
+   64] with and without RoPE for S = 65 and 200, and two bf16 backward
+   calls on the same inputs must agree bit for bit.
 3. Engine phase (gpt2-serve-mixed): GPT-2 124M (random weights from a
    seed, bf16) serves 16 requests through the paged-KV engine with its
    defaults (prefix caching on; the random prompts share no page, so
@@ -196,7 +203,7 @@ def kernel_phase(rec: Recorder, dev) -> None:
     # prefill attention at [1, S, 12, 64]
     H, D = 12, 64
     scale = D ** -0.5
-    for S in (32, 128, 1024):
+    for S in (1, 32, 65, 128, 200, 1024):
         q, k, v = (randn(1, S, H, D) for _ in range(3))
         o, lse = A.flash_attention_fwd(q, k, v, scale=scale)
         o_ref, lse_ref = A.plain_flash_attention_fwd(*_f32(q, k, v),
@@ -413,6 +420,128 @@ DS_BF16_TOL = dict(rtol=2 ** -7, atol=2e-3)
 DS_F32_TOL = dict(rtol=1e-5, atol=2e-3)
 
 
+def bwd_reference(qr, kr, v, o, lse, do, scale, rope32):
+    """The bf16 backward's yardstick: the plain version in f64 on the
+    rotated q and k (``qr``, ``kr``), with the transposed rotation of dq
+    and dk.  In f64 and not f32 because the first row of a sequence
+    attends to one key, so its dq is 0 exactly (ds = p (dp - delta) with
+    dp = delta, o being that key's v): the kernel gives 0 there, while an
+    f32 plain version leaves its own summation noise (up to ~6e-7 on an
+    H100), which no bound relative to that row's rms can carry.  In f64
+    the 64-term sums of bf16 products are exact, and the row is 0."""
+    from ray_tpu_torch.ops import attention as A
+
+    dq, dk, dv = A.plain_flash_attention_bwd(
+        *(x.double() for x in (qr, kr, v, o)), lse, do.double(),
+        scale=scale)
+    return (A._rot_t(dq, *rope32), A._rot_t(dk, *rope32), dv) \
+        if rope32 is not None else (dq, dk, dv)
+
+
+def _guarded(x, pad: int = 4096):
+    """x copied into the middle of a NaN-filled buffer with ``pad``
+    elements on each side (a multiple of 8, so the view keeps 16-byte
+    alignment): a kernel that reads before or past the tensor meets NaN,
+    which ``check`` refuses."""
+    buf = torch.full((x.numel() + 2 * pad,), float("nan"), dtype=x.dtype,
+                     device=x.device)
+    view = buf[pad:pad + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _guarded_writes(what: str, launch, expect, scratch=()) -> None:
+    """``launch(*outs)`` with each output a view between guard bands of
+    -7.0, shaped as ``expect`` and then ``scratch``; raise if the kernel
+    wrote into a band, or if an output differs in any bit from its entry
+    of ``expect`` (the wrapper's own call on the same inputs; a scratch
+    output is not compared)."""
+    pad = 4096
+    like = (*expect, *scratch)
+    bufs = [torch.full((x.numel() + 2 * pad,), -7.0, dtype=x.dtype,
+                       device=x.device) for x in like]
+    outs = [b[pad:-pad].view(x.shape) for b, x in zip(bufs, like)]
+    launch(*outs)
+    torch.cuda.synchronize()
+    for b in bufs:
+        if not ((b[:pad] == -7.0).all() and (b[-pad:] == -7.0).all()):
+            raise AssertionError(f"{what}: a kernel wrote outside an output")
+    if not all(torch.equal(x, y) for x, y in zip(outs, expect)):
+        raise AssertionError(f"{what}: outputs differ from the wrapper's")
+
+
+def ragged_attention_checks(dev, *, B: int = 2, H: int = 12) -> None:
+    """The attention kernels at ragged lengths (S = 65 and 200: a partial
+    last tile, rows past S masked in-kernel) with and without RoPE:
+    forward and backward in bf16 (against the plain version in f32 / f64)
+    and in f32 (against the f32 plain version), under the tolerances of
+    the main-path checks.  Every input sits between NaN guard bands
+    (``_guarded``), so a read past a tensor's last row or before its first
+    shows as a non-finite output, and the bf16 kernels are launched once
+    more on outputs between guard bands (``_guarded_writes``), which they
+    must leave untouched.  Two bf16 backward calls on the same inputs must
+    give the same bits (no atomics, a fixed order)."""
+    from ray_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    randn = _randn(g, dev)
+    bf, D = torch.bfloat16, 64
+    scale = D ** -0.5
+    for S in (65, 200):
+        for with_rope in (False, True):
+            q, k, v, do = (_guarded(randn(B, S, H, D)) for _ in range(4))
+            rope = (tuple(map(_guarded, A.rope_tables(
+                torch.arange(S, device=dev), D, 10000.0, bf)))
+                if with_rope else None)
+            rope32 = None if rope is None else _f32(*rope)
+            qr, kr = ((A._rot(x, *rope).float() for x in (q, k))
+                      if with_rope else _f32(q, k))
+            what = f"attention ragged [{B},{S},{H},{D}] rope={with_rope}"
+            o, lse = map(_guarded, A.flash_attention_fwd(
+                q, k, v, scale=scale, rope=rope))
+            o_ref, lse_ref = A.plain_flash_attention_fwd(
+                qr, kr, v.float(), scale=scale)
+            o32, lse32 = A.flash_attention_fwd(*_f32(q, k, v), scale=scale,
+                                               rope=rope32)
+            o_ref32, lse_ref32 = A.plain_flash_attention_fwd(
+                *_f32(q, k, v), scale=scale, rope=rope32)
+            grads = A.flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
+                                          rope=rope)
+            again = A.flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
+                                          rope=rope)
+            refs = bwd_reference(qr, kr, v, o, lse, do, scale, rope32)
+            args32 = (*_f32(q, k, v, o), lse, do.float())
+            grads32 = A.flash_attention_bwd(*args32, scale=scale,
+                                            rope=rope32)
+            refs32 = A.plain_flash_attention_bwd(*args32, scale=scale,
+                                                 rope=rope32)
+            torch.cuda.synchronize()
+            check(f"{what} o", o, o_ref, **BF16_TOL)
+            check(f"{what} lse", lse, lse_ref, **LSE_TOL)
+            check(f"{what} f32 o", o32, o_ref32, **F32_TOL)
+            check(f"{what} f32 lse", lse32, lse_ref32, **F32_TOL)
+            for n, x, y, x32, y32 in zip(("dq", "dk", "dv"), grads, refs,
+                                         grads32, refs32):
+                check(f"{what} {n}", x, y, **GRAD_BF16_TOL)
+                check(f"{what} f32 {n}", x32, y32, **F32_GRAD_TOL)
+            if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+                raise AssertionError(f"{what}: two bf16 backward calls on "
+                                     "the same inputs differ")
+            ptr = [None if t is None else t.data_ptr()
+                   for t in (q, k, v, o, do, lse, *(rope or (None, None)))]
+            args = (B, S, H, D, scale, A._DTYPE_CODES[bf], A._stream(q))
+            _guarded_writes(f"{what} forward", lambda o_, lse_:
+                            A.flash_attention_kernel(
+                                *ptr[:3], *ptr[6:], o_.data_ptr(),
+                                lse_.data_ptr(), *args), (o, lse))
+            _guarded_writes(f"{what} backward", lambda *outs:
+                            A.flash_attention_bwd_kernel(
+                                *ptr, *(x.data_ptr() for x in outs), *args),
+                            grads, scratch=(lse,))  # delta [B, H, S]
+            print(f"  {what}: bf16 backward bit-identical over two calls; "
+                  "guard bands intact", flush=True)
+
+
 def train_kernel_phase(rec: Recorder, dev) -> None:
     """The training path's kernels against their plain versions at its
     shapes: the flash forward with its RoPE tables, the attention
@@ -472,18 +601,26 @@ def train_kernel_phase(rec: Recorder, dev) -> None:
                "ray_tpu_torch/ops/csrc/flash_attention_fwd.cu",
                "ray_tpu/ops/attention.py:477")
 
+    # what the in-kernel RoPE costs: the same calls without it
+    o_nr, lse_nr = A.flash_attention_fwd(q, k, v, scale=scale)
+    t_f = time_ms(lambda: A.flash_attention_fwd(q, k, v, scale=scale), 5)
+    t_b = time_ms(lambda: A.flash_attention_bwd(q, k, v, o_nr, lse_nr, do,
+                                                scale=scale), 5)
+    print(f"flash_attention [24,1024,12,64] without RoPE: forward {t_f:.4f} "
+          f"ms, backward {t_b:.4f} ms", flush=True)
+    del o_nr, lse_nr
+
     # the backward on the same inputs, with the bf16 forward's o and lse
     grads = A.flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
                                   rope=rope)
-    dq_r, dk_r, dv_r = A.plain_flash_attention_bwd(
-        qr, kr, v.float(), o.float(), lse, do.float(), scale=scale)
-    refs = (A._rot_t(dq_r, *rope32), A._rot_t(dk_r, *rope32), dv_r)
-    del dq_r, dk_r, dv_r, qr, kr
+    refs = bwd_reference(qr, kr, v, o, lse, do, scale, rope32)
+    del qr, kr
     torch.cuda.synchronize()
     what = "flash_attention_bwd rope [24,1024,12,64]"
     err = max(check(f"{what} {n}", x, y, **GRAD_BF16_TOL)
               for n, x, y in zip(("dq", "dk", "dv"), grads, refs))
     del grads, refs
+    torch.cuda.empty_cache()
     refs32 = A.plain_flash_attention_bwd(*_f32(q, k, v, o), lse,
                                          do.float(), scale=scale,
                                          rope=rope32)
@@ -1133,9 +1270,12 @@ def start_up() -> str:
             if m is None:
                 fn = line.split("'")[1][-60:]
                 continue
-            args = re.sub(r"Li(\d+)E?", r"\1,", m.group(2))
+            args = re.sub(r"^f", "f32,", m.group(2))
+            args = re.sub(r"Li(\d+)E?", r"\1,", args)
+            args = re.sub(r"Lb([01])E?", lambda b: ("false", "true")[
+                int(b.group(1))] + ",", args)
             args = args.replace("13__nv_bfloat16", "bf16,")
-            fn = f"{m.group(1)}<{re.sub(r'^f', 'f32,', args).strip(',')}>"
+            fn = f"{m.group(1)}<{args.strip(',')}>"
         elif "spill stores" in line:
             spill = line.strip()
         elif "registers" in line and fn:
@@ -1258,6 +1398,10 @@ def main() -> None:
     if sys.argv[1:] == ["--profile", "train"]:
         train_profile_phase(dev)
         return
+    if sys.argv[1:] == ["--edges"]:
+        ragged_attention_checks(dev)
+        print("edges: every check passed", flush=True)
+        return
     if sys.argv[1:] in (["--profile"], ["--profile", "int8"]):
         from ray_tpu_torch import GPTConfig, init_params
         cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
@@ -1269,6 +1413,7 @@ def main() -> None:
         raise SystemExit(f"unknown arguments {sys.argv[1:]}")
     rec = Recorder(name)
     kernel_phase(rec, dev)
+    ragged_attention_checks(dev)
     train_kernel_phase(rec, dev)
     from ray_tpu_torch import GPTConfig, init_params
     cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)

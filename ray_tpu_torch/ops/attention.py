@@ -7,8 +7,10 @@ model layout ``[B, S, H, D]`` as the JAX package does.
   training, differentiable through :class:`FlashAttention`.  On a CUDA
   tensor its forward launches ``csrc/flash_attention_fwd.cu`` (the port
   of the Pallas ``_fwd_kernel`` / ``_fwd_pack2_kernel``) and its
-  backward ``csrc/flash_attention_bwd.cu`` (``_bwd`` / ``_bwd_pack2``);
-  on a CPU tensor both run their plain versions.  With ``positions`` the
+  backward ``csrc/flash_attention_bwd.cu`` (``_bwd`` / ``_bwd_pack2``):
+  in bf16 on the tensor cores (``wgmma`` forward, ``mma.sync``
+  backward), in f32 on the CUDA cores; on a CPU tensor both run their
+  plain versions.  With ``positions`` the
   RoPE rotation happens inside both kernels (the training path, through
   :func:`make_flash_attention_fn`); the serving path rotates q and k
   outside, because its cache stores post-RoPE keys.
@@ -150,29 +152,32 @@ def plain_flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
                                          torch.Tensor]:
     """The backward kernel's plain version (``_grad_blocks`` and the
     products of ``_bwd_fused_kernel`` over the whole sequence): scores
-    and statistics in f32, ``p`` and ``ds`` rounded to the input dtype
-    before their products, ``_rot_t`` on dq and dk under ``rope``."""
+    and statistics in f32 (in f64 for f64 inputs, a yardstick with no
+    summation error of its own), ``p`` and ``ds`` rounded to the input
+    dtype before their products, ``_rot_t`` on dq and dk under
+    ``rope``."""
     dt = q.dtype
+    ct = torch.float64 if dt == torch.float64 else torch.float32
     if rope is not None:
         q, k = _rot(q, *rope), _rot(k, *rope)
     S = q.shape[1]
     mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(ct), k.to(ct)) * scale
     s = torch.where(mask, s, NEG_INF)
-    p = torch.exp(s - lse[..., None])
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)   # [B, H, S]
+    p = torch.exp(s - lse[..., None].to(ct))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.to(ct), v.to(ct))
+    delta = (do.to(ct) * o.to(ct)).sum(-1).transpose(1, 2)   # [B, H, S]
     ds = p * (dp - delta[..., None]) * scale
-    p, ds = p.to(dt).float(), ds.to(dt).float()
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    p, ds = p.to(dt).to(ct), ds.to(dt).to(ct)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.to(ct))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(ct))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.to(ct))
     if rope is not None:
         dq, dk = _rot_t(dq, *rope), _rot_t(dk, *rope)
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
-def _check_attn_args(name: str, q, k, v, rope: Rope) -> None:
+def _check_attn_args(name: str, q, k, v, rope: Rope, *more) -> None:
     B, S, H, D = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)} "
@@ -185,6 +190,12 @@ def _check_attn_args(name: str, q, k, v, rope: Rope) -> None:
         if any(t.shape != (S, D) for t in rope):
             raise ValueError(f"{name}: the RoPE tables must be [S, D] = "
                              f"[{S}, {D}]")
+    # the bf16 kernels copy rows into shared memory in 16-byte vectors
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (q, k, v, *(rope or ()), *more)):
+        raise ValueError(f"{name}: bf16 q, k, v, do and the RoPE tables "
+                         "must be 16-byte aligned (the kernel copies rows "
+                         "in 16-byte vectors)")
 
 
 def flash_attention_fwd(q, k, v, *, scale: float, rope: Rope = None
@@ -214,8 +225,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
     if not is_cuda(q):
         return plain_flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
                                          rope=rope)
-    _check_attn_args("flash_attention_bwd", q, k, v, rope)
     check_cuda_args("flash_attention_bwd", q, o, do, dtype=q.dtype)
+    _check_attn_args("flash_attention_bwd", q, k, v, rope, do)
     B, S, H, D = q.shape
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError("flash_attention_bwd: o and do must match q")

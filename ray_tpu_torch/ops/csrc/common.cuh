@@ -86,6 +86,42 @@ __device__ __forceinline__ float load_rot(const T* row, const T* cos2,
   }
 }
 
+// load_rot's rotation done in place on a bf16 row of D = 64 held in
+// shared memory, 16 bytes at a time: lo and hi are the row's chunks j and
+// j + 4 (columns 8j..8j+7 and 8j+32..8j+39), each the other's partner
+// under the D/2 roll; c_lo, c_hi, s_lo, s_hi the same chunks of the
+// row's cos2 and sinm.
+__device__ __forceinline__ void rope_chunks(uint4& lo, uint4& hi,
+                                            const uint4& c_lo,
+                                            const uint4& c_hi,
+                                            const uint4& s_lo,
+                                            const uint4& s_hi) {
+  float xl[8], xh[8], cl[8], ch[8], sl[8], sh[8], ol[8], oh[8];
+  unpack16(lo, xl);
+  unpack16(hi, xh);
+  unpack16(c_lo, cl);
+  unpack16(c_hi, ch);
+  unpack16(s_lo, sl);
+  unpack16(s_hi, sh);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    ol[e] = __fadd_rn(__fmul_rn(xl[e], cl[e]), __fmul_rn(xh[e], sl[e]));
+    oh[e] = __fadd_rn(__fmul_rn(xh[e], ch[e]), __fmul_rn(xl[e], sh[e]));
+  }
+  lo = pack16(ol);
+  hi = pack16(oh);
+}
+
+// the same with the table rows read from the [S, 64] tables at pos
+__device__ __forceinline__ void rope_chunks(uint4& lo, uint4& hi,
+                                            const __nv_bfloat16* cos2,
+                                            const __nv_bfloat16* sinm,
+                                            int pos, int j) {
+  const uint4* c = reinterpret_cast<const uint4*>(cos2 + pos * 64L);
+  const uint4* s = reinterpret_cast<const uint4*>(sinm + pos * 64L);
+  rope_chunks(lo, hi, c[j], c[j + 4], s[j], s[j + 4]);
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
