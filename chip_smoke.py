@@ -5,13 +5,18 @@
     python3 chip_smoke.py --profile        # where the serving time goes
     python3 chip_smoke.py --profile int8   # the same on the int8 cache
     python3 chip_smoke.py --profile train  # where a training step's goes
-    python3 chip_smoke.py --edges          # the attention kernels' ragged
-                                           # edges alone (small; for
-                                           # compute-sanitizer)
+    python3 chip_smoke.py --profile epilogue  # the epilogue entry points'
+                                              # kernels at N = 24576
+    python3 chip_smoke.py --edges          # the wgmma tile checks and the
+                                           # attention and epilogue
+                                           # kernels' ragged edges alone
+                                           # (small; for compute-sanitizer)
 
 1. Start-up: prints the card (``nvidia-smi`` name and power limit), the
    torch and CUDA versions, and builds the kernels from
-   ``ray_tpu_torch/ops/csrc`` with ``nvcc`` (timed).
+   ``ray_tpu_torch/ops/csrc`` with ``nvcc`` (timed), then checks the two
+   ``wgmma`` variants with MN-major operands alone, each on one 64 x 64
+   x 64 tile against the plain product.
 2. Kernel phase: every kernel of the serving and training paths against
    its plain PyTorch version (computed in f32 on the same inputs) at the
    main paths' shapes, in bf16 and in f32, with its time, the plain
@@ -21,7 +26,11 @@
    The attention kernels also at their ragged edges: the prefill forward
    at S = 1, 65 and 200, the training forward and backward at [2, S, 12,
    64] with and without RoPE for S = 65 and 200, and two bf16 backward
-   calls on the same inputs must agree bit for bit.
+   calls on the same inputs must agree bit for bit.  The out-proj
+   epilogue forward and backward likewise at N = 1, 63, 65 and 200 (K =
+   768) and K = 384 and 1536 (N = 200), bf16 and f32, inputs between
+   NaN guard bands, outputs between -7.0 bands, two bf16 backward calls
+   bit-identical.
 3. Engine phase (gpt2-serve-mixed): GPT-2 124M (random weights from a
    seed, bf16) serves 16 requests through the paged-KV engine with its
    defaults (prefix caching on; the random prompts share no page, so
@@ -174,6 +183,10 @@ class Recorder:
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row.update(shape=shape, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        # every shape measured, the row's own (the last) included
+        row.setdefault("by_shape", []).append(dict(
+            shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by))
 
 
 def _randn(g, dev):
@@ -540,6 +553,125 @@ def ragged_attention_checks(dev, *, B: int = 2, H: int = 12) -> None:
                             grads, scratch=(lse,))  # delta [B, H, S]
             print(f"  {what}: bf16 backward bit-identical over two calls; "
                   "guard bands intact", flush=True)
+
+
+def wgmma_tile_checks(dev) -> None:
+    """The two ``wgmma`` variants with MN-major operands (``hopper.cuh``),
+    each alone on one tile, C [64, 64] = A B over k = 64, against the
+    plain product in f32, before the epilogue kernels built on them are
+    checked: ``_tb`` (A K-major, B MN-major: the forward's a and w) and
+    ``_tt`` (both MN-major: the backward's dw = a^T dresid).  A wrong
+    transpose bit or descriptor offset moves values by O(1); the bf16
+    products are exact in f32, so only the order of the 64-term sums
+    differs (``F32_MATMUL_TOL``)."""
+    import ctypes
+
+    from ray_tpu_torch.ops import _build
+
+    fn = _build.load().wgmma_tile_check
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    g = torch.Generator(device=dev).manual_seed(6)
+    A, B = (torch.randn(64, 64, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    want = A.float() @ B.float()
+    for variant, a_in, name in ((0, A, "tb (A K-major, B MN-major)"),
+                                (1, A.T.contiguous(),
+                                 "tt (A and B MN-major)")):
+        c = torch.empty(64, 64, device=dev)
+        rc = fn(a_in.data_ptr(), B.data_ptr(), c.data_ptr(), variant,
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError(f"wgmma_tile_check {variant}: CUDA error {rc}")
+        torch.cuda.synchronize()
+        check(f"wgmma tile {name}", c, want, **F32_MATMUL_TOL)
+
+
+# the epilogue kernels' edges: N ragged against their 64-row blocks at
+# K = d = 768, and the gate's other widths of K around GPT-2's at a
+# ragged N
+EPILOGUE_EDGES = ((1, 768), (63, 768), (65, 768), (200, 768), (200, 384),
+                  (200, 1536))
+
+
+def _row_guarded(x):
+    """``_guarded`` with a whole 64-row block of NaN on each side, so a
+    kernel block reading rows past the tensor's last meets NaN, not
+    memory beyond the buffer."""
+    return _guarded(x, pad=64 * x.shape[-1])
+
+
+def ragged_epilogue_checks(dev) -> None:
+    """The out-proj epilogue kernels at ``EPILOGUE_EDGES``: the forward and
+    the backward (cotangents into both outputs) in bf16 against the plain
+    versions in f32, and in f32 against the same, under the main-path
+    tolerances.  Every input sits between NaN guard bands of a 64-row
+    block each; both bf16 kernels run once more on outputs between
+    guard bands of -7.0 (``_guarded_writes``), and two bf16 backward calls
+    must give the same bits (no atomics, ordered partial sums)."""
+    from ray_tpu_torch.ops import fused_norm as FN
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    randn = _randn(g, dev)
+    bf, d, eps = torch.bfloat16, 768, 1e-6
+    code = FN._DTYPE_CODES[bf]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for N, K in EPILOGUE_EDGES:
+        what = f"epilogue ragged N={N} K={K}"
+        sc = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(bf)
+        a, w, resid, sc, drout, dy = map(_row_guarded, (
+            randn(N, K), randn(K, d, s=K ** -0.5), randn(N, d), sc,
+            randn(N, d), randn(N, d)))
+        r, y, rstd = FN.matmul_residual_norm_fwd(a, w, resid, sc, eps=eps)
+        want = FN.plain_matmul_residual_norm(*_f32(a, w, resid, sc),
+                                             eps=eps)
+        got32 = FN.matmul_residual_norm_fwd(*_f32(a, w, resid, sc), eps=eps)
+        r, rstd = _row_guarded(r), _row_guarded(rstd)
+        ins = (a, w, r, sc, rstd, drout, dy)
+        grads = FN.matmul_residual_norm_bwd(*ins)
+        again = FN.matmul_residual_norm_bwd(*ins)
+        ins32 = (*_f32(a, w, r, sc), rstd, *_f32(drout, dy))
+        refs = FN.plain_matmul_residual_norm_bwd(*ins32)
+        grads32 = FN.matmul_residual_norm_bwd(*ins32)
+        torch.cuda.synchronize()
+        for n, x, x32, ref in zip(("r", "y", "rstd"), (r, y, rstd), got32,
+                                  want):
+            check(f"{what} {n}", x, ref,
+                  **(RSTD_TOL if n == "rstd" else BF16_TOL))
+            check(f"{what} f32 {n}", x32, ref, **F32_MATMUL_TOL)
+        for n, x, x32, ref in zip(("da", "dw", "dresid", "dscale"), grads,
+                                  grads32, refs):
+            check(f"{what} {n}", x, ref, **GRAD_BF16_TOL)
+            check(f"{what} f32 {n}", x32, ref, **F32_GRAD_TOL)
+        if not all(torch.equal(x, z) for x, z in zip(grads, again)):
+            raise AssertionError(f"{what}: two bf16 backward calls on the "
+                                 "same inputs differ")
+        _guarded_writes(f"{what} forward", lambda r_, y_, s_:
+                        FN.matmul_residual_norm_kernel(
+                            a.data_ptr(), w.data_ptr(), resid.data_ptr(),
+                            sc.data_ptr(), r_.data_ptr(), y_.data_ptr(),
+                            s_.data_ptr(), N, K, d, eps, code, stream),
+                        (r, y, rstd))
+
+        def bwd(*outs):
+            FN.matmul_residual_norm_bwd_kernel(
+                *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
+                N, K, d, code, stream)
+
+        # the entry point's own outputs: dscale in f32 and the scratch
+        outs = (*(torch.empty_like(x) for x in grads[:3]),
+                torch.empty(d, device=dev),
+                torch.empty(-(-N // FN._BWD_ROWS), d, device=dev),
+                torch.empty(FN._BWD_SPLITS, K, d, device=dev))
+        bwd(*outs)
+        if not (all(torch.equal(x, z) for x, z in zip(outs, grads[:3]))
+                and torch.equal(outs[3].to(bf), grads[3])):
+            raise AssertionError(f"{what}: the entry point's outputs differ "
+                                 "from the wrapper's")
+        _guarded_writes(f"{what} backward", bwd, outs[:4],
+                        scratch=outs[4:])
+        print(f"  {what}: bf16 backward bit-identical over two calls; "
+              "guard bands intact", flush=True)
 
 
 def train_kernel_phase(rec: Recorder, dev) -> None:
@@ -1392,14 +1524,53 @@ def train_profile_phase(dev) -> None:
     report("training step (gpt2-train-b24)", prof, wall, 1, top=20)
 
 
+def epilogue_profile_phase(dev) -> None:
+    """The out-proj epilogue's two entry points at the training shape (N =
+    24576, K = d = 768, bf16): the CUDA kernels each launches, by device
+    time per call (torch.profiler over 10 calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.ops import fused_norm as FN
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    randn = _randn(g, dev)
+    N, d = TRAIN_N, 768
+    a, resid = randn(N, d), randn(N, d)
+    w = randn(d, d, s=d ** -0.5)
+    sc = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(
+        torch.bfloat16)
+    rout, _y, rstd = FN.matmul_residual_norm_fwd(a, w, resid, sc)
+    ins = (a, w, rout, sc, rstd, randn(N, d), randn(N, d))
+    for what, fn in (
+            ("matmul_residual_norm_fwd",
+             lambda: FN.matmul_residual_norm_fwd(a, w, resid, sc)),
+            ("matmul_residual_norm_bwd",
+             lambda: FN.matmul_residual_norm_bwd(*ins))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        report(f"{what} [{N}, {d}, {d}] (per call)", prof, wall, 10)
+
+
 def main() -> None:
     name = start_up()
     dev = torch.device("cuda")
     if sys.argv[1:] == ["--profile", "train"]:
         train_profile_phase(dev)
         return
+    if sys.argv[1:] == ["--profile", "epilogue"]:
+        epilogue_profile_phase(dev)
+        return
     if sys.argv[1:] == ["--edges"]:
+        wgmma_tile_checks(dev)
         ragged_attention_checks(dev)
+        ragged_epilogue_checks(dev)
         print("edges: every check passed", flush=True)
         return
     if sys.argv[1:] in (["--profile"], ["--profile", "int8"]):
@@ -1412,8 +1583,10 @@ def main() -> None:
     if sys.argv[1:]:
         raise SystemExit(f"unknown arguments {sys.argv[1:]}")
     rec = Recorder(name)
+    wgmma_tile_checks(dev)
     kernel_phase(rec, dev)
     ragged_attention_checks(dev)
+    ragged_epilogue_checks(dev)
     train_kernel_phase(rec, dev)
     from ray_tpu_torch import GPTConfig, init_params
     cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)

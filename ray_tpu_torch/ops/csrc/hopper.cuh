@@ -1,12 +1,23 @@
 // Register-level tensor-core and asynchronous-copy primitives for the
-// bf16 attention kernels (flash_attention_fwd.cu, flash_attention_bwd.cu):
-// cp.async with zero fill, the async-proxy fence, warpgroup MMA (wgmma)
-// with its shared-memory descriptors, warp MMA (mma.sync m16n8k16) and
-// ldmatrix.  Everything here is sm_90a inline PTX; the accumulators stay
-// in registers, in the layouts documented at each function.
+// bf16 kernels (flash_attention_fwd.cu, flash_attention_bwd.cu,
+// matmul_residual_norm.cu, matmul_residual_norm_bwd.cu): cp.async with
+// zero fill, the async-proxy fence, warpgroup MMA (wgmma) with its
+// shared-memory descriptors, TMA tile copies (cp.async.bulk.tensor) with
+// their mbarriers and host-side tensor maps, warp MMA (mma.sync
+// m16n8k16) and ldmatrix.
+// The wgmma m64n64k16 variants, by where A and B live and which of them
+// is MN-major (the transpose bits):
+//   wgmma_ss_m64n64k16      A, B in shared memory, both K-major
+//   wgmma_ss_m64n64k16_tb   A K-major, B MN-major (rows k, n contiguous)
+//   wgmma_ss_m64n64k16_tt   A and B MN-major (rows k, m or n contiguous)
+//   wgmma_rs_m64n64k16_tb   A in registers, B MN-major
+// Everything here is sm_90a inline PTX; the accumulators stay in
+// registers, in the layouts documented at each function.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace rtt {
@@ -14,6 +25,13 @@ namespace tc {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of 16-byte chunk c of row r in a tile of 128-byte rows
+// stored with the 128-byte swizzle (chunk c of row r at chunk c ^ (r % 8)),
+// the layout desc_sw128 describes
+__device__ __forceinline__ uint32_t swz128(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
 }
 
 // 16 bytes global -> shared, asynchronously; with ok false the 16 bytes
@@ -128,6 +146,34 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// The same product with B MN-major: B stored as rows k of 64 n (one
+// 128-byte swizzle atom wide), so a k16 step advances the B descriptor
+// by 16 rows (2048 bytes, + 128 in its 16-byte units) and a wider B is
+// one instruction per 64-column atom.  It always accumulates.
+__device__ __forceinline__ void wgmma_ss_m64n64k16_tb(float (&d)[32],
+                                                      uint64_t da,
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " RTT_WGMMA_D32
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : RTT_WGMMA_OUT32(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The same with A MN-major as well: A stored as rows k of 64 m, its k16
+// step + 128 like B's (the product a^T b of two row-major [k][64] tiles)
+__device__ __forceinline__ void wgmma_ss_m64n64k16_tt(float (&d)[32],
+                                                      uint64_t da,
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " RTT_WGMMA_D32
+      ", %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : RTT_WGMMA_OUT32(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // D[64][64] += A[64][16] B[16][64] with A in registers and B in shared
 // memory MN-major (rows k, n contiguous: the transpose bit).  Thread t
 // holds a[0] = A[16 w + l / 4][2 (l % 4) + {0, 1}], a[1] the same 8 rows
@@ -146,6 +192,121 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32],
 
 #undef RTT_WGMMA_D32
 #undef RTT_WGMMA_OUT32
+
+// ---------------------------------------------------------------------------
+// TMA (cp.async.bulk.tensor) and mbarriers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// makes the barriers' initialisation visible to the async proxy (the
+// TMA unit that completes their transactions); a block barrier after it
+// extends that to the other threads
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also announces `bytes` of TMA transactions to come
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// wait for the phase of parity `parity` to complete.  A copy that never
+// lands traps after ~2^34 cycles (seconds) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1LL << 34)) __trap();
+}
+
+// box (c0, c1) of a 2-D tensor map (c0 the inner, contiguous coordinate)
+// into shared memory at dst; completion counted in bytes on bar.  Elements
+// outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// shared memory at src to box (c0, c1) of a 2-D tensor map; elements
+// outside the tensor are not written.  Tracked by the bulk group.
+__device__ __forceinline__ void tma_store_2d(const void* map, uint32_t src,
+                                             int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until the committed stores have read their shared memory
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// A 2-D bf16 tensor map over `outer` rows of `inner` elements, `row_bytes`
+// apart, copied in boxes of 64 x 64 with the 128-byte swizzle (the layout
+// desc_sw128 and swz128 describe).  The driver's encoder is looked up
+// once through the runtime, so nothing links against libcuda.  False when
+// it is missing or refuses the tensor (base and row_bytes must be
+// 16-byte multiples).
+inline bool tmap_bf16_64x64(CUtensorMap* map, const void* base,
+                            uint64_t inner, uint64_t outer,
+                            uint64_t row_bytes) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+  static const Encode encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn,
+                                         12000, cudaEnableDefault,
+                                         &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<Encode>(fn);
+  }();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {64, 64};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 // ---------------------------------------------------------------------------
 // mma.sync m16n8k16 and ldmatrix (one warp)

@@ -5,7 +5,9 @@ is differentiable in all four operands through :class:`MatmulResidualNorm`.
 On a CUDA tensor its forward launches ``csrc/matmul_residual_norm.cu``
 (the port of the Pallas ``_fwd_kernel``) and its backward
 ``csrc/matmul_residual_norm_bwd.cu`` (``_bwd_kernel`` with the partial
-sums of ``_mrn_bwd``); on a CPU tensor both run their plain versions.
+sums of ``_mrn_bwd``): bf16 on the tensor cores (``wgmma``), f32 on the
+CUDA cores, chosen by dtype alone.  On a CPU tensor both run their plain
+versions.
 Dispatch is the caller's: :func:`out_proj_norm_plan` is the reasoned
 gate, with the JAX package's reasons minus the mesh clause (a kernel
 here runs per rank, so a mesh does not decline it).
@@ -32,10 +34,14 @@ matmul_residual_norm_kernel = _build.Kernel(
 matmul_residual_norm_bwd_kernel = _build.Kernel(
     "matmul_residual_norm_bwd", *[_build.PTR] * 13, *[_build.INT] * 4,
     _build.PTR)
-# the backward kernel's scratch: dscale partials per 64-row block, and
-# dw partials per slice of N (csrc/matmul_residual_norm_bwd.cu)
+# the backward kernel's f32 scratch (csrc/matmul_residual_norm_bwd.cu):
+# dscale partials, one [d] row per block of _BWD_ROWS rows (the da
+# kernel's 64-row blocks), and dw partials, one [K, d] per slice of N;
+# _BWD_SPLITS = 7 slices give the dw kernel 6 x 6 x 7 = 252 blocks of
+# 128 x 128 at K = d = 768, two an SM, all resident on 132 SMs, in 16.5
+# MB (PR 4's 8 slices took 18.9)
 _BWD_ROWS = 64
-_BWD_SPLITS = 8
+_BWD_SPLITS = 7
 
 
 def supports(N: int, K: int, d: int) -> Support:
@@ -71,6 +77,12 @@ def out_proj_norm_plan(N: int, K: int, d: int, *, norm: str = "rmsnorm",
         return unsupported("decode step (S=1): per-token kernel "
                            "launches lose to the plain epilogue")
     return supports(N, K, d)
+
+
+def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """The bf16 kernels copy by TMA and in 16-byte vectors."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: every operand must be 16-byte aligned")
 
 
 def plain_matmul_residual_norm(a, w, resid, scale, *, eps: float = 1e-6
@@ -111,9 +123,7 @@ def matmul_residual_norm_fwd(a, w, resid, scale, *, eps: float = 1e-6
     if d != _KERNEL_WIDTH:
         raise ValueError(f"matmul_residual_norm: the kernel is built for "
                          f"d={_KERNEL_WIDTH}, got d={d}")
-    if w.data_ptr() % 32:
-        raise ValueError("matmul_residual_norm: w must be 32-byte aligned "
-                         "(tensor-core fragments load it in place)")
+    _check_aligned("matmul_residual_norm", a, w, resid, scale)
     r = torch.empty_like(resid)
     y = torch.empty_like(resid)
     rstd = torch.empty((N,), dtype=torch.float32, device=a.device)
@@ -167,10 +177,12 @@ def matmul_residual_norm_bwd(a, w, rout, scale, rstd, drout, dy
     if a.dtype not in _DTYPE_CODES or rstd.dtype != torch.float32:
         raise ValueError("matmul_residual_norm_bwd: the kernel takes float32"
                          " or bfloat16 operands and an f32 rstd")
-    if d != _KERNEL_WIDTH or K % 16 or K > 1536:
+    ok = supports(N, K, d)
+    if not ok or d != _KERNEL_WIDTH:
         raise ValueError(f"matmul_residual_norm_bwd: the kernel is built for "
-                         f"d={_KERNEL_WIDTH} and K % 16 == 0, K <= 1536; got "
+                         f"d={_KERNEL_WIDTH}, K % 128 == 0, K <= 1536; got "
                          f"K={K}, d={d}")
+    _check_aligned("matmul_residual_norm_bwd", a, w, rout, scale, drout, dy)
     dev = a.device
     da = torch.empty_like(a)
     dw = torch.empty_like(w)

@@ -19,10 +19,8 @@ from ray_tpu_torch.ops import fused_norm as TF
 TOL = dict(atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("N", [48, 256])
-def test_matmul_residual_norm_matches_jax(N):
-    K = d = 128
-    rng = np.random.default_rng(N)
+def _check_fwd(N, K, d, seed):
+    rng = np.random.default_rng(seed)
     a = rng.standard_normal((N, K)).astype(np.float32)
     w = (rng.standard_normal((K, d)) * K ** -0.5).astype(np.float32)
     resid = rng.standard_normal((N, d)).astype(np.float32)
@@ -32,9 +30,18 @@ def test_matmul_residual_norm_matches_jax(N):
     _r, _y, rstd_j = JF._run_fwd(*jargs, 1e-6, 256)
     r_t, y_t, rstd_t = TF.matmul_residual_norm_fwd(
         *(torch.from_numpy(x) for x in (a, w, resid, scale)))
+    assert r_t.shape == y_t.shape == (N, d) and rstd_t.shape == (N,)
     np.testing.assert_allclose(r_t.numpy(), np.asarray(r_j), **TOL)
     np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), **TOL)
     np.testing.assert_allclose(rstd_t.numpy(), np.asarray(rstd_j), **TOL)
+
+
+# N = 1, 63 and 65: one row, and one short of and one past the bf16
+# kernel's 64-row block, whose ragged rows the plain version must agree
+# on as the card's kernel is held to it
+@pytest.mark.parametrize("N", [48, 256, 1, 63, 65])
+def test_matmul_residual_norm_matches_jax(N):
+    _check_fwd(N, 128, 128, N)
 
 
 @pytest.mark.parametrize("kw, shape, fragment", [
@@ -73,20 +80,8 @@ def test_matmul_residual_norm_rejects_untileable():
                                 torch.zeros(8, 128), torch.zeros(128))
 
 
-@pytest.mark.parametrize("N", [64, 200])
-def test_matmul_residual_norm_grads_match_jax(N):
-    """Every gradient of the fused epilogue (da, dw, dresid, dscale),
-    with cotangents into both outputs as in the real block, against the
-    JAX custom VJP ``_mrn`` (its Pallas backward in interpret mode, 128-
-    row blocks, so N = 200 pads and sums two row-block partials; mirrors
-    test_ops.py:849).  The port side runs the autograd.Function the card
-    runs, with the plain bodies.
-
-    Tolerance: each gradient within 1e-4 of its largest value (the JAX
-    suite's grad bound); dw and dscale sum N rows, so summation order
-    moves them by ~1e-6 of their scale."""
-    K = d = 128
-    rng = np.random.default_rng(N + 1)
+def _check_grads(N, K, d, seed):
+    rng = np.random.default_rng(seed)
     a = (rng.standard_normal((N, K)) * 0.3).astype(np.float32)
     w = (rng.standard_normal((K, d)) * K ** -0.5).astype(np.float32)
     resid = rng.standard_normal((N, d)).astype(np.float32)
@@ -106,8 +101,37 @@ def test_matmul_residual_norm_grads_match_jax(N):
                                      torch.from_numpy(dy)])
     for name, t, ref in zip("da dw dresid dscale".split(), args, want):
         ref = np.asarray(ref)
+        assert t.grad.shape == ref.shape, (name, t.grad.shape, ref.shape)
         err = np.abs(t.grad.numpy() - ref).max() / np.abs(ref).max()
         assert err < 1e-4, (name, err)
+
+
+@pytest.mark.parametrize("N", [64, 200, 1, 65])
+def test_matmul_residual_norm_grads_match_jax(N):
+    """Every gradient of the fused epilogue (da, dw, dresid, dscale),
+    with cotangents into both outputs as in the real block, against the
+    JAX custom VJP ``_mrn`` (its Pallas backward in interpret mode, 128-
+    row blocks, so N = 200 pads and sums two row-block partials; mirrors
+    test_ops.py:849).  N = 1 and 65 are ragged against the card's 64-row
+    blocks.  The port side runs the autograd.Function the card runs, with
+    the plain bodies.
+
+    Tolerance: each gradient within 1e-4 of its largest value (the JAX
+    suite's grad bound); dw and dscale sum N rows, so summation order
+    moves them by ~1e-6 of their scale."""
+    _check_grads(N, 128, 128, N + 1)
+
+
+@pytest.mark.parametrize("part", ["forward", "grads"])
+def test_matmul_residual_norm_k_ne_d_matches_jax(part):
+    """K = 256 against d = 128: a transposed ``w`` (or da and dw taken
+    against the wrong side of it) fails to line up or disagrees here,
+    where K = d would hide it; the plain versions are what the card's
+    kernels are held to."""
+    if part == "forward":
+        _check_fwd(65, 256, 128, 7)
+    else:
+        _check_grads(65, 256, 128, 8)
 
 
 def test_out_proj_norm_plan_takes_fuse_norm():
