@@ -18,6 +18,11 @@ tensor that is the hand-written kernel, forward and backward.  The
 training loss (:func:`loss_fn`) goes through ``ops.flash_ce``, with the
 final norm fused into its prologue when ``fuse_norm`` allows.
 
+Each gate takes the operands' device: on a CUDA device a shape the JAX
+package's gate declines takes the plain branch, as there, and a shape
+it takes but no kernel of the port is built for raises, naming ROADMAP
+Queue 2 item A or B.
+
 With ``_PALLAS_NORM`` on (``RAY_TPU_PALLAS_NORM=1``, read once at
 import as in the JAX package; default off) every RMSNorm that
 :func:`_norm` runs goes through ``ops.rmsnorm.rmsnorm``, the hand-written
@@ -239,7 +244,8 @@ def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
     Hn, hd = attn.shape[2], attn.shape[3]
     plan = fnorm.out_proj_norm_plan(B * S, Hn * hd, d, norm=cfg.norm,
                                     has_bias=False, seq=S,
-                                    enabled=fuse_norm is not False)
+                                    enabled=fuse_norm is not False,
+                                    device=x.device)
     if plan:
         # out-proj + residual add + pre-FFN norm in one kernel
         r2, y2 = fnorm.matmul_residual_norm(
@@ -324,7 +330,8 @@ def loss_from_hidden(params: Params, x, targets, cfg: GPTConfig, *,
     if norm_scale is not None:
         if flash_ce.uses_flash_ce_norm(
                 B * S, d, cfg.vocab_size, mode=ce_mode or "flash",
-                norm=cfg.norm, has_bias=cfg.use_bias, enabled=True):
+                norm=cfg.norm, has_bias=cfg.use_bias, enabled=True,
+                device=x.device, dtype=x.dtype):
             s, n = flash_ce.flash_ce_norm_sum(
                 x.reshape(B * S, d), lm_head(params, cfg),
                 targets.reshape(B * S), norm_scale, eps=norm_eps(cfg))
@@ -341,14 +348,16 @@ def _chunked_ce(x, head, targets, *, chunk: int = 4096,
     """x [N, d], head [d, V], targets [N] -> (sum_nll, n_valid).
 
     ``mode`` (default ``flash``): ``flash`` takes the streamed kernels
-    for the shapes ``flash_ce.supports``; ``xla`` (or a declined shape)
+    for the shapes ``flash_ce.supports`` on x's device and dtype; ``xla``
+    (or a declined shape)
     the dense formulation, over row chunks of ``chunk`` (``chunk < 0``:
     one chunk, logits kept for the backward; ``chunk >= 0``: each chunk
     recomputed in the backward, as ``jax.checkpoint`` does).  ``fused``
     (``ops/fused_ce.py``, no-remat only) is not ported and raises."""
     N, d = x.shape
     mode = mode or "flash"
-    if mode == "flash" and flash_ce.supports(N, d, head.shape[1]):
+    if mode == "flash" and flash_ce.supports(N, d, head.shape[1],
+                                             device=x.device, dtype=x.dtype):
         return flash_ce.flash_ce_sum(x, head.to(x.dtype), targets)
     remat = chunk >= 0
     if not remat and mode == "fused":
@@ -397,7 +406,8 @@ def loss_fn(params: Params, batch, cfg: GPTConfig, *,
     B, S = batch["tokens"].shape
     ce_norm = flash_ce.uses_flash_ce_norm(
         B * S, cfg.d_model, cfg.vocab_size, mode=ce_mode or "flash",
-        norm=cfg.norm, has_bias=cfg.use_bias, enabled=fuse_norm is not False)
+        norm=cfg.norm, has_bias=cfg.use_bias, enabled=fuse_norm is not False,
+        device=batch["tokens"].device, dtype=cfg.dtype)
     x, aux = forward_hidden(params, batch["tokens"], cfg, attn_fn=attn_fn,
                             fuse_norm=fuse_norm, final_norm=not ce_norm,
                             positions=batch.get("positions"))

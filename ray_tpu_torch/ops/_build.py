@@ -141,6 +141,15 @@ class Kernel:
         self.launches += 1
 
 
+def query(symbol: str, *ints: int) -> int:
+    """A size the library computes for a shape (a workspace's bytes):
+    no launch, so no count."""
+    fn = getattr(load(), symbol)
+    fn.argtypes = [ctypes.c_int] * len(ints)
+    fn.restype = ctypes.c_longlong
+    return int(fn(*ints))
+
+
 def launch_counts() -> Dict[str, int]:
     return {name: k.launches for name, k in _REGISTRY.items()}
 

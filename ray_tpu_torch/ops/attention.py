@@ -21,7 +21,10 @@ model layout ``[B, S, H, D]`` as the JAX package does.
   (``quantized=True``) for int8 codes with ``k_scale``/``v_scale``; on a
   CPU tensor it runs :func:`plain_decode_attention`.
 
-A CUDA tensor launches the kernel or raises; nothing falls back.
+A CUDA tensor launches the kernel or raises; nothing falls back.  The
+kernels are built for the head dims in ``_KERNEL_HEAD_DIMS`` (64, GPT-2's,
+and 16, ``GPTConfig.tiny``'s); :func:`supports` raises for any other on a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -32,13 +35,16 @@ from typing import Optional, Tuple
 import torch
 
 from ray_tpu_torch.ops import _build
-from ray_tpu_torch.ops.substrate import NEG_INF, check_cuda_args, is_cuda
+from ray_tpu_torch.ops.substrate import (NEG_INF, Support, check_cuda_args,
+                                         is_cuda, on_cuda, require_built,
+                                         supported)
 from ray_tpu_torch.parallel.ring_attention import _block_attn
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the head_dim the kernels are built for (GPT-2's); other head dims come
-# with the configurations that need them
-_KERNEL_HEAD_DIMS = (64,)
+# the head dims the kernels are built for (GPT-2's 64 and
+# GPTConfig.tiny's 16), read by supports(), which every wrapper's check
+# calls; other head dims: ROADMAP Queue 2 item B
+_KERNEL_HEAD_DIMS = (16, 64)
 
 flash_attention_kernel = _build.Kernel(
     "flash_attention_fwd", *[_build.PTR] * 7, *[_build.INT] * 4,
@@ -59,13 +65,23 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def supports(D: int, *, device=None) -> Support:
+    """Whether a head dim takes the kernels on ``device``.  On the CPU
+    every head dim takes the plain versions; on a CUDA device the head
+    dims in ``_KERNEL_HEAD_DIMS``, and any other raises: the wrappers'
+    checks call this, so a CUDA tensor launches a kernel or fails."""
+    if not on_cuda(device):
+        return supported("the plain version (not a CUDA device)")
+    require_built("the attention kernels: head_dim", D, _KERNEL_HEAD_DIMS,
+                  "B")
+    return supported("attention kernels")
+
+
 def _check_kernel_dtype(name: str, t: torch.Tensor, D: int) -> None:
     if t.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: the kernel takes float32 or bfloat16, "
                          f"got {t.dtype}")
-    if D not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: the kernel takes head_dim in "
-                         f"{_KERNEL_HEAD_DIMS}, got {D}")
+    supports(D, device="cuda")
 
 
 # ---------------------------------------------------------------------------

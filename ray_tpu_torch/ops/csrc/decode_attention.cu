@@ -4,8 +4,8 @@
 // decode_attention), model-dtype variant; the int8 variant
 // (decode_attention_int8) is the second kernel below.
 //
-// Computes, for q [B, H, D], k, v [B, S, H, D] (bf16 or f32; D = 64,
-// GPT-2's head_dim, is the one instantiation) and lengths [B] int32:
+// Computes, for q [B, H, D], k, v [B, S, H, D] (bf16 or f32; D is 64,
+// GPT-2's head_dim, or 16, GPTConfig.tiny's) and lengths [B] int32:
 //   o[b, h] = softmax(q[b,h] . k[b, :len, h] * scale) v[b, :len, h]
 // with len = lengths[b] clamped to [0, S], scores and statistics in
 // f32, p rounded to the value dtype before P.V, and l clamped at 1e-30
@@ -41,7 +41,7 @@ __global__ void __launch_bounds__(THREADS)
     decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const int* __restrict__ lengths,
                   T* __restrict__ o, int S, int H, float scale) {
-  constexpr int DL = D / 32;             // output dims per lane
+  constexpr int DL = (D + 31) / 32;      // output dims per lane, at most
   constexpr int VN = rtt::Vec16<T>::N;   // elements per 16-byte load
   __shared__ float qs[D];
   __shared__ float wm[WARPS];
@@ -95,7 +95,9 @@ __global__ void __launch_bounds__(THREADS)
       const float pi = __shfl_sync(0xffffffffu, pr, i);
       const T* vr = v + base + (c0 + i) * rs;
 #pragma unroll
-      for (int j = 0; j < DL; ++j) acc[j] += pi * rtt::to_f32(vr[lane + 32 * j]);
+      for (int j = 0; j < DL; ++j)
+        if (D % 32 == 0 || lane + 32 * j < D)
+          acc[j] += pi * rtt::to_f32(vr[lane + 32 * j]);
     }
   }
 
@@ -104,7 +106,8 @@ __global__ void __launch_bounds__(THREADS)
     wl[warp] = l;
   }
 #pragma unroll
-  for (int j = 0; j < DL; ++j) wacc[warp][lane + 32 * j] = acc[j];
+  for (int j = 0; j < DL; ++j)
+    if (D % 32 == 0 || lane + 32 * j < D) wacc[warp][lane + 32 * j] = acc[j];
   __syncthreads();
   if (tid < D) {
     float M = rtt::kNegInf;
@@ -149,10 +152,11 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
 // bf16.  Same structure as decode_kernel: one block per (head, row),
 // eight warps striding 32-position strips below lengths[b] only, so the
 // garbage page's codes and scales (NaN included) are never read.  A lane
-// scores its position from four 16-byte loads of the 64-code K row and
+// scores its position from D / 16 16-byte loads of the D-code K row and
 // one scale; for P.V each lane reads two neighbouring codes of the V row
-// (one 2-byte load, output dims 2*lane and 2*lane + 1), and p * vs of the
-// position comes by shuffle from the lane that scored it.
+// (one 2-byte load, output dims 2*lane and 2*lane + 1; at D = 16 lanes
+// 0-7 only), and p * vs of the position comes by shuffle from the lane
+// that scored it.
 //
 // int8 -> f32 without the conversion unit (I2F runs at a quarter of the
 // FMA rate): byte i of w, offset to unsigned by flipping its sign bit, is
@@ -177,7 +181,8 @@ __global__ void __launch_bounds__(THREADS)
                        const float* __restrict__ vs,
                        const int* __restrict__ lengths, T* __restrict__ o,
                        int S, int H, float scale) {
-  static_assert(D == 64, "two V codes per lane: D must be 64");
+  static_assert(D % 16 == 0 && D <= 64, "two V codes a lane, 16 a load");
+  constexpr bool ALL = D == 64;  // every lane holds two output dims
   __shared__ float qs[D];
   __shared__ float wm[WARPS];
   __shared__ float wl[WARPS];
@@ -228,6 +233,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll 4
     for (int i = 0; i < n; ++i) {
       const float pi = __shfl_sync(0xffffffffu, pv, i);
+      if (!ALL && 2 * lane >= D) continue;
       const unsigned c = *reinterpret_cast<const unsigned short*>(
           v + base + (c0 + i) * rs + 2 * lane);
       acc0 += pi * i8_to_f32(c, 0);
@@ -239,8 +245,10 @@ __global__ void __launch_bounds__(THREADS)
     wm[warp] = m;
     wl[warp] = l;
   }
-  wacc[warp][2 * lane] = acc0;
-  wacc[warp][2 * lane + 1] = acc1;
+  if (ALL || 2 * lane < D) {
+    wacc[warp][2 * lane] = acc0;
+    wacc[warp][2 * lane + 1] = acc1;
+  }
   __syncthreads();
   if (tid < D) {
     float M = rtt::kNegInf;
@@ -277,12 +285,16 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 int H, int D, float scale, int dtype,
                                 void* stream) {
   if (B <= 0 || H <= 0) return 0;
-  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rtt::kBF16)
-    return launch<__nv_bfloat16, 64>(q, k, v, lengths, o, B, S, H, scale, st);
-  if (dtype == rtt::kF32)
+  using bf16 = __nv_bfloat16;
+  if (dtype == rtt::kBF16 && D == 64)
+    return launch<bf16, 64>(q, k, v, lengths, o, B, S, H, scale, st);
+  if (dtype == rtt::kBF16 && D == 16)
+    return launch<bf16, 16>(q, k, v, lengths, o, B, S, H, scale, st);
+  if (dtype == rtt::kF32 && D == 64)
     return launch<float, 64>(q, k, v, lengths, o, B, S, H, scale, st);
+  if (dtype == rtt::kF32 && D == 16)
+    return launch<float, 16>(q, k, v, lengths, o, B, S, H, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -294,13 +306,19 @@ extern "C" int decode_attention_int8(const void* q, const void* k,
                                      void* o, int B, int S, int H, int D,
                                      float scale, int dtype, void* stream) {
   if (B <= 0 || H <= 0) return 0;
-  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rtt::kBF16)
-    return launch_int8<__nv_bfloat16, 64>(q, k, v, k_scale, v_scale, lengths,
-                                          o, B, S, H, scale, st);
-  if (dtype == rtt::kF32)
+  using bf16 = __nv_bfloat16;
+  if (dtype == rtt::kBF16 && D == 64)
+    return launch_int8<bf16, 64>(q, k, v, k_scale, v_scale, lengths, o, B, S,
+                                 H, scale, st);
+  if (dtype == rtt::kBF16 && D == 16)
+    return launch_int8<bf16, 16>(q, k, v, k_scale, v_scale, lengths, o, B, S,
+                                 H, scale, st);
+  if (dtype == rtt::kF32 && D == 64)
     return launch_int8<float, 64>(q, k, v, k_scale, v_scale, lengths, o, B,
+                                  S, H, scale, st);
+  if (dtype == rtt::kF32 && D == 16)
+    return launch_int8<float, 16>(q, k, v, k_scale, v_scale, lengths, o, B,
                                   S, H, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,7 +3,8 @@
 // Replaces: ray_tpu/ops/attention.py:_bwd (bodies _bwd_fused_kernel,
 // _bwd_dq_kernel, _bwd_dkv_kernel) and its lane-packed twin _bwd_pack2
 // (body _bwd_pack2_kernel).  Pack2 is a TPU lane layout with no Hopper
-// meaning, so one entry point serves both.  Instantiated for head_dim 64.
+// meaning, so one entry point serves both.  Instantiated for head_dim 64
+// (GPT-2's) and 16 (GPTConfig.tiny's).
 //
 // Computes, for q, k, v, o, do [B, S, H, D] (model layout, bf16 or f32) and
 // the forward's lse [B, H, S] (f32), with the reference's rounding points
@@ -34,12 +35,14 @@
 // forward's flops over ~8 S*H*D-sized tensors, bound by the bf16 tensor
 // cores.
 //
-// Two instantiations, chosen by dtype alone:
-// - bf16: flash_dq_tc_kernel / flash_dkv_tc_kernel on the tensor cores
-//   (mma.sync m16n8k16, below).
-// - f32: flash_dq_kernel / flash_dkv_kernel, CUDA-core FMAs in full f32
-//   (each thread a 4x4 micro-tile of the score tile and 4 x D/16 of its
-//   gradients), held to the plain version at summation-order bounds.
+// Two designs, chosen by dtype and head dim:
+// - bf16 at head_dim 64: flash_dq_tc_kernel / flash_dkv_tc_kernel on the
+//   tensor cores (mma.sync m16n8k16, below).
+// - f32, and bf16 at head_dim 16: flash_dq_kernel / flash_dkv_kernel,
+//   CUDA-core FMAs in f32 with the storage dtype's rounding points (each
+//   thread a 4x4 micro-tile of the score tile and 4 x D/16 of its
+//   gradients); in f32 held to the plain version at summation-order
+//   bounds.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -56,30 +59,47 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (4 * 64 * (D + 1) + 2 * 64 * (BK + 1) + 2 * 64);
 }
 
-// delta[b, h, s] = sum_d do * o: one warp per (b, s, h) row
+// delta[b, h, s] = sum_d do * o: one thread per (b, s, h) row, summed
+// over d in dot_tile's order, so that a row whose o is its one key's v
+// (the first row) has dp - delta = 0 exactly and a dq of exactly 0
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
     flash_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                        float* __restrict__ delta, long rows, int S, int H) {
-  const long row = static_cast<long>(blockIdx.x) * (THREADS / 32) +
-                   (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
+  const long row = static_cast<long>(blockIdx.x) * THREADS + threadIdx.x;
   if (row >= rows) return;
   float acc = 0.f;
-  for (int c = lane; c < D; c += 32)
+#pragma unroll 8
+  for (int c = 0; c < D; ++c)
     acc += rtt::to_f32(dout[row * D + c]) * rtt::to_f32(o[row * D + c]);
-  acc = rtt::warp_sum(acc);
-  if (lane == 0) {
-    const long h = row % H, s = (row / H) % S, b = row / (static_cast<long>(H) * S);
-    delta[(b * H + h) * S + s] = acc;
+  const long h = row % H, s = (row / H) % S, b = row / (static_cast<long>(H) * S);
+  delta[(b * H + h) * S + s] = acc;
+}
+
+// the partner sums of one thread's 4 x D/16 f32 sums under the D/2 roll:
+// column c + D/2 of a row is the same thread's j + D/32 when a thread
+// holds two or more columns (D >= 32), and at D = 16 the one column of
+// the thread tx ^ 8, lane ^ 8 of the same warp.  Called by every thread
+// of the block (the shuffle), before any row is dropped.
+template <int D>
+__device__ __forceinline__ void partner_sums(const float (&g)[D / 16],
+                                             float (&gp)[D / 16]) {
+  constexpr int DJ = D / 16;
+#pragma unroll
+  for (int j = 0; j < DJ; ++j) {
+    if constexpr (DJ >= 2)
+      gp[j] = g[(j + DJ / 2) % DJ];
+    else
+      gp[j] = __shfl_xor_sync(0xffffffffu, g[j], 8);
   }
 }
 
-// the transposed rotation of one thread's 4 x D/16 f32 sums for a row at
-// position pos (columns tx + 16 j; the partner column c + D/2 is the same
-// thread's j + D/32), then the store in the storage type
+// the transposed rotation of one thread's 4 x D/16 f32 sums g for a row
+// at position pos (columns tx + 16 j; gp their partner_sums), then the
+// store in the storage type
 template <typename T, int D, bool ROPE>
 __device__ __forceinline__ void store_row(T* out, const float (&g)[D / 16],
+                                          const float (&gp)[D / 16],
                                           const T* cos2, const T* sinm,
                                           int pos, int tx) {
   constexpr int DJ = D / 16;
@@ -90,7 +110,7 @@ __device__ __forceinline__ void store_row(T* out, const float (&g)[D / 16],
     if constexpr (ROPE) {
       const long t = static_cast<long>(pos) * D + c;
       val = __fsub_rn(__fmul_rn(g[j], rtt::to_f32(cos2[t])),
-                      __fmul_rn(g[(j + DJ / 2) % DJ], rtt::to_f32(sinm[t])));
+                      __fmul_rn(gp[j], rtt::to_f32(sinm[t])));
     }
     out[c] = rtt::from_f32<T>(val);
   }
@@ -214,8 +234,11 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + 4 * ty + i;
+    float gp[DJ];
+    partner_sums<D>(acc[i], gp);
     if (qi < S)
-      store_row<T, D, ROPE>(dq + base + qi * rs, acc[i], cos2, sinm, qi, tx);
+      store_row<T, D, ROPE>(dq + base + qi * rs, acc[i], gp, cos2, sinm, qi,
+                            tx);
   }
 }
 
@@ -310,9 +333,13 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kr = k0 + 4 * ty + i;
+    float gp[DJ];
+    partner_sums<D>(adk[i], gp);
     if (kr < S) {
-      store_row<T, D, ROPE>(dk + base + kr * rs, adk[i], cos2, sinm, kr, tx);
-      store_row<T, D, false>(dv + base + kr * rs, adv[i], cos2, sinm, kr, tx);
+      store_row<T, D, ROPE>(dk + base + kr * rs, adk[i], gp, cos2, sinm, kr,
+                            tx);
+      store_row<T, D, false>(dv + base + kr * rs, adv[i], adv[i], cos2, sinm,
+                             kr, tx);
     }
   }
 }
@@ -341,9 +368,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   float* dlp = static_cast<float*>(delta);
 
   const long rows = static_cast<long>(B) * S * H;
-  const int per_block = THREADS / 32;
   flash_delta_kernel<T, D>
-      <<<static_cast<int>((rows + per_block - 1) / per_block), THREADS, 0,
+      <<<static_cast<int>((rows + THREADS - 1) / THREADS), THREADS, 0,
          stream>>>(static_cast<const T*>(o), dop, dlp, rows, S, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -358,15 +384,17 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_f32(const void* q, const void* k, const void* v, const void* o,
-                 const void* dout, const void* lse, const void* cos2,
-                 const void* sinm, void* dq, void* dk, void* dv, void* delta,
-                 int B, int S, int H, float scale, cudaStream_t st) {
+template <typename T, int D>
+int dispatch_cuda_cores(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const void* lse,
+                        const void* cos2, const void* sinm, void* dq,
+                        void* dk, void* dv, void* delta, int B, int S, int H,
+                        float scale, cudaStream_t st) {
   if (cos2 != nullptr)
-    return launch<float, 64, true>(q, k, v, o, dout, lse, cos2, sinm, dq, dk,
-                                   dv, delta, B, S, H, scale, st);
-  return launch<float, 64, false>(q, k, v, o, dout, lse, cos2, sinm, dq, dk,
-                                  dv, delta, B, S, H, scale, st);
+    return launch<T, D, true>(q, k, v, o, dout, lse, cos2, sinm, dq, dk, dv,
+                              delta, B, S, H, scale, st);
+  return launch<T, D, false>(q, k, v, o, dout, lse, cos2, sinm, dq, dk, dv,
+                             delta, B, S, H, scale, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -848,8 +876,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 // dq, dk, dv [B, S, H, D] in the storage dtype; delta is f32 scratch of
 // B * H * S.  cos2 and sinm [S, D] select the in-kernel RoPE (null: none).
-// bf16 runs on the tensor cores, f32 on the CUDA cores; there is no other
-// switch.  The bf16 kernels read 16-byte vectors: q, k, v, dout, cos2 and
+// D is 64 or 16.  bf16 at D = 64 runs on the tensor cores, the rest on
+// the CUDA cores; there is no other switch.  The bf16 kernels read 16-byte vectors: q, k, v, dout, cos2 and
 // sinm 16-byte aligned.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
@@ -859,17 +887,25 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int B, int S, int H, int D, float scale,
                                    int dtype, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
-  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rtt::kBF16) {
+  if (dtype == rtt::kBF16 && D == 64) {
     if (cos2 != nullptr)
       return tc_bwd::launch<true>(q, k, v, o, dout, lse, cos2, sinm, dq, dk,
                                   dv, delta, B, S, H, scale, st);
     return tc_bwd::launch<false>(q, k, v, o, dout, lse, cos2, sinm, dq, dk,
                                  dv, delta, B, S, H, scale, st);
   }
-  if (dtype == rtt::kF32)
-    return dispatch_f32(q, k, v, o, dout, lse, cos2, sinm, dq, dk, dv, delta,
-                        B, S, H, scale, st);
+  if (dtype == rtt::kBF16 && D == 16)
+    return dispatch_cuda_cores<__nv_bfloat16, 16>(
+        q, k, v, o, dout, lse, cos2, sinm, dq, dk, dv, delta, B, S, H, scale,
+        st);
+  if (dtype == rtt::kF32 && D == 64)
+    return dispatch_cuda_cores<float, 64>(q, k, v, o, dout, lse, cos2, sinm,
+                                          dq, dk, dv, delta, B, S, H, scale,
+                                          st);
+  if (dtype == rtt::kF32 && D == 16)
+    return dispatch_cuda_cores<float, 16>(q, k, v, o, dout, lse, cos2, sinm,
+                                          dq, dk, dv, delta, B, S, H, scale,
+                                          st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,7 +5,8 @@
 // pack2 layout exists to fill the TPU's 128-lane matrix unit at
 // head_dim 64; Hopper has no such lane constraint, so one entry point
 // serves both, at every head count.  It is instantiated for head_dim 64
-// (GPT-2's) only; other head dims come with their configurations.
+// (GPT-2's) and 16 (GPTConfig.tiny's); other head dims come with their
+// configurations.
 //
 // Computes, for q, k, v [B, S, H, D] (the model layout, bf16 or f32):
 //   o   [B, S, H, D] = softmax(q k^T * scale, causal) v   (storage dtype)
@@ -22,9 +23,13 @@
 // ~4 S H D * 2 bytes, about S/4 flops per byte, so above S ~ 1200 it is
 // bound by the bf16 tensor cores and below that by memory.
 //
-// Two instantiations, chosen by dtype alone:
-// - bf16: flash_fwd_tc_kernel, on the tensor cores (below).
-// - f32: flash_fwd_kernel, CUDA-core FMAs in full f32, so that it is
+// Two designs, chosen by dtype and head dim:
+// - bf16 at head_dim 64: flash_fwd_tc_kernel, on the tensor cores
+//   (below).
+// - f32, and bf16 at head_dim 16 (a tiny model's, where a 16-wide
+//   product would leave a wgmma tile mostly empty): flash_fwd_kernel,
+//   CUDA-core FMAs in f32 with the storage dtype's rounding points.  In
+//   f32 it is
 //   held to the plain version at summation-order bounds (TF32 tensor
 //   cores would not be).  One block per (64-row q tile, head, batch)
 //   walks the k tiles up to the diagonal; each thread owns a 4x4
@@ -205,14 +210,16 @@ int launch(const void* q, const void* k, const void* v, const void* cos2,
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_f32(const void* q, const void* k, const void* v,
-                 const void* cos2, const void* sinm, void* o, void* lse,
-                 int B, int S, int H, float scale, cudaStream_t st) {
+template <typename T, int D>
+int dispatch_cuda_cores(const void* q, const void* k, const void* v,
+                        const void* cos2, const void* sinm, void* o,
+                        void* lse, int B, int S, int H, float scale,
+                        cudaStream_t st) {
   if (cos2 != nullptr)
-    return launch<float, 64, true>(q, k, v, cos2, sinm, o, lse, B, S, H,
-                                   scale, st);
-  return launch<float, 64, false>(q, k, v, cos2, sinm, o, lse, B, S, H,
-                                  scale, st);
+    return launch<T, D, true>(q, k, v, cos2, sinm, o, lse, B, S, H, scale,
+                              st);
+  return launch<T, D, false>(q, k, v, cos2, sinm, o, lse, B, S, H, scale,
+                             st);
 }
 
 // ---------------------------------------------------------------------------
@@ -554,8 +561,9 @@ int launch(const void* q, const void* k, const void* v, const void* cos2,
 }  // namespace
 
 // cos2 and sinm [S, D] (storage dtype) select the in-kernel RoPE; pass
-// null for both to take q and k as they are.  bf16 runs on the tensor
-// cores, f32 on the CUDA cores; there is no other switch.  The bf16
+// null for both to take q and k as they are.  D is 64 or 16.  bf16 at
+// D = 64 runs on the tensor cores, the rest on the CUDA cores; there is
+// no other switch.  The bf16
 // kernel reads 16-byte vectors: q, k, v, cos2 and sinm 16-byte aligned.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const void* cos2,
@@ -563,16 +571,22 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int B, int S, int H, int D, float scale,
                                    int dtype, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
-  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rtt::kBF16) {
+  if (dtype == rtt::kBF16 && D == 64) {
     if (cos2 != nullptr)
       return tc_fwd::launch<true>(q, k, v, cos2, sinm, o, lse, B, S, H,
                                   scale, st);
     return tc_fwd::launch<false>(q, k, v, cos2, sinm, o, lse, B, S, H, scale,
                                  st);
   }
-  if (dtype == rtt::kF32)
-    return dispatch_f32(q, k, v, cos2, sinm, o, lse, B, S, H, scale, st);
+  if (dtype == rtt::kBF16 && D == 16)
+    return dispatch_cuda_cores<__nv_bfloat16, 16>(q, k, v, cos2, sinm, o,
+                                                  lse, B, S, H, scale, st);
+  if (dtype == rtt::kF32 && D == 64)
+    return dispatch_cuda_cores<float, 64>(q, k, v, cos2, sinm, o, lse, B, S,
+                                          H, scale, st);
+  if (dtype == rtt::kF32 && D == 16)
+    return dispatch_cuda_cores<float, 16>(q, k, v, cos2, sinm, o, lse, B, S,
+                                          H, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

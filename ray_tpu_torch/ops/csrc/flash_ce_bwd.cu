@@ -6,7 +6,7 @@
 // Computes, for the forward's inputs and its saved lse [N] (and rstd [N]
 // with the prologue), with srow [N] = d(sum_nll) where the target is live
 // and 0 where it is masked:
-//   s     = y @ w^T                         (recomputed per tile, f32 acc)
+//   s     = y @ w^T                         (recomputed, f32 acc)
 //   dl    = ((exp(s - lse) - onehot(target)) * srow), rounded to the
 //           storage dtype (flash_ce.py:329); padded vocab columns give 0
 //   dy    = dl @ w                         (f32 accumulation)
@@ -16,31 +16,38 @@
 //   dx = rstd * (dxhat - xhat * mean(dxhat * xhat)),
 // and dscale = sum over rows of dy * xhat.
 //
-// Cross-block reductions, all deterministic (no atomics):
-// - dx needs a sum over the vocab, dw a sum over the rows.  On the TPU one
-//   sequential grid carried dx in VMEM and emitted dw as per-row-block
-//   partials ([N/1024, d, V], summed by XLA).  Hopper blocks run in no
-//   order, so the work splits in two kernels, each owning its output:
-//   ce_dx_kernel owns BM rows and sweeps the vocab, accumulating their dx;
-//   ce_dw_kernel owns BV vocab rows and sweeps the rows, accumulating
-//   their dw.  Each recomputes the logits tile, which
-//   costs one extra N*d*V product (5 in all, against the reference's 4),
-//   and buys a dw with no partials in device memory and no atomics.
-// - dscale: ce_dx_kernel writes one [d] partial per row block; a column
-//   sum adds them in block order.
+// What bounds it on an H100: three products of 2*N*d*V flops each (5.7
+// TFLOP at the main-path shape, ~5.8 ms at 989 TFLOP/s).
 //
-// What bounds it on an H100: the four products of 2*N*d*V flops each
-// (7.6 TFLOP at the main-path shape, ~7.7 ms at 989 TFLOP/s); the recompute
-// of s is the fifth.  The tiles run on bf16 WMMA fragments with f32
-// accumulation.  Each block is 16 warps: the score tile (few output
-// tiles, K = d = 768) is split along K over all of them
-// (rtt::block_mma_ksplit, the parts added where dl is formed), and the
-// [32, d] accumulator of dx or dw stays in each warp's register
-// fragments for the whole sweep (6 tiles per warp) instead of making a
-// round trip through shared memory per step.  f32 operands take
-// CUDA-core FMAs with the accumulator in shared memory.
-#include <type_traits>
+// Two instantiations, chosen by dtype alone:
+// - bf16 (flash_ce_tc.cuh): the three products as wgmma GEMMs fed by
+//   TMA, over row chunks of at most CHUNK_BYTES of dl (2 chunks of 12288
+//   rows at the main shape, 1.24 GB of dl each; the reference's own
+//   transient there is its [N/1024, d, V] bf16 dhead partials, 1.85 GB).
+//   Per chunk: S = y w^T recomputed, its epilogue forming dl in bf16
+//   into device memory ([rows, Vp], Vp = V rounded up to the 128-column
+//   tile, the padding written as zeros); dy = dl w over the vocab, each
+//   128 x 128 tile of dy owned by one block; dw = dl^T y over the
+//   chunk's rows, each tile of dw owned by one block, added to the
+//   earlier chunks' f32 sum in chunk order and rounded to bf16 once at
+//   the last (the running f32 sum split in two 16-bit halves, the high
+//   ones in dw itself, so it costs 77 MB and not 155).  With the
+//   prologue a row pass writes the chunk's y (bf16) first, the dy product
+//   writes f32, and a second row pass takes the norm backward with one
+//   dscale partial per 64 rows, summed in a fixed order at the end.  No
+//   atomics anywhere: two calls on the same inputs give the same bits.
+//   d is a runtime multiple of 128 (the dy and dw column tiles) up to
+//   1280 (the row passes hold a row in registers).
+// - f32: the first port's kernels on the CUDA cores, d = 768, so that it
+//   is held to the plain version at summation-order bounds.  ce_dx_kernel
+//   owns BM rows and sweeps the vocab, ce_dw_kernel owns BV vocab rows
+//   and sweeps the rows, each recomputing the logits tile (its K split
+//   over the warps, rtt::block_mma_ksplit) with the accumulator in shared
+//   memory; ce_dx_kernel writes one [d] dscale partial per row block and
+//   a column sum adds them in block order.
+#include <algorithm>
 
+#include "flash_ce_tc.cuh"
 #include "tile_mma.cuh"
 
 namespace {
@@ -50,17 +57,11 @@ constexpr int WARPS = THREADS / 32;
 constexpr int WIDTH = 768;  // d, the one model width
 constexpr int PARTS = 4;    // K slices of the score tile
 
-// BM rows x BV vocab columns per logits tile, for each kernel and type
+// BM rows x BV vocab columns per logits tile, for each kernel
 template <typename T> struct Tiles;
-template <> struct Tiles<__nv_bfloat16> {
-  static constexpr int DX_BM = 32, DX_BV = 32, DW_BV = 32, DW_BM = 32;
-};
 template <> struct Tiles<float> {
   static constexpr int DX_BM = 16, DX_BV = 32, DW_BV = 16, DW_BM = 16;
 };
-
-template <typename T>
-constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 
 // shared-memory layout of one kernel: rows x d of y, vocab x d of w,
 // the f32 score parts, dl in the storage type, the f32 accumulator, and
@@ -140,58 +141,6 @@ __device__ __forceinline__ void form_dl(T* dl, const Layout<T>& L,
   }
 }
 
-// The [M = 32, WIDTH] accumulator of a bf16 kernel as register fragments:
-// warp w owns the 16x16 tiles w, w + WARPS, ... (6 of them).
-constexpr int ACC_TILES = 2 * (WIDTH / 16) / WARPS;
-
-struct FragAcc {
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>
-      f[ACC_TILES];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < ACC_TILES; ++i) nvcuda::wmma::fill_fragment(f[i], 0.f);
-  }
-
-  __device__ __forceinline__ static int m0(int i) {
-    return ((threadIdx.x / 32 + WARPS * i) / (WIDTH / 16)) * 16;
-  }
-  __device__ __forceinline__ static int n0(int i) {
-    return ((threadIdx.x / 32 + WARPS * i) % (WIDTH / 16)) * 16;
-  }
-
-  // += A [32][K] B [K][WIDTH], B row-major; A row-major or (A_COL) the
-  // transpose of a row-major [K][32]
-  template <bool A_COL>
-  __device__ __forceinline__ void mma(const __nv_bfloat16* A, int lda,
-                                      const __nv_bfloat16* B, int ldb,
-                                      int K) {
-    using namespace nvcuda;
-    using LA = typename std::conditional<A_COL, wmma::col_major,
-                                         wmma::row_major>::type;
-    for (int k0 = 0; k0 < K; k0 += 16) {
-#pragma unroll
-      for (int i = 0; i < ACC_TILES; ++i) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            fb;
-        wmma::load_matrix_sync(
-            fa, A_COL ? A + k0 * lda + m0(i) : A + m0(i) * lda + k0, lda);
-        wmma::load_matrix_sync(fb, B + k0 * ldb + n0(i), ldb);
-        wmma::mma_sync(f[i], fa, fb, f[i]);
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(float* C, int ldc) {
-#pragma unroll
-    for (int i = 0; i < ACC_TILES; ++i)
-      nvcuda::wmma::store_matrix_sync(C + m0(i) * ldc + n0(i), f[i], ldc,
-                                      nvcuda::wmma::mem_row_major);
-  }
-};
-
 template <typename T, bool NORM>
 __global__ void __launch_bounds__(THREADS)
     ce_dx_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -215,11 +164,7 @@ __global__ void __launch_bounds__(THREADS)
   const int r0 = blockIdx.x * BM;
   load_rows<T, NORM>(ys, L.ld, lse_s, srow_s, tgt_s, x, lse, srow, tgt, scale,
                      rstd, r0, BM, N);
-  FragAcc frag;
-  if constexpr (kTensorCores<T>)
-    frag.zero();
-  else
-    for (int i = threadIdx.x; i < BM * L.lda; i += blockDim.x) acc[i] = 0.f;
+  for (int i = threadIdx.x; i < BM * L.lda; i += blockDim.x) acc[i] = 0.f;
 
   for (int v0 = 0; v0 < V; v0 += BV) {
     __syncthreads();  // rows loaded; the last tile's readers of hs, dl done
@@ -230,13 +175,9 @@ __global__ void __launch_bounds__(THREADS)
     form_dl(dl, L, S, lse_s, srow_s, tgt_s, BM, BV, v0, V);
     __syncthreads();
     // dy[BM][d] += dl[BM][BV] @ w_tile[BV][d]
-    if constexpr (kTensorCores<T>)
-      frag.mma<false>(dl, L.ldl, hs, L.ld, BV);
-    else
-      rtt::block_mma<false, false>(acc, L.lda, dl, L.ldl, hs, L.ld, BM, d, BV,
-                                   true);
+    rtt::block_mma<false, false>(acc, L.lda, dl, L.ldl, hs, L.ld, BM, d, BV,
+                                 true);
   }
-  if constexpr (kTensorCores<T>) frag.store(acc, L.lda);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -298,11 +239,7 @@ __global__ void __launch_bounds__(THREADS)
 
   const int v0 = blockIdx.x * BV;
   rtt::copy_rows(hs, L.ld, w, v0, BV, V, d);
-  FragAcc frag;
-  if constexpr (kTensorCores<T>)
-    frag.zero();
-  else
-    for (int i = threadIdx.x; i < BV * L.lda; i += blockDim.x) acc[i] = 0.f;
+  for (int i = threadIdx.x; i < BV * L.lda; i += blockDim.x) acc[i] = 0.f;
 
   for (int r0 = 0; r0 < N; r0 += BM) {
     __syncthreads();  // hs loaded; the last step's readers of ys, dl done
@@ -314,13 +251,9 @@ __global__ void __launch_bounds__(THREADS)
     form_dl(dl, L, S, lse_s, srow_s, tgt_s, BM, BV, v0, V);
     __syncthreads();
     // dw_tile[BV][d] += dl^T[BV][BM] @ y[BM][d]
-    if constexpr (kTensorCores<T>)
-      frag.mma<true>(dl, L.ldl, ys, L.ld, BM);
-    else
-      rtt::block_mma<true, false>(acc, L.lda, dl, L.ldl, ys, L.ld, BV, d, BM,
-                                  true);
+    rtt::block_mma<true, false>(acc, L.lda, dl, L.ldl, ys, L.ld, BV, d, BM,
+                                true);
   }
-  if constexpr (kTensorCores<T>) frag.store(acc, L.lda);
   __syncthreads();
   for (int i = threadIdx.x; i < BV * d; i += blockDim.x) {
     const int r = i / d, c = i % d;
@@ -330,11 +263,12 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T, bool NORM>
-int launch(const void* x, const void* w, const void* tgt, const void* lse,
-           const void* srow, const void* scale, const void* rstd, void* dx,
-           void* dw, void* dsp, void* dscale, int N, int d, int V,
-           cudaStream_t stream) {
+template <bool NORM>
+int launch_f32(const void* x, const void* w, const void* tgt,
+               const void* lse, const void* srow, const void* scale,
+               const void* rstd, void* dx, void* dw, void* dsp, void* dscale,
+               int N, int d, int V, cudaStream_t stream) {
+  using T = float;
   using TT = Tiles<T>;
   const size_t smem_dx = Layout<T>(TT::DX_BM, TT::DX_BV, TT::DX_BM).total;
   const size_t smem_dw = Layout<T>(TT::DW_BM, TT::DW_BV, TT::DW_BV).total;
@@ -372,36 +306,315 @@ int launch(const void* x, const void* w, const void* tgt, const void* lse,
   return 0;
 }
 
-template <typename T>
-int dispatch(const void* x, const void* w, const void* tgt, const void* lse,
-             const void* srow, const void* scale, const void* rstd, void* dx,
-             void* dw, void* dsp, void* dscale, int N, int d, int V, int norm,
-             cudaStream_t st) {
-  if (norm)
-    return launch<T, true>(x, w, tgt, lse, srow, scale, rstd, dx, dw, dsp,
-                           dscale, N, d, V, st);
-  return launch<T, false>(x, w, tgt, lse, srow, scale, rstd, dx, dw, dsp,
-                          dscale, N, d, V, st);
+// the f32 kernels' dscale scratch: one [d] partial per dx row block
+size_t f32_workspace(int N, int d, int norm) {
+  return norm ? static_cast<size_t>(N + Tiles<float>::DX_BM - 1) /
+                    Tiles<float>::DX_BM * d * 4
+              : 0;
 }
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma GEMMs over row chunks, and the row passes of the prologue
+// ---------------------------------------------------------------------------
+
+namespace tc_bwd {
+
+using namespace tc_ce;
+
+// the most bytes of dl one chunk holds (the reference's dhead partials
+// at the main shape take 1.85 GB)
+constexpr size_t CHUNK_BYTES = 1850000000;
+constexpr int DS_ROWS = 64;  // rows per dscale partial
+
+// rows per chunk and the number of chunks: as few chunks as the budget
+// allows, of equal whole row tiles
+struct Chunks {
+  int rows, count;
+  long vp;  // padded vocab width of dl
+  Chunks(int N, int V) {
+    vp = static_cast<long>((V + BN - 1) / BN) * BN;
+    const long most =
+        std::max<long>(BM, static_cast<long>(CHUNK_BYTES / (2 * vp)) / BM * BM);
+    count = static_cast<int>((N + most - 1) / most);
+    rows = static_cast<int>(((N + count - 1) / count + BM - 1) / BM * BM);
+    count = (N + rows - 1) / rows;
+  }
+};
+
+inline size_t up256(size_t b) { return (b + 255) / 256 * 256; }
+
+// the workspace, in order: a chunk's y [rows, d] bf16 and dy [rows, d]
+// f32 (prologue), dl [rows, Vp] bf16, the low halves [V, d] of the f32 dw
+// sum whose high halves live in dw itself (more than one chunk), the
+// dscale partials [N / 64, d] f32 (prologue)
+struct Workspace {
+  size_t y, dy, dl, lo, dsp, total;
+  Workspace(int N, int d, int V, int norm) {
+    const Chunks c(N, V);
+    const size_t rd = static_cast<size_t>(c.rows) * d;
+    y = 0;
+    dy = y + (norm ? up256(rd * 2) : 0);
+    dl = dy + (norm ? up256(rd * 4) : 0);
+    lo = dl + up256(static_cast<size_t>(c.rows) * c.vp * 2);
+    dsp = lo + (c.count > 1 ? up256(static_cast<size_t>(V) * d * 2) : 0);
+    total = dsp + (norm ? up256(static_cast<size_t>((N + DS_ROWS - 1) /
+                                                    DS_ROWS) * d * 4)
+                        : 0);
+  }
+};
+
+// The norm backward as a row pass: dx = rstd (dxhat - xhat mean(dxhat
+// xhat)) from the f32 dy, one warp a row, NCH 16-byte chunks a lane; a
+// block of 8 warps takes DS_ROWS rows and writes their dscale partial,
+// the warps' sums added in warp order.
+template <int NCH>
+__global__ void __launch_bounds__(256)
+    ce_norm_bwd_kernel(const bf16* __restrict__ x,
+                       const bf16* __restrict__ scale,
+                       const float* __restrict__ rstd,
+                       const float* __restrict__ dy, bf16* __restrict__ dx,
+                       float* __restrict__ dsp, int N, int d) {
+  extern __shared__ float part[];  // [8][d]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nch = d / 8;
+  float s[NCH][8], dsc[NCH][8];
+#pragma unroll
+  for (int m = 0; m < NCH; ++m) {
+    const int c = lane + 32 * m;
+    if (c < nch) rtt::unpack16(reinterpret_cast<const uint4*>(scale)[c], s[m]);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dsc[m][e] = 0.f;
+  }
+  for (int r = warp; r < DS_ROWS; r += 8) {
+    const long n = static_cast<long>(blockIdx.x) * DS_ROWS + r;
+    if (n >= N) break;
+    const uint4* xr = reinterpret_cast<const uint4*>(x + n * d);
+    const float4* gr = reinterpret_cast<const float4*>(dy + n * d);
+    const float rs = rstd[n];
+    float xh[NCH][8], g[NCH][8], dot = 0.f;
+#pragma unroll
+    for (int m = 0; m < NCH; ++m) {
+      const int c = lane + 32 * m;
+      if (c >= nch) continue;
+      rtt::unpack16(xr[c], xh[m]);
+      const float4 g0 = gr[2 * c], g1 = gr[2 * c + 1];
+      g[m][0] = g0.x; g[m][1] = g0.y; g[m][2] = g0.z; g[m][3] = g0.w;
+      g[m][4] = g1.x; g[m][5] = g1.y; g[m][6] = g1.z; g[m][7] = g1.w;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        xh[m][e] *= rs;
+        dot += g[m][e] * s[m][e] * xh[m][e];
+        dsc[m][e] += g[m][e] * xh[m][e];
+      }
+    }
+    const float mean = rtt::warp_sum(dot) / static_cast<float>(d);
+    uint4* dr = reinterpret_cast<uint4*>(dx + n * d);
+#pragma unroll
+    for (int m = 0; m < NCH; ++m) {
+      const int c = lane + 32 * m;
+      if (c >= nch) continue;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        g[m][e] = rs * (g[m][e] * s[m][e] - xh[m][e] * mean);
+      dr[c] = rtt::pack16(g[m]);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < NCH; ++m) {
+    const int c = lane + 32 * m;
+    if (c >= nch) continue;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) part[warp * d + 8 * c + e] = dsc[m][e];
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < d; c += 256) {
+    float sum = 0.f;
+#pragma unroll
+    for (int wp = 0; wp < 8; ++wp) sum += part[wp * d + c];
+    dsp[static_cast<long>(blockIdx.x) * d + c] = sum;
+  }
+}
+
+// dscale [d] = the sum of the n_parts rows of dsp in a fixed order:
+// thread (x, y) of a 32 x 8 block sums rows y, y + 8, ... of column 32 b
+// + x, and the 8 sums are added in y order
+__global__ void __launch_bounds__(256)
+    ce_dscale_sum_kernel(const float* __restrict__ dsp,
+                         float* __restrict__ dscale, int n_parts, int d) {
+  __shared__ float part[8][33];
+  const int x = threadIdx.x & 31, y = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + x;
+  float sum = 0.f;
+#pragma unroll 4
+  for (int p = y; p < n_parts; p += 8)
+    sum += dsp[static_cast<long>(p) * d + c];
+  part[y][x] = sum;
+  __syncthreads();
+  if (y == 0) {
+    float tot = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) tot += part[i][x];
+    dscale[c] = tot;
+  }
+}
+
+template <int NCH>
+int launch_norm_bwd_nch(const bf16* x, const bf16* scale,
+                        const float* rstd, const float* dy, bf16* dx,
+                        float* dsp, int N, int d, cudaStream_t stream) {
+  const int smem = 8 * d * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      ce_norm_bwd_kernel<NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ce_norm_bwd_kernel<NCH><<<(N + DS_ROWS - 1) / DS_ROWS, 256, smem, stream>>>(
+      x, scale, rstd, dy, dx, dsp, N, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_norm_bwd(const bf16* x, const bf16* scale, const float* rstd,
+                    const float* dy, bf16* dx, float* dsp, int N, int d,
+                    cudaStream_t stream) {
+  const int nch = (d / 8 + 31) / 32;  // 16-byte chunks a lane
+  if (nch <= 3)
+    return launch_norm_bwd_nch<3>(x, scale, rstd, dy, dx, dsp, N, d, stream);
+  if (nch == 4)
+    return launch_norm_bwd_nch<4>(x, scale, rstd, dy, dx, dsp, N, d, stream);
+  return launch_norm_bwd_nch<MAX_CHUNKS>(x, scale, rstd, dy, dx, dsp, N,
+                                         d, stream);
+}
+
+int launch(const void* x, const void* w, const void* tgt, const void* lse,
+           const void* srow, const void* scale, const void* rstd, void* dx,
+           void* dw, void* dscale, void* ws, int N, int d, int V, int norm,
+           cudaStream_t stream) {
+  const Chunks ch(N, V);
+  const Workspace L(N, d, V, norm);
+  uint8_t* wsp = static_cast<uint8_t*>(ws);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* sb = static_cast<const bf16*>(scale);
+  const float* rs = static_cast<const float*>(rstd);
+  bf16* dxb = static_cast<bf16*>(dx);
+  bf16* yc = reinterpret_cast<bf16*>(wsp + L.y);
+  float* dyc = reinterpret_cast<float*>(wsp + L.dy);
+  bf16* dl = reinterpret_cast<bf16*>(wsp + L.dl);
+  uint16_t* lo = reinterpret_cast<uint16_t*>(wsp + L.lo);
+  float* dsp = reinterpret_cast<float*>(wsp + L.dsp);
+  CUtensorMap tw;
+  if (!tmap(&tw, w, d, V, d)) return static_cast<int>(cudaErrorInvalidValue);
+  const int nvt = static_cast<int>(ch.vp / BN);
+  for (int c = 0; c < ch.count; ++c) {
+    const int r0 = c * ch.rows, rows = std::min(ch.rows, N - r0);
+    const long off = static_cast<long>(r0) * d;
+    // the chunk's y: the rows of x, or with the prologue their norm
+    const bf16* y = xb + off;
+    if (norm) {
+      ce_norm_rows_kernel<false><<<(rows + 7) / 8, 256, 0, stream>>>(
+          xb + off, sb, yc, const_cast<float*>(rs + r0), rows, d, 0.f);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      y = yc;
+    }
+    CUtensorMap ty, tdl;
+    if (!tmap(&ty, y, d, rows, d) ||
+        !tmap(&tdl, dl, static_cast<int>(ch.vp), rows, ch.vp))
+      return static_cast<int>(cudaErrorInvalidValue);
+    // dl = bf16((exp(y w^T - lse) - onehot) srow) for the chunk's rows
+    Epi e{};
+    e.M = rows;
+    e.V = V;
+    e.tiles_m = (rows + BM - 1) / BM;
+    e.tiles_n = nvt;
+    e.steps = d / BK;
+    e.tgt = static_cast<const int*>(tgt) + r0;
+    e.lse = static_cast<const float*>(lse) + r0;
+    e.srow = static_cast<const float*>(srow) + r0;
+    int rc = launch_gemm<kLogits, kDl>(ty, tw, tdl, e, stream);
+    if (rc) return rc;
+    // dy = dl w: f32 for the norm backward, else dx itself
+    Epi ex{};
+    ex.M = rows;
+    ex.tiles_m = (rows + BM - 1) / BM;
+    ex.tiles_n = d / BN;
+    ex.steps = static_cast<int>(ch.vp / BK);
+    ex.ld = d;
+    ex.mode = norm ? kF32 : kBF16;
+    ex.o32 = dyc;
+    ex.o16 = dxb + off;
+    rc = launch_gemm<kDx, kStore>(tdl, tw, tdl, ex, stream);
+    if (rc) return rc;
+    // the norm backward of the chunk's rows and their dscale partials
+    // (chunks are whole 128-row tiles, so the 64-row blocks line up)
+    if (norm) {
+      rc = launch_norm_bwd(xb + off, sb, rs + r0, dyc, dxb + off,
+                           dsp + static_cast<long>(r0 / DS_ROWS) * d, rows,
+                           d, stream);
+      if (rc) return rc;
+    }
+    // dw (+)= dl^T y, summed over the chunks in order in f32 (split
+    // between dw's bf16 halves and lo) and rounded to bf16 at the last
+    Epi ew{};
+    ew.M = V;
+    ew.tiles_m = nvt;
+    ew.tiles_n = d / BN;
+    ew.steps = (rows + BK - 1) / BK;
+    ew.ld = d;
+    const bool first = c == 0, last = c == ch.count - 1;
+    ew.mode = first ? (last ? kBF16 : kSplit) : (last ? kAddBF16 : kAddSplit);
+    ew.o16 = static_cast<bf16*>(dw);
+    ew.lo = lo;
+    rc = launch_gemm<kDw, kStore>(tdl, ty, tdl, ew, stream);
+    if (rc) return rc;
+  }
+  if (!norm) return 0;
+  ce_dscale_sum_kernel<<<d / 32, 256, 0, stream>>>(
+      dsp, static_cast<float*>(dscale), (N + DS_ROWS - 1) / DS_ROWS, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc_bwd
 
 }  // namespace
 
-// dx [N, d] and dw = dhead^T [V, d] in the storage dtype.  With norm != 0
-// (the prologue): scale [d] and rstd [N] are read, dsp is f32 scratch of
-// at least ceil(N / 16) x d, and dscale [d] (f32) is written.
+// bytes of the workspace flash_ce_bwd takes for this shape
+extern "C" long long flash_ce_bwd_workspace(int N, int d, int V, int norm,
+                                            int dtype) {
+  if (N <= 0) return 0;
+  if (dtype == rtt::kBF16)
+    return static_cast<long long>(tc_bwd::Workspace(N, d, V, norm).total);
+  return static_cast<long long>(f32_workspace(N, d, norm));
+}
+
+// rows of one chunk of the bf16 backward (tc_bwd::Chunks) for this shape,
+// 0 for f32, which takes no chunks; for reports and checks, no launch
+extern "C" long long flash_ce_bwd_chunk_rows(int N, int d, int V, int norm,
+                                             int dtype) {
+  if (N <= 0 || V <= 0 || dtype != rtt::kBF16) return 0;
+  return tc_bwd::Chunks(N, V).rows;
+}
+
+// dx [N, d] and dw = dhead^T [V, d] in the storage dtype; with norm != 0
+// (the prologue) scale [d] and rstd [N] are read and dscale [d] (f32) is
+// written.  ws holds flash_ce_bwd_workspace bytes.  bf16 takes d a
+// multiple of 128 up to 1280, every pointer 16-byte aligned; f32 takes
+// d = 768.
 extern "C" int flash_ce_bwd(const void* x, const void* w, const void* tgt,
                             const void* lse, const void* srow,
                             const void* scale, const void* rstd, void* dx,
-                            void* dw, void* dsp, void* dscale, int N, int d,
+                            void* dw, void* dscale, void* ws, int N, int d,
                             int V, int norm, int dtype, void* stream) {
   if (N <= 0) return 0;
-  if (d != WIDTH || V <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (V <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rtt::kBF16)
-    return dispatch<__nv_bfloat16>(x, w, tgt, lse, srow, scale, rstd, dx, dw,
-                                   dsp, dscale, N, d, V, norm, st);
-  if (dtype == rtt::kF32)
-    return dispatch<float>(x, w, tgt, lse, srow, scale, rstd, dx, dw, dsp,
-                           dscale, N, d, V, norm, st);
+  if (dtype == rtt::kBF16 && d % 128 == 0 && d > 0 && d <= tc_ce::MAX_D)
+    return tc_bwd::launch(x, w, tgt, lse, srow, scale, rstd, dx, dw, dscale,
+                          ws, N, d, V, norm, st);
+  if (dtype == rtt::kF32 && d == WIDTH) {
+    if (norm)
+      return launch_f32<true>(x, w, tgt, lse, srow, scale, rstd, dx, dw, ws,
+                              dscale, N, d, V, st);
+    return launch_f32<false>(x, w, tgt, lse, srow, scale, rstd, dx, dw, ws,
+                             dscale, N, d, V, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,26 +7,37 @@
 // embedding's own layout), targets [N] int32 (-1 masked), bf16 or f32:
 //   y     = x, or with the prologue (NORM) y = (x * rstd * scale) rounded
 //           to the storage dtype, rstd = 1 / sqrt(mean(x^2) + eps)
-//   s     = y @ w^T                       (f32 accumulation, per vocab tile)
-//   lse   [N] = m + log(l): online row max m and sum-exp l over the vocab
+//   s     = y @ w^T                       (f32 accumulation)
+//   lse   [N] = m + log(l): the row max m and sum-exp l over the vocab
 //   true  [N] = s[row, target[row]] (0 for a masked row)
 //   rstd  [N] (NORM only, f32)
-// and never writes the [N, V] logits: each vocab tile lives in shared
-// memory only.  Vocab columns past V (the ragged last tile) are masked to
-// -1e30 before the statistics, as the reference masks its padding.
+// and never writes the [N, V] logits.  Vocab columns past V are masked
+// out of the statistics, as the reference masks its padding.
 //
 // What bounds it on an H100: 2*N*d*V flops (1.9 TFLOP at N = 24576,
 // d = 768, V = 50304) over ~(N*d + V*d)*2 bytes: far above the bf16 ridge,
-// so the tensor cores bound it (~1.9 ms at 989 TFLOP/s).
+// so the tensor cores bound it (~1.9 ms at 989 TFLOP/s).  A tiled
+// product reads its operands again per tile from L2: at 128 x 128 tiles
+// and K = 768, 64 flops a byte, ~30 GB of L2 reads a call.
 //
-// What the design does about it: one block owns BM rows, keeps their
-// (normalised) y in shared memory for the whole vocab sweep, and streams
-// the head one [BV, d] tile at a time; the tile product runs on bf16 WMMA
-// fragments with f32 accumulation (rtt::block_mma; 16 warps, one 16x16
-// score tile each at bf16), and each warp folds its rows of the f32 score
-// tile into running (max, sum-exp, true logit) held in registers.
-// Nothing vocab-sized leaves the SM.  wgmma with TMA-fed, double-buffered
-// head tiles is later work.
+// Two instantiations, chosen by dtype alone:
+// - bf16 (flash_ce_tc.cuh): three kernels.  With the prologue, a row
+//   pass writes y (bf16 [N, d], 38 MB at the main shape, never
+//   vocab-sized) and rstd.  Then S = y w^T as a wgmma GEMM over (128-row
+//   tile, 128-column vocab tile) pairs fed by TMA, whose epilogue takes
+//   each row's max and sum of exp over the tile on the accumulator
+//   fragment (columns >= V masked) into per-(vocab tile, row) partials
+//   [V / 128, N], and writes the true logit from the one tile holding
+//   the target.  A combine pass folds the partials in vocab-tile order
+//   into lse.  Every output element has one writer; no atomics.  d is a
+//   runtime multiple of 64 up to 1280 (the K loop), so every width of
+//   the wrapper's list takes the same kernels.
+// - f32: the first port's kernel on the CUDA cores (rtt::block_mma's f32
+//   loop), d = 768: one block owns BM rows, keeps their y in shared
+//   memory and streams the head one [BV, d] tile at a time, folding each
+//   f32 score tile into running (max, sum-exp, true logit), so that it
+//   is held to the plain version at summation-order bounds.
+#include "flash_ce_tc.cuh"
 #include "tile_mma.cuh"
 
 namespace {
@@ -35,9 +46,6 @@ constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
 
 template <typename T> struct Tiles;
-template <> struct Tiles<__nv_bfloat16> {
-  static constexpr int BM = 64, BV = 64;
-};
 template <> struct Tiles<float> {
   static constexpr int BM = 32, BV = 32;
 };
@@ -178,31 +186,117 @@ int launch(const void* x, const void* w, const void* tgt, const void* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* x, const void* w, const void* tgt, const void* scale,
-             void* lse, void* tru, void* rstd, int N, int d, int V, float eps,
-             int norm, cudaStream_t st) {
-  if (norm)
-    return launch<T, true>(x, w, tgt, scale, lse, tru, rstd, N, d, V, eps, st);
-  return launch<T, false>(x, w, tgt, scale, lse, tru, rstd, N, d, V, eps, st);
+// ---------------------------------------------------------------------------
+// bf16: the row pass, the logits GEMM with its statistics epilogue, the
+// combine pass
+// ---------------------------------------------------------------------------
+
+namespace tc_fwd {
+
+using namespace tc_ce;
+
+// lse [n] from the [n_tiles][N] partials, folded in vocab-tile order;
+// the true logit of a masked row (or of a target outside the vocab,
+// which no tile holds) is 0
+__global__ void __launch_bounds__(256)
+    ce_combine_kernel(const float* __restrict__ pm,
+                      const float* __restrict__ pl,
+                      const int* __restrict__ tgt, float* __restrict__ lse,
+                      float* __restrict__ tru, int N, int V, int n_tiles) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  float m = pm[n], l = pl[n];
+#pragma unroll 4
+  for (int t = 1; t < n_tiles; ++t) {
+    const float mt = pm[static_cast<long>(t) * N + n];
+    const float lt = pl[static_cast<long>(t) * N + n];
+    const float mn = fmaxf(m, mt);
+    l = l * expf(m - mn) + lt * expf(mt - mn);
+    m = mn;
+  }
+  lse[n] = m + logf(fmaxf(l, 1e-30f));
+  const int tg = tgt[n];
+  if (tg < 0 || tg >= V) tru[n] = 0.f;
 }
+
+// the workspace: y [N, d] bf16 with the prologue, then the partials
+size_t y_bytes(int N, int d, int norm) {
+  return norm ? (static_cast<size_t>(N) * d * 2 + 255) / 256 * 256 : 0;
+}
+size_t workspace(int N, int d, int V, int norm) {
+  const size_t nvt = (V + BN - 1) / BN;
+  return y_bytes(N, d, norm) + 2 * nvt * static_cast<size_t>(N) * 4;
+}
+
+int launch(const void* x, const void* w, const void* tgt, const void* scale,
+           void* lse, void* tru, void* rstd, void* ws, int N, int d, int V,
+           float eps, int norm, cudaStream_t stream) {
+  const bf16* y = static_cast<const bf16*>(x);
+  uint8_t* wsp = static_cast<uint8_t*>(ws);
+  if (norm) {
+    bf16* yw = reinterpret_cast<bf16*>(wsp);
+    ce_norm_rows_kernel<true><<<(N + 7) / 8, 256, 0, stream>>>(
+        y, static_cast<const bf16*>(scale), yw, static_cast<float*>(rstd), N,
+        d, eps);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    y = yw;
+  }
+  const int nvt = (V + BN - 1) / BN;
+  float* pm = reinterpret_cast<float*>(wsp + y_bytes(N, d, norm));
+  float* pl = pm + static_cast<size_t>(nvt) * N;
+  CUtensorMap ta, tb;
+  if (!tmap(&ta, y, d, N, d) || !tmap(&tb, w, d, V, d))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Epi ep{};
+  ep.M = N;
+  ep.V = V;
+  ep.tiles_m = (N + BM - 1) / BM;
+  ep.tiles_n = nvt;
+  ep.steps = d / BK;
+  ep.tgt = static_cast<const int*>(tgt);
+  ep.pm = pm;
+  ep.pl = pl;
+  ep.tru = static_cast<float*>(tru);
+  int rc = launch_gemm<kLogits, kStats>(ta, tb, ta, ep, stream);
+  if (rc) return rc;
+  ce_combine_kernel<<<(N + 255) / 256, 256, 0, stream>>>(
+      pm, pl, static_cast<const int*>(tgt), static_cast<float*>(lse),
+      static_cast<float*>(tru), N, V, nvt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc_fwd
 
 }  // namespace
 
+// bytes of the workspace flash_ce_fwd takes for this shape (0 for f32)
+extern "C" long long flash_ce_fwd_workspace(int N, int d, int V, int norm,
+                                            int dtype) {
+  if (dtype != rtt::kBF16 || N <= 0) return 0;
+  return static_cast<long long>(tc_fwd::workspace(N, d, V, norm));
+}
+
 // norm != 0 selects the final-norm prologue (scale [d], rstd [N] out);
-// otherwise scale and rstd are not read.
+// otherwise scale and rstd are not read.  bf16 takes d a multiple of 64
+// up to 1280, every pointer 16-byte aligned, and ws of
+// flash_ce_fwd_workspace bytes; f32 takes d = 768 and no workspace.
 extern "C" int flash_ce_fwd(const void* x, const void* w, const void* tgt,
                             const void* scale, void* lse, void* tru,
-                            void* rstd, int N, int d, int V, float eps,
-                            int norm, int dtype, void* stream) {
+                            void* rstd, void* ws, int N, int d, int V,
+                            float eps, int norm, int dtype, void* stream) {
   if (N <= 0) return 0;
-  if (d != 768 || V <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (V <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rtt::kBF16)
-    return dispatch<__nv_bfloat16>(x, w, tgt, scale, lse, tru, rstd, N, d, V,
-                                   eps, norm, st);
-  if (dtype == rtt::kF32)
-    return dispatch<float>(x, w, tgt, scale, lse, tru, rstd, N, d, V, eps,
-                           norm, st);
+  if (dtype == rtt::kBF16 && d % 64 == 0 && d > 0 && d <= tc_ce::MAX_D)
+    return tc_fwd::launch(x, w, tgt, scale, lse, tru, rstd, ws, N, d, V, eps,
+                          norm, st);
+  if (dtype == rtt::kF32 && d == 768) {
+    if (norm)
+      return launch<float, true>(x, w, tgt, scale, lse, tru, rstd, N, d, V,
+                                 eps, st);
+    return launch<float, false>(x, w, tgt, scale, lse, tru, rstd, N, d, V,
+                                eps, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,6 +1,7 @@
 // Register-level tensor-core and asynchronous-copy primitives for the
 // bf16 kernels (flash_attention_fwd.cu, flash_attention_bwd.cu,
-// matmul_residual_norm.cu, matmul_residual_norm_bwd.cu): cp.async with
+// matmul_residual_norm.cu, matmul_residual_norm_bwd.cu, flash_ce_fwd.cu,
+// flash_ce_bwd.cu): cp.async with
 // zero fill, the async-proxy fence, warpgroup MMA (wgmma) with its
 // shared-memory descriptors, TMA tile copies (cp.async.bulk.tensor) with
 // their mbarriers and host-side tensor maps, warp MMA (mma.sync
@@ -11,6 +12,11 @@
 //   wgmma_ss_m64n64k16_tb   A K-major, B MN-major (rows k, n contiguous)
 //   wgmma_ss_m64n64k16_tt   A and B MN-major (rows k, m or n contiguous)
 //   wgmma_rs_m64n64k16_tb   A in registers, B MN-major
+// and at n128 (flash_ce_fwd.cu, flash_ce_bwd.cu), a 64 x 128 accumulator
+// of 64 registers a thread:
+//   wgmma_ss_m64n128k16     both K-major (B: 128 rows n of 128 bytes)
+//   wgmma_ss_m64n128k16_tb  B MN-major, two 64-column atoms (desc_sw128_mn)
+//   wgmma_ss_m64n128k16_tt  A and B MN-major, B two atoms
 // Everything here is sm_90a inline PTX; the accumulators stay in
 // registers, in the layouts documented at each function.
 #pragma once
@@ -96,6 +102,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
   return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// The descriptor of an MN-major operand wider than one swizzle atom:
+// atoms of [k rows][64 columns] (128-byte rows, swizzled), `atom_bytes`
+// apart.  The leading byte offset is the stride between the atoms along
+// MN, the stride byte offset (1024) that between 8-row groups along K.
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t saddr,
+                                                  uint32_t atom_bytes) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(atom_bytes >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) |
          (static_cast<uint64_t>(1) << 62);
 }
@@ -190,8 +208,67 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+#define RTT_WGMMA_D64                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+#define RTT_WGMMA_OUT64(d)                                                 \
+  RTT_WGMMA_OUT32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),  \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),      \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),      \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),      \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),      \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),      \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// D[64][128] (f32) += A[64][16] B[16][128], A and B bf16 in shared
+// memory, both K-major (B: 128 rows n, k contiguous, 8-row groups 1024
+// bytes apart).  Thread t (warp w, lane l) holds d[4 j + 2 i + e] =
+// D[16 w + l / 4 + 8 i][8 j + 2 (l % 4) + e], j < 16.
+__device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64],
+                                                    uint64_t da,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " RTT_WGMMA_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : RTT_WGMMA_OUT64(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The same with B MN-major: B as two atoms of [16 k rows][64 n] within
+// atoms of 64 k rows (desc_sw128_mn); a k16 step advances B by 2048
+// bytes (+ 128 in 16-byte units).
+__device__ __forceinline__ void wgmma_ss_m64n128k16_tb(float (&d)[64],
+                                                       uint64_t da,
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " RTT_WGMMA_D64
+      ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : RTT_WGMMA_OUT64(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The same with A MN-major as well (one 64-column atom, rows k; a k16
+// step + 128 like B's): the product a^T b of a [k][64] and a [k][128].
+__device__ __forceinline__ void wgmma_ss_m64n128k16_tt(float (&d)[64],
+                                                       uint64_t da,
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " RTT_WGMMA_D64
+      ", %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : RTT_WGMMA_OUT64(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
 #undef RTT_WGMMA_D32
 #undef RTT_WGMMA_OUT32
+#undef RTT_WGMMA_D64
+#undef RTT_WGMMA_OUT64
 
 // ---------------------------------------------------------------------------
 // TMA (cp.async.bulk.tensor) and mbarriers

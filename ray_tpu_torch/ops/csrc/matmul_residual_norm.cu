@@ -4,7 +4,7 @@
 // public matmul_residual_norm).
 //
 // Computes, for a [N, K], w [K, d], resid [N, d], scale [d] (bf16 or
-// f32, one dtype; d = 768, GPT-2's width, is the one instantiation):
+// f32, one dtype; d = 768, GPT-2's width, or 1024 or 1280):
 //   p    = a @ w                       (f32 accumulation)
 //   r    = resid + p.astype(dtype)     (the residual add in the storage
 //                                       dtype, as fused_norm.py:153)
@@ -21,17 +21,26 @@
 // and every block reads all of w: at 64 rows a block, 0.45 GB of L2
 // reads over the grid, three times the device-memory bytes.
 //
-// Two instantiations, chosen by dtype alone:
-// - bf16: mrn_tc_kernel (below), on the tensor cores through wgmma.
+// Three designs, chosen by dtype and width:
+// - bf16 at d = 768: mrn_tc_kernel (below), on the tensor cores through
+//   wgmma, the norm taken on the accumulators.
+// - bf16 at d = 1024 and 1280 (gpt2_medium, gpt2_large): a 64-row block
+//   of f32 accumulators d wide no longer fits the register file, so the
+//   product runs as flash_ce_tc.cuh's wgmma GEMM (128 x 128 tiles, TMA
+//   ring) with bf16(p) stored into y, and a row pass (wide_fwd::
+//   mrn_rows_kernel, one warp a row) then takes r, rstd and y with the
+//   same rounding points: one more read and write of an [N, d] bf16.
 // - f32: mrn_kernel, CUDA-core FMAs in full f32, so that it is held to
 //   the plain version at summation-order bounds: one block of 16 rows,
-//   the product in shared memory, one warp a row for the norm.
+//   the product in shared memory, one warp a row for the norm; any of
+//   the three widths.
 #include "common.cuh"
+#include "flash_ce_tc.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int WIDTH = 768;  // the one output width, d
+constexpr int WIDTH = 768;  // the output width d of the wgmma design
 
 // ---------------------------------------------------------------------------
 // f32: CUDA cores
@@ -343,23 +352,113 @@ int launch(const void* a, const void* w, const void* resid,
 
 }  // namespace tc_fwd
 
+// ---------------------------------------------------------------------------
+// bf16 at d = 1024, 1280: the wgmma GEMM, then a row pass
+// ---------------------------------------------------------------------------
+
+namespace wide_fwd {
+
+using bf16 = __nv_bfloat16;
+
+// one warp a row: p = y (the GEMM's bf16 product), r = bf16(resid + p)
+// to r, rstd of the rounded r, y = bf16(r rstd scale) over p
+__global__ void __launch_bounds__(256)
+    mrn_rows_kernel(const bf16* __restrict__ resid,
+                    const bf16* __restrict__ scale, bf16* __restrict__ r,
+                    bf16* __restrict__ y, float* __restrict__ rstd, int N,
+                    int d, float eps) {
+  constexpr int MAXC = tc_ce::MAX_CHUNKS;
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (n >= N) return;
+  const int nch = d / 8;
+  const long off = static_cast<long>(n) * d;
+  const uint4* pr = reinterpret_cast<const uint4*>(y + off);
+  const uint4* qr = reinterpret_cast<const uint4*>(resid + off);
+  uint4* rr = reinterpret_cast<uint4*>(r + off);
+  uint4 rv[MAXC];
+  float ss = 0.f;
+#pragma unroll
+  for (int m = 0; m < MAXC; ++m) {
+    const int c = lane + 32 * m;
+    if (c < nch) {
+      float p[8], q[8];
+      rtt::unpack16(pr[c], p);
+      rtt::unpack16(qr[c], q);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) q[e] += p[e];
+      rv[m] = rtt::pack16(q);
+      rr[c] = rv[m];
+      rtt::unpack16(rv[m], q);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) ss += q[e] * q[e];
+    }
+  }
+  ss = rtt::warp_sum(ss);
+  const float rs = 1.f / sqrtf(ss / static_cast<float>(d) + eps);
+  if (lane == 0) rstd[n] = rs;
+  uint4* yr = reinterpret_cast<uint4*>(y + off);
+#pragma unroll
+  for (int m = 0; m < MAXC; ++m) {
+    const int c = lane + 32 * m;
+    if (c < nch) {
+      float f[8], sc[8];
+      rtt::unpack16(rv[m], f);
+      rtt::unpack16(reinterpret_cast<const uint4*>(scale)[c], sc);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[e] = f[e] * rs * sc[e];
+      yr[c] = rtt::pack16(f);
+    }
+  }
+}
+
+int launch(const void* a, const void* w, const void* resid,
+           const void* scale, void* r, void* y, void* rstd, int N, int K,
+           int d, float eps, cudaStream_t stream) {
+  CUtensorMap ta, tb;
+  if (!tc_ce::tmap(&ta, a, K, N, K) || !tc_ce::tmap(&tb, w, d, K, d))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // p = a w, rounded to bf16, into y: kDx's layouts (A K-major, B = w as
+  // it lies, MN-major)
+  tc_ce::Epi ep{};
+  ep.M = N;
+  ep.tiles_m = (N + tc_ce::BM - 1) / tc_ce::BM;
+  ep.tiles_n = d / tc_ce::BN;
+  ep.steps = K / tc_ce::BK;
+  ep.o16 = static_cast<bf16*>(y);
+  ep.ld = d;
+  ep.mode = tc_ce::kBF16;
+  int rc = tc_ce::launch_gemm<tc_ce::kDx, tc_ce::kStore>(ta, tb, ta, ep,
+                                                         stream);
+  if (rc) return rc;
+  mrn_rows_kernel<<<(N + 7) / 8, 256, 0, stream>>>(
+      static_cast<const bf16*>(resid), static_cast<const bf16*>(scale),
+      static_cast<bf16*>(r), static_cast<bf16*>(y), static_cast<float*>(rstd),
+      N, d, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wide_fwd
+
 }  // namespace
 
 // bf16 runs on the tensor cores and takes K a multiple of 64; f32 on the
-// CUDA cores, K a multiple of 16; both K <= 1536 and d = 768.  The bf16
-// kernel copies by TMA: a, w, resid, r and y 16-byte aligned, scale
-// 4-byte aligned.
+// CUDA cores, K a multiple of 16; both K <= 1536 and d in {768, 1024,
+// 1280}.  The bf16 kernels copy by TMA: a, w, resid, r and y 16-byte
+// aligned, scale 4-byte aligned (16-byte at d = 1024, 1280).
 extern "C" int matmul_residual_norm_fwd(const void* a, const void* w,
                                         const void* resid, const void* scale,
                                         void* r, void* y, void* rstd, int N,
                                         int K, int d, float eps, int dtype,
                                         void* stream) {
   if (N <= 0) return 0;
-  if (K <= 0 || K > 1536 || d != WIDTH)
+  if (K <= 0 || K > 1536 || (d != WIDTH && d != 1024 && d != 1280))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rtt::kBF16 && K % tc_fwd::BK == 0)
+  if (dtype == rtt::kBF16 && K % tc_fwd::BK == 0 && d == WIDTH)
     return tc_fwd::launch(a, w, resid, scale, r, y, rstd, N, K, eps, st);
+  if (dtype == rtt::kBF16 && K % tc_fwd::BK == 0)
+    return wide_fwd::launch(a, w, resid, scale, r, y, rstd, N, K, d, eps, st);
   if (dtype == rtt::kF32 && K % 16 == 0)
     return launch_f32(a, w, resid, scale, r, y, rstd, N, K, d, eps, st);
   return static_cast<int>(cudaErrorInvalidValue);

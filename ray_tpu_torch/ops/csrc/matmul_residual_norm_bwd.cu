@@ -5,7 +5,7 @@
 //
 // Given the forward's a [N, K], w [K, d], rout [N, d], scale [d], rstd [N]
 // (f32) and the cotangents drout, dy [N, d] (bf16 or f32, one dtype;
-// d = 768), per row (fused_norm.py:162-183):
+// d = 768, 1024 or 1280), per row (fused_norm.py:162-183):
 //   xhat   = rout * rstd,  dxhat = dy * scale
 //   dr     = rstd * (dxhat - xhat * mean(dxhat * xhat)) + drout   (f32)
 //   dresid = dr rounded to the storage dtype (= the dp that both products
@@ -29,17 +29,20 @@
 // operand a block re-reads from L2 (w for da; a and dresid for dw) is
 // the traffic that limits it.
 //
-// Two instantiations, chosen by dtype alone:
-// - bf16 (tc_bwd below): two wgmma kernels.  mrn_bwd_da_kernel fuses the
+// Three designs, chosen by dtype and width:
+// - bf16 at d = 768 (tc_bwd below): two wgmma kernels.  mrn_bwd_da_kernel fuses the
 //   row pass into the da product: a block computes dr for its 64 rows,
 //   writes dresid, and keeps the same bf16 dr in shared memory as the A
 //   operand of da = dr w^T, so dresid is never read back.
 //   mrn_bwd_dw_kernel takes dw = a^T dresid on 128 x 128 output tiles
 //   with both operands MN-major (as they lie in a and dresid).
-// - f32: the first port's kernels, CUDA-core FMAs in full f32 so that it
+// - bf16 at d = 1024 and 1280 (wide_bwd below): the row pass alone, then
+//   flash_ce_tc.cuh's wgmma GEMM for da and for the dw slices.
+// - f32, any of the three widths: the first port's kernels, CUDA-core FMAs in full f32 so that it
 //   is held to the plain version at summation-order bounds:
 //   mrn_bwd_rows_kernel, then gemm_kernel (rtt::block_mma's f32 loop)
 //   for da and for the dw slices.
+#include "flash_ce_tc.cuh"
 #include "hopper.cuh"
 #include "tile_mma.cuh"
 
@@ -47,13 +50,12 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int WIDTH = 768;          // d, the one output width
-constexpr int CPL = WIDTH / 32;     // columns per lane in the row pass
+constexpr int WIDTH = 768;          // d of the fused wgmma design
 constexpr int ROWS = 64;            // rows per block of the row pass
 constexpr int kSplits = 7;          // slices of N in the dw product
 
-// the row pass: dresid and the per-block dscale partials
-template <typename T>
+// the row pass: dresid and the per-block dscale partials, d = W
+template <typename T, int W>
 __global__ void __launch_bounds__(THREADS)
     mrn_bwd_rows_kernel(const T* __restrict__ rout,
                         const T* __restrict__ scale,
@@ -61,7 +63,8 @@ __global__ void __launch_bounds__(THREADS)
                         const T* __restrict__ drout,
                         const T* __restrict__ dy, T* __restrict__ dresid,
                         float* __restrict__ dsp, int N) {
-  __shared__ float part[WARPS][WIDTH];
+  constexpr int CPL = W / 32;   // columns per lane
+  __shared__ float part[WARPS][W];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float dsc[CPL];
 #pragma unroll
@@ -69,7 +72,7 @@ __global__ void __launch_bounds__(THREADS)
   for (int r = warp; r < ROWS; r += WARPS) {
     const int n = blockIdx.x * ROWS + r;
     if (n >= N) break;
-    const long off = static_cast<long>(n) * WIDTH;
+    const long off = static_cast<long>(n) * W;
     const float rs = rstd[n];
     float xhat[CPL], g[CPL], dot = 0.f;
 #pragma unroll
@@ -80,7 +83,7 @@ __global__ void __launch_bounds__(THREADS)
       dot += g[j] * rtt::to_f32(scale[c]) * xhat[j];
       dsc[j] += g[j] * xhat[j];
     }
-    const float mean = rtt::warp_sum(dot) / static_cast<float>(WIDTH);
+    const float mean = rtt::warp_sum(dot) / static_cast<float>(W);
 #pragma unroll
     for (int j = 0; j < CPL; ++j) {
       const int c = lane + 32 * j;
@@ -93,11 +96,11 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int j = 0; j < CPL; ++j) part[warp][lane + 32 * j] = dsc[j];
   __syncthreads();
-  for (int c = threadIdx.x; c < WIDTH; c += THREADS) {
+  for (int c = threadIdx.x; c < W; c += THREADS) {
     float s = 0.f;
 #pragma unroll
     for (int wp = 0; wp < WARPS; ++wp) s += part[wp][c];
-    dsp[static_cast<long>(blockIdx.x) * WIDTH + c] = s;
+    dsp[static_cast<long>(blockIdx.x) * W + c] = s;
   }
 }
 
@@ -172,14 +175,15 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+template <int D>
 int launch_f32(const void* a, const void* w, const void* rout,
                const void* scale, const void* rstd, const void* drout,
                const void* dy, void* da, void* dw, void* dresid, void* dscale,
                void* dsp, void* dwp, int N, int K, cudaStream_t stream) {
   using T = float;
-  const int d = WIDTH;
+  const int d = D;
   const int n_blk = (N + ROWS - 1) / ROWS;
-  mrn_bwd_rows_kernel<T><<<n_blk, THREADS, 0, stream>>>(
+  mrn_bwd_rows_kernel<T, D><<<n_blk, THREADS, 0, stream>>>(
       static_cast<const T*>(rout), static_cast<const T*>(scale),
       static_cast<const float*>(rstd), static_cast<const T*>(drout),
       static_cast<const T*>(dy), static_cast<T*>(dresid),
@@ -621,27 +625,112 @@ int launch(const void* a, const void* w, const void* rout, const void* scale,
 
 }  // namespace tc_bwd
 
+// ---------------------------------------------------------------------------
+// bf16 at d = 1024, 1280: the row pass, then flash_ce_tc.cuh's wgmma GEMM
+// for both products
+// ---------------------------------------------------------------------------
+//
+// The fused da kernel keeps a 64 x d bf16 dr in shared memory beside its
+// w ring; at d = 1280 the two no longer fit, so the wide widths take the
+// row pass alone (mrn_bwd_rows_kernel, dresid and the dscale partials),
+// then da = dresid w^T (both operands K-major, kLogits' layouts) and the
+// kSplits slices of dw = a^T dresid (both MN-major, kDw's), each slice an
+// f32 partial that the column sum adds in slice order and casts once, as
+// at d = 768.  No atomics.
+
+namespace wide_bwd {
+
+using bf16 = __nv_bfloat16;
+
+template <int D>
+int launch(const void* a, const void* w, const void* rout, const void* scale,
+           const void* rstd, const void* drout, const void* dy, void* da,
+           void* dw, void* dresid, void* dscale, void* dsp, void* dwp, int N,
+           int K, cudaStream_t stream) {
+  const int n_blk = (N + ROWS - 1) / ROWS;
+  mrn_bwd_rows_kernel<bf16, D><<<n_blk, THREADS, 0, stream>>>(
+      static_cast<const bf16*>(rout), static_cast<const bf16*>(scale),
+      static_cast<const float*>(rstd), static_cast<const bf16*>(drout),
+      static_cast<const bf16*>(dy), static_cast<bf16*>(dresid),
+      static_cast<float*>(dsp), N);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // da [N, K] = dresid [N, D] w^T, w [K, D]
+  CUtensorMap ta, tb;
+  if (!tc_ce::tmap(&ta, dresid, D, N, D) || !tc_ce::tmap(&tb, w, D, K, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  tc_ce::Epi ep{};
+  ep.M = N;
+  ep.tiles_m = (N + tc_ce::BM - 1) / tc_ce::BM;
+  ep.tiles_n = K / tc_ce::BN;
+  ep.steps = D / tc_ce::BK;
+  ep.o16 = static_cast<bf16*>(da);
+  ep.ld = K;
+  ep.mode = tc_ce::kBF16;
+  int rc = tc_ce::launch_gemm<tc_ce::kLogits, tc_ce::kStore>(ta, tb, ta, ep,
+                                                             stream);
+  if (rc) return rc;
+  // dw slice z [K, D] = a[rows of z]^T dresid[rows of z], whole 64-row
+  // steps, into dwp[z] (f32)
+  const int per = (n_blk + kSplits - 1) / kSplits * ROWS;
+  const int n_slices = (N + per - 1) / per;
+  for (int z = 0; z < n_slices; ++z) {
+    const long r0 = static_cast<long>(z) * per;
+    const int rows = static_cast<int>(N - r0 < per ? N - r0 : per);
+    if (!tc_ce::tmap(&ta, static_cast<const bf16*>(a) + r0 * K, K, rows, K) ||
+        !tc_ce::tmap(&tb, static_cast<const bf16*>(dresid) + r0 * D, D, rows,
+                     D))
+      return static_cast<int>(cudaErrorInvalidValue);
+    tc_ce::Epi ew{};
+    ew.M = K;
+    ew.tiles_m = K / tc_ce::BM;
+    ew.tiles_n = D / tc_ce::BN;
+    ew.steps = (rows + tc_ce::BK - 1) / tc_ce::BK;
+    ew.o32 = static_cast<float*>(dwp) + static_cast<long>(z) * K * D;
+    ew.ld = D;
+    ew.mode = tc_ce::kF32;
+    rc = tc_ce::launch_gemm<tc_ce::kDw, tc_ce::kStore>(ta, tb, ta, ew,
+                                                       stream);
+    if (rc) return rc;
+  }
+  rc = rtt::launch_column_sum(static_cast<const float*>(dwp),
+                              static_cast<bf16*>(dw), n_slices,
+                              static_cast<long>(K) * D, stream);
+  if (rc) return rc;
+  return rtt::launch_column_sum(static_cast<const float*>(dsp),
+                                static_cast<float*>(dscale), n_blk, D,
+                                stream);
+}
+
+}  // namespace wide_bwd
+
 }  // namespace
 
 // da [N, K], dw [K, d], dresid [N, d] in the storage dtype, dscale [d] f32.
 // Scratch (f32): dsp of ceil(N / 64) x d, dwp of kSplits (7) x K x d.
 // bf16 runs on the tensor cores and takes K a multiple of 128, reading
 // and writing 16-byte vectors (every pointer 16-byte aligned); f32 on
-// the CUDA cores, K a multiple of 16; both K <= 1536 and d = 768.
+// the CUDA cores, K a multiple of 16; both K <= 1536 and d in {768,
+// 1024, 1280}.
 extern "C" int matmul_residual_norm_bwd(
     const void* a, const void* w, const void* rout, const void* scale,
     const void* rstd, const void* drout, const void* dy, void* da, void* dw,
     void* dresid, void* dscale, void* dsp, void* dwp, int N, int K, int d,
     int dtype, void* stream) {
   if (N <= 0) return 0;
-  if (K <= 0 || K > 1536 || d != WIDTH)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (K <= 0 || K > 1536) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rtt::kBF16 && K % tc_bwd::DW_TILE == 0)
-    return tc_bwd::launch(a, w, rout, scale, rstd, drout, dy, da, dw, dresid,
-                          dscale, dsp, dwp, N, K, st);
-  if (dtype == rtt::kF32 && K % 16 == 0)
-    return launch_f32(a, w, rout, scale, rstd, drout, dy, da, dw, dresid,
-                      dscale, dsp, dwp, N, K, st);
+  const bool bf = dtype == rtt::kBF16 && K % tc_bwd::DW_TILE == 0;
+  const bool f32 = dtype == rtt::kF32 && K % 16 == 0;
+#define RTT_MRN_BWD_ARGS                                                   \
+  a, w, rout, scale, rstd, drout, dy, da, dw, dresid, dscale, dsp, dwp, N, \
+      K, st
+  if (bf && d == WIDTH) return tc_bwd::launch(RTT_MRN_BWD_ARGS);
+  if (bf && d == 1024) return wide_bwd::launch<1024>(RTT_MRN_BWD_ARGS);
+  if (bf && d == 1280) return wide_bwd::launch<1280>(RTT_MRN_BWD_ARGS);
+  if (f32 && d == WIDTH) return launch_f32<WIDTH>(RTT_MRN_BWD_ARGS);
+  if (f32 && d == 1024) return launch_f32<1024>(RTT_MRN_BWD_ARGS);
+  if (f32 && d == 1280) return launch_f32<1280>(RTT_MRN_BWD_ARGS);
+#undef RTT_MRN_BWD_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

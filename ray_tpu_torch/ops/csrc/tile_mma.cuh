@@ -1,18 +1,14 @@
-// Block-level building blocks of the port's matmul-shaped kernels (the
-// out-proj epilogue backward and flash-CE): tile products on shared
-// memory, row copies into shared memory, and a deterministic column sum.
+// Block-level building blocks of the f32 instantiations of the port's
+// matmul-shaped kernels (the out-proj epilogue backward and flash-CE):
+// tile products on shared memory, row copies into shared memory, and a
+// deterministic column sum.
 //
 // A tile product accumulates in an f32 tile kept in shared memory, so a
-// kernel can run several products into one accumulator across a loop
-// without holding fragments in registers.  bf16 operands go through the
-// tensor cores (WMMA 16x16x16 fragments, f32 accumulation); f32 operands
-// take a CUDA-core FMA loop in full f32, so the f32 instantiation of a
-// kernel is held to the plain version at summation-order tolerance.
+// kernel can run several products into one accumulator across a loop.
+// It is a CUDA-core FMA loop in full f32, so the f32 instantiation of a
+// kernel is held to the plain version at summation-order tolerance; the
+// bf16 instantiations run on wgmma (hopper.cuh).
 #pragma once
-
-#include <mma.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -27,50 +23,13 @@ __host__ __device__ constexpr size_t align128(size_t bytes) {
 }
 
 // C[M][N] (f32, shared, row-major, ldc) = (accumulate ? C : 0) + A B, with
-// A [M][K] and B [K][N] in shared memory.  A is row-major (a(m,k) =
-// A[m*lda + k]) or, with A_COL, column-major (a(m,k) = A[k*lda + m]); B
-// is row-major (b(k,n) = B[k*ldb + n]) or, with B_COL, column-major
-// (b(k,n) = B[n*ldb + k]).  M, N, K are multiples of 16; the base
-// pointers are 32-byte aligned and lda, ldb multiples of 8.  Every thread
-// of the block calls it; it does not synchronise.
-template <bool A_COL, bool B_COL>
-__device__ __forceinline__ void block_mma(float* C, int ldc,
-                                          const __nv_bfloat16* A, int lda,
-                                          const __nv_bfloat16* B, int ldb,
-                                          int M, int N, int K,
-                                          bool accumulate) {
-  using namespace nvcuda;
-  using LA = typename std::conditional<A_COL, wmma::col_major,
-                                       wmma::row_major>::type;
-  using LB = typename std::conditional<B_COL, wmma::col_major,
-                                       wmma::row_major>::type;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int tn = N / 16;
-  for (int t = warp; t < (M / 16) * tn; t += nwarps) {
-    const int m0 = (t / tn) * 16;
-    const int n0 = (t % tn) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    if (accumulate)
-      wmma::load_matrix_sync(acc, C + m0 * ldc + n0, ldc,
-                             wmma::mem_row_major);
-    else
-      wmma::fill_fragment(acc, 0.f);
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> fb;
-      wmma::load_matrix_sync(fa, A_COL ? A + k0 * lda + m0 : A + m0 * lda + k0,
-                             lda);
-      wmma::load_matrix_sync(fb, B_COL ? B + n0 * ldb + k0 : B + k0 * ldb + n0,
-                             ldb);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(C + m0 * ldc + n0, acc, ldc, wmma::mem_row_major);
-  }
-}
-
-// The f32 twin: each thread owns 4x4 micro-tiles (rows m0..m0+3, columns
-// nc + j*N/4), so every pair of shared loads feeds four FMAs.
+// A [M][K] and B [K][N] f32 in shared memory, on the CUDA cores in full
+// f32.  A is row-major (a(m,k) = A[m*lda + k]) or, with A_COL,
+// column-major (a(m,k) = A[k*lda + m]); B is row-major (b(k,n) =
+// B[k*ldb + n]) or, with B_COL, column-major (b(k,n) = B[n*ldb + k]).
+// Each thread owns 4x4 micro-tiles (rows m0..m0+3, columns nc + j*N/4),
+// so every pair of shared loads feeds four FMAs.  M and N are multiples
+// of 4.  Every thread of the block calls it; it does not synchronise.
 template <bool A_COL, bool B_COL>
 __device__ __forceinline__ void block_mma(float* C, int ldc, const float* A,
                                           int lda, const float* B, int ldb,
@@ -110,40 +69,8 @@ __device__ __forceinline__ void block_mma(float* C, int ldc, const float* A,
 // C + p * stride ([M][N] f32, p < PARTS) = A[:, K_p] B[K_p, :], the
 // product over the p-th of PARTS equal slices of K (layouts as in
 // block_mma); the caller adds the parts.  A product with few output
-// tiles and a long K thus keeps every warp busy.  K / PARTS is a
-// multiple of 16.
-template <int PARTS, bool A_COL, bool B_COL>
-__device__ __forceinline__ void block_mma_ksplit(
-    float* C, int ldc, int stride, const __nv_bfloat16* A, int lda,
-    const __nv_bfloat16* B, int ldb, int M, int N, int K) {
-  using namespace nvcuda;
-  using LA = typename std::conditional<A_COL, wmma::col_major,
-                                       wmma::row_major>::type;
-  using LB = typename std::conditional<B_COL, wmma::col_major,
-                                       wmma::row_major>::type;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int tn = N / 16, tiles = (M / 16) * tn, kp = K / PARTS;
-  for (int u = warp; u < tiles * PARTS; u += nwarps) {
-    const int t = u % tiles, p = u / tiles;
-    const int m0 = (t / tn) * 16, n0 = (t % tn) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int k0 = p * kp; k0 < (p + 1) * kp; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> fb;
-      wmma::load_matrix_sync(fa, A_COL ? A + k0 * lda + m0 : A + m0 * lda + k0,
-                             lda);
-      wmma::load_matrix_sync(fb, B_COL ? B + n0 * ldb + k0 : B + k0 * ldb + n0,
-                             ldb);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(C + p * stride + m0 * ldc + n0, acc, ldc,
-                            wmma::mem_row_major);
-  }
-}
-
-// The f32 twin: 4x4 micro-tiles, each over one slice of K.
+// tiles and a long K thus keeps every thread busy.  K / PARTS is a
+// multiple of 4; each thread takes 4x4 micro-tiles over one slice.
 template <int PARTS, bool A_COL, bool B_COL>
 __device__ __forceinline__ void block_mma_ksplit(float* C, int ldc,
                                                  int stride, const float* A,

@@ -5,9 +5,11 @@ Counterpart of ``ray_tpu/ops/flash_ce.py``.  :func:`flash_ce_sum` and
 :func:`flash_ce_norm_sum` return ``(sum_nll, n_valid)`` and are
 differentiable through :class:`FlashCE`.  On a CUDA tensor the forward
 launches ``csrc/flash_ce_fwd.cu`` (the port of the Pallas ``_fwd_kernel``)
-and the backward ``csrc/flash_ce_bwd.cu`` (``_bwd_kernel``); each takes the
-norm prologue as a compile-time flag.  On a CPU tensor both run their
-plain versions, which materialise the ``[N, V]`` logits.
+and the backward ``csrc/flash_ce_bwd.cu`` (``_bwd_kernel``): bf16 on the
+tensor cores (``wgmma`` GEMMs fed by TMA, ``csrc/flash_ce_tc.cuh``), f32
+on the CUDA cores, chosen by dtype alone.  On a CPU tensor both run their
+plain versions, which materialise the ``[N, V]`` logits, or with
+``tile_v`` / ``chunk_rows`` follow the bf16 kernels' order of work.
 
 The kernels take the head as ``w = head^T [V, d]``, the tied embedding's
 own layout, so the training path's head (``embed.T``) reaches them with no
@@ -22,45 +24,50 @@ inside the kernel.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops.substrate import (Support, check_cuda_args, is_cuda,
-                                         supported, unsupported)
+                                         on_cuda, require_built, supported,
+                                         unsupported)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the width the kernels are built for: GPT-2's d_model; other widths come
-# with the configurations that need them
-_KERNEL_WIDTH = 768
-# the dscale scratch of the backward: one [d] partial per row block of the
-# dx kernel, whose smallest row block is 16 rows
-_BWD_MIN_ROWS = 16
-
+# the widths d the kernels are built for, by dtype, read by supports(),
+# which the model's dispatch and the wrappers' checks both call: the bf16
+# kernels take d as a runtime loop bound and are checked on the card
+# (chip_smoke.py --edges) at the d_model of gpt2, gpt2_medium and
+# gpt2_large; the f32 kernels are built for 768 only (other widths:
+# ROADMAP Queue 2 item A)
+_KERNEL_WIDTHS = {torch.bfloat16: (768, 1024, 1280), torch.float32: (768,)}
 flash_ce_fwd_kernel = _build.Kernel(
-    "flash_ce_fwd", *[_build.PTR] * 7, *[_build.INT] * 3, _build.FLOAT,
+    "flash_ce_fwd", *[_build.PTR] * 8, *[_build.INT] * 3, _build.FLOAT,
     _build.INT, _build.INT, _build.PTR)
 flash_ce_bwd_kernel = _build.Kernel(
     "flash_ce_bwd", *[_build.PTR] * 11, *[_build.INT] * 5, _build.PTR)
 
 
-def supports(N: int, d: int, V: int) -> bool:
+def supports(N: int, d: int, V: int, *, device=None,
+             dtype=None) -> Support:
     """Shapes the streamed formulation takes (the JAX gate: ``d`` is the
-    contraction and accumulator width of every tile)."""
-    return d % 128 == 0 and 0 < d <= 2048 and N > 0 and V > 1
-
-
-def uses_flash_ce(N: int, d: int, V: int, *, mode: str = "flash",
-                  n_devices: int = 1) -> bool:
-    """Whether the loss head takes the flash-CE path for this shape."""
-    return mode == "flash" and n_devices <= 1 and supports(N, d, V)
+    contraction and accumulator width of every tile).  On a CUDA
+    ``device`` a width the JAX gate takes but no kernel of ``dtype`` is
+    built for (not in ``_KERNEL_WIDTHS``) raises; the CPU's plain
+    versions take any."""
+    if not (d % 128 == 0 and 0 < d <= 2048 and N > 0 and V > 1):
+        return unsupported(f"N={N}, d={d}, V={V}: the streamed "
+                           "formulation takes d % 128 == 0, d <= 2048")
+    if on_cuda(device):
+        require_built(f"the flash-CE kernels ({dtype}): d", d,
+                      _KERNEL_WIDTHS.get(dtype, ()), "A")
+    return supported("flash-CE kernels")
 
 
 def uses_flash_ce_norm(N: int, d: int, V: int, *, mode: str = "flash",
                        n_devices: int = 1, norm: str = "rmsnorm",
-                       has_bias: bool = False,
-                       enabled: bool = True) -> Support:
+                       has_bias: bool = False, enabled: bool = True,
+                       device=None, dtype=None) -> Support:
     """Dispatch gate (with reason) for the final-norm-fused CE path:
     the flash-CE conditions plus ``enabled`` (the caller's
     ``fuse_norm``) and a norm the prologue can fuse."""
@@ -71,10 +78,13 @@ def uses_flash_ce_norm(N: int, d: int, V: int, *, mode: str = "flash",
     if has_bias:
         return unsupported("bias norms (GPT-2 exact-architecture mode) "
                            "stay on the plain path")
-    if not uses_flash_ce(N, d, V, mode=mode, n_devices=n_devices):
-        return unsupported(
-            f"flash-CE path declined (mode={mode!r}, n_devices={n_devices},"
-            f" N={N}, d={d}, V={V})")
+    if mode != "flash" or n_devices > 1:
+        return unsupported(f"flash-CE path declined (mode={mode!r}, "
+                           f"n_devices={n_devices})")
+    ok = supports(N, d, V, device=device, dtype=dtype)
+    if not ok:
+        return unsupported(f"flash-CE path declined (N={N}, d={d}, V={V}; "
+                           f"{ok.reason})")
     return supported("flash-CE with fused final-norm prologue")
 
 
@@ -89,39 +99,77 @@ def _rms(x, scale, eps: float):
 # the kernels and their plain versions
 # ---------------------------------------------------------------------------
 
-def plain_flash_ce_fwd(x, w, targets, norm=None
+def plain_flash_ce_fwd(x, w, targets, norm=None, *,
+                       tile_v: Optional[int] = None
                        ) -> Tuple[torch.Tensor, ...]:
     """The forward kernel's plain version: ``(lse, true)`` [N] f32, plus
-    ``rstd`` [N] with ``norm = (scale, eps)``.  w is head^T [V, d]."""
+    ``rstd`` [N] with ``norm = (scale, eps)``.  w is head^T [V, d].
+
+    With ``tile_v``, the bf16 kernel's order of work: the logits of one
+    ``tile_v``-column vocab tile at a time, each tile's row max ``m``
+    and sum of ``exp(s - m)`` folded into the running pair in tile order,
+    and the true logit taken from the tile that holds the target."""
     rstd = None
     if norm is not None:
         x, rstd = _rms(x, *norm)
-    logits = torch.matmul(x.float(), w.float().T)
-    lse = torch.logsumexp(logits, -1)
-    true = torch.where(targets >= 0, logits.gather(
-        1, targets.clamp_min(0).long()[:, None])[:, 0], 0.0)
+    V = w.shape[0]
+    live = targets >= 0
+    tgt = targets.clamp_min(0).long()[:, None]
+    if tile_v is None:
+        logits = torch.matmul(x.float(), w.float().T)
+        lse = torch.logsumexp(logits, -1)
+        true = torch.where(live, logits.gather(1, tgt)[:, 0], 0.0)
+    else:
+        m = l = None
+        true = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+        for v0 in range(0, V, tile_v):
+            s = torch.matmul(x.float(), w[v0:v0 + tile_v].float().T)
+            mt = s.amax(-1)
+            lt = torch.exp(s - mt[:, None]).sum(-1)
+            if m is None:
+                m, l = mt, lt
+            else:
+                mn = torch.maximum(m, mt)
+                l = l * torch.exp(m - mn) + lt * torch.exp(mt - mn)
+                m = mn
+            here = live & (targets >= v0) & (targets < v0 + s.shape[1])
+            true = torch.where(here, s.gather(
+                1, (tgt - v0).clamp(0, s.shape[1] - 1))[:, 0], true)
+        lse = m + torch.log(l.clamp_min(1e-30))
     return (lse, true) if rstd is None else (lse, true, rstd)
 
 
-def plain_flash_ce_bwd(x, w, targets, lse, srow, norm=None
+def plain_flash_ce_bwd(x, w, targets, lse, srow, norm=None, *,
+                       chunk_rows: Optional[int] = None
                        ) -> Tuple[torch.Tensor, ...]:
     """The backward kernel's plain version: ``(dx, dw)`` in the input
     dtype, plus ``dscale`` [d] f32 with ``norm = (scale, eps, rstd)``.
     ``srow`` [N] f32 is the loss cotangent where the target is live and 0
     where it is masked; ``dl`` is rounded to the head's dtype before both
-    products (``flash_ce.py:329``)."""
+    products (``flash_ce.py:329``).
+
+    With ``chunk_rows``, the bf16 kernel's order of work: dl of one chunk
+    of rows at a time, its dy and its share of dw, the shares added in
+    f32 in chunk order and dw rounded once."""
     y = x
     if norm is not None:
         scale, _eps, rstd = norm
         y = (x.float() * rstd[:, None] * scale.float()).to(x.dtype)
-    V = w.shape[0]
-    logits = torch.matmul(y.float(), w.float().T)
-    p = torch.exp(logits - lse[:, None])
-    onehot = (torch.arange(V, device=x.device)[None, :]
-              == targets.long()[:, None]).float()
-    dl = ((p - onehot) * srow[:, None]).to(w.dtype).float()
-    dy = torch.matmul(dl, w.float())
-    dw = torch.matmul(dl.T, y.float()).to(w.dtype)
+    N, V = x.shape[0], w.shape[0]
+    step = N if chunk_rows is None else chunk_rows
+    cols = torch.arange(V, device=x.device)[None, :]
+    dys, dw = [], None
+    for r0 in range(0, N, step):
+        yc = y[r0:r0 + step].float()
+        logits = torch.matmul(yc, w.float().T)
+        p = torch.exp(logits - lse[r0:r0 + step, None])
+        onehot = (cols == targets[r0:r0 + step].long()[:, None]).float()
+        dl = ((p - onehot) * srow[r0:r0 + step, None]).to(w.dtype).float()
+        dys.append(torch.matmul(dl, w.float()))
+        part = torch.matmul(dl.T, yc)
+        dw = part if dw is None else dw + part
+    dy = torch.cat(dys)
+    dw = dw.to(w.dtype)
     if norm is None:
         return dy.to(x.dtype), dw
     xhat = x.float() * rstd[:, None]
@@ -129,6 +177,12 @@ def plain_flash_ce_bwd(x, w, targets, lse, srow, norm=None
     m = (dxhat * xhat).mean(-1, keepdim=True)
     dx = rstd[:, None] * (dxhat - xhat * m)
     return dx.to(x.dtype), dw, (dy * xhat).sum(0)
+
+
+def _check_width(name: str, N: int, d: int, V: int, dtype) -> None:
+    ok = supports(N, d, V, device="cuda", dtype=dtype)
+    if not ok:
+        raise ValueError(f"{name}: {ok.reason}")
 
 
 def _check_ce_args(name: str, x, w, targets, scale) -> None:
@@ -139,9 +193,7 @@ def _check_ce_args(name: str, x, w, targets, scale) -> None:
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: the kernel takes float32 or bfloat16, "
                          f"got {x.dtype}")
-    if d != _KERNEL_WIDTH:
-        raise ValueError(f"{name}: the kernel is built for d="
-                         f"{_KERNEL_WIDTH}, got d={d}")
+    _check_width(name, N, d, w.shape[0], x.dtype)
     if w.shape[1] != d or targets.shape != (N,) or \
             targets.dtype != torch.int32:
         raise ValueError(f"{name}: w must be [V, {d}] and targets int32 "
@@ -150,6 +202,13 @@ def _check_ce_args(name: str, x, w, targets, scale) -> None:
                                                  else (scale,))):
         raise ValueError(f"{name}: x, w and scale must be 16-byte aligned "
                          "(the kernels copy rows in 16-byte vectors)")
+
+
+def _workspace(symbol: str, N: int, d: int, V: int, norm: bool, dtype,
+               dev) -> torch.Tensor:
+    """The scratch an entry point takes, sized by the library itself."""
+    n = _build.query(symbol, N, d, V, int(norm), _DTYPE_CODES[dtype])
+    return torch.empty((max(n, 1),), dtype=torch.uint8, device=dev)
 
 
 def flash_ce_fwd(x, w, targets, norm=None) -> Tuple[torch.Tensor, ...]:
@@ -163,11 +222,13 @@ def flash_ce_fwd(x, w, targets, norm=None) -> Tuple[torch.Tensor, ...]:
     lse, true, rstd = (torch.empty((N,), dtype=torch.float32, device=dev)
                        for _ in range(3))
     with torch.cuda.device(dev):
+        ws = _workspace("flash_ce_fwd_workspace", N, d, w.shape[0],
+                        norm is not None, x.dtype, dev)
         flash_ce_fwd_kernel(
             x.data_ptr(), w.data_ptr(), targets.data_ptr(),
             None if scale is None else scale.data_ptr(), lse.data_ptr(),
-            true.data_ptr(), rstd.data_ptr(), N, d, w.shape[0], eps,
-            int(norm is not None), _DTYPE_CODES[x.dtype],
+            true.data_ptr(), rstd.data_ptr(), ws.data_ptr(), N, d,
+            w.shape[0], eps, int(norm is not None), _DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
     return (lse, true) if norm is None else (lse, true, rstd)
 
@@ -185,20 +246,20 @@ def flash_ce_bwd(x, w, targets, lse, srow, norm=None
     dev = x.device
     dx = torch.empty_like(x)
     dw = torch.empty_like(w)
-    dsp = dscale = None
+    dscale = None
     if norm is not None:
-        dsp = torch.empty((-(-N // _BWD_MIN_ROWS), d), dtype=torch.float32,
-                          device=dev)
         dscale = torch.empty((d,), dtype=torch.float32, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(dev):
+        ws = _workspace("flash_ce_bwd_workspace", N, d, w.shape[0],
+                        norm is not None, x.dtype, dev)
         flash_ce_bwd_kernel(
             x.data_ptr(), w.data_ptr(), targets.data_ptr(), lse.data_ptr(),
             srow.data_ptr(), ptr(scale), ptr(rstd), dx.data_ptr(),
-            dw.data_ptr(), ptr(dsp), ptr(dscale), N, d, w.shape[0],
+            dw.data_ptr(), ptr(dscale), ws.data_ptr(), N, d, w.shape[0],
             int(norm is not None), _DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
     return (dx, dw) if norm is None else (dx, dw, dscale)
@@ -255,10 +316,10 @@ def flash_ce_sum(x, head, targets):
     """Streamed-logits cross-entropy: ``(sum_nll, n_valid)``.
 
     x [N, d], head [d, V], targets [N] (-1 = masked).  Differentiable in
-    (x, head).  Shapes :func:`supports` declines take the dense
-    formulation (same numerics, no streaming)."""
+    (x, head).  Shapes :func:`supports` declines (on x's device, in x's
+    dtype) take the dense formulation (same numerics, no streaming)."""
     N, d = x.shape
-    if not supports(N, d, head.shape[1]):
+    if not supports(N, d, head.shape[1], device=x.device, dtype=x.dtype):
         return _xla_ce_sum(x, head, targets)
     return FlashCE.apply(x, head, targets, None, 0.0)
 
@@ -272,7 +333,7 @@ def flash_ce_norm_sum(x, head, targets, norm_scale, *, eps: float = 1e-6):
     gradient.  Differentiable in (x, head, norm_scale).  Shapes
     :func:`supports` declines take the unfused formulation."""
     N, d = x.shape
-    if not supports(N, d, head.shape[1]):
+    if not supports(N, d, head.shape[1], device=x.device, dtype=x.dtype):
         x32 = x.float()
         x32 = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
         y = (x32 * norm_scale.float()).to(x.dtype)

@@ -21,12 +21,15 @@ import torch
 
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops.substrate import (Support, check_cuda_args, is_cuda,
-                                         supported, unsupported)
+                                         on_cuda, require_built, supported,
+                                         unsupported)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the width the kernel is built for: GPT-2's d_model; other widths come
-# with the configurations that need them
-_KERNEL_WIDTH = 768
+# the widths d the kernels are built for (the d_model of gpt2,
+# gpt2_medium and gpt2_large), read by supports(), which the model's
+# dispatch and the wrappers' checks both call; other widths come with the
+# configurations that need them (ROADMAP Queue 2 item A)
+_KERNEL_WIDTHS = (768, 1024, 1280)
 
 matmul_residual_norm_kernel = _build.Kernel(
     "matmul_residual_norm_fwd", *[_build.PTR] * 7, *[_build.INT] * 3,
@@ -44,10 +47,12 @@ _BWD_ROWS = 64
 _BWD_SPLITS = 7
 
 
-def supports(N: int, K: int, d: int) -> Support:
+def supports(N: int, K: int, d: int, *, device=None) -> Support:
     """Shapes the fused epilogue takes (the JAX gate's limits: the
     kernel holds a full ``d`` row per block and a ``[rows, K]`` slab in
-    shared memory)."""
+    shared memory).  On a CUDA ``device`` a width the JAX gate takes but
+    no kernel is built for (not in ``_KERNEL_WIDTHS``) raises; the CPU's
+    plain version takes any."""
     if N <= 0:
         return unsupported(f"N={N} has no rows")
     if K % 128:
@@ -57,15 +62,18 @@ def supports(N: int, K: int, d: int) -> Support:
     if K > 1536 or d > 1536:
         return unsupported(f"K={K}, d={d}: the row slab and product tile "
                            "exceed the shared-memory budget (cap 1536)")
+    if on_cuda(device):
+        require_built("the out-proj epilogue: d", d, _KERNEL_WIDTHS, "A")
     return supported("fused out-proj epilogue kernel")
 
 
 def out_proj_norm_plan(N: int, K: int, d: int, *, norm: str = "rmsnorm",
                        has_bias: bool = False, seq: Optional[int] = None,
-                       enabled: bool = True) -> Support:
+                       enabled: bool = True, device=None) -> Support:
     """The out-proj epilogue dispatch gate, with reasons.  ``enabled`` is
     the caller's ``fuse_norm`` choice (an argument: no environment knob
-    reaches the port)."""
+    reaches the port); ``device`` is where the operands lie (on a CUDA
+    device a width no kernel is built for raises, see :func:`supports`)."""
     if not enabled:
         return unsupported("disabled (fuse_norm=False)")
     if norm != "rmsnorm":
@@ -76,7 +84,7 @@ def out_proj_norm_plan(N: int, K: int, d: int, *, norm: str = "rmsnorm",
     if seq is not None and seq <= 1:
         return unsupported("decode step (S=1): per-token kernel "
                            "launches lose to the plain epilogue")
-    return supports(N, K, d)
+    return supports(N, K, d, device=device)
 
 
 def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
@@ -105,7 +113,7 @@ def matmul_residual_norm_fwd(a, w, resid, scale, *, eps: float = 1e-6
     """``(r, y, rstd)``; the kernel on CUDA tensors."""
     N, K = a.shape
     d = w.shape[1]
-    ok = supports(N, K, d)
+    ok = supports(N, K, d, device=a.device)
     if not ok:
         raise ValueError(f"matmul_residual_norm cannot tile: {ok.reason}")
     if not is_cuda(a):
@@ -120,9 +128,6 @@ def matmul_residual_norm_fwd(a, w, resid, scale, *, eps: float = 1e-6
     if a.dtype not in _DTYPE_CODES:
         raise ValueError("matmul_residual_norm: the kernel takes float32 "
                          f"or bfloat16, got {a.dtype}")
-    if d != _KERNEL_WIDTH:
-        raise ValueError(f"matmul_residual_norm: the kernel is built for "
-                         f"d={_KERNEL_WIDTH}, got d={d}")
     _check_aligned("matmul_residual_norm", a, w, resid, scale)
     r = torch.empty_like(resid)
     y = torch.empty_like(resid)
@@ -177,11 +182,10 @@ def matmul_residual_norm_bwd(a, w, rout, scale, rstd, drout, dy
     if a.dtype not in _DTYPE_CODES or rstd.dtype != torch.float32:
         raise ValueError("matmul_residual_norm_bwd: the kernel takes float32"
                          " or bfloat16 operands and an f32 rstd")
-    ok = supports(N, K, d)
-    if not ok or d != _KERNEL_WIDTH:
-        raise ValueError(f"matmul_residual_norm_bwd: the kernel is built for "
-                         f"d={_KERNEL_WIDTH}, K % 128 == 0, K <= 1536; got "
-                         f"K={K}, d={d}")
+    ok = supports(N, K, d, device=a.device)
+    if not ok:
+        raise ValueError(f"matmul_residual_norm_bwd cannot tile: "
+                         f"{ok.reason}")
     _check_aligned("matmul_residual_norm_bwd", a, w, rout, scale, drout, dy)
     dev = a.device
     da = torch.empty_like(a)
@@ -227,9 +231,10 @@ def matmul_residual_norm(a, w, resid, scale, *, eps: float = 1e-6
     """``(resid + a @ w, rmsnorm(resid + a @ w) * scale)``, fused.
 
     a [N, K], w [K, d], resid [N, d], scale [d].  Differentiable in all
-    four operands.  Shapes :func:`supports` declines raise: dispatch is
-    the caller's job (:func:`out_proj_norm_plan`)."""
-    ok = supports(a.shape[0], a.shape[1], w.shape[1])
+    four operands.  Shapes :func:`supports` declines raise (and, on a
+    CUDA tensor, widths no kernel is built for): dispatch is the
+    caller's job (:func:`out_proj_norm_plan`)."""
+    ok = supports(a.shape[0], a.shape[1], w.shape[1], device=a.device)
     if not ok:
         raise ValueError(f"matmul_residual_norm cannot tile: {ok.reason}")
     return MatmulResidualNorm.apply(a, w, resid, scale, eps)

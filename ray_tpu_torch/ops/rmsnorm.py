@@ -19,11 +19,14 @@ from typing import Tuple
 import torch
 
 from ray_tpu_torch.ops import _build
-from ray_tpu_torch.ops.substrate import check_cuda_args, is_cuda
+from ray_tpu_torch.ops.substrate import (Support, check_cuda_args, is_cuda,
+                                         on_cuda, require_built, supported)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the width the kernels are built for: GPT-2's d_model
-_KERNEL_WIDTH = 768
+# the widths the kernels are built for (the d_model of GPTConfig.tiny,
+# gpt2, gpt2_medium and gpt2_large), read by supports(), which the
+# wrappers' checks call; other widths: ROADMAP Queue 2 item A
+_KERNEL_WIDTHS = (64, 768, 1024, 1280)
 
 rmsnorm_fwd_kernel = _build.Kernel(
     "rmsnorm_fwd", *[_build.PTR] * 4, _build.INT, _build.INT, _build.FLOAT,
@@ -57,6 +60,17 @@ def plain_rmsnorm_bwd(x, scale, rstd, dy
     return dx.to(x.dtype), (dy32 * xhat).sum(0).to(scale.dtype)
 
 
+def supports(d: int, *, device=None) -> Support:
+    """Whether rows of width ``d`` take the kernels on ``device``: on the
+    CPU every width (the plain versions); on a CUDA device the widths in
+    ``_KERNEL_WIDTHS``, and any other raises (no plain version stands in
+    for a kernel on the card)."""
+    if not on_cuda(device):
+        return supported("the plain version (not a CUDA device)")
+    require_built("the RMSNorm kernels: d", d, _KERNEL_WIDTHS, "A")
+    return supported("RMSNorm kernels")
+
+
 def _check_kernel_args(name: str, x, scale) -> None:
     N, d = x.shape
     if scale.shape != (d,):
@@ -66,9 +80,7 @@ def _check_kernel_args(name: str, x, scale) -> None:
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: the kernel takes float32 or bfloat16, "
                          f"got {x.dtype}")
-    if d != _KERNEL_WIDTH:
-        raise ValueError(f"{name}: the kernel is built for d="
-                         f"{_KERNEL_WIDTH}, got d={d}")
+    supports(d, device=x.device)
     if x.data_ptr() % 16 or scale.data_ptr() % 16:
         raise ValueError(f"{name}: x and scale must be 16-byte aligned "
                          "(the kernel reads rows in 16-byte vectors)")

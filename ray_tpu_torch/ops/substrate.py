@@ -70,6 +70,24 @@ def is_cuda(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
+def on_cuda(device) -> bool:
+    """Whether a gate's ``device`` argument names a CUDA device."""
+    return device is not None and torch.device(device).type == "cuda"
+
+
+def require_built(what: str, value, built: tuple, item: str) -> None:
+    """Raise unless ``value`` is among the shapes a kernel is built for.
+
+    On a CUDA device the port launches a kernel or raises: a shape the
+    JAX package's kernel takes but no kernel here is built for is an
+    error naming the ROADMAP Queue 2 item that would build it, never a
+    quiet trip through a plain version."""
+    if value not in built:
+        raise NotImplementedError(
+            f"{what}={value}: no kernel is built for it (built for "
+            f"{built}; ROADMAP Queue 2 item {item})")
+
+
 def check_cuda_args(name: str, *tensors: torch.Tensor,
                     dtype: Optional[torch.dtype] = None) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor on one

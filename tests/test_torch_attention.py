@@ -57,6 +57,10 @@ def test_rope_rotate_matches_jax(batched_positions):
     (2, 127, 2, 64),
     (1, 129, 4, 64),
     (2, 200, 3, 64),
+    # GPTConfig.tiny's head dim: JAX takes its unpacked _fwd kernel at
+    # 128 and einsum at 65
+    (2, 128, 4, 16),
+    (1, 65, 4, 16),
 ])
 def test_flash_attention_matches_jax(shape):
     """o against ``JA.flash_attention``, and the kernel's second output,
@@ -200,6 +204,10 @@ def _grad_err(got, want):
     ((1, 127, 2, 64), None),
     ((2, 129, 2, 64), None),
     ((2, 200, 3, 64), None),
+    # GPTConfig.tiny's head dim 16, where the partner of a column under
+    # the D/2 roll is 8 columns away
+    ((2, 128, 4, 16), None),
+    ((1, 65, 4, 16), None),
 ])
 def test_flash_attention_rope_grads_match_jax(shape, blocks):
     """``flash_attention(positions=...)``, the training path's fused
@@ -277,3 +285,40 @@ def test_make_flash_attention_fn_marks_fused_rope():
     q = torch.zeros(1, 8, 2, 64)
     with pytest.raises(NotImplementedError, match="data-plane"):
         TA.flash_attention(q, q, q, segment_ids=torch.ones(1, 8))
+
+
+CUDA = torch.device("cuda")
+
+
+@pytest.mark.parametrize("D, ok", [(64, True), (16, True), (32, False),
+                                   (128, False), (256, False)])
+def test_cuda_gate_declines_unbuilt_head_dims(D, ok):
+    """On a CUDA device (constructible without a card) the attention gate
+    takes the head dims the kernels are built for (GPT-2's 64, tiny's 16)
+    and raises for the rest, naming the ROADMAP item: a CUDA tensor never
+    goes to a plain version.  On the CPU every head dim is taken (the
+    plain versions)."""
+    if ok:
+        assert TA.supports(D, device=CUDA)
+    else:
+        with pytest.raises(NotImplementedError, match="Queue 2 item B"):
+            TA.supports(D, device=CUDA)
+    assert TA.supports(D, device="cpu") and TA.supports(D)
+
+
+def test_cuda_gate_and_wrapper_check_agree():
+    """The wrappers' check takes exactly the head dims the CUDA gate
+    passes, ``_KERNEL_HEAD_DIMS``, and refuses the rest as the gate
+    does."""
+    t = torch.zeros(1)
+    for D in range(8, 257, 8):
+        if D in TA._KERNEL_HEAD_DIMS:
+            assert TA.supports(D, device=CUDA)
+            TA._check_kernel_dtype("flash_attention", t, D)
+        else:
+            for check in (lambda: TA.supports(D, device=CUDA),
+                          lambda: TA._check_kernel_dtype(
+                              "flash_attention", t, D)):
+                with pytest.raises(NotImplementedError,
+                                   match="Queue 2 item B"):
+                    check()

@@ -522,3 +522,18 @@ def test_kv_dtype_env_knob(models, monkeypatch, capsys):
     with pytest.raises(ValueError, match="kv_dtype"):
         InferenceEngine(tcfg, tparams, device="cpu", kv_dtype="fp4",
                         **GEOMETRY)
+
+
+def test_tiny_head_dim_streams_match_jax_engine():
+    """``GPTConfig.tiny``'s head dim 16 (d_model 64, 4 heads), which the
+    attention kernels are built for as well as GPT-2's 64: the greedy
+    stream and its logits match the JAX engine's through prefill and
+    decode."""
+    kw = dict(SMALL, d_model=64, n_heads=4)
+    jcfg = jgpt.GPTConfig(**kw, dtype=jnp.float32)
+    tcfg = tgpt.GPTConfig(**kw, dtype=torch.float32)
+    jparams = jgpt.init_params(jcfg, jax.random.PRNGKey(1))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                              device="cpu")
+    jeng, teng = _engines((jcfg, jparams, tcfg, tparams), prefix=False)
+    _assert_same_run(jeng, teng, _drive(jeng), _drive(teng))

@@ -137,3 +137,77 @@ def test_matmul_residual_norm_k_ne_d_matches_jax(part):
 def test_out_proj_norm_plan_takes_fuse_norm():
     off = TF.out_proj_norm_plan(128, 768, 768, seq=64, enabled=False)
     assert not off and "fuse_norm" in off.reason
+
+
+CUDA = torch.device("cuda")
+
+
+@pytest.mark.parametrize("d, verdict", [
+    (768, "kernel"), (1024, "kernel"), (1280, "kernel"),
+    (128, "raise"), (1536, "raise"),     # the JAX gate takes, none built
+    (1664, "plain"),                     # the JAX gate declines too
+])
+def test_cuda_plan_declines_unbuilt_widths(d, verdict):
+    """On a CUDA device (constructible without a card) the epilogue's
+    gate takes the widths its kernels are built for (gpt2's, gpt2_medium's
+    and gpt2_large's), declines what the JAX gate declines, and raises,
+    naming the ROADMAP item, for a width the JAX gate takes but no kernel
+    is built for: no CUDA tensor goes to the plain epilogue in place of a
+    kernel.  On the CPU the JAX gate's verdict stands."""
+    def plan(device):
+        return TF.out_proj_norm_plan(24576, 768, d, seq=1024, device=device)
+
+    if verdict == "raise":
+        with pytest.raises(NotImplementedError, match="Queue 2 item A"):
+            plan(CUDA)
+    else:
+        assert bool(plan(CUDA)) == (verdict == "kernel")
+    assert bool(plan("cpu")) == (verdict != "plain")
+
+
+def test_cuda_gate_and_wrapper_check_agree():
+    """The wrappers' CUDA check is ``supports`` on the operands' device,
+    so the two cannot disagree: among the widths the JAX gate takes it
+    passes exactly those of ``_KERNEL_WIDTHS`` and raises for the rest."""
+    for d in range(128, 1537, 128):
+        for K in (384, 768, 1536):
+            assert TF.supports(4096, K, d)
+            if d in TF._KERNEL_WIDTHS:
+                assert TF.supports(4096, K, d, device=CUDA)
+            else:
+                with pytest.raises(NotImplementedError,
+                                   match="Queue 2 item A"):
+                    TF.supports(4096, K, d, device=CUDA)
+
+
+def test_layer_apply_asks_the_gate_for_its_device(monkeypatch):
+    """The model passes the hidden state's device to the epilogue's gate;
+    where that device is a card and no kernel is built for the width
+    (d = 128 here), the layer raises rather than run the plain epilogue
+    on the card's tensors."""
+    from ray_tpu_torch.models import gpt as tgpt
+    from ray_tpu_torch.parallel.ring_attention import local_attention
+
+    seen = []
+    gate = TF.out_proj_norm_plan
+
+    def spy(*a, **k):
+        seen.append(k.get("device"))
+        return gate(*a, **{**k, "device": CUDA})   # as on a card
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the fused epilogue was reached")
+
+    cfg = tgpt.GPTConfig(vocab_size=64, d_model=128, n_layers=1, n_heads=2,
+                         max_seq=16, dtype=torch.float32)
+    params = tgpt.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    tokens = torch.randint(0, 64, (2, 16), generator=torch.Generator()
+                           .manual_seed(1))
+    monkeypatch.setattr(TF, "out_proj_norm_plan", spy)
+    monkeypatch.setattr(TF, "matmul_residual_norm", refuse)
+    with pytest.raises(NotImplementedError, match="Queue 2 item A"):
+        tgpt.forward(params, tokens, cfg,
+                     attn_fn=lambda q, k, v: local_attention(
+                         q, k, v, causal=True))
+    assert seen == [torch.device("cpu")]

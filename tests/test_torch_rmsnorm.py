@@ -30,10 +30,10 @@ from ray_tpu_torch.ops import rmsnorm as TR
 SHAPE = (2, 40, 128)
 
 
-def _inputs(seed):
+def _inputs(seed, shape=SHAPE):
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal(SHAPE).astype(np.float32)
-    s = (rng.standard_normal(SHAPE[-1]) * 0.1 + 1.0).astype(np.float32)
+    x = rng.standard_normal(shape).astype(np.float32)
+    s = (rng.standard_normal(shape[-1]) * 0.1 + 1.0).astype(np.float32)
     return x, s
 
 
@@ -106,3 +106,50 @@ def test_model_norm_takes_the_kernel_path_when_flagged(monkeypatch):
     on = tgpt._norm(x, s, "rmsnorm")
     assert calls == [x.shape]
     np.testing.assert_allclose(on.numpy(), off.numpy(), atol=1e-6)
+
+
+CUDA = torch.device("cuda")
+
+
+@pytest.mark.parametrize("d, ok", [(768, True), (64, True), (1024, True),
+                                   (1280, True), (512, False),
+                                   (1536, False)])
+def test_cuda_gate_declines_unbuilt_widths(d, ok):
+    """On a CUDA device the RMSNorm gate takes the widths the kernels are
+    built for (the d_model of tiny, gpt2, gpt2_medium and gpt2_large) and
+    raises for the rest, naming the ROADMAP item; the CPU's plain
+    versions take any width."""
+    if ok:
+        assert TR.supports(d, device=CUDA)
+    else:
+        with pytest.raises(NotImplementedError, match="Queue 2 item A"):
+            TR.supports(d, device=CUDA)
+    assert TR.supports(d, device="cpu") and TR.supports(d)
+
+
+def test_cuda_gate_and_wrapper_check_agree():
+    """The wrappers' check is ``supports`` on the operand's device: on a
+    card it passes exactly ``_KERNEL_WIDTHS`` and raises for the rest."""
+    import inspect
+
+    assert "supports(d, device=x.device)" in inspect.getsource(
+        TR._check_kernel_args)
+    for d in range(64, 2049, 64):
+        if d in TR._KERNEL_WIDTHS:
+            assert TR.supports(d, device=CUDA)
+        else:
+            with pytest.raises(NotImplementedError, match="Queue 2 item A"):
+                TR.supports(d, device=CUDA)
+
+
+@pytest.mark.parametrize("d", [64, 1024, 1280])
+def test_rmsnorm_matches_jax_at_model_widths(d):
+    """The plain forward and backward the kernels are held to on the card,
+    at the other widths they are built for (tiny's, gpt2_medium's,
+    gpt2_large's), against the Pallas rmsnorm and ``jax.grad`` in f32."""
+    x, s = _inputs(d, (2, 24, d))
+    want = _jax(x, s, jnp.float32)
+    got = _port(x, s, torch.float32)
+    np.testing.assert_allclose(got[0], want[0], atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got[1], want[1], atol=1e-5, rtol=1e-5)
+    assert _rel(got[2], want[2]) < 1e-5
