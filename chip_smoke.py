@@ -9,7 +9,9 @@
                                               # kernels at N = 24576
     python3 chip_smoke.py --profile ce     # the flash-CE entry points'
                                            # kernels at the training shape
+    python3 chip_smoke.py --decode         # the decode checks and times
     python3 chip_smoke.py --edges          # the wgmma tile checks, the
+                                           # decode checks, the
                                            # attention, epilogue and
                                            # flash-CE kernels' ragged
                                            # edges, and the width checks
@@ -27,6 +29,13 @@
    version's, one PyTorch library call's as a yardstick, and the least
    time the card could take (``bound_ms``): the ten entry points, the
    int8 decode attention and the RMSNorm forward and backward included.
+   The decode kernels padded and paged (``decode_checks``): bf16, f32 and
+   int8 at [8, 1024, 12, 64] with lengths 1 to 1024 (split counts 1 to
+   8), through a shuffled page table at pages of 128, 16 and 1, NaN past
+   each length and in the garbage page, two calls and the two input
+   modes bit-identical, outputs between guard bands; then timed at those
+   lengths and with every row full, padded and paged, against the
+   masked SDPA and ``gather_pages`` + SDPA.
    The attention kernels also at their ragged edges: the prefill forward
    at S = 1, 65 and 200, the training forward and backward at [2, S, 12,
    64] with and without RoPE for S = 65 and 200, and two bf16 backward
@@ -43,7 +52,8 @@
    defaults (prefix caching on; the random prompts share no page, so
    nothing hits); every request must finish, the engine must be
    leak-free, and each kernel's launch count must be what the run
-   implies.
+   implies; no decode step may gather the paged context
+   (``no_gather_in_decode``).
 4. Correctness: two greedy requests' logits against the port's
    teacher-forced ``forward`` on the CPU in f32 over the same weights.
 5. Engine phase gpt2-serve-int8-prefix: the same model with the int8 KV
@@ -185,7 +195,7 @@ class Recorder:
         self.rows = {}
 
     def record(self, kernel, shape, err, ms, plain_ms, lib_ms, nbytes,
-               flops, source, replaces):
+               flops, source, replaces, **extra):
         b_ms, b_by = bound(nbytes, flops, self.bw, self.peak)
         print(f"kernel {kernel} {shape}: max_abs_err={err:.3e} "
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -196,11 +206,11 @@ class Recorder:
             "replaces": replaces, "max_abs_err": 0.0})
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row.update(shape=shape, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **extra)
         # every shape measured, the row's own (the last) included
         row.setdefault("by_shape", []).append(dict(
             shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=b_ms, bound_by=b_by))
+            bound_ms=b_ms, bound_by=b_by, **extra))
 
 
 def _randn(g, dev):
@@ -211,6 +221,292 @@ def _randn(g, dev):
 
 def _f32(*xs):
     return [x.float() for x in xs]
+
+
+# decode attention: the smoke's lengths (split counts 1, 8, 1, 1, 2, 4, 7,
+# 8 at 128 positions a split: most rows' counts differ from their
+# neighbours') and the page sizes the paged entry is checked at
+DECODE_LENGTHS = (1, 1024, 37, 128, 129, 500, 777, 1000)
+DECODE_PAGE_SIZES = (128, 16, 1)
+DECODE_SPLIT = 128   # positions a block owns (decode_attention.cu SPLIT),
+                     # for the printed split counts only
+
+
+def decode_context(g, dev, B, S, H, D, lengths) -> dict:
+    """q [B, H, D] bf16 and a padded context [B, S, H, D] that holds
+    garbage at every position >= its row's length: K, V in bf16 with
+    NaN there; int8 codes and f32 scales [B, S, H] of fresh K/V from
+    ``quantize_block``, with random codes and NaN scales there."""
+    from ray_tpu_torch.quant import quantize_block
+
+    randn = _randn(g, dev)
+    dead = (torch.arange(S, device=dev)[None, :]
+            >= lengths[:, None].long())[..., None, None]
+    c = dict(q=randn(B, H, D))
+    for n in ("k", "v"):
+        c[n] = randn(B, S, H, D).masked_fill(dead, float("nan"))
+        codes, sc = quantize_block(randn(B, S, H, D, dtype=torch.float32),
+                                   block=D)
+        noise = torch.randint(-128, 128, codes.shape, generator=g,
+                              device=dev, dtype=torch.int8)
+        c[n + "8"] = torch.where(dead, noise, codes)
+        c[n + "s"] = sc[..., 0].masked_fill(dead[..., 0],
+                                            float("nan")).contiguous()
+    return c
+
+
+def decode_pages(c: dict, lengths, page_size: int, g) -> tuple:
+    """The padded context ``c`` laid out as the engine's cache holds it:
+    pages [P, page_size, ...] with the garbage page 0 and each row's
+    pages at shuffled ids, and a table [B, max_pages] int32 whose
+    entries from ceil(len / page_size) on name the garbage page.  The
+    garbage page and the positions past S hold NaN (codes: 127), and
+    the float pages sit between NaN guard bands (``_guarded``).
+    Returns (pages by name, table, max_pages)."""
+    B, S = c["k"].shape[:2]
+    mp = -(-S // page_size)
+    ids = (torch.randperm(B * mp, generator=g, device=g.device) + 1)
+    pages = {}
+    for n in ("k", "v", "k8", "v8", "ks", "vs"):
+        x = c[n]
+        fill = 127 if x.dtype == torch.int8 else float("nan")
+        ctx = torch.full((B, mp * page_size) + x.shape[2:], fill,
+                         dtype=x.dtype, device=x.device)
+        ctx[:, :S] = x
+        pool = torch.full((1 + B * mp, page_size) + x.shape[2:], fill,
+                          dtype=x.dtype, device=x.device)
+        pool[ids] = ctx.reshape((B * mp, page_size) + x.shape[2:])
+        pages[n] = pool if x.dtype == torch.int8 else _guarded(pool)
+    used = -(-lengths.long() // page_size)
+    table = ids.view(B, mp).masked_fill(
+        torch.arange(mp, device=ids.device)[None, :] >= used[:, None], 0)
+    return pages, table.to(torch.int32).contiguous(), mp
+
+
+def _raw_decode(A, q, k, v, scales, lengths, table, ps, mp):
+    """The decode kernels launched on outputs the caller gives (o, ws):
+    for ``_guarded_writes``."""
+    B, H, D = q.shape
+
+    def launch(o, ws):
+        common = (lengths.data_ptr(), table.data_ptr(), o.data_ptr(),
+                  ws.data_ptr(), B, H, D, ps, mp, D ** -0.5,
+                  A._DTYPE_CODES[q.dtype], A._stream(q))
+        if scales:
+            A.decode_attention_int8_kernel(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                *(t.data_ptr() for t in scales.values()), *common)
+        else:
+            A.decode_attention_kernel(q.data_ptr(), k.data_ptr(),
+                                      v.data_ptr(), *common)
+    return launch
+
+
+def decode_checks(dev, *, B: int, S: int, H: int, D: int,
+                  lengths) -> None:
+    """Both decode kernels, padded and paged, against their plain
+    versions: bf16 and f32 (model dtype) and int8 codes under q in bf16
+    and f32, at the main-path tolerances, over a context whose positions
+    past each length hold NaN (int8: random codes, NaN scales).  The
+    paged entry reads the same context through a shuffled table at page
+    sizes 128, 16 and 1, with NaN in the garbage page every table tail
+    names and NaN guard bands around the pages.  Two calls must agree
+    bit for bit, and the paged call with the padded one (one body, the
+    same order of work); the bf16 and int8 launches, made once more on
+    outputs between guard bands, must write nothing else."""
+    from ray_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    c = decode_context(g, dev, B, S, H, D, lengths)
+    scale = D ** -0.5
+    q, q32 = c["q"], c["q"].float()
+    ref = A.plain_decode_attention(*_f32(q, c["k"], c["v"]), lengths,
+                                   scale=scale)
+    ref8 = A.plain_decode_attention(q32, c["k8"], c["v8"], lengths,
+                                    scale=scale, k_scale=c["ks"],
+                                    v_scale=c["vs"])
+    # name: (q, k name, v name, int8, reference, tolerance)
+    variants = {"bf16": (q, "k", "v", False, ref, BF16_TOL),
+                "f32": (q32, "k", "v", False, ref, F32_TOL),
+                "int8": (q, "k8", "v8", True, ref8, BF16_TOL),
+                "int8 f32": (q32, "k8", "v8", True, ref8, F32_TOL)}
+    splits = (-(-lengths.long() // DECODE_SPLIT)).tolist()
+    for name, (qq, kn, vn, int8, want, tol) in variants.items():
+        what = f"decode [{B},{S},{H},{D}] {name}"
+        cast = (lambda x: x) if int8 or qq.dtype == torch.bfloat16 \
+            else (lambda x: x.float())
+        k, v = cast(c[kn]), cast(c[vn])
+        sc = dict(k_scale=c["ks"], v_scale=c["vs"]) if int8 else {}
+        o = A.decode_attention(qq, k, v, lengths, **sc)
+        again = A.decode_attention(qq, k, v, lengths, **sc)
+        torch.cuda.synchronize()
+        check(f"{what} padded", o, want, **tol)
+        if not torch.equal(o, again):
+            raise AssertionError(f"{what}: two padded calls differ")
+        for ps in DECODE_PAGE_SIZES:
+            pages, table, mp = decode_pages(c, lengths, ps, g)
+            kp, vp = cast(pages[kn]), cast(pages[vn])
+            if not int8 and qq.dtype == torch.float32:
+                kp, vp = _guarded(kp), _guarded(vp)
+            psc = (dict(k_scale_pages=pages["ks"], v_scale_pages=pages["vs"])
+                   if int8 else {})
+            op = A.decode_attention_paged(qq, kp, vp, table, lengths, **psc)
+            op2 = A.decode_attention_paged(qq, kp, vp, table, lengths, **psc)
+            torch.cuda.synchronize()
+            check(f"{what} paged page={ps}", op, want, **tol)
+            if not (torch.equal(op, op2) and torch.equal(op, o)):
+                raise AssertionError(f"{what} page={ps}: two paged calls, "
+                                     "or the paged and the padded, differ")
+            if qq.dtype == torch.bfloat16:
+                ws = torch.empty(A._decode_workspace_elems(
+                    B, H, D, mp * ps), dtype=torch.float32, device=dev)
+                _guarded_writes(f"{what} paged page={ps}", _raw_decode(
+                    A, qq, kp, vp, {"k": pages["ks"], "v": pages["vs"]}
+                    if int8 else {}, lengths, table, ps, mp), (op,),
+                    scratch=(ws,))
+        print(f"  {what}: padded and paged (pages {DECODE_PAGE_SIZES}) "
+              f"bit-identical over two calls and to each other; splits "
+              f"per row {splits}; guard bands intact", flush=True)
+
+
+def _kernel_device_ms(fn, iters: int = 20) -> dict:
+    """Device time per call of each kernel ``fn`` launches
+    (torch.profiler), by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / iters
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+def _cold_ms(fn, inputs: tuple, copies: int = 6) -> float:
+    """``time_ms`` of ``fn(*inputs)`` with each call on the next of
+    ``copies`` clones of the inputs, so that a call finds its inputs out
+    of the 50 MB L2 (the engine's cache, ~300 MB, is read once a step)."""
+    import itertools
+    ring = itertools.cycle([tuple(x.clone() for x in inputs)
+                            for _ in range(copies)])
+    return time_ms(lambda: fn(*next(ring)))
+
+
+def decode_timings(rec: Recorder, dev, *, B: int, S: int, H: int,
+                   D: int) -> None:
+    """Both decode kernels timed at the smoke's lengths and with every
+    row full, padded and paged (page 128, a shuffled table), beside
+    their plain versions and the library's yardsticks: the masked SDPA
+    (int8: dequantize, then SDPA) for the padded entry, and
+    ``gather_pages`` followed by the same call for the paged one.  Each
+    row's headline (recorded last) is the paged kernel at the smoke's
+    lengths, the engine's decode step.  Also prints each kernel's time
+    with its inputs out of L2, the device time of the split and the
+    combine kernels apart, and the achieved bandwidth."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.inference.kv_cache import gather_pages
+    from ray_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    bf = torch.bfloat16
+    scale = D ** -0.5
+    src = "ray_tpu_torch/ops/csrc/decode_attention.cu"
+    for lens in ((S,) * B, DECODE_LENGTHS):
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        c = decode_context(g, dev, B, S, H, D, lengths)
+        ps = 128
+        pages, table, _mp = decode_pages(c, lengths, ps, g)
+        table64 = table.long()
+        q, qs = c["q"], c["q"][:, :, None, :]
+        mask = (torch.arange(S, device=dev)[None, :]
+                < lengths[:, None].long())[:, None, None, :]
+        valid = int(lengths.sum())
+        n_tab = int((-(-lengths.long() // ps)).sum())
+        blocks = H * int((-(-lengths.long() // DECODE_SPLIT)).sum())
+        flops = 4 * H * D * valid
+        tag = "full" if len(set(lens)) == 1 else "smoke lengths"
+
+        def sdpa(k, v):
+            return F.scaled_dot_product_attention(
+                qs, k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask)
+
+        def deq(codes, sc):
+            return (codes.float() * sc[..., None]).to(bf)
+
+        sc = dict(k_scale=c["ks"], v_scale=c["vs"])
+        psc = dict(k_scale_pages=pages["ks"], v_scale_pages=pages["vs"])
+        for row, int8 in (("decode_attention", False),
+                          ("decode_attention_int8", True)):
+            k, v = (c["k8"], c["v8"]) if int8 else (c["k"], c["v"])
+            kp, vp = ((pages["k8"], pages["v8"]) if int8
+                      else (pages["k"], pages["v"]))
+            kw, pkw = (sc, psc) if int8 else ({}, {})
+            nbytes = (2 * B * H * D * 2 + B * 4
+                      + valid * H * ((D + 4) * 2 if int8 else D * 2 * 2))
+            want = A.plain_decode_attention(
+                q.float(), *((k, v) if int8 else _f32(k, v)), lengths,
+                scale=scale, **kw)
+            if int8:
+                def lib_padded():
+                    sdpa(deq(k, c["ks"]), deq(v, c["vs"]))
+
+                def lib_paged():
+                    sdpa(deq(gather_pages(kp, table64),
+                             gather_pages(pages["ks"], table64)),
+                         deq(gather_pages(vp, table64),
+                             gather_pages(pages["vs"], table64)))
+            else:
+                def lib_padded():
+                    sdpa(k, v)
+
+                def lib_paged():
+                    sdpa(gather_pages(kp, table64), gather_pages(vp, table64))
+            replaces = ("ray_tpu/ops/attention.py:1387 (quantized=True, "
+                        "body :1319-1344)" if int8
+                        else "ray_tpu/ops/attention.py:1387")
+            for entry in ("decode_attention", "decode_attention_paged"):
+                paged = entry == "decode_attention_paged"
+                big = (kp, vp, *pkw.values()) if paged \
+                    else (k, v, *kw.values())
+
+                def call(kk, vv, *scs, paged=paged):
+                    if paged:
+                        return A.decode_attention_paged(
+                            q, kk, vv, table, lengths,
+                            **dict(zip(pkw, scs)))
+                    return A.decode_attention(q, kk, vv, lengths,
+                                              **dict(zip(kw, scs)))
+
+                def plain_call(paged=paged):
+                    if paged:
+                        return A.plain_decode_attention_paged(
+                            q, kp, vp, table, lengths, scale=scale, **pkw)
+                    return A.plain_decode_attention(q, k, v, lengths,
+                                                    scale=scale, **kw)
+
+                o = call(*big)
+                torch.cuda.synchronize()
+                err = check(f"{row} {entry} {tag}", o, want, **BF16_TOL)
+                ms = time_ms(lambda: call(*big))
+                cold = _cold_ms(call, big)
+                split = _kernel_device_ms(lambda: call(*big))
+                nb = nbytes + (n_tab * 4 if paged else 0)
+                rec.record(row, [B, S, H, D], err, ms, time_ms(plain_call),
+                           time_ms(lib_paged if paged else lib_padded), nb,
+                           flops, src, replaces, entry=entry,
+                           lengths=list(lens), ms_cold=cold)
+                print(f"  {row} {entry} {tag}: cold {cold:.4f} ms; "
+                      f"{nb / ms / 1e6:.1f} GB/s warm, "
+                      f"{nb / cold / 1e6:.1f} GB/s cold; live split blocks "
+                      f"{blocks}; device " + ", ".join(
+                          f"{n[:40]} {t:.4f} ms" for n, t in split.items()),
+                      flush=True)
 
 
 def kernel_phase(rec: Recorder, dev) -> None:
@@ -255,75 +551,10 @@ def kernel_phase(rec: Recorder, dev) -> None:
                    "ray_tpu_torch/ops/csrc/flash_attention_fwd.cu",
                    "ray_tpu/ops/attention.py:477")
 
-    # decode attention at [8, 1024, 12, 64]; positions >= lengths hold
-    # NaN, which the kernel must never read
-    B, S = 8, 1024
-    lengths = torch.tensor([1, 1024, 37, 128, 129, 500, 777, 1000],
-                           dtype=torch.int32, device=dev)
-    q = randn(B, H, D)
-    k, v = randn(B, S, H, D), randn(B, S, H, D)
-    dead = (torch.arange(S, device=dev)[None, :]
-            >= lengths[:, None].long())[..., None, None]
-    k = k.masked_fill(dead, float("nan"))
-    v = v.masked_fill(dead, float("nan"))
-    o = A.decode_attention(q, k, v, lengths)
-    o_ref = A.plain_decode_attention(*_f32(q, k, v), lengths, scale=scale)
-    o32 = A.decode_attention(*_f32(q, k, v), lengths)
-    torch.cuda.synchronize()
-    err = check("decode_attention", o, o_ref, **BF16_TOL)
-    check("decode_attention f32", o32, o_ref, **F32_TOL)
-    mask = ~dead[:, :, 0, 0][:, None, None, :]          # [B, 1, 1, S]
-    qs = q[:, :, None, :]
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    valid = int(lengths.sum())
-    rec.record("decode_attention", [B, S, H, D], err,
-               time_ms(lambda: A.decode_attention(q, k, v, lengths)),
-               time_ms(lambda: A.plain_decode_attention(q, k, v, lengths,
-                                                        scale=scale)),
-               time_ms(lambda: F.scaled_dot_product_attention(
-                   qs, kt, vt, attn_mask=mask)),
-               2 * B * H * D * 2 + valid * H * D * 2 * 2,
-               4 * H * D * valid,
-               "ray_tpu_torch/ops/csrc/decode_attention.cu",
-               "ray_tpu/ops/attention.py:1387")
-
-    # the int8 variant at the same shape: codes and scales of fresh K/V
-    # from quantize_block, random codes and NaN scales past each length.
-    # The plain version reads the same codes, so quantization error is
-    # not part of the check.
-    from ray_tpu_torch.quant import quantize_block
-    k8, ks = quantize_block(randn(B, S, H, D, dtype=torch.float32), block=D)
-    v8, vs = quantize_block(randn(B, S, H, D, dtype=torch.float32), block=D)
-    noise = torch.randint(-128, 128, k8.shape, generator=g, device=dev,
-                          dtype=torch.int8)
-    k8, v8 = torch.where(dead, noise, k8), torch.where(dead, noise, v8)
-    ks = ks[..., 0].masked_fill(dead[..., 0], float("nan")).contiguous()
-    vs = vs[..., 0].masked_fill(dead[..., 0], float("nan")).contiguous()
-    scales = dict(k_scale=ks, v_scale=vs)
-    o = A.decode_attention(q, k8, v8, lengths, **scales)
-    o_ref = A.plain_decode_attention(q.float(), k8, v8, lengths, scale=scale,
-                                     **scales)
-    o32 = A.decode_attention(q.float(), k8, v8, lengths, **scales)
-    torch.cuda.synchronize()
-    err = check("decode_attention_int8", o, o_ref, **BF16_TOL)
-    check("decode_attention_int8 f32", o32, o_ref, **F32_TOL)
-
-    def dequant_sdpa():
-        kd = (k8.float() * ks[..., None]).to(bf).transpose(1, 2)
-        vd = (v8.float() * vs[..., None]).to(bf).transpose(1, 2)
-        F.scaled_dot_product_attention(qs, kd, vd, attn_mask=mask)
-
-    rec.record("decode_attention_int8", [B, S, H, D], err,
-               time_ms(lambda: A.decode_attention(q, k8, v8, lengths,
-                                                  **scales)),
-               time_ms(lambda: A.plain_decode_attention(
-                   q, k8, v8, lengths, scale=scale, **scales)),
-               time_ms(dequant_sdpa),
-               2 * B * H * D * 2 + valid * H * (D + 4) * 2 + B * 4,
-               4 * H * D * valid,
-               "ray_tpu_torch/ops/csrc/decode_attention.cu",
-               "ray_tpu/ops/attention.py:1387 (quantized=True, "
-               "body :1319-1344)")
+    # decode attention at [8, 1024, 12, 64], padded and paged, model
+    # dtype and int8: checks, then times
+    decode_checks(dev, B=8, S=1024, H=H, D=D, lengths=DECODE_LENGTHS)
+    decode_timings(rec, dev, B=8, S=1024, H=H, D=D)
 
     # out-proj + residual + rmsnorm at N in {32, 1024}, K = d = 768
     for N in (32, 1024):
@@ -573,52 +804,22 @@ def ragged_attention_checks(dev, *, B: int = 2, H: int = 12,
 def width_kernel_checks(dev) -> None:
     """The kernels at the widths of the repo's other configurations, each
     against its plain version under the main-path tolerances: attention at
-    tiny's head_dim 16 (the ragged checks above, and the decode kernels
-    in bf16, f32 and int8 against a NaN-filled context past each length),
+    tiny's head_dim 16 (the ragged checks above, and ``decode_checks``:
+    the decode kernels padded and paged in bf16, f32 and int8),
     and the RMSNorm kernels at tiny's, gpt2_medium's and gpt2_large's
     d = 64, 1024, 1280 (inputs between NaN guard bands, two bf16 backward
     calls bit-identical).  Then the epilogue at gpt2_medium's and
     gpt2_large's training shapes, timed against its plain version."""
     import torch.nn.functional as F
 
-    from ray_tpu_torch.ops import attention as A
     from ray_tpu_torch.ops import fused_norm as FN
     from ray_tpu_torch.ops import rmsnorm as R
-    from ray_tpu_torch.quant import quantize_block
 
     ragged_attention_checks(dev, H=4, D=16)
+    decode_checks(dev, B=4, S=300, H=4, D=16, lengths=(1, 300, 64, 129))
     g = torch.Generator(device=dev).manual_seed(9)
     randn = _randn(g, dev)
     bf = torch.bfloat16
-    B, S, H, D = 4, 300, 4, 16
-    lengths = torch.tensor([1, 300, 64, 129], dtype=torch.int32, device=dev)
-    dead = (torch.arange(S, device=dev)[None, :]
-            >= lengths[:, None].long())[..., None, None]
-    q = randn(B, H, D)
-    k, v = (randn(B, S, H, D).masked_fill(dead, float("nan"))
-            for _ in range(2))
-    o = A.decode_attention(q, k, v, lengths)
-    o32 = A.decode_attention(*_f32(q, k, v), lengths)
-    o_ref = A.plain_decode_attention(*_f32(q, k, v), lengths,
-                                     scale=D ** -0.5)
-    k8, ks = quantize_block(randn(B, S, H, D, dtype=torch.float32), block=D)
-    v8, vs = quantize_block(randn(B, S, H, D, dtype=torch.float32), block=D)
-    scales = dict(
-        k_scale=ks[..., 0].masked_fill(dead[..., 0], float("nan"))
-        .contiguous(),
-        v_scale=vs[..., 0].masked_fill(dead[..., 0], float("nan"))
-        .contiguous())
-    o8 = A.decode_attention(q, k8, v8, lengths, **scales)
-    o8_32 = A.decode_attention(q.float(), k8, v8, lengths, **scales)
-    o8_ref = A.plain_decode_attention(q.float(), k8, v8, lengths,
-                                      scale=D ** -0.5, **scales)
-    torch.cuda.synchronize()
-    what = f"decode_attention [{B},{S},{H},{D}]"
-    check(what, o, o_ref, **BF16_TOL)
-    check(f"{what} f32", o32, o_ref, **F32_TOL)
-    check(f"{what} int8", o8, o8_ref, **BF16_TOL)
-    check(f"{what} int8 f32", o8_32, o8_ref, **F32_TOL)
-
     eps, N = 1e-6, 200
     for d in (64, 1024, 1280):
         what = f"rmsnorm N={N} d={d}"
@@ -670,6 +871,13 @@ def width_kernel_checks(dev) -> None:
         def lib_fwd():
             F.rms_norm(torch.addmm(resid, a, w), (d,), sc, eps)
 
+        def lib_bwd():
+            args = [x.detach().requires_grad_(True)
+                    for x in (a, w, resid, sc)]
+            r_ = torch.addmm(args[2], args[0], args[1])
+            y_ = F.rms_norm(r_, (d,), args[3], eps)
+            torch.autograd.backward([r_, y_], [drout, dy])
+
         fwd = (time_ms(lambda: FN.matmul_residual_norm_fwd(
                    a, w, resid, sc, eps=eps)),
                time_ms(lambda: FN.plain_matmul_residual_norm(
@@ -677,10 +885,18 @@ def width_kernel_checks(dev) -> None:
         bwd = (time_ms(lambda: FN.matmul_residual_norm_bwd(
                    a, w, r, sc, rstd, drout, dy)),
                time_ms(lambda: FN.plain_matmul_residual_norm_bwd(
-                   a, w, r, sc, rstd, drout, dy)))
+                   a, w, r, sc, rstd, drout, dy)), time_ms(lib_bwd, 10))
+        # the training phase's byte and flop counts at K = d
+        bw, peak = peaks(torch.cuda.get_device_name(0))
+        fb = bound((2 * N * d + d * d + d) * 2 + 2 * N * d * 2 + N * 4,
+                   2 * N * d * d, bw, peak)
+        bb = bound((6 * N * d + 2 * d * d + 2 * d) * 2 + N * 4 + d * 4,
+                   4 * N * d * d, bw, peak)
         print(f"  {what} bf16: forward {fwd[0]:.4f} ms (plain {fwd[1]:.4f}"
-              f", addmm + rms_norm {fwd[2]:.4f}); backward {bwd[0]:.4f} ms"
-              f" (plain {bwd[1]:.4f})", flush=True)
+              f", addmm + rms_norm {fwd[2]:.4f}, bound {fb[0]:.4f} "
+              f"({fb[1]})); backward {bwd[0]:.4f} ms (plain {bwd[1]:.4f}, "
+              f"their forward + backward {bwd[2]:.4f}, bound {bb[0]:.4f} "
+              f"({bb[1]}))", flush=True)
         del a, w, resid, drout, dy, r, y, rstd, grads
         torch.cuda.empty_cache()
 
@@ -1185,6 +1401,28 @@ def expect_launches(what: str, launches: dict, want: dict) -> None:
                              f"{full}")
 
 
+def no_gather_in_decode(engine) -> None:
+    """Make every decode step of ``engine`` raise if it gathers the paged
+    context (``kv_cache.gather_pages``): the decode kernel reads the
+    pages in place.  The cached prefill still gathers, outside the
+    step."""
+    from ray_tpu_torch.inference import kv_cache as kvc
+
+    step, gather = engine._decode_step, kvc.gather_pages
+
+    def refuse(*_args, **_kw):
+        raise AssertionError("a decode step gathered the paged context")
+
+    def decode_step(*args):
+        kvc.gather_pages = refuse
+        try:
+            return step(*args)
+        finally:
+            kvc.gather_pages = gather
+
+    engine._decode_step = decode_step
+
+
 def serve(engine, prompts, sampling) -> dict:
     """Submit every prompt at once (32 new tokens each), run the engine
     dry, and return what the run took: the launches, first-token times,
@@ -1231,6 +1469,7 @@ def engine_phase(params, cfg, dev) -> dict:
     from ray_tpu_torch import InferenceEngine
 
     engine = InferenceEngine(cfg, params, device=dev, **ENGINE)
+    no_gather_in_decode(engine)
     engine.generate([[1, 2, 3]], max_new_tokens=2)        # warm-up
     rng = np.random.default_rng(0)
     lengths = np.linspace(40, 900, 16).astype(int)
@@ -1261,8 +1500,8 @@ def engine_phase(params, cfg, dev) -> dict:
         "wall_s": run["wall"],
     }
     print("engine phase: all 16 requests finished, leak-free, prefix cache "
-          f"on with 0 hits; launches {run['launches']} == implied",
-          flush=True)
+          f"on with 0 hits; launches {run['launches']} == implied; no "
+          "decode step gathered the paged context", flush=True)
     print("engine metrics " + json.dumps(metrics), flush=True)
     return run["launches"]
 
@@ -1284,6 +1523,7 @@ def int8_prefix_phase(params, cfg, dev) -> dict:
 
     engine = InferenceEngine(cfg, params, device=dev, kv_dtype="int8",
                              **ENGINE)
+    no_gather_in_decode(engine)
     rng = np.random.default_rng(3)
     warm = rng.integers(0, 50257, 200).tolist()
     engine.generate([warm, warm], max_new_tokens=2)   # warm-up, one hit
@@ -1332,8 +1572,8 @@ def int8_prefix_phase(params, cfg, dev) -> dict:
         "wall_s": run["wall"],
     }
     print("int8-prefix phase: all 16 requests finished, leak-free; 12 hits"
-          f" of {SYSTEM_LEN} tokens; launches {run['launches']} == implied",
-          flush=True)
+          f" of {SYSTEM_LEN} tokens; launches {run['launches']} == implied;"
+          " no decode step gathered the paged context", flush=True)
     print("int8-prefix metrics " + json.dumps(metrics), flush=True)
     return run["launches"]
 
@@ -1784,10 +2024,12 @@ def start_up() -> str:
     return name
 
 
-def report(what, prof, wall, steps, top=8):
+def report(what, prof, wall, steps, top=8, groups=None):
     """The busiest device-side events of a profile (kernels, copies; an
     operator's device time is its kernels', which would count twice) and
-    the device's busy share of the wall time."""
+    the device's busy share of the wall time.  ``groups`` (label: name
+    substrings) adds each group's device time per step, its kernels
+    listed, and the rest's."""
     evs = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA
            and e.self_device_time_total > 0]
@@ -1799,6 +2041,27 @@ def report(what, prof, wall, steps, top=8):
         print(f"  {e.self_device_time_total / 1e3 / steps:8.3f} ms/step"
               f"  {e.count // steps:4d} calls/step  {e.key[:90]}",
               flush=True)
+    rest = busy
+    for label, keys in (groups or {}).items():
+        members = [e for e in evs if any(k in e.key for k in keys)]
+        ms = sum(e.self_device_time_total for e in members) / 1e3
+        rest -= ms
+        calls = sum(e.count for e in members) // steps
+        print(f"  group {label}: {ms / steps:.4f} ms/step in {calls} "
+              "calls/step", flush=True)
+        for e in members:
+            print(f"    {e.self_device_time_total / 1e3 / steps:.4f} ms/step "
+                  f"{e.count // steps:4d} calls/step  {e.key[:80]}",
+                  flush=True)
+    if groups:
+        print(f"  group rest: {rest / steps:.4f} ms/step", flush=True)
+
+
+# the decode step's device time split for the decode kernel's PRs: the
+# attention kernels, and the index kernels (the context gather of the
+# padded layout, write_decode's scatter, the embedding's lookup)
+DECODE_GROUPS = {"decode attention": ("decode_",),
+                 "index kernels": ("index", "gather", "scatter")}
 
 
 def profile_phase(params, cfg, dev, *, kv_dtype: str = "model") -> None:
@@ -1840,7 +2103,8 @@ def profile_phase(params, cfg, dev, *, kv_dtype: str = "model") -> None:
             engine.step()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    report("decode step (8 slots)", prof, wall, 8)
+    report("decode step (8 slots)", prof, wall, 8, top=12,
+           groups=DECODE_GROUPS)
     # the decode step without the profiler: layers vs sampling
     sched = engine.scheduler
     args = [torch.from_numpy(a).to(dev) for a in (
@@ -1973,8 +2237,16 @@ def main() -> None:
     if sys.argv[1:] == ["--profile", "ce"]:
         ce_profile_phase(dev)
         return
+    if sys.argv[1:] == ["--decode"]:
+        rec = Recorder(name)
+        decode_checks(dev, B=8, S=1024, H=12, D=64, lengths=DECODE_LENGTHS)
+        decode_checks(dev, B=4, S=300, H=4, D=16, lengths=(1, 300, 64, 129))
+        decode_timings(rec, dev, B=8, S=1024, H=12, D=64)
+        print(json.dumps({"kernels": list(rec.rows.values())}))
+        return
     if sys.argv[1:] == ["--edges"]:
         wgmma_tile_checks(dev)
+        decode_checks(dev, B=8, S=1024, H=12, D=64, lengths=DECODE_LENGTHS)
         ragged_attention_checks(dev)
         ragged_epilogue_checks(dev)
         ragged_flash_ce_checks(dev)

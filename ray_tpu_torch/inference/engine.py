@@ -19,9 +19,10 @@ slot; ``generate()`` runs a batch of prompts to completion.
   plain PyTorch, as the reference's is plain XLA).  Every prefill then
   registers the prompt's full pages for later requests.
 - **Decode** runs all ``slots`` rows at once: each slot's token K/V is
-  written at its length, the slot contexts are gathered from the pages,
-  and the decode-attention kernel attends over each context up to its
-  length.  Inactive slots ride along writing into the garbage page.
+  written at its length, and the decode-attention kernel attends over
+  each slot's pages up to its length, reading them in place through the
+  page table (``decode_attention_paged``; no gathered context).
+  Inactive slots ride along writing into the garbage page.
 - **int8 KV cache** (``kv_dtype="int8"``): K/V are stored as int8 codes
   with one f32 scale per (position, head) (``quant.quantize_block``);
   prefill attention reads the full-precision prompt K/V, a cached
@@ -59,7 +60,8 @@ from ray_tpu_torch.inference.sampling import (SamplingParams,
                                               sample_tokens_logprobs)
 from ray_tpu_torch.inference.scheduler import Request, SlotScheduler
 from ray_tpu_torch.models import gpt as gpt_mod
-from ray_tpu_torch.ops.attention import decode_attention, flash_attention
+from ray_tpu_torch.ops.attention import (decode_attention_paged,
+                                         flash_attention)
 from ray_tpu_torch.ops.substrate import NEG_INF, resolve_device
 from ray_tpu_torch.quant import quantize_block
 
@@ -510,17 +512,17 @@ class InferenceEngine:
                     host_logits[slot])
             self._deliver(req, sampled[slot], logps[slot], events)
 
-    def _decode_attention(self, q, k, v, cache, *, page_table, lengths,
-                          ctx_lengths):
-        """Write each slot's new K/V at its length, gather the slot
-        contexts and attend over each up to its length (int8 codes and
-        their scales when the cache is int8)."""
+    def _decode_attention(self, q, k, v, cache, *, page_table, table32,
+                          lengths, ctx_lengths):
+        """Write each slot's new K/V at its length, then attend over each
+        slot's pages up to its length, read in place through the page
+        table (int8 codes and their scales when the cache is int8)."""
         for page, new in zip(cache, self._cache_entries(k[:, 0], v[:, 0])):
             kvc.write_decode(page, new, page_table, lengths, self.page_size)
-        ctx = [kvc.gather_pages(page, page_table) for page in cache]
-        scales = (dict(k_scale=ctx[2], v_scale=ctx[3])
+        scales = (dict(k_scale_pages=cache[2], v_scale_pages=cache[3])
                   if self.cache.quantized else {})
-        o = decode_attention(q[:, 0], ctx[0], ctx[1], ctx_lengths, **scales)
+        o = decode_attention_paged(q[:, 0], cache[0], cache[1], table32,
+                                   ctx_lengths, **scales)
         return o[:, None], cache
 
     def _decode_step(self, tokens, lengths, page_table):
@@ -528,7 +530,8 @@ class InferenceEngine:
         page_table [slots, max_pages]) -> logits [slots, V] f32."""
         hook = functools.partial(
             self._decode_attention, page_table=page_table,
-            lengths=lengths, ctx_lengths=(lengths + 1).to(torch.int32))
+            table32=page_table.to(torch.int32), lengths=lengths,
+            ctx_lengths=(lengths + 1).to(torch.int32))
         x = self._run_layers(self._embed(tokens[:, None]),
                              lengths[:, None], hook)
         logits = torch.matmul(x, gpt_mod.lm_head(self.params, self.cfg))

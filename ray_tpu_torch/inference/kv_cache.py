@@ -336,7 +336,8 @@ def write_decode(pages, new, page_table, lengths, page_size: int):
 
 def gather_pages(pages, page_table):
     """[P, page_size, *rest] x [B, max_pages] -> [B, max_pages*page, *rest]:
-    the padded per-slot context that decode attention masks by length."""
+    the padded per-slot context of the cached prefill.  The decode step
+    reads the pages in place (``ops.attention.decode_attention_paged``)."""
     B, max_pages = page_table.shape
     ps = pages.shape[1]
     ctx = pages[page_table]             # [B, max_pages, ps, *rest]

@@ -14,12 +14,15 @@ model layout ``[B, S, H, D]`` as the JAX package does.
   RoPE rotation happens inside both kernels (the training path, through
   :func:`make_flash_attention_fn`); the serving path rotates q and k
   outside, because its cache stores post-RoPE keys.
-- :func:`decode_attention` is one query token per sequence against the
-  gathered paged context, masked by ``lengths``.  On a CUDA tensor it
-  launches ``csrc/decode_attention.cu`` (the port of ``_decode_kernel``):
-  ``decode_attention`` for a model-dtype cache, ``decode_attention_int8``
-  (``quantized=True``) for int8 codes with ``k_scale``/``v_scale``; on a
-  CPU tensor it runs :func:`plain_decode_attention`.
+- :func:`decode_attention` is one query token per sequence against a
+  padded context, masked by ``lengths``, and
+  :func:`decode_attention_paged` the same read straight from the paged
+  cache through the page table (the engine's decode step).  On a CUDA
+  tensor both launch ``csrc/decode_attention.cu`` (the port of
+  ``_decode_kernel``, split across blocks): ``decode_attention`` for a
+  model-dtype cache, ``decode_attention_int8`` (``quantized=True``) for
+  int8 codes with their scales; on a CPU tensor they run
+  :func:`plain_decode_attention` and :func:`plain_decode_attention_paged`.
 
 A CUDA tensor launches the kernel or raises; nothing falls back.  The
 kernels are built for the head dims in ``_KERNEL_HEAD_DIMS`` (64, GPT-2's,
@@ -52,12 +55,14 @@ flash_attention_kernel = _build.Kernel(
 flash_attention_bwd_kernel = _build.Kernel(
     "flash_attention_bwd", *[_build.PTR] * 12, *[_build.INT] * 4,
     _build.FLOAT, _build.INT, _build.PTR)
+# one entry point for both input modes (padded, paged), each launching
+# the split and combine kernels: one count per call; the int8 variant is
+# its own entry point, so its launches count apart
 decode_attention_kernel = _build.Kernel(
-    "decode_attention", *[_build.PTR] * 5, *[_build.INT] * 4,
+    "decode_attention", *[_build.PTR] * 7, *[_build.INT] * 5,
     _build.FLOAT, _build.INT, _build.PTR)
-# the int8 variant is its own entry point, so its launches count apart
 decode_attention_int8_kernel = _build.Kernel(
-    "decode_attention_int8", *[_build.PTR] * 7, *[_build.INT] * 4,
+    "decode_attention_int8", *[_build.PTR] * 9, *[_build.INT] * 5,
     _build.FLOAT, _build.INT, _build.PTR)
 
 
@@ -336,7 +341,7 @@ def make_flash_attention_fn(mesh=None, *, causal: bool = True,
 
 
 # ---------------------------------------------------------------------------
-# decode attention over the gathered paged context
+# decode attention: a padded context, or the paged cache read in place
 # ---------------------------------------------------------------------------
 
 def plain_decode_attention(q, k, v, lengths, *, scale: float,
@@ -365,21 +370,100 @@ def plain_decode_attention(q, k, v, lengths, *, scale: float,
     return (o / l.clamp_min(1e-30)).to(q.dtype)
 
 
+def _pages_to_context(pages, page_table):
+    """[P, page_size, *rest] x [B, max_pages] -> [B, max_pages*page_size,
+    *rest], each row's pages in table order: the padded context the
+    paged kernel reads in place (the engine's ``gather_pages``)."""
+    B, max_pages = page_table.shape
+    ctx = pages[page_table.long()]
+    return ctx.reshape((B, max_pages * pages.shape[1]) + pages.shape[2:])
+
+
+def plain_decode_attention_paged(q, k_pages, v_pages, page_table, lengths,
+                                 *, scale: float, k_scale_pages=None,
+                                 v_scale_pages=None):
+    """The paged kernel's plain version: the pages gathered into the
+    padded context, then :func:`plain_decode_attention`."""
+    scales = {}
+    if k_scale_pages is not None:
+        scales = dict(k_scale=_pages_to_context(k_scale_pages, page_table),
+                      v_scale=_pages_to_context(v_scale_pages, page_table))
+    return plain_decode_attention(
+        q, _pages_to_context(k_pages, page_table),
+        _pages_to_context(v_pages, page_table), lengths, scale=scale,
+        **scales)
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_workspace_elems(B: int, H: int, D: int, capacity: int) -> int:
+    return _build.query("decode_attention_workspace", B, H, D, capacity)
+
+
+def _launch_decode(name, q, k, v, lengths, table, ps, max_pages, scale,
+                   k_scale, v_scale) -> torch.Tensor:
+    """Check what both input modes share and launch the kernel: ``k``,
+    ``v`` hold rows of [H, D] (codes with ``k_scale``/``v_scale`` of one
+    f32 per row and head), position p of row b at row ``b * ps + p``
+    (``table`` None) or ``table[b, p // ps] * ps + p % ps``."""
+    B, H, D = q.shape
+    quantized = k_scale is not None
+    if lengths.dtype != torch.int32 or lengths.shape != (B,):
+        raise ValueError(f"{name}: lengths must be int32 [B]")
+    check_cuda_args(name, q, k, v, lengths,
+                    *(() if table is None else (table,)))
+    if k.dtype != v.dtype or k.dtype != (torch.int8 if quantized
+                                         else q.dtype):
+        raise ValueError(f"{name}: k/v of dtype {k.dtype}, {v.dtype} for q "
+                         f"of {q.dtype} (int8 codes take scales)")
+    _check_kernel_dtype(name, q, D)
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{name}: k/v must be 16-byte aligned (the kernel "
+                         "reads rows in 16-byte vectors)")
+    if ps * max_pages <= 0:
+        raise ValueError(f"{name}: the context holds no position")
+    if quantized:
+        check_cuda_args(name, q, k_scale, v_scale)
+        if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32 \
+                or k_scale.shape != k.shape[:-1] \
+                or v_scale.shape != k.shape[:-1]:
+            raise ValueError(f"{name}: scales must be f32 "
+                             f"{list(k.shape[:-1])}")
+    o = torch.empty_like(q)
+    ws = torch.empty((_decode_workspace_elems(B, H, D, ps * max_pages),),
+                     dtype=torch.float32, device=q.device)
+    common = (lengths.data_ptr(),
+              None if table is None else table.data_ptr(), o.data_ptr(),
+              ws.data_ptr(), B, H, D, ps, max_pages, scale,
+              _DTYPE_CODES[q.dtype], _stream(q))
+    with torch.cuda.device(q.device):
+        if quantized:
+            decode_attention_int8_kernel(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+                v_scale.data_ptr(), *common)
+        else:
+            decode_attention_kernel(q.data_ptr(), k.data_ptr(),
+                                    v.data_ptr(), *common)
+    return o
+
+
+def _check_scales_paired(k_scale, v_scale) -> None:
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale/v_scale must be passed together")
+
+
 def decode_attention(q, k, v, lengths, *, scale: Optional[float] = None,
                      k_scale=None, v_scale=None) -> torch.Tensor:
     """Single-token decode attention against a padded KV context.
 
     q: [B, H, D], the current token's (rotated) queries; k, v:
-    [B, S, H, D], the per-sequence context gathered from the paged
-    cache; lengths: [B] int32, valid positions per sequence (including
-    the current token, already written).  Returns [B, H, D] in q's
-    dtype.  ``k_scale``/``v_scale`` ([B, S, H] f32, both or neither):
-    k and v are int8 codes of the ``kv_dtype="int8"`` cache, dequantized
-    inside the kernel (``decode_attention_int8``)."""
+    [B, S, H, D], the per-sequence context; lengths: [B] int32, valid
+    positions per sequence (including the current token, already
+    written).  Returns [B, H, D] in q's dtype.  ``k_scale``/``v_scale``
+    ([B, S, H] f32, both or neither): k and v are int8 codes of the
+    ``kv_dtype="int8"`` cache, dequantized inside the kernel
+    (``decode_attention_int8``)."""
     B, H, D = q.shape
-    if (k_scale is None) != (v_scale is None):
-        raise ValueError("k_scale/v_scale must be passed together")
-    quantized = k_scale is not None
+    _check_scales_paired(k_scale, v_scale)
     if scale is None:
         scale = D ** -0.5
     if not is_cuda(q):
@@ -389,37 +473,45 @@ def decode_attention(q, k, v, lengths, *, scale: Optional[float] = None,
     if k.shape != (B, S, H, D) or v.shape != k.shape:
         raise ValueError(f"decode_attention: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    if lengths.dtype != torch.int32 or lengths.shape != (B,):
-        raise ValueError("decode_attention: lengths must be int32 [B]")
-    check_cuda_args("decode_attention", q, k, v, lengths)
-    if k.dtype != v.dtype or k.dtype != (torch.int8 if quantized
-                                         else q.dtype):
-        raise ValueError(f"decode_attention: k/v of dtype {k.dtype}, "
-                         f"{v.dtype} for q of {q.dtype} (int8 codes take "
-                         "k_scale/v_scale)")
-    _check_kernel_dtype("decode_attention", q, D)
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("decode_attention: k/v must be 16-byte aligned "
-                         "(the kernel reads rows in 16-byte vectors)")
-    o = torch.empty_like(q)
-    stream = _stream(q)
-    with torch.cuda.device(q.device):
-        if quantized:
-            check_cuda_args("decode_attention", q, k_scale, v_scale)
-            if k_scale.dtype != torch.float32 or \
-                    v_scale.dtype != torch.float32:
-                raise ValueError("decode_attention: k_scale/v_scale must "
-                                 "be f32")
-            if k_scale.shape != (B, S, H) or v_scale.shape != (B, S, H):
-                raise ValueError("decode_attention: k_scale/v_scale must be "
-                                 f"f32 [B, S, H] = [{B}, {S}, {H}]")
-            decode_attention_int8_kernel(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-                v_scale.data_ptr(), lengths.data_ptr(), o.data_ptr(), B, S,
-                H, D, scale, _DTYPE_CODES[q.dtype], stream)
-        else:
-            decode_attention_kernel(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                o.data_ptr(), B, S, H, D, scale, _DTYPE_CODES[q.dtype],
-                stream)
-    return o
+    return _launch_decode("decode_attention", q, k, v, lengths, None, S, 1,
+                          scale, k_scale, v_scale)
+
+
+def decode_attention_paged(q, k_pages, v_pages, page_table, lengths, *,
+                           scale: Optional[float] = None,
+                           k_scale_pages=None,
+                           v_scale_pages=None) -> torch.Tensor:
+    """Decode attention read straight from one layer of the paged cache.
+
+    q: [B, H, D]; k_pages, v_pages: [P, page_size, H, D], a layer's
+    slice of ``KVCache.k``/``v``; page_table: [B, max_pages] int32, row
+    b's position p at page ``page_table[b, p // page_size]``, offset
+    ``p % page_size``; lengths: [B] int32.  Only table entries below
+    ``ceil(lengths[b] / page_size)`` are read, so the garbage page the
+    tails point at is never touched.  ``k_scale_pages``/
+    ``v_scale_pages`` ([P, page_size, H] f32, both or neither): the
+    pages hold int8 codes.  The same kernels as :func:`decode_attention`
+    (one body, two input modes); on a CPU tensor
+    :func:`plain_decode_attention_paged`, which gathers the pages first.
+    Each table entry must name a page of ``k_pages``: the kernel does
+    not check them."""
+    B, H, D = q.shape
+    _check_scales_paired(k_scale_pages, v_scale_pages)
+    if scale is None:
+        scale = D ** -0.5
+    if not is_cuda(q):
+        return plain_decode_attention_paged(
+            q, k_pages, v_pages, page_table, lengths, scale=scale,
+            k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages)
+    P, ps = k_pages.shape[:2]
+    if k_pages.shape != (P, ps, H, D) or v_pages.shape != k_pages.shape:
+        raise ValueError(f"decode_attention_paged: pages "
+                         f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    if page_table.dtype != torch.int32 or page_table.dim() != 2 or \
+            page_table.shape[0] != B:
+        raise ValueError("decode_attention_paged: page_table must be int32 "
+                         "[B, max_pages]")
+    return _launch_decode("decode_attention_paged", q, k_pages, v_pages,
+                          lengths, page_table, ps, page_table.shape[1], scale,
+                          k_scale_pages, v_scale_pages)

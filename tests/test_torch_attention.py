@@ -175,6 +175,118 @@ def test_decode_attention_int8_matches_jax_pallas(garbage):
                             k_scale=torch.from_numpy(ks))
 
 
+def _bf16(x):
+    """f32 values that bf16 holds exactly."""
+    return torch.from_numpy(x).bfloat16().float().numpy()
+
+
+def _paged_case(page_size, int8, seed):
+    """A paged layer and its table, as the engine hands them to the
+    decode step: rows of length 1, one page exactly, one page + 1 and
+    the full table; pages in shuffled order; rows 2 and 3 share their
+    first (prefix) page; every table entry from ``ceil(len / page)`` on
+    names the garbage page 0.  The context (max_pages * page) is a
+    multiple of 128, so the JAX kernel tiles it.  Returns the clean
+    inputs (the JAX kernel's) and a copy whose garbage page and
+    positions at or past each length hold NaN (int8: extreme codes and
+    NaN scales), the port's."""
+    from ray_tpu.quant import quantize_block
+    rng = np.random.default_rng(seed)
+    H, D = 2, 64
+    S = np.lcm(page_size, 128)
+    S = S if S > page_size else 2 * S
+    max_pages = S // page_size
+    lengths = np.array([1, page_size, page_size + 1, S], np.int32)
+    needed = -(-lengths // page_size)
+    P = needed.sum()               # + the garbage page, - the shared one
+    ids = 1 + rng.permutation(P - 1)
+    table = np.zeros((4, max_pages), np.int32)
+    nxt = 0
+    for b, n in enumerate(needed):
+        for j in range(n):
+            if b == 3 and j == 0:
+                table[b, j] = table[2, 0]
+                continue
+            table[b, j] = ids[nxt]
+            nxt += 1
+    assert nxt == P - 1
+    q = _bf16(_rand(rng, 4, H, D))
+    kp, vp = (_bf16(_rand(rng, P, page_size, H, D)) for _ in range(2))
+    # positions no row reaches: the garbage page and each row's tail
+    dead = np.ones((P, page_size), bool)
+    for b in range(4):
+        for p in range(lengths[b]):
+            dead[table[b, p // page_size], p % page_size] = False
+    assert dead[0].all()
+    clean = dict(q=q, k=kp, v=vp)
+    if int8:
+        for n, x in (("k", kp), ("v", vp)):
+            codes, sc = (np.array(a) for a in
+                         quantize_block(jnp.asarray(x), block=D))
+            clean[n], clean[f"{n}s"] = codes, sc[..., 0].copy()
+    dirty = {n: x.copy() for n, x in clean.items()}
+    if int8:
+        dirty["k"][dead], dirty["v"][dead] = 127, -128
+        dirty["ks"][dead], dirty["vs"][dead] = np.nan, np.nan
+    else:
+        dirty["k"][dead], dirty["v"][dead] = np.nan, np.nan
+    return clean, dirty, table, lengths
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16_values", "int8"])
+@pytest.mark.parametrize("page_size", [1, 7, 32, 128])
+def test_decode_attention_paged_matches_jax_pallas(page_size, int8):
+    """The paged entry against the JAX Pallas decode kernel (interpret
+    mode) over the reference's ``gather_pages`` of the same pages, at
+    page sizes 1, 7, 32 and 128, through a shuffled table with a shared
+    prefix page; the port's garbage page and tails hold NaN (int8:
+    extreme codes, NaN scales) and must not reach the output."""
+    from ray_tpu.inference import kv_cache as jkv
+    clean, dirty, table, lengths = _paged_case(page_size, int8,
+                                               seed=page_size)
+    jt = jnp.asarray(table)
+    ctx = {n: jkv.gather_pages(jnp.asarray(clean[n]), jt)
+           for n in clean if n != "q"}
+    scales = (dict(k_scale=ctx["ks"], v_scale=ctx["vs"]) if int8 else {})
+    want = np.asarray(JA.decode_attention(
+        jnp.asarray(clean["q"]), ctx["k"], ctx["v"], jnp.asarray(lengths),
+        impl="pallas", **scales))
+    t = {n: torch.from_numpy(x) for n, x in dirty.items()}
+    tscales = (dict(k_scale_pages=t["ks"], v_scale_pages=t["vs"])
+               if int8 else {})
+    got = TA.decode_attention_paged(
+        t["q"], t["k"], t["v"], torch.from_numpy(table),
+        torch.from_numpy(lengths), **tscales)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_decode_attention_paged_plain_is_gather_then_plain(int8):
+    """The paged plain version is exactly the engine's former decode
+    path, ``gather_pages`` then :func:`plain_decode_attention`, bit for
+    bit: on the CPU the engine computes what it computed before it read
+    the pages in place."""
+    from ray_tpu_torch.inference.kv_cache import gather_pages
+    _clean, dirty, table, lengths = _paged_case(7, int8, seed=11)
+    t = {n: torch.from_numpy(x) for n, x in dirty.items()}
+    t["q"] = t["q"].bfloat16()
+    if not int8:
+        t["k"], t["v"] = t["k"].bfloat16(), t["v"].bfloat16()
+    table64, lens = torch.from_numpy(table).long(), torch.from_numpy(lengths)
+    scales = (dict(k_scale=gather_pages(t["ks"], table64),
+                   v_scale=gather_pages(t["vs"], table64)) if int8 else {})
+    want = TA.plain_decode_attention(
+        t["q"], gather_pages(t["k"], table64), gather_pages(t["v"], table64),
+        lens, scale=64 ** -0.5, **scales)
+    got = TA.decode_attention_paged(
+        t["q"], t["k"], t["v"], torch.from_numpy(table), lens,
+        **({"k_scale_pages": t["ks"], "v_scale_pages": t["vs"]}
+           if int8 else {}))
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # the training path: fused RoPE, forward and backward
 # ---------------------------------------------------------------------------

@@ -115,6 +115,21 @@ def test_int8_greedy_streams_match_jax_engine(models):
     _greedy_streams(models, "int8")
 
 
+@pytest.mark.parametrize("kv_dtype", ["model", "int8"])
+def test_decode_reads_pages_in_place(models, kv_dtype, monkeypatch):
+    """The decode step attends over the cache pages through the page
+    table (``decode_attention_paged``) and gathers no context: with
+    ``gather_pages`` made to raise, the greedy streams still match the
+    JAX engine's."""
+    from ray_tpu_torch.inference import kv_cache as tkv
+
+    def no_gather(*_args, **_kw):
+        raise AssertionError("the decode step gathered the paged context")
+
+    monkeypatch.setattr(tkv, "gather_pages", no_gather)
+    _greedy_streams(models, kv_dtype)
+
+
 def _drive_shared(engine):
     """Shared-prefix traffic: a cold request registers two full pages, a
     second hits both, a third (queued for a slot) hits the first, and a
