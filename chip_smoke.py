@@ -9,6 +9,10 @@
                                               # kernels at N = 24576
     python3 chip_smoke.py --profile ce     # the flash-CE entry points'
                                            # kernels at the training shape
+    python3 chip_smoke.py --profile spec   # one verify forward and one
+                                           # co-batched decode step
+    python3 chip_smoke.py --spec           # the speculative-decoding
+                                           # phase with every arm
     python3 chip_smoke.py --decode         # the decode checks and times
     python3 chip_smoke.py --edges          # the wgmma tile checks, the
                                            # decode checks, the
@@ -28,7 +32,9 @@
    main paths' shapes, in bf16 and in f32, with its time, the plain
    version's, one PyTorch library call's as a yardstick, and the least
    time the card could take (``bound_ms``): the ten entry points, the
-   int8 decode attention and the RMSNorm forward and backward included.
+   int8 decode attention and the RMSNorm forward and backward included;
+   the out-proj epilogue forward also at a verify forward's N = 2, 3, 5
+   and 9 rows.
    The decode kernels padded and paged (``decode_checks``): bf16, f32 and
    int8 at [8, 1024, 12, 64] with lengths 1 to 1024 (split counts 1 to
    8), through a shuffled page table at pages of 128, 16 and 1, NaN past
@@ -64,6 +70,20 @@
    other.
 7. The RMSNorm kernels (``gpt._PALLAS_NORM``, ``RAY_TPU_PALLAS_NORM=1``)
    in serving: the correctness phase again, with exact norm launches.
+7a. Speculative decoding (gpt2-serve-spec, ``spec_phase``): the JAX
+   package's spec bench (2 slots, page 16, 4 requests of 512 new tokens
+   one at a time, greedy; a templated and a random mix) with spec off
+   and spec_k = 4 (``--spec``: 2, 4 and 8), each arm printing decode
+   tokens/s, its speedup, the accept rate and histogram, verify calls
+   and ms, decode dispatches and inter-token gaps; every stream equal to
+   the off arm's but after a near-tie.  Then spec greedy requests'
+   logits, verify rows included, against the f32 reference (bf16 and
+   int8), and the serving geometry (8 slots, page 128, 8 templated
+   requests half sampled) with spec on for all, half and none of them,
+   in bf16 and int8.  Every run: all requests finish, leak-free, no
+   drafter state left (also after ``drain_requests``), exact launches
+   (the epilogue 12 per verify, decode attention 12 per decode
+   dispatch), no decode step gathers.
 8. Training phase: GPT-2 124M in bf16 trains 10 steps at batch 24 x
    1024 through ``build_gpt_train`` (flash attention with in-kernel
    RoPE, the fused epilogue, flash-CE with the norm prologue); prints
@@ -89,7 +109,9 @@ last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -556,8 +578,10 @@ def kernel_phase(rec: Recorder, dev) -> None:
     decode_checks(dev, B=8, S=1024, H=H, D=D, lengths=DECODE_LENGTHS)
     decode_timings(rec, dev, B=8, S=1024, H=H, D=D)
 
-    # out-proj + residual + rmsnorm at N in {32, 1024}, K = d = 768
-    for N in (32, 1024):
+    # out-proj + residual + rmsnorm, K = d = 768: at a verify forward's
+    # N = kb + 1 rows (speculative decoding, kb = 1, 2, 4, 8), a cached
+    # prefill's 32 and a prefill's 1024
+    for N in (2, 3, 5, 9, 32, 1024):
         epilogue_fwd_check(rec, randn, g, dev, N, bf)
 
 
@@ -1401,6 +1425,19 @@ def expect_launches(what: str, launches: dict, want: dict) -> None:
                              f"{full}")
 
 
+def serve_launches(L: int, calls: dict, kv_dtype: str) -> dict:
+    """The launches a serving run implies: per layer one prefill
+    attention per cold prefill, one epilogue per prefill of either kind
+    and per verify forward, one decode attention per decode dispatch."""
+    decode = ("decode_attention_int8" if kv_dtype == "int8"
+              else "decode_attention")
+    return {"flash_attention_fwd": L * calls["prefill"],
+            "matmul_residual_norm_fwd": L * (calls["prefill"]
+                                             + calls["prefill_cached"]
+                                             + calls["verify"]),
+            decode: L * calls["decode"]}
+
+
 def no_gather_in_decode(engine) -> None:
     """Make every decode step of ``engine`` raise if it gathers the paged
     context (``kv_cache.gather_pages``): the decode kernel reads the
@@ -1423,16 +1460,17 @@ def no_gather_in_decode(engine) -> None:
     engine._decode_step = decode_step
 
 
-def serve(engine, prompts, sampling) -> dict:
-    """Submit every prompt at once (32 new tokens each), run the engine
-    dry, and return what the run took: the launches, first-token times,
-    outputs and the engine's call counts and seconds over the run."""
+def serve(engine, prompts, sampling, max_new_tokens: int = 32) -> dict:
+    """Submit every prompt at once (``max_new_tokens`` each), run the
+    engine dry, and return what the run took: the launches, first-token
+    times, outputs and the engine's call counts and seconds over the
+    run."""
     from ray_tpu_torch.ops import _build
 
     calls0, secs0 = dict(engine.call_counts), dict(engine.seconds)
     _build.reset_launches()
     t0 = time.monotonic()
-    rids = [engine.submit(p, max_new_tokens=32, sampling=sp)
+    rids = [engine.submit(p, max_new_tokens=max_new_tokens, sampling=sp)
             for p, sp in zip(prompts, sampling)]
     submitted = time.monotonic()
     first, out = {}, {r: [] for r in rids}
@@ -1447,8 +1485,10 @@ def serve(engine, prompts, sampling) -> dict:
         ttft={r: first[r] - submitted for r in first},
         calls={k: v - calls0[k] for k, v in engine.call_counts.items()},
         secs={k: v - secs0[k] for k, v in engine.seconds.items()})
-    if any(len(out[r]) != 32 for r in rids) or len(first) != len(rids):
-        raise AssertionError("not every request finished with 32 tokens")
+    if any(len(out[r]) != max_new_tokens for r in rids) or \
+            len(first) != len(rids):
+        raise AssertionError("not every request finished with "
+                             f"{max_new_tokens} tokens")
     if not engine.leak_free():
         raise AssertionError("engine is not leak-free after the run")
     return run
@@ -1483,10 +1523,8 @@ def engine_phase(params, cfg, dev) -> dict:
         raise AssertionError(f"expected 16 cold prefills with prefix "
                              f"caching on and no hit: {hits}, {prefills} "
                              "prefills")
-    expect_launches("gpt2-serve-mixed", run["launches"], {
-        "flash_attention_fwd": L * prefills,
-        "matmul_residual_norm_fwd": L * prefills,
-        "decode_attention": L * decodes})
+    expect_launches("gpt2-serve-mixed", run["launches"],
+                    serve_launches(L, run["calls"], "model"))
     dec_s, pre_s = run["secs"]["decode"], run["secs"]["prefill"]
     dec_tokens = sum(len(v) - 1 for v in run["out"].values())
     metrics = {
@@ -1544,11 +1582,8 @@ def int8_prefix_phase(params, cfg, dev) -> dict:
         raise AssertionError(f"expected 12 hits of {SYSTEM_LEN} tokens and "
                              f"4 cold prefills: {hit_reqs} hits, "
                              f"{hit_tokens} tokens, calls {calls}")
-    expect_launches("gpt2-serve-int8-prefix", run["launches"], {
-        "flash_attention_fwd": L * calls["prefill"],
-        "matmul_residual_norm_fwd": L * (calls["prefill"]
-                                         + calls["prefill_cached"]),
-        "decode_attention_int8": L * calls["decode"]})
+    expect_launches("gpt2-serve-int8-prefix", run["launches"],
+                    serve_launches(L, calls, "int8"))
     k = engine.cache.k
     bf16_bytes = 2 * k.numel() * 2
     if not st["cache_bytes"] < 0.55 * bf16_bytes:
@@ -1697,6 +1732,290 @@ def int8_correctness_phase(params, cfg, dev) -> None:
           torch.from_numpy(cold), **INT8_TOL)
 
 
+# the cell "gpt2-serve-spec": the JAX package's speculative-decoding
+# bench (bench.py:1240-1380, bench_infer_spec) on GPT-2 124M at full
+# width and depth: 2 slots, page 16, 4 requests of 512 new tokens each
+# submitted one at a time (the latency-bound regime), greedy; two mixes
+# from its seed, "templated" (a 48-token shared prefix + a per-request
+# 6-token motif repeated 4 times; from the second request on the prefix
+# hits) and "random" (72 i.i.d. tokens); arms spec off and k = 2, 4, 8
+SPEC = dict(slots=2, page_size=16)
+SPEC_REQUESTS, SPEC_NEW = 4, 512
+SPEC_ARMS, SPEC_ARMS_FULL = (0, 4), (0, 2, 4, 8)
+# then the serving geometry: 8 templated requests in flight, half greedy
+# and half sampled, spec_k = 4 for all, half or none of them
+SPEC_SERVE_REQUESTS, SPEC_SERVE_NEW = 8, 128
+
+
+def spec_mixes(vocab: int) -> dict:
+    """The reference bench's prompts, from its seed."""
+    rng = np.random.RandomState(1)
+    shared = rng.randint(0, vocab, 48).tolist()
+    return {
+        "templated": [shared + rng.randint(0, vocab, 6).tolist() * 4
+                      for _ in range(SPEC_REQUESTS)],
+        "random": [rng.randint(0, vocab, 72).tolist()
+                   for _ in range(SPEC_REQUESTS)]}
+
+
+def spec_sampling(sp, k: int):
+    """``sp`` (None = greedy) with speculation on at ``k``, or pinned off
+    (k = 0)."""
+    from ray_tpu_torch import SamplingParams
+    return dataclasses.replace(sp or SamplingParams(), spec=k > 0,
+                               spec_k=k or None)
+
+
+def spec_audit(what: str, engine) -> None:
+    """Leak-free, and no drafter state left after the run and after
+    ``drain_requests``."""
+    st = engine.stats()
+    engine.drain_requests()
+    if not engine.leak_free() or st["spec"]["drafts"] or \
+            engine.stats()["spec"]["drafts"] or st["active"]:
+        raise AssertionError(f"{what}: not clean after the run: {st}")
+
+
+def serve_one_at_a_time(engine, prompts, sp, max_new: int) -> dict:
+    """Each prompt submitted alone and run dry before the next (the
+    sequential regime of the reference bench).  Returns the outputs, the
+    inter-token gaps (host clock between consecutive token events of a
+    request; the tokens of one verify land together), each request's
+    time from its first token to its last, the launches and the engine's
+    call counts and seconds over the run."""
+    from ray_tpu_torch.ops import _build
+
+    calls0, secs0 = dict(engine.call_counts), dict(engine.seconds)
+    _build.reset_launches()
+    t0 = time.monotonic()
+    outs, gaps, after_first = [], [], []
+    for p in prompts:
+        engine.submit(p, max_new_tokens=max_new, sampling=sp)
+        toks, stamps = [], []
+        while engine.has_work():
+            for _rid, tok, _done in engine.step():
+                stamps.append(time.monotonic())
+                toks.append(tok)
+        gaps += [b - a for a, b in zip(stamps, stamps[1:])]
+        after_first.append(stamps[-1] - stamps[0])
+        outs.append(toks)
+    torch.cuda.synchronize()
+    if any(len(o) != max_new for o in outs):
+        raise AssertionError(f"not every request finished with {max_new} "
+                             "tokens")
+    return dict(
+        outs=outs, gaps=gaps, after_first=after_first,
+        wall=time.monotonic() - t0, launches=_build.launch_counts(),
+        calls={k: v - calls0[k] for k, v in engine.call_counts.items()},
+        secs={k: v - secs0[k] for k, v in engine.seconds.items()})
+
+
+def spec_run_metrics(run: dict, spec: dict) -> dict:
+    calls, secs = run["calls"], run["secs"]
+    gaps = sorted(run["gaps"])
+    return {
+        "decode_tokens_per_s": (sum(len(o) - 1 for o in run["outs"])
+                                / sum(run["after_first"])),
+        "accept_rate": spec["accept_rate"], "k_hist": spec["k_hist"],
+        "proposed": spec["proposed"], "accepted": spec["accepted"],
+        "verify_calls": calls["verify"],
+        "verify_ms": (1e3 * secs["verify"] / calls["verify"]
+                      if calls["verify"] else None),
+        "decode_dispatches": calls["decode"],
+        "decode_step_ms": (1e3 * secs["decode"] / calls["decode"]
+                           if calls["decode"] else None),
+        "inter_token_p50_ms": 1e3 * gaps[len(gaps) // 2],
+        "inter_token_p99_ms": 1e3 * gaps[int(0.99 * (len(gaps) - 1))],
+        "wall_s": run["wall"]}
+
+
+def spec_parity(what: str, off_engine, off_outs, outs) -> int:
+    """Each greedy stream of a spec arm against the off arm's: equal up to
+    their first difference, where the off arm's own top-2 logit margin
+    must be under twice ``ENGINE_TOL``'s atol (verify and decode round
+    differently in bf16: plain attention against the kernel, so a
+    near-tie may flip; nothing else may).  Returns how many streams are
+    identical end to end."""
+    same = 0
+    for rid, (want, got) in enumerate(zip(off_outs, outs)):
+        parted = [i for i, (a, b) in enumerate(zip(want, got)) if a != b]
+        if not parted:
+            same += 1
+            continue
+        i = parted[0]
+        top2 = np.sort(off_engine.logits_trace[rid][i])[-2:]
+        margin = float(top2[1] - top2[0])
+        print(f"  {what} request {rid}: parts from the off arm at token "
+              f"{i}, where the off arm's top-2 margin is {margin:.4f}",
+              flush=True)
+        if margin >= 2 * ENGINE_TOL["atol"]:
+            raise AssertionError(f"{what} request {rid}: the stream parts "
+                                 f"from the off arm at token {i} with a "
+                                 f"top-2 margin of {margin:.4f}")
+    return same
+
+
+def spec_sequential_phase(params, cfg, dev, arms) -> dict:
+    """The reference bench's regime: per mix, the off arm, then each k
+    arm, each on a fresh engine (2 slots, page 16, debug logits: the
+    off arm's margins decide a parted stream), requests one at a time.
+    Gates: every request finishes, leak-free, no drafter state, exact
+    launches, proposals and acceptances on the templated mix, streams
+    equal to the off arm's but after a near-tie.  Prints one line per
+    arm; returns the launches of every arm."""
+    from ray_tpu_torch import InferenceEngine
+
+    L = cfg.n_layers
+    mixes = spec_mixes(cfg.vocab_size)
+    warm = InferenceEngine(cfg, params, device=dev, **SPEC)
+    for k in SPEC_ARMS_FULL:                      # warm-up, every shape
+        warm.generate(mixes["templated"][:2], max_new_tokens=24,
+                      sampling=spec_sampling(None, k))
+    del warm
+    total = collections.Counter()
+    for mix, prompts in mixes.items():
+        base = None
+        for k in arms:
+            engine = InferenceEngine(cfg, params, device=dev,
+                                     debug_logits=True, **SPEC)
+            no_gather_in_decode(engine)
+            run = serve_one_at_a_time(engine, prompts,
+                                      spec_sampling(None, k), SPEC_NEW)
+            what = f"gpt2-serve-spec {mix} k={k or 'off'}"
+            spec = engine.stats()["spec"]
+            spec_audit(what, engine)
+            expect_launches(what, run["launches"],
+                            serve_launches(L, run["calls"], "model"))
+            total.update(run["launches"])
+            if k and mix == "templated" and not (spec["proposed"]
+                                                 and spec["accepted"]):
+                raise AssertionError(f"{what}: nothing drafted or "
+                                     f"accepted: {spec}")
+            metrics = spec_run_metrics(run, spec)
+            if base is None:
+                base = dict(engine=engine, outs=run["outs"],
+                            tps=metrics["decode_tokens_per_s"])
+            else:
+                metrics["streams_identical"] = spec_parity(
+                    what, base["engine"], base["outs"], run["outs"])
+            metrics["speedup_vs_off"] = (metrics["decode_tokens_per_s"]
+                                         / base["tps"])
+            print("spec arm " + json.dumps(dict(
+                cell="gpt2-serve-spec", mix=mix, k=k or "off",
+                requests=len(prompts), max_new_tokens=SPEC_NEW,
+                **metrics)), flush=True)
+        del base
+    print(f"spec sequential arms {list(arms)}: every request finished, "
+          "leak-free, no drafter state left, launches == implied, greedy "
+          "streams equal to the off arm's but after a near-tie", flush=True)
+    return total
+
+
+def spec_correctness_phase(params, cfg, dev, kv_dtype: str) -> None:
+    """Two templated greedy requests at once (the second hits the first's
+    prefix), 64 new tokens, spec_k = 4, on a debug-logits engine: every
+    logits row, verify rows included, against the f32 CPU teacher-forced
+    reference under ``ENGINE_TOL`` (bf16) or ``INT8_TOL`` (int8)."""
+    from ray_tpu_torch import InferenceEngine
+
+    engine = InferenceEngine(cfg, params, device=dev, kv_dtype=kv_dtype,
+                             debug_logits=True, **SPEC)
+    prompts = spec_mixes(cfg.vocab_size)["templated"][:2]
+    outs = engine.generate(prompts, max_new_tokens=64,
+                           sampling=spec_sampling(None, 4))
+    st = engine.stats()
+    if not (st["calls"]["verify"] and st["spec"]["accepted"]
+            and st["prefix"]["requests_hit"] == 1):
+        raise AssertionError(f"spec correctness {kv_dtype}: no verify, "
+                             f"no accepted draft or no hit: {st}")
+    tol, mean_tol = ((INT8_TOL, INT8_MEAN_TOL) if kv_dtype == "int8"
+                     else (ENGINE_TOL, ENGINE_MEAN_TOL))
+    against_reference(f"spec correctness {kv_dtype}", engine,
+                      to_cpu32(params),
+                      dataclasses.replace(cfg, dtype=torch.float32),
+                      prompts, outs, tol, mean_tol)
+    print(f"spec correctness {kv_dtype}: {st['calls']['verify']} verifies, "
+          f"spec {st['spec']}", flush=True)
+
+
+def spec_serving_prompts(vocab: int):
+    rng = np.random.RandomState(2)
+    shared = rng.randint(0, vocab, 48).tolist()
+    return [shared + rng.randint(0, vocab, 6).tolist() * 4
+            for _ in range(SPEC_SERVE_REQUESTS)]
+
+
+def spec_serving_phase(params, cfg, dev, kv_dtype: str) -> dict:
+    """The serving geometry (8 slots, page 128), 8 templated requests in
+    flight, half greedy and half sampled: spec_k = 4 for every request,
+    for half of them (the other half co-batched through the decode kernel
+    beside the speculating slots' dead rows), and for none.  Gates as in
+    the sequential arms; prints each run's wall clock and how many
+    streams, greedy and sampled, equal the off run's.  Returns the
+    launches."""
+    from ray_tpu_torch import InferenceEngine
+
+    L = cfg.n_layers
+    prompts = spec_serving_prompts(cfg.vocab_size)
+    base = half_sampled(len(prompts))
+    runs = {"all": [spec_sampling(sp, 4) for sp in base],
+            "half": [spec_sampling(sp, 4 if i % 4 < 2 else 0)
+                     for i, sp in enumerate(base)],
+            "off": [spec_sampling(sp, 0) for sp in base]}
+    total, outs, lines = collections.Counter(), {}, {}
+    for name, sampling in runs.items():
+        engine = InferenceEngine(cfg, params, device=dev, kv_dtype=kv_dtype,
+                                 **ENGINE)
+        no_gather_in_decode(engine)
+        engine.generate([[1, 2, 3]], max_new_tokens=2)       # warm-up
+        run = serve(engine, prompts, sampling, SPEC_SERVE_NEW)
+        what = f"gpt2-serve-spec 8 slots {kv_dtype} spec={name}"
+        spec = engine.stats()["spec"]
+        spec_audit(what, engine)
+        expect_launches(what, run["launches"],
+                        serve_launches(L, run["calls"], kv_dtype))
+        total.update(run["launches"])
+        if name != "off" and not (spec["proposed"] and spec["accepted"]):
+            raise AssertionError(f"{what}: nothing drafted or accepted: "
+                                 f"{spec}")
+        outs[name] = [run["out"][r] for r in run["rids"]]
+        calls, secs = run["calls"], run["secs"]
+        lines[name] = dict(
+            cell="gpt2-serve-spec-8", kv_dtype=kv_dtype, spec=name,
+            wall_s=run["wall"],
+            tokens_per_s=len(prompts) * SPEC_SERVE_NEW / run["wall"],
+            decode_dispatches=calls["decode"],
+            decode_step_ms=(1e3 * secs["decode"] / calls["decode"]
+                            if calls["decode"] else None),
+            verify_calls=calls["verify"],
+            verify_ms=(1e3 * secs["verify"] / calls["verify"]
+                       if calls["verify"] else None),
+            accept_rate=spec["accept_rate"], k_hist=spec["k_hist"])
+    for name, line in lines.items():
+        same = [a == b for a, b in zip(outs[name], outs["off"])]
+        line["identical_greedy"] = sum(same[0::2])
+        line["identical_sampled"] = sum(same[1::2])
+        line["wall_vs_off"] = line["wall_s"] / lines["off"]["wall_s"]
+        print("spec serving " + json.dumps(line), flush=True)
+    print(f"spec serving {kv_dtype}: 3 runs of {len(prompts)} requests "
+          "finished, leak-free, no drafter state left, launches == implied;"
+          " no decode step gathered the paged context", flush=True)
+    return total
+
+
+def spec_phase(params, cfg, dev, arms=SPEC_ARMS) -> dict:
+    """gpt2-serve-spec: the sequential arms, the correctness of spec
+    greedy requests against the f32 reference (bf16 and int8), then the
+    serving geometry in bf16 and int8.  Returns the launches of the
+    timed runs (each with the counts at 0 just before it)."""
+    launches = spec_sequential_phase(params, cfg, dev, arms)
+    for kv_dtype in ("model", "int8"):
+        spec_correctness_phase(params, cfg, dev, kv_dtype)
+    for kv_dtype in ("model", "int8"):
+        launches.update(spec_serving_phase(params, cfg, dev, kv_dtype))
+    return launches
+
+
 # the training cell "gpt2-train-b24": the JAX package's single-chip
 # recipe (bench.py:1932-1935) at full width and depth, bf16, batch 24 x
 # 1024, random weights from a seed, on one repeated synthetic batch
@@ -1732,6 +2051,11 @@ def train_phase(dev, *, norm_kernel: bool = False,
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.telemetry import flops
 
+    # what earlier phases left in reference cycles (the serving engines:
+    # no_gather_in_decode's closure) is collected first, so the peak
+    # reads this phase's memory alone
+    gc.collect()
+    torch.cuda.empty_cache()
     cfg = GPTConfig.gpt2(**TRAIN_CFG, dtype=torch.bfloat16)
     fns = build_gpt_train(cfg, optimizer=default_optimizer(**TRAIN_OPT),
                           device=dev)
@@ -2032,7 +2356,8 @@ def report(what, prof, wall, steps, top=8, groups=None):
     listed, and the rest's."""
     evs = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.self_device_time_total > 0]
+           and e.self_device_time_total > 0
+           and not e.key.startswith("spec/")]
     busy = sum(e.self_device_time_total for e in evs) / 1e3
     print(f"profile {what}: wall {1e3 * wall / steps:.3f} ms/step, "
           f"device busy {busy / steps:.3f} ms/step "
@@ -2125,6 +2450,108 @@ def profile_phase(params, cfg, dev, *, kv_dtype: str = "model") -> None:
         t2 = time.monotonic()
     print(f"profile decode split: layer stack {1e3 * (t1 - t0) / n:.3f} "
           f"ms, sampling {1e3 * (t2 - t1) / n:.3f} ms", flush=True)
+
+
+# the verify forward's device time split: ranges around the engine's
+# methods (record_function, named "spec/..."; not kernels) and the
+# epilogue kernels by name
+SPEC_RANGES = {"_verify_step": "spec/verify forward",
+               "_cached_layers": "spec/verify layers",
+               "_cached_prefill_attention": "spec/verify attention",
+               "_sample": "spec/sampling"}
+VERIFY_GROUPS = {"epilogue": ("mrn_",),
+                 "GEMMs": ("gemm", "xmma", "cutlass", "nvjet"),
+                 "index kernels": ("index", "gather", "scatter")}
+
+
+def _range_methods(engine) -> None:
+    """Wrap ``engine``'s methods named in ``SPEC_RANGES`` in a profiler
+    range each (on the instance; the class is untouched)."""
+    for name, label in SPEC_RANGES.items():
+        def ranged(*args, _fn=getattr(engine, name), _label=label, **kw):
+            with torch.profiler.record_function(_label):
+                return _fn(*args, **kw)
+        setattr(engine, name, ranged)
+
+
+def spec_profile_phase(params, cfg, dev, *, kv_dtype: str = "model"
+                       ) -> None:
+    """One co-batched decode step and one verify forward of the serving
+    geometry (8 slots, page 128; 8 templated requests, spec_k = 4 for
+    half of them) under torch.profiler, at a tick where both run: the
+    busy share of wall time of each, the decode step split as
+    ``--profile`` splits it, and the verify's device time split into the
+    epilogue kernels, the verify attention (suffix write, gather,
+    dequantize, einsums), the lm-head GEMM (the forward's range minus
+    its layer stack's), sampling and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch import InferenceEngine
+
+    engine = InferenceEngine(cfg, params, device=dev, kv_dtype=kv_dtype,
+                             **ENGINE)
+    engine.generate([[1, 2, 3]], max_new_tokens=2)        # warm-up
+    for i, p in enumerate(spec_serving_prompts(cfg.vocab_size)):
+        engine.submit(p, max_new_tokens=64,
+                      sampling=spec_sampling(None, 4 if i % 2 else 0))
+    for _ in range(64):
+        plan = engine._plan_speculation()
+        if plan and len(plan) < len(engine.scheduler.active) and \
+                engine.ticks > 4:
+            break
+        engine.step()
+    else:
+        raise AssertionError("no tick had both a verify and a decode")
+    _range_methods(engine)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    events = []
+    torch.cuda.synchronize()
+    with torch.inference_mode():
+        with profile(activities=acts) as prof:
+            t0 = time.monotonic()
+            engine._decode(events, skip=set(plan))
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        report(f"spec co-batched decode step ({kv_dtype} cache, "
+               f"{len(engine.scheduler.active) - len(plan)} live rows, "
+               f"{len(plan)} dead)", prof, wall, 1, top=6,
+               groups=DECODE_GROUPS)
+        (slot, drafts), *rest = plan.items()
+        with profile(activities=acts) as prof:
+            t0 = time.monotonic()
+            engine._verify(slot, drafts, events)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        n = engine._verify_bucket(len(drafts)) + 1
+        report(f"spec verify forward ({kv_dtype} cache, {len(drafts)} "
+               f"drafts, N = {n} rows)", prof, wall, 1, top=8,
+               groups=VERIFY_GROUPS)
+        for s, d in rest:                      # the rest of the tick
+            engine._verify(s, d, events)
+    ranges = {label: 0.0 for label in SPEC_RANGES.values()}
+    for e in prof.events():
+        if e.key in ranges and e.device_type == torch.autograd.DeviceType.CPU:
+            ranges[e.key] += e.device_time_total / 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not e.key.startswith("spec/")]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    epilogue = sum(e.self_device_time_total for e in kernels
+                   if "mrn_" in e.key) / 1e3
+    attention = ranges["spec/verify attention"]
+    lm_head = ranges["spec/verify forward"] - ranges["spec/verify layers"]
+    sampling = ranges["spec/sampling"]
+    if not all(ranges.values()):
+        print(f"profile spec verify split: not measured (a range read no "
+              f"device time: {ranges})", flush=True)
+        return
+    print(f"profile spec verify split ({kv_dtype}): device busy "
+          f"{busy:.4f} ms; epilogue {epilogue:.4f}, verify attention "
+          f"{attention:.4f}, lm-head GEMM {lm_head:.4f}, sampling "
+          f"{sampling:.4f}, rest "
+          f"{busy - epilogue - attention - lm_head - sampling:.4f} ms",
+          flush=True)
 
 
 def train_profile_phase(dev) -> None:
@@ -2254,6 +2681,18 @@ def main() -> None:
         width_checks(dev)
         print("edges: every check passed", flush=True)
         return
+    if sys.argv[1:] in (["--spec"], ["--profile", "spec"]):
+        from ray_tpu_torch import GPTConfig, init_params
+        cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device=dev)
+        if sys.argv[1] == "--spec":
+            spec_phase(params, cfg, dev, arms=SPEC_ARMS_FULL)
+            print("spec: every check passed", flush=True)
+        else:
+            for kv_dtype in ("model", "int8"):
+                spec_profile_phase(params, cfg, dev, kv_dtype=kv_dtype)
+        return
     if sys.argv[1:] in (["--profile"], ["--profile", "int8"]):
         from ray_tpu_torch import GPTConfig, init_params
         cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
@@ -2280,6 +2719,7 @@ def main() -> None:
     int8_correctness_phase(params, cfg, dev)
     paths["serve_norm"] = correctness_phase(params, cfg, dev,
                                             norm_kernel=True)
+    paths["serve_spec"] = spec_phase(params, cfg, dev)
     del params
     torch.cuda.empty_cache()
     train = train_phase(dev)

@@ -7,8 +7,9 @@ this package has a hand-written CUDA kernel (``ops/csrc``), built with
 tests hold it against the JAX package.
 
 Ported so far: the GPT model (:mod:`ray_tpu_torch.models.gpt`), the
-paged-KV inference engine with prefix caching and the int8 KV cache
-(:mod:`ray_tpu_torch.inference`, :mod:`ray_tpu_torch.quant`), the
+paged-KV inference engine with prefix caching, the int8 KV cache and
+speculative decoding (:mod:`ray_tpu_torch.inference`,
+:mod:`ray_tpu_torch.quant`), the
 single-device training step (:mod:`ray_tpu_torch.models.training`) and
 the ten kernel entry points on those paths (attention forward and
 backward, decode attention and its int8 variant, the fused out-proj

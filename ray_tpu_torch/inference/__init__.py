@@ -3,8 +3,10 @@
 The port of ``ray_tpu.inference``: a paged KV cache
 (:mod:`~ray_tpu_torch.inference.kv_cache`), bucketed prefill and
 fixed-slot decode steps (:mod:`~ray_tpu_torch.inference.engine`), a
-host-side scheduler (:mod:`~ray_tpu_torch.inference.scheduler`) and
-row-independent sampling (:mod:`~ray_tpu_torch.inference.sampling`).
+host-side scheduler (:mod:`~ray_tpu_torch.inference.scheduler`),
+row-independent sampling (:mod:`~ray_tpu_torch.inference.sampling`)
+and the speculative-decoding self-drafter
+(:mod:`~ray_tpu_torch.inference.spec`).
 Config via ``RAY_TPU_INFER_*`` (:func:`infer_config`).
 """
 
@@ -17,10 +19,11 @@ from ray_tpu_torch.inference.kv_cache import (KVCache,  # noqa: F401
 from ray_tpu_torch.inference.sampling import SamplingParams  # noqa: F401
 from ray_tpu_torch.inference.scheduler import (  # noqa: F401
     DeadlineExceededError, QueueFullError, Request, SlotScheduler)
+from ray_tpu_torch.inference.spec import DraftState  # noqa: F401
 
 __all__ = [
     "InferConfig", "infer_config", "default_buckets",
     "InferenceEngine", "StepEvent", "KVCache", "PageAllocator",
     "SamplingParams", "QueueFullError", "DeadlineExceededError",
-    "Request", "SlotScheduler",
+    "Request", "SlotScheduler", "DraftState",
 ]

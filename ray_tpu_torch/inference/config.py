@@ -14,6 +14,15 @@
 - ``RAY_TPU_KV_DTYPE`` (default ``model``): ``int8`` stores the KV cache
   as int8 codes with per-(position, head) f32 scales; an unknown value
   falls back to ``model`` with a line on stderr.
+- ``RAY_TPU_INFER_SPEC`` (default ``0`` = off): speculative decoding
+  by default.  The self-drafter proposes up to ``spec_k`` tokens per
+  slot from the request's own context, one verify forward scores them,
+  and exact acceptance keeps the output plain decode's (greedy
+  bit-exact, sampled trajectory-exact).  ``SamplingParams.spec``
+  overrides it per request.
+- ``RAY_TPU_INFER_SPEC_K`` (default ``4``): the draft length cap per
+  verify step; under 1 falls back to 4 with a line on stderr.
+  ``SamplingParams.spec_k`` overrides it per request.
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ class InferConfig:
     kv_dtype: str = "model"
     prefix: bool = True
     max_queue: int = 0
+    spec: bool = False
+    spec_k: int = 4
 
 
 _CONFIG: Optional[InferConfig] = None
@@ -56,6 +67,11 @@ def infer_config(refresh: bool = False) -> InferConfig:
             print(f"RAY_TPU_INFER_MAX_QUEUE={max_queue} negative; "
                   "using 0 (unbounded)", file=sys.stderr)
             max_queue = 0
+        spec_k = int(env("RAY_TPU_INFER_SPEC_K", "4"))
+        if spec_k < 1:
+            print(f"RAY_TPU_INFER_SPEC_K={spec_k} < 1; using 4",
+                  file=sys.stderr)
+            spec_k = 4
         _CONFIG = InferConfig(
             slots=int(env("RAY_TPU_INFER_SLOTS", "8")),
             page_size=int(env("RAY_TPU_INFER_PAGE_SIZE", "128")),
@@ -64,6 +80,8 @@ def infer_config(refresh: bool = False) -> InferConfig:
             kv_dtype=kv_dtype,
             prefix=env("RAY_TPU_INFER_PREFIX", "1") != "0",
             max_queue=max_queue,
+            spec=env("RAY_TPU_INFER_SPEC", "0") != "0",
+            spec_k=spec_k,
         )
     return _CONFIG
 

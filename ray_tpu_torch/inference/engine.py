@@ -29,6 +29,21 @@ slot; ``generate()`` runs a batch of prompts to completion.
   prefix is dequantized to the model dtype, and decode runs the int8
   decode-attention kernel, which dequantizes inside its strips.
 - **Sampling** is ``inference/sampling.py``, row-independent.
+- **Speculative decoding** (``spec=`` / ``RAY_TPU_INFER_SPEC``, or a
+  per-request ``SamplingParams.spec``): each tick the self-drafter
+  (``inference/spec.py``, n-gram copy over the request's own tokens)
+  proposes up to ``spec_k`` tokens per slot, and ONE verify forward per
+  speculating slot scores ``[last_token, d1..dk]`` at the slot's length:
+  the cached-context prefill in all-rows mode, whose context is the
+  slot's first ``L`` positions (:meth:`InferenceEngine._verify_step`).
+  Row i is sampled with the noise of ``(seed, len(generated) + i)``,
+  the noise plain decode draws at that position, so accepting a draft
+  iff the sampled token equals it reproduces plain decode (greedy
+  bit-exact, sampled trajectory-exact).  A rejected tail rolls back by
+  not advancing the slot's length; its K/V stays behind the length
+  mask and the next writes overwrite it.  Plain slots co-batch in the
+  decode step beside the speculating slots' dead rows, whose page-table
+  rows are masked to the garbage page.
 
 PyTorch runs eagerly, so there is nothing to compile: per-kind call
 counters (``call_counts``) and wall seconds (``seconds``) take the place
@@ -36,8 +51,8 @@ of the JAX engine's compile counters.  CUDA-graph capture of the steps
 is later work.
 
 Not ported yet; each raises ``NotImplementedError`` where the JAX engine
-accepts it: speculative decoding, LoRA adapter banks, the tiered cache,
-disaggregated export/import, telemetry and deadlines.  The engine runs
+accepts it: LoRA adapter banks, the tiered cache, disaggregated
+export/import, telemetry and deadlines.  The engine runs
 on the card unless the caller passes ``device="cpu"``; without a card
 it raises.
 """
@@ -48,7 +63,7 @@ import collections
 import functools
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Set, Tuple, Union
 
 import numpy as np
 import torch
@@ -57,8 +72,10 @@ from ray_tpu_torch.convert import array_to_tensor
 from ray_tpu_torch.inference import kv_cache as kvc
 from ray_tpu_torch.inference.config import default_buckets, infer_config
 from ray_tpu_torch.inference.sampling import (SamplingParams,
+                                              accept_drafts,
                                               sample_tokens_logprobs)
 from ray_tpu_torch.inference.scheduler import Request, SlotScheduler
+from ray_tpu_torch.inference.spec import DraftState
 from ray_tpu_torch.models import gpt as gpt_mod
 from ray_tpu_torch.ops.attention import (decode_attention_paged,
                                          flash_attention)
@@ -100,19 +117,24 @@ def _params_to(tree, device, dtype) -> Dict[str, Any]:
     return t
 
 
-def _cached_context_attention(q, kctx, vctx, ks, vs):
-    """Suffix queries over (cached prefix + causal suffix self).
+def _cached_context_attention(q, kctx, vctx, ks, vs, cached_len: int):
+    """Suffix queries over (cached context + causal suffix self).
 
     q/ks/vs: [1, S, H, D], the suffix's (post-RoPE) queries and its own
-    full-precision keys/values; kctx/vctx: [1, C, H, D], the cached
-    prefix (exactly the hit pages, so every position is live).  One
-    softmax over the concatenated [ctx | self] score axis gives attention
-    over the full ``cached + suffix`` sequence, as
-    ``ray_tpu/inference/engine.py:_cached_context_attention`` computes it:
-    scores in f32, ``p`` rounded to the value dtype before each product,
-    products accumulated in f32, ``l`` clamped at 1e-30."""
+    full-precision keys/values; kctx/vctx: [1, C, H, D], the slot's
+    gathered pages, of which only the first ``cached_len`` positions are
+    context.  The rest (the tail of a partial page, where the suffix's
+    own copy was just written, or rolled-back drafts) is cut off before
+    any product, so it contributes exactly nothing whatever it holds.
+    One softmax over the concatenated [ctx | self] score axis gives
+    attention over the full ``cached + suffix`` sequence, as
+    ``ray_tpu/inference/engine.py:_cached_context_attention`` computes it
+    with its length mask: scores in f32, ``p`` rounded to the value dtype
+    before each product, products accumulated in f32, ``l`` clamped at
+    1e-30."""
+    kctx, vctx = kctx[:, :cached_len], vctx[:, :cached_len]
     S, D = q.shape[1], q.shape[3]
-    C = kctx.shape[1]
+    C = cached_len
     scale = D ** -0.5
     qf = q.float()
     sc = torch.einsum("bqhd,bkhd->bhqk", qf, kctx.float()) * scale
@@ -148,6 +170,7 @@ class InferenceEngine:
                  max_queue: Optional[int] = None,
                  kv_dtype: Optional[str] = None,
                  spec: Optional[bool] = None,
+                 spec_k: Optional[int] = None,
                  host_pages: Optional[int] = None,
                  lora=None,
                  telemetry: Optional[bool] = None,
@@ -156,8 +179,6 @@ class InferenceEngine:
                  debug_logits: bool = False):
         gpt_mod.check_supported(cfg)
         icfg = infer_config()
-        if spec:
-            _unported("speculative decoding", "speculative decoding")
         if host_pages:
             _unported("the tiered KV cache", "serve_gpt and the fleet")
         if lora:
@@ -173,6 +194,13 @@ class InferenceEngine:
         self.max_queue = (icfg.max_queue if max_queue is None
                           else max_queue)
         self.prefix = icfg.prefix if prefix is None else bool(prefix)
+        # speculative-decoding defaults; a request's SamplingParams
+        # override them (resolved once at submit onto Request.spec_k)
+        self.spec = icfg.spec if spec is None else bool(spec)
+        self.spec_k = icfg.spec_k if spec_k is None else int(spec_k)
+        if self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {self.spec_k} "
+                             "(check RAY_TPU_INFER_SPEC_K)")
         if self.slots < 1:
             raise ValueError(f"need >= 1 decode slot, got {self.slots} "
                              "(check RAY_TPU_INFER_SLOTS)")
@@ -200,10 +228,17 @@ class InferenceEngine:
             head_dim=cfg.head_dim, dtype=cfg.dtype, device=self.device,
             kv_dtype=kv_dtype or icfg.kv_dtype)
         self.kv_dtype = self.cache.kv_dtype
-        kinds = ("prefill", "prefill_cached", "decode")
+        kinds = ("prefill", "prefill_cached", "decode", "verify")
         self.call_counts: Dict[str, int] = {k: 0 for k in kinds}
         self.seconds: Dict[str, float] = {k: 0.0 for k in kinds}
         self._requests: Dict[int, Request] = {}
+        # per-request drafter indexes (popped when the request retires,
+        # cleared by drain_requests) and the cumulative draft accounting:
+        # spec_k_hist[m] counts the verifies that accepted m drafts
+        self._drafts: Dict[int, DraftState] = {}
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_k_hist: Dict[int, int] = {}
         self._next_rid = 0
         self._cancelled: set = set()
         self._lock = threading.Lock()   # submit()/cancel() vs step()
@@ -227,8 +262,6 @@ class InferenceEngine:
         if trace_ctx is not None:
             _unported("request tracing", "serve_gpt and the fleet")
         sampling = sampling or SamplingParams()
-        if sampling.spec:
-            _unported("speculative decoding", "speculative decoding")
         if sampling.model_id:
             _unported("LoRA adapters", "adapters and RL")
         prompt = [int(t) for t in prompt]
@@ -243,15 +276,29 @@ class InferenceEngine:
         if len(prompt) > self.buckets[-1]:
             raise ValueError(f"prompt length {len(prompt)} exceeds the "
                              f"largest prefill bucket {self.buckets[-1]}")
+        spec_k = self._resolve_spec_k(sampling)
         with self._lock:
             rid = self._next_rid
             self._next_rid += 1
             req = Request(rid=rid, prompt=prompt,
                           max_new_tokens=max_new_tokens,
-                          sampling=sampling, eos_token=eos_token)
+                          sampling=sampling, eos_token=eos_token,
+                          spec_k=spec_k)
             self.scheduler.submit(req)    # validates; may raise
             self._requests[rid] = req
         return rid
+
+    def _resolve_spec_k(self, sampling: SamplingParams) -> int:
+        """The request's draft budget (0 = plain decode): the request's
+        ``SamplingParams.spec``/``spec_k`` over the engine's defaults."""
+        on = self.spec if sampling.spec is None else bool(sampling.spec)
+        if not on:
+            return 0
+        k = (self.spec_k if sampling.spec_k is None
+             else int(sampling.spec_k))
+        if k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {k}")
+        return k
 
     def cancel(self, rid: int) -> None:
         """Retire ``rid`` at the start of the next :meth:`step` (a no-op
@@ -270,10 +317,24 @@ class InferenceEngine:
                 if req.rid in cancelled:
                     sched.retire(slot)
                     self._requests.pop(req.rid, None)
+                    self._drafts.pop(req.rid, None)
             for req in [r for r in sched.waiting if r.rid in cancelled]:
                 sched.waiting.remove(req)
                 req.done = True
                 self._requests.pop(req.rid, None)
+
+    def drain_requests(self) -> int:
+        """Retire every known request now, host-side, with no device
+        step: the teardown path when nothing will step this engine
+        again.  Drafter state goes with the requests.  Safe only while no
+        :meth:`step` runs.  Returns how many requests were retired."""
+        with self._lock:
+            rids = list(self._requests)
+        for rid in rids:
+            self.cancel(rid)
+        self._process_cancels()
+        self._drafts.clear()
+        return len(rids)
 
     def export_request(self, rid: int):
         _unported("disaggregated export", "serve_gpt and the fleet")
@@ -321,6 +382,16 @@ class InferenceEngine:
             "param_version": self.param_version,
             "prefix": self.scheduler.prefix_stats(),
             "ticks": self.ticks,
+            # cumulative draft accounting and the live drafter states (a
+            # drained engine reads drafts == 0)
+            "spec": {
+                "proposed": self.spec_proposed,
+                "accepted": self.spec_accepted,
+                "accept_rate": (self.spec_accepted / self.spec_proposed
+                                if self.spec_proposed else 0.0),
+                "k_hist": dict(sorted(self.spec_k_hist.items())),
+                "drafts": len(self._drafts),
+            },
         }
 
     def leak_free(self) -> bool:
@@ -345,7 +416,14 @@ class InferenceEngine:
                 break
             self._prefill(req, events)
         if self.scheduler.active:
-            self._decode(events)
+            # speculating slots leave the decode batch for this tick
+            # (their verify is their decode); a tick where every slot
+            # speculates makes no decode dispatch
+            plan = self._plan_speculation()
+            if len(plan) < len(self.scheduler.active):
+                self._decode(events, skip=set(plan))
+            for slot, drafts in plan.items():
+                self._verify(slot, drafts, events)
         self.ticks += 1
         return events
 
@@ -398,8 +476,7 @@ class InferenceEngine:
                                     req.pages, cached, plen - 1,
                                     self.page_size)
             logits = self._prefill_cached_step(
-                tokens.to(self.device), cached, len(fill), page_row,
-                req.n_hit_pages)
+                tokens.to(self.device), cached, len(fill), page_row)
         else:
             kind = "prefill"
             logits = self._prefill_step(tokens.to(self.device), plen,
@@ -455,13 +532,14 @@ class InferenceEngine:
         return torch.matmul(h, gpt_mod.lm_head(self.params, cfg)).float()
 
     def _cached_prefill_attention(self, q, k, v, cache, *, page_row,
-                                  cached: int, suffix_len: int,
-                                  hit_pages: int):
-        """Write the suffix K/V at ``cached..``, then attend over the hit
-        pages (read back from the cache, dequantized when int8) and the
-        suffix's own full-precision K/V."""
+                                  cached: int, suffix_len: int):
+        """Write the suffix K/V at ``cached..``, then attend over the
+        slot's first ``cached`` positions (read back from its pages,
+        dequantized when int8) and the suffix's own full-precision K/V.
+        Only the ``ceil(cached / page)`` pages that hold context are
+        gathered."""
         self._write_prompt(cache, k[0], v[0], page_row, cached, suffix_len)
-        row = page_row[None, :hit_pages]
+        row = page_row[None, :kvc.pages_needed(cached, self.page_size)]
         kctx = kvc.gather_pages(cache[0], row)
         vctx = kvc.gather_pages(cache[1], row)
         if self.cache.quantized:
@@ -469,42 +547,62 @@ class InferenceEngine:
                     ).to(q.dtype)
             vctx = (vctx.float() * kvc.gather_pages(cache[3], row)[..., None]
                     ).to(q.dtype)
-        return _cached_context_attention(q, kctx, vctx, k, v), cache
+        return _cached_context_attention(q, kctx, vctx, k, v, cached), cache
 
-    def _prefill_cached_step(self, tokens, cached: int, suffix_len: int,
-                             page_row, hit_pages: int):
-        """(suffix tokens [1, bucket], cached prefix length, valid suffix
-        length, page_row, number of hit pages) -> the last suffix
-        token's logits [1, V] f32."""
-        cfg = self.cfg
+    def _cached_layers(self, tokens, cached: int, suffix_len: int,
+                       page_row):
+        """The layer stack over a suffix at positions ``cached..`` of one
+        slot, its context read back from the cache -> the final hidden
+        states [1, S, d]."""
         positions = cached + torch.arange(tokens.shape[1],
                                           device=self.device)
         hook = functools.partial(
             self._cached_prefill_attention, page_row=page_row,
-            cached=cached, suffix_len=suffix_len, hit_pages=hit_pages)
-        x = self._run_layers(self._embed(tokens), positions, hook)
+            cached=cached, suffix_len=suffix_len)
+        return self._run_layers(self._embed(tokens), positions, hook)
+
+    def _prefill_cached_step(self, tokens, cached: int, suffix_len: int,
+                             page_row):
+        """(suffix tokens [1, bucket], cached prefix length, valid suffix
+        length, page_row) -> the last suffix token's logits [1, V] f32."""
+        x = self._cached_layers(tokens, cached, suffix_len, page_row)
         h = x[0, suffix_len - 1][None]
-        return torch.matmul(h, gpt_mod.lm_head(self.params, cfg)).float()
+        return torch.matmul(h, gpt_mod.lm_head(self.params,
+                                                self.cfg)).float()
 
     # ----------------------------------------------------------- decode
-    def _decode(self, events) -> None:
+    def _decode(self, events, skip: Optional[Set[int]] = None) -> None:
+        """One batched decode over every slot.  The slots in ``skip``
+        speculate this tick: they ride the fixed-shape batch as dead
+        rows, their page-table rows masked to the garbage page (on a
+        copy of the table) so the batch's K/V write cannot touch the
+        positions their verify is about to fill; their lengths do not
+        advance and their outputs are never delivered."""
+        skip = skip or set()
         sched = self.scheduler
         tokens = np.zeros((self.slots,), np.int64)
         reqs: List[Optional[Request]] = [None] * self.slots
         for slot, req in sched.active.items():
-            tokens[slot] = req.generated[-1]
-            reqs[slot] = req
+            if slot not in skip:
+                tokens[slot] = req.generated[-1]
+                reqs[slot] = req
+        page_table = sched.page_table
+        if skip:
+            page_table = page_table.copy()
+            page_table[list(skip), :] = kvc.GARBAGE_PAGE
         t0 = time.monotonic()
         sampling = self._sampling_inputs(reqs)
         logits = self._decode_step(
             torch.from_numpy(tokens).to(self.device),
             torch.from_numpy(sched.lengths).to(self.device),
-            torch.from_numpy(sched.page_table).to(self.device))
+            torch.from_numpy(page_table).to(self.device))
         sampled, logps = self._sample(logits, sampling)
         self.seconds["decode"] += time.monotonic() - t0
         self.call_counts["decode"] += 1
         host_logits = logits.cpu().numpy() if self.debug_logits else None
         for slot in list(sched.active):
+            if slot in skip:
+                continue
             req = sched.active[slot]
             sched.lengths[slot] += 1     # the input token is now cached
             if host_logits is not None:
@@ -537,6 +635,102 @@ class InferenceEngine:
         logits = torch.matmul(x, gpt_mod.lm_head(self.params, self.cfg))
         return logits[:, 0].float()
 
+    # ------------------------------------------------------ speculation
+    def _plan_speculation(self) -> Dict[int, List[int]]:
+        """slot -> this tick's drafted tokens (empty = plain decode for
+        every slot).  A slot speculates when its request opted in
+        (``spec_k > 0``) and its drafter finds a match in the request's
+        own tokens.  The budget is clipped to the tokens left to
+        generate, so the verify's writes stay inside the pages reserved
+        at admission (the last written position is ``len(prompt) +
+        max_new_tokens - 1``)."""
+        plan: Dict[int, List[int]] = {}
+        for slot, req in self.scheduler.active.items():
+            k = min(req.spec_k, req.max_new_tokens - len(req.generated))
+            if k < 1:
+                continue
+            ds = self._drafts.get(req.rid)
+            if ds is None:
+                ds = self._drafts[req.rid] = DraftState(req.prompt)
+            ds.sync(req.prompt, req.generated)
+            drafts = ds.propose(k)
+            if drafts:
+                plan[slot] = drafts
+        return plan
+
+    @staticmethod
+    def _verify_bucket(n_drafts: int) -> int:
+        """The power of two at or above ``n_drafts``: a verify runs
+        ``bucket + 1`` rows, as the JAX engine's per-bucket executables
+        do, so its shapes (N = 2, 3, 5 or 9 rows through the epilogue
+        kernel at k <= 8) are the reference's, and a captured step would
+        need one graph per bucket."""
+        kb = 1
+        while kb < n_drafts:
+            kb *= 2
+        return kb
+
+    def _verify(self, slot: int, drafts: List[int], events) -> None:
+        """Score ``[last_token, d1..dk, pad]`` in one all-rows forward
+        at the slot's length ``L``, sample every row with the request's
+        own noise, and emit the accepted drafts plus one more real token
+        (``sampling.accept_drafts``).  The length advances over emitted
+        tokens only: the rejected tail stays behind the length mask,
+        which is the rollback."""
+        sched = self.scheduler
+        req = sched.active[slot]
+        L = int(sched.lengths[slot])
+        n_drafts = len(drafts)
+        kb = self._verify_bucket(n_drafts)
+        # the verify writes positions L .. L + n_drafts: all past every
+        # shared or registered page (those are full prompt pages before
+        # the first decode position), so a rollback corrupts no page
+        # another request reads
+        kvc.assert_tail_private(sched.allocator, sched.prefix_index,
+                                req.pages, L, L + n_drafts, self.page_size)
+        tokens = torch.zeros((1, kb + 1), dtype=torch.int64)
+        tokens[0, :n_drafts + 1] = torch.tensor(
+            [req.generated[-1]] + list(drafts), dtype=torch.int64)
+        t0 = time.monotonic()
+        # row i lands when the request has len(generated) + i tokens:
+        # the (seed, count) plain decode would sample that position with
+        c = len(req.generated)
+        sampling = self._sampling_rows(
+            [(req.sampling, c + i) for i in range(n_drafts + 1)])
+        page_row = torch.from_numpy(sched.page_table[slot]).to(self.device)
+        logits = self._verify_step(tokens.to(self.device), L, n_drafts + 1,
+                                   page_row)
+        toks, logps = self._sample(logits[:n_drafts + 1], sampling)
+        self.seconds["verify"] += time.monotonic() - t0
+        self.call_counts["verify"] += 1
+        m, emitted = accept_drafts(toks, drafts)
+        self.spec_proposed += n_drafts
+        self.spec_accepted += m
+        self.spec_k_hist[m] = self.spec_k_hist.get(m, 0) + 1
+        host_logits = logits.cpu().numpy() if self.debug_logits else None
+        for i, tok in enumerate(emitted):
+            # row i's input token (last_token or draft i) is now cached
+            # at L + i; a retire inside the block (EOS, max_new_tokens)
+            # resets the slot anyway
+            sched.lengths[slot] = L + i + 1
+            if host_logits is not None:
+                self.logits_trace.setdefault(req.rid, []).append(
+                    host_logits[i])
+            self._deliver(req, tok, logps[i], events)
+            if req.done:
+                break
+
+    def _verify_step(self, tokens, cached: int, n_rows: int, page_row):
+        """The verify forward: the cached-context prefill in all-rows
+        mode.  (tokens [1, kb + 1] = [last_token, drafts, pad], the
+        slot's length ``cached``, valid rows ``n_rows``, page_row) ->
+        logits [kb + 1, V] f32, row i scoring the token after input i.
+        Its N = kb + 1 rows go through the fused out-proj epilogue like
+        any prefill's; the head runs over every row."""
+        x = self._cached_layers(tokens, cached, n_rows, page_row)
+        return torch.matmul(x[0], gpt_mod.lm_head(self.params,
+                                                   self.cfg)).float()
+
     # ------------------------------------------------------------ shared
     def _embed(self, tokens):
         return gpt_mod.embed_tokens(self.params, tokens, self.cfg)
@@ -561,6 +755,7 @@ class InferenceEngine:
                 or (req.eos_token is not None and tok == req.eos_token))
         if done:
             self.scheduler.retire(req.slot)
+            self._drafts.pop(req.rid, None)
             if not self.debug_logits:
                 # finished requests must not accumulate (debug engines
                 # keep them so parity tests can read trajectories)
@@ -568,14 +763,20 @@ class InferenceEngine:
         events.append(StepEvent(req.rid, tok, done, logp))
 
     def _sampling_inputs(self, reqs: List[Optional[Request]]):
-        """The sampler's per-row inputs on the device (None rows are
-        inactive; their result is discarded).  Built before the forward
-        is queued: a host-to-device copy waits for the stream to drain."""
+        """The sampler's inputs for one row per request, each at its
+        generation count (None rows are inactive; their result is
+        discarded)."""
         null = SamplingParams()
-        rows = [r.sampling if r is not None else null for r in reqs]
-        host = np.array([[s.seed, len(r.generated) if r is not None else 0,
-                          s.top_k] for s, r in zip(rows, reqs)], np.int64)
-        hostf = np.array([[s.temperature, s.top_p] for s in rows],
+        return self._sampling_rows([
+            (r.sampling, len(r.generated)) if r is not None else (null, 0)
+            for r in reqs])
+
+    def _sampling_rows(self, rows: List[Tuple[SamplingParams, int]]):
+        """The sampler's per-row inputs on the device from ``(sampling
+        params, count)`` rows.  Built before the forward is queued: a
+        host-to-device copy waits for the stream to drain."""
+        host = np.array([[s.seed, c, s.top_k] for s, c in rows], np.int64)
+        hostf = np.array([[s.temperature, s.top_p] for s, _c in rows],
                          np.float32)
         ints = torch.from_numpy(host).to(self.device)
         floats = torch.from_numpy(hostf).to(self.device)

@@ -20,7 +20,7 @@ feed both packages the same noise.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -107,3 +107,28 @@ def sample_tokens_logprobs(logits, seeds, counts, temps, top_ks, top_ps
     row-independent."""
     g = gumbel_noise(seeds, counts, logits.shape[-1])
     return sample_from_noise(logits, g, temps, top_ks, top_ps)
+
+
+def accept_drafts(sampled: Sequence[int], drafts: Sequence[int]
+                  ) -> Tuple[int, List[int]]:
+    """Accept/reject for one verify step, as the JAX package's
+    ``accept_drafts``.
+
+    ``sampled`` [k+1]: the token sampled at each verify row (row i
+    conditioned on the drafts before it and drawn with the noise of
+    ``(seed, count + i)``, i.e. exactly the token plain decode would
+    produce at that position); ``drafts`` [k]: the drafter's proposals.
+    Draft i is accepted iff every earlier draft was and ``sampled[i] ==
+    drafts[i]``, so a full-prefix match reproduces the plain trajectory:
+    greedy bit-exact, sampled trajectory-exact.
+
+    Returns ``(n_accepted, sampled[:n_accepted + 1])``: the accepted
+    drafts plus one more real token (the correction on a reject, the
+    bonus row on a full accept)."""
+    sampled = [int(t) for t in sampled]
+    n_acc = 0
+    for tok, draft in zip(sampled, drafts):
+        if tok != int(draft):
+            break
+        n_acc += 1
+    return n_acc, sampled[:n_acc + 1]

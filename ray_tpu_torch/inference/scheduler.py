@@ -84,6 +84,11 @@ class Request:
     chain_hashes: Optional[List[bytes]] = None
     n_hit_pages: int = 0
     cached_tokens: int = 0
+    # speculative decoding: the resolved draft budget, 0 = plain decode,
+    # k > 0 = up to k self-drafted tokens verified per tick.  Resolved at
+    # submit from ``SamplingParams.spec``/``spec_k`` over the engine's
+    # defaults, so planning never re-reads the config.
+    spec_k: int = 0
     # the prefix-chain root (adapter traffic salts it; base traffic keeps
     # the unsalted root, so its hashes are the JAX package's)
     hash_salt: bytes = PrefixIndex.ROOT

@@ -236,7 +236,7 @@ def test_page_allocator_invariants():
     assert alloc.free_count == 7 and alloc.leak_free()
 
 
-@pytest.mark.parametrize("kw", [dict(spec=True), dict(host_pages=4),
+@pytest.mark.parametrize("kw", [dict(host_pages=4),
                                 dict(lora=True), dict(telemetry=True)])
 def test_unported_engine_options_raise(models, kw):
     _j, _jp, tcfg, tparams = models
@@ -479,7 +479,7 @@ def test_set_params_flushes_the_prefix_cache(models):
     engine.generate([prompt], max_new_tokens=2)
     assert engine.stats()["prefix"]["requests_hit"] == 0
     assert engine.stats()["calls"] == {"prefill": 2, "prefill_cached": 0,
-                                       "decode": 2}
+                                       "decode": 2, "verify": 0}
 
 
 def test_prefix_off_knob(models, monkeypatch):
