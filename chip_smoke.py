@@ -13,6 +13,8 @@
                                            # co-batched decode step
     python3 chip_smoke.py --spec           # the speculative-decoding
                                            # phase with every arm
+    python3 chip_smoke.py --serve          # the serving-surface phases
+                                           # (7b-7d) alone
     python3 chip_smoke.py --decode         # the decode checks and times
     python3 chip_smoke.py --edges          # the wgmma tile checks, the
                                            # decode checks, the
@@ -84,6 +86,38 @@
    drafter state left (also after ``drain_requests``), exact launches
    (the epilogue 12 per verify, decode attention 12 per decode
    dispatch), no decode step gathers.
+7b. Disaggregated serving (gpt2-serve-disagg, ``disagg_phase``): a
+   prefill engine and a decode engine (8 slots, page 128 each) serve
+   gpt2-serve-mixed's 16 requests: a first-token-stop submission with
+   ``hold_pages``, ``export_request`` as each finishes, ``import_submit``
+   of the remaining 31 tokens; bf16 and the int8 cache.  Every stream
+   equal to a co-located engine's, token for token; each handoff
+   bit-equal to the exporter's pages, each install to its handoff at the
+   context's positions; ``nbytes`` the per-page figure times the pages
+   (int8 at most 0.55x bf16); exact launches (the exporter 12 prefill
+   attentions per request and no decode, the importer 12 decode
+   attentions per decode step and nothing else); importer telemetry
+   equal to its counters; one sampled request traced across the handoff
+   as one gap-free tree; both engines leak-free with nothing held; then
+   a warm import of a whole-page context the importer holds by digest
+   (nothing moves, same stream).  Prints ``disagg metrics {...}``.
+7c. The tiered KV cache (gpt2-serve-tiers, ``tiers_phase``):
+   gpt2-serve-int8-prefix's 16 requests in 8 waves of the 2 requests
+   behind one system prompt, twice round the 4 prompts, on 10 usable
+   pages with a 16-page host pool and a page store, against an engine
+   that keeps every page resident; arms bf16 with the model-dtype spill
+   and the int8 cache (streams equal the resident engine's, promoted
+   requests included) and bf16 with the int8 spill (promoted greedy
+   logits within ``INT8_TOL`` of the f32 reference).  16 promoted pages,
+   spill bytes the per-page figure times the spills, exact launches,
+   telemetry equal to the counters, leak-free, no fetch in flight.
+   Prints ``tiers metrics {...}``.
+7d. ``serving_obs_phase``: a TTFT and a total deadline on warm kernels
+   (budgets at least 10x and 20x a warm step) with the watchdog running;
+   ``infer.decode@1`` raising before any launch with the cache
+   bit-identical and a clean drain; ``kv.spill@1``, ``kv.spill@4`` and
+   ``kv.fetch@1`` each falling back to a cold prefill with the greedy
+   stream unchanged (in f32).
 8. Training phase: GPT-2 124M in bf16 trains 10 steps at batch 24 x
    1024 through ``build_gpt_train`` (flash attention with in-kernel
    RoPE, the fused epilogue, flash-CE with the norm prologue); prints
@@ -1501,6 +1535,14 @@ def half_sampled(n: int):
             for i in range(n)]
 
 
+def mixed_prompts():
+    """gpt2-serve-mixed's 16 prompts of 40..900 tokens, from its seed."""
+    rng = np.random.default_rng(0)
+    lengths = np.linspace(40, 900, 16).astype(int)
+    rng.shuffle(lengths)
+    return [rng.integers(0, 50257, n).tolist() for n in lengths]
+
+
 def engine_phase(params, cfg, dev) -> dict:
     """16 requests (prompts of 40..900 tokens, 32 new tokens each, half
     greedy and half sampled) through the engine with its defaults
@@ -1511,10 +1553,7 @@ def engine_phase(params, cfg, dev) -> dict:
     engine = InferenceEngine(cfg, params, device=dev, **ENGINE)
     no_gather_in_decode(engine)
     engine.generate([[1, 2, 3]], max_new_tokens=2)        # warm-up
-    rng = np.random.default_rng(0)
-    lengths = np.linspace(40, 900, 16).astype(int)
-    rng.shuffle(lengths)
-    prompts = [rng.integers(0, 50257, n).tolist() for n in lengths]
+    prompts = mixed_prompts()
     run = serve(engine, prompts, half_sampled(len(prompts)))
     prefills, decodes = run["calls"]["prefill"], run["calls"]["decode"]
     L = cfg.n_layers
@@ -1549,6 +1588,19 @@ def engine_phase(params, cfg, dev) -> dict:
 N_SYSTEM, SYSTEM_LEN = 4, 512
 
 
+def prefix_traffic():
+    """gpt2-serve-int8-prefix's traffic from its seed: a 200-token warm-up
+    prompt, then 16 prompts, request i behind system prompt i % 4."""
+    rng = np.random.default_rng(3)
+    warm = rng.integers(0, 50257, 200).tolist()
+    systems = [rng.integers(0, 50257, SYSTEM_LEN).tolist()
+               for _ in range(N_SYSTEM)]
+    suffixes = rng.integers(40, 301, 16)
+    prompts = [systems[i % N_SYSTEM] + rng.integers(0, 50257, n).tolist()
+               for i, n in enumerate(suffixes)]
+    return warm, prompts
+
+
 def int8_prefix_phase(params, cfg, dev) -> dict:
     """16 requests behind 4 shared system prompts through the int8-cache
     engine with prefix caching on, all submitted at once: the first
@@ -1562,14 +1614,8 @@ def int8_prefix_phase(params, cfg, dev) -> dict:
     engine = InferenceEngine(cfg, params, device=dev, kv_dtype="int8",
                              **ENGINE)
     no_gather_in_decode(engine)
-    rng = np.random.default_rng(3)
-    warm = rng.integers(0, 50257, 200).tolist()
+    warm, prompts = prefix_traffic()
     engine.generate([warm, warm], max_new_tokens=2)   # warm-up, one hit
-    systems = [rng.integers(0, 50257, SYSTEM_LEN).tolist()
-               for _ in range(N_SYSTEM)]
-    suffixes = rng.integers(40, 301, 16)
-    prompts = [systems[i % N_SYSTEM] + rng.integers(0, 50257, n).tolist()
-               for i, n in enumerate(suffixes)]
     hits0 = dict(engine.stats()["prefix"])
     run = serve(engine, prompts, half_sampled(len(prompts)))
     st = engine.stats()
@@ -2014,6 +2060,575 @@ def spec_phase(params, cfg, dev, arms=SPEC_ARMS) -> dict:
     for kv_dtype in ("model", "int8"):
         launches.update(spec_serving_phase(params, cfg, dev, kv_dtype))
     return launches
+
+
+# ------------------------------------------------- the serving surface
+def add_launches(total: dict, run: dict) -> dict:
+    """Two runs' launch counts, kernel by kernel."""
+    return {k: total.get(k, 0) + run.get(k, 0)
+            for k in set(total) | set(run)}
+
+
+def on_device(a, dev):
+    """A handoff's or spill entry's host array (numpy, or a CPU tensor for
+    bf16) on the card, for a bit-for-bit comparison there."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
+    return t.to(dev)
+
+
+def page_bytes(cfg, int8: bool) -> int:
+    """One page's K/V bytes over all layers: the model dtype, or int8
+    codes and f32 scales."""
+    from ray_tpu_torch.inference import kv_cache as kvc
+    return kvc.handoff_page_bytes(
+        n_layers=cfg.n_layers, page_size=ENGINE["page_size"],
+        n_heads=cfg.n_heads, head_dim=cfg.head_dim,
+        itemsize=1 if int8 else cfg.dtype.itemsize, quantized=int8)
+
+
+def check_installed(what, engine, req, handoff) -> None:
+    """The importer's cache pages of ``req`` against the handoff, bit for
+    bit, at the context's positions (a page's positions past the context
+    hold the exporter's garbage, or decode writes since)."""
+    if not handoff.page_list:
+        return
+    ps, n_ctx = engine.page_size, len(handoff.context)
+    names = ("k", "v") + (("k_scale", "v_scale") if engine.cache.quantized
+                          else ())
+    for name in names:
+        cache = getattr(engine.cache, name)
+        sent = on_device(getattr(handoff, name), cache.device)
+        for i, src in enumerate(handoff.page_list):
+            n = min(ps, n_ctx - src * ps)
+            if not torch.equal(cache[:, req.pages[src], :n],
+                               sent[:, i, :n]):
+                raise AssertionError(f"{what}: installed page {src} "
+                                     f"({name}) differs from the handoff")
+
+
+def gap_free_trace(what, trace_mod, trace_id, want_names) -> None:
+    """One trace: one root (``request``), every parent present, the span
+    names ``want_names``."""
+    spans = trace_mod.spans_for(trace_id)
+    ids = {s["span_id"] for s in spans}
+    roots = [s["name"] for s in spans if s["parent_id"] is None]
+    dangling = [s["name"] for s in spans
+                if s["parent_id"] is not None and s["parent_id"] not in ids]
+    names = sorted(s["name"] for s in spans)
+    if roots != ["request"] or dangling or names != sorted(want_names):
+        raise AssertionError(f"{what}: trace is not one gap-free tree: "
+                             f"roots {roots}, dangling {dangling}, names "
+                             f"{names}")
+
+
+DISAGG_NEW = 32
+DISAGG_TRACED = 1        # a sampled request, traced across the handoff
+
+
+def disagg_pair(what, pre, dec, prompts, sampling, trace_ctx=None,
+                ship=None) -> dict:
+    """Every request through the pair: a first-token-stop submission on
+    ``pre`` (all at once, run dry), each exported (its arrays checked
+    against the exporter's pages), then imported into ``dec`` for the
+    remaining tokens and run dry, each install checked against its
+    handoff.  ``ship`` maps a handoff to the form sent (a strip).
+    Returns the streams, the launches of each side (counts at
+    0 just before each), TTFTs, export and install times, the
+    handoffs."""
+    from ray_tpu_torch.inference import kv_cache as kvc
+    from ray_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    rids = [pre.submit(p, max_new_tokens=1, sampling=sp, hold_pages=True,
+                       trace_ctx=trace_ctx if i == DISAGG_TRACED else None)
+            for i, (p, sp) in enumerate(zip(prompts, sampling))]
+    submitted = time.monotonic()
+    first, handoffs, export_s = {}, {}, []
+    while pre.has_work():
+        for ev in pre.step():
+            rid = ev[0]
+            first[rid] = (int(ev[1]), time.monotonic() - submitted)
+            # export at once: a held request keeps its pages until then
+            pages = list(pre._held[rid].pages)
+            t0 = time.monotonic()
+            h = pre.export_request(rid)
+            export_s.append(time.monotonic() - t0)
+            # released, but nothing has overwritten them yet
+            for name, arr in kvc.page_contents(
+                    pre.cache, pages[:h.n_pages]).items():
+                if not torch.equal(arr, on_device(getattr(h, name),
+                                                  arr.device)):
+                    raise AssertionError(f"{what}: handoff {name} of "
+                                         f"request {rid} differs from the "
+                                         "exporter's pages")
+            handoffs[rid] = ship(h) if ship else h
+    torch.cuda.synchronize()
+    pre_launches = _build.launch_counts()
+    handoffs = [handoffs[r] for r in rids]
+    install_s = []
+    inner = dec._install_import
+
+    def timed_install(req, events):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        inner(req, events)
+        torch.cuda.synchronize()
+        install_s.append(time.monotonic() - t0)
+
+    dec._install_import = timed_install
+    secs0, calls0 = dict(dec.seconds), dict(dec.call_counts)
+    _build.reset_launches()
+    by_import = {dec.import_submit(h, max_new_tokens=DISAGG_NEW - 1,
+                                   sampling=sp): i
+                 for i, (h, sp) in enumerate(zip(handoffs, sampling))}
+    out = {i: [first[r][0]] for i, r in enumerate(rids)}
+    checked = set()
+    while dec.has_work():
+        for ev in dec.step():
+            if ev.error is not None:
+                raise AssertionError(f"{what}: import failed: {ev.error!r}")
+            out[by_import[ev[0]]].append(int(ev[1]))
+        for req in dec.scheduler.active.values():
+            if req.rid not in checked:
+                checked.add(req.rid)
+                check_installed(what, dec, req,
+                                handoffs[by_import[req.rid]])
+    torch.cuda.synchronize()
+    dec._install_import = inner
+    return dict(out=[out[i] for i in range(len(prompts))],
+                pre_launches=pre_launches,
+                dec_launches=_build.launch_counts(),
+                ttft=[first[r][1] for r in rids], export_s=export_s,
+                install_s=install_s, handoffs=handoffs,
+                decode_s=dec.seconds["decode"] - secs0["decode"],
+                decode_calls=dec.call_counts["decode"] - calls0["decode"])
+
+
+def disagg_phase(params, cfg, dev) -> dict:
+    """gpt2-serve-disagg: a prefill engine and a decode engine (8 slots,
+    page 128 each) on one card serve gpt2-serve-mixed's 16 requests, in
+    bf16 and with the int8 cache (codes and scales move as they are),
+    against a co-located engine on the same requests: every stream
+    equal token for token, the handoff bit-equal to the exporter's pages
+    and the installs to the handoff, exact byte figures and launches,
+    both engines leak-free with nothing held.  Then one warm import of a
+    whole-page context the importer holds by digest: no page moves, same
+    stream.  One sampled request is traced across the handoff.  Returns
+    the pair's launches (each side's counts at 0 just before it)."""
+    from ray_tpu_torch import InferenceEngine
+    from ray_tpu_torch.telemetry import trace as trace_mod
+
+    prompts = mixed_prompts()
+    sampling = half_sampled(len(prompts))
+    L, n = cfg.n_layers, len(prompts)
+    path: dict = {}
+    for kv_dtype in ("model", "int8"):
+        what = f"gpt2-serve-disagg {kv_dtype}"
+        colo = InferenceEngine(cfg, params, device=dev, kv_dtype=kv_dtype,
+                               **ENGINE)
+        colo.generate([[1, 2, 3]], max_new_tokens=2)        # warm-up
+        ref = serve(colo, prompts, sampling, DISAGG_NEW)
+        want = [ref["out"][r] for r in ref["rids"]]
+        pre = InferenceEngine(cfg, params, device=dev, kv_dtype=kv_dtype,
+                              **ENGINE)
+        dec = InferenceEngine(cfg, params, device=dev, kv_dtype=kv_dtype,
+                              telemetry=True, **ENGINE)
+        no_gather_in_decode(dec)
+        trace_mod.reset()
+        ctx = trace_mod.mint(sampled=True)
+        root = trace_mod.record_span("request", ctx, start=time.time(),
+                                     dur=0.0)
+        run = disagg_pair(what, pre, dec, prompts, sampling,
+                          trace_ctx=ctx.child(root))
+        if run["out"] != want:
+            parted = [i for i, (a, b) in enumerate(zip(run["out"], want))
+                      if a != b]
+            raise AssertionError(f"{what}: requests {parted} part from the "
+                                 "co-located streams")
+        decode = ("decode_attention_int8" if kv_dtype == "int8"
+                  else "decode_attention")
+        expect_launches(f"{what} exporter", run["pre_launches"],
+                        {"flash_attention_fwd": L * n,
+                         "matmul_residual_norm_fwd": L * n})
+        expect_launches(f"{what} importer", run["dec_launches"],
+                        {decode: L * run["decode_calls"]})
+        path = add_launches(add_launches(path, run["pre_launches"]),
+                            run["dec_launches"])
+        per_page = page_bytes(cfg, kv_dtype == "int8")
+        for h in run["handoffs"]:
+            if h.nbytes != per_page * h.n_pages:
+                raise AssertionError(f"{what}: handoff of {h.n_pages} pages "
+                                     f"is {h.nbytes} bytes, not "
+                                     f"{per_page} a page")
+        if kv_dtype == "int8" and \
+                per_page > 0.55 * page_bytes(cfg, False):
+            raise AssertionError(f"{what}: an int8 page ({per_page} bytes) "
+                                 "is over 0.55x a bf16 page")
+        tel = dec.telemetry.summary()
+        if (tel["requests_done"], tel["prefills"], tel["decode_steps"],
+                tel["decode_tokens"]) != (n, 0, run["decode_calls"],
+                                          n * (DISAGG_NEW - 1)):
+            raise AssertionError(f"{what}: importer telemetry {tel} does not "
+                                 f"count the run ({dec.call_counts})")
+        gap_free_trace(what, trace_mod, ctx.trace_id,
+                       ["request", "prefix_walk", "queue", "prefill",
+                        "first_token", "prefix_walk", "handoff.install"])
+        ticks = sum(ctx.trace_id in r["attributes"]["trace_ids"]
+                    for r in trace_mod.recorder().spans()
+                    if r["name"] == "decode_tick")
+        if ticks != DISAGG_NEW - 1:
+            raise AssertionError(f"{what}: {ticks} decode ticks name the "
+                                 "traced request")
+        # a warm import: a whole-page context the importer already holds
+        warm = np.random.default_rng(5).integers(0, 50257, 512).tolist()
+        greedy = [None]
+        cold = disagg_pair(f"{what} warm-up", pre, dec, [warm], greedy)
+        pre.scheduler.flush_prefix()        # the exporter prefills cold
+        resident = dec.prefix_digest()
+        hits0 = dec.scheduler.prefix_hit_pages
+        # the sender strips the pages the target holds by digest: all 4
+        w = disagg_pair(f"{what} warm", pre, dec, [warm], greedy,
+                        ship=lambda h: h.strip_to(
+                            [i for i in range(h.n_pages)
+                             if i >= len(h.chain_hashes)
+                             or h.chain_hashes[i] not in resident]))
+        if w["handoffs"][0].nbytes or w["handoffs"][0].page_list:
+            raise AssertionError(f"{what}: a warm handoff moves "
+                                 f"{w['handoffs'][0].nbytes} bytes")
+        if w["out"] != cold["out"] or dec.scheduler.prefix_hit_pages != \
+                hits0 + 4:
+            raise AssertionError(f"{what}: the warm import's stream "
+                                 f"{w['out']} != the cold one's "
+                                 f"{cold['out']}, or it did not take the "
+                                 "4 resident pages as hits")
+        for eng in (pre, dec):
+            if not eng.leak_free() or eng.stats()["held"]:
+                raise AssertionError(f"{what}: not leak-free after the run")
+        dec_tokens = n * (DISAGG_NEW - 1)
+        metrics = {
+            "cell": "gpt2-serve-disagg", "kv_dtype": kv_dtype,
+            "requests": n,
+            "export_ms_per_request": 1e3 * float(np.mean(run["export_s"])),
+            "install_ms_per_request": 1e3 * float(np.mean(run["install_s"])),
+            "handoff_mb_per_request": float(np.mean(
+                [h.nbytes for h in run["handoffs"]])) / 1e6,
+            "export_gb_per_s": (sum(h.nbytes for h in run["handoffs"])
+                                / sum(run["export_s"]) / 1e9),
+            "install_gb_per_s": (sum(h.nbytes for h in run["handoffs"])
+                                 / sum(run["install_s"]) / 1e9),
+            "mean_ttft_ms_pair": 1e3 * float(np.mean(run["ttft"])),
+            "mean_ttft_ms_colocated": 1e3 * float(np.mean(
+                list(ref["ttft"].values()))),
+            "decode_tokens_per_s_pair": dec_tokens / run["decode_s"],
+            "decode_tokens_per_s_colocated": dec_tokens
+            / ref["secs"]["decode"],
+            "decode_steps_pair": run["decode_calls"],
+            "decode_steps_colocated": ref["calls"]["decode"],
+        }
+        print(f"{what}: 16 streams equal the co-located engine's; handoffs "
+              "bit-equal to the exporter's pages and installs to the "
+              f"handoffs; {per_page} bytes a page; launches exact (exporter "
+              f"{launches_line(run['pre_launches'])}, importer "
+              f"{launches_line(run['dec_launches'])}); one gap-free trace; "
+              "leak-free, nothing held", flush=True)
+        print("disagg metrics " + json.dumps(metrics), flush=True)
+        del colo, pre, dec
+        gc.collect()
+        torch.cuda.empty_cache()
+    return path
+
+
+# gpt2-serve-tiers: gpt2-serve-int8-prefix's 16 requests in 8 waves of
+# the 2 requests behind one system prompt, each wave run dry before the
+# next: round 1 serves systems 0..3 (requests s, s + 4), round 2 the same
+# systems again (s + 8, s + 12).  10 usable pages hold about one wave, so
+# each wave reclaims the previous waves' idle pages, and every system's 4
+# pages are demoted before round 2 comes back to them: 16 promoted pages
+# (the host logic decides it; a CPU rehearsal of the same lengths gives 7
+# from the host pool and 9 from the store with 16 host pages)
+TIER_ENGINE = dict(num_pages=11, host_pages=16, store=True)
+TIER_WAVES = [[s, s + 4] for s in range(N_SYSTEM)] + \
+    [[s + 8, s + 12] for s in range(N_SYSTEM)]
+TIER_PROMOTED = 16
+TIER_ARMS = (("bf16-model-spill", dict(kv_dtype="model",
+                                       spill_dtype="model")),
+             ("int8-cache", dict(kv_dtype="int8")),
+             ("bf16-int8-spill", dict(kv_dtype="model",
+                                      spill_dtype="int8")))
+
+
+def serve_waves(engine, prompts, sampling, waves, max_new=32) -> dict:
+    """Each wave's requests submitted together and run dry before the
+    next; returns the streams by request index, TTFTs, the launches (the
+    counts at 0 just before), the call counts and seconds over it."""
+    from ray_tpu_torch.ops import _build
+
+    calls0, secs0 = dict(engine.call_counts), dict(engine.seconds)
+    _build.reset_launches()
+    out, ttft, rid_of = {}, {}, {}
+    for wave in waves:
+        t0 = time.monotonic()
+        for i in wave:
+            rid_of[engine.submit(prompts[i], max_new_tokens=max_new,
+                                 sampling=sampling[i])] = i
+        while engine.has_work():
+            for ev in engine.step():
+                i = rid_of[ev[0]]
+                if i not in out:
+                    ttft[i] = time.monotonic() - t0
+                out.setdefault(i, []).append(int(ev[1]))
+    torch.cuda.synchronize()
+    if any(len(out[i]) != max_new for i in range(len(prompts))):
+        raise AssertionError("not every request finished")
+    return dict(out=out, ttft=ttft, launches=_build.launch_counts(),
+                rid_of={i: r for r, i in rid_of.items()},
+                calls={k: v - calls0[k] for k, v in
+                       engine.call_counts.items()},
+                secs={k: v - secs0[k] for k, v in engine.seconds.items()})
+
+
+def tiers_phase(params, cfg, dev) -> dict:
+    """gpt2-serve-tiers: per arm, the waves through an engine whose idle
+    prefix pages are demoted to a 16-page host pool and on to a page
+    store, against the same waves on an engine that keeps every page
+    resident.  In the exact arms (bf16 with the model-dtype spill, the
+    int8 cache's own codes) every stream equals the resident engine's,
+    the promoted requests' included; with the int8 spill of a bf16
+    cache the promoted greedy requests' logits are held to the f32
+    reference under ``INT8_TOL``.  Every arm: the 16 promotions, spill
+    bytes equal to the per-page figure times the spills, exact
+    launches, telemetry equal to the engine's counters, leak-free with
+    the host partition, no store fetch in flight.  Returns the tiered
+    runs' launches."""
+    from ray_tpu_torch import InferenceEngine
+
+    _warm, prompts = prefix_traffic()
+    sampling = half_sampled(len(prompts))
+    L = cfg.n_layers
+    path: dict = {}
+    cfg32, params32 = None, None
+    for arm, kw in TIER_ARMS:
+        what = f"gpt2-serve-tiers {arm}"
+        exact = kw.get("spill_dtype") != "int8"
+        resident = InferenceEngine(cfg, params, device=dev, prefix=True,
+                                   **kw, **ENGINE)
+        ref = serve_waves(resident, prompts, sampling, TIER_WAVES)
+        engine = InferenceEngine(cfg, params, device=dev, telemetry=True,
+                                 debug_logits=not exact, **kw,
+                                 **TIER_ENGINE, **ENGINE)
+        no_gather_in_decode(engine)
+        run = serve_waves(engine, prompts, sampling, TIER_WAVES)
+        expect_launches(what, run["launches"],
+                        serve_launches(L, run["calls"], engine.kv_dtype))
+        path = add_launches(path, run["launches"])
+        st = engine.stats()["tiers"]
+        promoted = st["hits"]["dram"] + st["hits"]["store"]
+        if promoted < TIER_PROMOTED or st["fetches"] != promoted:
+            raise AssertionError(f"{what}: {promoted} promoted pages, "
+                                 f"{TIER_PROMOTED} implied: {st}")
+        per_page = page_bytes(cfg, not (exact
+                                        and engine.kv_dtype == "model"))
+        spills = st["host"]["spills"]
+        if st["spill_bytes"] != per_page * spills or not spills:
+            raise AssertionError(f"{what}: spill bytes {st['spill_bytes']} "
+                                 f"!= {per_page} x {spills} spills")
+        if not engine.leak_free() or engine.store.in_flight:
+            raise AssertionError(f"{what}: not leak-free after the run")
+        tel = engine.telemetry.summary()["tiers"]
+        if (tel["spill_bytes"], tel["fetches"],
+                {k: v for k, v in st["hits"].items() if v}) != \
+                (st["spill_bytes"], st["fetches"], tel["hits"]):
+            raise AssertionError(f"{what}: telemetry {tel} != the engine's "
+                                 f"counters {st}")
+        promoted_reqs = [s + 8 for s in range(N_SYSTEM)]
+        if exact:
+            parted = [i for i in range(len(prompts))
+                      if run["out"][i] != ref["out"][i]]
+            if parted:
+                raise AssertionError(f"{what}: requests {parted} part from "
+                                     "the resident engine's streams")
+            checked = "16 streams equal the resident engine's"
+        else:
+            if params32 is None:
+                params32 = to_cpu32(params)
+                cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+            greedy = [i for i in promoted_reqs if sampling[i] is None]
+            engine.logits_trace = {
+                k: engine.logits_trace[run["rid_of"][i]]
+                for k, i in enumerate(greedy)}
+            against_reference(f"{what} promoted", engine, params32, cfg32,
+                              [prompts[i] for i in greedy],
+                              [run["out"][i] for i in greedy], INT8_TOL,
+                              INT8_MEAN_TOL)
+            checked = (f"promoted greedy requests {greedy} within "
+                       f"atol {INT8_TOL['atol']} of the f32 reference")
+        cold = [s for s in range(N_SYSTEM)]
+        hbm = [s + 4 for s in range(N_SYSTEM)] + \
+            [s + 12 for s in range(N_SYSTEM)]
+        metrics = {
+            "cell": "gpt2-serve-tiers", "arm": arm,
+            "spills": spills, "spill_bytes": st["spill_bytes"],
+            "promoted_dram": st["hits"]["dram"],
+            "promoted_store": st["hits"]["store"],
+            "hbm_hits": st["hits"]["hbm"],
+            "fetch_ms_per_page": 1e3 * st["fetch_seconds"] / st["fetches"],
+            "mean_ttft_ms_cold": 1e3 * float(np.mean(
+                [run["ttft"][i] for i in cold])),
+            "mean_ttft_ms_hbm_hit": 1e3 * float(np.mean(
+                [run["ttft"][i] for i in hbm])),
+            "mean_ttft_ms_promoted": 1e3 * float(np.mean(
+                [run["ttft"][i] for i in promoted_reqs])),
+            "mean_ttft_ms_promoted_resident_engine": 1e3 * float(np.mean(
+                [ref["ttft"][i] for i in promoted_reqs])),
+            "store": {k: engine.store.stats()[k]
+                      for k in ("puts", "gets", "evictions")},
+        }
+        print(f"{what}: {checked}; {promoted} pages promoted "
+              f"({st['hits']['dram']} host, {st['hits']['store']} store), "
+              f"{spills} spills of {per_page} bytes; launches "
+              f"{launches_line(run['launches'])} == implied; leak-free",
+              flush=True)
+        print("tiers metrics " + json.dumps(metrics), flush=True)
+        del resident, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return path
+
+
+# the chaos legs of the tier cell run the model in f32: a fault turns a
+# promoted (cached) prefill into a cold one, and in bf16 the two round
+# differently (plain attention against the flash kernel), which moves a
+# greedy token at a bf16 tie; in f32 a stream must not move
+CHAOS_NEW = 16
+
+
+def serving_obs_phase(params, cfg, dev) -> None:
+    """Deadlines, chaos, telemetry and the watchdog on the card, on warm
+    kernels, with every budget well above a warm step."""
+    from ray_tpu_torch import InferenceEngine
+    from ray_tpu_torch.inference import DeadlineExceededError
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.resilience import EngineWatchdog
+    from ray_tpu_torch.util import chaos
+
+    rng = np.random.default_rng(11)
+    engine = InferenceEngine(cfg, params, device=dev, slots=1,
+                             page_size=128)
+    engine.generate([rng.integers(0, 50257, 100).tolist()],
+                    max_new_tokens=8)                      # warm-up
+    t0 = time.monotonic()
+    engine.generate([rng.integers(0, 50257, 100).tolist()],
+                    max_new_tokens=9)
+    step_s = (time.monotonic() - t0) / 9
+    ttft_budget, total_budget = max(0.25, 10 * step_s), max(0.5, 20 * step_s)
+    # a queued request's TTFT budget runs out behind a long one
+    r1 = engine.submit(rng.integers(0, 50257, 200).tolist(),
+                       max_new_tokens=int(3 * ttft_budget / step_s) + 8)
+    r2 = engine.submit(rng.integers(0, 50257, 100).tolist(),
+                       max_new_tokens=4, ttft_deadline_s=ttft_budget)
+    errs, toks = {}, {}
+    wd = EngineWatchdog(engine, timeout_s=total_budget)
+    with wd:
+        while engine.has_work():
+            for ev in engine.step():
+                if ev.error is not None:
+                    errs[ev[0]] = ev.error
+                else:
+                    toks[ev[0]] = toks.get(ev[0], 0) + 1
+    if set(errs) != {r2} or errs[r2].kind != "ttft" or r2 in toks or \
+            not isinstance(errs[r2], DeadlineExceededError):
+        raise AssertionError(f"ttft deadline: errors {errs}, tokens {toks}")
+    # a total budget retires a request mid-decode
+    r3 = engine.submit(rng.integers(0, 50257, 100).tolist(),
+                       max_new_tokens=int(3 * total_budget / step_s) + 8,
+                       deadline_s=total_budget)
+    n3, err3 = 0, None
+    while engine.has_work():
+        for ev in engine.step():
+            if ev.error is not None:
+                err3 = ev.error
+            else:
+                n3 += 1
+    if not isinstance(err3, DeadlineExceededError) or err3.kind != "total" \
+            or err3.rid != r3 or not 1 <= n3:
+        raise AssertionError(f"total deadline: {err3!r} after {n3} tokens")
+    if not engine.leak_free() or engine.deadline_exceeded != 2 or \
+            wd.wedges:
+        raise AssertionError("deadlines: not leak-free, or miscounted, or "
+                             "the watchdog fired on a live engine")
+    print(f"deadlines: a queued request's {ttft_budget:.3f} s TTFT budget "
+          f"expired, a {total_budget:.3f} s total budget retired a request "
+          f"after {n3} tokens (warm step {1e3 * step_s:.2f} ms); "
+          "leak-free; the watchdog saw no wedge", flush=True)
+    # infer.decode fires before the decode step launches anything
+    engine = InferenceEngine(cfg, params, device=dev, slots=2,
+                             page_size=128)
+    for n in (300, 40):
+        engine.submit(rng.integers(0, 50257, n).tolist(), max_new_tokens=16)
+    engine.step()
+    engine.step()
+    torch.cuda.synchronize()
+    before = [engine.cache.k.clone(), engine.cache.v.clone(),
+              engine.scheduler.lengths.copy()]
+    plan = chaos.install_faults("infer.decode@1")
+    _build.reset_launches()
+    try:
+        engine.step()
+        raise AssertionError("infer.decode@1 did not fire")
+    except chaos.InjectedFault:
+        pass
+    finally:
+        chaos.clear_faults()
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in _build.launch_counts().items() if v}
+    if launched or plan.fired != [("infer.decode", 1)] or \
+            not torch.equal(engine.cache.k, before[0]) or \
+            not torch.equal(engine.cache.v, before[1]) or \
+            (engine.scheduler.lengths != before[2]).any():
+        raise AssertionError(f"infer.decode: launched {launched} or changed "
+                             "the cache before raising")
+    if engine.drain_requests() != 2 or not engine.leak_free():
+        raise AssertionError("infer.decode: the engine did not drain clean")
+    print("chaos infer.decode@1: raised before any launch, cache "
+          "bit-identical, drained leak-free", flush=True)
+    del engine, before
+    # the tier legs' faults, in f32
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = {k: (v.float() if isinstance(v, torch.Tensor) else
+                    {kk: vv.float() for kk, vv in v.items()})
+                for k, v in params.items()}
+    _warm, prompts = prefix_traffic()
+    system = prompts[0][:SYSTEM_LEN]
+    a = system + rng.integers(0, 50257, 40).tolist()
+    revisit = system + rng.integers(0, 50257, 40).tolist()
+    pressure = rng.integers(0, 50257, 600).tolist()
+    cold = InferenceEngine(cfg32, params32, device=dev, slots=1,
+                           page_size=128).generate(
+        [revisit], max_new_tokens=CHAOS_NEW)[0]
+    legs = {}
+    for spec in (None, "kv.spill@1", "kv.spill@4", "kv.fetch@1"):
+        eng = InferenceEngine(cfg32, params32, device=dev, slots=1,
+                              page_size=128, num_pages=6, host_pages=2,
+                              store=True, spill_dtype="model")
+        eng.generate([a], max_new_tokens=8)
+        plan = chaos.install_faults(spec) if spec else None
+        try:
+            eng.generate([pressure], max_new_tokens=8)
+            out = eng.generate([revisit], max_new_tokens=CHAOS_NEW)[0]
+        finally:
+            chaos.clear_faults()
+        st = eng.stats()["tiers"]
+        faults = (st["spill_faults"] + st["host"]["dropped"]
+                  + st["fetch_faults"])
+        if out != cold or not eng.leak_free() or eng.store.in_flight or \
+                (spec and (not plan.fired or not faults)) or \
+                (not spec and st["fetches"] != 4):
+            raise AssertionError(f"chaos {spec}: stream {out} vs cold "
+                                 f"{cold}, tiers {st}")
+        legs[spec or "none"] = {"promoted": st["fetches"],
+                                "faults": faults}
+    print(f"chaos tier legs (f32): {json.dumps(legs)}; every revisit's "
+          "greedy stream equals the cold run's; leak-free", flush=True)
 
 
 # the training cell "gpt2-train-b24": the JAX package's single-chip
@@ -2693,6 +3308,18 @@ def main() -> None:
             for kv_dtype in ("model", "int8"):
                 spec_profile_phase(params, cfg, dev, kv_dtype=kv_dtype)
         return
+    if sys.argv[1:] == ["--serve"]:
+        from ray_tpu_torch import GPTConfig, init_params
+        cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device=dev)
+        paths = {"serve_disagg": disagg_phase(params, cfg, dev),
+                 "serve_tiers": tiers_phase(params, cfg, dev)}
+        serving_obs_phase(params, cfg, dev)
+        print("serve: every check passed; launches "
+              + json.dumps({p: {k: v for k, v in n.items() if v}
+                            for p, n in paths.items()}), flush=True)
+        return
     if sys.argv[1:] in (["--profile"], ["--profile", "int8"]):
         from ray_tpu_torch import GPTConfig, init_params
         cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
@@ -2720,6 +3347,9 @@ def main() -> None:
     paths["serve_norm"] = correctness_phase(params, cfg, dev,
                                             norm_kernel=True)
     paths["serve_spec"] = spec_phase(params, cfg, dev)
+    paths["serve_disagg"] = disagg_phase(params, cfg, dev)
+    paths["serve_tiers"] = tiers_phase(params, cfg, dev)
+    serving_obs_phase(params, cfg, dev)
     del params
     torch.cuda.empty_cache()
     train = train_phase(dev)

@@ -7,9 +7,11 @@ this package has a hand-written CUDA kernel (``ops/csrc``), built with
 tests hold it against the JAX package.
 
 Ported so far: the GPT model (:mod:`ray_tpu_torch.models.gpt`), the
-paged-KV inference engine with prefix caching, the int8 KV cache and
-speculative decoding (:mod:`ray_tpu_torch.inference`,
-:mod:`ray_tpu_torch.quant`), the
+paged-KV inference engine with prefix caching, the int8 KV cache,
+speculative decoding, disaggregated KV handoff, the tiered KV cache,
+deadlines, telemetry and request tracing (:mod:`ray_tpu_torch.inference`,
+:mod:`ray_tpu_torch.quant`, :mod:`ray_tpu_torch.telemetry`,
+:mod:`ray_tpu_torch.util`, :mod:`ray_tpu_torch.resilience`), the
 single-device training step (:mod:`ray_tpu_torch.models.training`) and
 the ten kernel entry points on those paths (attention forward and
 backward, decode attention and its int8 variant, the fused out-proj

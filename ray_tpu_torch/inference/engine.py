@@ -44,17 +44,45 @@ slot; ``generate()`` runs a batch of prompts to completion.
   mask and the next writes overwrite it.  Plain slots co-batch in the
   decode step beside the speculating slots' dead rows, whose page-table
   rows are masked to the garbage page.
+- **Disaggregated handoff.**  A prefill engine runs first-token-stop
+  submissions (``submit(max_new_tokens=1, hold_pages=True)``) whose
+  pages outlive retirement; :meth:`InferenceEngine.export_request` copies
+  them to the host as a ``kv_cache.KVHandoff`` and releases them.  A
+  decode engine's :meth:`InferenceEngine.import_submit` admits the
+  handoff like any request, takes the pages it already holds by chain
+  hash as prefix hits, writes the rest from the payload, and seeds the
+  slot at the context's length, so the ordinary decode step continues
+  the sequence.
+- **Tiered KV cache** (``host_pages``, ``store``, ``spill_dtype``):
+  pressure on the device pages demotes an idle prefix page to a host
+  pool and on to a shared page store (``kv_cache.HostPagePool``,
+  ``KVPageStore``), int8-coded by default; admission promotes a
+  lower-tier hit back into fresh pages before the suffix prefill.
+- **Deadlines** (``ttft_deadline``/``deadline`` and per request): at
+  the start of each tick an expired request is retired, everything
+  released, with a terminal ``StepEvent`` carrying a
+  ``DeadlineExceededError``.
+- **Telemetry** (``telemetry=``, ``RAY_TPU_TELEMETRY``) records what the
+  JAX engine records (``telemetry.infer.InferTelemetry``), and a request
+  submitted with ``trace_ctx`` leaves its queue, prefix-walk,
+  tier-fetch, prefill, install and verify spans in the flight recorder
+  (``telemetry.trace``); the context rides the handoff.  Both read the
+  host clock after the step's one synchronisation (the sampled tokens
+  reaching the host), so neither adds a device sync.
+- **Chaos sites** (``util.chaos``): ``infer.decode`` before a decode
+  step launches anything, ``kv.spill`` and ``kv.fetch`` on the tier
+  legs.
 
 PyTorch runs eagerly, so there is nothing to compile: per-kind call
 counters (``call_counts``) and wall seconds (``seconds``) take the place
 of the JAX engine's compile counters.  CUDA-graph capture of the steps
 is later work.
 
-Not ported yet; each raises ``NotImplementedError`` where the JAX engine
-accepts it: LoRA adapter banks, the tiered cache, disaggregated
-export/import, telemetry and deadlines.  The engine runs
-on the card unless the caller passes ``device="cpu"``; without a card
-it raises.
+LoRA adapter banks are not ported yet: ``lora=`` raises
+``NotImplementedError`` (ROADMAP Queue 1 item 11) and a request or
+handoff naming a ``model_id`` raises ``AdapterUnavailableError``, as the
+JAX engine does without adapter support.  The engine runs on the card
+unless the caller passes ``device="cpu"``; without a card it raises.
 """
 
 from __future__ import annotations
@@ -68,31 +96,34 @@ from typing import Any, Dict, List, Optional, Set, Tuple, Union
 import numpy as np
 import torch
 
+from ray_tpu_torch.adapters import AdapterUnavailableError
 from ray_tpu_torch.convert import array_to_tensor
 from ray_tpu_torch.inference import kv_cache as kvc
 from ray_tpu_torch.inference.config import default_buckets, infer_config
 from ray_tpu_torch.inference.sampling import (SamplingParams,
                                               accept_drafts,
                                               sample_tokens_logprobs)
-from ray_tpu_torch.inference.scheduler import Request, SlotScheduler
+from ray_tpu_torch.inference.scheduler import (DeadlineExceededError,
+                                               Request, SlotScheduler)
 from ray_tpu_torch.inference.spec import DraftState
 from ray_tpu_torch.models import gpt as gpt_mod
 from ray_tpu_torch.ops.attention import (decode_attention_paged,
                                          flash_attention)
 from ray_tpu_torch.ops.substrate import NEG_INF, resolve_device
 from ray_tpu_torch.quant import quantize_block
-
-
-def _unported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1: {item})")
+from ray_tpu_torch.telemetry import trace as trace_mod
+from ray_tpu_torch.telemetry.config import TelemetryConfig
+from ray_tpu_torch.telemetry.infer import InferTelemetry
+from ray_tpu_torch.util import chaos, tracing
 
 
 class StepEvent(tuple):
     """One ``step()`` event: unpacks and compares as ``(rid, token,
     done)``, with the sampled token's model logprob as ``ev.logprob``
-    and the failure channel as ``ev.error`` (None here: deadline
-    retirement is not ported yet)."""
+    and the failure channel as ``ev.error``: a request retired by a
+    deadline, or an import whose resident pages went missing, ends with
+    one event ``(rid, -1, True)`` carrying the typed error, which
+    :meth:`InferenceEngine.generate` raises."""
 
     def __new__(cls, rid: int, token: int, done: bool, logprob: float,
                 error: Optional[BaseException] = None):
@@ -172,6 +203,8 @@ class InferenceEngine:
                  spec: Optional[bool] = None,
                  spec_k: Optional[int] = None,
                  host_pages: Optional[int] = None,
+                 store: Union["kvc.KVPageStore", bool, None] = None,
+                 spill_dtype: Optional[str] = None,
                  lora=None,
                  telemetry: Optional[bool] = None,
                  ttft_deadline: Optional[float] = None,
@@ -179,12 +212,10 @@ class InferenceEngine:
                  debug_logits: bool = False):
         gpt_mod.check_supported(cfg)
         icfg = infer_config()
-        if host_pages:
-            _unported("the tiered KV cache", "serve_gpt and the fleet")
         if lora:
-            _unported("LoRA adapter banks", "adapters and RL")
-        if telemetry or ttft_deadline or deadline:
-            _unported("telemetry and deadlines", "serve_gpt and the fleet")
+            raise NotImplementedError(
+                "LoRA adapter banks are not ported yet (ROADMAP Queue 1 "
+                "item 11: adapters and RL)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = _params_to(params, self.device, cfg.dtype)
@@ -228,6 +259,50 @@ class InferenceEngine:
             head_dim=cfg.head_dim, dtype=cfg.dtype, device=self.device,
             kv_dtype=kv_dtype or icfg.kv_dtype)
         self.kv_dtype = self.cache.kv_dtype
+        # default per-request deadlines, None or positive; per-submit
+        # budgets win
+        self.ttft_deadline = (icfg.ttft_deadline if ttft_deadline
+                              is None else float(ttft_deadline)) or None
+        self.deadline = (icfg.deadline if deadline is None
+                         else float(deadline)) or None
+        # the tiered cache: device pages (tier 0) -> this engine's host
+        # pool (tier 1) -> a page store (tier 2; a shared KVPageStore,
+        # True for a private one, None to follow RAY_TPU_KV_STORE when
+        # tiering is on).  Entries are keyed by the prefix index's chain
+        # hashes, so tiering needs prefix caching.
+        self.host_pages = (icfg.host_pages if host_pages is None
+                           else int(host_pages))
+        self.spill_dtype = spill_dtype or icfg.spill_dtype
+        if self.spill_dtype not in kvc.SPILL_DTYPES:
+            raise ValueError(
+                f"unknown spill_dtype {self.spill_dtype!r} "
+                "(check RAY_TPU_KV_SPILL_DTYPE)")
+        if self.host_pages < 0:
+            raise ValueError(f"host_pages must be >= 0, got "
+                             f"{self.host_pages} "
+                             "(check RAY_TPU_KV_HOST_PAGES)")
+        if isinstance(store, kvc.KVPageStore):
+            self.store: Optional[kvc.KVPageStore] = store
+        elif store is True or (store is None and icfg.store
+                               and self.host_pages > 0):
+            self.store = kvc.KVPageStore()
+        else:
+            self.store = None
+        self.tiered = self.prefix and (self.host_pages > 0
+                                       or self.store is not None)
+        if self.tiered:
+            self.host_pool: Optional[kvc.HostPagePool] = \
+                kvc.HostPagePool(self.host_pages, store=self.store)
+            self.scheduler.allocator.spill_hook = self._spill_page
+            self.scheduler.tier_lookup = self._tier_probe
+        else:
+            self.host_pool = None
+        self.tier_hits = {"hbm": 0, "dram": 0, "store": 0}
+        self.spill_bytes = 0
+        self.spill_faults = 0
+        self.fetches = 0
+        self.fetch_seconds = 0.0
+        self.fetch_faults = 0
         kinds = ("prefill", "prefill_cached", "decode", "verify")
         self.call_counts: Dict[str, int] = {k: 0 for k in kinds}
         self.seconds: Dict[str, float] = {k: 0.0 for k in kinds}
@@ -239,13 +314,36 @@ class InferenceEngine:
         self.spec_proposed = 0
         self.spec_accepted = 0
         self.spec_k_hist: Dict[int, int] = {}
+        # retired requests whose pages wait for export_request or
+        # release_held (the leak audit counts them)
+        self._held: Dict[int, Request] = {}
+        self.exports = 0
+        self.imports = 0
+        # the replica id spans carry (None for a bare engine)
+        self.trace_label: Optional[str] = None
+        # the store's eviction counter is cumulative and may be shared:
+        # step() reports its deltas
+        self._store_evictions_seen = (self.store.evictions
+                                      if self.store is not None else 0)
         self._next_rid = 0
         self._cancelled: set = set()
         self._lock = threading.Lock()   # submit()/cancel() vs step()
+        # liveness for the watchdog: completed step() calls and the time
+        # of the last one
         self.ticks = 0
+        self.last_tick_ts = time.monotonic()
+        self.deadline_exceeded = 0
         self.param_version = 0
         self.debug_logits = debug_logits
         self.logits_trace: Dict[int, List[np.ndarray]] = {}
+        config = (TelemetryConfig(enabled=True) if telemetry is True
+                  else TelemetryConfig(enabled=False)
+                  if telemetry is False else None)
+        self.telemetry = InferTelemetry(config=config)
+        self.telemetry.record_cache_info(
+            kv_dtype=self.kv_dtype, cache_bytes=self.cache.bytes,
+            kv_bytes_per_slot=self.cache.bytes_per_slot(
+                max_pages_per_slot))
 
     # --------------------------------------------------------- requests
     def submit(self, prompt, max_new_tokens: int = 16,
@@ -254,16 +352,17 @@ class InferenceEngine:
                ttft_deadline_s: Optional[float] = None,
                deadline_s: Optional[float] = None,
                hold_pages: bool = False, trace_ctx=None) -> int:
-        """Enqueue one request and return its id."""
-        if ttft_deadline_s or deadline_s:
-            _unported("deadlines", "serve_gpt and the fleet")
-        if hold_pages:
-            _unported("disaggregated export", "serve_gpt and the fleet")
-        if trace_ctx is not None:
-            _unported("request tracing", "serve_gpt and the fleet")
+        """Enqueue one request and return its id.  ``hold_pages`` keeps
+        its pages past retirement for :meth:`export_request` (a
+        first-token-stop submission is ``max_new_tokens=1`` with it set);
+        ``trace_ctx`` (a ``telemetry.trace.TraceContext``) hangs the
+        request's spans off that trace.  Deadlines default to the
+        engine's; 0 turns one off."""
         sampling = sampling or SamplingParams()
         if sampling.model_id:
-            _unported("LoRA adapters", "adapters and RL")
+            raise AdapterUnavailableError(
+                sampling.model_id, "engine built without adapter "
+                "support (adapters are ROADMAP Queue 1 item 11)")
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
@@ -283,9 +382,18 @@ class InferenceEngine:
             req = Request(rid=rid, prompt=prompt,
                           max_new_tokens=max_new_tokens,
                           sampling=sampling, eos_token=eos_token,
-                          spec_k=spec_k)
+                          ttft_deadline_s=(self.ttft_deadline
+                                           if ttft_deadline_s is None
+                                           else ttft_deadline_s or None),
+                          deadline_s=(self.deadline if deadline_s is None
+                                      else deadline_s or None),
+                          hold_pages=bool(hold_pages), spec_k=spec_k,
+                          trace=trace_ctx)
             self.scheduler.submit(req)    # validates; may raise
             self._requests[rid] = req
+            depth = len(self.scheduler.waiting)
+        if self.telemetry.enabled:
+            self.telemetry.record_queue_depth(depth)
         return rid
 
     def _resolve_spec_k(self, sampling: SamplingParams) -> int:
@@ -323,34 +431,195 @@ class InferenceEngine:
                 req.done = True
                 self._requests.pop(req.rid, None)
 
+    def _expire_deadlines(self, events) -> None:
+        """Retire every request past its deadline, at the tick's start
+        (where cancels run: nothing is in flight over a slot).  A waiting
+        request can blow either budget, an active one only the total
+        (admission delivered its first token).  Retirement releases the
+        slot, pages and prefix references and emits a terminal event
+        with the :class:`DeadlineExceededError`."""
+        now = time.monotonic()
+
+        def expiry(req: Request, waiting: bool):
+            waited = now - req.submitted_ts
+            if waiting and req.ttft_deadline_s is not None \
+                    and waited > req.ttft_deadline_s:
+                return DeadlineExceededError(req.rid, "ttft",
+                                             req.ttft_deadline_s, waited)
+            if req.deadline_s is not None and waited > req.deadline_s:
+                return DeadlineExceededError(req.rid, "total",
+                                             req.deadline_s, waited)
+            return None
+
+        expired: List[Request] = []
+        with self._lock:
+            sched = self.scheduler
+            for req, err in [(r, e) for r in sched.waiting
+                             if (e := expiry(r, True)) is not None]:
+                sched.waiting.remove(req)
+                req.error = err
+                req.done = True
+                self._requests.pop(req.rid, None)
+                expired.append(req)
+            for slot, req in list(sched.active.items()):
+                err = expiry(req, False)
+                if err is not None:
+                    sched.retire(slot)
+                    req.error = err
+                    self._requests.pop(req.rid, None)
+                    self._drafts.pop(req.rid, None)
+                    expired.append(req)
+        for req in expired:
+            self.deadline_exceeded += 1
+            if self.telemetry.enabled:
+                self.telemetry.record_deadline_exceeded(
+                    kind=req.error.kind)
+            trace_mod.anomaly("deadline", trace=req.trace, rid=req.rid,
+                              budget=req.error.kind,
+                              budget_s=req.error.budget_s,
+                              waited_s=req.error.waited_s,
+                              replica=self.trace_label)
+            events.append(StepEvent(req.rid, -1, True, 0.0,
+                                    error=req.error))
+
     def drain_requests(self) -> int:
         """Retire every known request now, host-side, with no device
         step: the teardown path when nothing will step this engine
-        again.  Drafter state goes with the requests.  Safe only while no
-        :meth:`step` runs.  Returns how many requests were retired."""
+        again.  Held exports are released and drafter state goes with
+        the requests.  Safe only while no :meth:`step` runs.  Returns how
+        many requests were retired."""
         with self._lock:
             rids = list(self._requests)
         for rid in rids:
             self.cancel(rid)
         self._process_cancels()
+        held = list(self._held)
+        for rid in held:
+            self.release_held(rid)
         self._drafts.clear()
-        return len(rids)
+        return len(rids) + len(held)
 
-    def export_request(self, rid: int):
-        _unported("disaggregated export", "serve_gpt and the fleet")
+    # ------------------------------------------- disaggregated handoff
+    def export_request(self, rid: int) -> "kvc.KVHandoff":
+        """Export a retired, held request's cached K/V as a
+        ``kv_cache.KVHandoff`` on the host and release its pages (the
+        prefill side of the split).  The payload covers every cached
+        context token (``prompt + generated[:-1]``: the prompt, for a
+        first-token-stop submission) and carries the last sampled token,
+        which the decode side feeds next.  Registered full pages park
+        idle in the prefix pool, so a later handoff of the same prefix
+        prefills nothing here."""
+        req = self._held.pop(rid)
+        context = list(req.prompt) + list(req.generated[:-1])
+        n_pages = kvc.pages_needed(len(context), self.page_size)
+        arrays = kvc.export_pages(self.cache, req.pages[:n_pages])
+        handoff = kvc.KVHandoff(
+            context=context, page_size=self.page_size,
+            kv_dtype=self.kv_dtype, dtype=kvc.dtype_name(self.cache.k.dtype),
+            chain_hashes=kvc.PrefixIndex.chain_hashes(
+                context, self.page_size, salt=req.hash_salt),
+            next_token=int(req.generated[-1]),
+            next_logprob=float(req.logprobs[-1]),
+            trace=(req.trace.to_wire() if req.trace is not None
+                   else None),
+            model_id=req.model_id,
+            adapter_version=req.adapter_version, **arrays)
+        self.scheduler.allocator.release(req.pages)
+        req.pages = None
+        self.exports += 1
+        return handoff
 
-    def import_submit(self, handoff, **kw):
-        _unported("disaggregated import", "serve_gpt and the fleet")
+    def release_held(self, rid: int) -> bool:
+        """Release a held request's pages without exporting them (the
+        handoff failed, or the engine is being torn down).  True if
+        ``rid`` was held."""
+        req = self._held.pop(rid, None)
+        if req is None:
+            return False
+        self.scheduler.allocator.release(req.pages)
+        req.pages = None
+        return True
+
+    def import_submit(self, handoff: "kvc.KVHandoff", *,
+                      max_new_tokens: int,
+                      sampling: Optional[SamplingParams] = None,
+                      eos_token: Optional[int] = None,
+                      deadline_s: Optional[float] = None) -> int:
+        """Enqueue a handoff on the decode side of the split.
+
+        It admits through the scheduler like any request (slot and pages
+        reserved up front; it waits under pressure), but admission
+        installs the payload instead of prefilling: pages resident by
+        chain hash are taken as hits with no write, the rest are written
+        from the handoff, and the slot starts at the context's length
+        with the handoff's token as input.  ``max_new_tokens`` counts the
+        tokens still to come: the prefill side's token is this request's
+        first, so sampling counts and EOS/length arithmetic match a
+        co-located run."""
+        if handoff.page_size != self.page_size:
+            raise ValueError(
+                f"handoff page_size {handoff.page_size} != engine "
+                f"page_size {self.page_size} — one fleet geometry")
+        if handoff.kv_dtype != self.kv_dtype \
+                or (handoff.k is not None
+                    and kvc.dtype_name(handoff.k.dtype)
+                    != kvc.dtype_name(self.cache.k.dtype)):
+            raise ValueError(
+                f"handoff kv_dtype {handoff.kv_dtype!r} "
+                f"(storage {handoff.dtype}) != engine "
+                f"{self.kv_dtype!r} ({kvc.dtype_name(self.cache.k.dtype)})"
+                " — the contents would be reinterpreted, not converted")
+        if max_new_tokens < 1:
+            raise ValueError("a handoff needs >= 1 token left to "
+                             "decode — a finished stream has nothing "
+                             "to hand off")
+        context = [int(t) for t in handoff.context]
+        if len(context) + 1 + max_new_tokens > self.cfg.max_seq:
+            raise ValueError(
+                f"context ({len(context)}) + remaining tokens "
+                f"({1 + max_new_tokens}) exceeds max_seq "
+                f"{self.cfg.max_seq}")
+        if handoff.model_id:
+            raise AdapterUnavailableError(
+                handoff.model_id, "decode-side engine built without "
+                "adapter support (adapters are ROADMAP Queue 1 item 11)")
+        sampling = sampling or SamplingParams()
+        with self._lock:
+            rid = self._next_rid
+            self._next_rid += 1
+            req = Request(rid=rid, prompt=context,
+                          max_new_tokens=max_new_tokens + 1,
+                          sampling=sampling, eos_token=eos_token,
+                          ttft_deadline_s=None,
+                          deadline_s=(self.deadline if deadline_s is None
+                                      else deadline_s or None),
+                          chain_hashes=list(handoff.chain_hashes),
+                          import_payload=handoff,
+                          spec_k=self._resolve_spec_k(sampling),
+                          trace=trace_mod.TraceContext.from_wire(
+                              handoff.trace))
+            self.scheduler.submit(req)    # validates; may raise
+            self._requests[rid] = req
+            depth = len(self.scheduler.waiting)
+        if self.telemetry.enabled:
+            self.telemetry.record_queue_depth(depth)
+        return rid
 
     def load_adapter(self, model_id: str, adapter, **kw):
-        _unported("LoRA adapters", "adapters and RL")
+        raise AdapterUnavailableError(
+            model_id, "engine built without adapter support (adapters "
+            "are ROADMAP Queue 1 item 11)")
 
     def set_params(self, params, *, version: Optional[int] = None) -> int:
         """Swap in a new parameter snapshot (tensors or numpy leaves, same
         tree and dtype) between ticks; returns the new version.  The
-        prefix cache is flushed: its pages hold K/V of the old weights,
-        and the index is keyed by tokens alone."""
+        prefix cache is flushed and the host pool dropped: their pages
+        hold K/V of the old weights, and the index is keyed by tokens
+        alone.  The store's entries carry the old version in their key
+        and never match again."""
         self.scheduler.flush_prefix()
+        if self.host_pool is not None:
+            self.host_pool.clear()
         self.params = _params_to(params, self.device, self.cfg.dtype)
         self.param_version = (self.param_version + 1 if version is None
                               else int(version))
@@ -381,7 +650,13 @@ class InferenceEngine:
             "max_queue": self.max_queue,
             "param_version": self.param_version,
             "prefix": self.scheduler.prefix_stats(),
+            "deadline_exceeded": self.deadline_exceeded,
             "ticks": self.ticks,
+            # disaggregated handoffs served, and retired requests whose
+            # pages still wait for export
+            "exports": self.exports,
+            "imports": self.imports,
+            "held": len(self._held),
             # cumulative draft accounting and the live drafter states (a
             # drained engine reads drafts == 0)
             "spec": {
@@ -392,16 +667,46 @@ class InferenceEngine:
                 "k_hist": dict(sorted(self.spec_k_hist.items())),
                 "drafts": len(self._drafts),
             },
+            # prefix hits per tier, and the demote/promote legs' bytes,
+            # seconds and faults
+            "tiers": {
+                "enabled": self.tiered,
+                "hits": dict(self.tier_hits),
+                "spill_dtype": self.spill_dtype,
+                "spill_bytes": self.spill_bytes,
+                "spill_faults": self.spill_faults,
+                "fetches": self.fetches,
+                "fetch_seconds": self.fetch_seconds,
+                "fetch_faults": self.fetch_faults,
+                "host": (self.host_pool.stats()
+                         if self.host_pool is not None else None),
+                "store": (self.store.stats()
+                          if self.store is not None else None),
+            },
         }
 
     def leak_free(self) -> bool:
-        """Page audit: the usable pages partition exactly into free, idle
-        (registered, refcount 0) and held, and each held page's refcount
-        is the number of active requests that hold it."""
+        """Page and tier audit: the usable pages partition exactly into
+        free, idle (registered, refcount 0) and held; each held page's
+        refcount is the number of active or export-held requests that
+        hold it; the host pool is within its capacity and holds no hash
+        that is also resident (a demoted entry lives in exactly one
+        local tier); and no store fetch is in flight."""
         alloc = self.scheduler.allocator
-        held = collections.Counter(p for r in self.scheduler.active.values()
-                                   for p in r.pages)
-        return alloc.leak_free() and dict(held) == alloc._refcount
+        holders = list(self.scheduler.active.values()) + \
+            list(self._held.values())
+        held = collections.Counter(p for r in holders for p in r.pages)
+        if not alloc.leak_free() or dict(held) != alloc._refcount:
+            return False
+        if self.host_pool is not None:
+            if len(self.host_pool) > self.host_pool.capacity:
+                return False
+            if self.scheduler.prefix_index is not None:
+                resident = {(h, self.param_version) for h in
+                            self.scheduler.prefix_index.digest()}
+                if resident & set(self.host_pool._entries):
+                    return False
+        return self.store is None or self.store.in_flight == 0
 
     # ------------------------------------------------------ engine tick
     @torch.inference_mode()
@@ -409,11 +714,22 @@ class InferenceEngine:
         """One engine tick -> [(rid, token, done), ...] events."""
         events: List[StepEvent] = []
         self._process_cancels()
+        self._expire_deadlines(events)
         while True:
             with self._lock:
                 req = self.scheduler.try_admit()
             if req is None:
                 break
+            if req.import_payload is not None:
+                self._install_import(req, events)
+                continue
+            if req.n_hit_pages:
+                self.tier_hits["hbm"] += req.n_hit_pages
+                if self.telemetry.enabled:
+                    self.telemetry.record_prefix_hits(req.n_hit_pages,
+                                                      tier="hbm")
+            if req.tier_plan:
+                self._install_tier_hits(req)
             self._prefill(req, events)
         if self.scheduler.active:
             # speculating slots leave the decode batch for this tick
@@ -425,25 +741,53 @@ class InferenceEngine:
             for slot, drafts in plan.items():
                 self._verify(slot, drafts, events)
         self.ticks += 1
+        self.last_tick_ts = time.monotonic()
+        if self.store is not None:
+            ev = self.store.evictions
+            if ev > self._store_evictions_seen:
+                self.telemetry.record_kv_store_evictions(
+                    ev - self._store_evictions_seen)
+                self._store_evictions_seen = ev
+        if self.tiered and self.telemetry.enabled:
+            self.telemetry.record_tier_occupancy(
+                hbm=len(self.scheduler.prefix_index or ()),
+                dram=len(self.host_pool),
+                store=len(self.store) if self.store else 0)
         return events
 
     def generate(self, prompts, max_new_tokens: int = 16,
                  sampling: Optional[SamplingParams] = None,
                  eos_token: Optional[int] = None,
-                 return_logprobs: bool = False
+                 return_logprobs: bool = False,
+                 ttft_deadline_s: Optional[float] = None,
+                 deadline_s: Optional[float] = None
                  ) -> Union[List[List[int]],
                             Tuple[List[List[int]], List[List[float]]]]:
-        """Run a batch of prompts to completion (ordered results)."""
-        rids = [self.submit(p, max_new_tokens, sampling, eos_token)
+        """Run a batch of prompts to completion (ordered results).  A
+        deadline expiry raises its :class:`DeadlineExceededError` after
+        the other requests are cancelled."""
+        rids = [self.submit(p, max_new_tokens, sampling, eos_token,
+                            ttft_deadline_s=ttft_deadline_s,
+                            deadline_s=deadline_s)
                 for p in prompts]
         out: Dict[int, List[int]] = {r: [] for r in rids}
         lps: Dict[int, List[float]] = {r: [] for r in rids}
-        while self.has_work():
+        err: Optional[BaseException] = None
+        while err is None and self.has_work():
             for ev in self.step():
                 rid, tok, _done = ev
+                if ev.error is not None:
+                    if err is None and rid in out:
+                        err = ev.error
+                    continue
                 if rid in out:
                     out[rid].append(tok)
                     lps[rid].append(ev.logprob)
+        if err is not None:
+            for r in rids:
+                self.cancel(r)
+            self._process_cancels()
+            raise err
         if return_logprobs:
             return ([out[r] for r in rids], [lps[r] for r in rids])
         return [out[r] for r in rids]
@@ -467,29 +811,202 @@ class InferenceEngine:
         bucket = self._bucket_for(len(fill))
         tokens = torch.zeros((1, bucket), dtype=torch.int64)
         tokens[0, :len(fill)] = torch.tensor(fill, dtype=torch.int64)
+        kind = "prefill_cached" if cached else "prefill"
         t0 = time.monotonic()
-        sampling = self._sampling_inputs([req])
-        page_row = torch.from_numpy(sched.page_table[slot]).to(self.device)
-        if cached:
-            kind = "prefill_cached"
-            kvc.assert_tail_private(sched.allocator, sched.prefix_index,
-                                    req.pages, cached, plen - 1,
-                                    self.page_size)
-            logits = self._prefill_cached_step(
-                tokens.to(self.device), cached, len(fill), page_row)
-        else:
-            kind = "prefill"
-            logits = self._prefill_step(tokens.to(self.device), plen,
-                                        page_row)
-        toks, logps = self._sample(logits, sampling)
-        self.seconds[kind] += time.monotonic() - t0
+        with tracing.span(f"infer/{kind}", rid=req.rid, bucket=bucket,
+                          cached=cached):
+            sampling = self._sampling_inputs([req])
+            page_row = torch.from_numpy(sched.page_table[slot]).to(
+                self.device)
+            if cached:
+                kvc.assert_tail_private(sched.allocator,
+                                        sched.prefix_index, req.pages,
+                                        cached, plen - 1, self.page_size)
+                logits = self._prefill_cached_step(
+                    tokens.to(self.device), cached, len(fill), page_row)
+            else:
+                logits = self._prefill_step(tokens.to(self.device), plen,
+                                            page_row)
+            toks, logps = self._sample(logits, sampling)
+        now = time.monotonic()
+        self.seconds[kind] += now - t0
         self.call_counts[kind] += 1
-        sched.register_prefix(req)
+        self._register_prefix(req)
         if self.debug_logits:
             self.logits_trace.setdefault(req.rid, []).append(
                 logits[0].cpu().numpy())
         sched.lengths[slot] = plen
+        tr = req.trace
+        if tr is not None and tr.sampled:
+            trace_mod.record_span(
+                "queue", tr, start=trace_mod.epoch_of(req.submitted_ts),
+                dur=req.admitted_ts - req.submitted_ts, rid=req.rid,
+                replica=self.trace_label)
+            trace_mod.record_span(
+                "prefill", tr, start=trace_mod.epoch_of(t0),
+                dur=now - t0, rid=req.rid, bucket=bucket,
+                cached=cached, kind=kind, replica=self.trace_label)
+            trace_mod.event("first_token", tr, rid=req.rid,
+                            ttft_s=now - req.submitted_ts,
+                            replica=self.trace_label)
+        if self.telemetry.enabled:
+            self.telemetry.record_queue(
+                req.admitted_ts - req.submitted_ts,
+                depth=len(sched.waiting))
+            self.telemetry.record_prefill(now - t0, prompt_tokens=plen,
+                                          bucket=bucket,
+                                          cached_tokens=cached)
+            self.telemetry.record_ttft(
+                now - req.submitted_ts, prefix_hit=cached > 0,
+                trace_id=tr.trace_id if tr is not None else None)
         self._deliver(req, toks[0], logps[0], events)
+
+    def _install_import(self, req: Request, events) -> None:
+        """Seed an admitted import's slot from its handoff, with no
+        forward: resident pages are already hits, missing pages are
+        written from the payload, and the next decode step takes the
+        slot up at the context's length with the handoff's token as
+        input."""
+        handoff = req.import_payload
+        sched = self.scheduler
+        slot = req.slot
+        t0 = time.monotonic()
+        n_ctx = len(req.prompt)
+        n_pages = kvc.pages_needed(n_ctx, self.page_size)
+        present = handoff.page_list
+        needed = list(range(req.n_hit_pages, n_pages))
+        missing = [i for i in needed if i not in present]
+        if missing:
+            # a stripped handoff whose resident pages were evicted between
+            # the sender's digest check and this admission: release
+            # everything and surface the typed re-prefill signal, never
+            # decode over pages nobody wrote
+            sched.retire(slot)
+            req.error = kvc.HandoffContentMissing(req.rid, len(missing))
+            self._requests.pop(req.rid, None)
+            events.append(StepEvent(req.rid, -1, True, 0.0,
+                                    error=req.error))
+            return
+        if needed:
+            # the pages written are this request's alone (fresh,
+            # unregistered), never a shared or the garbage page
+            kvc.assert_tail_private(sched.allocator, sched.prefix_index,
+                                    req.pages, req.n_hit_pages
+                                    * self.page_size, n_ctx - 1,
+                                    self.page_size)
+            kvc.import_pages(self.cache, [req.pages[i] for i in needed],
+                             handoff, [present.index(i) for i in needed])
+        # the contents are in the cache: the imported full pages are
+        # immutable from here on and registrable
+        self._register_prefix(req)
+        sched.lengths[slot] = n_ctx
+        req.generated = [int(handoff.next_token)]
+        req.logprobs = [float(handoff.next_logprob)]
+        req.cached_tokens = n_ctx
+        req.import_payload = None      # drop the content reference
+        self.imports += 1
+        if req.trace is not None and req.trace.sampled:
+            trace_mod.record_span(
+                "handoff.install", req.trace,
+                start=trace_mod.epoch_of(t0),
+                dur=time.monotonic() - t0, rid=req.rid,
+                pages_written=len(needed), hit_pages=req.n_hit_pages,
+                replica=self.trace_label)
+
+    # ------------------------------------------------------ tiered cache
+    def _register_prefix(self, req: Request) -> None:
+        """Register the request's freshly written full pages, then drop
+        those hashes from the host pool (a degraded fetch left the page
+        to the prefill): no hash may sit in two local tiers."""
+        self.scheduler.register_prefix(req)
+        if self.host_pool is not None and req.chain_hashes:
+            for h in req.chain_hashes[req.n_hit_pages:]:
+                self.host_pool.discard((h, self.param_version))
+
+    def _tier_probe(self, chain_hash: bytes) -> bool:
+        """Whether a lower tier holds this hash under the live params
+        (the scheduler's ``tier_lookup``; advisory, the install resolves
+        each page again)."""
+        key = (chain_hash, self.param_version)
+        if self.host_pool is not None and key in self.host_pool:
+            return True
+        return self.store is not None and key in self.store
+
+    def _spill_page(self, page: int, chain_hash: bytes) -> None:
+        """The demote leg (the allocator's ``spill_hook``, called as
+        pressure reclaims a registered idle page, before anything
+        overwrites it): one gather on the card, encoded in the spill
+        dtype there, one synchronous copy to the host, keyed by (chain
+        hash, param version).  An injected ``kv.spill`` fault forgets the
+        page instead; a later request re-prefills it."""
+        try:
+            chaos.maybe_fail("kv.spill")
+        except chaos.InjectedFault:
+            self.spill_faults += 1
+            return
+        entry = kvc.encode_spill_page(
+            kvc.page_contents(self.cache, [page]),
+            quantized=self.cache.quantized, spill_dtype=self.spill_dtype)
+        nb = kvc.spill_entry_bytes(entry)
+        self.spill_bytes += nb
+        self.host_pool.put((chain_hash, self.param_version), entry)
+        if self.telemetry.enabled:
+            self.telemetry.record_kv_spill(nb)
+
+    def _install_tier_hits(self, req: Request) -> None:
+        """Promote the admission plan's lower-tier pages into the
+        request's fresh pages, front to back, before its prefill.  The
+        first failure (an injected ``kv.fetch`` fault, a plan gone stale,
+        an entry of another geometry) stops the walk and the suffix
+        prefill covers the rest, so a fault costs compute, never
+        correctness.  Each installed page registers at once and counts
+        as a prefix hit (``note_tier_hits``)."""
+        sched = self.scheduler
+        installed = 0
+        for i in range(req.n_hit_pages, req.n_hit_pages + req.tier_plan):
+            key = (req.chain_hashes[i], self.param_version)
+            t0 = time.monotonic()
+            try:
+                chaos.maybe_fail("kv.fetch")
+            except chaos.InjectedFault:
+                self.fetch_faults += 1
+                break
+            tier = "dram"
+            entry = (self.host_pool.take(key)
+                     if self.host_pool is not None else None)
+            checked_out = False
+            if entry is None and self.store is not None:
+                entry = self.store.checkout(key)
+                checked_out = entry is not None
+                tier = "store"
+            if entry is None:
+                break           # the plan went stale: prefill
+            try:
+                if not kvc.spill_entry_matches(self.cache, entry):
+                    break       # another geometry reads as a miss
+                kvc.install_spill_page(self.cache, req.pages[i], entry)
+            finally:
+                if checked_out:
+                    self.store.checkin(key)
+            if sched.prefix_index is not None:
+                sched.prefix_index.register(req.chain_hashes[i],
+                                            req.pages[i])
+            wall = time.monotonic() - t0
+            self.tier_hits[tier] += 1
+            self.fetches += 1
+            self.fetch_seconds += wall
+            if req.trace is not None and req.trace.sampled:
+                trace_mod.record_span(
+                    "tier_fetch", req.trace,
+                    start=trace_mod.epoch_of(t0), dur=wall,
+                    rid=req.rid, tier=tier, page_index=i,
+                    replica=self.trace_label)
+            if self.telemetry.enabled:
+                self.telemetry.record_kv_fetch(wall, tier=tier)
+                self.telemetry.record_prefix_hits(1, tier=tier)
+            installed += 1
+        req.tier_plan = 0
+        sched.note_tier_hits(req, installed)
 
     def _quantize_kv(self, kv):
         """[..., H, D] post-RoPE K or V -> (int8 codes, [..., H] f32
@@ -577,7 +1094,11 @@ class InferenceEngine:
         rows, their page-table rows masked to the garbage page (on a
         copy of the table) so the batch's K/V write cannot touch the
         positions their verify is about to fill; their lengths do not
-        advance and their outputs are never delivered."""
+        advance and their outputs are never delivered.  The
+        ``infer.decode`` chaos site fires first, before anything is
+        launched or changed, so an injected fault leaves the cache and
+        the scheduler as they were and the engine drainable."""
+        chaos.maybe_fail("infer.decode")
         skip = skip or set()
         sched = self.scheduler
         tokens = np.zeros((self.slots,), np.int64)
@@ -590,15 +1111,29 @@ class InferenceEngine:
         if skip:
             page_table = page_table.copy()
             page_table[list(skip), :] = kvc.GARBAGE_PAGE
+        active = [r for r in reqs if r is not None]
         t0 = time.monotonic()
-        sampling = self._sampling_inputs(reqs)
-        logits = self._decode_step(
-            torch.from_numpy(tokens).to(self.device),
-            torch.from_numpy(sched.lengths).to(self.device),
-            torch.from_numpy(page_table).to(self.device))
-        sampled, logps = self._sample(logits, sampling)
-        self.seconds["decode"] += time.monotonic() - t0
+        with tracing.span("infer/decode", active=len(active)):
+            sampling = self._sampling_inputs(reqs)
+            logits = self._decode_step(
+                torch.from_numpy(tokens).to(self.device),
+                torch.from_numpy(sched.lengths).to(self.device),
+                torch.from_numpy(page_table).to(self.device))
+            sampled, logps = self._sample(logits, sampling)
+        wall = time.monotonic() - t0
+        self.seconds["decode"] += wall
         self.call_counts["decode"] += 1
+        traced = [r.trace.trace_id for r in active
+                  if r.trace is not None and r.trace.sampled]
+        if traced:
+            # one global span per tick listing the traces it served: a
+            # span per (tick, request) would swamp the ring
+            trace_mod.record_span(
+                "decode_tick", None, start=trace_mod.epoch_of(t0),
+                dur=wall, active=len(active), trace_ids=traced,
+                replica=self.trace_label)
+        if self.telemetry.enabled:
+            self.telemetry.record_decode(wall, active=len(active))
         host_logits = logits.cpu().numpy() if self.debug_logits else None
         for slot in list(sched.active):
             if slot in skip:
@@ -692,22 +1227,32 @@ class InferenceEngine:
         tokens[0, :n_drafts + 1] = torch.tensor(
             [req.generated[-1]] + list(drafts), dtype=torch.int64)
         t0 = time.monotonic()
-        # row i lands when the request has len(generated) + i tokens:
-        # the (seed, count) plain decode would sample that position with
-        c = len(req.generated)
-        sampling = self._sampling_rows(
-            [(req.sampling, c + i) for i in range(n_drafts + 1)])
-        page_row = torch.from_numpy(sched.page_table[slot]).to(self.device)
-        logits = self._verify_step(tokens.to(self.device), L, n_drafts + 1,
-                                   page_row)
-        toks, logps = self._sample(logits[:n_drafts + 1], sampling)
-        self.seconds["verify"] += time.monotonic() - t0
+        with tracing.span("infer/verify", rid=req.rid, k=n_drafts):
+            # row i lands when the request has len(generated) + i
+            # tokens: the (seed, count) plain decode would sample that
+            # position with
+            c = len(req.generated)
+            sampling = self._sampling_rows(
+                [(req.sampling, c + i) for i in range(n_drafts + 1)])
+            page_row = torch.from_numpy(sched.page_table[slot]).to(
+                self.device)
+            logits = self._verify_step(tokens.to(self.device), L,
+                                       n_drafts + 1, page_row)
+            toks, logps = self._sample(logits[:n_drafts + 1], sampling)
+        wall = time.monotonic() - t0
+        self.seconds["verify"] += wall
         self.call_counts["verify"] += 1
         m, emitted = accept_drafts(toks, drafts)
         self.spec_proposed += n_drafts
         self.spec_accepted += m
         self.spec_k_hist[m] = self.spec_k_hist.get(m, 0) + 1
+        if req.trace is not None and req.trace.sampled:
+            trace_mod.record_span(
+                "verify", req.trace, start=trace_mod.epoch_of(t0),
+                dur=wall, rid=req.rid, proposed=n_drafts, accepted=m,
+                replica=self.trace_label)
         host_logits = logits.cpu().numpy() if self.debug_logits else None
+        delivered = 0
         for i, tok in enumerate(emitted):
             # row i's input token (last_token or draft i) is now cached
             # at L + i; a retire inside the block (EOS, max_new_tokens)
@@ -717,8 +1262,12 @@ class InferenceEngine:
                 self.logits_trace.setdefault(req.rid, []).append(
                     host_logits[i])
             self._deliver(req, tok, logps[i], events)
+            delivered += 1
             if req.done:
                 break
+        if self.telemetry.enabled:
+            self.telemetry.record_verify(wall, proposed=n_drafts,
+                                         accepted=m, emitted=delivered)
 
     def _verify_step(self, tokens, cached: int, n_rows: int, page_row):
         """The verify forward: the cached-context prefill in all-rows
@@ -754,7 +1303,15 @@ class InferenceEngine:
         done = (len(req.generated) >= req.max_new_tokens
                 or (req.eos_token is not None and tok == req.eos_token))
         if done:
-            self.scheduler.retire(req.slot)
+            if req.hold_pages:
+                # the slot frees, the pages wait for export_request or
+                # release_held
+                self.scheduler.retire_hold(req.slot)
+                self._held[req.rid] = req
+            else:
+                self.scheduler.retire(req.slot)
+            if self.telemetry.enabled:
+                self.telemetry.record_request_done()
             self._drafts.pop(req.rid, None)
             if not self.debug_logits:
                 # finished requests must not accumulate (debug engines

@@ -22,21 +22,48 @@ pressure evicts it.
 
 Unlike the JAX package's functional scatters, the write helpers update
 the cache tensor in place (one copy of the cache, no donation needed)
-and return it for symmetry with the reference.  Tiered spill (the
-allocator's ``spill_hook``) and disaggregated handoff come with ROADMAP
-Queue 1 item 6.
+and return it for symmetry with the reference.
+
+**Disaggregated handoff.**  :func:`export_pages` copies a held request's
+pages from the card to the host into a :class:`KVHandoff` (context
+tokens, chained hashes, the raw K/V; int8 codes and scales move as
+they are), and :func:`import_pages` writes into another engine's fresh
+pages only those it does not already hold by chain hash.
+
+**Tiered spill.**  When :meth:`PageAllocator.alloc` reclaims an idle
+prefix page, its ``spill_hook`` first demotes the contents to the
+engine's :class:`HostPagePool` (tier 1), whose overflow goes on to a
+shared :class:`KVPageStore` (tier 2), keyed by ``(chain_hash,
+param_version)``.  A model-dtype page spills as int8 codes and scales
+by default (:func:`encode_spill_page`); admission promotes a lower-tier
+hit back with :func:`install_spill_page`.
+
+Handoffs and spill entries hold **host** data only (numpy arrays, or CPU
+tensors for bf16, which numpy lacks): a store is shared between
+engines, and a device tensor in it would pin one engine's memory.  The
+copies are synchronous (``.cpu()``, ``.to(device)``), so a host buffer
+is complete when the call returns and no entry outlives a copy that
+reads it.  Their ``dtype`` strings are the JAX package's names
+(``"bfloat16"``, ``"float32"``, ``"int8"``), so one payload passes the
+geometry and dtype checks of both packages
+(``ray_tpu_torch.convert.handoff_from_jax``).
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import hashlib
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from ray_tpu_torch.util import chaos
+
 GARBAGE_PAGE = 0
+
+HostArray = Union[np.ndarray, torch.Tensor]
 
 
 class PrefixIndex:
@@ -102,6 +129,11 @@ class PrefixIndex:
     def has(self, page: int) -> bool:
         return page in self._by_page
 
+    def hash_of(self, page: int) -> Optional[bytes]:
+        """The chain hash a resident page is registered under (what the
+        spill hook keys its demoted copy by)."""
+        return self._by_page.get(page)
+
     def forget(self, page: int) -> None:
         h = self._by_page.pop(page, None)
         if h is not None:
@@ -150,6 +182,11 @@ class PageAllocator:
             collections.OrderedDict()
         self._index = index
         self.evictions = 0
+        # called as spill_hook(page, chain_hash) just before a pressure
+        # eviction forgets a registered idle page (the engine's demote
+        # leg); flush_idle never spills: after a weight swap the
+        # contents are stale
+        self.spill_hook = None
 
     @property
     def free_count(self) -> int:
@@ -192,6 +229,10 @@ class PageAllocator:
                 p, _ = self._idle.popitem(last=False)    # oldest idle
                 self.evictions += 1
                 if self._index is not None:
+                    if self.spill_hook is not None:
+                        h = self._index.hash_of(p)
+                        if h is not None:
+                            self.spill_hook(p, h)        # demote leg
                     self._index.forget(p)
             self._refcount[p] = 1
             pages.append(p)
@@ -366,3 +407,487 @@ def assert_tail_private(allocator: PageAllocator,
         assert index is None or not index.has(page), (
             f"write window touches prefix-registered page {page}: "
             "never-write-shared violated")
+
+
+# ------------------------------------------------- disaggregated handoff
+class HandoffContentMissing(RuntimeError):
+    """Typed import failure: a metadata-only (warm) handoff reached
+    admission, but the resident pages it counted on had left the prefix
+    index.  Everything the admission took is released before this
+    surfaces; the caller re-prefills from the prompt."""
+
+    def __init__(self, rid: int, missing_pages: int):
+        super().__init__(
+            f"request {rid}: metadata-only KV handoff is missing "
+            f"{missing_pages} page(s) no longer resident — re-prefill "
+            "from the prompt")
+        self.rid = rid
+        self.missing_pages = missing_pages
+
+    def __reduce__(self):
+        return (HandoffContentMissing, (self.rid, self.missing_pages))
+
+
+def dtype_name(dtype) -> str:
+    """A numpy or torch dtype's name as the JAX package spells it
+    (``"bfloat16"``, ``"float32"``, ``"int8"``)."""
+    return str(dtype).removeprefix("torch.")
+
+
+def _nbytes(a: HostArray) -> int:
+    if isinstance(a, torch.Tensor):
+        return a.numel() * a.element_size()
+    return a.nbytes
+
+
+def _to_host(t: torch.Tensor) -> HostArray:
+    """A tensor as host data: numpy, or a CPU tensor for bf16."""
+    t = t.contiguous().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _as_tensor(a: HostArray) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@dataclasses.dataclass
+class KVHandoff:
+    """One request's transfer of KV pages from a prefill engine to a
+    decode engine.
+
+    The context's token ids, the chained hashes of its full pages (an
+    importer already holding a page by hash takes it with a refcount and
+    never reads the contents), the token sampled after the context, and
+    the per-page K/V on the host.  ``k``/``v`` are ``[n_layers, n_pages,
+    page_size, heads, head_dim]`` in the cache's storage dtype, and
+    ``k_scale``/``v_scale`` (int8 caches) ``[n_layers, n_pages,
+    page_size, heads]`` f32; all None in a metadata-only handoff.  Pages
+    come in :func:`pages_needed` order over ``context``; the partial tail
+    page carries whatever the exporter's page held past ``len(context) %
+    page_size``, which decode attention never reads."""
+
+    context: List[int]
+    page_size: int
+    kv_dtype: str                   # "model" | "int8"
+    dtype: str                      # storage dtype name
+    chain_hashes: List[bytes]       # one per FULL context page
+    next_token: int                 # the first sampled token (emitted)
+    next_logprob: float
+    k: Optional[HostArray] = None
+    v: Optional[HostArray] = None
+    k_scale: Optional[HostArray] = None
+    v_scale: Optional[HostArray] = None
+    # the absolute page indices the arrays carry (None = all of them)
+    present: Optional[List[int]] = None
+    # the request's TraceContext in wire form: importer spans join the
+    # exporter's tree
+    trace: Optional[dict] = None
+    # the adapter the context was prefilled under (None = base)
+    model_id: Optional[str] = None
+    adapter_version: int = 0
+
+    @property
+    def n_pages(self) -> int:
+        return pages_needed(len(self.context), self.page_size)
+
+    @property
+    def n_full_pages(self) -> int:
+        return len(self.context) // self.page_size
+
+    @property
+    def page_list(self) -> List[int]:
+        """Absolute indices of the pages whose contents ride along."""
+        if self.k is None:
+            return []
+        if self.present is None:
+            return list(range(self.n_pages))
+        return list(self.present)
+
+    @property
+    def nbytes(self) -> int:
+        """Content bytes (0 for a metadata-only handoff)."""
+        return sum(_nbytes(a) for a in (self.k, self.v, self.k_scale,
+                                        self.v_scale) if a is not None)
+
+    def strip_contents(self) -> "KVHandoff":
+        """The metadata-only form (a warm handoff)."""
+        return dataclasses.replace(self, k=None, v=None, k_scale=None,
+                                   v_scale=None, present=[])
+
+    def strip_to(self, pages: Sequence[int]) -> "KVHandoff":
+        """The form carrying only ``pages`` (absolute indices): the pages
+        the target already holds by chain hash stay behind."""
+        pages = list(pages)
+        if not pages:
+            return self.strip_contents()
+        have = self.page_list
+        sel = [have.index(i) for i in pages]    # raises on a bad strip
+        rep = {"present": pages}
+        for name in ("k", "v", "k_scale", "v_scale"):
+            a = getattr(self, name)
+            rep[name] = _select(a, sel) if a is not None else None
+        return dataclasses.replace(self, **rep)
+
+
+def _select(a: HostArray, sel: Sequence[int]) -> HostArray:
+    """Pages ``sel`` (axis 1) of a host array, as a new array."""
+    if isinstance(a, torch.Tensor):
+        return a[:, torch.as_tensor(list(sel), dtype=torch.int64)]
+    return a[:, np.asarray(list(sel), np.int64)]
+
+
+def handoff_page_bytes(*, n_layers: int, page_size: int, n_heads: int,
+                       head_dim: int, itemsize: int,
+                       quantized: bool) -> int:
+    """The content bytes one handoff page carries: K and V over all
+    layers, plus their f32 scales when quantized (``head_dim + 4`` bytes
+    per cached vector against ``head_dim * itemsize``)."""
+    per_vector = head_dim * itemsize + (4 if quantized else 0)
+    return 2 * n_layers * page_size * n_heads * per_vector
+
+
+def page_contents(cache: "KVCache", pages: Sequence[int]
+                  ) -> Dict[str, torch.Tensor]:
+    """``pages``' K/V (and scales) gathered on the cache's device,
+    ``[L, n_pages, ...]`` in page order."""
+    idx = torch.as_tensor(list(pages), dtype=torch.int64,
+                          device=cache.k.device)
+    out = {"k": cache.k[:, idx], "v": cache.v[:, idx]}
+    if cache.quantized:
+        out["k_scale"] = cache.k_scale[:, idx]
+        out["v_scale"] = cache.v_scale[:, idx]
+    return out
+
+
+def export_pages(cache: "KVCache", pages: Sequence[int]
+                 ) -> Dict[str, HostArray]:
+    """``pages``' contents on the host: ``{"k", "v"[, "k_scale",
+    "v_scale"]}``, one gather on the card and one copy per array."""
+    return {name: _to_host(t)
+            for name, t in page_contents(cache, pages).items()}
+
+
+def import_pages(cache: "KVCache", pages: Sequence[int],
+                 handoff: KVHandoff, sel: Sequence[int]) -> None:
+    """Write the handoff's pages ``sel`` (indices into its arrays) into
+    ``cache`` at ``pages`` (aligned sequences), in place, between engine
+    ticks.  The caller owns ``pages`` alone; the garbage page is
+    refused."""
+    if not len(pages):
+        return
+    if GARBAGE_PAGE in pages:
+        raise ValueError("importing into the reserved garbage page")
+    dev = cache.k.device
+    idx = torch.as_tensor(list(pages), dtype=torch.int64, device=dev)
+    names = ("k", "v") + (("k_scale", "v_scale") if cache.quantized
+                          else ())
+    for name in names:
+        src = _as_tensor(_select(getattr(handoff, name), sel))
+        getattr(cache, name)[:, idx] = src.to(dev)
+
+
+# -------------------------------------------------------- tiered spill
+SPILL_DTYPES = ("int8", "model")
+
+
+def _quantize_page(x: HostArray) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-vector symmetric int8 over the last axis, computed in f32
+    (bf16 converts exactly): ``scale = amax / 127``, codes rounded to
+    nearest, ties to even, as ``np.rint`` rounds in the reference.  A
+    zero vector takes scale 0 and divides by 1.  Runs on ``x``'s
+    device."""
+    x = _as_tensor(x).float()
+    scale = x.abs().amax(-1) / 127.0
+    safe = torch.where(scale == 0.0, torch.ones_like(scale), scale)
+    codes = torch.round(x / safe[..., None]).clamp(-127, 127)
+    return codes.to(torch.int8), scale
+
+
+def encode_spill_page(contents: Dict[str, HostArray], *,
+                      quantized: bool,
+                      spill_dtype: str = "int8") -> Dict[str, object]:
+    """One page's spill entry from a one-page :func:`page_contents`
+    (on the card: quantization runs there and only the codes cross) or
+    :func:`export_pages` (on the host).  int8 caches pass their codes and
+    scales through; model-dtype caches quantize per vector under
+    ``spill_dtype="int8"`` or keep their bytes under ``"model"``.  The
+    entry holds host data."""
+    k, v = (_as_tensor(contents[n])[:, 0] for n in ("k", "v"))
+    if quantized:
+        entry = {"fmt": "int8", "k": k, "v": v,
+                 "k_scale": _as_tensor(contents["k_scale"])[:, 0],
+                 "v_scale": _as_tensor(contents["v_scale"])[:, 0]}
+    elif spill_dtype == "int8":
+        k8, ks = _quantize_page(k)
+        v8, vs = _quantize_page(v)
+        entry = {"fmt": "int8", "k": k8, "v": v8,
+                 "k_scale": ks, "v_scale": vs}
+    else:
+        entry = {"fmt": "model", "k": k, "v": v}
+    return {name: _to_host(a) if isinstance(a, torch.Tensor) else a
+            for name, a in entry.items()}
+
+
+def spill_entry_bytes(entry: Dict[str, object]) -> int:
+    """Host bytes of a spill entry: numpy arrays and tensors alike."""
+    return sum(_nbytes(a) for a in entry.values()
+               if isinstance(a, (np.ndarray, torch.Tensor)))
+
+
+def spill_entry_matches(cache: "KVCache",
+                        entry: Dict[str, object]) -> bool:
+    """Whether an entry has this cache's page geometry: a shared store's
+    entry from an engine of another geometry reads as a miss."""
+    want = tuple(cache.k.shape[:1]) + tuple(cache.k.shape[2:])
+    return tuple(entry["k"].shape) == want
+
+
+def install_spill_page(cache: "KVCache", page: int,
+                       entry: Dict[str, object]) -> None:
+    """Write one spill entry into cache page ``page`` (the promote leg),
+    in place between ticks.  int8 entries feed an int8 cache as they
+    are; a model-dtype cache dequantizes them in f32 on the card and
+    rounds to its dtype (to nearest even, as the reference casts)."""
+    if page == GARBAGE_PAGE:
+        raise ValueError("installing into the reserved garbage page")
+    dev = cache.k.device
+    if cache.quantized:
+        if entry["fmt"] == "int8":
+            k, ks = _as_tensor(entry["k"]), _as_tensor(entry["k_scale"])
+            v, vs = _as_tensor(entry["v"]), _as_tensor(entry["v_scale"])
+        else:
+            k, ks = _quantize_page(_as_tensor(entry["k"]).to(dev))
+            v, vs = _quantize_page(_as_tensor(entry["v"]).to(dev))
+        cache.k[:, page] = k.to(dev)
+        cache.v[:, page] = v.to(dev)
+        cache.k_scale[:, page] = ks.to(dev)
+        cache.v_scale[:, page] = vs.to(dev)
+        return
+    if entry["fmt"] == "int8":
+        k, v = (_as_tensor(entry[n]).to(dev).float()
+                * _as_tensor(entry[n + "_scale"]).to(dev)[..., None]
+                for n in ("k", "v"))
+    else:
+        k, v = (_as_tensor(entry[n]).to(dev) for n in ("k", "v"))
+    cache.k[:, page] = k.to(cache.k.dtype)
+    cache.v[:, page] = v.to(cache.v.dtype)
+
+
+class HostPagePool:
+    """Tier 1: the per-engine host spill pool.
+
+    An LRU ``(chain_hash, param_version) -> spill entry`` map with a page
+    capacity.  :meth:`put` is the demote target; overflow demotes the
+    oldest entry on to the shared :class:`KVPageStore` when one is
+    attached, through the ``kv.spill`` chaos site (a faulted leg forgets
+    the page).  :meth:`take` pops, so the local tiers stay exclusive,
+    which lets the leak audit check the exact free / idle / held / host
+    partition."""
+
+    def __init__(self, capacity_pages: int,
+                 store: Optional["KVPageStore"] = None):
+        if capacity_pages < 0:
+            raise ValueError("host pool capacity must be >= 0")
+        self.capacity = capacity_pages
+        self.store = store
+        self._entries: "collections.OrderedDict[Tuple[bytes, int], Dict]" \
+            = collections.OrderedDict()
+        self.spills = 0          # entries accepted (device -> host)
+        self.demotions = 0       # entries pushed on to the store
+        self.dropped = 0         # overflow with no store / faulted leg
+        self.hits = 0
+        self.misses = 0
+        self.bytes_spilled = 0
+        self.bytes = 0           # current resident bytes
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __contains__(self, key: Tuple[bytes, int]) -> bool:
+        return key in self._entries
+
+    def put(self, key: Tuple[bytes, int],
+            entry: Dict[str, object]) -> None:
+        if self.capacity == 0:
+            self._demote(key, entry)
+            return
+        if key in self._entries:
+            self._entries.move_to_end(key)
+            return
+        self._entries[key] = entry
+        nb = spill_entry_bytes(entry)
+        self.spills += 1
+        self.bytes_spilled += nb
+        self.bytes += nb
+        while len(self._entries) > self.capacity:
+            old_key, old = self._entries.popitem(last=False)
+            self.bytes -= spill_entry_bytes(old)
+            self._demote(old_key, old)
+
+    def _demote(self, key, entry) -> None:
+        """Host -> store leg (a plain drop without a store)."""
+        if self.store is None:
+            self.dropped += 1
+            return
+        try:
+            chaos.maybe_fail("kv.spill")
+        except chaos.InjectedFault:
+            self.dropped += 1       # degrade: re-prefill later
+            return
+        self.store.put(key, entry)
+        self.demotions += 1
+
+    def take(self, key: Tuple[bytes, int]
+             ) -> Optional[Dict[str, object]]:
+        """Pop an entry for promotion (None on a miss)."""
+        entry = self._entries.pop(key, None)
+        if entry is None:
+            self.misses += 1
+            return None
+        self.hits += 1
+        self.bytes -= spill_entry_bytes(entry)
+        return entry
+
+    def discard(self, key: Tuple[bytes, int]) -> None:
+        """Drop an entry whose hash just became resident again (a
+        degraded fetch fell back to prefill), so no hash sits in two
+        local tiers.  Not a miss: no counter moves."""
+        entry = self._entries.pop(key, None)
+        if entry is not None:
+            self.bytes -= spill_entry_bytes(entry)
+
+    def clear(self) -> int:
+        """Drop everything (a weight swap: the contents are stale)."""
+        n = len(self._entries)
+        self._entries.clear()
+        self.bytes = 0
+        return n
+
+    def stats(self) -> Dict[str, int]:
+        return {"entries": len(self._entries),
+                "capacity": self.capacity, "bytes": self.bytes,
+                "spills": self.spills, "demotions": self.demotions,
+                "dropped": self.dropped, "hits": self.hits,
+                "misses": self.misses,
+                "bytes_spilled": self.bytes_spilled}
+
+
+class KVPageStore:
+    """Tier 2: the shared content-addressed page store.
+
+    ``(chain_hash, param_version) -> spill entry``, shared by every
+    engine holding a reference, in this process.  A put is idempotent by
+    key, and :meth:`checkout`/:meth:`checkin` bracket every fetch so the
+    leak audit can check that none is left in flight.  Unlike the host
+    pool, :meth:`checkout` does not pop: the next engine's miss is this
+    entry's hit.  A weight swap invalidates by key (the bumped version
+    never matches).
+
+    ``capacity_bytes`` (``RAY_TPU_KV_STORE_CAP``, 0 = unbounded): an
+    over-cap put evicts least recently used entries (checkout recency,
+    then insertion order) until the new one fits, skipping any entry
+    mid-checkout; with nothing evictable the cap overshoots rather than
+    drop live data.
+
+    The reference keeps the entries in the runtime's object store when a
+    runtime session is up, and in-process otherwise; the port has no
+    runtime, so ``use_object_store=None`` resolves to in-process and
+    ``True`` raises (ROADMAP Queue 1 item 6c)."""
+
+    def __init__(self, use_object_store: Optional[bool] = None,
+                 capacity_bytes: Optional[int] = None):
+        if use_object_store:
+            raise NotImplementedError(
+                "KVPageStore(use_object_store=True) needs the runtime's "
+                "object store, which is not ported yet (ROADMAP Queue 1 "
+                "item 6c)")
+        if capacity_bytes is None:
+            from ray_tpu_torch.inference.config import infer_config
+            capacity_bytes = infer_config().store_cap
+        self.capacity_bytes = int(capacity_bytes)   # 0 = unbounded
+        # recency order: move_to_end on checkout leaves the LRU entry
+        # at the front
+        self._entries: "collections.OrderedDict[Tuple[bytes, int], Dict]" \
+            = collections.OrderedDict()
+        self._bytes: Dict[Tuple[bytes, int], int] = {}
+        # per-key checkout pins: an entry with a fetch in flight is
+        # never evicted
+        self._pins: Dict[Tuple[bytes, int], int] = {}
+        self.puts = 0
+        self.dup_puts = 0
+        self.gets = 0
+        self.misses = 0
+        self.bytes_put = 0
+        self.evictions = 0
+        self.bytes_evicted = 0
+        self.in_flight = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __contains__(self, key: Tuple[bytes, int]) -> bool:
+        return key in self._entries
+
+    @property
+    def bytes(self) -> int:
+        return sum(self._bytes.values())
+
+    def _evict_for(self, incoming: int) -> None:
+        if self.capacity_bytes <= 0:
+            return
+        resident = self.bytes
+        victims = [k for k in self._entries if not self._pins.get(k)]
+        for key in victims:
+            if resident + incoming <= self.capacity_bytes:
+                break
+            nb = self._bytes.pop(key, 0)
+            del self._entries[key]
+            resident -= nb
+            self.evictions += 1
+            self.bytes_evicted += nb
+
+    def put(self, key: Tuple[bytes, int],
+            entry: Dict[str, object]) -> None:
+        if key in self._entries:        # content-addressed: a no-op
+            self.dup_puts += 1
+            return
+        nb = spill_entry_bytes(entry)
+        self._evict_for(nb)
+        self._entries[key] = entry
+        self._bytes[key] = nb
+        self.puts += 1
+        self.bytes_put += nb
+
+    def checkout(self, key: Tuple[bytes, int]
+                 ) -> Optional[Dict[str, object]]:
+        """Fetch an entry without removing it, pinned against eviction
+        until :meth:`checkin`."""
+        entry = self._entries.get(key)
+        if entry is None:
+            self.misses += 1
+            return None
+        self._entries.move_to_end(key)
+        self._pins[key] = self._pins.get(key, 0) + 1
+        self.gets += 1
+        self.in_flight += 1
+        return entry
+
+    def checkin(self, key: Tuple[bytes, int]) -> None:
+        self.in_flight -= 1
+        pins = self._pins.get(key, 0) - 1
+        if pins > 0:
+            self._pins[key] = pins
+        else:
+            self._pins.pop(key, None)
+
+    def stats(self) -> Dict[str, int]:
+        return {"entries": len(self._entries), "bytes": self.bytes,
+                "capacity_bytes": self.capacity_bytes,
+                "puts": self.puts, "dup_puts": self.dup_puts,
+                "gets": self.gets, "misses": self.misses,
+                "bytes_put": self.bytes_put,
+                "evictions": self.evictions,
+                "bytes_evicted": self.bytes_evicted,
+                "in_flight": self.in_flight}

@@ -1,7 +1,7 @@
 """Continuous-batching scheduler: slots, pages, request lifecycle.
 
-Counterpart of ``ray_tpu/inference/scheduler.py`` without the tier
-probe.  Requests move ``waiting -> active(slot) -> finished``:
+Counterpart of ``ray_tpu/inference/scheduler.py``.  Requests move
+``waiting -> active(slot) -> finished``:
 
 - **admit**: the head of the waiting queue takes a free decode slot and
   reserves ``ceil((prompt + max_new) / page_size)`` pages up front, so a
@@ -11,11 +11,18 @@ probe.  Requests move ``waiting -> active(slot) -> finished``:
   prompt's full pages through the :class:`~.kv_cache.PrefixIndex`: hits
   are installed into the page-table row with a refcount each and no
   prefill compute; only the pages past the last hit are allocated, and
-  the engine prefills only the uncached suffix.
+  the engine prefills only the uncached suffix.  With tiering on the
+  walk goes on where the resident index stops: the remaining hashes
+  are probed in the lower tiers (``tier_lookup``, the engine's host
+  pool and page store), and every consecutive hit is planned for
+  promotion (``Request.tier_plan``).  An import (``import_payload``)
+  may take every full context page as a hit, and never probes the
+  tiers.
 - **retire**: the request's page references are released (shared pages
   live on under their other owners, registered pages at refcount 0 park
   in the idle pool), its page-table row resets to the garbage page and
-  the slot frees.
+  the slot frees.  :meth:`SlotScheduler.retire_hold` frees the slot but
+  keeps the page references for a disaggregated export.
 
 Decode writes land only in pages the slot owns alone: a hit page is a
 full prompt page strictly before the final prompt token, so the suffix
@@ -45,8 +52,10 @@ class QueueFullError(RuntimeError):
 
 
 class DeadlineExceededError(RuntimeError):
-    """Typed per-request deadline expiry (the JAX package's error;
-    deadlines themselves are not ported yet)."""
+    """Typed per-request deadline expiry (``ttft``: never admitted within
+    its time-to-first-token budget; ``total``: past its whole budget).
+    The request was retired with its slot, pages and prefix references
+    released; the error rides its terminal ``StepEvent``."""
 
     def __init__(self, rid: int, kind: str, budget_s: float,
                  waited_s: float):
@@ -78,6 +87,13 @@ class Request:
     submitted_ts: float = dataclasses.field(default_factory=time.monotonic)
     admitted_ts: Optional[float] = None
     done: bool = False
+    # deadlines in seconds from submit (None = none): the TTFT budget can
+    # only expire while the request waits (admission delivers its first
+    # token in the same tick); the total one at any time.  An expired
+    # request carries its DeadlineExceededError here.
+    ttft_deadline_s: Optional[float] = None
+    deadline_s: Optional[float] = None
+    error: Optional[BaseException] = None
     # prefix-cache state: chained hashes of the prompt's full pages
     # (computed at the first admission attempt and kept for retries), how
     # many were index hits, and the tokens those hits cover
@@ -89,6 +105,22 @@ class Request:
     # submit from ``SamplingParams.spec``/``spec_k`` over the engine's
     # defaults, so planning never re-reads the config.
     spec_k: int = 0
+    # disaggregated serving: ``hold_pages`` keeps the page references
+    # past retirement for export_request/release_held; an
+    # ``import_payload`` (a kv_cache.KVHandoff) makes admission install
+    # the payload instead of prefilling
+    hold_pages: bool = False
+    import_payload: Optional[Any] = None
+    # tiered cache: how many eligible pages past the resident hits a
+    # lower tier held at admission (the engine promotes them, and
+    # ``note_tier_hits`` counts the ones it installed)
+    tier_plan: int = 0
+    # the request's telemetry.trace.TraceContext (None = untraced)
+    trace: Optional[Any] = None
+    # the adapter this request decodes under (None = base; adapters are
+    # ROADMAP Queue 1 item 11)
+    model_id: Optional[str] = None
+    adapter_version: int = 0
     # the prefix-chain root (adapter traffic salts it; base traffic keeps
     # the unsalted root, so its hashes are the JAX package's)
     hash_salt: bytes = PrefixIndex.ROOT
@@ -115,6 +147,10 @@ class SlotScheduler:
         self.prefix_hit_pages = 0
         self.prefix_hit_tokens = 0
         self.prefix_requests_hit = 0
+        # the engine's probe over the lower tiers: tier_lookup(chain_hash)
+        # -> does the host pool or the page store hold it under the live
+        # params?
+        self.tier_lookup = None
 
     def submit(self, req: Request) -> None:
         need = pages_needed(len(req.prompt) + req.max_new_tokens,
@@ -150,12 +186,27 @@ class SlotScheduler:
             req.chain_hashes = PrefixIndex.chain_hashes(
                 req.prompt, self.page_size, salt=req.hash_salt)
         hits: List[int] = []
-        eligible = PrefixIndex.hit_eligible(len(req.prompt), self.page_size)
+        # an import never prefills: every full context page may be a hit,
+        # the one holding the final context token included (its logits
+        # were consumed on the prefill side)
+        eligible = (len(req.chain_hashes)
+                    if req.import_payload is not None
+                    else PrefixIndex.hit_eligible(len(req.prompt),
+                                                  self.page_size))
         for h in req.chain_hashes[:eligible]:
             page = self.prefix_index.lookup(h)
             if page is None:
                 break
             hits.append(page)
+        # the lower tiers, from where the resident walk stopped; advisory
+        # (the engine resolves each page again at install and leaves any
+        # miss to the prefill) and recomputed on every attempt
+        req.tier_plan = 0
+        if self.tier_lookup is not None and req.import_payload is None:
+            for h in req.chain_hashes[len(hits):eligible]:
+                if not self.tier_lookup(h):
+                    break
+                req.tier_plan += 1
         return hits
 
     def try_admit(self) -> Optional[Request]:
@@ -165,7 +216,9 @@ class SlotScheduler:
         req = self.waiting[0]
         need = pages_needed(len(req.prompt) + req.max_new_tokens,
                             self.page_size)
+        walk_t0 = time.monotonic()
         hits = self._prefix_walk(req)
+        walk_dur = time.monotonic() - walk_t0
         # feasibility before touching any state: acquiring the idle hits
         # takes them out of the allocatable pool
         idle_hits = sum(1 for p in hits if self.allocator.is_idle(p))
@@ -192,7 +245,31 @@ class SlotScheduler:
             self.prefix_hit_pages += len(hits)
             self.prefix_hit_tokens += req.cached_tokens
             self.prefix_requests_hit += 1
+        if req.trace is not None and req.trace.sampled:
+            # only the admitting walk: a span per blocked attempt would
+            # flood the ring
+            from ray_tpu_torch.telemetry import trace as trace_mod
+            trace_mod.record_span(
+                "prefix_walk", req.trace,
+                start=trace_mod.epoch_of(walk_t0), dur=walk_dur,
+                hits=len(hits), tier_plan=req.tier_plan,
+                eligible=len(req.chain_hashes or []))
         return req
+
+    def note_tier_hits(self, req: Request, n_pages: int) -> None:
+        """Count ``n_pages`` lower-tier pages the engine promoted for
+        ``req`` before its prefill: its cached window grows by whole
+        pages, and the prefix counters take them as hits (they skipped
+        the same prefill).  The request joins ``requests_hit`` only if
+        the resident walk found nothing."""
+        if n_pages <= 0:
+            return
+        if req.n_hit_pages == 0:
+            self.prefix_requests_hit += 1
+        req.n_hit_pages += n_pages
+        req.cached_tokens += n_pages * self.page_size
+        self.prefix_hit_pages += n_pages
+        self.prefix_hit_tokens += n_pages * self.page_size
 
     def register_prefix(self, req: Request) -> None:
         """Register the request's freshly prefilled full prompt pages
@@ -219,6 +296,20 @@ class SlotScheduler:
         req = self.active.pop(slot)
         self.allocator.release(req.pages)
         req.pages = None
+        req.slot = None
+        req.done = True
+        self.page_table[slot, :] = GARBAGE_PAGE
+        self.lengths[slot] = 0
+        self.free_slots.append(slot)
+        return req
+
+    def retire_hold(self, slot: int) -> Request:
+        """Retire like :meth:`retire` but keep the page references
+        (``req.pages`` stays, refcounts unmoved): the slot frees while
+        the K/V waits for ``export_request``.  The leak audit fails until
+        the pages are released, which is how an orphaned export
+        shows."""
+        req = self.active.pop(slot)
         req.slot = None
         req.done = True
         self.page_table[slot, :] = GARBAGE_PAGE

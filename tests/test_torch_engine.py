@@ -29,9 +29,11 @@ from ray_tpu.inference import InferenceEngine as JaxEngine
 from ray_tpu.inference.sampling import \
     sample_tokens_logprobs as jax_sample
 from ray_tpu.models import gpt as jgpt
+from ray_tpu_torch.adapters import AdapterUnavailableError
 from ray_tpu_torch.convert import params_from_jax
-from ray_tpu_torch.inference import (InferenceEngine, PageAllocator,
-                                     Request, SamplingParams, SlotScheduler)
+from ray_tpu_torch.inference import (InferenceEngine, KVPageStore,
+                                     PageAllocator, Request,
+                                     SamplingParams, SlotScheduler)
 from ray_tpu_torch.inference.sampling import sample_from_noise
 from ray_tpu_torch.models import gpt as tgpt
 
@@ -236,12 +238,33 @@ def test_page_allocator_invariants():
     assert alloc.free_count == 7 and alloc.leak_free()
 
 
-@pytest.mark.parametrize("kw", [dict(host_pages=4),
-                                dict(lora=True), dict(telemetry=True)])
-def test_unported_engine_options_raise(models, kw):
+def _lora_engine(tcfg, tparams):
+    InferenceEngine(tcfg, tparams, device="cpu", **GEOMETRY, lora=True)
+
+
+def _object_store(tcfg, tparams):
+    KVPageStore(use_object_store=True)
+
+
+def _adapter_request(tcfg, tparams):
+    engine = InferenceEngine(tcfg, tparams, device="cpu", **GEOMETRY)
+    engine.submit([1, 2, 3], max_new_tokens=2,
+                  sampling=SamplingParams(model_id="tenant-a"))
+
+
+@pytest.mark.parametrize("make,exc,match", [
+    (_lora_engine, NotImplementedError, "ROADMAP Queue 1 item 11"),
+    (_object_store, NotImplementedError, "ROADMAP Queue 1 item 6c"),
+    (_adapter_request, AdapterUnavailableError, "tenant-a")],
+    ids=["lora", "object_store", "model_id"])
+def test_unported_engine_options_raise(models, make, exc, match):
+    """What the port does not run yet raises, naming its ROADMAP item:
+    LoRA banks, the runtime's object store under the page store, and a
+    request for an adapter (the JAX engine's typed error without
+    adapter support)."""
     _j, _jp, tcfg, tparams = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceEngine(tcfg, tparams, device="cpu", **GEOMETRY, **kw)
+    with pytest.raises(exc, match=match):
+        make(tcfg, tparams)
 
 
 def test_kv_cache_helpers_match_jax():

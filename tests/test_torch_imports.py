@@ -37,17 +37,27 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 21
+    assert n_modules >= 35
 
 
-# the training slice's modules and the third slice's (prefix caching,
-# the int8 cache, the RMSNorm kernels), which the probe above must reach
+# the training slice's modules, the third slice's (prefix caching, the
+# int8 cache, the RMSNorm kernels) and the serving surface's (chaos,
+# tracing, telemetry, the watchdog, the adapters' error), which the
+# probe above must reach
 _SLICE_MODULES = ("ray_tpu_torch/ops/flash_ce.py",
                   "ray_tpu_torch/models/training.py",
                   "ray_tpu_torch/telemetry/flops.py",
                   "ray_tpu_torch/ops/rmsnorm.py",
                   "ray_tpu_torch/quant/__init__.py",
-                  "ray_tpu_torch/quant/block_scale.py")
+                  "ray_tpu_torch/quant/block_scale.py",
+                  "ray_tpu_torch/util/chaos.py",
+                  "ray_tpu_torch/util/tracing.py",
+                  "ray_tpu_torch/telemetry/config.py",
+                  "ray_tpu_torch/telemetry/chrome_trace.py",
+                  "ray_tpu_torch/telemetry/trace.py",
+                  "ray_tpu_torch/telemetry/infer.py",
+                  "ray_tpu_torch/resilience/watchdog.py",
+                  "ray_tpu_torch/adapters/__init__.py")
 
 
 def _imported_roots(path):
