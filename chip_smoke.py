@@ -14,7 +14,9 @@
     python3 chip_smoke.py --spec           # the speculative-decoding
                                            # phase with every arm
     python3 chip_smoke.py --serve          # the serving-surface phases
-                                           # (7b-7d) alone
+                                           # (7b-7e) alone
+    python3 chip_smoke.py --fleet          # the serving-fleet phase (7d)
+                                           # alone
     python3 chip_smoke.py --decode         # the decode checks and times
     python3 chip_smoke.py --edges          # the wgmma tile checks, the
                                            # decode checks, the
@@ -112,7 +114,31 @@
    spill bytes the per-page figure times the spills, exact launches,
    telemetry equal to the counters, leak-free, no fetch in flight.
    Prints ``tiers metrics {...}``.
-7d. ``serving_obs_phase``: a TTFT and a total deadline on warm kernels
+7d. The serving fleet (gpt2-serve-fleet, ``fleet_phase``): 3 replicas of
+   the serving engine (8 slots, page 128) on the card, on the main run's
+   parameter tensors, behind ``ray_tpu_torch.fleet``.  Arm 1:
+   -int8-prefix's traffic in bf16 in two waves through ``FleetRouter``
+   with affinity on (12 hits, 4 cold prefills) and off.  Arm 2:
+   -mixed's 16 greedy requests with ``serve.replica@16`` killing a
+   replica mid-decode; its streams fail over (32 tokens each, none
+   twice), the ``Reconciler`` restarts it (WEDGED -> RESTARTING ->
+   RUNNING) and ``memory_allocated`` comes back once the corpse is
+   dropped.  Arm 3: the same traffic polled sequentially and with
+   ``concurrent_steps``.  Arm 4: a ``serve.tick[<id>]`` slowdown on the
+   first request's replica under the concurrent poll with demotion and
+   hedging on: the slow replica demoted, every hedge resolved once.  Arm
+   5: ``DisaggRouter`` with a prefill pool of 1 and a decode pool of 2,
+   bf16 and int8, then a warm request that moves 0 bytes.  Every stream
+   whose path (cold or hit, the page producer, the kernels) matches a
+   one-engine run equals it token for token, sampled ones included; a
+   greedy stream whose path changed may part only below the f32
+   reference's 2 x 0.09 margin; exact launches summed over every engine
+   an arm built, dead ones included; leak-free, nothing in flight.
+   Prints ``fleet arm {...}`` (TTFT mean/p50/p99, decode tokens/s,
+   cold prefills and hits, failovers, restarts, hedges, death to the
+   first re-homed token, restart time, handoff MB, the fleet telemetry)
+   and ``fleet one-engine {...}`` for each traffic.
+7e. ``serving_obs_phase``: a TTFT and a total deadline on warm kernels
    (budgets at least 10x and 20x a warm step) with the watchdog running;
    ``infer.decode@1`` raising before any launch with the cache
    bit-identical and a clean drain; ``kv.spill@1``, ``kv.spill@4`` and
@@ -2631,6 +2657,585 @@ def serving_obs_phase(params, cfg, dev) -> None:
           "greedy stream equals the cold run's; leak-free", flush=True)
 
 
+# gpt2-serve-fleet: 3 replicas of the serving engine (8 slots, page 128
+# each) on the one card, sharing the main run's parameter tensors, behind
+# the fleet router (``ray_tpu_torch.fleet``).  Arms 1-3 route with
+# ``slow_factor=0`` and no hedging, so their routing is a function of the
+# traffic and the seed alone (latency scores are wall-clock EWMAs); arm 4
+# turns both on.  Every stream that took the same path as a one-engine
+# run (cold or hit, the same page producer, the same kernels) must equal
+# it token for token, sampled ones included; a greedy stream whose path
+# changed (a failover's re-prefill, a hit on pages another prefill made)
+# may part from it only where the f32 reference's top-2 margin is under
+# 2 x ENGINE_TOL (ROADMAP Queue 3 (c)).
+FLEET_REPLICAS = 3
+FLEET_NEW = 32
+FLEET_CFG = dict(hedge=False, slow_factor=0.0, dwell=0.0, backoff=0.0)
+# arm 2: the 16th replica tick dies: the first poll's 3 ticks admit and
+# prefill every request, so this is the first replica's 6th tick, mid
+# decode with its streams bound
+FLEET_KILL_AT = 16
+# arm 4: the slowed replica's ticks sleep this long (a healthy tick is
+# ~10-25 ms of host time), and requests arrive this far apart
+FLEET_SLOW_S, FLEET_GAP_S = 0.25, 0.05
+FLEET_LIMIT_S = 120.0
+
+
+def fleet_replica(cfg, params, dev, rid, **kw):
+    """One replica on the card, on the caller's parameter tensors (the
+    engine keeps tensors already on its device: no copy per replica)."""
+    from ray_tpu_torch import InferenceEngine
+    from ray_tpu_torch.fleet import EngineReplica
+    return EngineReplica(rid, InferenceEngine(cfg, params, device=dev,
+                                              **kw, **ENGINE))
+
+
+def fleet_payload(prompt, sp, max_new: int = FLEET_NEW) -> dict:
+    """The serving request dict of a prompt and its sampling."""
+    p = {"tokens": prompt, "max_new_tokens": max_new}
+    if sp is not None:
+        p.update(temperature=sp.temperature, top_k=sp.top_k,
+                 top_p=sp.top_p, seed=sp.seed)
+    return p
+
+
+def watch_paths(replicas) -> dict:
+    """Record each admitted request's path: prompt -> (replica id,
+    prefix-hit pages) for every prefill of these replicas' engines."""
+    paths = {}
+    for rep in replicas:
+        eng, rid = rep.engine, rep.id
+
+        def prefill(req, events, _inner=eng._prefill, _rid=rid):
+            paths[tuple(req.prompt)] = (_rid, req.n_hit_pages)
+            return _inner(req, events)
+
+        eng._prefill = prefill
+    return paths
+
+
+def drive(router, prompts, sampling, waves, *, reconcile=None,
+          on_poll=None, on_route=None, gap=0.0) -> dict:
+    """Route each wave's requests (at once, or ``gap`` seconds apart) and
+    poll the fleet until they end, then quiesce; every stream must end
+    with FLEET_NEW tokens and no error.  ``on_route(stream)`` runs after
+    each routing, ``reconcile()`` and ``on_poll()`` after each poll."""
+    streams = {}
+    t0 = time.monotonic()
+    for wave in waves:
+        pending = list(wave)
+        while pending or not all(streams[i].done for i in wave):
+            due = time.monotonic() - t0
+            while pending and (not gap or len(streams) * gap <= due):
+                i = pending.pop(0)
+                streams[i] = router.remote(fleet_payload(prompts[i],
+                                                         sampling[i]))
+                if on_route is not None:
+                    on_route(streams[i])
+            progressed = router.poll()
+            if reconcile is not None:
+                reconcile()
+            if on_poll is not None:
+                on_poll()
+            if not progressed:
+                time.sleep(0.001)
+            if time.monotonic() - t0 > FLEET_LIMIT_S:
+                raise AssertionError("a fleet run did not end")
+    if not router.quiesce():
+        raise AssertionError("the fleet did not quiesce")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    for i, s in streams.items():
+        if s.error is not None or len(s.generated) != FLEET_NEW:
+            raise AssertionError(f"fleet stream {i}: {s.error!r}, "
+                                 f"{len(s.generated)} tokens")
+    return dict(streams=streams, wall=wall,
+                out={i: [int(t) for t in s.generated]
+                     for i, s in streams.items()})
+
+
+def fleet_launches(what, engines, kv_dtype: str, L: int) -> dict:
+    """The launches since the counts were reset must be what the calls of
+    every engine the run built imply, dead ones included."""
+    from ray_tpu_torch.ops import _build
+    want: dict = {}
+    for eng in engines:
+        want = add_launches(want, serve_launches(L, eng.call_counts,
+                                                 kv_dtype))
+    launches = _build.launch_counts()
+    expect_launches(what, launches, want)
+    return launches
+
+
+def parted_within_margin(what, prompt, got, want, params32, cfg32):
+    """A stream whose path changed may part from the one-engine stream
+    only where the f32 reference's top-2 margin over the common context
+    is under twice ENGINE_TOL; returns (position, margin) or None."""
+    from ray_tpu_torch.models.gpt import forward
+    k = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if k is None:
+        return None
+    with torch.inference_mode():
+        logits = forward(params32, torch.tensor(prompt + got[:k])[None],
+                         cfg32)[0][0, -1]
+    top2 = logits.topk(2).values
+    margin = float(top2[0] - top2[1])
+    if margin >= 2 * ENGINE_TOL["atol"]:
+        raise AssertionError(f"{what}: parts from the one-engine stream at "
+                             f"token {k} where the f32 margin is "
+                             f"{margin:.4f}")
+    return k, margin
+
+
+def fleet_metrics(arm, run, tel, **extra) -> dict:
+    """TTFT (submit to first token) over the streams and decode tokens/s
+    over the run's wall time, with the telemetry summary."""
+    ss = list(run["streams"].values())
+    ttft = sorted(s.first_token_ts - s.submitted_ts for s in ss)
+
+    def pct(q):
+        return 1e3 * ttft[min(len(ttft) - 1, int(q * len(ttft)))]
+
+    return {"cell": "gpt2-serve-fleet", "arm": arm, "requests": len(ss),
+            "ttft_ms_mean": 1e3 * float(np.mean(ttft)),
+            "ttft_ms_p50": pct(0.5), "ttft_ms_p99": pct(0.99),
+            "decode_tokens_per_s": sum(len(s.generated) - 1 for s in ss)
+            / run["wall"], "wall_s": run["wall"], **extra,
+            "telemetry": tel.summary()}
+
+
+def one_engine_metrics(traffic, run) -> dict:
+    """The same figures for a one-engine run (``serve``/``serve_waves``)."""
+    ttft = sorted(run["ttft"].values())
+    wall = run["wall"]
+    return {"cell": "gpt2-serve-fleet", "arm": f"one engine, {traffic}",
+            "ttft_ms_mean": 1e3 * float(np.mean(ttft)),
+            "ttft_ms_p50": 1e3 * ttft[len(ttft) // 2],
+            "ttft_ms_p99": 1e3 * ttft[min(len(ttft) - 1,
+                                          int(0.99 * len(ttft)))],
+            "decode_tokens_per_s": sum(len(o) - 1 for o in
+                                       run["out"].values()) / wall,
+            "wall_s": wall}
+
+
+def fleet_affinity_arm(params, cfg, dev) -> dict:
+    """Arm 1: -int8-prefix's traffic in bf16, its first request per
+    system prompt run to its end, then the other 12 at once; affinity on
+    routes each to the replica holding its system prompt (12 hits, 4
+    cold), affinity off is pow-2 alone.  Returns the arm's launches."""
+    from ray_tpu_torch import InferenceEngine
+    from ray_tpu_torch.fleet import FleetConfig, FleetRouter
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.telemetry.fleet import FleetTelemetry
+
+    _warm, prompts = prefix_traffic()
+    sampling = half_sampled(len(prompts))
+    waves = [list(range(N_SYSTEM)), list(range(N_SYSTEM, len(prompts)))]
+    one = InferenceEngine(cfg, params, device=dev, **ENGINE)
+    t0 = time.monotonic()
+    ref_hit = serve_waves(one, prompts, sampling, waves)
+    ref_hit["wall"] = time.monotonic() - t0
+    ref_cold = serve(InferenceEngine(cfg, params, device=dev, prefix=False,
+                                     **ENGINE), prompts, sampling)
+    print("fleet one-engine " + json.dumps(one_engine_metrics(
+        "-int8-prefix waves, bf16", ref_hit)), flush=True)
+    del one
+    params32 = cfg32 = None
+    total: dict = {}
+    for affinity in (True, False):
+        what = f"gpt2-serve-fleet affinity {'on' if affinity else 'off'}"
+        reps = [fleet_replica(cfg, params, dev, f"r{i}")
+                for i in range(FLEET_REPLICAS)]
+        paths = watch_paths(reps)
+        tel = FleetTelemetry()
+        router = FleetRouter(reps, cfg=FleetConfig(**FLEET_CFG),
+                             affinity=affinity, rng_seed=0, telemetry=tel)
+        _build.reset_launches()
+        run = drive(router, prompts, sampling, waves)
+        engines = [r.engine for r in reps]
+        launches = fleet_launches(what, engines, "model", cfg.n_layers)
+        total = add_launches(total, launches)
+        cold = sum(e.call_counts["prefill"] for e in engines)
+        hits = sum(e.stats()["prefix"]["requests_hit"] for e in engines)
+        home = {i: run["streams"][i].replica_id for i in waves[0]}
+        same, changed, parted = 0, [], []
+        for i in range(len(prompts)):
+            rid, hit_pages = paths[tuple(prompts[i])]
+            if not hit_pages:
+                want = ref_cold["out"][ref_cold["rids"][i]]
+            elif rid == home[i % N_SYSTEM]:
+                want = ref_hit["out"][i]
+            else:
+                changed.append(i)
+                if sampling[i] is None:
+                    if params32 is None:
+                        params32 = to_cpu32(params)
+                        cfg32 = dataclasses.replace(cfg,
+                                                    dtype=torch.float32)
+                    p = parted_within_margin(f"{what} request {i}",
+                                             prompts[i], run["out"][i],
+                                             ref_hit["out"][i], params32,
+                                             cfg32)
+                    if p is not None:
+                        parted.append((i,) + p)
+                continue
+            if run["out"][i] != want:
+                raise AssertionError(f"{what}: request {i} (path {rid}, "
+                                     f"{hit_pages} hit pages) parts from "
+                                     "the one-engine stream of its path")
+            same += 1
+        if affinity and (cold, hits, changed) != (N_SYSTEM, 12, []):
+            raise AssertionError(f"{what}: {cold} cold prefills, {hits} "
+                                 f"hits, {changed} off their system's "
+                                 "replica; 4, 12 and none implied")
+        if not router.leak_free():
+            raise AssertionError(f"{what}: not leak-free")
+        print(f"{what}: {cold} cold prefills, {hits} HBM hits; {same} "
+              "streams equal the one-engine stream of their path, "
+              f"{len(changed)} hit pages another prefill made (greedy "
+              f"ones parting within the margin: {parted}); launches "
+              f"{launches_line(launches)} == implied; leak-free",
+              flush=True)
+        print("fleet arm " + json.dumps(fleet_metrics(
+            what, run, tel, cold_prefills=cold, hbm_hits=hits,
+            affinity_hit_rate=tel.affinity_hit_rate,
+            routed={i: s.replica_id for i, s in run["streams"].items()})),
+            flush=True)
+        # the replicas' engines sit in reference cycles (their wrapped
+        # methods), so they go with a collection
+        del reps, router, engines, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def fleet_failover_arm(params, cfg, dev, ref) -> dict:
+    """Arm 2: -mixed's 16 greedy requests at once; ``serve.replica`` kills
+    one replica mid-decode, its streams re-prefill prompt + emitted
+    tokens on the others, and the reconciler restarts it (WEDGED ->
+    RESTARTING -> RUNNING); every stream ends with 32 tokens, each once;
+    the dead engine's cache is returned.  Returns the arm's launches."""
+    from ray_tpu_torch.fleet import (FleetConfig, FleetRouter, Reconciler,
+                                     RUNNING)
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.telemetry.fleet import FleetTelemetry
+    from ray_tpu_torch.util import chaos
+
+    what = "gpt2-serve-fleet failover"
+    prompts = mixed_prompts()
+    greedy = [None] * len(prompts)
+    engines, died, restart_s = [], {}, []
+
+    def watched(rid):
+        rep = fleet_replica(cfg, params, dev, rid)
+        inner = rep.step
+
+        def step():
+            try:
+                return inner()
+            except BaseException:
+                died.setdefault(rep.id, time.monotonic())
+                raise
+
+        rep.step = step
+        engines.append(rep.engine)
+        return rep
+
+    def factory(rid):
+        t0 = time.monotonic()
+        rep = watched(rid)
+        torch.cuda.synchronize()
+        restart_s.append(time.monotonic() - t0)
+        return rep
+
+    reps = [watched(f"r{i}") for i in range(FLEET_REPLICAS)]
+    fcfg = FleetConfig(**FLEET_CFG)
+    tel = FleetTelemetry()
+    router = FleetRouter(reps, cfg=fcfg, rng_seed=0, telemetry=tel)
+    rec = Reconciler(router, factory, target=FLEET_REPLICAS, cfg=fcfg)
+    actions = []
+    cache_bytes = reps[0].engine.cache.bytes
+    gc.collect()                  # nothing of an earlier run left over
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    _build.reset_launches()
+    plan = chaos.install_faults(f"serve.replica@{FLEET_KILL_AT}")
+    try:
+        run = drive(router, prompts, greedy, [range(len(prompts))],
+                    reconcile=lambda: actions.extend(rec.reconcile()))
+    finally:
+        chaos.clear_faults()
+    actions.extend(rec.reconcile())
+    launches = fleet_launches(what, engines, "model", cfg.n_layers)
+    (dead_id, death), = died.items()
+    moved = [i for i, s in run["streams"].items() if s.retries]
+    if plan.fired != [("serve.replica", FLEET_KILL_AT)] or not moved:
+        raise AssertionError(f"{what}: fired {plan.fired}, failed over "
+                             f"{moved}")
+    want = [f"{dead_id}: RUNNING->WEDGED", f"RESTARTING (for {dead_id}"]
+    if not all(any(w in a for a in actions) for w in want) or \
+            not any("RESTARTING->RUNNING" in a for a in actions) or \
+            sorted(rec.states().values()) != [RUNNING] * FLEET_REPLICAS \
+            or rec.restarts_total != 1:
+        raise AssertionError(f"{what}: reconciler actions {actions}, "
+                             f"states {rec.states()}")
+    parted = []
+    for i in range(len(prompts)):
+        got, ref_i = run["out"][i], ref["out"][ref["rids"][i]]
+        if got == ref_i:
+            continue
+        if i not in moved:
+            raise AssertionError(f"{what}: request {i} never moved but "
+                                 "parts from the one-engine stream")
+        parted.append((i,) + parted_within_margin(
+            f"{what} request {i}", prompts[i], got, ref_i,
+            to_cpu32(params), dataclasses.replace(cfg,
+                                                  dtype=torch.float32)))
+    rehomed = min(ts for i in moved for ts in run["streams"][i].token_ts
+                  if ts > death)
+    corpse = next(r for r in reps if r.id == dead_id)
+    if not (router.leak_free() and corpse.reaped and corpse.leak_free()):
+        raise AssertionError(f"{what}: not leak-free")
+    mem_run = torch.cuda.memory_allocated()
+    del corpse, reps, engines[:]
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
+    if abs(mem_after - mem_before) >= cache_bytes // 2:
+        raise AssertionError(f"{what}: {mem_after - mem_before} bytes "
+                             f"allocated over the run's start with the "
+                             f"dead engine dropped (one cache is "
+                             f"{cache_bytes})")
+    print(f"{what}: {dead_id} died at replica tick {FLEET_KILL_AT} with "
+          f"requests {moved} bound; every stream 32 tokens, each once; "
+          f"{len(moved) - len(parted)} moved streams equal the one-engine "
+          f"stream, {parted} part within the margin; reconciler "
+          f"{actions}; memory_allocated {mem_before} before the death, "
+          f"{mem_run} after the restart, {mem_after} with the dead engine "
+          f"dropped (a cache is {cache_bytes}); launches "
+          f"{launches_line(launches)} == implied; leak-free", flush=True)
+    print("fleet arm " + json.dumps(fleet_metrics(
+        what, run, tel, failovers=len(moved),
+        retries=sum(s.retries for s in run["streams"].values()),
+        restarts=rec.restarts_total,
+        death_to_rehomed_token_ms=1e3 * (rehomed - death),
+        restart_s=restart_s[0], memory_allocated_before=mem_before,
+        memory_allocated_after_restart=mem_run,
+        memory_allocated_dead_dropped=mem_after)), flush=True)
+    router.close()
+    del router, rec, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def fleet_concurrent_arm(params, cfg, dev, ref) -> dict:
+    """Arm 3: arm 2's traffic without the fault, polled sequentially and
+    with ``concurrent_steps`` (each replica stepping on a worker thread):
+    every greedy stream equal to the one-engine run's in both, the
+    launches exact under threads.  Returns the arm's launches."""
+    from ray_tpu_torch.fleet import FleetConfig, FleetRouter
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.telemetry.fleet import FleetTelemetry
+
+    prompts = mixed_prompts()
+    greedy = [None] * len(prompts)
+    want = [ref["out"][r] for r in ref["rids"]]
+    total: dict = {}
+    for concurrent in (False, True):
+        what = ("gpt2-serve-fleet " + ("concurrent" if concurrent
+                                       else "sequential"))
+        reps = [fleet_replica(cfg, params, dev, f"r{i}")
+                for i in range(FLEET_REPLICAS)]
+        tel = FleetTelemetry()
+        router = FleetRouter(reps, cfg=FleetConfig(**FLEET_CFG),
+                             rng_seed=0, concurrent_steps=concurrent,
+                             telemetry=tel)
+        _build.reset_launches()
+        run = drive(router, prompts, greedy, [range(len(prompts))])
+        launches = fleet_launches(what, [r.engine for r in reps], "model",
+                                  cfg.n_layers)
+        total = add_launches(total, launches)
+        got = [run["out"][i] for i in range(len(prompts))]
+        if got != want or not router.leak_free():
+            raise AssertionError(f"{what}: streams part from the one-engine "
+                                 "run's, or not leak-free")
+        print(f"{what}: 16 greedy streams equal the one-engine run's; "
+              f"launches {launches_line(launches)} == implied; leak-free",
+              flush=True)
+        print("fleet arm " + json.dumps(fleet_metrics(what, run, tel)),
+              flush=True)
+        router.close()
+        del reps, router, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def fleet_gray_arm(params, cfg, dev, ref) -> dict:
+    """Arm 4: arm 2's traffic arriving FLEET_GAP_S apart through the
+    concurrent poll with demotion and hedging on; the replica holding
+    the first request ticks FLEET_SLOW_S slower (``serve.tick[<id>]``).
+    It must be demoted, every over-deadline first-token waiter hedged and
+    the race resolved once, every stream equal to the one-engine run's.
+    Returns the arm's launches."""
+    from ray_tpu_torch.fleet import FleetConfig, FleetRouter
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.telemetry.fleet import FleetTelemetry
+    from ray_tpu_torch.util import chaos
+
+    what = "gpt2-serve-fleet gray"
+    prompts = mixed_prompts()
+    greedy = [None] * len(prompts)
+    reps = [fleet_replica(cfg, params, dev, f"r{i}")
+            for i in range(FLEET_REPLICAS)]
+    tel = FleetTelemetry()
+    router = FleetRouter(reps, cfg=FleetConfig(hedge=True, slow_factor=3.0),
+                         rng_seed=0, concurrent_steps=True, telemetry=tel)
+    demoted = set()
+    slow = {}
+
+    def on_route(stream):
+        if not slow:
+            # slow the first request's replica before it ever ticks
+            slow["id"] = stream.replica_id
+            chaos.install_faults(f"serve.tick[{slow['id']}]@1..1000000"
+                                 f":delay={FLEET_SLOW_S}")
+
+    _build.reset_launches()
+    try:
+        run = drive(router, prompts, greedy, [range(len(prompts))],
+                    on_route=on_route, gap=FLEET_GAP_S,
+                    on_poll=lambda: demoted.update(router.slow_replicas()))
+    finally:
+        chaos.clear_faults()
+    launches = fleet_launches(what, [r.engine for r in reps], "model",
+                              cfg.n_layers)
+    summ = tel.summary()
+    hedges, winners = summ["hedges"], summ["hedge_winners"]
+    issued = hedges.get("issued", 0)
+    if slow["id"] not in demoted or not issued or \
+            issued != hedges.get("won", 0) + hedges.get("wasted", 0) or \
+            issued != sum(winners.values()):
+        raise AssertionError(f"{what}: slowed {slow['id']}, demoted "
+                             f"{demoted}, hedges {hedges} {winners}")
+    got = [run["out"][i] for i in range(len(prompts))]
+    if got != [ref["out"][r] for r in ref["rids"]] or \
+            not router.leak_free():
+        raise AssertionError(f"{what}: streams part from the one-engine "
+                             "run's, or not leak-free")
+    print(f"{what}: {slow['id']} slowed by {FLEET_SLOW_S} s a tick and "
+          f"demoted; hedges {hedges}, winners {winners}, each resolved "
+          "once; 16 greedy streams equal the one-engine run's; launches "
+          f"{launches_line(launches)} == implied; leak-free", flush=True)
+    print("fleet arm " + json.dumps(fleet_metrics(
+        what, run, tel, slowed=slow["id"], demoted=sorted(demoted),
+        hedges_fired=issued, hedges_won=hedges.get("won", 0))),
+        flush=True)
+    router.close()
+    del reps, router, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def fleet_disagg_arm(params, cfg, dev) -> dict:
+    """Arm 5: -mixed's 16 requests (half sampled) through a DisaggRouter
+    with a prefill pool of 1 and a decode pool of 2, bf16 and int8:
+    every stream equal to a co-located engine's, nothing left in the
+    handoff store, exact launches; then one warm request (a 512-token
+    context a decode replica holds by digest) moves 0 bytes.  Returns
+    the arm's launches."""
+    from ray_tpu_torch import InferenceEngine
+    from ray_tpu_torch.fleet import DisaggRouter, FleetConfig
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.telemetry.fleet import FleetTelemetry
+
+    prompts = mixed_prompts()
+    sampling = half_sampled(len(prompts))
+    warm = np.random.default_rng(5).integers(0, 50257, 512).tolist()
+    total: dict = {}
+    for kv_dtype in ("model", "int8"):
+        what = f"gpt2-serve-fleet disagg {kv_dtype}"
+        colo = InferenceEngine(cfg, params, device=dev, kv_dtype=kv_dtype,
+                               **ENGINE)
+        ref = serve(colo, prompts, sampling, FLEET_NEW)
+        print("fleet one-engine " + json.dumps(one_engine_metrics(
+            f"-mixed, {kv_dtype}", ref)), flush=True)
+        del colo
+        pre = [fleet_replica(cfg, params, dev, "p0", kv_dtype=kv_dtype)]
+        dec = [fleet_replica(cfg, params, dev, f"d{i}", kv_dtype=kv_dtype)
+               for i in range(2)]
+        tel = FleetTelemetry()
+        router = DisaggRouter(pre, dec, cfg=FleetConfig(**FLEET_CFG),
+                              rng_seed=0, telemetry=tel)
+        depth = {"prefill": 0, "decode": 0}
+
+        def on_poll():
+            for pool, d in tel.pool_depths.items():
+                depth[pool] = max(depth[pool], d)
+
+        _build.reset_launches()
+        run = drive(router, prompts, sampling, [range(len(prompts))],
+                    on_poll=on_poll)
+        moved = dict(tel.summary())
+        cold = router.remote(fleet_payload(warm, None))
+        cold_out = cold.result()
+        pre[0].engine.scheduler.flush_prefix()   # the exporter runs cold
+        before = tel.summary()
+        again = router.remote(fleet_payload(warm, None)).result()
+        after = tel.summary()
+        engines = [r.engine for r in pre + dec]
+        launches = fleet_launches(what, engines, kv_dtype, cfg.n_layers)
+        total = add_launches(total, launches)
+        got = [run["out"][i] for i in range(len(prompts))]
+        if got != [ref["out"][r] for r in ref["rids"]]:
+            raise AssertionError(f"{what}: streams part from the co-located "
+                                 "engine's")
+        warm_moved = (after["handoff_bytes_total"]
+                      - before["handoff_bytes_total"])
+        if again != cold_out or warm_moved or \
+                after["handoffs_skipped"] - before["handoffs_skipped"] != 1:
+            raise AssertionError(f"{what}: the warm request moved "
+                                 f"{warm_moved} bytes, or its stream parts")
+        if not router.quiesce() or router.store.in_flight or \
+                not router.leak_free():
+            raise AssertionError(f"{what}: handoffs in flight or a leak")
+        print(f"{what}: 16 streams equal the co-located engine's; the warm "
+              "request moved 0 bytes; 0 handoffs in flight; launches "
+              f"{launches_line(launches)} == implied; leak-free",
+              flush=True)
+        print("fleet arm " + json.dumps(fleet_metrics(
+            what, run, tel, handoff_mb_total=moved["handoff_bytes_total"]
+            / 1e6, handoff_mb_per_request=moved["handoff_bytes_total"]
+            / 1e6 / moved["handoffs"], warm_handoff_bytes=warm_moved,
+            max_pool_queue_depth=depth)), flush=True)
+        del pre, dec, router, engines, run, cold
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def fleet_phase(params, cfg, dev) -> dict:
+    """gpt2-serve-fleet: the five arms above on 3 replicas on one card,
+    with a one-engine run of each traffic beside them.  Returns the
+    launches of arms 1-4 (``serve_fleet``) and of arm 5
+    (``serve_fleet_disagg``), each arm's counts reset just before it."""
+    from ray_tpu_torch import InferenceEngine
+
+    paths = {"serve_fleet": fleet_affinity_arm(params, cfg, dev)}
+    one = InferenceEngine(cfg, params, device=dev, **ENGINE)
+    ref = serve(one, mixed_prompts(), [None] * 16, FLEET_NEW)
+    print("fleet one-engine " + json.dumps(one_engine_metrics(
+        "-mixed greedy, bf16", ref)), flush=True)
+    del one
+    for arm in (fleet_failover_arm, fleet_concurrent_arm, fleet_gray_arm):
+        paths["serve_fleet"] = add_launches(paths["serve_fleet"],
+                                            arm(params, cfg, dev, ref))
+    paths["serve_fleet_disagg"] = fleet_disagg_arm(params, cfg, dev)
+    return paths
+
+
 # the training cell "gpt2-train-b24": the JAX package's single-chip
 # recipe (bench.py:1932-1935) at full width and depth, bf16, batch 24 x
 # 1024, random weights from a seed, on one repeated synthetic batch
@@ -3315,8 +3920,19 @@ def main() -> None:
                              device=dev)
         paths = {"serve_disagg": disagg_phase(params, cfg, dev),
                  "serve_tiers": tiers_phase(params, cfg, dev)}
+        paths.update(fleet_phase(params, cfg, dev))
         serving_obs_phase(params, cfg, dev)
         print("serve: every check passed; launches "
+              + json.dumps({p: {k: v for k, v in n.items() if v}
+                            for p, n in paths.items()}), flush=True)
+        return
+    if sys.argv[1:] == ["--fleet"]:
+        from ray_tpu_torch import GPTConfig, init_params
+        cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device=dev)
+        paths = fleet_phase(params, cfg, dev)
+        print("fleet: every check passed; launches "
               + json.dumps({p: {k: v for k, v in n.items() if v}
                             for p, n in paths.items()}), flush=True)
         return
@@ -3349,6 +3965,7 @@ def main() -> None:
     paths["serve_spec"] = spec_phase(params, cfg, dev)
     paths["serve_disagg"] = disagg_phase(params, cfg, dev)
     paths["serve_tiers"] = tiers_phase(params, cfg, dev)
+    paths.update(fleet_phase(params, cfg, dev))
     serving_obs_phase(params, cfg, dev)
     del params
     torch.cuda.empty_cache()

@@ -11,7 +11,10 @@ paged-KV inference engine with prefix caching, the int8 KV cache,
 speculative decoding, disaggregated KV handoff, the tiered KV cache,
 deadlines, telemetry and request tracing (:mod:`ray_tpu_torch.inference`,
 :mod:`ray_tpu_torch.quant`, :mod:`ray_tpu_torch.telemetry`,
-:mod:`ray_tpu_torch.util`, :mod:`ray_tpu_torch.resilience`), the
+:mod:`ray_tpu_torch.util`, :mod:`ray_tpu_torch.resilience`), the serving
+fleet above the engine (replicas, the prefix-affinity router with
+failover and hedging, the reconciler and the disaggregated
+prefill/decode pools, :mod:`ray_tpu_torch.fleet`), the
 single-device training step (:mod:`ray_tpu_torch.models.training`) and
 the ten kernel entry points on those paths (attention forward and
 backward, decode attention and its int8 variant, the fused out-proj

@@ -610,6 +610,12 @@ class InferenceEngine:
             model_id, "engine built without adapter support (adapters "
             "are ROADMAP Queue 1 item 11)")
 
+    def adapter_digest(self) -> frozenset:
+        """Resident tenant model_ids, which the fleet router composes
+        into its affinity score beside the prefix digest: none, since
+        the engine has no adapter bank (ROADMAP Queue 1 item 11)."""
+        return frozenset()
+
     def set_params(self, params, *, version: Optional[int] = None) -> int:
         """Swap in a new parameter snapshot (tensors or numpy leaves, same
         tree and dtype) between ticks; returns the new version.  The

@@ -31,6 +31,7 @@ NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas=-v"]
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()   # Kernel.launches, bumped from any thread
 _lib: Optional[ctypes.CDLL] = None
 _REGISTRY: Dict[str, "Kernel"] = {}
 # what the last build printed (ptxas register / spill lines)
@@ -129,16 +130,24 @@ class Kernel:
         _REGISTRY[symbol] = self
 
     def __call__(self, *args) -> None:
-        if self._fn is None:
-            fn = getattr(load(), self.symbol)
+        fn = self._fn
+        if fn is None:
+            # a fresh function object (indexing, unlike getattr, does
+            # not share the library's cached one), typed in full before
+            # it is published: a thread that finds _fn set never calls
+            # an untyped one, and two threads binding at once do no harm
+            fn = load()[self.symbol]
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
-        rc = self._fn(*args)
+        rc = fn(*args)
         if rc != 0:
             msg = load().rtt_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} ({msg})")
-        self.launches += 1
+        # worker threads launch too (the fleet's concurrent_steps mode):
+        # += is not atomic, so count under the lock
+        with _count_lock:
+            self.launches += 1
 
 
 def query(symbol: str, *ints: int) -> int:
@@ -151,12 +160,14 @@ def query(symbol: str, *ints: int) -> int:
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: k.launches for name, k in _REGISTRY.items()}
+    with _count_lock:
+        return {name: k.launches for name, k in _REGISTRY.items()}
 
 
 def reset_launches() -> None:
-    for k in _REGISTRY.values():
-        k.launches = 0
+    with _count_lock:
+        for k in _REGISTRY.values():
+            k.launches = 0
 
 
 # argument type shorthands for the wrappers

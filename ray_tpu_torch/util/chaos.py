@@ -17,6 +17,18 @@ injection **sites** call :func:`maybe_fail` (raise sites) or
   host or store hit back into the cache.  A fault stops the install
   walk there and the suffix prefill covers the rest.
 
+and the fleet's (:mod:`ray_tpu_torch.fleet`):
+
+- ``serve.replica`` — the top of every replica tick, before the engine
+  steps: a fault kills the replica and its streams fail over;
+- ``serve.tick`` / ``serve.tick[<replica_id>]`` — inside the timed
+  tick window, fleet-wide or on one replica: a ``:delay=`` slowdown is
+  a gray failure the latency score sees, a fault a death;
+- ``serve.route`` — a routed submit, before the replica admits it: a
+  fault re-routes the request;
+- ``serve.handoff`` — the disaggregated handoff's export and import
+  legs: a fault re-prefills the stream from its prompt.
+
 Spec grammar, comma-separated entries::
 
     site[@N[..M]][:delay=S]

@@ -37,13 +37,14 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 35
+    assert n_modules >= 43
 
 
 # the training slice's modules, the third slice's (prefix caching, the
-# int8 cache, the RMSNorm kernels) and the serving surface's (chaos,
-# tracing, telemetry, the watchdog, the adapters' error), which the
-# probe above must reach
+# int8 cache, the RMSNorm kernels), the serving surface's (chaos,
+# tracing, telemetry, the watchdog, the adapters' error) and the fleet's
+# (replicas, routers, reconciler, disaggregated pools, their telemetry
+# and the request parser), which the probe above must reach
 _SLICE_MODULES = ("ray_tpu_torch/ops/flash_ce.py",
                   "ray_tpu_torch/models/training.py",
                   "ray_tpu_torch/telemetry/flops.py",
@@ -57,7 +58,15 @@ _SLICE_MODULES = ("ray_tpu_torch/ops/flash_ce.py",
                   "ray_tpu_torch/telemetry/trace.py",
                   "ray_tpu_torch/telemetry/infer.py",
                   "ray_tpu_torch/resilience/watchdog.py",
-                  "ray_tpu_torch/adapters/__init__.py")
+                  "ray_tpu_torch/adapters/__init__.py",
+                  "ray_tpu_torch/fleet/__init__.py",
+                  "ray_tpu_torch/fleet/config.py",
+                  "ray_tpu_torch/fleet/replica.py",
+                  "ray_tpu_torch/fleet/router.py",
+                  "ray_tpu_torch/fleet/reconciler.py",
+                  "ray_tpu_torch/fleet/disagg.py",
+                  "ray_tpu_torch/telemetry/fleet.py",
+                  "ray_tpu_torch/inference/serve_gpt.py")
 
 
 def _imported_roots(path):
