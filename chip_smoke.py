@@ -18,6 +18,8 @@
     python3 chip_smoke.py --fleet          # the serving-fleet phase (7d)
                                            # alone
     python3 chip_smoke.py --runtime        # the runtime phase (7f) alone
+    python3 chip_smoke.py --serve-deployment  # the serve deployment
+                                              # phase (7g) alone
     python3 chip_smoke.py --decode         # the decode checks and times
     python3 chip_smoke.py --edges          # the wgmma tile checks, the
                                            # decode checks, the
@@ -161,6 +163,27 @@
    process. Prints ``runtime metrics {...}`` (cold start, put and
    in-actor get GB/s, an empty method's round trip, no-op tasks a
    second, TTFT and decode tokens/s in the actor and in this process).
+7g. Serving on the runtime (gpt2-serve-deployment,
+   ``serve_deployment_phase``): ``serve.run`` deploys ``GPTDeployment``
+   (GPT-2 124M bf16 from seed 0, 8 slots, page 128) with
+   ``num_gpus=1``: the serve controller, itself an actor, creates the
+   replica, which cold-spawns onto the card (``"0"``, this process's
+   kernel library, not rebuilt).  gpt2-serve-mixed's 16 requests stream
+   through the handle (the replica's first step held until all 16
+   wait, as ``serve`` submits them): every stream equals an engine's in
+   this process on the same requests, or parts only below the f32
+   reference's 2 x 0.09 margin; the replica's launches, read back from
+   its process, equal ``serve_launches`` of its calls and this
+   process's run.  A handle stream dropped after one token is reaped
+   within ``stream_idle_s`` plus a bound, its slot free, and a late
+   reader gets ``StreamIdleError``.  One disaggregated handoff goes
+   through the runtime's object store (``HandoffStore(use_object_store
+   =True)``) and continues as the co-located stream.  ``serve.delete``
+   leaves no replica process and the card back in
+   ``available_resources()``.  Prints ``serve-deployment metrics
+   {...}`` (replica cold start from ``serve.run`` to the first token,
+   TTFT mean and p99 and decode tokens/s through the handle and in this
+   process, the handoff's put / get GB/s).
 8. Training phase: GPT-2 124M in bf16 trains 10 steps at batch 24 x
    1024 through ``build_gpt_train`` (flash attention with in-kernel
    RoPE, the fused epilogue, flash-CE with the norm prologue); prints
@@ -1551,16 +1574,18 @@ def serve(engine, prompts, sampling, max_new_tokens: int = 32) -> dict:
     rids = [engine.submit(p, max_new_tokens=max_new_tokens, sampling=sp)
             for p, sp in zip(prompts, sampling)]
     submitted = time.monotonic()
-    first, out = {}, {r: [] for r in rids}
+    first, last, out = {}, {}, {r: [] for r in rids}
     while engine.has_work():
         for rid, tok, _done in engine.step():
-            first.setdefault(rid, time.monotonic())
+            last[rid] = time.monotonic()
+            first.setdefault(rid, last[rid])
             out[rid].append(tok)
     torch.cuda.synchronize()
     run = dict(
         launches=_build.launch_counts(), rids=rids, out=out,
         wall=time.monotonic() - t0,
         ttft={r: first[r] - submitted for r in first},
+        spans=[(len(out[r]), first[r], last[r]) for r in first],
         calls={k: v - calls0[k] for k, v in engine.call_counts.items()},
         secs={k: v - secs0[k] for k, v in engine.seconds.items()})
     if any(len(out[r]) != max_new_tokens for r in rids) or \
@@ -3595,6 +3620,396 @@ def runtime_phase(params, cfg, dev) -> dict:
     return actor_launches
 
 
+# the serving cell "gpt2-serve-deployment": gpt2-serve-mixed through
+# serve.run(GPTDeployment) on the runtime, the replica created on the
+# card by the serve controller
+SERVE_DEP_APP = "gpt2"
+SERVE_DEP_IDLE_S = 2.0          # the deployment's stream_idle_s
+# a dropped stream: its max_new_tokens behind the shortest prompt (40
+# tokens), and the bound on drop -> reaped with its slot free past
+# stream_idle_s (the credit window's 32 tokens take ~0.3-0.8 s)
+SERVE_DEP_DROP_NEW, SERVE_DEP_REAP_S = 900, 15.0
+SERVE_DEP_RELEASE_S = 10.0      # serve.delete -> the card free again
+SERVE_DEP_GATE_S = 60.0         # bound on the 16 requests' arrival
+
+
+def replica_hello(replica) -> dict:
+    """Runs in the serve replica's process (``__ray_call__`` on its
+    ``ServeReplica``): who and where it is; loads the kernel library."""
+    from ray_tpu_torch.ops import _build
+    main = sys.modules["__main__"]
+    info = {"pid": os.getpid(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "start": os.path.basename(getattr(main, "__file__", "")),
+            "library_built_before": _build.library_path().exists(),
+            "card": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+            "engine_device": str(replica.instance.engine.device)}
+    _build.load()
+    info["rebuilt"] = bool(_build.build_log)
+    return info
+
+
+def replica_counts(replica, reset: bool = False) -> dict:
+    """In the replica's process: its kernel launches (reset to 0 first
+    when ``reset``), the engine's calls and seconds, and whether it is
+    leak-free."""
+    from ray_tpu_torch.ops import _build
+    engine = replica.instance.engine
+    if reset:
+        _build.reset_launches()
+    torch.cuda.synchronize()
+    return {"launches": _build.launch_counts(),
+            "calls": dict(engine.call_counts),
+            "secs": dict(engine.seconds),
+            "leak_free": engine.leak_free()}
+
+
+def replica_hold_first_step(replica, n: int) -> None:
+    """In the replica's process: its engine's next step waits (in the
+    pump's executor thread, so the event loop keeps admitting) until
+    ``n`` requests wait, then runs; the steps after it are the engine's
+    own.  The batch then forms as ``serve`` forms it in this process."""
+    engine = replica.instance.engine
+    step = engine.step
+
+    def held():
+        engine.step = step
+        deadline = time.monotonic() + SERVE_DEP_GATE_S
+        while len(engine.scheduler.waiting) < n:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"serve-deployment: {n} requests "
+                                     "did not all reach the replica")
+            time.sleep(0.0005)
+        return step()
+
+    engine.step = held
+
+
+def _consume(stream, submitted: float, rec: dict) -> None:
+    """Read one handle stream to its end, timing its first and last
+    items."""
+    try:
+        for item in stream:
+            rec["last"] = time.monotonic()
+            if "first" not in rec:
+                rec["first"] = rec["last"] - submitted
+                rec["t_first"] = rec["last"]
+            rec["out"].append(int(item))
+        rec["end"] = time.monotonic()
+    except BaseException as e:  # noqa: BLE001 — reported by the phase
+        rec["error"] = e
+
+
+def _seen_rates(spans) -> dict:
+    """Decode rates as the streams' readers see them, from each stream's
+    (items, first item's time, last item's time): all the tokens after
+    each first over the time any stream was between its first and last
+    item, and the mean of each stream's own rate."""
+    spans = [(n, t0, t1) for n, t0, t1 in spans if n > 1 and t1 > t0]
+    busy, end = 0.0, float("-inf")
+    for _, t0, t1 in sorted(spans, key=lambda s: s[1]):
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    return {"decode_tokens_per_s": sum(n - 1 for n, _, _ in spans) / busy,
+            "reader_tokens_per_s_mean": float(np.mean(
+                [(n - 1) / (t1 - t0) for n, t0, t1 in spans]))}
+
+
+def _stream_all(open_stream, payloads) -> tuple:
+    """Open a stream per payload, read each on its own thread, and
+    return the records and the wall time from the first open to the
+    last item; fails on an error or a short stream."""
+    import threading
+    recs = [{"out": []} for _ in payloads]
+    threads = []
+    t_sub = time.monotonic()
+    for payload, rec in zip(payloads, recs):
+        t = time.monotonic()
+        th = threading.Thread(target=_consume,
+                              args=(open_stream(payload), t, rec))
+        th.start()
+        threads.append(th)
+    for th in threads:
+        th.join(timeout=RUNTIME_START_S)
+    bad = [i for i, r in enumerate(recs)
+           if "error" in r or len(r["out"]) != FLEET_NEW]
+    if bad:
+        raise AssertionError(
+            f"serve-deployment: streams {bad} failed or came short: "
+            f"{[recs[i].get('error') for i in bad][:2]!r}")
+    return recs, max(r["end"] for r in recs) - t_sub
+
+
+def _stream_metrics(recs, wall: float) -> dict:
+    ttft = sorted(r["first"] for r in recs)
+    return {"mean_ttft_ms": 1e3 * float(np.mean(ttft)),
+            "p99_ttft_ms": 1e3 * ttft[min(len(ttft) - 1,
+                                          int(0.99 * len(ttft)))],
+            **_seen_rates([(len(r["out"]), r["t_first"], r["last"])
+                           for r in recs]),
+            "wall_s": wall}
+
+
+def serve_deployment_phase(params, cfg, dev) -> dict:
+    """gpt2-serve-deployment: ``GPTDeployment`` behind ``serve.run`` on
+    the runtime, its replica on the card created by the serve controller;
+    gpt2-serve-mixed's 16 requests through the handle against an engine
+    in this process; a dropped stream reaped; one handoff through the
+    object store; ``serve.delete`` frees the card.  Prints
+    ``serve-deployment metrics {...}``; returns the replica's launches
+    over the 16 requests."""
+    import chip_smoke as cs
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.serve as serve_api
+    from ray_tpu_torch import InferenceEngine
+    from ray_tpu_torch._private.worker import global_node
+    from ray_tpu_torch.fleet import HandoffStore
+    from ray_tpu_torch.inference.serve_gpt import (GPTDeployment,
+                                                   StreamIdleError)
+    from ray_tpu_torch.serve.handle import DeploymentResponseGenerator
+
+    metrics = {"cell": "gpt2-serve-deployment"}
+    prompts = mixed_prompts()
+    sampling = half_sampled(len(prompts))
+    rt.init(num_cpus=RUNTIME_CPUS)
+    try:
+        if rt.cluster_resources().get("GPU") != 1.0:
+            raise AssertionError("serve-deployment: the node found "
+                                 f"{rt.cluster_resources()}")
+        start_res = rt.available_resources()
+        app = GPTDeployment.options(
+            ray_actor_options={"num_gpus": 1}).bind(
+                model="gpt2",
+                model_config=dict(GPT2, dtype="bfloat16"),
+                engine_config=dict(ENGINE),
+                seed=0, stream_idle_s=SERVE_DEP_IDLE_S)
+        t0 = time.monotonic()
+        handle = serve_api.run(app, name=SERVE_DEP_APP)
+        metrics["serve_run_s"] = time.monotonic() - t0
+        warm = handle.options(stream=True).remote(
+            {"tokens": [1, 2, 3], "max_new_tokens": 2})
+        warm_out = []
+        for tok in warm:
+            if not warm_out:
+                metrics["replica_cold_start_s"] = time.monotonic() - t0
+            warm_out.append(tok)
+        (replica,) = handle._get_routing()["replicas"]
+
+        def in_replica(fn, *args):
+            return rt.get(replica.__ray_call__.remote(fn, *args),
+                          timeout=RUNTIME_START_S)
+
+        info = in_replica(cs.replica_hello)
+        want_card = torch.cuda.get_device_name(0)
+        if (info["visible"] != "0" or info["start"] != "worker_proc.py"
+                or info["card"] != want_card or info["count"] != 1
+                or info["engine_device"] != str(dev)
+                or not info["library_built_before"] or info["rebuilt"]):
+            raise AssertionError(f"serve-deployment: the replica reports "
+                                 f"{info} (want CUDA_VISIBLE_DEVICES '0', "
+                                 f"a cold spawn, {want_card!r} alone, "
+                                 "this process's kernel library)")
+        print(f"serve-deployment: the controller's replica runs on "
+              f"{info['card']} (CUDA_VISIBLE_DEVICES "
+              f"{info['visible']!r}, cold-spawned); cold start "
+              f"{metrics['replica_cold_start_s']:.2f} s", flush=True)
+
+        # gpt2-serve-mixed through the handle, the batch formed as serve()
+        # forms it
+        payloads = [fleet_payload(p, sp) for p, sp in zip(prompts, sampling)]
+
+        def through_handle(payload):
+            return handle.options(stream=True).remote(payload)
+
+        def without_acks(payload):
+            # the handle's dispatch with no stream id: the replica runs
+            # no credit window and the reader sends no acks
+            return DeploymentResponseGenerator(
+                replica.handle_request_streaming.options(
+                    num_returns="streaming").remote(
+                        "__call__", (payload,), {}, ""))
+
+        before = in_replica(cs.replica_counts, True)
+        in_replica(cs.replica_hold_first_step, len(prompts))
+        recs, handle_wall = _stream_all(through_handle, payloads)
+        after = in_replica(cs.replica_counts)
+        calls = {k: v - before["calls"][k]
+                 for k, v in after["calls"].items()}
+        secs = {k: v - before["secs"][k] for k, v in after["secs"].items()}
+        if not after["leak_free"]:
+            raise AssertionError("serve-deployment: the replica's engine "
+                                 "is not leak-free")
+        # the credit window's acks against none, on the same requests:
+        # no acks, then the handle again
+        acks = {}
+        for what, open_stream in (("handle_no_ack", without_acks),
+                                  ("handle_again", through_handle)):
+            in_replica(cs.replica_hold_first_step, len(prompts))
+            acks[what] = _stream_metrics(*_stream_all(open_stream,
+                                                      payloads))
+
+        engine = InferenceEngine(cfg, params, device=dev, **ENGINE)
+        engine.generate([[1, 2, 3]], max_new_tokens=2)
+        local = serve(engine, prompts, sampling)
+        want = [local["out"][r] for r in local["rids"]]
+        parted = []
+        for i, (rec, w) in enumerate(zip(recs, want)):
+            if rec["out"] != w:
+                parted.append((i,) + parted_within_margin(
+                    f"serve-deployment request {i}", prompts[i],
+                    rec["out"], w, to_cpu32(params),
+                    dataclasses.replace(cfg, dtype=torch.float32)))
+        implied = serve_launches(cfg.n_layers, calls, "model")
+        if not (_nonzero(after["launches"]) == _nonzero(implied)
+                == _nonzero(local["launches"])):
+            raise AssertionError(
+                f"serve-deployment: replica launches "
+                f"{_nonzero(after['launches'])}, implied "
+                f"{_nonzero(implied)}, this process "
+                f"{_nonzero(local['launches'])}")
+        tokens = sum(len(r["out"]) - 1 for r in recs)
+        # "handle": what the handle's readers saw; "replica_engine": the
+        # replica's engine over its own decode seconds
+        metrics["handle"] = _stream_metrics(recs, handle_wall)
+        metrics.update(acks)
+        metrics["replica_engine"] = {
+            "decode_tokens_per_s": tokens / secs["decode"]}
+        metrics["driver"] = dict(
+            _run_metrics(local),
+            seen=_seen_rates(local["spans"]))
+        metrics["handle_extra_ms_per_token"] = 1e3 * (
+            handle_wall - local["wall"]) / sum(len(r["out"]) for r in recs)
+        metrics["parted"] = parted
+        print(f"serve-deployment: {len(prompts) - len(parted)} of "
+              f"{len(prompts)} handle streams equal this process's "
+              f"engine, {parted} part within the margin; replica launches "
+              f"{_nonzero(after['launches'])} == implied == this "
+              "process's", flush=True)
+
+        # one handoff through the runtime's object store
+        store = HandoffStore(use_object_store=True)
+        moved = {}
+
+        def ship(h):
+            t = time.monotonic()
+            key = store.put(h)
+            moved["put_s"] = time.monotonic() - t
+            t = time.monotonic()
+            got = store.get(key)
+            moved["get_s"] = time.monotonic() - t
+            moved["key"], moved["bytes"] = key, h.nbytes
+            for name in ("k", "v"):
+                a, b = getattr(h, name), getattr(got, name)
+                if not torch.equal(torch.as_tensor(a).view(torch.uint8),
+                                   torch.as_tensor(b).view(torch.uint8)):
+                    raise AssertionError(f"serve-deployment: the handoff's "
+                                         f"{name} changed in the store")
+            return got
+
+        longest = max(prompts, key=len)
+        pre = InferenceEngine(cfg, params, device=dev, **ENGINE)
+        dec = InferenceEngine(cfg, params, device=dev, **ENGINE)
+        pair = disagg_pair("serve-deployment handoff", pre, dec, [longest],
+                           [None], ship=ship)
+        store.drop(moved["key"])
+        # a fresh engine: the served one holds the prompt's pages as
+        # prefix hits, which would take the cached-prefill path
+        colocated = InferenceEngine(cfg, params, device=dev, **ENGINE) \
+            .generate([longest], max_new_tokens=DISAGG_NEW)[0]
+        if pair["out"][0] != [int(t) for t in colocated]:
+            raise AssertionError("serve-deployment: the object-store "
+                                 "handoff's stream differs from the "
+                                 "co-located one")
+        if store.in_flight or not (pre.leak_free() and dec.leak_free()):
+            raise AssertionError("serve-deployment: a handoff left in "
+                                 "flight or pages held")
+        metrics["handoff"] = {
+            "mb": moved["bytes"] / 1e6,
+            "export_ms": 1e3 * pair["export_s"][0],
+            "put_gb_per_s": moved["bytes"] / 1e9 / moved["put_s"],
+            "get_gb_per_s": moved["bytes"] / 1e9 / moved["get_s"],
+            "install_ms": 1e3 * pair["install_s"][0]}
+        del engine, pre, dec
+
+        # a stream dropped after one token: reaped, its slot free
+        held = iter(handle.options(stream=True).remote(
+            {"tokens": min(prompts, key=len),
+             "max_new_tokens": SERVE_DEP_DROP_NEW}))
+        late = [next(held)]
+        t0 = time.monotonic()
+        while True:
+            summary = handle.telemetry_summary.remote().result()
+            if summary["streams_reaped"] and not summary["stats"]["active"]:
+                break
+            if time.monotonic() - t0 > SERVE_DEP_IDLE_S + SERVE_DEP_REAP_S:
+                raise AssertionError(f"serve-deployment: the dropped "
+                                     f"stream was not reaped: {summary}")
+            time.sleep(0.02)
+        metrics["drop_to_slot_free_s"] = time.monotonic() - t0
+        if summary["streams_reaped"] != 1 or \
+                summary["stats"]["free_slots"] != ENGINE["slots"]:
+            raise AssertionError(f"serve-deployment: after the reap "
+                                 f"{summary}")
+        try:
+            late.extend(held)
+        except Exception as e:  # noqa: BLE001 — the typed error, wrapped
+            if StreamIdleError.__name__ not in repr(e) and \
+                    "STREAM_IDLE" not in str(e):
+                raise
+        else:
+            raise AssertionError("serve-deployment: a late reader of the "
+                                 "reaped stream got no StreamIdleError")
+        if not 1 < len(late) < SERVE_DEP_DROP_NEW:
+            raise AssertionError(f"serve-deployment: the dropped stream "
+                                 f"delivered {len(late)} tokens")
+        metrics["dropped_stream_tokens"] = len(late)
+
+        t0 = time.monotonic()
+        serve_api.delete(SERVE_DEP_APP)
+        while _alive(info["pid"]) or \
+                rt.available_resources().get("GPU") != 1.0:
+            if time.monotonic() - t0 > SERVE_DEP_RELEASE_S:
+                raise AssertionError(
+                    f"serve-deployment: {SERVE_DEP_RELEASE_S} s after "
+                    f"serve.delete the replica (pid {info['pid']}) alive "
+                    f"{_alive(info['pid'])}, resources "
+                    f"{rt.available_resources()}")
+            time.sleep(0.02)
+        metrics["delete_to_gpu_free_s"] = time.monotonic() - t0
+        serve_api.shutdown()
+        deadline = time.monotonic() + RUNTIME_RELEASE_S
+        while rt.available_resources() != start_res:
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"serve-deployment: resources "
+                    f"{rt.available_resources()} not back to {start_res}")
+            time.sleep(0.02)
+        node = global_node()
+        pids = [w.proc.pid for w in node.node_manager._workers.values()
+                if w.proc is not None]
+        fsrv = node.node_manager._forksrv_proc
+        if fsrv is not None:
+            pids.append(fsrv.pid)
+    finally:
+        rt.shutdown()
+    deadline = time.monotonic() + 10.0
+    while any(_alive(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    left = [p for p in pids if _alive(p)]
+    if left:
+        raise AssertionError(f"serve-deployment: worker processes {left} "
+                             "outlived shutdown()")
+    print(f"serve-deployment: dropped stream reaped "
+          f"{metrics['drop_to_slot_free_s']:.2f} s after its first token "
+          f"({len(late)} tokens, then StreamIdleError); serve.delete -> "
+          f"card free in {metrics['delete_to_gpu_free_s']:.3f} s, no "
+          "replica left; the object-store handoff's stream equals the "
+          "co-located one", flush=True)
+    print("serve-deployment metrics " + json.dumps(metrics), flush=True)
+    return after["launches"]
+
+
 # the training cell "gpt2-train-b24": the JAX package's single-chip
 # recipe (bench.py:1932-1935) at full width and depth, bf16, batch 24 x
 # 1024, random weights from a seed, on one repeated synthetic batch
@@ -4303,6 +4718,15 @@ def main() -> None:
         print("runtime: every check passed; launches "
               + json.dumps(_nonzero(launches)), flush=True)
         return
+    if sys.argv[1:] == ["--serve-deployment"]:
+        from ray_tpu_torch import GPTConfig, init_params
+        cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device=dev)
+        launches = serve_deployment_phase(params, cfg, dev)
+        print("serve-deployment: every check passed; launches "
+              + json.dumps(_nonzero(launches)), flush=True)
+        return
     if sys.argv[1:] in (["--profile"], ["--profile", "int8"]):
         from ray_tpu_torch import GPTConfig, init_params
         cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
@@ -4335,6 +4759,7 @@ def main() -> None:
     paths.update(fleet_phase(params, cfg, dev))
     serving_obs_phase(params, cfg, dev)
     paths["serve_runtime"] = runtime_phase(params, cfg, dev)
+    paths["serve_deployment"] = serve_deployment_phase(params, cfg, dev)
     del params
     torch.cuda.empty_cache()
     train = train_phase(dev)

@@ -225,7 +225,7 @@ def get_runtime_context() -> RuntimeContext:
 
 
 def _lazy_submodules():
-    return {"util"}
+    return {"serve", "util"}
 
 
 # the model and engine names, imported on first use: they bring torch,

@@ -49,9 +49,11 @@ class WorkerProcess:
         self._direct_res_lock = threading.Lock()
         self._direct_result_conns: Dict[bytes, socket.socket] = {}
         self._direct_res_send_locks: Dict[bytes, threading.Lock] = {}
-        # (the reference adopts the cluster-wide tracing flag here; that
-        # publish path is ROADMAP Queue 1 item 6c-ii, so a worker traces
-        # only when its own process enables it)
+        # generator tasks whose stream already ends in its error item:
+        # the task's own error commit must not rewrite that stream
+        self._streams_ended: set = set()
+        from ray_tpu_torch.util.tracing import maybe_enable_from_cluster
+        maybe_enable_from_cluster(self.cp)
         # the node's card list as this process inherited it: the node
         # manager numbers cards 0..n-1 within it
         inherited = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -185,6 +187,7 @@ class WorkerProcess:
                                                 is_error=True)
                 count += 1
                 self.core.commit_generator_done(spec.task_id, count)
+                self._streams_ended.add(spec.task_id)
                 raise
             self.core.commit_generator_done(spec.task_id, count)
             # also commit the nominal return so plain get() works
@@ -211,7 +214,9 @@ class WorkerProcess:
             for oid in spec.return_object_ids():
                 inline = self.core.put_object(oid, err, is_error=True,
                                               owner_addr=spec.owner_addr)
-            if spec.is_generator:
+            ended = spec.task_id in self._streams_ended
+            self._streams_ended.discard(spec.task_id)
+            if spec.is_generator and not ended:
                 self.core.commit_generator_item(spec.task_id, 0, err,
                                                 is_error=True)
                 self.core.commit_generator_done(spec.task_id, 1)
@@ -576,6 +581,7 @@ class WorkerProcess:
                                             is_error=True)
             count += 1
             self.core.commit_generator_done(spec.task_id, count)
+            self._streams_ended.add(spec.task_id)
             raise
         self.core.commit_generator_done(spec.task_id, count)
         self.core.put_object(spec.return_object_ids()[0], count)

@@ -86,9 +86,8 @@ class FleetConfig:
       prefill replica typically feeds several decode replicas.
     - ``RAY_TPU_FLEET_HANDOFF_INLINE`` (default ``0``): force KV
       handoffs to bypass the object store and pass the payload
-      in-process (``1``).  The reference's payload rides the runtime's
-      object store whenever a session is up; the port has no runtime
-      (ROADMAP Queue 1 item 6c), so its handoffs are always inline.
+      in-process (``1``).  Otherwise the payload rides the runtime's
+      object store whenever a ``ray_tpu_torch`` session is up.
     """
     retries: int = 2
     affinity: bool = True

@@ -72,24 +72,29 @@ DECODE = "decode"
 
 
 class HandoffStore:
-    """Home of in-flight handoff payloads, in this process.
+    """``ray_tpu_torch.put``-shaped home for in-flight handoff payloads.
 
-    The reference's store puts the payloads in the runtime's object
-    store when a session is up (``ray_tpu.put``) and keeps them in an
-    in-process slot otherwise.  The port has no runtime (ROADMAP Queue 1
-    item 6c): ``use_object_store=None`` resolves to the in-process slot
-    and ``True`` raises, as :class:`~ray_tpu_torch.inference.kv_cache.
-    KVPageStore` does.  Every live handle is tracked so the fleet-wide
-    leak audit can assert none is orphaned (``in_flight``), and
-    ``bytes_put`` counts what went through it."""
+    Payloads ride the runtime's object store when a ``ray_tpu_torch``
+    session is up and an in-process slot otherwise;
+    ``RAY_TPU_FLEET_HANDOFF_INLINE=1`` forces the inline path either
+    way.  The router materializes the payload itself before
+    ``submit_import``, because every replica is host-driven in this
+    process; with a session up the put/get pair prices the serialise
+    and copy honestly.  Every live handle is tracked so the fleet-wide
+    leak audit can assert none is orphaned (``in_flight``), and byte
+    counters feed the ``serve_handoff_bytes_total`` telemetry."""
 
-    def __init__(self, use_object_store: Optional[bool] = None):
-        if use_object_store:
-            raise NotImplementedError(
-                "HandoffStore(use_object_store=True) needs the runtime's "
-                "object store, which is not ported yet (ROADMAP Queue 1 "
-                "item 6c)")
-        self._live: Dict[int, KVHandoff] = {}     # handle id -> payload
+    def __init__(self, use_object_store: Optional[bool] = None, *,
+                 cfg: Optional[FleetConfig] = None):
+        if use_object_store is None:
+            cfg = cfg or fleet_config()
+            if cfg.handoff_inline:
+                use_object_store = False
+            else:
+                from ray_tpu_torch._private.worker import is_initialized
+                use_object_store = is_initialized()
+        self._use_ray = bool(use_object_store)
+        self._live: Dict[int, Any] = {}     # handle id -> payload/ref
         self._next = 0
         self.puts = 0
         self.bytes_put = 0
@@ -101,18 +106,26 @@ class HandoffStore:
     def put(self, payload: KVHandoff) -> int:
         """Stash one payload; returns its handle (drop it when the
         import lands or the handoff is abandoned)."""
+        obj: Any = payload
+        if self._use_ray:
+            import ray_tpu_torch
+            obj = ray_tpu_torch.put(payload)
         handle = self._next
         self._next += 1
-        self._live[handle] = payload
+        self._live[handle] = obj
         self.puts += 1
         self.bytes_put += payload.nbytes
         return handle
 
     def get(self, handle: int) -> KVHandoff:
-        return self._live[handle]
+        obj = self._live[handle]
+        if self._use_ray:
+            import ray_tpu_torch
+            return ray_tpu_torch.get(obj)
+        return obj
 
     def drop(self, handle: int) -> None:
-        """Release a handle (idempotent): the payload's host memory
+        """Release a handle (idempotent): the payload's store memory
         frees — the refcount half of 'orphaned exported pages cannot
         leak'."""
         self._live.pop(handle, None)
@@ -328,7 +341,8 @@ class DisaggRouter:
             from ray_tpu_torch.telemetry.fleet import FleetTelemetry
             telemetry = FleetTelemetry()
         self.telemetry = telemetry
-        self._store = store if store is not None else HandoffStore()
+        self._store = store if store is not None else \
+            HandoffStore(cfg=self.cfg)
         ref = prefill[0].engine
         self.page_size = ref.page_size
         self.buckets = ref.buckets

@@ -62,7 +62,6 @@ import collections
 import queue
 import random
 import statistics
-import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -76,26 +75,41 @@ from ray_tpu_torch.inference.scheduler import QueueFullError
 from ray_tpu_torch.telemetry import trace as trace_mod
 
 
-def _split_intra_op(share: int, default: int) -> None:
+def _omp_set_num_threads():
+    """The OpenMP runtime's ``omp_set_num_threads`` as torch loaded it,
+    from the process's global scope.  Raises when it is not there, so a
+    step pool that cannot narrow its threads fails instead of
+    oversubscribing the cores."""
+    import ctypes
+    try:
+        return ctypes.CDLL(None).omp_set_num_threads
+    except AttributeError:
+        raise RuntimeError(
+            "no omp_set_num_threads in this process: the fleet's step "
+            "threads cannot narrow their intra-op width") from None
+
+
+def _split_intra_op(narrow, share: int) -> None:
     """Step-pool initializer: this worker thread runs torch's intra-op
     work on ``share`` threads, its part of the process's pool.  Torch's
-    OpenMP pool is per calling thread, so N stepping threads at the
+    OpenMP team is per calling thread, so N stepping threads at the
     full width run N x width threads; on the CPU that oversubscription
     stretches every tick (a tiny engine's prefill tick went from ~9 ms
     to 60-230 ms with six such processes on 8 cores), and a healthy
     replica's inflated EWMA then hides the slow one.  The replica
-    threads are the parallelism here.  ``torch.set_num_threads`` also
-    sets the width that threads created later start with; a helper
-    thread puts that back to ``default``, so no thread outside the
-    pool changes.  (The first ``get_num_threads`` settles this thread's
-    lazy start-up width first, which would otherwise re-read the
-    restored default.)"""
+    threads are the parallelism here.
+
+    ``torch.set_num_threads`` would also write the process-wide width
+    that every thread reads at its first torch call, so a thread
+    starting while this runs would settle at ``share`` for life.  So
+    this thread first settles its own width (the first
+    ``get_num_threads`` reads the process's), then narrows only its own
+    OpenMP setting, which the BLAS calls read too; the process-wide
+    value is never written.  ``narrow`` is :func:`_omp_set_num_threads`,
+    looked up on the poll thread, where a missing entry point raises to
+    the caller; raised here it would only break the pool."""
     torch.get_num_threads()
-    torch.set_num_threads(share)
-    helper = threading.Thread(target=torch.set_num_threads,
-                              args=(default,), name="fleet-step-restore")
-    helper.start()
-    helper.join()
+    narrow(share)
 
 
 class ReplicaUnavailableError(RuntimeError):
@@ -785,11 +799,11 @@ class FleetRouter:
         if self._step_pool is None:
             from concurrent.futures import ThreadPoolExecutor
             workers = max(4, len(self._replicas) + 2)
-            default = torch.get_num_threads()
+            share = max(1, torch.get_num_threads() // workers)
+            narrow = _omp_set_num_threads()
             self._step_pool = ThreadPoolExecutor(
                 max_workers=workers, thread_name_prefix="fleet-step",
-                initializer=_split_intra_op,
-                initargs=(max(1, default // workers), default))
+                initializer=_split_intra_op, initargs=(narrow, share))
             self._step_results = queue.Queue()
 
         def run_step(rep: EngineReplica) -> None:

@@ -31,6 +31,11 @@
   the request and releases its slot, pages and prefix references.
 - ``RAY_TPU_INFER_WATCHDOG`` (default ``0`` = off): the stall budget of
   ``resilience.watchdog.EngineWatchdog`` in seconds.
+- ``RAY_TPU_INFER_STREAM_IDLE`` (default ``0`` = off): the serve
+  deployment's idle-stream budget in seconds.  A request whose stream
+  has tokens waiting but has not been read for this long is cancelled
+  (slot, pages and prefix references released) instead of decoding to
+  ``max_new_tokens`` for a reader that is gone.
 - ``RAY_TPU_KV_HOST_PAGES`` (default ``0`` = tiering off): pages in the
   per-engine host spill pool (tier 1).  With it set, pressure on the
   device pages demotes an idle prefix page to the host instead of
@@ -48,8 +53,6 @@
 
 Negative counts and budgets fall back to 0 and unknown names to the
 default, each with a line on stderr, as in the JAX package.
-``RAY_TPU_INFER_STREAM_IDLE`` belongs to ``serve_gpt`` (ROADMAP Queue 1
-item 6c).
 """
 
 from __future__ import annotations
@@ -72,6 +75,7 @@ class InferConfig:
     ttft_deadline: float = 0.0
     deadline: float = 0.0
     watchdog: float = 0.0
+    stream_idle: float = 0.0
     spec: bool = False
     spec_k: int = 4
     host_pages: int = 0
@@ -144,6 +148,8 @@ def infer_config(refresh: bool = False) -> InferConfig:
                                   "no total deadline"),
             watchdog=nonneg_float("RAY_TPU_INFER_WATCHDOG",
                                   "watchdog off"),
+            stream_idle=nonneg_float("RAY_TPU_INFER_STREAM_IDLE",
+                                     "idle-stream reaper off"),
             spec=env("RAY_TPU_INFER_SPEC", "0") != "0",
             spec_k=spec_k,
             host_pages=host_pages,

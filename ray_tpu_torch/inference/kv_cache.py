@@ -54,6 +54,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import hashlib
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -447,9 +448,17 @@ def _to_host(t: torch.Tensor) -> HostArray:
 
 
 def _as_tensor(a: HostArray) -> torch.Tensor:
+    """Host data as a tensor, without a copy.  Every caller only reads
+    it, so a read-only array (a view of the runtime's object store) is
+    wrapped as it is."""
     if isinstance(a, torch.Tensor):
         return a
-    return torch.from_numpy(np.ascontiguousarray(a))
+    a = np.ascontiguousarray(a)
+    if a.flags.writeable:
+        return torch.from_numpy(a)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(a)
 
 
 @dataclasses.dataclass
@@ -791,25 +800,23 @@ class KVPageStore:
     mid-checkout; with nothing evictable the cap overshoots rather than
     drop live data.
 
-    The reference keeps the entries in the runtime's object store when a
-    runtime session is up, and in-process otherwise; the port has no
-    runtime, so ``use_object_store=None`` resolves to in-process and
-    ``True`` raises (ROADMAP Queue 1 item 6c)."""
+    The entries live in the runtime's object store (``ray_tpu_torch.put``)
+    when a ``ray_tpu_torch`` session is up and in-process otherwise
+    (``use_object_store=None``); ``True`` or ``False`` pins the leg."""
 
     def __init__(self, use_object_store: Optional[bool] = None,
                  capacity_bytes: Optional[int] = None):
-        if use_object_store:
-            raise NotImplementedError(
-                "KVPageStore(use_object_store=True) needs the runtime's "
-                "object store, which is not ported yet (ROADMAP Queue 1 "
-                "item 6c)")
+        if use_object_store is None:
+            from ray_tpu_torch._private.worker import is_initialized
+            use_object_store = is_initialized()
+        self._use_ray = bool(use_object_store)
         if capacity_bytes is None:
             from ray_tpu_torch.inference.config import infer_config
             capacity_bytes = infer_config().store_cap
         self.capacity_bytes = int(capacity_bytes)   # 0 = unbounded
         # recency order: move_to_end on checkout leaves the LRU entry
-        # at the front
-        self._entries: "collections.OrderedDict[Tuple[bytes, int], Dict]" \
+        # at the front; values are entries or their object refs
+        self._entries: "collections.OrderedDict[Tuple[bytes, int], object]" \
             = collections.OrderedDict()
         self._bytes: Dict[Tuple[bytes, int], int] = {}
         # per-key checkout pins: an entry with a fetch in flight is
@@ -855,7 +862,11 @@ class KVPageStore:
             return
         nb = spill_entry_bytes(entry)
         self._evict_for(nb)
-        self._entries[key] = entry
+        obj: object = entry
+        if self._use_ray:
+            import ray_tpu_torch
+            obj = ray_tpu_torch.put(entry)
+        self._entries[key] = obj
         self._bytes[key] = nb
         self.puts += 1
         self.bytes_put += nb
@@ -864,15 +875,18 @@ class KVPageStore:
                  ) -> Optional[Dict[str, object]]:
         """Fetch an entry without removing it, pinned against eviction
         until :meth:`checkin`."""
-        entry = self._entries.get(key)
-        if entry is None:
+        obj = self._entries.get(key)
+        if obj is None:
             self.misses += 1
             return None
         self._entries.move_to_end(key)
         self._pins[key] = self._pins.get(key, 0) + 1
         self.gets += 1
         self.in_flight += 1
-        return entry
+        if self._use_ray:
+            import ray_tpu_torch
+            return ray_tpu_torch.get(obj)
+        return obj
 
     def checkin(self, key: Tuple[bytes, int]) -> None:
         self.in_flight -= 1

@@ -41,13 +41,16 @@ rejected.  With ``:delay=S`` every hit in ``[N, M]`` (``M`` defaults to
 lock-protected, so a fixed spec and a fixed call order reproduce the
 same failure point every run.
 
-``ResourceKiller``, which kills runtime workers at random, waits for the
-runtime (ROADMAP Queue 1 item 6c).
+:class:`ResourceKiller` is the random half: a background thread that
+kills a random victim every ``interval_s`` (a busy task worker, a live
+actor or an extra node of the runtime), so the runtime's recovery paths
+(task retries, actor restarts, node-death handling) run for real.
 """
 
 from __future__ import annotations
 
 import os
+import random
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
@@ -209,3 +212,113 @@ def maybe_fail(site: str) -> None:
         from ray_tpu_torch.telemetry import trace as trace_mod
         trace_mod.on_injected_fault(site, hit)
         raise InjectedFault(site, hit)
+
+
+class ResourceKiller:
+    """Kill a random victim every ``interval_s`` while running.
+
+    ``kind``: "worker" (SIGKILL a task worker process), "actor"
+    (ray_tpu_torch.kill a random live actor), or "node" (terminate a random
+    non-head node process).
+    """
+
+    def __init__(self, kind: str = "worker", interval_s: float = 1.0,
+                 max_kills: Optional[int] = None,
+                 rng_seed: Optional[int] = None):
+        assert kind in ("worker", "actor", "node")
+        self.kind = kind
+        self.interval_s = interval_s
+        self.max_kills = max_kills
+        self.kills: List[str] = []
+        self._rng = random.Random(rng_seed)
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    # -- victim selection ---------------------------------------------
+    def _pick_worker_pid(self) -> Optional[int]:
+        # pids via task events would be racy; read the head node
+        # manager's live worker table instead
+        from ray_tpu_torch._private.worker import global_node
+        nm = global_node().node_manager
+        with nm._lock:
+            pids = [w.proc.pid for w in nm._workers.values()
+                    if w.proc is not None and w.state == "busy"]
+        return self._rng.choice(pids) if pids else None
+
+    def _pick_actor(self):
+        from ray_tpu_torch.util.state import list_actors
+        rows = [r for r in list_actors() if r["state"] == "ALIVE"
+                and not (r.get("name") or "").startswith("__")]
+        if not rows:
+            return None
+        return bytes.fromhex(self._rng.choice(rows)["actor_id"])
+
+    def _pick_node(self) -> Optional[bytes]:
+        from ray_tpu_torch._private.worker import global_node
+        extra = [nid for nid, proc in global_node()._extra_nodes
+                 if proc.poll() is None]
+        return self._rng.choice(extra) if extra else None
+
+    # -- kill actions --------------------------------------------------
+    def _kill_once(self) -> bool:
+        import os
+        import signal
+        if self.kind == "worker":
+            pid = self._pick_worker_pid()
+            if pid is None:
+                return False
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                return False
+            self.kills.append(f"worker pid={pid}")
+        elif self.kind == "actor":
+            aid = self._pick_actor()
+            if aid is None:
+                return False
+            from ray_tpu_torch._private.worker import global_worker
+            global_worker().kill_actor(aid, no_restart=False)
+            self.kills.append(f"actor {aid.hex()[:12]}")
+        else:
+            nid = self._pick_node()
+            if nid is None:
+                return False
+            from ray_tpu_torch._private.worker import global_node
+            global_node().remove_node(nid)
+            self.kills.append(f"node {nid.hex()[:12]}")
+        return True
+
+    # -- lifecycle -----------------------------------------------------
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            if self.max_kills is not None and \
+                    len(self.kills) >= self.max_kills:
+                return
+            try:
+                self._kill_once()
+            except Exception:  # noqa: BLE001 — chaos must not crash
+                pass
+
+    def start(self) -> "ResourceKiller":
+        if self.kind in ("worker", "node"):
+            from ray_tpu_torch._private.worker import global_node
+            if getattr(global_node(), "node_manager", None) is None:
+                raise ValueError(
+                    f"chaos kind={self.kind!r} needs the head driver "
+                    "(an attached driver has no local node manager)")
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name=f"chaos-{self.kind}")
+        self._thread.start()
+        return self
+
+    def stop(self) -> List[str]:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+        return list(self.kills)
+
+    def __enter__(self) -> "ResourceKiller":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()

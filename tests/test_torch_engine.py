@@ -242,10 +242,6 @@ def _lora_engine(tcfg, tparams):
     InferenceEngine(tcfg, tparams, device="cpu", **GEOMETRY, lora=True)
 
 
-def _object_store(tcfg, tparams):
-    KVPageStore(use_object_store=True)
-
-
 def _adapter_request(tcfg, tparams):
     engine = InferenceEngine(tcfg, tparams, device="cpu", **GEOMETRY)
     engine.submit([1, 2, 3], max_new_tokens=2,
@@ -254,17 +250,71 @@ def _adapter_request(tcfg, tparams):
 
 @pytest.mark.parametrize("make,exc,match", [
     (_lora_engine, NotImplementedError, "ROADMAP Queue 1 item 11"),
-    (_object_store, NotImplementedError, "ROADMAP Queue 1 item 6c"),
     (_adapter_request, AdapterUnavailableError, "tenant-a")],
-    ids=["lora", "object_store", "model_id"])
+    ids=["lora", "model_id"])
 def test_unported_engine_options_raise(models, make, exc, match):
     """What the port does not run yet raises, naming its ROADMAP item:
-    LoRA banks, the runtime's object store under the page store, and a
-    request for an adapter (the JAX engine's typed error without
-    adapter support)."""
+    LoRA banks and a request for an adapter (the JAX engine's typed
+    error without adapter support)."""
     _j, _jp, tcfg, tparams = models
     with pytest.raises(exc, match=match):
         make(tcfg, tparams)
+
+
+@pytest.mark.parametrize("spill_dtype", ["model", "int8"])
+def test_page_store_object_store_leg(models, spill_dtype):
+    """Under a ``ray_tpu_torch`` session the engine's own page store
+    (``store=True``) keeps its spill entries in the runtime's object
+    store: the streams, the tier counters and every entry equal the
+    in-process store's, bit for bit, with no fetch left in flight."""
+    import ray_tpu_torch
+    _j, _jp, tcfg, tparams = models
+    cfg16 = tgpt.GPTConfig(**SMALL, dtype=torch.bfloat16)
+    params16 = {k: ({n: t.to(torch.bfloat16) for n, t in v.items()}
+                    if isinstance(v, dict) else v.to(torch.bfloat16))
+                for k, v in tparams.items()}
+    shared = _prompt(40, 9)
+
+    def run():
+        engine = InferenceEngine(cfg16, params16, device="cpu",
+                                 **GEOMETRY, num_pages=6, host_pages=0,
+                                 store=True, spill_dtype=spill_dtype)
+        outs = [engine.generate([shared + [1, 2]], max_new_tokens=6)[0]]
+        for i in range(3):
+            engine.generate([_prompt(60, 100 + i)], max_new_tokens=4)
+        outs.append(engine.generate([shared + [1, 2]],
+                                    max_new_tokens=6)[0])
+        assert engine.leak_free()
+        tiers = {k: v for k, v in engine.stats()["tiers"].items()
+                 if k != "fetch_seconds"}       # wall time
+        return engine.store, (outs, tiers)
+
+    inproc, want = run()
+    assert not inproc._use_ray and len(inproc) > 0
+    ray_tpu_torch.init(num_cpus=1)
+    try:
+        store, got = run()
+        assert store._use_ray and got == want
+        for key in list(inproc._entries):
+            a, b = store.checkout(key), inproc.checkout(key)
+            assert a.keys() == b.keys()
+            for name, x in b.items():
+                y = a[name]
+                if isinstance(x, torch.Tensor):
+                    assert x.dtype == y.dtype
+                    assert torch.equal(y.view(torch.uint8),
+                                       x.view(torch.uint8))
+                elif isinstance(x, np.ndarray):
+                    assert x.dtype == y.dtype
+                    assert x.tobytes() == y.tobytes()
+                else:
+                    assert x == y
+            store.checkin(key)
+            inproc.checkin(key)
+        assert store.stats() == inproc.stats()
+        assert store.stats()["in_flight"] == 0
+    finally:
+        ray_tpu_torch.shutdown()
 
 
 def test_kv_cache_helpers_match_jax():

@@ -1116,6 +1116,83 @@ def test_concurrent_poll_narrows_only_its_step_threads(models):
     assert torch.get_num_threads() == default
 
 
+def test_step_pool_initializer_never_narrows_other_threads(models):
+    """The race the step pool's initializer must not open: at every line
+    of it, in every step thread, a new thread makes its first torch call
+    while the worker is still inside its initializer, and that thread
+    sees the process's width; the step threads still end at their
+    share."""
+    from ray_tpu_torch.fleet import router as router_mod
+    default = torch.get_num_threads()
+    code = router_mod._split_intra_op.__code__
+    seen, probing = [], threading.local()
+
+    def probe():
+        probing.on = True
+        try:
+            t = threading.Thread(
+                target=lambda: seen.append(torch.get_num_threads()))
+            t.start()
+            t.join()
+        finally:
+            probing.on = False
+
+    def local_trace(frame, event, arg):
+        if event in ("line", "return") and not getattr(probing, "on", False):
+            probe()
+        return local_trace
+
+    def tracer(frame, event, arg):
+        return local_trace if frame.f_code is code else None
+
+    reps = [_replica(models, f"r{i}") for i in range(3)]
+    router = FleetRouter(reps, cfg=_fcfg(slow_factor=0.0, hedge=False),
+                         rng_seed=0, concurrent_steps=True,
+                         telemetry=_tel())
+    threading.settrace(tracer)
+    try:
+        streams = [router.remote({"tokens": _prompt(12, 90 + i),
+                                  "max_new_tokens": 3}) for i in range(3)]
+        assert all(s.result() for s in streams)
+        pool = router._step_pool
+        share = max(1, default // pool._max_workers)
+        in_pool = [pool.submit(torch.get_num_threads)
+                   for _ in range(pool._max_workers)]
+        assert [f.result() for f in in_pool] == [share] * len(in_pool)
+    finally:
+        threading.settrace(None)
+        router.close()
+    assert len(seen) >= 2
+    assert seen == [default] * len(seen)
+    assert torch.get_num_threads() == default
+
+
+def test_step_pool_without_openmp_entry_point_raises(models, monkeypatch):
+    """No ``omp_set_num_threads`` in the process: the lookup raises, and a concurrent poll surfaces that to its caller
+    rather than stepping at the full width on every thread."""
+    import ctypes
+    from ray_tpu_torch.fleet import router as router_mod
+
+    class NoOpenMP:
+        def __init__(self, name):
+            pass
+
+    monkeypatch.setattr(ctypes, "CDLL", NoOpenMP)
+    with pytest.raises(RuntimeError, match="omp_set_num_threads"):
+        router_mod._omp_set_num_threads()
+    reps = [_replica(models, f"o{i}") for i in range(2)]
+    router = FleetRouter(reps, cfg=_fcfg(slow_factor=0.0, hedge=False),
+                         rng_seed=0, concurrent_steps=True,
+                         telemetry=_tel())
+    try:
+        with pytest.raises(RuntimeError, match="omp_set_num_threads"):
+            router.remote({"tokens": _prompt(12, 95),
+                           "max_new_tokens": 3}).result()
+        assert router._step_pool is None
+    finally:
+        router.close()
+
+
 def test_launch_counter_exact_under_threads(monkeypatch):
     """Kernel launches from several threads at once, the first launches
     racing to bind the entry point: the count is exact and every call
@@ -1404,9 +1481,75 @@ def test_handoff_store_accounting_and_no_object_store():
     store.drop(handle)
     store.drop(handle)
     assert store.in_flight == 0 and store.puts == 1
-    assert HandoffStore().in_flight == 0        # None: in-process
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        HandoffStore(use_object_store=True)
+    # outside a session None resolves to the in-process slot
+    assert HandoffStore().in_flight == 0 and not HandoffStore()._use_ray
+
+
+@pytest.mark.parametrize("kv_dtype", ["model", "int8"])
+def test_handoff_store_object_store_leg(models, kv_dtype, monkeypatch):
+    """Under a ``ray_tpu_torch`` session ``HandoffStore()`` carries a
+    real export through the runtime's object store: what comes back is
+    the in-process leg's payload bit for bit (bf16 tensors included),
+    the decode engine continues it as the co-located run does, and no
+    handle is left in flight.  ``RAY_TPU_FLEET_HANDOFF_INLINE=1`` keeps
+    it inline under the session."""
+    import ray_tpu_torch
+    from ray_tpu_torch.fleet import fleet_config
+    _jc, _jp, tcfg, tparams = models
+    cfg16 = tgpt.GPTConfig.tiny(dtype=torch.bfloat16)
+    params16 = {k: ({n: t.to(torch.bfloat16) for n, t in v.items()}
+                    if isinstance(v, dict) else v.to(torch.bfloat16))
+                for k, v in tparams.items()}
+
+    def engine():
+        return InferenceEngine(cfg16, params16, device="cpu", **GEOMETRY,
+                               kv_dtype=kv_dtype)
+
+    prompt = _prompt(40, 5)
+    want = engine().generate([prompt], max_new_tokens=6)[0]
+    pre = engine()
+    rid = pre.submit(prompt, max_new_tokens=1, hold_pages=True)
+    while pre.has_work():
+        pre.step()
+    payload = pre.export_request(rid)
+    inline = HandoffStore(use_object_store=False)
+    ray_tpu_torch.init(num_cpus=1)
+    try:
+        store = HandoffStore()
+        assert store._use_ray
+        h, hi = store.put(payload), inline.put(payload)
+        got, ref = store.get(h), inline.get(hi)
+        for name in ("context", "page_size", "kv_dtype", "dtype",
+                     "chain_hashes", "next_token", "next_logprob",
+                     "present", "trace"):
+            assert getattr(got, name) == getattr(ref, name), name
+        for name in ("k", "v", "k_scale", "v_scale"):
+            x, y = getattr(ref, name), getattr(got, name)
+            if x is None:
+                assert y is None
+            elif isinstance(x, torch.Tensor):
+                assert x.dtype == y.dtype
+                assert torch.equal(x.view(torch.uint8),
+                                   y.view(torch.uint8))
+            else:
+                assert x.dtype == y.dtype and x.tobytes() == y.tobytes()
+        dec = engine()
+        r2 = dec.import_submit(got, max_new_tokens=5)
+        out = [payload.next_token]
+        while dec.has_work():
+            out.extend(int(t) for r, t, _d in dec.step() if r == r2)
+        assert out == [int(t) for t in want]
+        store.drop(h)
+        inline.drop(hi)
+        assert store.in_flight == inline.in_flight == 0
+        assert store.bytes_put == inline.bytes_put == payload.nbytes
+        monkeypatch.setenv("RAY_TPU_FLEET_HANDOFF_INLINE", "1")
+        fleet_config(refresh=True)
+        assert not HandoffStore()._use_ray
+    finally:
+        monkeypatch.delenv("RAY_TPU_FLEET_HANDOFF_INLINE", raising=False)
+        fleet_config(refresh=True)
+        ray_tpu_torch.shutdown()
 
 
 # --------------------------------------------- tiers under the router

@@ -37,7 +37,7 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 78
+    assert n_modules >= 85
 
 
 _FIRST_PROBE = r"""
@@ -77,7 +77,9 @@ def test_every_module_imports_first():
 # (replicas, routers, reconciler, disaggregated pools, their telemetry
 # and the request parser) and the runtime's (the node manager, workers,
 # the object store and its native source's binding, the control plane,
-# the API, the CLI and the GPU manager), which the probe above must reach
+# the API, the CLI and the GPU manager) and serving on the runtime's
+# (serve's controller, replica, handle and proxies), which the probe
+# above must reach
 _SLICE_MODULES = ("ray_tpu_torch/ops/flash_ce.py",
                   "ray_tpu_torch/models/training.py",
                   "ray_tpu_torch/telemetry/flops.py",
@@ -114,7 +116,13 @@ _SLICE_MODULES = ("ray_tpu_torch/ops/flash_ce.py",
                   "ray_tpu_torch/util/metrics.py",
                   "ray_tpu_torch/util/state/__init__.py",
                   "ray_tpu_torch/scripts/scripts.py",
-                  "ray_tpu_torch/accelerators/gpu.py")
+                  "ray_tpu_torch/accelerators/gpu.py",
+                  "ray_tpu_torch/serve/__init__.py",
+                  "ray_tpu_torch/serve/handle.py",
+                  "ray_tpu_torch/serve/_private/controller.py",
+                  "ray_tpu_torch/serve/_private/replica.py",
+                  "ray_tpu_torch/serve/_private/proxy.py",
+                  "ray_tpu_torch/serve/_private/mux_context.py")
 
 
 def _imported_roots(path):
@@ -198,3 +206,26 @@ def test_cpu_worker_imports_no_torch():
     assert bad == [], bad
     assert visible == ""
     assert start == "worker_forkserver.py"
+
+
+_SERVE_PROBE = r"""
+import sys
+import ray_tpu_torch.serve
+from ray_tpu_torch.serve._private import controller, proxy, replica
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("torch", "jax", "jaxlib", "ray_tpu"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_serve_imports_no_torch():
+    """``serve``, its controller, proxies and replica wrapper import no
+    torch: the controller and the proxies run in CPU workers, and only a
+    replica loads the deployment's class (and torch with it)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _SERVE_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

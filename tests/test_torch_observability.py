@@ -3,8 +3,7 @@ bodies run against ``ray_tpu_torch``, the PyTorch port's runtime.
 
 Left for later items (ROADMAP Queue 1): ``test_dashboard_api`` (item 13,
 dashboard/), ``test_device_profiling_helpers`` (item 12,
-util/profiling.py), ``test_tracing_spans_record_submit_and_execute``
-(item 6c-ii, tracing's cluster publish).
+util/profiling.py).
 
 The reference file's docstring: State API, metrics, timeline, dashboard,
 CLI, microbench.
@@ -263,6 +262,42 @@ def test_async_actor_event_loop_lag_metric(ray_start_regular):
     from ray_tpu_torch.util.metrics import prometheus_text
     text = prometheus_text()
     assert "async_actor_event_loop_lag_ms" in text, text[:2000]
+
+
+def test_tracing_spans_record_submit_and_execute(ray_start_regular):
+    """util.tracing records submit- and task-spans once enabled
+    (parity: ray.util.tracing OpenTelemetry patch points)."""
+    from ray_tpu_torch.util import tracing
+
+    tracing.clear_recorded()
+    tracing.enable_tracing()
+    try:
+        @ray_start_regular.remote
+        def traced(x):
+            return x + 1
+
+        assert ray_start_regular.get(traced.remote(1), timeout=60) == 2
+        spans = tracing.recorded_spans()
+        names = [s["name"] for s in spans]
+        assert any(n.startswith("submit::") for n in names), names
+
+        # execute-side spans live in the worker process: the cluster
+        # flag reaches running workers within the refresh TTL, after
+        # which tasks run traced there
+        @ray_start_regular.remote
+        def worker_traced():
+            from ray_tpu_torch.util import tracing as wt
+            wt._refresh(force=True)
+            return wt.is_enabled()
+
+        deadline = time.time() + 15
+        while time.time() < deadline:
+            if ray_start_regular.get(worker_traced.remote(), timeout=60):
+                break
+            time.sleep(0.5)
+        assert ray_start_regular.get(worker_traced.remote(), timeout=60)
+    finally:
+        tracing.disable_tracing()
 
 
 def test_state_api_filters_and_pagination(ray_start_regular):

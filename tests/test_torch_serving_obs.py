@@ -9,6 +9,8 @@ knobs resolve to the same values.  The engine features run on
 ``GPTConfig.tiny`` (f32, page 16) beside the JAX engine where their
 outcome is deterministic (telemetry counts, the stats keys, the span
 names of a trace), and on their own where it is timing (deadlines).
+Under a runtime session the inference and fleet recorders emit the
+reference's Prometheus series, line for line.
 """
 
 import json
@@ -331,6 +333,92 @@ def test_infer_telemetry_summary_matches_reference(enabled):
                                            "trace_id": "abc"}
     else:
         assert got == {"enabled": False}
+
+
+def _series_script(pkg, infer_cls, fleet_cls, config):
+    """The reference's Prometheus record sequence for the inference and
+    fleet recorders under a session of ``pkg``; returns the exposition's
+    ``infer_*`` / ``serve_*`` lines."""
+    from importlib import import_module
+    metrics = import_module(pkg.__name__ + ".util.metrics")
+    pkg.init(num_cpus=1)
+    try:
+        infer = infer_cls(label="obs", config=config)
+        infer.record_ttft(0.02, trace_id="abc")
+        infer.record_queue(0.001, depth=3)
+        infer.record_decode(0.005, active=4)
+        infer.record_deadline_exceeded(kind="ttft")
+        infer.record_verify(0.002, proposed=4, accepted=3, emitted=4)
+        infer.record_prefix_hits(2, tier="hbm")
+        infer.record_prefix_hits(1, tier="store")
+        infer.record_kv_spill(4096)
+        infer.record_kv_fetch(0.002, tier="dram")
+        infer.record_kv_store_evictions(2)
+        infer.record_tier_occupancy(hbm=5, dram=2, store=7)
+        infer.record_adapter_cache(hit=True)
+        infer.record_adapter_cache(hit=False)
+        infer.record_adapter_load(0.01, resident=2)
+        fleet = fleet_cls(label="obs", config=config)
+        fleet.record_retry("dead")
+        fleet.record_restart()
+        fleet.record_affinity(hit=True)
+        fleet.record_queue_depth("r0", 2)
+        fleet.record_hedge("issued")
+        fleet.record_hedge("won")
+        fleet.record_hedge_won("hedge")
+        fleet.record_failover("dead")
+        fleet.record_demotion("r0")
+        fleet.record_latency_score("r0", 0.25)
+        fleet.record_handoff(n_bytes=2048, seconds=0.003, pages=2)
+        fleet.record_pool_depth("prefill", 2)
+        fleet.record_pool_depth("decode", 0)
+        fleet.record_ttft(0.02, mode="disagg")
+        assert not (infer._metrics_dead or fleet._metrics_dead)
+        text = metrics.prometheus_text()
+    finally:
+        pkg.shutdown()
+    return sorted(ln for ln in text.splitlines()
+                  if any(f in ln for f in ("infer_", "serve_")))
+
+
+def test_prometheus_series_under_a_session_match_reference():
+    """Under a runtime session the inference and fleet recorders emit
+    the reference's Prometheus series, line for line (names, labels and
+    values); without one they emit nothing."""
+    import ray_tpu
+    import ray_tpu_torch
+    from ray_tpu.telemetry.fleet import FleetTelemetry as JaxFleetTel
+    from ray_tpu_torch.telemetry.fleet import FleetTelemetry
+    got = _series_script(ray_tpu_torch, InferTelemetry, FleetTelemetry,
+                         TelemetryConfig(enabled=True))
+    want = _series_script(ray_tpu, JaxInferTelemetry, JaxFleetTel,
+                          JaxTelConfig(enabled=True))
+    assert got == want
+    text = "\n".join(got)
+    for name in ("infer_ttft_seconds", "infer_queue_depth",
+                 "infer_decode_tokens_per_sec",
+                 "infer_deadline_exceeded_total",
+                 "infer_spec_proposed_total", "infer_spec_accept_rate",
+                 "infer_prefix_hits_total", "infer_kv_spill_bytes_total",
+                 "infer_kv_fetch_seconds", "infer_kv_tier_pages",
+                 "infer_kv_store_evictions_total",
+                 "serve_adapter_cache_hits_total",
+                 "serve_adapter_resident", "serve_router_retries_total",
+                 "serve_replica_restarts_total",
+                 "serve_replica_queue_depth",
+                 "serve_fleet_affinity_hit_rate", "serve_hedges_total",
+                 "serve_hedges_won_total", "serve_failovers_total",
+                 "serve_replica_demotions_total",
+                 "serve_replica_latency_score",
+                 "serve_handoff_bytes_total", "serve_handoff_seconds",
+                 "serve_pool_queue_depth", "serve_ttft_seconds"):
+        assert name in text, name
+    assert 'tier="dram"' in text and 'pool="prefill"' in text
+    # no session: nothing to emit into, and nothing breaks
+    idle = InferTelemetry(config=TelemetryConfig(enabled=True))
+    idle.record_ttft(0.02)
+    idle.record_tier_occupancy(hbm=1, dram=0, store=0)
+    assert idle._metrics is None and not idle._metrics_dead
 
 
 def test_telemetry_env_knob(monkeypatch):

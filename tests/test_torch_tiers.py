@@ -179,10 +179,58 @@ def test_store_cap_evicts_lru_and_skips_pinned():
     assert st["in_flight"] == 0 and st["capacity_bytes"] == 2 * nb
 
 
-def test_store_refuses_the_object_store():
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        KVPageStore(use_object_store=True)
-    assert len(KVPageStore(use_object_store=None)) == 0
+def _same_entry(a, b):
+    """Two spill entries, field for field and bit for bit."""
+    assert a.keys() == b.keys()
+    for name, x in a.items():
+        y = b[name]
+        if isinstance(x, torch.Tensor):
+            assert isinstance(y, torch.Tensor) and x.dtype == y.dtype
+            assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+        elif isinstance(x, np.ndarray):
+            assert x.dtype == y.dtype and x.tobytes() == y.tobytes()
+        else:
+            assert x == y
+
+
+def test_store_object_store_leg_under_a_session(models):
+    """Under a ``ray_tpu_torch`` session ``KVPageStore()`` keeps its
+    entries in the runtime's object store: two engines sharing it give
+    the in-process store's streams, counters and entries, bit for bit,
+    with no fetch left in flight."""
+    import ray_tpu_torch
+    shared = _prompt(40, 9)
+
+    def run(store):
+        a = _engine(models, num_pages=9, host_pages=0, store=store,
+                    spill_dtype="model")
+        outs = [a.generate([shared + [1, 2]], max_new_tokens=6)[0]]
+        _pressure(a)
+        b = _engine(models, num_pages=9, host_pages=0, store=store,
+                    spill_dtype="model")
+        outs.append(b.generate([shared + [1, 2]], max_new_tokens=6)[0])
+        assert a.leak_free() and b.leak_free()
+        tiers = {k: v for k, v in b.stats()["tiers"].items()
+                 if k != "fetch_seconds"}       # wall time
+        return outs, tiers, store.stats()
+
+    inproc = KVPageStore(use_object_store=False)
+    want = run(inproc)
+    ray_tpu_torch.init(num_cpus=1)
+    try:
+        store = KVPageStore()
+        assert store._use_ray
+        got = run(store)
+        assert got == want and got[2]["in_flight"] == 0
+        assert got[1]["hits"]["store"] >= 2 and len(store) > 0
+        for key in list(inproc._entries):
+            _same_entry(store.checkout(key), inproc.checkout(key))
+            store.checkin(key)
+            inproc.checkin(key)
+        assert store.in_flight == inproc.in_flight == 0
+    finally:
+        ray_tpu_torch.shutdown()
+    assert not KVPageStore()._use_ray
 
 
 def test_spill_entry_bytes_count_tensors():
