@@ -20,6 +20,8 @@
     python3 chip_smoke.py --runtime        # the runtime phase (7f) alone
     python3 chip_smoke.py --serve-deployment  # the serve deployment
                                               # phase (7g) alone
+    python3 chip_smoke.py --train-worker   # the default training arm,
+                                           # then gpt2-train-worker (8b)
     python3 chip_smoke.py --decode         # the decode checks and times
     python3 chip_smoke.py --edges          # the wgmma tile checks, the
                                            # decode checks, the
@@ -189,11 +191,29 @@
    RoPE, the fused epilogue, flash-CE with the norm prologue); prints
    ms/step, tokens/s, MFU and peak memory, checks the loss and the exact
    launch counts of every step.  Then 6 steps with the RMSNorm kernels.
+8a. The remat and fused-CE arms (``train_arms_phase``): 2 warm-up and 4
+   timed steps each with ``cfg.remat`` (each block's forward kernels run
+   twice, exactly; losses equal the default arm's; a lower peak) and with
+   ``ce_mode="fused"`` (no flash-CE launch; step-0 loss within 1e-2 of
+   the flash arm's); prints ``training arms {...}``.
+8b. gpt2-train-worker (``train_worker_phase``; ``--train-worker`` runs
+   the default arm and it): a ``TorchTrainer`` of one ``num_gpus=1``
+   worker forms an NCCL world of 1 (one ``collective.allreduce`` returns
+   its input exactly) and trains the default arm's 10 steps through
+   ``build_gpt_train(cfg, make_mesh(dp=-1), telemetry=True)``: launches
+   read back from the worker exact, every loss and grad norm equal to
+   the driver's, the step recorder's steady step within 10% of the
+   median of the loop's own step times and its MFU ``flops.mfu``'s,
+   ``compile_s`` on step 0 alone, rank 0's checkpoint loaded here, the
+   worker gone and the card free within 5 s of ``fit()``; prints
+   ``train-worker metrics {...}`` (fit to first report, NCCL init,
+   ms/step and MFU in the worker and here, peaks).
 9. Training correctness: one step's loss and every gradient of the
    kernel path against the port's plain path (local attention, unfused
    epilogue, dense CE) at full width and depth, batch 2 x 1024: in f32
-   under a summation-order bound, and in bf16 against the f32 plain path;
-   then the same at 2 layers with the RMSNorm kernels.
+   under a summation-order bound, and in bf16 against the f32 plain path,
+   and in bf16 with ``ce_mode="fused"`` (loss within 1e-2, gradients at
+   the bf16 bound); then the same at 2 layers with the RMSNorm kernels.
 10. Width checks: the kernels at the widths of the repo's other presets
    (attention and decode at tiny's head_dim 16, RMSNorm at d = 64, 1024
    and 1280, the epilogue timed at gpt2_medium's and gpt2_large's
@@ -4030,13 +4050,37 @@ TRAIN_LAUNCHES = {"flash_attention_fwd": 12, "flash_attention_bwd": 12,
 NORM_LAUNCHES = {"rmsnorm_fwd": 12, "rmsnorm_bwd": 12}
 
 
+def train_step_launches(*, norm_kernel: bool = False, remat: bool = False,
+                        ce_mode=None) -> dict:
+    """The launches of one gpt2-train-b24 step: TRAIN_LAUNCHES (and
+    NORM_LAUNCHES with the RMSNorm kernels); ``ce_mode="fused"`` takes
+    the loss without flash-CE; ``remat`` recomputes each block in the
+    backward, so every forward kernel inside a block runs twice (the
+    flash-CE pair is outside the blocks)."""
+    n = dict(TRAIN_LAUNCHES, **(NORM_LAUNCHES if norm_kernel else {}))
+    if ce_mode == "fused":
+        n.pop("flash_ce_fwd")
+        n.pop("flash_ce_bwd")
+    if remat:
+        for k in ("flash_attention_fwd", "matmul_residual_norm_fwd",
+                  "rmsnorm_fwd"):
+            if k in n:
+                n[k] *= 2
+    return n
+
+
 def train_phase(dev, *, norm_kernel: bool = False,
-                timed_steps: int = TIMED_STEPS) -> dict:
+                timed_steps: int = TIMED_STEPS, remat: bool = False,
+                ce_mode=None) -> dict:
     """GPT-2 124M trains WARMUP_STEPS + ``timed_steps`` steps in bf16 at
     24 x 1024; prints the step metrics and returns them with the launch
-    counts of the timed steps, which must be exactly TRAIN_LAUNCHES per
-    step (and NORM_LAUNCHES with ``norm_kernel``, the RMSNorm kernels
-    through ``gpt._PALLAS_NORM``)."""
+    counts of the timed steps, which must be exactly
+    ``train_step_launches`` per step: TRAIN_LAUNCHES, and NORM_LAUNCHES
+    with ``norm_kernel`` (the RMSNorm kernels through
+    ``gpt._PALLAS_NORM``); ``remat`` (each block recomputed in the
+    backward) and ``ce_mode="fused"`` (the bf16-resident CE) are the
+    remat and fused-CE arms.  The step recorder is off: the phase times
+    the steps itself, with one sync at the end."""
     from ray_tpu_torch import GPTConfig
     from ray_tpu_torch.models import gpt
     from ray_tpu_torch.models.training import (build_gpt_train,
@@ -4050,9 +4094,10 @@ def train_phase(dev, *, norm_kernel: bool = False,
     # reads this phase's memory alone
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = GPTConfig.gpt2(**TRAIN_CFG, dtype=torch.bfloat16)
+    cfg = GPTConfig.gpt2(**dict(TRAIN_CFG, remat=remat),
+                         dtype=torch.bfloat16)
     fns = build_gpt_train(cfg, optimizer=default_optimizer(**TRAIN_OPT),
-                          device=dev)
+                          ce_mode=ce_mode, device=dev, telemetry=False)
     state = fns["init_fn"](torch.Generator().manual_seed(0))
     batch = synthetic_lm_batch(torch.Generator().manual_seed(1), TRAIN_B,
                                TRAIN_S, cfg.vocab_size, device=dev)
@@ -4078,7 +4123,8 @@ def train_phase(dev, *, norm_kernel: bool = False,
     launches = _build.launch_counts()
     losses += [float(m["loss"]) for m in timed]
     norms += [float(m["grad_norm"]) for m in timed]
-    per_step = dict(TRAIN_LAUNCHES, **(NORM_LAUNCHES if norm_kernel else {}))
+    per_step = train_step_launches(norm_kernel=norm_kernel, remat=remat,
+                                   ce_mode=ce_mode)
     expect_launches(f"training ({timed_steps} steps)", launches,
                     {k: n * timed_steps for k, n in per_step.items()})
     if not all(math.isfinite(x) for x in losses + norms):
@@ -4090,9 +4136,13 @@ def train_phase(dev, *, norm_kernel: bool = False,
         raise AssertionError(f"the loss did not fall: {losses}")
     step_ms = 1e3 * wall / timed_steps
     tok_s = TRAIN_B * TRAIN_S * timed_steps / wall
-    fpt = flops.gpt_train_flops_per_token(cfg, TRAIN_S, ce_recompute=True)
+    fpt = flops.gpt_train_flops_per_token(cfg, TRAIN_S,
+                                          ce_recompute=ce_mode != "fused")
+    arm = ("norm kernel" if norm_kernel else "remat" if remat
+           else "fused CE" if ce_mode == "fused" else "")
     metrics = {
-        "cell": "gpt2-train-b24", "norm_kernel": norm_kernel,
+        "cell": "gpt2-train-b24", "arm": arm or "default",
+        "norm_kernel": norm_kernel,
         "batch": [TRAIN_B, TRAIN_S],
         "step_ms": step_ms, "tokens_per_s": tok_s,
         "mfu": flops.mfu(tok_s, fpt),
@@ -4101,12 +4151,296 @@ def train_phase(dev, *, norm_kernel: bool = False,
             torch.cuda.max_memory_allocated() / 2 ** 30,
         "losses": losses, "grad_norms": norms,
     }
-    label = "training phase" + (" norm kernel" if norm_kernel else "")
+    label = "training phase" + (f" {arm}" if arm else "")
     print(f"{label}: {WARMUP_STEPS + timed_steps} steps, loss "
           f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches per step "
           f"{per_step} exact", flush=True)
     print(f"{label} metrics " + json.dumps(metrics), flush=True)
     return dict(metrics, launches=launches)
+
+
+# the remat and fused-CE arms of gpt2-train-b24: 2 warm-up and 4 timed
+# steps each.  Their losses against the default arm's: remat recomputes
+# the same kernels on the same inputs, so its losses equal the default
+# arm's (within TRAIN_BF16_TOL's 2e-4; expected 0); the fused CE rounds
+# the logits to bf16, so its step-0 loss is held within FUSED_LOSS_TOL of
+# the flash arm's, and its gradients in train_correctness_phase
+ARM_TIMED_STEPS = 4
+FUSED_LOSS_TOL = 1e-2
+
+
+def train_arms_phase(dev, default: dict) -> dict:
+    """The remat and fused-CE arms against ``default`` (``train_phase``'s
+    default arm of this run): the remat arm's launches (each block's
+    forward kernels twice), losses equal to the default arm's and a peak
+    below it; the fused-CE arm's zero flash-CE launches and its step-0
+    loss.  Prints ``training arms {...}``; returns each arm's launches."""
+    remat = train_phase(dev, remat=True, timed_steps=ARM_TIMED_STEPS)
+    fused = train_phase(dev, ce_mode="fused", timed_steps=ARM_TIMED_STEPS)
+    n = WARMUP_STEPS + ARM_TIMED_STEPS
+    d_remat = max(abs(a - b) for a, b in zip(remat["losses"],
+                                             default["losses"][:n]))
+    if not d_remat <= TRAIN_BF16_TOL["loss_abs"]:
+        raise AssertionError(f"remat arm: losses {remat['losses']} part "
+                             f"from the default arm's by {d_remat:.3e}")
+    if not (remat["max_memory_allocated_gib"]
+            < default["max_memory_allocated_gib"]):
+        raise AssertionError(
+            f"remat arm: peak {remat['max_memory_allocated_gib']:.3f} GiB "
+            f"is not below the default arm's "
+            f"{default['max_memory_allocated_gib']:.3f} GiB")
+    if fused["launches"].get("flash_ce_fwd") or \
+            fused["launches"].get("flash_ce_bwd"):
+        raise AssertionError("fused-CE arm launched flash-CE: "
+                             f"{_nonzero(fused['launches'])}")
+    d_fused = abs(fused["losses"][0] - default["losses"][0])
+    if not d_fused <= FUSED_LOSS_TOL:
+        raise AssertionError(f"fused-CE arm: step-0 loss "
+                             f"{fused['losses'][0]} vs flash "
+                             f"{default['losses'][0]}")
+    out = {"remat_step_ms": remat["step_ms"],
+           "remat_peak_gib": remat["max_memory_allocated_gib"],
+           "remat_max_loss_diff": d_remat,
+           "fused_ce_step_ms": fused["step_ms"],
+           "fused_ce_peak_gib": fused["max_memory_allocated_gib"],
+           "fused_ce_step0_loss_diff": d_fused,
+           "default_step_ms": default["step_ms"],
+           "default_peak_gib": default["max_memory_allocated_gib"]}
+    print("training arms " + json.dumps(out), flush=True)
+    return {"train_remat": remat["launches"],
+            "train_fused_ce": fused["launches"]}
+
+
+# the cell "gpt2-train-worker": gpt2-train-b24 in a TorchTrainer worker
+# (num_gpus=1), its gradients reduced over the trainer's NCCL world of 1
+TRAIN_WORKER_TEL_TOL = 0.10     # recorder's steady step vs the window's
+TRAIN_WORKER_RELEASE_S = 5.0    # fit() returned -> worker gone, card free
+
+
+def train_worker_loop(config: dict) -> None:
+    """gpt2-train-worker's loop, in the train worker (by reference from
+    this file, as ``RuntimeServer``): gates the card and the NCCL world,
+    then trains gpt2-train-b24's WARMUP_STEPS + TIMED_STEPS steps through
+    ``build_gpt_train(cfg, make_mesh(dp=-1), telemetry=True)`` from the
+    driver's seeds, reporting each step; the last report carries the
+    timed steps' launches, the recorder's summary and records, and rank
+    0's state as a checkpoint saved in ``config["ckpt_dir"]``."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import GPTConfig, train
+    from ray_tpu_torch.models.training import (build_gpt_train,
+                                               default_optimizer,
+                                               synthetic_lm_batch)
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.train import Checkpoint, save_pytree
+    from ray_tpu_torch.train.torch.config import WORLD_GROUP
+    from ray_tpu_torch.util import collective
+
+    t_start = time.time()
+    torch_flags()
+    if torch.cuda.device_count() != 1 or \
+            torch.cuda.get_device_name(0) != config["card"]:
+        raise AssertionError(
+            f"train worker sees {torch.cuda.device_count()} cards "
+            f"({torch.cuda.get_device_name(0)!r}), want 1 "
+            f"{config['card']!r}")
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"train worker's world: {dist.get_backend()}"
+                             f" of {dist.get_world_size()} (want nccl of 1)")
+    probe = torch.arange(1024, dtype=torch.float32, device="cuda") / 7
+    got = collective.allreduce(probe, group_name=WORLD_GROUP)
+    if not torch.equal(got, probe):
+        raise AssertionError("collective.allreduce over the NCCL world of "
+                             "1 changed its input")
+    dev = torch.device("cuda")
+    mesh = make_mesh(dp=-1)
+    cfg = GPTConfig.gpt2(**TRAIN_CFG, dtype=torch.bfloat16)
+    fns = build_gpt_train(cfg, mesh, optimizer=default_optimizer(**TRAIN_OPT),
+                          device=dev, telemetry=True)
+    state = fns["init_fn"](torch.Generator().manual_seed(0))
+    batch = synthetic_lm_batch(torch.Generator().manual_seed(1), TRAIN_B,
+                               TRAIN_S, cfg.vocab_size, device=dev)
+    _build.load()
+    torch.cuda.reset_peak_memory_stats()
+    first = True
+    walls = []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        if i == WARMUP_STEPS:
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.monotonic()
+        t_step = time.monotonic()
+        state, m = fns["step_fn"](state, batch)
+        t_call = time.monotonic()
+        rep = {"step": i + 1, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"])}
+        if first:
+            rep.update(first_report_ts=time.time(), loop_start_ts=t_start)
+            first = False
+        if i < WARMUP_STEPS + TIMED_STEPS - 1:
+            train.report(rep)
+        if i >= WARMUP_STEPS:     # (the wrapped call, the whole step)
+            walls.append((t_call - t_step, time.monotonic() - t_step))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    tel = fns["telemetry"]
+    rep.update(
+        launches=_build.launch_counts(),
+        step_ms=1e3 * wall / TIMED_STEPS,
+        median_step_ms=1e3 * float(np.median([w for _, w in walls])),
+        step_call_ms=[1e3 * c for c, _ in walls],
+        step_walls_ms=[1e3 * w for _, w in walls],
+        summary=tel.summary(), records=tel.records,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        nccl_init_s=collective.get_group(WORLD_GROUP).init_s,
+        pid=os.getpid(), visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+        mesh={"dp": mesh.shape["dp"], "size": int(mesh.size)})
+    ckpt = None
+    if train.get_context().get_world_rank() == 0:
+        path = config["ckpt_dir"]
+        t = time.monotonic()
+        save_pytree(state, path)
+        rep["checkpoint_save_s"] = time.monotonic() - t
+        ckpt = Checkpoint.from_directory(path)
+    train.report(rep, checkpoint=ckpt)
+
+
+def train_worker_phase(dev, default: dict) -> dict:
+    """gpt2-train-worker: ``ray_tpu_torch.init`` and a ``TorchTrainer``
+    of one ``num_gpus=1`` worker (``ScalingConfig(use_gpu=True)``) whose
+    backend forms an NCCL world of 1; its loop (``train_worker_loop``)
+    trains gpt2-train-b24 from the driver's seeds with the step recorder
+    on.  Gates: the worker's one card and its NCCL world, exact launches
+    read back from the worker, every step's loss and grad_norm equal to
+    ``default`` (this process's ``train_phase`` run) within
+    TRAIN_BF16_TOL's loss bound, the recorder's steady step (a median)
+    within TRAIN_WORKER_TEL_TOL of the worker's measured ms/step (the
+    timed window's wall over TIMED_STEPS, each step's loss read and
+    reported included) and its MFU the ``flops.mfu`` of its tokens/s,
+    ``compile_s`` on step 0 alone, rank 0's checkpoint (saved in the
+    run's storage, removed here) loaded here at the steps run, and the
+    worker gone and the card free within TRAIN_WORKER_RELEASE_S of
+    ``fit()``.  Prints ``train-worker metrics {...}``; returns the
+    worker's launches."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import GPTConfig
+    from ray_tpu_torch.telemetry import flops
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, load_pytree
+    from ray_tpu_torch.train.torch import TorchConfig, TorchTrainer
+
+    import chip_smoke
+    storage = tempfile.mkdtemp(prefix="gpt2_train_worker_runs_")
+    rt.init(num_cpus=RUNTIME_CPUS)
+    try:
+        if rt.cluster_resources().get("GPU") != 1.0:
+            raise AssertionError(f"train worker: the node found "
+                                 f"{rt.cluster_resources()}")
+        trainer = TorchTrainer(
+            chip_smoke.train_worker_loop,
+            torch_config=TorchConfig(host_collective=False),
+            train_loop_config={"card": torch.cuda.get_device_name(0),
+                               "ckpt_dir": os.path.join(storage,
+                                                        "state")},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(name="gpt2-train-worker",
+                                 storage_path=storage))
+        t_fit = time.time()
+        result = trainer.fit()
+        fit_s = time.time() - t_fit
+        if result.error is not None:
+            raise AssertionError(f"train worker failed: {result.error}")
+        hist = result.metrics_history
+        last = hist[-1]
+        t_ret = time.monotonic()
+        while _alive(last["pid"]) or \
+                rt.available_resources().get("GPU") != 1.0:
+            if time.monotonic() - t_ret > TRAIN_WORKER_RELEASE_S:
+                raise AssertionError(
+                    f"train worker: pid {last['pid']} alive "
+                    f"{_alive(last['pid'])}, resources "
+                    f"{rt.available_resources()} "
+                    f"{TRAIN_WORKER_RELEASE_S} s after fit()")
+            time.sleep(0.02)
+        release_s = time.monotonic() - t_ret
+    finally:
+        rt.shutdown()
+    steps = WARMUP_STEPS + TIMED_STEPS
+    if [h["step"] for h in hist] != list(range(1, steps + 1)):
+        raise AssertionError(f"train worker reported steps "
+                             f"{[h['step'] for h in hist]}")
+    if last["visible"] != "0" or last["mesh"] != {"dp": 1, "size": 1}:
+        raise AssertionError(f"train worker: CUDA_VISIBLE_DEVICES "
+                             f"{last['visible']!r}, mesh {last['mesh']}")
+    expect_launches("train worker", last["launches"],
+                    {k: n * TIMED_STEPS for k, n in TRAIN_LAUNCHES.items()})
+    d_loss = max(abs(h["loss"] - x) for h, x in zip(hist, default["losses"]))
+    d_norm = max(abs(h["grad_norm"] - x)
+                 for h, x in zip(hist, default["grad_norms"]))
+    print(f"train worker: largest |loss - driver's| {d_loss:.3e}, "
+          f"|grad_norm - driver's| {d_norm:.3e} over {steps} steps "
+          f"(bound {TRAIN_BF16_TOL['loss_abs']})", flush=True)
+    if not (d_loss <= TRAIN_BF16_TOL["loss_abs"]
+            and d_norm <= TRAIN_BF16_TOL["loss_abs"]):
+        raise AssertionError("train worker: losses or grad norms part from "
+                             "the driver's run")
+    summ, recs = last["summary"], last["records"]
+    step_s = last["step_ms"] / 1e3
+    if not abs(summ["steady_step_s"] - step_s) <= TRAIN_WORKER_TEL_TOL \
+            * step_s:
+        raise AssertionError(f"train worker: recorder's steady step "
+                             f"{summ['steady_step_s']:.4f} s vs the "
+                             f"window's {step_s:.4f} s a step")
+    cfg = GPTConfig.gpt2(**TRAIN_CFG, dtype=torch.bfloat16)
+    fpt = flops.gpt_train_flops_per_token(cfg, TRAIN_S, ce_recompute=True)
+    want_mfu = flops.mfu(summ["tokens_per_sec"], fpt)
+    if summ["flops_per_token"] != fpt or \
+            not abs(summ["mfu"] - want_mfu) <= 1e-12 * want_mfu:
+        raise AssertionError(f"train worker: recorder's MFU {summ['mfu']} "
+                             f"vs flops.mfu {want_mfu}")
+    with_compile = [r["step"] for r in recs if "compile_s" in r]
+    if with_compile != [0] or len(recs) != steps:
+        raise AssertionError(f"train worker: compile_s on steps "
+                             f"{with_compile} of {len(recs)} records")
+    t = time.monotonic()
+    state = load_pytree(result.checkpoint.path)
+    load_s = time.monotonic() - t
+    shutil.rmtree(storage, ignore_errors=True)
+    if state.step != steps:
+        raise AssertionError(f"train worker: the checkpoint holds step "
+                             f"{state.step}, {steps} were run")
+    first_report_s = hist[0]["first_report_ts"] - t_fit
+    metrics = {
+        "cell": "gpt2-train-worker", "fit_s": fit_s,
+        "fit_to_first_report_s": first_report_s,
+        "fit_to_loop_start_s": hist[0]["loop_start_ts"] - t_fit,
+        "nccl_init_s": last["nccl_init_s"],
+        "worker_step_ms": last["step_ms"],
+        "worker_median_step_ms": last["median_step_ms"],
+        "worker_step_walls_ms": last["step_walls_ms"],
+        "worker_step_call_ms": last["step_call_ms"],
+        "telemetry_walls_ms": [1e3 * r["wall_s"]
+                               for r in recs[WARMUP_STEPS:]],
+        "driver_step_ms": default["step_ms"],
+        "telemetry_steady_step_ms": 1e3 * summ["steady_step_s"],
+        "telemetry_compile_s": summ["compile_s"],
+        "worker_mfu": flops.mfu(TRAIN_B * TRAIN_S * 1e3
+                                / last["step_ms"], fpt),
+        "driver_mfu": default["mfu"], "telemetry_mfu": summ["mfu"],
+        "worker_peak_gib": last["peak_gib"],
+        "driver_peak_gib": default["max_memory_allocated_gib"],
+        "checkpoint_save_s": last["checkpoint_save_s"],
+        "checkpoint_load_s": load_s, "release_s": release_s,
+        "max_loss_diff": d_loss, "max_grad_norm_diff": d_norm}
+    print("train-worker: NCCL world of 1, launches read back exact, "
+          f"losses equal the driver's, checkpoint at step {state.step} "
+          f"loaded, worker gone and card free {release_s:.3f} s after "
+          "fit()", flush=True)
+    print("train-worker metrics " + json.dumps(metrics), flush=True)
+    return last["launches"]
 
 
 # One step's loss and gradients, kernel path against the port's plain
@@ -4156,9 +4490,15 @@ def step_launches(cfg, *, norm_kernel: bool, ce_mode) -> dict:
     return n
 
 
+# the fused-CE arm's gradients against the f32 plain path: the bf16
+# bound; its loss within FUSED_LOSS_TOL (the logits rounded to bf16)
+TRAIN_FUSED_TOL = dict(loss_abs=FUSED_LOSS_TOL, grad=TRAIN_BF16_TOL["grad"])
+
+
 def train_correctness_phase(dev, *, n_layers: int = 12,
                             norm_kernel: bool = False,
-                            preset: str = "gpt2", seed: int = 2) -> None:
+                            preset: str = "gpt2", seed: int = 2,
+                            fused_ce: bool = False) -> None:
     """The step parity above at ``n_layers``; with ``norm_kernel`` the
     kernel path's RMSNorms go through the RMSNorm kernels while the plain
     path keeps its plain norms.  ``preset`` names the ``GPTConfig``
@@ -4167,7 +4507,9 @@ def train_correctness_phase(dev, *, n_layers: int = 12,
     run the kernels built for their widths.  Each kernel run launches
     exactly ``step_launches``.  The f32 flash-CE kernels are built for
     d = 768 only, so a wider f32 model asks for the dense CE itself
-    (``ce_mode="xla"``; its gate would raise, ROADMAP Queue 2 item A)."""
+    (``ce_mode="xla"``; its gate would raise, ROADMAP Queue 2 item A).
+    ``fused_ce`` adds a bf16 run with ``ce_mode="fused"`` (the
+    bf16-resident CE, no flash-CE launch) under TRAIN_FUSED_TOL."""
     from ray_tpu_torch import GPTConfig, init_params
     from ray_tpu_torch.models import gpt
     from ray_tpu_torch.models.training import (synthetic_lm_batch,
@@ -4211,10 +4553,13 @@ def train_correctness_phase(dev, *, n_layers: int = 12,
 
     ref_loss, ref_grads = value_and_grad(plain_loss(cfg32), params, batch)
     ref = dict(leaves(ref_grads))
-    runs = (("f32", cfg32, params, TRAIN_F32_TOL),
-            ("bf16", cfg16, to(params, torch.bfloat16), TRAIN_BF16_TOL))
-    for label, cfg, p, tol in runs:
-        ce = ce_mode(cfg)
+    runs = [("f32", cfg32, params, TRAIN_F32_TOL, ce_mode(cfg32)),
+            ("bf16", cfg16, to(params, torch.bfloat16), TRAIN_BF16_TOL,
+             ce_mode(cfg16))]
+    if fused_ce:
+        runs.append(("bf16 fused CE", cfg16, runs[1][2], TRAIN_FUSED_TOL,
+                     "fused"))
+    for label, cfg, p, tol, ce in runs:
         want_n = step_launches(cfg, norm_kernel=norm_kernel, ce_mode=ce)
         gpt._PALLAS_NORM = norm_kernel
         try:
@@ -4271,7 +4616,7 @@ def train_correctness_phase(dev, *, n_layers: int = 12,
               f"share_of_tol={dl / lim:.3f}); worst gradient {worst} "
               f"share_of_tol={worst_share:.3f} (bound {tol['grad']} of "
               f"each leaf's largest value); launches {launches_line(launches)}"
-              + ("" if ce is None else "; f32 dense CE (ce_mode='xla')"),
+              + ("" if ce is None else f"; ce_mode={ce!r}"),
               flush=True)
         if not dl <= lim or not worst_share <= 1:
             raise AssertionError(f"training step {label}: kernel path "
@@ -4559,7 +4904,7 @@ def train_profile_phase(dev) -> None:
 
     cfg = GPTConfig.gpt2(**TRAIN_CFG, dtype=torch.bfloat16)
     fns = build_gpt_train(cfg, optimizer=default_optimizer(**TRAIN_OPT),
-                          device=dev)
+                          device=dev, telemetry=False)
     state = fns["init_fn"](torch.Generator().manual_seed(0))
     batch = synthetic_lm_batch(torch.Generator().manual_seed(1), TRAIN_B,
                                TRAIN_S, cfg.vocab_size, device=dev)
@@ -4727,6 +5072,15 @@ def main() -> None:
         print("serve-deployment: every check passed; launches "
               + json.dumps(_nonzero(launches)), flush=True)
         return
+    if sys.argv[1:] == ["--train-worker"]:
+        train = train_phase(dev)
+        train.pop("launches")
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches = train_worker_phase(dev, train)
+        print("train-worker: every check passed; launches "
+              + json.dumps(_nonzero(launches)), flush=True)
+        return
     if sys.argv[1:] in (["--profile"], ["--profile", "int8"]):
         from ray_tpu_torch import GPTConfig, init_params
         cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
@@ -4769,7 +5123,11 @@ def main() -> None:
     paths["train_norm"] = train_norm.pop("launches")
     print(f"training ms/step: {train['step_ms']:.2f} default, "
           f"{train_norm['step_ms']:.2f} with the RMSNorm kernels", flush=True)
-    train_correctness_phase(dev)
+    paths.update(train_arms_phase(dev, train))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["train_worker"] = train_worker_phase(dev, train)
+    train_correctness_phase(dev, fused_ce=True)
     train_correctness_phase(dev, n_layers=2, norm_kernel=True)
     width_checks(dev)
     for row in rec.rows.values():

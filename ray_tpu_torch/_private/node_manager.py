@@ -131,9 +131,21 @@ class _ForkedProc:
         return 0
 
 
+def _gpu_request(spec: TaskSpec) -> float:
+    """The cards a task requests: its ``"GPU"`` resource, or inside a
+    placement group its bundle's (``pg_<id>[_<index>]_GPU``, which
+    ``remote_function._apply_pg_resources`` renames it to): the bundle
+    reserved the accounting, the task still takes a card of its own."""
+    n = spec.resources.get("GPU", 0)
+    for name, qty in spec.resources.items():
+        if name.startswith("pg_") and name.endswith("_GPU"):
+            n += qty
+    return n
+
+
 def _whole_gpus(spec: TaskSpec) -> int:
     """Whole cards a task requests: 0 for none and for a fraction."""
-    return int(spec.resources.get("GPU", 0))
+    return int(_gpu_request(spec))
 
 
 class _Worker:
@@ -1219,7 +1231,7 @@ class NodeManager:
             if not fits(self.resources_available, spec.resources):
                 return False
             acquire(self.resources_available, spec.resources)
-        need_gpu = spec.resources.get("GPU", 0) > 0
+        need_gpu = _gpu_request(spec) > 0
         worker = self._take_idle_worker(need_gpu, _whole_gpus(spec))
         if worker is None:
             with self._res_lock:
@@ -1476,7 +1488,7 @@ class NodeManager:
         A whole-number request takes that many cards from the free list
         (a bound worker takes exactly its own list back); a fractional
         one (``int(n) == 0``) takes none, as in the reference."""
-        if spec.resources.get("GPU", 0) <= 0:
+        if _gpu_request(spec) <= 0:
             return None
         n = _whole_gpus(spec)
         if n <= 0:

@@ -5,9 +5,10 @@ Counterpart of the reference's gRPC layer (``src/ray/rpc/``).
 The control plane and node managers are in-cluster trusted peers on the
 same host or VPC, so the wire format is length-prefixed pickle frames —
 simple, fast, and sufficient for the control plane.  The *tensor* plane
-never touches this layer: CUDA tensors stay on their cards (multi-GPU
-collectives are ROADMAP Queue 1 item 9), host objects go through the shm
-object store.
+never touches this layer: CUDA tensors stay on their cards and move
+between ranks through ``torch.distributed`` (NCCL on the card, gloo on
+the CPU; ``util/collective.py``), host objects go through the shm object
+store.
 
 Addresses are strings of two forms (reference: ``src/ray/rpc/grpc_server.cc``
 binds TCP; plasma's UDS stays for the local fast path):

@@ -7,9 +7,10 @@ d]``), a tied ``embed`` and no biases.  A tree made by the JAX package
 (``convert.params_from_jax``) therefore drives this module unchanged.
 
 The port runs the main configuration: RMSNorm, SwiGLU, RoPE, dense
-FFNs, tied embeddings, no biases.  Other modes, and ``remat``, raise
+FFNs, tied embeddings, no biases.  Other modes raise
 ``NotImplementedError``.  The layer loop is a Python loop (PyTorch runs
-eagerly; ``lax.scan`` has no counterpart to port).
+eagerly; ``lax.scan`` has no counterpart to port); ``remat`` recomputes
+each block in the backward (``torch.utils.checkpoint``).
 
 The out-proj + residual + pre-FFN norm of each layer goes through
 ``ops.fused_norm.matmul_residual_norm`` whenever its gate
@@ -43,6 +44,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ray_tpu_torch.ops import flash_ce
+from ray_tpu_torch.ops import fused_ce
 from ray_tpu_torch.ops import fused_norm as fnorm
 from ray_tpu_torch.ops import rmsnorm as rms
 from ray_tpu_torch.ops.attention import rope_rotate
@@ -281,25 +283,50 @@ def forward_hidden(params: Params, tokens, cfg: GPTConfig, *,
     out-proj epilogue; ``final_norm=False`` skips the closing ``ln_f``
     and returns the raw residual stream (for the fused-norm CE)."""
     check_supported(cfg)
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat=True is not ported yet (ROADMAP Queue 1 item 7: "
-            "activation recompute comes after the single-device step)")
     S = tokens.shape[1]
     if attn_fn is None:
         attn_fn = functools.partial(local_attention, causal=True)
     x = embed_tokens(params, tokens, cfg)
     if positions is None:
         positions = torch.arange(S, device=tokens.device)
+    block = functools.partial(layer_apply, cfg=cfg, positions=positions,
+                              attn_fn=attn_fn, fuse_norm=fuse_norm)
+    if cfg.remat and torch.is_grad_enabled():
+        block = _remat(block)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, aux = layer_apply(layer_params(params, i), x, cfg,
-                             positions=positions, attn_fn=attn_fn,
-                             fuse_norm=fuse_norm)
+        x, aux = block(layer_params(params, i), x)
         aux_total = aux_total + aux
     if final_norm:
         x = _norm(x, params["ln_f"], cfg.norm, eps=norm_eps(cfg))
     return x, aux_total
+
+
+def _remat(block: Callable) -> Callable:
+    """``block`` under ``torch.utils.checkpoint`` (non-reentrant), the
+    counterpart of the reference's ``jax.checkpoint(layer_body)``
+    (``ray_tpu/models/gpt.py:595-596``): the block keeps only its
+    inputs, and the backward runs its forward again, kernels included,
+    rebuilding what the kernels' Functions save (attention's o and lse,
+    the epilogue's statistics).  The recompute takes the forward's
+    kernel path: the attention hook and ``fuse_norm`` are the same
+    objects, and ``_PALLAS_NORM`` is pinned to its value at the
+    forward."""
+    pallas = _PALLAS_NORM
+
+    def pinned(lp, x):
+        global _PALLAS_NORM
+        saved, _PALLAS_NORM = _PALLAS_NORM, pallas
+        try:
+            return block(lp, x)
+        finally:
+            _PALLAS_NORM = saved
+
+    def run(lp, x):
+        return torch.utils.checkpoint.checkpoint(pinned, lp, x,
+                                                 use_reentrant=False)
+
+    return run
 
 
 def lm_head(params: Params, cfg: GPTConfig):
@@ -353,7 +380,8 @@ def _chunked_ce(x, head, targets, *, chunk: int = 4096,
     the dense formulation, over row chunks of ``chunk`` (``chunk < 0``:
     one chunk, logits kept for the backward; ``chunk >= 0``: each chunk
     recomputed in the backward, as ``jax.checkpoint`` does).  ``fused``
-    (``ops/fused_ce.py``, no-remat only) is not ported and raises."""
+    (no-remat, ``chunk < 0``, only; else the ``xla`` paths) keeps the
+    logits in bf16 between the passes (``ops/fused_ce.py``)."""
     N, d = x.shape
     mode = mode or "flash"
     if mode == "flash" and flash_ce.supports(N, d, head.shape[1],
@@ -361,9 +389,7 @@ def _chunked_ce(x, head, targets, *, chunk: int = 4096,
         return flash_ce.flash_ce_sum(x, head.to(x.dtype), targets)
     remat = chunk >= 0
     if not remat and mode == "fused":
-        raise NotImplementedError(
-            "ce_mode='fused' (the bf16-resident-logits CE of "
-            "ops/fused_ce.py) is not ported yet (ROADMAP Queue 1 item 7)")
+        return fused_ce.ce_sum_bf16(x, head.to(x.dtype), targets)
     if chunk <= 0:
         chunk = N
 

@@ -1,8 +1,8 @@
-"""The single-device training step for the port's GPT.
+"""The training step for the port's GPT, on one card or data-parallel.
 
 Counterpart of ``ray_tpu/models/training.py`` (``build_gpt_train``,
 ``default_optimizer``, ``_accum_value_and_grad``, ``TrainState``,
-``synthetic_lm_batch``), single device.  The step is
+``synthetic_lm_batch``, ``_maybe_instrument``).  The step is
 
     loss, grads = value_and_grad(loss_fn)(params, batch)   # autograd
     params, opt_state = optimizer.update(grads, opt_state, params)
@@ -12,11 +12,25 @@ RoPE, the fused out-proj epilogue, and flash-CE with the final norm in
 its prologue (``models/gpt.py:loss_fn``).  The optimizer is optax's
 ``clip_by_global_norm -> adamw(warmup_cosine)`` chain written out on
 tensors.  ``step_fn`` updates the state's tensors in place (the JAX step
-donates its state) and returns the new state.
+donates its state) and returns the new state.  ``cfg.remat`` recomputes
+each block in the backward, ``ce_mode="fused"`` keeps the logits in
+bf16 (``ops/fused_ce.py``), and ``telemetry`` wraps the step in a
+:class:`~ray_tpu_torch.telemetry.StepTelemetry` recorder.
 
-Meshes of more than one device, sequence parallelism, the overlap
-schedule and its wire quantisation, LoRA and step telemetry raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Over a data-parallel mesh (``parallel.mesh.make_mesh``: one rank per
+card, NCCL on the card, gloo on the CPU) each rank's step takes its own
+rows of the global batch.  The reference's GSPMD step takes the loss as
+the global masked sum over the global count of valid targets; here the
+ranks first all-reduce their counts, each scales its local mean by its
+share of the global count, and after the backward (and after
+accumulation) the gradients and the loss are all-reduced as one flat
+buffer per dtype, in their own dtype.  Every rank then holds the global
+batch's loss, gradient norm and update.  Every rank starts from rank
+0's parameters (broadcast by ``init_fn``).
+
+Sequence parallelism, the overlap schedule and its wire quantisation,
+meshes with axes other than ``dp`` (ROADMAP Queue 1 item 9b) and LoRA
+(item 11) raise ``NotImplementedError`` naming the item that ports them.
 """
 
 from __future__ import annotations
@@ -31,6 +45,7 @@ import torch
 from ray_tpu_torch.models import gpt as gpt_mod
 from ray_tpu_torch.ops.attention import make_flash_attention_fn
 from ray_tpu_torch.ops.substrate import resolve_device
+from ray_tpu_torch.parallel.mesh import dp_group
 
 Params = Dict[str, Any]
 
@@ -50,6 +65,24 @@ def _leaves(tree: Params) -> List[torch.Tensor]:
     for v in tree.values():
         out.extend(_leaves(v) if isinstance(v, dict) else [v])
     return out
+
+
+def _path_order(tree: Params) -> List[int]:
+    """Indices into :func:`_leaves` order that sort the leaves by their
+    key paths: the order every rank agrees on, whatever order its tree
+    was built in (``init_params`` and ``convert.params_from_jax`` build
+    the same tree in different key orders)."""
+    paths = []
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            else:
+                paths.append(prefix + (k,))
+
+    walk(tree, ())
+    return sorted(range(len(paths)), key=lambda i: paths[i])
 
 
 def _rebuild(tree: Params, leaves: List[Any]) -> Params:
@@ -167,15 +200,18 @@ def _split_microbatches(batch: Dict[str, Any], accum_steps: int):
 
 
 def _accum_value_and_grad(loss: Callable, params: Params, batch,
-                          accum_steps: int):
+                          accum_steps: int, weights=None):
     """``value_and_grad`` over ``accum_steps`` microbatches, one after
     another (the reference's ``lax.scan``), with the partial gradients
     summed in f32 whatever the model dtype; returns the mean loss and
-    the mean gradients cast to each parameter's dtype."""
+    the mean gradients cast to each parameter's dtype.  ``weights``
+    [accum_steps] scales each microbatch's loss (the data-parallel
+    step's share of the global count)."""
     loss_sum = None
     acc = [torch.zeros_like(p, dtype=torch.float32) for p in _leaves(params)]
-    for mb in _split_microbatches(batch, accum_steps):
-        val, grads = value_and_grad(loss, params, mb)
+    for i, mb in enumerate(_split_microbatches(batch, accum_steps)):
+        fn = loss if weights is None else _weighted(loss, weights[i])
+        val, grads = value_and_grad(fn, params, mb)
         for a, g in zip(acc, _leaves(grads)):
             a.add_(g.float())
         val = val.float()
@@ -185,9 +221,66 @@ def _accum_value_and_grad(loss: Callable, params: Params, batch,
     return loss_sum * inv_k, _rebuild(params, grads)
 
 
+def _weighted(loss: Callable, w) -> Callable:
+    return lambda p, b: loss(p, b) * w
+
+
 def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
                                f"item {item})")
+
+
+def _flat_collective(tensors: List[torch.Tensor], op: Callable
+                     ) -> List[torch.Tensor]:
+    """``op(flat)`` on one flat buffer per dtype of ``tensors`` (in
+    place, in that dtype); returns views of the buffers shaped as
+    ``tensors``."""
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    out = list(tensors)
+    for idx in by_dtype.values():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        op(flat)
+        off = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = flat[off:off + n].view_as(tensors[i])
+            off += n
+    return out
+
+
+@torch.no_grad()
+def _broadcast_from_first(params: Params, group) -> None:
+    """Every rank's parameters become the group's first rank's, in place,
+    in sorted key-path order."""
+    import torch.distributed as dist
+    src = dist.get_global_rank(group, 0)
+    leaves = [_leaves(params)[i] for i in _path_order(params)]
+    got = _flat_collective(
+        leaves, lambda f: dist.broadcast(f, src=src, group=group))
+    for t, g in zip(leaves, got):
+        t.copy_(g)
+
+
+def _maybe_instrument(fns: Dict[str, Any], cfg, mesh, *,
+                      ce_mode: Optional[str] = None,
+                      telemetry: Optional[bool] = None) -> Dict[str, Any]:
+    """Wrap ``fns["step_fn"]`` with a ``StepTelemetry`` recorder.
+
+    ``telemetry``: None follows ``RAY_TPU_TELEMETRY`` (default on),
+    False skips, True forces on.  When on, the dict gains ``telemetry``
+    (the recorder) and ``raw_step_fn``."""
+    if telemetry is False:
+        return fns
+    from ray_tpu_torch import telemetry as tel_mod
+    config = None
+    if telemetry is True:
+        config = tel_mod.TelemetryConfig(
+            enabled=True,
+            profile_dir=tel_mod.telemetry_config().profile_dir)
+    return tel_mod.instrument(fns, cfg, mesh, comm_mode=fns["comm_mode"],
+                              ce_mode=ce_mode, config=config)
 
 
 def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
@@ -201,31 +294,36 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
                     telemetry: Optional[bool] = None,
                     lora=None) -> Dict[str, Any]:
     """Returns dict(init_fn, step_fn, loss_fn, forward_fn, attn_fn,
-    accum_steps).
+    accum_steps, comm_mode), and ``telemetry`` and ``raw_step_fn``
+    when the step recorder is on.
 
     ``init_fn(generator=None, *, params=None) -> TrainState``: random
     parameters from ``generator`` (or the given tree), fresh optimizer
-    state, step 0.  ``step_fn(state, batch) -> (state, {"loss",
-    "grad_norm", "step"})`` with batch = dict(tokens, targets) [B, S];
-    ``grad_norm`` is the global norm before the clip, as the reference
-    reports it.  ``ce_mode`` ("flash" default, or "xla") and
-    ``fuse_norm`` (None means on) pin the loss head and the fused
-    epilogues; ``accum_steps`` runs the step as that many microbatches
-    with f32 gradient accumulation and one update.  Runs on the card
-    unless ``device="cpu"``."""
-    if mesh is not None and getattr(mesh, "size", 1) > 1:
-        raise _unported("training over a multi-device mesh", "9")
+    state, step 0; over a process group, rank 0's parameters on every
+    rank.  ``step_fn(state, batch) -> (state, {"loss", "grad_norm",
+    "step"})`` with batch = dict(tokens, targets) [B, S], this rank's
+    rows; ``grad_norm`` is the global norm before the clip, as the
+    reference reports it.  ``ce_mode`` ("flash" default, "fused" with
+    ``cfg.ce_chunk < 0``, or "xla") and ``fuse_norm`` (None means on)
+    pin the loss head and the fused epilogues; ``accum_steps`` runs the
+    step as that many microbatches with f32 gradient accumulation and
+    one update; ``cfg.remat`` recomputes each block in the backward.
+    ``mesh``: a data-parallel mesh (``parallel.mesh.make_mesh``); over a
+    live process group the gradients and loss are all-reduced over its
+    ``dp`` group, of any size, one included.  ``telemetry`` (None:
+    ``RAY_TPU_TELEMETRY``, default on) wraps ``step_fn`` in a
+    ``StepTelemetry``.  Runs on the card unless ``device="cpu"``."""
+    group, dp = dp_group(mesh)
     if sp_impl is not None:
-        raise _unported(f"sequence parallelism (sp_impl={sp_impl!r})", "9")
+        raise _unported(f"sequence parallelism (sp_impl={sp_impl!r})", "9b")
     if comm_mode not in (None, "gspmd") or comm_quant not in (None, "none"):
         raise _unported("the overlap schedule and its wire quantisation",
-                        "9")
+                        "9b")
     if lora:
         raise _unported("trainable-adapter mode (lora=)", "11")
-    if telemetry:
-        raise _unported("step telemetry (telemetry/step.py)", "7")
-    if cfg.remat:
-        raise _unported("remat=True", "7")
+    if dp > 1 and group is None:
+        raise ValueError(f"a mesh of dp={dp} needs a live process group "
+                         "(parallel.mesh.make_mesh inside the workers)")
     accum_steps = int(accum_steps)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -233,7 +331,7 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
     dev = resolve_device(device)
     tx = optimizer or default_optimizer()
     attn_fn = make_flash_attention_fn(
-        rope_theta=cfg.rope_theta if cfg.pos == "rope" else None)
+        mesh, rope_theta=cfg.rope_theta if cfg.pos == "rope" else None)
 
     def loss(params, batch):
         return gpt_mod.loss_fn(params, batch, cfg, attn_fn=attn_fn,
@@ -243,14 +341,38 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
              params: Optional[Params] = None) -> TrainState:
         if params is None:
             params = gpt_mod.init_params(cfg, generator, device=dev)
+        if group is not None:
+            _broadcast_from_first(params, group)
         return TrainState(params, tx.init(params), 0)
 
+    def dp_weights(batch):
+        """Each microbatch's share of the global count of valid
+        targets, for this rank's rows."""
+        import torch.distributed as dist
+        n = torch.stack([(t >= 0).sum() for t in
+                         batch["targets"].chunk(accum_steps)]).float()
+        total = n.clone()
+        dist.all_reduce(total, group=group)
+        return n / total.clamp_min(1.0)
+
     def step(state: TrainState, batch):
+        w = dp_weights(batch) if group is not None else None
         if accum_steps > 1:
-            loss_val, grads = _accum_value_and_grad(loss, state.params,
-                                                    batch, accum_steps)
+            loss_val, grads = _accum_value_and_grad(
+                loss, state.params, batch, accum_steps, weights=w)
         else:
-            loss_val, grads = value_and_grad(loss, state.params, batch)
+            fn = loss if w is None else _weighted(loss, w[0])
+            loss_val, grads = value_and_grad(fn, state.params, batch)
+        if group is not None:
+            import torch.distributed as dist
+            order = _path_order(grads)
+            flat = _leaves(grads)
+            *reduced, loss_val = _flat_collective(
+                [flat[i] for i in order] + [loss_val.float()],
+                lambda f: dist.all_reduce(f, group=group))
+            for i, t in zip(order, reduced):
+                flat[i] = t
+            grads = _rebuild(grads, flat)
         gnorm = global_norm(grads)
         opt_state = tx.update(grads, state.opt_state, state.params)
         return (TrainState(state.params, opt_state, state.step + 1),
@@ -267,9 +389,13 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
                                     attn_fn=attn_fn, fuse_norm=fuse_norm)
         return logits
 
-    return {"init_fn": init, "step_fn": step, "loss_fn": loss_eval,
-            "forward_fn": forward_logits, "attn_fn": attn_fn,
-            "accum_steps": accum_steps}
+    # "gspmd": the reference's name for the default schedule, in which
+    # the gradients are reduced once, after the backward
+    fns = {"init_fn": init, "step_fn": step, "loss_fn": loss_eval,
+           "forward_fn": forward_logits, "attn_fn": attn_fn,
+           "accum_steps": accum_steps, "comm_mode": "gspmd"}
+    return _maybe_instrument(fns, cfg, mesh, ce_mode=ce_mode,
+                             telemetry=telemetry)
 
 
 def synthetic_lm_batch(generator: torch.Generator, batch_size: int,

@@ -41,6 +41,7 @@ from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops.substrate import (NEG_INF, Support, check_cuda_args,
                                          is_cuda, on_cuda, require_built,
                                          supported)
+from ray_tpu_torch.parallel.mesh import dp_group
 from ray_tpu_torch.parallel.ring_attention import _block_attn
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -325,14 +326,14 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 def make_flash_attention_fn(mesh=None, *, causal: bool = True,
                             rope_theta: Optional[float] = None):
-    """The training path's attention hook (``attention.py:1496``, the
-    single-device branch).  With ``rope_theta`` the returned function
-    takes ``positions`` and rotates q and k inside the kernels;
-    ``fn.fused_rope`` marks this so the model skips its own rotation."""
-    if mesh is not None and getattr(mesh, "size", 1) > 1:
-        raise NotImplementedError(
-            "flash attention over a multi-device mesh is not ported yet "
-            "(ROADMAP Queue 1 item 9: multi-GPU training)")
+    """The training path's attention hook (``attention.py:1496``).  With
+    ``rope_theta`` the returned function takes ``positions`` and rotates
+    q and k inside the kernels; ``fn.fused_rope`` marks this so the
+    model skips its own rotation.  A data-parallel ``mesh`` changes
+    nothing: each rank's rows attend only to themselves, so the kernels
+    apply as on one card.  Any other mesh raises
+    (``parallel.mesh.dp_group``: a sequence axis is item 9b)."""
+    dp_group(mesh)
     fn = functools.partial(flash_attention, causal=causal)
     if rope_theta is not None:
         fn = functools.partial(fn, rope_theta=rope_theta)

@@ -1,0 +1,360 @@
+"""Device meshes for the port: data parallelism over a process group.
+
+Counterpart of ``ray_tpu/parallel/mesh.py``.  The axis bookkeeping is
+the reference's, copied (``AXIS_ORDER``, :class:`MeshAxisError`,
+:class:`MeshSpec`, :func:`parse_mesh_axes`, :func:`mesh_axis_size`,
+:func:`suggest_accum_steps`, :func:`validate_divisibility`).  Where the
+reference builds a ``jax.sharding.Mesh`` over the global device set,
+:func:`make_mesh` builds a ``torch.distributed.device_mesh.DeviceMesh``
+over the live process group: one rank per device, so the group's world
+is the mesh (one rank and no group: a mesh of 1).  The returned mesh is
+a :class:`Mesh`, a ``DeviceMesh`` whose ``size`` is an int (still
+callable as ``DeviceMesh.size(dim)``) and whose ``shape`` also answers
+by axis name (``mesh.shape["dp"]``, ``.get``, ``.items``), as the
+reference's callers read a JAX mesh.
+
+Only the ``dp`` axis is ported: any other axis of size above 1 raises
+``NotImplementedError`` (ROADMAP Queue 1 item 9b: FSDP, tensor,
+sequence, pipeline and expert parallelism), in :func:`make_mesh` and in
+:func:`dp_group`, which the training step and the attention hook call.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+AXIS_ORDER = ("dcn", "pp", "dp", "fsdp", "sp", "ep", "tp")
+
+# Axes of one host's fabric; "dcn" is the only cross-host axis
+ICI_AXES = tuple(a for a in AXIS_ORDER if a != "dcn")
+
+
+class MeshAxisError(ValueError):
+    """A mesh-axis string was malformed; ``axis`` names the offender."""
+
+    def __init__(self, msg: str, *, axis: Optional[str] = None):
+        super().__init__(msg)
+        self.axis = axis
+
+
+@dataclass(frozen=True)
+class MeshSpec:
+    """A named logical mesh shape, resolvable against any device count."""
+
+    axes: Tuple[Tuple[str, int], ...]
+
+    @classmethod
+    def create(cls, **sizes: int) -> "MeshSpec":
+        unknown = set(sizes) - set(AXIS_ORDER)
+        if unknown:
+            bad = sorted(unknown)[0]
+            raise MeshAxisError(
+                f"unknown mesh axis {bad!r}; valid: {AXIS_ORDER}",
+                axis=bad)
+        axes = tuple((a, int(sizes[a])) for a in AXIS_ORDER if a in sizes)
+        return cls(axes)
+
+    @classmethod
+    def from_mesh(cls, mesh) -> "MeshSpec":
+        """The logical shape of a live mesh (or a MeshSpec, passed
+        through)."""
+        if isinstance(mesh, cls):
+            return mesh
+        return cls(tuple((str(a), int(s))
+                         for a, s in dict(mesh.shape.items()).items()))
+
+    def to_dict(self) -> Dict[str, int]:
+        return {a: s for a, s in self.axes}
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, int]) -> "MeshSpec":
+        return cls(tuple((str(a), int(s)) for a, s in d.items()))
+
+    def describe(self) -> str:
+        return ",".join(f"{a}={s}" for a, s in self.axes) or "dp=1"
+
+    @property
+    def size(self) -> int:
+        return math.prod(s for _, s in self.axes) if self.axes else 1
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(a for a, _ in self.axes)
+
+    def resolve(self, num_devices: int) -> "MeshSpec":
+        """Fill at most one ``-1`` axis from the device count."""
+        wild = [a for a, s in self.axes if s == -1]
+        if len(wild) > 1:
+            raise ValueError("at most one mesh axis may be -1")
+        fixed = math.prod(s for _, s in self.axes if s != -1)
+        if wild:
+            if num_devices % fixed:
+                raise ValueError(
+                    f"{num_devices} devices not divisible by fixed axes "
+                    f"product {fixed}")
+            fill = num_devices // fixed
+            return MeshSpec(tuple((a, fill if s == -1 else s)
+                                  for a, s in self.axes))
+        if fixed > num_devices:
+            raise ValueError(
+                f"mesh size {fixed} exceeds device count {num_devices}")
+        return self
+
+    def tier_split(self) -> Tuple[int, int]:
+        """``(dcn_size, per-host size)``."""
+        d = dict(self.axes)
+        dcn = int(d.get("dcn", 1))
+        return dcn, self.size // max(dcn, 1)
+
+
+def parse_mesh_axes(arg: str) -> Dict[str, int]:
+    """``"dcn=2,fsdp=4"`` -> ``{"dcn": 2, "fsdp": 4}``.
+
+    Rejections raise :class:`MeshAxisError` naming the offending axis:
+    unknown names, duplicates, non-positive sizes (``-1`` is the one
+    wildcard), and ``dcn`` anywhere but first."""
+    sizes: Dict[str, int] = {}
+    order: List[str] = []
+    for part in arg.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise MeshAxisError(
+                f"bad mesh axis {part!r} (want e.g. 'dcn=2,fsdp=4')",
+                axis=part)
+        name, _, value = part.partition("=")
+        name = name.strip()
+        try:
+            size = int(value)
+        except ValueError:
+            raise MeshAxisError(
+                f"mesh axis {name!r} has non-integer size {value!r}",
+                axis=name) from None
+        if name in sizes:
+            raise MeshAxisError(f"duplicate mesh axis {name!r}", axis=name)
+        if size == 0 or size < -1:
+            raise MeshAxisError(
+                f"mesh axis {name!r} has non-positive size {size} "
+                "(only -1 is allowed as a wildcard)", axis=name)
+        sizes[name] = size
+        order.append(name)
+    if "dcn" in order and order.index("dcn") != 0:
+        raise MeshAxisError(
+            "mesh axis 'dcn' must be outermost (first): the cross-pod "
+            f"tier is the slowest axis, got order {order}", axis="dcn")
+    MeshSpec.create(**sizes)   # validates axis names
+    return sizes
+
+
+class MeshShape(tuple):
+    """A mesh's axis sizes: a tuple (``DeviceMesh.shape``) that also
+    answers by axis name, as a JAX mesh's ``shape`` dict does."""
+
+    def __new__(cls, names, sizes):
+        out = super().__new__(cls, sizes)
+        out.names = tuple(names)
+        return out
+
+    def __getitem__(self, key):
+        if isinstance(key, str):
+            return dict(self.items())[key]
+        return super().__getitem__(key)
+
+    def get(self, key, default=None):
+        return dict(self.items()).get(key, default)
+
+    def keys(self):
+        return self.names
+
+    def items(self):
+        return tuple(zip(self.names, tuple(self)))
+
+
+def _device_mesh_cls():
+    from torch.distributed.device_mesh import DeviceMesh
+
+    class _Size(int):
+        """The mesh's device count, still callable as
+        ``DeviceMesh.size(mesh_dim=None)``."""
+
+        def __new__(cls, value, mesh):
+            out = super().__new__(cls, value)
+            out._mesh = mesh
+            return out
+
+        def __call__(self, mesh_dim=None):
+            return DeviceMesh.size(self._mesh, mesh_dim)
+
+    class Mesh(DeviceMesh):
+        @property
+        def size(self):
+            return _Size(self.mesh.numel(), self)
+
+        @property
+        def shape(self):
+            return MeshShape(self.mesh_dim_names, self.mesh.shape)
+
+        @property
+        def axis_names(self):
+            return tuple(self.mesh_dim_names)
+
+        @property
+        def group(self):
+            """The process group of the ``dp`` axis, or None for a mesh
+            built without a live process group."""
+            return self.get_group("dp") if self._with_group else None
+
+    return Mesh
+
+
+_MESH_CLS = None
+
+
+def _mesh_cls():
+    global _MESH_CLS
+    if _MESH_CLS is None:
+        _MESH_CLS = _device_mesh_cls()
+    return _MESH_CLS
+
+
+def _unported_axes(axes: Dict[str, int]) -> None:
+    other = {a: n for a, n in axes.items() if a != "dp" and n != 1}
+    if other:
+        raise NotImplementedError(
+            f"mesh axes {other} are not ported yet: the port's meshes are "
+            "data-parallel only (ROADMAP Queue 1 item 9b: FSDP, tensor, "
+            "sequence, pipeline and expert parallelism)")
+
+
+def dp_group(mesh):
+    """(process group, dp size) of a data-parallel mesh; (None, 1) for
+    no mesh or one outside any process group.  The one place the port
+    decides which meshes its training step and attention run over: any
+    axis other than ``dp`` above 1, or a mesh of several devices without
+    named axes, raises (ROADMAP Queue 1 item 9b)."""
+    if mesh is None:
+        return None, 1
+    shape = getattr(mesh, "shape", None)
+    if hasattr(shape, "items"):
+        _unported_axes(dict(shape.items()))
+        return getattr(mesh, "group", None), int(shape.get("dp", 1))
+    _unported_axes({"unnamed": int(getattr(mesh, "size", 1))})
+    return None, 1
+
+
+def make_mesh(spec: Optional[MeshSpec] = None, devices=None,
+              **sizes: int):
+    """A data-parallel :class:`Mesh` over the live process group.
+
+    ``make_mesh(dp=-1)`` spans every rank of the group (a mesh of 1
+    without one); ``dp=n`` must equal the world size.  ``devices``: a
+    ``torch.device`` or device type for the mesh (default: ``"cuda"``
+    when the group's backend is NCCL, else ``"cpu"``).  Any other axis
+    of size above 1 raises (ROADMAP Queue 1 item 9b)."""
+    import torch
+    import torch.distributed as dist
+
+    if spec is None:
+        if not sizes:
+            sizes = {"dp": -1}
+        spec = MeshSpec.create(**sizes)
+    _unported_axes(dict(spec.axes))
+    grouped = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if grouped else 1
+    spec = spec.resolve(world)
+    dp = dict(spec.axes).get("dp", 1)
+    if dp != world:
+        raise ValueError(
+            f"a data-parallel mesh spans the whole process group: dp={dp}"
+            f" but the world has {world} ranks")
+    if devices is None:
+        devices = ("cuda" if grouped and dist.get_backend() == "nccl"
+                   else "cpu")
+    dev_type = torch.device(devices).type if not isinstance(
+        devices, (list, tuple)) else torch.device(devices[0]).type
+    cls = _mesh_cls()
+    if grouped:
+        mesh = cls(dev_type, torch.arange(world), mesh_dim_names=("dp",))
+    else:
+        mesh = cls(dev_type, torch.arange(1), mesh_dim_names=("dp",),
+                   _init_backend=False, _rank=0)
+    mesh._with_group = grouped
+    return mesh
+
+
+def single_device_mesh(device=None):
+    """A mesh of one device outside any process group."""
+    import torch
+    dev_type = torch.device(device).type if device is not None else "cpu"
+    mesh = _mesh_cls()(dev_type, torch.arange(1), mesh_dim_names=("dp",),
+                       _init_backend=False, _rank=0)
+    mesh._with_group = False
+    return mesh
+
+
+def mesh_axis_size(mesh, axis: str) -> int:
+    return mesh.shape.get(axis, 1) if hasattr(mesh, "shape") else 1
+
+
+def suggest_accum_steps(batch: int, div: int,
+                        prefer: int = 1) -> Optional[int]:
+    """The gradient-accumulation factor that would make ``batch`` legal
+    on a mesh whose data axes multiply to ``div``: the divisors of
+    ``batch // div``, the one closest to ``prefer`` (ties go up), or
+    None when ``div`` does not divide ``batch``."""
+    if div <= 0 or batch % div:
+        return None
+    per = batch // div
+    legal = [k for k in range(1, per + 1) if per % k == 0]
+    return min(legal, key=lambda k: (abs(k - prefer), -k))
+
+
+def validate_divisibility(mesh, *, batch: Optional[int] = None,
+                          seq: Optional[int] = None,
+                          d_model: Optional[int] = None,
+                          n_heads: Optional[int] = None,
+                          accum_steps: int = 1) -> None:
+    """Fail fast on shape/axis mismatches, naming the failing axes and,
+    for the batch, the ``accum_steps`` that would make the mesh legal."""
+    accum_steps = int(accum_steps)
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps={accum_steps} must be >= 1")
+    checks = [
+        (seq, ("sp",), "sequence length"),
+        (n_heads, ("tp",), "attention heads"),
+        (d_model, ("tp",), "d_model"),
+    ]
+    for value, axes, label in checks:
+        if value is None:
+            continue
+        div = math.prod(mesh.shape.get(a, 1) for a in axes)
+        if value % div:
+            present = ", ".join(
+                f"{a}={mesh.shape.get(a, 1)}" for a in axes
+                if mesh.shape.get(a, 1) > 1) or "all size 1"
+            raise ValueError(
+                f"{label}={value} not divisible by mesh axes {axes} "
+                f"({present}; product {div})")
+    if batch is None:
+        return
+    axes = ("dcn", "dp", "fsdp")
+    div = math.prod(mesh.shape.get(a, 1) for a in axes)
+    if batch % (div * accum_steps) == 0:
+        return
+    present = ", ".join(f"{a}={mesh.shape.get(a, 1)}" for a in axes
+                        if mesh.shape.get(a, 1) > 1) or "all size 1"
+    suggestion = suggest_accum_steps(batch, div, prefer=accum_steps)
+    if suggestion is None:
+        hint = (f"no accum_steps can fix this — the data axes "
+                f"(product {div}) do not divide the global batch; "
+                "change the batch or the mesh")
+    else:
+        hint = (f"accum_steps={suggestion} would make this mesh "
+                f"legal (microbatch {batch // suggestion})")
+    raise ValueError(
+        f"batch={batch} with accum_steps={accum_steps} not divisible "
+        f"by mesh data axes {axes} ({present}; product {div}): each "
+        f"microbatch must be whole and shard evenly — {hint}")

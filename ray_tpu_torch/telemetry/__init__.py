@@ -1,13 +1,21 @@
-"""``ray_tpu_torch.telemetry`` — the analytic FLOP count and MFU
-(:mod:`.flops`), the inference recorder (:mod:`.infer`), the fleet
-recorder (:mod:`.fleet`), per-request tracing and the flight recorder
-(:mod:`.trace`); the per-step training recorder comes later (ROADMAP
-Queue 1 item 7)."""
+"""``ray_tpu_torch.telemetry`` — the per-step training recorder
+(:mod:`.step`: :class:`StepTelemetry`, :func:`instrument`), the analytic
+FLOP count and MFU (:mod:`.flops`), the inference recorder
+(:mod:`.infer`), the fleet recorder (:mod:`.fleet`), per-request tracing
+and the flight recorder (:mod:`.trace`), and the Chrome-trace exporter
+(:mod:`.chrome_trace`)."""
 
+from ray_tpu_torch.telemetry import chrome_trace  # noqa: F401
+from ray_tpu_torch.telemetry.config import (TelemetryConfig,  # noqa: F401
+                                            telemetry_config)
 from ray_tpu_torch.telemetry.fleet import FleetTelemetry  # noqa: F401
 from ray_tpu_torch.telemetry.flops import (  # noqa: F401
     H100_PEAK_TFLOPS, gpt_fwd_flops_per_token, gpt_train_flops_per_token,
     mfu)
+from ray_tpu_torch.telemetry.step import (StepTelemetry,  # noqa: F401
+                                          instrument, recorders)
 
-__all__ = ["FleetTelemetry", "H100_PEAK_TFLOPS", "gpt_fwd_flops_per_token",
+__all__ = ["TelemetryConfig", "telemetry_config", "StepTelemetry",
+           "instrument", "recorders", "FleetTelemetry", "chrome_trace",
+           "H100_PEAK_TFLOPS", "gpt_fwd_flops_per_token",
            "gpt_train_flops_per_token", "mfu"]

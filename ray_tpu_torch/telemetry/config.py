@@ -5,8 +5,8 @@
   every recorder into a no-op: the engine checks ``enabled`` before it
   touches one.  An unknown value falls back to ``1`` with a line on
   stderr.
-- ``RAY_TPU_PROFILE`` (default unset): a directory for profiler
-  captures; read here for the step recorder (ROADMAP Queue 1 item 7).
+- ``RAY_TPU_PROFILE`` (default unset): a directory; the step recorder
+  (:mod:`.step`) writes a ``torch.profiler`` trace of steps 1-3 there.
 """
 
 from __future__ import annotations

@@ -37,7 +37,7 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 85
+    assert n_modules >= 101
 
 
 _FIRST_PROBE = r"""
@@ -78,8 +78,9 @@ def test_every_module_imports_first():
 # and the request parser) and the runtime's (the node manager, workers,
 # the object store and its native source's binding, the control plane,
 # the API, the CLI and the GPU manager) and serving on the runtime's
-# (serve's controller, replica, handle and proxies), which the probe
-# above must reach
+# (serve's controller, replica, handle and proxies) and the training
+# options' and data parallelism's (the fused CE, the step recorder, the
+# dp mesh, the collectives and train/), which the probe above must reach
 _SLICE_MODULES = ("ray_tpu_torch/ops/flash_ce.py",
                   "ray_tpu_torch/models/training.py",
                   "ray_tpu_torch/telemetry/flops.py",
@@ -122,7 +123,23 @@ _SLICE_MODULES = ("ray_tpu_torch/ops/flash_ce.py",
                   "ray_tpu_torch/serve/_private/controller.py",
                   "ray_tpu_torch/serve/_private/replica.py",
                   "ray_tpu_torch/serve/_private/proxy.py",
-                  "ray_tpu_torch/serve/_private/mux_context.py")
+                  "ray_tpu_torch/serve/_private/mux_context.py",
+                  "ray_tpu_torch/ops/fused_ce.py",
+                  "ray_tpu_torch/telemetry/step.py",
+                  "ray_tpu_torch/parallel/mesh.py",
+                  "ray_tpu_torch/util/collective.py",
+                  "ray_tpu_torch/train/__init__.py",
+                  "ray_tpu_torch/train/backend.py",
+                  "ray_tpu_torch/train/checkpoint.py",
+                  "ray_tpu_torch/train/checkpoint_manager.py",
+                  "ray_tpu_torch/train/config.py",
+                  "ray_tpu_torch/train/data_parallel_trainer.py",
+                  "ray_tpu_torch/train/result.py",
+                  "ray_tpu_torch/train/session.py",
+                  "ray_tpu_torch/train/storage.py",
+                  "ray_tpu_torch/train/worker_group.py",
+                  "ray_tpu_torch/train/torch/__init__.py",
+                  "ray_tpu_torch/train/torch/config.py")
 
 
 def _imported_roots(path):
@@ -226,6 +243,31 @@ def test_serve_imports_no_torch():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     out = subprocess.run([sys.executable, "-c", _SERVE_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+_TRAIN_PROBE = r"""
+import sys
+import ray_tpu_torch.train
+import ray_tpu_torch.train.torch
+import ray_tpu_torch.util.collective
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("torch", "jax", "jaxlib", "ray_tpu"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_train_and_collectives_import_no_torch():
+    """``train``, ``train.torch`` and ``util.collective`` import no
+    torch: a driver builds a trainer without it, and the collective
+    group's rendezvous actor runs in a CPU worker; torch is imported
+    where a verb or a train loop needs it."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _TRAIN_PROBE], cwd=REPO,
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

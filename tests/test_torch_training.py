@@ -247,23 +247,129 @@ def test_training_step_rotates_inside_the_kernel(monkeypatch):
     (dict(comm_mode="overlap"), "item 9"),
     (dict(comm_quant="int8"), "item 9"),
     (dict(lora=True), "item 11"),
-    (dict(telemetry=True), "item 7"),
 ])
 def test_unported_training_options_raise(kw, item):
+    """What item 9b ports (a mesh with no data-parallel axis, sequence
+    parallelism, the overlap schedule and its wire) and LoRA (item 11)
+    raise, naming their item."""
     _jcfg, tcfg = _cfgs()
     with pytest.raises(NotImplementedError, match=item):
         ttrain.build_gpt_train(tcfg, device="cpu", **kw)
 
 
-def test_remat_and_fused_ce_raise():
+def test_remat_step_matches_jax_remat():
+    """``cfg.remat`` (each block under ``torch.utils.checkpoint``)
+    against the JAX package's ``remat=True`` loss (``jax.checkpoint`` on
+    the scanned block): the loss within 1e-5 relative and each gradient
+    leaf within 1e-4 of its largest value (tests/test_models.py:177)."""
+    jcfg, tcfg = _cfgs()
+    jcfg = dataclasses.replace(jcfg, remat=True)
+    tcfg = dataclasses.replace(tcfg, remat=True)
+    mesh = make_mesh(dp=1, devices=jax.devices()[:1])
+    jparams = jgpt.init_params(jcfg, jax.random.PRNGKey(0))
+    batch = _jax_batch(5)
+    jattn = JA.make_flash_attention_fn(mesh, causal=True,
+                                       rope_theta=jcfg.rope_theta)
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jgpt.loss_fn(p, batch, jcfg, attn_fn=jattn,
+                               mesh=mesh))(jparams)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                              device="cpu")
+    fns = ttrain.build_gpt_train(tcfg, device="cpu", telemetry=False)
+    tloss, tgrads = ttrain.value_and_grad(
+        lambda p, b: tgpt.loss_fn(p, b, tcfg, attn_fn=fns["attn_fn"]),
+        tparams, _to_torch(batch))
+    assert float(tloss) == pytest.approx(float(jloss), rel=1e-5)
+    jl = dict(_leaves(jax.tree.map(np.asarray, jgrads)))
+    tl = dict(_leaves(params_to_numpy(tgrads)))
+    for path, want in jl.items():
+        err = np.abs(tl[path] - want).max() / max(1e-8, np.abs(want).max())
+        assert err < 1e-4, (path, err)
+
+
+@pytest.fixture
+def deterministic():
+    """``torch.use_deterministic_algorithms`` for one test: the
+    embedding's backward (a scatter-add over repeated tokens) otherwise
+    sums in an order that may change from one call to the next, which
+    moves the embedding's gradient by an ulp between two runs of the
+    same step."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(was)
+
+
+@pytest.mark.parametrize("norm_kernel", [False, True])
+def test_remat_step_equals_the_plain_step(norm_kernel, monkeypatch,
+                                          deterministic):
+    """The remat step recomputes the same kernels on the same inputs:
+    its loss, every gradient and the post-step parameters equal the
+    non-remat step's bit for bit (``torch.equal``), with the RMSNorm
+    kernels' path on too.  The recompute runs each block's forward
+    kernels once more (the attention forward twice per layer)."""
+    from ray_tpu_torch.ops import attention as TA_
+    monkeypatch.setattr(tgpt, "_PALLAS_NORM", norm_kernel)
+    calls = {"n": 0}
+    real = TA_.FlashAttention.forward
+
+    def counting(ctx, *a, **k):
+        calls["n"] += 1
+        return real(ctx, *a, **k)
+
+    monkeypatch.setattr(TA_.FlashAttention, "forward",
+                        staticmethod(counting))
     _jcfg, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="remat"):
-        ttrain.build_gpt_train(dataclasses.replace(tcfg, remat=True),
-                               device="cpu")
-    x = torch.zeros(8, 96)
-    with pytest.raises(NotImplementedError, match="fused"):
-        tgpt._chunked_ce(x, torch.zeros(96, 64), torch.zeros(8).long(),
-                         chunk=-1, mode="fused")
+    batch = _to_torch(_jax_batch(6))
+    out = {}
+    for remat in (False, True):
+        calls["n"] = 0
+        cfg = dataclasses.replace(tcfg, remat=remat)
+        fns = ttrain.build_gpt_train(cfg, device="cpu", telemetry=False)
+        state = fns["init_fn"](torch.Generator().manual_seed(0))
+        loss, grads = ttrain.value_and_grad(
+            lambda p, b: tgpt.loss_fn(p, b, cfg, attn_fn=fns["attn_fn"]),
+            state.params, batch)
+        out[remat] = (loss, grads, calls["n"])
+        state, _m = fns["step_fn"](state, batch)
+        out[remat] += (state.params,)
+    assert out[False][2] == tcfg.n_layers
+    assert out[True][2] == 2 * tcfg.n_layers
+    assert torch.equal(out[True][0], out[False][0])
+    for a, b in zip(ttrain._leaves(out[True][1]),
+                    ttrain._leaves(out[False][1])):
+        assert torch.equal(a, b)
+    for a, b in zip(ttrain._leaves(out[True][3]),
+                    ttrain._leaves(out[False][3])):
+        assert torch.equal(a, b)
+
+
+def test_remat_pins_the_norm_path_of_its_forward(monkeypatch):
+    """A block's recompute takes the path of its forward: flipping
+    ``_PALLAS_NORM`` between the forward and the backward changes
+    nothing (the RMSNorm Function's forward runs again, not the plain
+    norm)."""
+    from ray_tpu_torch.ops import rmsnorm as TR
+    calls = {"fwd": 0}
+    real = TR.rmsnorm_fwd
+
+    def spy(*a, **k):
+        calls["fwd"] += 1
+        return real(*a, **k)
+
+    monkeypatch.setattr(TR, "rmsnorm_fwd", spy)
+    _jcfg, tcfg = _cfgs()
+    cfg = dataclasses.replace(tcfg, remat=True)
+    params = tgpt.init_params(cfg, device="cpu")
+    leaves = [p.requires_grad_(True) for p in ttrain._leaves(params)]
+    batch = _to_torch(_jax_batch(7))
+    monkeypatch.setattr(tgpt, "_PALLAS_NORM", True)
+    loss = tgpt.loss_fn(params, batch, cfg)
+    n_fwd = calls["fwd"]
+    monkeypatch.setattr(tgpt, "_PALLAS_NORM", False)
+    loss.backward()
+    assert n_fwd == cfg.n_layers and calls["fwd"] == 2 * n_fwd
+    assert all(p.grad is not None for p in leaves)
 
 
 def test_schedule_matches_optax():
