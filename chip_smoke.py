@@ -231,6 +231,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -338,7 +339,10 @@ class Recorder:
         self.rows = {}
 
     def record(self, kernel, shape, err, ms, plain_ms, lib_ms, nbytes,
-               flops, source, replaces, **extra):
+               flops, source, replaces, *, own: bool = True, **extra):
+        """One measured shape of ``kernel``: printed, added to its row's
+        ``by_shape`` and error, and (``own``, the default) made the row's
+        own shape; ``own=False`` keeps the row's shape."""
         b_ms, b_by = bound(nbytes, flops, self.bw, self.peak)
         print(f"kernel {kernel} {shape}: max_abs_err={err:.3e} "
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -348,8 +352,10 @@ class Recorder:
             "name": kernel, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": 0.0})
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        row.update(shape=shape, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **extra)
+        if own:
+            row.update(shape=shape, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                       **extra)
         # every shape measured, the row's own (the last) included
         row.setdefault("by_shape", []).append(dict(
             shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -1284,6 +1290,137 @@ def ragged_flash_ce_checks(dev) -> None:
                   "guard bands intact", flush=True)
 
 
+def attention_kernel_checks(rec: Recorder, randn, dev, H: int, *,
+                            main: bool) -> dict:
+    """The attention pair at [24, 1024, H, 64] with the training path's
+    RoPE tables (positions 0..S-1, theta 10000, cast to bf16), bf16,
+    against its plain version on the same inputs; returns the times.
+    ``main``: GPT-2's 12 heads, the kernels' rows (``Recorder.record``)
+    with the f32 instantiations and the times without RoPE besides;
+    otherwise a tp rank's local heads, an extra shape of the rows
+    (``Recorder.record(own=False)``).
+
+    The bf16 kernel rounds the rotated q and k to bf16
+    (attention.py:_rot), so its plain version in f32 takes them so
+    rounded (qr, kr) and applies the transposed rotation to dq and dk
+    itself; the f32 kernel is held to the plain version with the
+    rotation inside, in f32."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention as A
+
+    bf = torch.bfloat16
+    B, S, D = TRAIN_B, TRAIN_S, TRAIN_D
+    shape = f"[{B},{S},{H},{D}]"
+    record = functools.partial(rec.record, own=main)
+    scale = D ** -0.5
+    q, k, v, do = (randn(B, S, H, D) for _ in range(4))
+    rope = A.rope_tables(torch.arange(S, device=dev), D, 10000.0, bf)
+    rope32 = _f32(*rope)
+    qr, kr = (A._rot(x, *rope).float() for x in (q, k))
+    o, lse = A.flash_attention_fwd(q, k, v, scale=scale, rope=rope)
+    o_ref, lse_ref = A.plain_flash_attention_fwd(qr, kr, v.float(),
+                                                 scale=scale)
+    torch.cuda.synchronize()
+    what = f"flash_attention_fwd rope {shape}"
+    err = max(check(f"{what} o", o, o_ref, **BF16_TOL),
+              check(f"{what} lse", lse, lse_ref, **LSE_TOL))
+    del o_ref, lse_ref
+    if main:
+        o_ref32, lse_ref32 = A.plain_flash_attention_fwd(
+            *_f32(q, k, v), scale=scale, rope=rope32)
+        o32, lse32 = A.flash_attention_fwd(*_f32(q, k, v), scale=scale,
+                                           rope=rope32)
+        torch.cuda.synchronize()
+        check(f"{what} f32 o", o32, o_ref32, **F32_TOL)
+        check(f"{what} f32 lse", lse32, lse_ref32, **F32_TOL)
+        del o_ref32, lse_ref32, o32, lse32
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    tokens = B * S * H * D
+    times = {"fwd_ms": time_ms(lambda: A.flash_attention_fwd(
+        q, k, v, scale=scale, rope=rope), 5)}
+    record("flash_attention_fwd", [B, S, H, D], err, times["fwd_ms"],
+           time_ms(lambda: A.plain_flash_attention_fwd(
+               q, k, v, scale=scale, rope=rope), 3),
+           time_ms(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=True), 5),
+           4 * tokens * 2 + B * H * S * 4 + 2 * S * D * 2,
+           4 * B * H * D * S * (S + 1) / 2,
+           "ray_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+           "ray_tpu/ops/attention.py:477")
+
+    if main:
+        # what the in-kernel RoPE costs: the same calls without it
+        o_nr, lse_nr = A.flash_attention_fwd(q, k, v, scale=scale)
+        t_f = time_ms(lambda: A.flash_attention_fwd(q, k, v, scale=scale),
+                      5)
+        t_b = time_ms(lambda: A.flash_attention_bwd(
+            q, k, v, o_nr, lse_nr, do, scale=scale), 5)
+        print(f"flash_attention {shape} without RoPE: forward {t_f:.4f} "
+              f"ms, backward {t_b:.4f} ms", flush=True)
+        del o_nr, lse_nr
+
+    # the backward on the same inputs, with the bf16 forward's o and lse
+    grads = A.flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
+                                  rope=rope)
+    refs = bwd_reference(qr, kr, v, o, lse, do, scale, rope32)
+    del qr, kr
+    torch.cuda.synchronize()
+    what = f"flash_attention_bwd rope {shape}"
+    err = max(check(f"{what} {n}", x, y, **GRAD_BF16_TOL)
+              for n, x, y in zip(("dq", "dk", "dv"), grads, refs))
+    del grads, refs
+    torch.cuda.empty_cache()
+    if main:
+        refs32 = A.plain_flash_attention_bwd(*_f32(q, k, v, o), lse,
+                                             do.float(), scale=scale,
+                                             rope=rope32)
+        grads32 = A.flash_attention_bwd(*_f32(q, k, v, o), lse, do.float(),
+                                        scale=scale, rope=rope32)
+        torch.cuda.synchronize()
+        for n, x, y in zip(("dq", "dk", "dv"), grads32, refs32):
+            check(f"{what} f32 {n}", x, y, **F32_GRAD_TOL)
+        del refs32, grads32
+        torch.cuda.empty_cache()
+
+    def sdpa_fwd_bwd():
+        a, b, c = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+        F.scaled_dot_product_attention(a, b, c, is_causal=True).backward(dot)
+
+    times["bwd_ms"] = time_ms(lambda: A.flash_attention_bwd(
+        q, k, v, o, lse, do, scale=scale, rope=rope), 5)
+    record("flash_attention_bwd", [B, S, H, D], err, times["bwd_ms"],
+           time_ms(lambda: A.plain_flash_attention_bwd(
+               q, k, v, o, lse, do, scale=scale, rope=rope), 3),
+           time_ms(sdpa_fwd_bwd, 5),
+           8 * tokens * 2 + B * H * S * 4 + 2 * S * D * 2,
+           5 * 2 * B * H * D * S * (S + 1) / 2,
+           "ray_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+           "ray_tpu/ops/attention.py:925")
+    del q, k, v, do, o, lse, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    return times
+
+
+# a tp rank's local heads of GPT-2's 12: tp = 2 and tp = 4
+TP_HEADS = (6, 3)
+
+
+def tp_attention_phase(rec: Recorder, dev) -> dict:
+    """The attention pair at the per-rank shapes a tp mesh gives GPT-2
+    (12 heads over tp = 2 and 4: 6 and 3 local heads), held to its plain
+    version as at 12 heads; prints the times beside the card's name and
+    power limit and returns them by head count."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    randn = _randn(g, dev)
+    out = {}
+    for H in TP_HEADS:
+        out[H] = attention_kernel_checks(rec, randn, dev, H, main=False)
+    print(f"tp per-rank attention on {card()}: " + json.dumps(
+        {f"H={H}": t for H, t in out.items()}), flush=True)
+    return out
+
+
 def train_kernel_phase(rec: Recorder, dev) -> None:
     """The training path's kernels against their plain versions at its
     shapes: the flash forward with its RoPE tables, the attention
@@ -1293,7 +1430,6 @@ def train_kernel_phase(rec: Recorder, dev) -> None:
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import _build
-    from ray_tpu_torch.ops import attention as A
     from ray_tpu_torch.ops import flash_ce as FC
     from ray_tpu_torch.ops import fused_norm as FN
 
@@ -1304,93 +1440,7 @@ def train_kernel_phase(rec: Recorder, dev) -> None:
           f"{CE_LSE_TOL}, CE true {CE_TRUE_TOL}, grads f32 {F32_GRAD_TOL}",
           flush=True)
 
-    # attention at [24, 1024, 12, 64] with the RoPE tables of the
-    # training path (positions 0..S-1, theta 10000, cast to bf16).  The
-    # bf16 kernel rounds the rotated q and k to bf16 (attention.py:_rot),
-    # so its plain version in f32 takes them so rounded (qr, kr) and
-    # applies the transposed rotation to dq and dk itself; the f32 kernel
-    # is held to the plain version with the rotation inside, in f32.
-    B, S, H, D = TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_D
-    scale = D ** -0.5
-    q, k, v, do = (randn(B, S, H, D) for _ in range(4))
-    rope = A.rope_tables(torch.arange(S, device=dev), D, 10000.0, bf)
-    rope32 = _f32(*rope)
-    qr, kr = (A._rot(x, *rope).float() for x in (q, k))
-    o, lse = A.flash_attention_fwd(q, k, v, scale=scale, rope=rope)
-    o_ref, lse_ref = A.plain_flash_attention_fwd(qr, kr, v.float(),
-                                                 scale=scale)
-    o_ref32, lse_ref32 = A.plain_flash_attention_fwd(
-        *_f32(q, k, v), scale=scale, rope=rope32)
-    o32, lse32 = A.flash_attention_fwd(*_f32(q, k, v), scale=scale,
-                                       rope=rope32)
-    torch.cuda.synchronize()
-    what = "flash_attention_fwd rope [24,1024,12,64]"
-    err = max(check(f"{what} o", o, o_ref, **BF16_TOL),
-              check(f"{what} lse", lse, lse_ref, **LSE_TOL))
-    check(f"{what} f32 o", o32, o_ref32, **F32_TOL)
-    check(f"{what} f32 lse", lse32, lse_ref32, **F32_TOL)
-    del o_ref, lse_ref, o_ref32, lse_ref32, o32, lse32
-    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
-    tokens = B * S * H * D
-    rec.record("flash_attention_fwd", [B, S, H, D], err,
-               time_ms(lambda: A.flash_attention_fwd(q, k, v, scale=scale,
-                                                     rope=rope), 5),
-               time_ms(lambda: A.plain_flash_attention_fwd(
-                   q, k, v, scale=scale, rope=rope), 3),
-               time_ms(lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, is_causal=True), 5),
-               4 * tokens * 2 + B * H * S * 4 + 2 * S * D * 2,
-               4 * B * H * D * S * (S + 1) / 2,
-               "ray_tpu_torch/ops/csrc/flash_attention_fwd.cu",
-               "ray_tpu/ops/attention.py:477")
-
-    # what the in-kernel RoPE costs: the same calls without it
-    o_nr, lse_nr = A.flash_attention_fwd(q, k, v, scale=scale)
-    t_f = time_ms(lambda: A.flash_attention_fwd(q, k, v, scale=scale), 5)
-    t_b = time_ms(lambda: A.flash_attention_bwd(q, k, v, o_nr, lse_nr, do,
-                                                scale=scale), 5)
-    print(f"flash_attention [24,1024,12,64] without RoPE: forward {t_f:.4f} "
-          f"ms, backward {t_b:.4f} ms", flush=True)
-    del o_nr, lse_nr
-
-    # the backward on the same inputs, with the bf16 forward's o and lse
-    grads = A.flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
-                                  rope=rope)
-    refs = bwd_reference(qr, kr, v, o, lse, do, scale, rope32)
-    del qr, kr
-    torch.cuda.synchronize()
-    what = "flash_attention_bwd rope [24,1024,12,64]"
-    err = max(check(f"{what} {n}", x, y, **GRAD_BF16_TOL)
-              for n, x, y in zip(("dq", "dk", "dv"), grads, refs))
-    del grads, refs
-    torch.cuda.empty_cache()
-    refs32 = A.plain_flash_attention_bwd(*_f32(q, k, v, o), lse,
-                                         do.float(), scale=scale,
-                                         rope=rope32)
-    grads32 = A.flash_attention_bwd(*_f32(q, k, v, o), lse, do.float(),
-                                    scale=scale, rope=rope32)
-    torch.cuda.synchronize()
-    for n, x, y in zip(("dq", "dk", "dv"), grads32, refs32):
-        check(f"{what} f32 {n}", x, y, **F32_GRAD_TOL)
-    del refs32, grads32
-    torch.cuda.empty_cache()
-
-    def sdpa_fwd_bwd():
-        a, b, c = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
-        F.scaled_dot_product_attention(a, b, c, is_causal=True).backward(dot)
-
-    rec.record("flash_attention_bwd", [B, S, H, D], err,
-               time_ms(lambda: A.flash_attention_bwd(
-                   q, k, v, o, lse, do, scale=scale, rope=rope), 5),
-               time_ms(lambda: A.plain_flash_attention_bwd(
-                   q, k, v, o, lse, do, scale=scale, rope=rope), 3),
-               time_ms(sdpa_fwd_bwd, 5),
-               8 * tokens * 2 + B * H * S * 4 + 2 * S * D * 2,
-               5 * 2 * B * H * D * S * (S + 1) / 2,
-               "ray_tpu_torch/ops/csrc/flash_attention_bwd.cu",
-               "ray_tpu/ops/attention.py:925")
-    del q, k, v, do, o, lse, qt, kt, vt, dot
-    torch.cuda.empty_cache()
+    attention_kernel_checks(rec, randn, dev, TRAIN_H, main=True)
 
     # the out-proj epilogue at the training path's N, forward then
     # backward with cotangents into both outputs
@@ -4215,6 +4265,61 @@ def train_arms_phase(dev, default: dict) -> dict:
 # (num_gpus=1), its gradients reduced over the trainer's NCCL world of 1
 TRAIN_WORKER_TEL_TOL = 0.10     # recorder's steady step vs the window's
 TRAIN_WORKER_RELEASE_S = 5.0    # fit() returned -> worker gone, card free
+# gpt2-train-sharded: the same worker trains gpt2-train-b24 again on the
+# mesh of ScalingConfig.mesh_axes, every sharded axis at 1 (a world of 1)
+TRAIN_SHARDED_AXES = {"dp": 1, "fsdp": 1, "sp": 1, "tp": 1}
+
+
+def train_sharded_arm(cfg, dev) -> dict:
+    """gpt2-train-sharded, in the train worker after its data-parallel
+    arm: the mesh of the trainer's ``ScalingConfig.mesh_axes``
+    (``train.get_context().get_mesh_axes()``), the full tree drawn from
+    the driver's seed and cut by ``sharding.shard_params`` into this
+    rank's shards, and WARMUP_STEPS + TIMED_STEPS steps of the sharded
+    gradient path from the same batch; the launches of the timed steps.
+    A world of 1: every axis is 1, so each shard is the whole tensor and
+    every reduction spans one rank; nothing here measures multi-rank
+    speed."""
+    from ray_tpu_torch import init_params, train
+    from ray_tpu_torch.models.gpt import param_logical_axes
+    from ray_tpu_torch.models.training import (build_gpt_train,
+                                               default_optimizer,
+                                               synthetic_lm_batch)
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.parallel import sharding
+    from ray_tpu_torch.parallel.mesh import make_mesh
+
+    axes = train.get_context().get_mesh_axes()
+    mesh = make_mesh(**axes)
+    fns = build_gpt_train(cfg, mesh, optimizer=default_optimizer(**TRAIN_OPT),
+                          device=dev, telemetry=False)
+    full = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    state = fns["init_fn"](params=sharding.shard_params(
+        full, mesh, param_logical_axes(cfg)))
+    del full
+    batch = fns["shard_batch"](synthetic_lm_batch(
+        torch.Generator().manual_seed(1), TRAIN_B, TRAIN_S, cfg.vocab_size,
+        device=dev))
+    losses, norms, walls = [], [], []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        if i == WARMUP_STEPS:
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.monotonic()
+        t_step = time.monotonic()
+        state, m = fns["step_fn"](state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if i >= WARMUP_STEPS:
+            walls.append(1e3 * (time.monotonic() - t_step))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    return {"axes": axes, "mesh": dict(mesh.shape.items()),
+            "losses": losses, "grad_norms": norms,
+            "launches": _build.launch_counts(),
+            "step_ms": 1e3 * wall / TIMED_STEPS,
+            "median_step_ms": float(np.median(walls)),
+            "step_walls_ms": walls}
 
 
 def train_worker_loop(config: dict) -> None:
@@ -4224,7 +4329,9 @@ def train_worker_loop(config: dict) -> None:
     ``build_gpt_train(cfg, make_mesh(dp=-1), telemetry=True)`` from the
     driver's seeds, reporting each step; the last report carries the
     timed steps' launches, the recorder's summary and records, and rank
-    0's state as a checkpoint saved in ``config["ckpt_dir"]``."""
+    0's state as a checkpoint saved in ``config["ckpt_dir"]``.  With
+    ``config["sharded"]`` it also carries ``train_sharded_arm``'s run,
+    made after the timed steps' launches are read."""
     import torch.distributed as dist
 
     from ray_tpu_torch import GPTConfig, train
@@ -4296,6 +4403,8 @@ def train_worker_loop(config: dict) -> None:
         nccl_init_s=collective.get_group(WORLD_GROUP).init_s,
         pid=os.getpid(), visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
         mesh={"dp": mesh.shape["dp"], "size": int(mesh.size)})
+    if config.get("sharded"):
+        rep["sharded"] = train_sharded_arm(cfg, dev)
     ckpt = None
     if train.get_context().get_world_rank() == 0:
         path = config["ckpt_dir"]
@@ -4306,7 +4415,8 @@ def train_worker_loop(config: dict) -> None:
     train.report(rep, checkpoint=ckpt)
 
 
-def train_worker_phase(dev, default: dict) -> dict:
+def train_worker_phase(dev, default: dict, *, sharded: bool = False
+                       ) -> tuple:
     """gpt2-train-worker: ``ray_tpu_torch.init`` and a ``TorchTrainer``
     of one ``num_gpus=1`` worker (``ScalingConfig(use_gpu=True)``) whose
     backend forms an NCCL world of 1; its loop (``train_worker_loop``)
@@ -4321,8 +4431,13 @@ def train_worker_phase(dev, default: dict) -> dict:
     ``compile_s`` on step 0 alone, rank 0's checkpoint (saved in the
     run's storage, removed here) loaded here at the steps run, and the
     worker gone and the card free within TRAIN_WORKER_RELEASE_S of
-    ``fit()``.  Prints ``train-worker metrics {...}``; returns the
-    worker's launches."""
+    ``fit()``.  Prints ``train-worker metrics {...}``.  ``sharded``: the
+    trainer's ``ScalingConfig`` carries TRAIN_SHARDED_AXES and the worker
+    also runs gpt2-train-sharded (``train_sharded_arm``), whose every
+    loss and grad norm must equal the data-parallel arm's exactly and
+    whose launches must equal its launches; prints ``train-sharded
+    metrics {...}``.  Returns the launches of the data-parallel arm and
+    of the sharded arm (None without ``sharded``)."""
     import shutil
     import tempfile
 
@@ -4343,9 +4458,11 @@ def train_worker_phase(dev, default: dict) -> dict:
             chip_smoke.train_worker_loop,
             torch_config=TorchConfig(host_collective=False),
             train_loop_config={"card": torch.cuda.get_device_name(0),
-                               "ckpt_dir": os.path.join(storage,
-                                                        "state")},
-            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+                               "ckpt_dir": os.path.join(storage, "state"),
+                               "sharded": sharded},
+            scaling_config=ScalingConfig(
+                num_workers=1, use_gpu=True,
+                mesh_axes=TRAIN_SHARDED_AXES if sharded else None),
             run_config=RunConfig(name="gpt2-train-worker",
                                  storage_path=storage))
         t_fit = time.time()
@@ -4440,7 +4557,36 @@ def train_worker_phase(dev, default: dict) -> dict:
           f"loaded, worker gone and card free {release_s:.3f} s after "
           "fit()", flush=True)
     print("train-worker metrics " + json.dumps(metrics), flush=True)
-    return last["launches"]
+    if not sharded:
+        return last["launches"], None
+    arm = last["sharded"]
+    dp_losses = [h["loss"] for h in hist]
+    dp_norms = [h["grad_norm"] for h in hist]
+    if arm["axes"] != TRAIN_SHARDED_AXES or arm["mesh"] != TRAIN_SHARDED_AXES:
+        raise AssertionError(f"train-sharded: mesh_axes {arm['axes']} built "
+                             f"{arm['mesh']}, want {TRAIN_SHARDED_AXES}")
+    if arm["losses"] != dp_losses or arm["grad_norms"] != dp_norms:
+        raise AssertionError(
+            f"train-sharded: losses {arm['losses']} grad norms "
+            f"{arm['grad_norms']} differ from the data-parallel arm's "
+            f"{dp_losses} {dp_norms}")
+    if _nonzero(arm["launches"]) != _nonzero(last["launches"]):
+        raise AssertionError(f"train-sharded: launches "
+                             f"{_nonzero(arm['launches'])} vs the data-"
+                             f"parallel arm's {_nonzero(last['launches'])}")
+    out = {"cell": "gpt2-train-sharded", "card": card(),
+           "mesh_axes": arm["axes"], "sharded_step_ms": arm["step_ms"],
+           "dp_step_ms": last["step_ms"],
+           "sharded_median_step_ms": arm["median_step_ms"],
+           "dp_median_step_ms": last["median_step_ms"],
+           "sharded_step_walls_ms": arm["step_walls_ms"], "steps": steps,
+           "losses_equal": True, "grad_norms_equal": True,
+           "launches": _nonzero(arm["launches"])}
+    print(f"train-sharded: a world of 1 on {TRAIN_SHARDED_AXES}: {steps} "
+          "losses and grad norms equal the data-parallel arm's exactly, "
+          "launches equal", flush=True)
+    print("train-sharded metrics " + json.dumps(out), flush=True)
+    return last["launches"], arm["launches"]
 
 
 # One step's loss and gradients, kernel path against the port's plain
@@ -5077,8 +5223,21 @@ def main() -> None:
         train.pop("launches")
         gc.collect()
         torch.cuda.empty_cache()
-        launches = train_worker_phase(dev, train)
+        launches, _ = train_worker_phase(dev, train)
         print("train-worker: every check passed; launches "
+              + json.dumps(_nonzero(launches)), flush=True)
+        return
+    if sys.argv[1:] == ["--train-sharded"]:
+        rec = Recorder(name)
+        randn = _randn(torch.Generator(device=dev).manual_seed(1), dev)
+        attention_kernel_checks(rec, randn, dev, TRAIN_H, main=True)
+        tp_attention_phase(rec, dev)
+        train = train_phase(dev)
+        train.pop("launches")
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, launches = train_worker_phase(dev, train, sharded=True)
+        print("train-sharded: every check passed; launches "
               + json.dumps(_nonzero(launches)), flush=True)
         return
     if sys.argv[1:] in (["--profile"], ["--profile", "int8"]):
@@ -5097,6 +5256,7 @@ def main() -> None:
     ragged_epilogue_checks(dev)
     ragged_flash_ce_checks(dev)
     train_kernel_phase(rec, dev)
+    tp_attention_phase(rec, dev)
     from ray_tpu_torch import GPTConfig, init_params
     cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
     params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
@@ -5126,7 +5286,8 @@ def main() -> None:
     paths.update(train_arms_phase(dev, train))
     gc.collect()
     torch.cuda.empty_cache()
-    paths["train_worker"] = train_worker_phase(dev, train)
+    paths["train_worker"], paths["train_sharded"] = train_worker_phase(
+        dev, train, sharded=True)
     train_correctness_phase(dev, fused_ce=True)
     train_correctness_phase(dev, n_layers=2, norm_kernel=True)
     width_checks(dev)

@@ -20,8 +20,10 @@ import torch
 
 from ray_tpu_torch.inference import kv_cache as kvc
 
-from ray_tpu_torch.models.gpt import GPTConfig, check_supported
+from ray_tpu_torch.models.gpt import (GPTConfig, check_supported,
+                                      param_logical_axes)
 from ray_tpu_torch.ops.substrate import resolve_device
+from ray_tpu_torch.parallel.sharding import shard_params
 
 
 def array_to_tensor(arr, device) -> torch.Tensor:
@@ -34,12 +36,15 @@ def array_to_tensor(arr, device) -> torch.Tensor:
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: GPTConfig,
-                    device=None) -> Dict[str, Any]:
+                    device=None, *, mesh=None) -> Dict[str, Any]:
     """The JAX package's GPT parameter tree (numpy leaves) -> the port's.
 
     Checks the tree against ``cfg``: every leaf must carry the model
     dtype, and the embedding and stacked attention weights must have the
-    shapes ``cfg`` implies."""
+    shapes ``cfg`` implies.  With ``mesh``, returns this rank's shards
+    (``parallel.sharding.shard_params`` by the model's logical axes): the
+    part of each leaf that JAX device r holds on the same mesh shape
+    lands on rank r."""
     check_supported(cfg)
     dev = resolve_device(device)
 
@@ -65,6 +70,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: GPTConfig,
         if tuple(node.shape) != shape:
             raise ValueError(f"{'/'.join(path)} has shape "
                              f"{tuple(node.shape)}, expected {shape}")
+    if mesh is not None:
+        out = shard_params(out, mesh, param_logical_axes(cfg))
     return out
 
 

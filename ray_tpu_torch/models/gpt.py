@@ -49,6 +49,8 @@ from ray_tpu_torch.ops import fused_norm as fnorm
 from ray_tpu_torch.ops import rmsnorm as rms
 from ray_tpu_torch.ops.attention import rope_rotate
 from ray_tpu_torch.ops.substrate import resolve_device
+from ray_tpu_torch.parallel import comm
+from ray_tpu_torch.parallel.mesh import mesh_groups
 from ray_tpu_torch.parallel.ring_attention import local_attention
 
 Params = Dict[str, Any]
@@ -109,20 +111,23 @@ class GPTConfig:
 
 def check_supported(cfg: GPTConfig) -> None:
     """Raise for the model modes this slice of the port does not run."""
+    if cfg.n_experts > 0:
+        raise NotImplementedError(
+            "MoE FFNs are not ported yet (ROADMAP Queue 1 item 9b-iv: "
+            "parallel/moe.py and the MoE FFN)")
     unported = [
         (cfg.norm != "rmsnorm", f"norm={cfg.norm!r}"),
         (cfg.act != "swiglu", f"act={cfg.act!r}"),
         (cfg.pos != "rope", f"pos={cfg.pos!r}"),
-        (cfg.n_experts > 0, "MoE FFNs"),
         (cfg.use_bias, "biases (GPT-2 exact-architecture mode)"),
         (not cfg.tie_embeddings, "an untied lm_head"),
     ]
     for bad, what in unported:
         if bad:
             raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP Queue 1: the "
-                "layernorm/bias/learned-position/MoE modes come after "
-                "the main configuration)")
+                f"{what} is not ported yet (ROADMAP Queue 1 item 12: the "
+                "layernorm/bias/learned-position/untied-head modes come "
+                "with train/huggingface)")
 
 
 def init_params(cfg: GPTConfig, generator: Optional[torch.Generator] = None,
@@ -160,6 +165,82 @@ def init_params(cfg: GPTConfig, generator: Optional[torch.Generator] = None,
     layers["w3"] = norm_init((L, d, f), d ** -0.5)
     layers["w2"] = norm_init((L, f, d), f ** -0.5 / (2 * L) ** 0.5)
     return {"embed": embed, "layers": layers, "ln_f": ones((d,))}
+
+
+def param_logical_axes(cfg: GPTConfig) -> Dict[str, Any]:
+    """The logical axes of each leaf of :func:`init_params`' tree (the
+    leading L of a layer stack unnamed), as
+    ``ray_tpu/models/gpt.py:152`` names them for this configuration."""
+    check_supported(cfg)
+    layer = {
+        "ln1": (None, None),
+        "wq": (None, "embed_fsdp", "heads", None),
+        "wk": (None, "embed_fsdp", "heads", None),
+        "wv": (None, "embed_fsdp", "heads", None),
+        "wo": (None, "heads", None, "embed_fsdp"),
+        "ln2": (None, None),
+        "w1": (None, "embed_fsdp", "mlp"),
+        "w3": (None, "embed_fsdp", "mlp"),
+        "w2": (None, "mlp", "embed_fsdp"),
+    }
+    return {"embed": ("vocab", "embed_fsdp"), "layers": layer,
+            "ln_f": (None,)}
+
+
+def param_shapes(cfg: GPTConfig) -> Dict[str, Any]:
+    """The full shape of each leaf of :func:`init_params`' tree."""
+    d, H, hd, f, L = (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.ff_dim,
+                      cfg.n_layers)
+    return {"embed": (cfg.vocab_size, d), "ln_f": (d,), "layers": {
+        "ln1": (L, d), "wq": (L, d, H, hd), "wk": (L, d, H, hd),
+        "wv": (L, d, H, hd), "wo": (L, H, hd, d), "ln2": (L, d),
+        "w1": (L, d, f), "w3": (L, d, f), "w2": (L, f, d)}}
+
+
+@dataclasses.dataclass(frozen=True)
+class _Shards:
+    """How a mesh shards the model: the fsdp and tp groups (None when
+    the axis is 1) and this rank's tp coordinate."""
+    fsdp: Any
+    tp: Any
+    tp_size: int
+    tp_rank: int
+
+
+def _shards(mesh) -> Optional[_Shards]:
+    """The model's sharding on ``mesh``, or None where the mesh shards
+    no parameter (no mesh, or fsdp and tp both 1): then the model runs
+    exactly as on one card."""
+    if mesh is None:
+        return None
+    g = mesh_groups(mesh)
+    if g.size("fsdp") == 1 and g.size("tp") == 1:
+        return None
+    return _Shards(g.fsdp if g.size("fsdp") > 1 else None,
+                   g.tp if g.size("tp") > 1 else None,
+                   g.size("tp"), g.coord("tp"))
+
+
+def _tp_group(sh: Optional[_Shards]):
+    return None if sh is None else sh.tp
+
+
+def _gather_layer(lp: Params, sh: _Shards) -> Params:
+    """ZeRO-3: each of a layer's weights all-gathered over fsdp along its
+    d_model dimension where it is used; the gradient reduce-scatters
+    back (``comm.all_gather_dim``)."""
+    if sh.fsdp is None:
+        return lp
+    out = {}
+    for k, w in lp.items():
+        axes = _LAYER_AXES[k]
+        out[k] = (comm.all_gather_dim(w, axes.index("embed_fsdp") - 1,
+                                      sh.fsdp)
+                  if "embed_fsdp" in axes else w)
+    return out
+
+
+_LAYER_AXES = param_logical_axes(GPTConfig())["layers"]
 
 
 def layer_params(params: Params, i: int) -> Params:
@@ -206,7 +287,7 @@ def _dense_ffn(lp, x, cfg: GPTConfig):
 
 
 def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
-                cache=None, fuse_norm: Optional[bool] = None):
+                cache=None, fuse_norm: Optional[bool] = None, mesh=None):
     """One transformer block: ``(layer params, hidden [B, S, d]) ->
     (hidden, aux)``.
 
@@ -221,10 +302,24 @@ def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
     The out-proj epilogue is fused whenever ``out_proj_norm_plan``
     passes (``fuse_norm=False`` declines it; None means on); it declines
     the S=1 decode step, which keeps the plain matmul + add + norm as
-    the JAX package does."""
+    the JAX package does.
+
+    On a ``mesh`` that shards the model, ``lp`` holds this rank's shards:
+    fsdp-sharded weights are all-gathered here (``_gather_layer``), and
+    under tp the block is Megatron's: q/k/v and w1/w3 column-parallel
+    over the rank's heads and ``mlp`` columns (their input's gradient
+    summed over tp), wo and w2 row-parallel with their outputs summed
+    over tp before each residual add, where GSPMD puts the reference's
+    collectives.  The fused epilogue declines under tp, as the
+    reference's gate declines a sharded mesh: the tp sum sits between
+    the matmul and the residual add."""
     eps = norm_eps(cfg)
     B, S, d = x.shape
-    h = _norm(x, lp["ln1"], cfg.norm, eps=eps)
+    sh = _shards(mesh)
+    if sh is not None:
+        lp = _gather_layer(lp, sh)
+    tp = _tp_group(sh)
+    h = comm.copy_to_group(_norm(x, lp["ln1"], cfg.norm, eps=eps), tp)
     q = _proj_heads(h, lp["wq"])
     k = _proj_heads(h, lp["wk"])
     v = _proj_heads(h, lp["wv"])
@@ -247,6 +342,7 @@ def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
     plan = fnorm.out_proj_norm_plan(B * S, Hn * hd, d, norm=cfg.norm,
                                     has_bias=False, seq=S,
                                     enabled=fuse_norm is not False,
+                                    tp_size=1 if sh is None else sh.tp_size,
                                     device=x.device)
     if plan:
         # out-proj + residual add + pre-FFN norm in one kernel
@@ -256,41 +352,61 @@ def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
         x = r2.view(B, S, d)
         h2 = y2.view(B, S, d)
     else:
-        x = x + torch.matmul(attn.reshape(B, S, Hn * hd),
-                             lp["wo"].reshape(Hn * hd, d))
+        x = x + comm.reduce_from_group(
+            torch.matmul(attn.reshape(B, S, Hn * hd),
+                         lp["wo"].reshape(Hn * hd, d)), tp)
         h2 = _norm(x, lp["ln2"], cfg.norm, eps=eps)
-    x = x + _dense_ffn(lp, h2, cfg)
+    x = x + comm.reduce_from_group(
+        _dense_ffn(lp, comm.copy_to_group(h2, tp), cfg), tp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cache is not None:
         return x, aux, cache
     return x, aux
 
 
-def embed_tokens(params: Params, tokens, cfg: GPTConfig):
-    """tokens [B, S] -> hidden [B, S, d] in the model dtype."""
-    return params["embed"].to(cfg.dtype)[tokens]
+def embed_tokens(params: Params, tokens, cfg: GPTConfig, *, mesh=None):
+    """tokens [B, S] -> hidden [B, S, d] in the model dtype.
+
+    On a mesh the table's d_model is all-gathered over fsdp, and under
+    tp the lookup is vocab-parallel: each rank looks up the tokens its
+    vocabulary rows hold, zeros elsewhere, summed over tp."""
+    sh = _shards(mesh)
+    if sh is None:
+        return params["embed"].to(cfg.dtype)[tokens]
+    table = comm.all_gather_dim(params["embed"], 1, sh.fsdp).to(cfg.dtype)
+    if sh.tp is None:
+        return table[tokens]
+    V = table.shape[0]
+    local = tokens - sh.tp_rank * V
+    hit = (local >= 0) & (local < V)
+    x = torch.where(hit[..., None], table[local.clamp(0, V - 1)], 0.0)
+    return comm.reduce_from_group(x, sh.tp)
 
 
 def forward_hidden(params: Params, tokens, cfg: GPTConfig, *,
                    attn_fn: Optional[Callable] = None,
                    fuse_norm: Optional[bool] = None,
-                   final_norm: bool = True, positions=None):
+                   final_norm: bool = True, positions=None, mesh=None):
     """tokens [B, S] int -> (final hidden [B, S, d], aux).
 
     ``attn_fn(q, k, v) -> out`` defaults to causal ``local_attention``
     (as in the JAX package); the engine passes ``flash_attention`` and
     the trainer ``make_flash_attention_fn``.  ``fuse_norm`` pins the
     out-proj epilogue; ``final_norm=False`` skips the closing ``ln_f``
-    and returns the raw residual stream (for the fused-norm CE)."""
+    and returns the raw residual stream (for the fused-norm CE).
+    ``mesh``: ``params`` are this rank's shards on it (``layer_apply``);
+    ``tokens`` and ``positions`` are this rank's rows and, under sp, its
+    sequence shard with that shard's global positions."""
     check_supported(cfg)
     S = tokens.shape[1]
     if attn_fn is None:
         attn_fn = functools.partial(local_attention, causal=True)
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, mesh=mesh)
     if positions is None:
         positions = torch.arange(S, device=tokens.device)
     block = functools.partial(layer_apply, cfg=cfg, positions=positions,
-                              attn_fn=attn_fn, fuse_norm=fuse_norm)
+                              attn_fn=attn_fn, fuse_norm=fuse_norm,
+                              mesh=mesh)
     if cfg.remat and torch.is_grad_enabled():
         block = _remat(block)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -329,42 +445,63 @@ def _remat(block: Callable) -> Callable:
     return run
 
 
-def lm_head(params: Params, cfg: GPTConfig):
-    """The tied output projection [d, V]."""
-    return params["embed"].to(cfg.dtype).T
+def lm_head(params: Params, cfg: GPTConfig, *, mesh=None):
+    """The tied output projection [d, V] (on a mesh: d gathered over
+    fsdp, this rank's vocabulary columns under tp)."""
+    sh = _shards(mesh)
+    if sh is None:
+        return params["embed"].to(cfg.dtype).T
+    return comm.all_gather_dim(params["embed"], 1, sh.fsdp).to(cfg.dtype).T
 
 
 def forward(params: Params, tokens, cfg: GPTConfig, *,
             attn_fn: Optional[Callable] = None,
-            fuse_norm: Optional[bool] = None, positions=None):
-    """tokens [B, S] int -> (logits [B, S, V] f32, aux)."""
+            fuse_norm: Optional[bool] = None, positions=None, mesh=None):
+    """tokens [B, S] int -> (logits [B, S, V] f32, aux); under tp each
+    rank's vocabulary columns are all-gathered into the full V."""
     x, aux = forward_hidden(params, tokens, cfg, attn_fn=attn_fn,
-                            fuse_norm=fuse_norm, positions=positions)
-    logits = torch.matmul(x, lm_head(params, cfg))
-    return logits.float(), aux
+                            fuse_norm=fuse_norm, positions=positions,
+                            mesh=mesh)
+    tp = _tp_group(_shards(mesh))
+    logits = torch.matmul(comm.copy_to_group(x, tp),
+                          lm_head(params, cfg, mesh=mesh))
+    return comm.all_gather_dim(logits.float(), 2, tp), aux
 
 
 def loss_from_hidden(params: Params, x, targets, cfg: GPTConfig, *,
-                     ce_mode: Optional[str] = None, norm_scale=None):
+                     ce_mode: Optional[str] = None, norm_scale=None,
+                     mesh=None):
     """(final hidden [B, S, d], targets [B, S]) -> mean NLL over the live
     (non ``-1``) targets.
 
     ``norm_scale``: when given, ``x`` is the raw residual stream (before
     ``ln_f``) and the norm fuses into the flash-CE prologue
     (``flash_ce.flash_ce_norm_sum``); if that gate declines, the norm
-    runs here and the regular CE dispatch follows."""
+    runs here and the regular CE dispatch follows.  Under tp the head
+    is vocab-sharded and the CE vocab-parallel (:func:`_vocab_parallel_ce`),
+    as the reference's flash-CE declines a sharded head
+    (``ray_tpu/models/gpt.py:667``)."""
     B, S, d = x.shape
+    sh = _shards(mesh)
+    if sh is not None and sh.tp is not None:
+        if norm_scale is not None:
+            x = _norm(x, norm_scale, cfg.norm, eps=norm_eps(cfg))
+        s, n = _vocab_parallel_ce(x.reshape(B * S, d),
+                                  lm_head(params, cfg, mesh=mesh),
+                                  targets.reshape(B * S), sh,
+                                  chunk=cfg.ce_chunk)
+        return s / n.clamp_min(1.0)
     if norm_scale is not None:
         if flash_ce.uses_flash_ce_norm(
                 B * S, d, cfg.vocab_size, mode=ce_mode or "flash",
                 norm=cfg.norm, has_bias=cfg.use_bias, enabled=True,
                 device=x.device, dtype=x.dtype):
             s, n = flash_ce.flash_ce_norm_sum(
-                x.reshape(B * S, d), lm_head(params, cfg),
+                x.reshape(B * S, d), lm_head(params, cfg, mesh=mesh),
                 targets.reshape(B * S), norm_scale, eps=norm_eps(cfg))
             return s / n.clamp_min(1.0)
         x = _norm(x, norm_scale, cfg.norm, eps=norm_eps(cfg))
-    s, n = _chunked_ce(x.reshape(B * S, d), lm_head(params, cfg),
+    s, n = _chunked_ce(x.reshape(B * S, d), lm_head(params, cfg, mesh=mesh),
                        targets.reshape(B * S), chunk=cfg.ce_chunk,
                        mode=ce_mode)
     return s / n.clamp_min(1.0)
@@ -387,11 +524,8 @@ def _chunked_ce(x, head, targets, *, chunk: int = 4096,
     if mode == "flash" and flash_ce.supports(N, d, head.shape[1],
                                              device=x.device, dtype=x.dtype):
         return flash_ce.flash_ce_sum(x, head.to(x.dtype), targets)
-    remat = chunk >= 0
-    if not remat and mode == "fused":
+    if chunk < 0 and mode == "fused":
         return fused_ce.ce_sum_bf16(x, head.to(x.dtype), targets)
-    if chunk <= 0:
-        chunk = N
 
     def chunk_loss(xc, tc):
         logits = torch.matmul(xc.float(), head.float())
@@ -399,6 +533,18 @@ def _chunked_ce(x, head, targets, *, chunk: int = 4096,
         true = logits.gather(1, tc.clamp_min(0).long()[:, None])[:, 0]
         mask = (tc >= 0).float()
         return ((lse - true) * mask).sum(), mask.sum()
+
+    return _rows_remat(chunk_loss, x, targets, chunk)
+
+
+def _rows_remat(chunk_loss: Callable, x, targets, chunk: int):
+    """(sum, count) of ``chunk_loss`` over row chunks of ``chunk``
+    (``chunk < 0``: one chunk, kept for the backward; ``chunk >= 0``:
+    each chunk recomputed in the backward)."""
+    remat = chunk >= 0
+    N = x.shape[0]
+    if chunk <= 0:
+        chunk = N
 
     def run(xc, tc):
         if remat and torch.is_grad_enabled():
@@ -415,10 +561,35 @@ def _chunked_ce(x, head, targets, *, chunk: int = 4096,
     return s, n
 
 
+def _vocab_parallel_ce(x, head, targets, sh: _Shards, *, chunk: int):
+    """x [N, d] (the same on every tp rank), head [d, V/tp] (this rank's
+    vocabulary columns), targets [N] -> (sum_nll, n_valid), the same on
+    every tp rank: the row max, the sum of exponentials and the target
+    logit are each reduced over tp, and the gradient of x is summed over
+    tp (``comm.copy_to_group``)."""
+    Vl = head.shape[1]
+    lo = sh.tp_rank * Vl
+    x = comm.copy_to_group(x, sh.tp)
+
+    def chunk_loss(xc, tc):
+        logits = torch.matmul(xc.float(), head.float())
+        m = comm.all_reduce_max(logits.detach().amax(-1), sh.tp)
+        se = comm.reduce_from_group(
+            torch.exp(logits - m[:, None]).sum(-1), sh.tp)
+        local = tc.long() - lo
+        hit = (tc >= 0) & (local >= 0) & (local < Vl)
+        picked = logits.gather(1, local.clamp(0, Vl - 1)[:, None])[:, 0]
+        true = comm.reduce_from_group(torch.where(hit, picked, 0.0), sh.tp)
+        mask = (tc >= 0).float()
+        return ((torch.log(se) + m - true) * mask).sum(), mask.sum()
+
+    return _rows_remat(chunk_loss, x, targets, chunk)
+
+
 def loss_fn(params: Params, batch, cfg: GPTConfig, *,
             attn_fn: Optional[Callable] = None, aux_weight: float = 0.01,
             ce_mode: Optional[str] = None,
-            fuse_norm: Optional[bool] = None):
+            fuse_norm: Optional[bool] = None, mesh=None):
     """batch: dict(tokens [B, S], targets [B, S]) -> scalar loss.
 
     ``fuse_norm`` (None means on) pins the fused norm epilogues: the
@@ -430,16 +601,19 @@ def loss_fn(params: Params, batch, cfg: GPTConfig, *,
             "sample-packed batches (segment_ids) are not ported yet "
             "(ROADMAP Queue 1 item 10: the data-plane slice)")
     B, S = batch["tokens"].shape
-    ce_norm = flash_ce.uses_flash_ce_norm(
-        B * S, cfg.d_model, cfg.vocab_size, mode=ce_mode or "flash",
-        norm=cfg.norm, has_bias=cfg.use_bias, enabled=fuse_norm is not False,
-        device=batch["tokens"].device, dtype=cfg.dtype)
+    ce_norm = _tp_group(_shards(mesh)) is None and \
+        flash_ce.uses_flash_ce_norm(
+            B * S, cfg.d_model, cfg.vocab_size, mode=ce_mode or "flash",
+            norm=cfg.norm, has_bias=cfg.use_bias,
+            enabled=fuse_norm is not False,
+            device=batch["tokens"].device, dtype=cfg.dtype)
     x, aux = forward_hidden(params, batch["tokens"], cfg, attn_fn=attn_fn,
                             fuse_norm=fuse_norm, final_norm=not ce_norm,
-                            positions=batch.get("positions"))
+                            positions=batch.get("positions"), mesh=mesh)
     loss = loss_from_hidden(params, x, batch["targets"], cfg,
                             ce_mode=ce_mode,
-                            norm_scale=params["ln_f"] if ce_norm else None)
+                            norm_scale=params["ln_f"] if ce_norm else None,
+                            mesh=mesh)
     return loss + aux_weight * aux
 
 

@@ -17,19 +17,29 @@ each block in the backward, ``ce_mode="fused"`` keeps the logits in
 bf16 (``ops/fused_ce.py``), and ``telemetry`` wraps the step in a
 :class:`~ray_tpu_torch.telemetry.StepTelemetry` recorder.
 
-Over a data-parallel mesh (``parallel.mesh.make_mesh``: one rank per
-card, NCCL on the card, gloo on the CPU) each rank's step takes its own
-rows of the global batch.  The reference's GSPMD step takes the loss as
-the global masked sum over the global count of valid targets; here the
-ranks first all-reduce their counts, each scales its local mean by its
-share of the global count, and after the backward (and after
-accumulation) the gradients and the loss are all-reduced as one flat
-buffer per dtype, in their own dtype.  Every rank then holds the global
-batch's loss, gradient norm and update.  Every rank starts from rank
-0's parameters (broadcast by ``init_fn``).
+On a mesh (``parallel.mesh.make_mesh``: one rank per card, NCCL on the
+card, gloo on the CPU) over the axes ``dcn``, ``dp``, ``fsdp``, ``sp``
+and ``tp``, each rank holds its shards of the parameters and of the
+optimizer state (``parallel.sharding``: the reference's rule table) and
+its rows of the global batch along the batch axes (dcn, dp, fsdp) and,
+under sp, its sequence shard (``fns["shard_batch"]``).  The model runs
+the collectives GSPMD puts into the reference's step
+(``models/gpt.py``: fsdp gathers, Megatron tp, vocab-parallel
+embedding and CE; ring or Ulysses attention under sp).  The loss is the
+global masked sum over the global count of valid targets: the ranks
+all-reduce their counts over the batch axes and sp (never tp, whose
+ranks hold the same tokens), each scales its local mean by its share,
+and after the backward (and after accumulation) the gradients are
+reduced as one flat buffer per dtype, in their own dtype: the fsdp-
+sharded leaves (reduce-scattered over fsdp by the backward) over (dcn,
+dp, sp), every other leaf and the loss over (dcn, dp, fsdp, sp); a
+tp-sharded leaf stays local, and a tp-replicated one (the norm scales)
+is already the same on every tp rank.  The clip's global norm counts
+each element once.  Every rank starts from the first rank's parameters
+(broadcast by ``init_fn``, then cut into shards).
 
-Sequence parallelism, the overlap schedule and its wire quantisation,
-meshes with axes other than ``dp`` (ROADMAP Queue 1 item 9b) and LoRA
+The overlap schedule and its wire quantisation (ROADMAP Queue 1 item
+9b-ii), the pipeline (``pp``, 9b-iii), experts (``ep``, 9b-iv) and LoRA
 (item 11) raise ``NotImplementedError`` naming the item that ports them.
 """
 
@@ -45,7 +55,10 @@ import torch
 from ray_tpu_torch.models import gpt as gpt_mod
 from ray_tpu_torch.ops.attention import make_flash_attention_fn
 from ray_tpu_torch.ops.substrate import resolve_device
-from ray_tpu_torch.parallel.mesh import dp_group
+from ray_tpu_torch.parallel import sharding as shd
+from ray_tpu_torch.parallel.mesh import mesh_groups
+from ray_tpu_torch.parallel.ring_attention import make_ring_attention_fn
+from ray_tpu_torch.parallel.ulysses import make_ulysses_attention_fn
 
 Params = Dict[str, Any]
 
@@ -67,11 +80,8 @@ def _leaves(tree: Params) -> List[torch.Tensor]:
     return out
 
 
-def _path_order(tree: Params) -> List[int]:
-    """Indices into :func:`_leaves` order that sort the leaves by their
-    key paths: the order every rank agrees on, whatever order its tree
-    was built in (``init_params`` and ``convert.params_from_jax`` build
-    the same tree in different key orders)."""
+def _paths(tree: Params) -> List[tuple]:
+    """The key path of each leaf, in :func:`_leaves` order."""
     paths = []
 
     def walk(node, prefix):
@@ -82,6 +92,21 @@ def _path_order(tree: Params) -> List[int]:
                 paths.append(prefix + (k,))
 
     walk(tree, ())
+    return paths
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _path_order(tree: Params) -> List[int]:
+    """Indices into :func:`_leaves` order that sort the leaves by their
+    key paths: the order every rank agrees on, whatever order its tree
+    was built in (``init_params`` and ``convert.params_from_jax`` build
+    the same tree in different key orders)."""
+    paths = _paths(tree)
     return sorted(range(len(paths)), key=lambda i: paths[i])
 
 
@@ -146,11 +171,14 @@ class DefaultOptimizer:
                                             _leaves(params)]))
 
     @torch.no_grad()
-    def update(self, grads: Params, state: AdamWState, params: Params
-               ) -> AdamWState:
+    def update(self, grads: Params, state: AdamWState, params: Params,
+               g_norm: Optional[torch.Tensor] = None) -> AdamWState:
         """One update, written into ``params`` and the state's moments in
-        place; returns the state with its count advanced."""
-        g_norm = global_norm(grads)
+        place; returns the state with its count advanced.  ``g_norm``:
+        the gradients' global norm when they are shards (default: the
+        norm of ``grads`` as they are)."""
+        if g_norm is None:
+            g_norm = global_norm(grads)
         keep = g_norm < self.grad_clip
         count_inc = state.count + 1
         f32 = np.float32
@@ -250,6 +278,24 @@ def _flat_collective(tensors: List[torch.Tensor], op: Callable
     return out
 
 
+def _check_options(sp_impl, comm_mode, comm_quant) -> None:
+    if sp_impl not in ("ring", "ulysses"):
+        raise ValueError(f"unknown sp_impl {sp_impl!r}; expected 'ring' or "
+                         "'ulysses'")
+    if comm_mode not in (None, "gspmd"):
+        if comm_mode == "overlap":
+            raise _unported("the overlap schedule (comm_mode='overlap')",
+                            "9b-ii")
+        raise ValueError(f"unknown comm_mode {comm_mode!r}; expected "
+                         "'gspmd' or 'overlap'")
+    if comm_quant not in (None, "none"):
+        if comm_quant in ("int8", "dcn"):
+            raise _unported(f"the overlap schedule's int8 wire (comm_quant="
+                            f"{comm_quant!r})", "9b-ii")
+        raise ValueError(f"unknown comm_quant {comm_quant!r}; expected "
+                         "'none', 'int8' or 'dcn'")
+
+
 @torch.no_grad()
 def _broadcast_from_first(params: Params, group) -> None:
     """Every rank's parameters become the group's first rank's, in place,
@@ -288,93 +334,170 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
                     ce_mode: Optional[str] = None,
                     fuse_norm: Optional[bool] = None,
                     accum_steps: int = 1, device=None,
-                    sp_impl: Optional[str] = None,
+                    sp_impl: str = "ring",
                     comm_mode: Optional[str] = None,
                     comm_quant: Optional[str] = None,
                     telemetry: Optional[bool] = None,
                     lora=None) -> Dict[str, Any]:
     """Returns dict(init_fn, step_fn, loss_fn, forward_fn, attn_fn,
-    accum_steps, comm_mode), and ``telemetry`` and ``raw_step_fn``
-    when the step recorder is on.
+    value_and_grad_fn, shard_batch, accum_steps, comm_mode), and
+    ``telemetry`` and ``raw_step_fn`` when the step recorder is on.
 
     ``init_fn(generator=None, *, params=None) -> TrainState``: random
-    parameters from ``generator`` (or the given tree), fresh optimizer
-    state, step 0; over a process group, rank 0's parameters on every
-    rank.  ``step_fn(state, batch) -> (state, {"loss", "grad_norm",
-    "step"})`` with batch = dict(tokens, targets) [B, S], this rank's
-    rows; ``grad_norm`` is the global norm before the clip, as the
-    reference reports it.  ``ce_mode`` ("flash" default, "fused" with
-    ``cfg.ce_chunk < 0``, or "xla") and ``fuse_norm`` (None means on)
-    pin the loss head and the fused epilogues; ``accum_steps`` runs the
-    step as that many microbatches with f32 gradient accumulation and
-    one update; ``cfg.remat`` recomputes each block in the backward.
-    ``mesh``: a data-parallel mesh (``parallel.mesh.make_mesh``); over a
-    live process group the gradients and loss are all-reduced over its
-    ``dp`` group, of any size, one included.  ``telemetry`` (None:
-    ``RAY_TPU_TELEMETRY``, default on) wraps ``step_fn`` in a
+    parameters from ``generator`` or the given tree, fresh optimizer
+    state, step 0.  A full tree is broadcast from the first rank and cut
+    into this rank's shards; a tree of shards
+    (``convert.params_from_jax(..., mesh=)``) is taken as it is.
+    ``step_fn(state, batch) -> (state, {"loss", "grad_norm", "step"})``
+    with batch = dict(tokens, targets), this rank's part of the global
+    batch (``shard_batch(global_batch)``); ``grad_norm`` is the global
+    norm before the clip, as the reference reports it;
+    ``value_and_grad_fn(params, batch) -> (loss, grads)`` is its loss
+    and reduced gradients (this rank's shards), before the update.
+    ``ce_mode``
+    ("flash" default, "fused" with ``cfg.ce_chunk < 0``, or "xla") and
+    ``fuse_norm`` (None means on) pin the loss head and the fused
+    epilogues; ``accum_steps`` runs the step as that many microbatches
+    with f32 gradient accumulation and one update; ``cfg.remat``
+    recomputes each block in the backward.  ``mesh``: a mesh of
+    ``parallel.mesh.make_mesh`` over ``dcn``, ``dp``, ``fsdp``, ``sp``
+    and ``tp``; under sp above 1 attention is ring (``sp_impl="ring"``,
+    the default) or Ulysses (``"ulysses"``), the sequence shards
+    contiguous.  ``comm_mode`` "gspmd" (the default schedule: gradients
+    reduced once, after the backward) is the one ported.  ``telemetry``
+    (None: ``RAY_TPU_TELEMETRY``, default on) wraps ``step_fn`` in a
     ``StepTelemetry``.  Runs on the card unless ``device="cpu"``."""
-    group, dp = dp_group(mesh)
-    if sp_impl is not None:
-        raise _unported(f"sequence parallelism (sp_impl={sp_impl!r})", "9b")
-    if comm_mode not in (None, "gspmd") or comm_quant not in (None, "none"):
-        raise _unported("the overlap schedule and its wire quantisation",
-                        "9b")
+    groups = mesh_groups(mesh)
+    _check_options(sp_impl, comm_mode, comm_quant)
     if lora:
         raise _unported("trainable-adapter mode (lora=)", "11")
-    if dp > 1 and group is None:
-        raise ValueError(f"a mesh of dp={dp} needs a live process group "
-                         "(parallel.mesh.make_mesh inside the workers)")
     accum_steps = int(accum_steps)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     gpt_mod.check_supported(cfg)
     dev = resolve_device(device)
     tx = optimizer or default_optimizer()
-    attn_fn = make_flash_attention_fn(
-        mesh, rope_theta=cfg.rope_theta if cfg.pos == "rope" else None)
+    sp = groups.size("sp")
+    if sp > 1:
+        attn_fn = (make_ulysses_attention_fn(mesh) if sp_impl == "ulysses"
+                   else make_ring_attention_fn(mesh))
+    else:
+        attn_fn = make_flash_attention_fn(
+            mesh, rope_theta=cfg.rope_theta if cfg.pos == "rope" else None)
+    logical = gpt_mod.param_logical_axes(cfg)
+    specs = (shd.tree_specs(mesh, logical) if mesh is not None
+             else shd.tree_map(lambda _a: (), logical))
+    full_shapes = gpt_mod.param_shapes(cfg)
+    sharded = any(shd.spec_axes(_at(specs, p)) for p in _paths(specs))
+    mesh_axes = [a for a, n in groups.sizes.items() if n > 1]
 
     def loss(params, batch):
+        if sp > 1:
+            if batch.get("segment_ids") is not None:
+                raise ValueError(
+                    "sample-packed batches (segment_ids) are not supported "
+                    "by sequence-parallel attention (sp>1)")
+            S = batch["tokens"].shape[1]
+            batch = dict(batch, positions=groups.coord("sp") * S
+                         + torch.arange(S, device=batch["tokens"].device))
         return gpt_mod.loss_fn(params, batch, cfg, attn_fn=attn_fn,
-                               ce_mode=ce_mode, fuse_norm=fuse_norm)
+                               ce_mode=ce_mode, fuse_norm=fuse_norm,
+                               mesh=mesh)
+
+    def local_tree(params) -> bool:
+        """Whether ``params`` are shards (else the full tree)."""
+        full = [tuple(t.shape) == _at(full_shapes, p)
+                for p, t in zip(_paths(params), _leaves(params))]
+        if all(full):
+            return False
+        for p, t in zip(_paths(params), _leaves(params)):
+            want = shd.local_shape(_at(full_shapes, p), _at(specs, p), mesh)
+            if tuple(t.shape) != want:
+                raise ValueError(f"parameter {'/'.join(p)} of shape "
+                                 f"{tuple(t.shape)} is neither the full "
+                                 f"{_at(full_shapes, p)} nor this rank's "
+                                 f"shard {want}")
+        return True
 
     def init(generator: Optional[torch.Generator] = None, *,
              params: Optional[Params] = None) -> TrainState:
         if params is None:
             params = gpt_mod.init_params(cfg, generator, device=dev)
-        if group is not None:
-            _broadcast_from_first(params, group)
+        if not local_tree(params):
+            if groups.grouped:
+                import torch.distributed as dist
+                _broadcast_from_first(params, dist.group.WORLD)
+            if sharded:
+                params = shd.shard_params(params, mesh, logical)
         return TrainState(params, tx.init(params), 0)
 
-    def dp_weights(batch):
+    def count_weights(batch):
         """Each microbatch's share of the global count of valid
-        targets, for this rank's rows."""
+        targets, for this rank's tokens."""
         import torch.distributed as dist
         n = torch.stack([(t >= 0).sum() for t in
                          batch["targets"].chunk(accum_steps)]).float()
         total = n.clone()
-        dist.all_reduce(total, group=group)
+        dist.all_reduce(total, group=groups.count)
         return n / total.clamp_min(1.0)
 
-    def step(state: TrainState, batch):
-        w = dp_weights(batch) if group is not None else None
+    def reduce_grads(grads, loss_val):
+        import torch.distributed as dist
+        paths, flat = _paths(grads), _leaves(grads)
+        order = _path_order(grads)
+        by_fsdp = {False: [], True: []}
+        for i in order:
+            by_fsdp["fsdp" in shd.spec_axes(_at(specs, paths[i]))].append(i)
+        for on_fsdp, group in ((False, groups.count), (True, groups.grad)):
+            idx = by_fsdp[on_fsdp]
+            extra = [] if on_fsdp else [loss_val.float()]
+            if group is None or not idx + extra:
+                continue
+            got = _flat_collective(
+                [flat[i] for i in idx] + extra,
+                lambda f, g=group: dist.all_reduce(f, group=g))
+            if extra:
+                loss_val = got.pop()
+            for i, t in zip(idx, got):
+                flat[i] = t
+        return _rebuild(grads, flat), loss_val
+
+    def grad_norm(grads):
+        """The global norm, each element counted once: a leaf's sum of
+        squares comes from the ranks at coordinate 0 along the mesh axes
+        that replicate it, summed over the world."""
+        if not sharded:
+            return global_norm(grads)
+        import torch.distributed as dist
+        parts = []
+        for p, g in zip(_paths(grads), _leaves(grads)):
+            axes = shd.spec_axes(_at(specs, p))
+            owner = all(groups.coord(a) == 0 for a in mesh_axes
+                        if a not in axes)
+            parts.append(g.float().square().sum() if owner else
+                         torch.zeros((), dtype=torch.float32,
+                                     device=g.device))
+        total = torch.stack(parts)
+        dist.all_reduce(total)
+        return torch.sqrt(total.sum())
+
+    def loss_and_grads(params, batch):
+        w = count_weights(batch) if groups.count is not None else None
         if accum_steps > 1:
             loss_val, grads = _accum_value_and_grad(
-                loss, state.params, batch, accum_steps, weights=w)
+                loss, params, batch, accum_steps, weights=w)
         else:
             fn = loss if w is None else _weighted(loss, w[0])
-            loss_val, grads = value_and_grad(fn, state.params, batch)
-        if group is not None:
-            import torch.distributed as dist
-            order = _path_order(grads)
-            flat = _leaves(grads)
-            *reduced, loss_val = _flat_collective(
-                [flat[i] for i in order] + [loss_val.float()],
-                lambda f: dist.all_reduce(f, group=group))
-            for i, t in zip(order, reduced):
-                flat[i] = t
-            grads = _rebuild(grads, flat)
-        gnorm = global_norm(grads)
-        opt_state = tx.update(grads, state.opt_state, state.params)
+            loss_val, grads = value_and_grad(fn, params, batch)
+        if groups.grouped:
+            grads, loss_val = reduce_grads(grads, loss_val)
+        return loss_val, grads
+
+    def step(state: TrainState, batch):
+        loss_val, grads = loss_and_grads(state.params, batch)
+        gnorm = grad_norm(grads)
+        opt_state = tx.update(grads, state.opt_state, state.params,
+                              g_norm=gnorm)
         return (TrainState(state.params, opt_state, state.step + 1),
                 {"loss": loss_val.float(), "grad_norm": gnorm,
                  "step": state.step + 1})
@@ -385,14 +508,25 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
 
     @torch.no_grad()
     def forward_logits(params, batch):
+        S = batch["tokens"].shape[1]
+        positions = (groups.coord("sp") * S + torch.arange(
+            S, device=batch["tokens"].device)) if sp > 1 else None
         logits, _ = gpt_mod.forward(params, batch["tokens"], cfg,
-                                    attn_fn=attn_fn, fuse_norm=fuse_norm)
+                                    attn_fn=attn_fn, fuse_norm=fuse_norm,
+                                    positions=positions, mesh=mesh)
         return logits
+
+    def shard_batch(batch):
+        if mesh is None:
+            return batch
+        return shd.shard_batch(batch, mesh, accum_steps=accum_steps)
 
     # "gspmd": the reference's name for the default schedule, in which
     # the gradients are reduced once, after the backward
     fns = {"init_fn": init, "step_fn": step, "loss_fn": loss_eval,
            "forward_fn": forward_logits, "attn_fn": attn_fn,
+           "value_and_grad_fn": loss_and_grads,
+           "shard_batch": shard_batch,
            "accum_steps": accum_steps, "comm_mode": "gspmd"}
     return _maybe_instrument(fns, cfg, mesh, ce_mode=ce_mode,
                              telemetry=telemetry)

@@ -41,7 +41,7 @@ from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops.substrate import (NEG_INF, Support, check_cuda_args,
                                          is_cuda, on_cuda, require_built,
                                          supported)
-from ray_tpu_torch.parallel.mesh import dp_group
+from ray_tpu_torch.parallel.mesh import mesh_axis_size, mesh_groups
 from ray_tpu_torch.parallel.ring_attention import _block_attn
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -329,11 +329,20 @@ def make_flash_attention_fn(mesh=None, *, causal: bool = True,
     """The training path's attention hook (``attention.py:1496``).  With
     ``rope_theta`` the returned function takes ``positions`` and rotates
     q and k inside the kernels; ``fn.fused_rope`` marks this so the
-    model skips its own rotation.  A data-parallel ``mesh`` changes
-    nothing: each rank's rows attend only to themselves, so the kernels
-    apply as on one card.  Any other mesh raises
-    (``parallel.mesh.dp_group``: a sequence axis is item 9b)."""
-    dp_group(mesh)
+    model skips its own rotation.  On a mesh each rank runs the kernels
+    on its own batch rows and its local heads (``n_heads / tp``), what
+    the reference's ``shard_map`` gives each device: attention mixes
+    neither rows nor heads.  A mesh with ``sp`` above 1 raises: its
+    attention is ring or Ulysses (``parallel.ring_attention``,
+    ``parallel.ulysses``), which ``build_gpt_train`` picks by
+    ``sp_impl``."""
+    if mesh_axis_size(mesh, "sp") > 1:
+        raise ValueError(
+            "flash attention runs on whole sequences: a mesh with sp="
+            f"{mesh_axis_size(mesh, 'sp')} takes ring or Ulysses attention "
+            "(parallel.ring_attention.make_ring_attention_fn, "
+            "parallel.ulysses.make_ulysses_attention_fn)")
+    mesh_groups(mesh)
     fn = functools.partial(flash_attention, causal=causal)
     if rope_theta is not None:
         fn = functools.partial(fn, rope_theta=rope_theta)

@@ -9,8 +9,9 @@ sums of ``_mrn_bwd``): bf16 on the tensor cores (``wgmma``), f32 on the
 CUDA cores, chosen by dtype alone.  On a CPU tensor both run their plain
 versions.
 Dispatch is the caller's: :func:`out_proj_norm_plan` is the reasoned
-gate, with the JAX package's reasons minus the mesh clause (a kernel
-here runs per rank, so a mesh does not decline it).
+gate, with the JAX package's reasons; its mesh clause narrows to tensor
+parallelism (a kernel here runs per rank on whole rows, so only a tp
+split of the out-proj declines it).
 """
 
 from __future__ import annotations
@@ -69,13 +70,19 @@ def supports(N: int, K: int, d: int, *, device=None) -> Support:
 
 def out_proj_norm_plan(N: int, K: int, d: int, *, norm: str = "rmsnorm",
                        has_bias: bool = False, seq: Optional[int] = None,
-                       enabled: bool = True, device=None) -> Support:
+                       enabled: bool = True, tp_size: int = 1,
+                       device=None) -> Support:
     """The out-proj epilogue dispatch gate, with reasons.  ``enabled`` is
     the caller's ``fuse_norm`` choice (an argument: no environment knob
-    reaches the port); ``device`` is where the operands lie (on a CUDA
-    device a width no kernel is built for raises, see :func:`supports`)."""
+    reaches the port); ``tp_size`` the tensor-parallel width the block
+    runs at; ``device`` is where the operands lie (on a CUDA device a
+    width no kernel is built for raises, see :func:`supports`)."""
     if not enabled:
         return unsupported("disabled (fuse_norm=False)")
+    if tp_size > 1:
+        return unsupported(f"tp={tp_size}: the row-parallel out-proj's sum "
+                           "over tp sits between the matmul and the "
+                           "residual add")
     if norm != "rmsnorm":
         return unsupported(f"norm={norm!r}: only rmsnorm fuses")
     if has_bias:

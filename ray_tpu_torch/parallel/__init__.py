@@ -1,5 +1,5 @@
-"""``ray_tpu_torch.parallel`` — single-device attention reference
-(the ring and mesh layers come with multi-GPU training)."""
+"""``ray_tpu_torch.parallel`` — meshes, sharding rules, differentiable
+collectives, and ring and Ulysses sequence parallelism."""
 
 from ray_tpu_torch.parallel.ring_attention import local_attention  # noqa: F401
 

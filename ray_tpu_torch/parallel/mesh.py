@@ -1,4 +1,4 @@
-"""Device meshes for the port: data parallelism over a process group.
+"""Device meshes for the port: named axes over a process group.
 
 Counterpart of ``ray_tpu/parallel/mesh.py``.  The axis bookkeeping is
 the reference's, copied (``AXIS_ORDER``, :class:`MeshAxisError`,
@@ -9,21 +9,25 @@ reference builds a ``jax.sharding.Mesh`` over the global device set,
 over the live process group: one rank per device, so the group's world
 is the mesh (one rank and no group: a mesh of 1).  The returned mesh is
 a :class:`Mesh`, a ``DeviceMesh`` whose ``size`` is an int (still
-callable as ``DeviceMesh.size(dim)``) and whose ``shape`` also answers
-by axis name (``mesh.shape["dp"]``, ``.get``, ``.items``), as the
-reference's callers read a JAX mesh.
+callable as ``DeviceMesh.size(dim)``), whose ``shape`` also answers by
+axis name (``mesh.shape["dp"]``, ``.get``, ``.items``), as the
+reference's callers read a JAX mesh, and which gives each axis's process
+group (``get_group``), this rank's coordinate (``coordinate``) and the
+group of several axes together (``axes_group``).
 
-Only the ``dp`` axis is ported: any other axis of size above 1 raises
-``NotImplementedError`` (ROADMAP Queue 1 item 9b: FSDP, tensor,
-sequence, pipeline and expert parallelism), in :func:`make_mesh` and in
-:func:`dp_group`, which the training step and the attention hook call.
+The axes ``dcn``, ``dp``, ``fsdp``, ``sp`` and ``tp`` are ported; ``pp``
+and ``ep`` above 1 raise ``NotImplementedError`` (ROADMAP Queue 1 items
+9b-iii and 9b-iv), in :func:`make_mesh` and in :func:`mesh_groups`,
+which the training step, the model and the attention hooks call.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
 
 AXIS_ORDER = ("dcn", "pp", "dp", "fsdp", "sp", "ep", "tp")
 
@@ -207,6 +211,21 @@ def _device_mesh_cls():
             built without a live process group."""
             return self.get_group("dp") if self._with_group else None
 
+        def coordinate(self, axis: str) -> int:
+            """This rank's index along ``axis`` (0 for an absent axis)."""
+            names = self.axis_names
+            if axis not in names:
+                return 0
+            return self._coords[names.index(axis)]
+
+        def axes_group(self, axes):
+            """The process group over the axes ``axes`` taken together
+            (this rank's ranks that differ only along them, in rank
+            order: the row-major order of their coordinates), or None
+            when they span one rank outside a world of one, or no
+            group is live."""
+            return _axes_group(self, tuple(axes))
+
     return Mesh
 
 
@@ -220,40 +239,155 @@ def _mesh_cls():
     return _MESH_CLS
 
 
+# the axis sets training reduces over, besides the single axes: the loss
+# and its count and every fsdp-replicated gradient over the batch axes
+# and sp; the fsdp-sharded gradients over the batch axes but fsdp, and sp
+COUNT_AXES = ("dcn", "dp", "fsdp", "sp")
+GRAD_AXES = ("dcn", "dp", "sp")
+_PRECREATED = (COUNT_AXES, GRAD_AXES)
+
+
 def _unported_axes(axes: Dict[str, int]) -> None:
-    other = {a: n for a, n in axes.items() if a != "dp" and n != 1}
-    if other:
-        raise NotImplementedError(
-            f"mesh axes {other} are not ported yet: the port's meshes are "
-            "data-parallel only (ROADMAP Queue 1 item 9b: FSDP, tensor, "
-            "sequence, pipeline and expert parallelism)")
+    unported = {"pp": "9b-iii: pipeline parallelism, GPipe and 1F1B",
+                "ep": "9b-iv: expert parallelism and the MoE FFN"}
+    for a, item in unported.items():
+        if axes.get(a, 1) != 1:
+            raise NotImplementedError(
+                f"mesh axis {a}={axes[a]} is not ported yet (ROADMAP "
+                f"Queue 1 item {item})")
 
 
-def dp_group(mesh):
-    """(process group, dp size) of a data-parallel mesh; (None, 1) for
-    no mesh or one outside any process group.  The one place the port
-    decides which meshes its training step and attention run over: any
-    axis other than ``dp`` above 1, or a mesh of several devices without
-    named axes, raises (ROADMAP Queue 1 item 9b)."""
+def _axes_group(mesh, axes: Tuple[str, ...]):
+    if not mesh._with_group:
+        return None
+    present = tuple(a for a in mesh.axis_names if a in axes)
+    if not present:
+        return None
+    if len(present) == 1:
+        return mesh.get_group(present[0])
+    size = math.prod(mesh.shape[a] for a in present)
+    import torch.distributed as dist
+    if size == dist.get_world_size():
+        return dist.group.WORLD
+    if size == 1:
+        return None
+    if present not in mesh._groups:
+        raise ValueError(f"no process group over {present} on this mesh: "
+                         f"make_mesh creates those of {_PRECREATED}")
+    return mesh._groups[present]
+
+
+def _member_sets(shape: Tuple[int, ...], names: Tuple[str, ...],
+                 present: Tuple[str, ...]) -> List[List[int]]:
+    """Every set of ranks that differ only along ``present``, each in
+    rank order, the sets in the order of their first rank."""
+    ranks = np.arange(math.prod(shape)).reshape(shape)
+    inner = [names.index(a) for a in present]
+    outer = [i for i in range(len(names)) if i not in inner]
+    ranks = ranks.transpose(outer + inner).reshape(
+        -1, math.prod(shape[i] for i in inner))
+    return [row.tolist() for row in ranks]
+
+
+def _create_groups(mesh) -> None:
+    """The process groups of the axis sets in ``_PRECREATED`` that
+    neither one axis's group nor the world covers.  Every rank creates
+    every set's group, in one order (``new_group`` is collective)."""
+    import torch.distributed as dist
+    mesh._groups = {}
+    world = dist.get_world_size()
+    for axes in _PRECREATED:
+        present = tuple(a for a in mesh.axis_names if a in axes)
+        size = math.prod(mesh.shape[a] for a in present)
+        if len(present) < 2 or size in (1, world) or present in mesh._groups:
+            continue
+        mine = None
+        for members in _member_sets(tuple(mesh.shape), mesh.axis_names,
+                                    present):
+            g = dist.new_group(members)
+            if dist.get_rank() in members:
+                mine = g
+        mesh._groups[present] = mine
+
+
+@dataclass(frozen=True)
+class MeshGroups:
+    """What a training step and the model read of a mesh: each axis's
+    size and this rank's coordinate, and the process groups of ``fsdp``
+    and ``tp`` (the model's) and of the two axis sets training reduces
+    over (``COUNT_AXES``, ``GRAD_AXES``); the attention hooks take the
+    ``sp`` group from the mesh.  A group is None where no process group
+    is live or the axes span one rank (outside a world of one)."""
+
+    sizes: Dict[str, int]
+    coords: Dict[str, int]
+    grouped: bool
+    fsdp: Any = None
+    tp: Any = None
+    count: Any = None
+    grad: Any = None
+
+    def size(self, axis: str) -> int:
+        return self.sizes.get(axis, 1)
+
+    def coord(self, axis: str) -> int:
+        return self.coords.get(axis, 0)
+
+
+def mesh_groups(mesh) -> MeshGroups:
+    """The one place the port reads a mesh for training: axis sizes,
+    this rank's coordinates and the groups (:class:`MeshGroups`).  No
+    mesh, or one outside a process group, gives sizes of 1 and no
+    groups.  ``pp`` or ``ep`` above 1 raises (ROADMAP Queue 1 items
+    9b-iii, 9b-iv), and so does a mesh of several devices without named
+    axes."""
     if mesh is None:
-        return None, 1
+        return MeshGroups({}, {}, False)
+    cached = getattr(mesh, "_mesh_groups", None)
+    if cached is not None:
+        return cached
     shape = getattr(mesh, "shape", None)
-    if hasattr(shape, "items"):
-        _unported_axes(dict(shape.items()))
-        return getattr(mesh, "group", None), int(shape.get("dp", 1))
-    _unported_axes({"unnamed": int(getattr(mesh, "size", 1))})
-    return None, 1
+    if not hasattr(shape, "items"):
+        n = int(getattr(mesh, "size", 1))
+        if n > 1:
+            raise ValueError(f"a mesh of {n} devices must name its axes "
+                             "(parallel.mesh.make_mesh)")
+        return MeshGroups({}, {}, False)
+    sizes = {a: int(n) for a, n in dict(shape.items()).items()}
+    _unported_axes(sizes)
+    coord = getattr(mesh, "coordinate", None)
+    coords = {a: (coord(a) if coord else 0) for a in sizes}
+    grouped = bool(getattr(mesh, "_with_group", False))
+    if not grouped:
+        if math.prod(sizes.values()) > 1:
+            raise ValueError(f"a mesh of {sizes} needs a live process group "
+                             "(parallel.mesh.make_mesh inside the workers)")
+        return MeshGroups(sizes, coords, False)
+    # the model reads this at every layer: kept on the mesh, since
+    # looking up its groups costs ~0.5 ms a call on a 4-axis mesh
+    mesh._mesh_groups = MeshGroups(sizes, coords, True,
+                                   fsdp=mesh.axes_group(("fsdp",)),
+                                   tp=mesh.axes_group(("tp",)),
+                                   count=mesh.axes_group(COUNT_AXES),
+                                   grad=mesh.axes_group(GRAD_AXES))
+    return mesh._mesh_groups
 
 
 def make_mesh(spec: Optional[MeshSpec] = None, devices=None,
               **sizes: int):
-    """A data-parallel :class:`Mesh` over the live process group.
+    """A :class:`Mesh` over the live process group, its axes in
+    ``AXIS_ORDER`` order.
 
-    ``make_mesh(dp=-1)`` spans every rank of the group (a mesh of 1
-    without one); ``dp=n`` must equal the world size.  ``devices``: a
-    ``torch.device`` or device type for the mesh (default: ``"cuda"``
-    when the group's backend is NCCL, else ``"cpu"``).  Any other axis
-    of size above 1 raises (ROADMAP Queue 1 item 9b)."""
+    ``make_mesh(fsdp=2, tp=2)``; one axis may be ``-1`` to take the rest
+    of the world (``make_mesh(dp=-1)``: every rank data-parallel, a mesh
+    of 1 without a group).  The mesh spans the whole world, and rank r
+    sits at ``np.arange(world).reshape(shape)``'s coordinate of r, ``tp``
+    varying fastest: the reference's device order
+    (``ray_tpu/parallel/mesh.py:211``), so rank r holds the shard JAX
+    device r holds.  ``devices``: a ``torch.device`` or device type for
+    the mesh (default: ``"cuda"`` when the group's backend is NCCL, else
+    ``"cpu"``).  ``pp`` or ``ep`` above 1 raises (ROADMAP Queue 1 items
+    9b-iii, 9b-iv)."""
     import torch
     import torch.distributed as dist
 
@@ -265,23 +399,31 @@ def make_mesh(spec: Optional[MeshSpec] = None, devices=None,
     grouped = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if grouped else 1
     spec = spec.resolve(world)
-    dp = dict(spec.axes).get("dp", 1)
-    if dp != world:
+    if spec.size != world:
         raise ValueError(
-            f"a data-parallel mesh spans the whole process group: dp={dp}"
-            f" but the world has {world} ranks")
+            f"a mesh spans the whole process group: {spec.describe()} "
+            f"holds {spec.size} ranks but the world has {world}")
     if devices is None:
         devices = ("cuda" if grouped and dist.get_backend() == "nccl"
                    else "cpu")
     dev_type = torch.device(devices).type if not isinstance(
         devices, (list, tuple)) else torch.device(devices[0]).type
+    shape = tuple(s for _, s in spec.axes) or (1,)
+    names = spec.axis_names or ("dp",)
+    ranks = torch.arange(world).reshape(shape)
     cls = _mesh_cls()
     if grouped:
-        mesh = cls(dev_type, torch.arange(world), mesh_dim_names=("dp",))
+        mesh = cls(dev_type, ranks, mesh_dim_names=names)
+        rank = dist.get_rank()
     else:
-        mesh = cls(dev_type, torch.arange(1), mesh_dim_names=("dp",),
+        mesh = cls(dev_type, ranks, mesh_dim_names=names,
                    _init_backend=False, _rank=0)
+        rank = 0
     mesh._with_group = grouped
+    mesh._coords = tuple(int(c) for c in np.unravel_index(rank, shape))
+    mesh._groups = {}
+    if grouped:
+        _create_groups(mesh)
     return mesh
 
 
@@ -292,6 +434,8 @@ def single_device_mesh(device=None):
     mesh = _mesh_cls()(dev_type, torch.arange(1), mesh_dim_names=("dp",),
                        _init_backend=False, _rank=0)
     mesh._with_group = False
+    mesh._coords = (0,)
+    mesh._groups = {}
     return mesh
 
 

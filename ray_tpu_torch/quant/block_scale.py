@@ -14,7 +14,7 @@ rounds differently), ``torch.round`` rounds half to even as
 ``jnp.round`` does, and an all-zero block stores scale 0.
 
 ``mode="stochastic"`` draws its noise from ``jax.random`` on the
-multi-GPU int8 wire, which is not ported yet (ROADMAP Queue 1 item 9b).
+multi-GPU int8 wire, which is not ported yet (ROADMAP Queue 1 item 9b-ii).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ INT8_MAX = 127
 def _check_mode(mode: str) -> None:
     if mode == "stochastic":
         raise NotImplementedError(
-            "mode='stochastic' is not ported yet (ROADMAP Queue 1 item 9b: "
+            "mode='stochastic' is not ported yet (ROADMAP Queue 1 item 9b-ii: "
             "its noise is the multi-GPU int8 wire's jax.random draw)")
     if mode != "nearest":
         raise ValueError(f"unknown rounding mode {mode!r}; "

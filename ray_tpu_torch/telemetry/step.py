@@ -275,12 +275,18 @@ class StepTelemetry:
     def collective_bytes(self) -> Optional[Dict[str, Any]]:
         """Logical bytes each rank sends a step: the data-parallel
         gradient all-reduce of every parameter in its dtype (a ring moves
-        ``2 (W - 1) / W`` of the buffer), plus the loss."""
+        ``2 (W - 1) / W`` of the buffer), plus the loss.  None on a mesh
+        that shards the model or the sequence (fsdp, sp or tp above 1),
+        whose traffic this count does not model."""
         if self.cfg is None or self.mesh is None:
             return None
         try:
             from ray_tpu_torch.parallel.mesh import mesh_axis_size
-            world = mesh_axis_size(self.mesh, "dp")
+            if any(mesh_axis_size(self.mesh, a) > 1
+                   for a in ("fsdp", "sp", "tp")):
+                return None
+            world = (mesh_axis_size(self.mesh, "dcn")
+                     * mesh_axis_size(self.mesh, "dp"))
             import torch
             elt = torch.empty((), dtype=self.cfg.dtype).element_size()
             grads = gpt_param_count(self.cfg) * elt + 4

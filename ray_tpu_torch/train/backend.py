@@ -65,7 +65,8 @@ class BackendExecutor:
                        checkpoint: Optional[Checkpoint] = None,
                        dataset_shards: Optional[List[Dict]] = None,
                        experiment_name: str = "experiment",
-                       trial_id: str = "trial"):
+                       trial_id: str = "trial",
+                       mesh_axes: Optional[Dict[str, int]] = None):
         assert self.worker_group is not None, "call start() first"
         self.backend.on_training_start(self.worker_group,
                                        self.backend_config)
@@ -75,7 +76,7 @@ class BackendExecutor:
                 world_size=self.num_workers, world_rank=rank,
                 local_rank=rank, local_world_size=self.num_workers,
                 experiment_name=experiment_name, trial_name=trial_id,
-                trial_id=trial_id)
+                trial_id=trial_id, mesh_axes=mesh_axes)
             shards = dataset_shards[rank] if dataset_shards else None
             refs.append(worker.start_train_fn.remote(
                 train_fn, config, ctx, checkpoint, shards))

@@ -5,6 +5,8 @@ Counterpart of ``ray_tpu/train/config.py`` (parity: the reference's
 CheckpointConfig).  ``ScalingConfig.use_gpu`` gives each worker one card
 (``"GPU": 1``) where the JAX package's ``use_tpu`` gives it a TPU host.
 ``RunConfig.callbacks`` are tune's (ROADMAP Queue 1 item 13) and raise.
+``ScalingConfig.mesh_axes`` is the reference's field: each worker's
+training context carries it (``TrainContext.get_mesh_axes``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,11 @@ class ScalingConfig:
     use_gpu: bool = False
     resources_per_worker: Optional[Dict[str, float]] = None
     placement_strategy: str = "PACK"
+    # the logical mesh over the workers' world (axis name -> size, -1
+    # fills from the world); a worker reads it as
+    # train.get_context().get_mesh_axes() and passes it to
+    # parallel.mesh.make_mesh
+    mesh_axes: Optional[Dict[str, int]] = None
 
     @property
     def _resources(self) -> Dict[str, float]:

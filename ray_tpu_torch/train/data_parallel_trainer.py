@@ -127,7 +127,8 @@ class DataParallelTrainer:
                     checkpoint=start_ckpt or ckpt_mgr.latest,
                     dataset_shards=shards,
                     experiment_name=self.run_config.name,
-                    trial_id=self.run_config.name)
+                    trial_id=self.run_config.name,
+                    mesh_axes=self.scaling_config.mesh_axes)
                 for round_results in executor.iter_results():
                     rank0 = next((r for r in round_results
                                   if r is not None), None)

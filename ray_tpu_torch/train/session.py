@@ -31,6 +31,13 @@ class TrainContext:
     experiment_name: str = "experiment"
     trial_name: str = "trial"
     trial_id: str = "trial"
+    mesh_axes: Optional[Dict[str, int]] = None
+
+    def get_mesh_axes(self) -> Dict[str, int]:
+        """``ScalingConfig.mesh_axes``, or ``{"dp": -1}`` (every rank
+        data-parallel): ``parallel.mesh.make_mesh(**axes)`` builds the
+        mesh over the workers' world."""
+        return dict(self.mesh_axes or {"dp": -1})
 
     def get_world_size(self) -> int:
         return self.world_size

@@ -20,8 +20,9 @@ package's meanings:
   (the reference's key scheme and 120 s freshness window); every rank
   calls ``init_process_group`` on it, NCCL in a worker that holds a card
   (``torch.cuda.set_device(0)`` first) and gloo in one that does not.
-  The verbs are ``torch.distributed`` collectives; ``global_mesh()`` is
-  the data-parallel mesh over the world (``parallel.mesh.make_mesh``).
+  The verbs are ``torch.distributed`` collectives; ``global_mesh(**axes)``
+  is a mesh over the world (``parallel.mesh.make_mesh``), data-parallel
+  by default.
   A failed NCCL init raises: nothing falls back to gloo.
 
 Group state is per process, keyed by group name (reference
@@ -548,7 +549,8 @@ class ProcessGroup(BaseGroup):
             time.sleep(0.05)
 
     def global_mesh(self, **axes):
-        """The data-parallel mesh over the world."""
+        """A mesh over the world: ``axes`` as ``parallel.mesh.make_mesh``
+        takes them (``fsdp=2, tp=2``), data-parallel by default."""
         from ray_tpu_torch.parallel.mesh import make_mesh
         return make_mesh(**(axes or {"dp": -1}))
 

@@ -1,8 +1,9 @@
 """Port parity: ``ray_tpu_torch.parallel.mesh`` against
 ``ray_tpu.parallel.mesh``: the copied axis bookkeeping gives the
 reference's answers and errors, and ``make_mesh`` builds a data-parallel
-``DeviceMesh`` read as the reference's callers read a JAX mesh; every
-other axis raises, naming ROADMAP item 9b."""
+``DeviceMesh`` read as the reference's callers read a JAX mesh; ``pp``
+and ``ep`` raise, naming their sub-items of ROADMAP item 9b (the other
+axes: tests/test_torch_parallel.py)."""
 
 import pytest
 import torch
@@ -89,16 +90,32 @@ def test_make_mesh_outside_a_process_group():
         tmesh.make_mesh(dp=2)
 
 
-@pytest.mark.parametrize("axes", [dict(tp=2), dict(dp=1, fsdp=2),
-                                  dict(sp=2), dict(pp=2), dict(ep=2)])
-def test_non_dp_axes_raise_item_9b(axes):
-    with pytest.raises(NotImplementedError, match="item 9b"):
+@pytest.mark.parametrize("axes, exc, match", [
+    pytest.param(dict(tp=2), ValueError, "exceeds device count 1",
+                 id="axes0"),
+    pytest.param(dict(dp=1, fsdp=2), ValueError, "exceeds device count 1",
+                 id="axes1"),
+    pytest.param(dict(sp=2), ValueError, "exceeds device count 1",
+                 id="axes2"),
+    pytest.param(dict(pp=2), NotImplementedError, "item 9b-iii",
+                 id="axes3"),
+    pytest.param(dict(ep=2), NotImplementedError, "item 9b-iv",
+                 id="axes4"),
+])
+def test_non_dp_axes_raise_item_9b(axes, exc, match):
+    """Outside a process group a mesh of tp, fsdp or sp above 1 asks for
+    more ranks than the world of one holds (inside a group they build:
+    tests/test_torch_parallel.py); pp and ep still raise, naming their
+    sub-items of ROADMAP item 9b."""
+    with pytest.raises(exc, match=match):
         tmesh.make_mesh(**axes)
 
 
 def test_attention_and_training_take_a_dp_mesh_only():
     """``make_flash_attention_fn`` and ``build_gpt_train`` accept a
-    data-parallel mesh and raise for a sequence axis (item 9b)."""
+    data-parallel mesh of one.  A sequence axis declines the flash hook
+    (its attention is ring or Ulysses), and a mesh of two devices with no
+    process group behind it is refused by the training step."""
     from ray_tpu_torch.models import gpt, training
     from ray_tpu_torch.ops.attention import make_flash_attention_fn
     dp = tmesh.single_device_mesh()
@@ -108,10 +125,10 @@ def test_attention_and_training_take_a_dp_mesh_only():
         size = 2
         shape = tmesh.MeshShape(("dp", "sp"), (1, 2))
 
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(ValueError, match="ring or Ulysses"):
         make_flash_attention_fn(SP)
     cfg = gpt.GPTConfig.tiny(dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(ValueError, match="live process group"):
         training.build_gpt_train(cfg, SP, device="cpu")
     fns = training.build_gpt_train(cfg, dp, device="cpu", telemetry=False)
     assert fns["attn_fn"].fused_rope

@@ -1,0 +1,374 @@
+"""Port parity: ``build_gpt_train`` on sharded meshes against the JAX
+package's GSPMD step on the same mesh shapes.
+
+The model is ``GPTConfig.tiny`` at d_model 128 in f32 (2 layers, 4
+heads, vocab 512), so the port's fused epilogue and flash-CE gates pass
+per rank wherever tp is 1, at a global batch of 8 x 32 whose targets
+are partly masked (-1) unevenly over rows and sequence halves, so the
+shards of every mesh hold different counts of valid targets (one row
+holds none).  The parameters come from the JAX package's
+``init_params``; each rank takes its shards through
+``convert.params_from_jax(..., mesh=)`` and its rows and sequence shard
+of the same global batch through ``fns["shard_batch"]``.
+
+The JAX side runs once, in the pytest process, on its 8-device host mesh
+(``make_mesh(..., devices=jax.devices()[:4])``): for each mesh shape the
+loss and gradients of ``jax.value_and_grad(loss_fn)`` under the step's
+own shardings (``state_shardings``, ``batch_sharding``), then 3 AdamW
+steps of the step's update (``default_optimizer``) on those gradients.
+The port side runs in one 4-rank gloo world (``torch.multiprocessing``,
+a ``FileStore`` under the test's directory) that takes every mesh shape
+in turn; its ranks import only ``torch`` and the port, and write their
+results to ``.npz`` files.  One case also goes end to end through
+``TorchTrainer`` with ``ScalingConfig.mesh_axes``.
+
+Bounds (``tests/test_parallel.py::_overlap_vs_gspmd``'s): the loss within
+rtol 2e-4, atol 2e-5; every gradient leaf, gathered to full, within rtol
+5e-3, atol 5e-5; over the 3 steps each loss and grad norm within 1e-4
+relative.  The same bounds hold each sharded run against the port's own
+one-process step on the global batch.
+"""
+
+import os
+import time
+
+import numpy as np
+import pytest
+import torch
+
+WORLD = 4
+# GPTConfig.tiny at d_model 128 (head_dim 32): every rank's rows are
+# whole d_model-128 rows on an fsdp mesh, so the port's per-rank fused
+# epilogue and flash-CE (with the norm prologue) run there; tp declines
+# them.  4 heads split over tp = 2 and then sp = 2 (Ulysses)
+MODEL = dict(vocab_size=512, d_model=128, n_layers=2, n_heads=4,
+             max_seq=128)
+B, S = 8, 32
+STEPS = 3
+OPT = dict(lr=1e-3, warmup=1, total_steps=8)
+CASES = [("fsdp4", dict(fsdp=4), "ring"),
+         ("dp2-tp2", dict(dp=2, tp=2), "ring"),
+         ("fsdp2-tp2", dict(fsdp=2, tp=2), "ring"),
+         ("dp2-sp2-ring", dict(dp=2, sp=2), "ring"),
+         ("sp2-tp2-ring", dict(sp=2, tp=2), "ring"),
+         ("sp2-tp2-ulysses", dict(sp=2, tp=2), "ulysses"),
+         ("dcn2-fsdp2", dict(dcn=2, fsdp=2), "ring")]
+IDS = [c[0] for c in CASES]
+# the port against itself only: 2 microbatches and remat on a sharded
+# mesh against the unsharded step with the same options
+ACCUM = ("fsdp2-tp2-accum2-remat", dict(fsdp=2, tp=2), "ring")
+
+
+def _global_batch():
+    rng = np.random.default_rng(3)
+    tok = rng.integers(0, 512, (B, S + 1)).astype(np.int32)
+    tgt = tok[:, 1:].copy()
+    tgt[0, :20] = -1        # rank rows and sequence halves differ
+    tgt[3, 5:9] = -1
+    tgt[5, -7:] = -1
+    tgt[6, :] = -1          # a row with no valid target
+    return {"tokens": tok[:, :-1].copy(), "targets": tgt}
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def _unflat(flat):
+    tree = {}
+    for path, v in flat.items():
+        node = tree
+        *head, last = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return tree
+
+
+def _port_run(fns, state, batch):
+    """(loss, gradients, [(loss, grad_norm)] over STEPS steps) of one
+    port step function from ``state``."""
+    loss, grads = fns["value_and_grad_fn"](state.params, batch)
+    steps = []
+    for _ in range(STEPS):
+        state, m = fns["step_fn"](state, batch)
+        steps.append((float(m["loss"]), float(m["grad_norm"])))
+    return float(loss), grads, steps
+
+
+def _world(rank, store, in_path, out_dir):
+    """One rank of the gloo world: every case in turn; rank 0 writes each
+    case's loss, full gradients and step metrics."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.convert import params_from_jax
+    from ray_tpu_torch.models import gpt, training
+    from ray_tpu_torch.parallel import sharding
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, WORLD),
+                            rank=rank, world_size=WORLD)
+    data = dict(np.load(in_path))
+    params = _unflat({k[2:]: v for k, v in data.items()
+                      if k.startswith("p/")})
+    batch = {k: torch.from_numpy(data[k]) for k in ("tokens", "targets")}
+    for name, axes, impl in CASES + [ACCUM]:
+        t0 = time.monotonic()
+        accum = name == ACCUM[0]
+        cfg = gpt.GPTConfig(**MODEL, dtype=torch.float32, remat=accum)
+        mesh = make_mesh(**axes)
+        fns = training.build_gpt_train(
+            cfg, mesh, optimizer=training.default_optimizer(**OPT),
+            sp_impl=impl, accum_steps=2 if accum else 1, device="cpu",
+            telemetry=False)
+        state = fns["init_fn"](params=params_from_jax(
+            params, cfg, device="cpu", mesh=mesh))
+        local = fns["shard_batch"](batch)
+        logits = sharding.gather_tensor(
+            fns["forward_fn"](state.params, local),
+            sharding.logical_to_spec(("batch", "seq"), mesh=mesh), mesh)
+        loss, grads, steps = _port_run(fns, state, local)
+        full = sharding.gather_params(grads, mesh,
+                                      gpt.param_logical_axes(cfg))
+        if rank == 0:
+            np.savez(os.path.join(out_dir, f"{name}.npz"), loss=loss,
+                     steps=np.array(steps), secs=time.monotonic() - t0,
+                     logits=logits.numpy(),
+                     **{"g/" + k: v for k, v in
+                        _flat(_np_tree(full)).items()})
+    dist.destroy_process_group()
+
+
+def _np_tree(node):
+    if isinstance(node, dict):
+        return {k: _np_tree(v) for k, v in node.items()}
+    return node.detach().numpy()
+
+
+def _jax_reference(axes, impl, params0, batch, update):
+    """Loss, gradients and STEPS steps' (loss, grad_norm) of the JAX
+    package's GSPMD step on ``axes``: its ``value_and_grad`` under the
+    step's shardings, its optimizer's update (``update``, one jit on the
+    host, shared by every mesh shape)."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from ray_tpu.models import gpt as jgpt
+    from ray_tpu.models import training as jtrain
+    from ray_tpu.parallel.mesh import make_mesh
+
+    cfg = jgpt.GPTConfig(**MODEL, dtype=jnp.float32)
+    mesh = make_mesh(**axes, devices=jax.devices()[:WORLD])
+    fns = jtrain.build_gpt_train(cfg, mesh, sp_impl=impl,
+                                 optimizer=jtrain.default_optimizer(**OPT),
+                                 telemetry=False)
+    assert fns["comm_mode"] == "gspmd"
+    psh = fns["state_shardings"].params
+
+    def loss(p, b):
+        return jgpt.loss_fn(p, b, cfg, attn_fn=fns["attn_fn"], mesh=mesh)
+
+    vg = jax.jit(jax.value_and_grad(loss),
+                 in_shardings=(psh, fns["batch_sharding"]))
+    p, opt = params0, None
+    steps = []
+    for i in range(STEPS):
+        val, g = vg(jax.device_put(p, psh), batch)
+        g = jax.device_get(g)
+        if i == 0:
+            first = (float(val), g)
+        steps.append((float(val), float(optax.global_norm(g))))
+        p, opt = update(g, opt, p)
+    return first[0], _flat(first[1]), np.array(steps)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every case's port and JAX results, and the port's unsharded step
+    on the global batch.  The port's world runs while the JAX side
+    computes."""
+    import jax
+    import jax.numpy as jnp
+    import torch.multiprocessing as mp
+
+    from ray_tpu.models import gpt as jgpt
+    from ray_tpu.models import training as jtrain
+    from ray_tpu_torch.convert import params_from_jax
+    from ray_tpu_torch.models import gpt, training
+
+    tmp = tmp_path_factory.mktemp("train_sharded")
+    jcfg = jgpt.GPTConfig(**MODEL, dtype=jnp.float32)
+    params0 = jax.tree.map(np.asarray,
+                           jgpt.init_params(jcfg, jax.random.PRNGKey(0)))
+    batch = _global_batch()
+    in_path = str(tmp / "inputs.npz")
+    np.savez(in_path, **batch,
+             **{"p/" + k: v for k, v in _flat(params0).items()})
+    t0 = time.monotonic()
+    ctx = mp.start_processes(_world, args=(str(tmp / "store"), in_path,
+                                           str(tmp)),
+                             nprocs=WORLD, join=False, start_method="spawn")
+
+    tx = jtrain.default_optimizer(**OPT)
+
+    @jax.jit
+    def _apply(g, opt, p):
+        import optax
+        updates, opt = tx.update(g, opt, p)
+        return optax.apply_updates(p, updates), opt
+
+    def update(g, opt, p):
+        return _apply(g, tx.init(p) if opt is None else opt, p)
+
+    jax_out = {name: _jax_reference(axes, impl, params0, batch, update)
+               for name, axes, impl in CASES}
+    jax_s = time.monotonic() - t0
+
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    plain = {}
+    for accum in (False, True):
+        tcfg = gpt.GPTConfig(**MODEL, dtype=torch.float32, remat=accum)
+        fns = training.build_gpt_train(
+            tcfg, None, optimizer=training.default_optimizer(**OPT),
+            accum_steps=2 if accum else 1, device="cpu", telemetry=False)
+        state = fns["init_fn"](params=params_from_jax(params0, tcfg,
+                                                      device="cpu"))
+        logits = fns["forward_fn"](state.params, tb).numpy()
+        loss, grads, steps = _port_run(fns, state, tb)
+        plain[accum] = (loss, _flat(_np_tree(grads)), np.array(steps),
+                        logits)
+
+    while not ctx.join(timeout=1):
+        pass
+    port = {}
+    for name, _axes, _impl in CASES + [ACCUM]:
+        d = dict(np.load(tmp / f"{name}.npz"))
+        port[name] = (float(d["loss"]), {k[2:]: v for k, v in d.items()
+                                         if k.startswith("g/")},
+                      d["steps"], float(d["secs"]), d["logits"])
+    print(f"JAX side {jax_s:.1f} s; world of {WORLD} "
+          f"{time.monotonic() - t0:.1f} s; per case "
+          f"{ {n: round(p[3], 2) for n, p in port.items()} }")
+    return {"jax": jax_out, "port": port, "plain": plain,
+            "params0": params0, "batch": batch}
+
+
+def _assert_close(got, want, what):
+    g_loss, g_grads, g_steps = got[:3]
+    w_loss, w_grads, w_steps = want[:3]
+    np.testing.assert_allclose(g_loss, w_loss, rtol=2e-4, atol=2e-5,
+                               err_msg=f"{what}: loss")
+    assert g_grads.keys() == w_grads.keys()
+    for path, w in w_grads.items():
+        np.testing.assert_allclose(g_grads[path], w, rtol=5e-3, atol=5e-5,
+                                   err_msg=f"{what}: grad {path}")
+    np.testing.assert_allclose(g_steps, w_steps, rtol=1e-4,
+                               err_msg=f"{what}: step losses, grad norms")
+
+
+@pytest.mark.parametrize("name", IDS)
+def test_sharded_step_matches_jax_gspmd(runs, name):
+    """The port's sharded step against the JAX package's GSPMD step on
+    the same mesh shape: loss, every gradient leaf gathered to full, and
+    3 steps' losses and grad norms."""
+    _assert_close(runs["port"][name], runs["jax"][name], name)
+
+
+@pytest.mark.parametrize("name", IDS)
+def test_sharded_step_matches_unsharded_port(runs, name):
+    """The same sharded step against the port's own one-process step on
+    the global batch, at the same bounds."""
+    _assert_close(runs["port"][name], runs["plain"][False], name)
+
+
+@pytest.mark.parametrize("name", IDS)
+def test_sharded_forward_logits_match_unsharded_port(runs, name):
+    """``fns["forward_fn"]`` on the mesh (each rank's rows and sequence
+    shard, the vocabulary all-gathered over tp), gathered over the batch
+    axes and sp, against the unsharded forward's logits (f32, summation
+    order only: within 2e-4 relative, 2e-5 absolute)."""
+    np.testing.assert_allclose(runs["port"][name][4],
+                               runs["plain"][False][3], rtol=2e-4,
+                               atol=2e-5)
+
+
+def test_sharded_accumulation_and_remat_match_unsharded_port(runs):
+    """``accum_steps=2`` with ``cfg.remat`` on {fsdp: 2, tp: 2} (each
+    rank's rows those of its shard of each microbatch, the fsdp gathers
+    and tp collectives recomputed in the backward) against the
+    unsharded step with the same options, at the same bounds."""
+    _assert_close(runs["port"][ACCUM[0]], runs["plain"][True], ACCUM[0])
+
+
+def test_loss_counts_every_valid_target_once(runs):
+    """Every mesh shape's reference loss is the one global masked mean,
+    and the port's one-process step on the global batch gives it."""
+    losses = [v[0] for v in runs["jax"].values()]
+    np.testing.assert_allclose(losses, losses[0], rtol=2e-6)
+    np.testing.assert_allclose(runs["plain"][False][0], losses[0],
+                               rtol=2e-4)
+
+
+@pytest.fixture
+def ray_start_4_cpus():
+    import ray_tpu_torch
+    ray_tpu_torch.init(num_cpus=WORLD)
+    yield ray_tpu_torch
+    ray_tpu_torch.shutdown()
+
+
+def test_torch_trainer_scaling_config_mesh_axes(runs, ray_start_4_cpus,
+                                                tmp_path):
+    """End to end: four gloo workers of a ``TorchTrainer`` whose
+    ``ScalingConfig(mesh_axes={"fsdp": 2, "tp": 2})`` reaches each
+    worker's context (``get_mesh_axes``); each builds the mesh, takes its
+    shards and its part of the batch and trains 3 steps, whose losses and
+    grad norms equal the JAX package's GSPMD step on that mesh shape
+    within 1e-4 relative."""
+    from ray_tpu_torch.train import RunConfig, ScalingConfig
+    from ray_tpu_torch.train.torch import TorchConfig, TorchTrainer
+
+    def loop(config):
+        import torch
+
+        from ray_tpu_torch import train
+        from ray_tpu_torch.convert import params_from_jax
+        from ray_tpu_torch.models import gpt, training
+        from ray_tpu_torch.parallel.mesh import make_mesh
+        axes = train.get_context().get_mesh_axes()
+        mesh = make_mesh(**axes)
+        cfg = gpt.GPTConfig(**MODEL, dtype=torch.float32)
+        fns = training.build_gpt_train(
+            cfg, mesh, optimizer=training.default_optimizer(**config["opt"]),
+            device="cpu", telemetry=False)
+        state = fns["init_fn"](params=params_from_jax(
+            config["params"], cfg, device="cpu", mesh=mesh))
+        batch = fns["shard_batch"]({k: torch.from_numpy(v) for k, v in
+                                    config["batch"].items()})
+        for _ in range(config["steps"]):
+            state, m = fns["step_fn"](state, batch)
+            train.report({"loss": float(m["loss"]),
+                          "grad_norm": float(m["grad_norm"]),
+                          "axes": axes, "mesh": dict(mesh.shape.items())})
+
+    axes = {"fsdp": 2, "tp": 2}
+    trainer = TorchTrainer(
+        loop, torch_config=TorchConfig(host_collective=False),
+        train_loop_config={"params": runs["params0"], "batch": runs["batch"],
+                           "opt": OPT, "steps": STEPS},
+        scaling_config=ScalingConfig(num_workers=WORLD, mesh_axes=axes),
+        run_config=RunConfig(name="gpt-sharded", storage_path=str(tmp_path)))
+    result = trainer.fit()
+    assert result.error is None, result.error
+    hist = result.metrics_history
+    assert len(hist) == STEPS and hist[0]["axes"] == axes
+    assert hist[0]["mesh"] == axes
+    got = np.array([(h["loss"], h["grad_norm"]) for h in hist])
+    np.testing.assert_allclose(got, runs["jax"]["fsdp2-tp2"][2], rtol=1e-4)

@@ -241,19 +241,25 @@ def test_training_step_rotates_inside_the_kernel(monkeypatch):
         tgpt.loss_fn(state.params, batch, tcfg)
 
 
-@pytest.mark.parametrize("kw, item", [
-    (dict(mesh=type("Mesh", (), {"size": 4})()), "item 9"),
-    (dict(sp_impl="ring"), "item 9"),
-    (dict(comm_mode="overlap"), "item 9"),
-    (dict(comm_quant="int8"), "item 9"),
-    (dict(lora=True), "item 11"),
+@pytest.mark.parametrize("kw, exc, item", [
+    pytest.param(dict(mesh=type("Mesh", (), {"size": 4})()), ValueError,
+                 "must name its axes", id="kw0-item 9"),
+    pytest.param(dict(sp_impl="bogus"), ValueError, "unknown sp_impl",
+                 id="kw1-item 9"),
+    pytest.param(dict(comm_mode="overlap"), NotImplementedError,
+                 "item 9b-ii", id="kw2-item 9"),
+    pytest.param(dict(comm_quant="int8"), NotImplementedError, "item 9b-ii",
+                 id="kw3-item 9"),
+    pytest.param(dict(lora=True), NotImplementedError, "item 11",
+                 id="kw4-item 11"),
 ])
-def test_unported_training_options_raise(kw, item):
-    """What item 9b ports (a mesh with no data-parallel axis, sequence
-    parallelism, the overlap schedule and its wire) and LoRA (item 11)
-    raise, naming their item."""
+def test_unported_training_options_raise(kw, exc, item):
+    """The overlap schedule and its int8 wire (item 9b-ii) and LoRA
+    (item 11) raise, naming their item; an unknown ``sp_impl`` raises
+    as the reference does, and so does a mesh of several devices
+    without named axes."""
     _jcfg, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=item):
         ttrain.build_gpt_train(tcfg, device="cpu", **kw)
 
 
