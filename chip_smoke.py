@@ -22,6 +22,13 @@
                                               # phase (7g) alone
     python3 chip_smoke.py --train-worker   # the default training arm,
                                            # then gpt2-train-worker (8b)
+    python3 chip_smoke.py --train-sharded  # the attention checks at tp's
+                                           # heads, the default arm, then
+                                           # 8b with gpt2-train-sharded
+    python3 chip_smoke.py --train-overlap  # the default arm, then 8b with
+                                           # gpt2-train-sharded and
+                                           # gpt2-train-overlap (8c), and
+                                           # the wire codec (8d)
     python3 chip_smoke.py --decode         # the decode checks and times
     python3 chip_smoke.py --edges          # the wgmma tile checks, the
                                            # decode checks, the
@@ -208,6 +215,22 @@
    worker gone and the card free within 5 s of ``fit()``; prints
    ``train-worker metrics {...}`` (fit to first report, NCCL init,
    ms/step and MFU in the worker and here, peaks).
+8c. gpt2-train-overlap (``train_overlap_arm``, in the same worker after
+   gpt2-train-sharded, on the same mesh of ``ScalingConfig.mesh_axes``,
+   every axis 1): the overlap schedule's local program
+   (``parallel.overlap.build_overlap_step_fns``) at full width and depth
+   against the gspmd arm's ``value_and_grad_fn`` on the same shards and
+   batch: the loss within 2e-4 relative, every gradient leaf within 0.06
+   of its largest value, and exactly 12 attention forward and backward
+   launches a call and nothing else; prints ``train-overlap metrics
+   {...}`` (each arm's median ms over 8 calls after 2, and its peak).
+8d. The int8 wire's codec (``wire_codec_phase``) over GPT-2 124M's bf16
+   tree in the fsdp gathers' layout: nearest codes and scales bit-equal
+   to the CPU's on all 85 leaves, a stochastic draw within one step, the
+   mean of 512 draws within 0.08 of a step, the wire bytes equal to
+   ``collective_bytes_per_step``'s; prints ``wire-codec metrics {...}``
+   (ms and GB/s of the largest leaf and of the tree, nearest and
+   stochastic).
 9. Training correctness: one step's loss and every gradient of the
    kernel path against the port's plain path (local attention, unfused
    epilogue, dense CE) at full width and depth, batch 2 x 1024: in f32
@@ -4322,6 +4345,110 @@ def train_sharded_arm(cfg, dev) -> dict:
             "step_walls_ms": walls}
 
 
+# gpt2-train-overlap: the same worker, after the sharded arm, on the same
+# mesh: the overlap schedule's local program (a world of 1, every axis 1)
+# through overlap.build_overlap_step_fns, called directly since
+# build_gpt_train on one device falls back to gspmd as the reference's
+# does, against the gspmd arm's value_and_grad_fn on the same shards and
+# batch.  Bounds: TRAIN_BF16_TOL's gradient share; the loss within 2e-4
+# relative (the gspmd arm runs the fused epilogue and flash-CE, the
+# overlap schedule plain norms, projections and vocabulary CE with f32
+# logits).  Each arm: WARMUP_STEPS calls, then OVERLAP_CALLS timed ones.
+OVERLAP_CALLS = 8
+OVERLAP_LOSS_REL = 2e-4
+# launches of one overlap value_and_grad: per layer one attention forward
+# and backward; everything else is plain
+OVERLAP_LAUNCHES = {"flash_attention_fwd": 12, "flash_attention_bwd": 12}
+
+
+def _timed_calls(fn) -> dict:
+    """The first call's loss and gradients (the gradients on the host),
+    then WARMUP_STEPS - 1 more warm-up calls and OVERLAP_CALLS calls each
+    ended by a sync: their median ms, the peak memory over them and
+    their launches."""
+    from ray_tpu_torch.ops import _build
+    loss, grads = fn()
+    out = {"loss": float(loss), "grads": {
+        k: v.detach().cpu() for k, v in _flat_tree(grads).items()}}
+    del loss, grads
+    for _ in range(WARMUP_STEPS - 1):
+        fn()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    walls = []
+    for _ in range(OVERLAP_CALLS):
+        t = time.monotonic()
+        res = fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.monotonic() - t))
+        del res
+    out.update(launches=_build.launch_counts(), walls_ms=walls,
+               median_ms=float(np.median(walls)),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return out
+
+
+def _flat_tree(tree, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def train_overlap_arm(cfg, dev) -> dict:
+    """gpt2-train-overlap, in the train worker after the sharded arm: the
+    mesh of the trainer's ``ScalingConfig.mesh_axes``, the full tree from
+    the driver's seed cut into this rank's shards, the batch's rows; the
+    gspmd arm's ``value_and_grad_fn`` and then the overlap schedule's
+    ``value_and_grad`` (``_timed_calls`` each), the overlap arm's loss
+    and every gradient leaf against the gspmd arm's.  A world of 1:
+    nothing here measures a collective, NVLink or overlap of transfers
+    with compute."""
+    from ray_tpu_torch import init_params, train
+    from ray_tpu_torch.models.gpt import param_logical_axes
+    from ray_tpu_torch.models.training import (build_gpt_train,
+                                               synthetic_lm_batch)
+    from ray_tpu_torch.parallel import overlap, sharding
+    from ray_tpu_torch.parallel.mesh import make_mesh
+
+    axes = train.get_context().get_mesh_axes()
+    mesh = make_mesh(**axes)
+    full = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    params = sharding.shard_params(full, mesh, param_logical_axes(cfg))
+    del full
+    batch = sharding.shard_batch(synthetic_lm_batch(
+        torch.Generator().manual_seed(1), TRAIN_B, TRAIN_S, cfg.vocab_size,
+        device=dev), mesh)
+    gspmd = build_gpt_train(cfg, mesh, device=dev, telemetry=False)
+    g = _timed_calls(lambda: gspmd["value_and_grad_fn"](params, batch))
+    del gspmd
+    gc.collect()
+    torch.cuda.empty_cache()
+    fns = overlap.build_overlap_step_fns(cfg, mesh, device=dev)
+    o = _timed_calls(lambda: fns["value_and_grad"](
+        params, batch["tokens"], batch["targets"]))
+    shares = {}
+    for k, want in g["grads"].items():
+        want = want.to(dev).float()
+        err = (o["grads"][k].to(dev).float() - want).abs().max().item()
+        shares[k] = err / max(want.abs().max().item(), 1e-30)
+    return {"axes": axes, "mesh": dict(mesh.shape.items()),
+            "gspmd_loss": g["loss"], "overlap_loss": o["loss"],
+            "loss_rel": abs(o["loss"] - g["loss"]) / abs(g["loss"]),
+            "grad_shares": shares,
+            "gspmd_median_ms": g["median_ms"],
+            "overlap_median_ms": o["median_ms"],
+            "gspmd_walls_ms": g["walls_ms"], "overlap_walls_ms": o["walls_ms"],
+            "gspmd_peak_gib": g["peak_gib"], "overlap_peak_gib": o["peak_gib"],
+            "gspmd_launches": g["launches"], "launches": o["launches"]}
+
+
 def train_worker_loop(config: dict) -> None:
     """gpt2-train-worker's loop, in the train worker (by reference from
     this file, as ``RuntimeServer``): gates the card and the NCCL world,
@@ -4405,6 +4532,8 @@ def train_worker_loop(config: dict) -> None:
         mesh={"dp": mesh.shape["dp"], "size": int(mesh.size)})
     if config.get("sharded"):
         rep["sharded"] = train_sharded_arm(cfg, dev)
+    if config.get("overlap"):
+        rep["overlap"] = train_overlap_arm(cfg, dev)
     ckpt = None
     if train.get_context().get_world_rank() == 0:
         path = config["ckpt_dir"]
@@ -4415,8 +4544,8 @@ def train_worker_loop(config: dict) -> None:
     train.report(rep, checkpoint=ckpt)
 
 
-def train_worker_phase(dev, default: dict, *, sharded: bool = False
-                       ) -> tuple:
+def train_worker_phase(dev, default: dict, *, sharded: bool = False,
+                       overlap: bool = False) -> tuple:
     """gpt2-train-worker: ``ray_tpu_torch.init`` and a ``TorchTrainer``
     of one ``num_gpus=1`` worker (``ScalingConfig(use_gpu=True)``) whose
     backend forms an NCCL world of 1; its loop (``train_worker_loop``)
@@ -4436,8 +4565,14 @@ def train_worker_phase(dev, default: dict, *, sharded: bool = False
     also runs gpt2-train-sharded (``train_sharded_arm``), whose every
     loss and grad norm must equal the data-parallel arm's exactly and
     whose launches must equal its launches; prints ``train-sharded
-    metrics {...}``.  Returns the launches of the data-parallel arm and
-    of the sharded arm (None without ``sharded``)."""
+    metrics {...}``.  ``overlap`` (with ``sharded``): the worker then
+    runs gpt2-train-overlap (``train_overlap_arm``), whose loss must be
+    within OVERLAP_LOSS_REL of the gspmd arm's, every gradient leaf within
+    TRAIN_BF16_TOL's share of its largest value, and whose timed calls
+    must launch OVERLAP_LAUNCHES each and nothing else; prints
+    ``train-overlap metrics {...}``.  Returns the launches of the
+    data-parallel arm, of the sharded arm and of the overlap arm (None
+    where not run)."""
     import shutil
     import tempfile
 
@@ -4459,7 +4594,8 @@ def train_worker_phase(dev, default: dict, *, sharded: bool = False
             torch_config=TorchConfig(host_collective=False),
             train_loop_config={"card": torch.cuda.get_device_name(0),
                                "ckpt_dir": os.path.join(storage, "state"),
-                               "sharded": sharded},
+                               "sharded": sharded,
+                               "overlap": overlap},
             scaling_config=ScalingConfig(
                 num_workers=1, use_gpu=True,
                 mesh_axes=TRAIN_SHARDED_AXES if sharded else None),
@@ -4558,7 +4694,7 @@ def train_worker_phase(dev, default: dict, *, sharded: bool = False
           "fit()", flush=True)
     print("train-worker metrics " + json.dumps(metrics), flush=True)
     if not sharded:
-        return last["launches"], None
+        return last["launches"], None, None
     arm = last["sharded"]
     dp_losses = [h["loss"] for h in hist]
     dp_norms = [h["grad_norm"] for h in hist]
@@ -4586,7 +4722,172 @@ def train_worker_phase(dev, default: dict, *, sharded: bool = False
           "losses and grad norms equal the data-parallel arm's exactly, "
           "launches equal", flush=True)
     print("train-sharded metrics " + json.dumps(out), flush=True)
-    return last["launches"], arm["launches"]
+    if not overlap:
+        return last["launches"], arm["launches"], None
+    return last["launches"], arm["launches"], overlap_report(last["overlap"])
+
+
+def overlap_report(arm: dict) -> dict:
+    """gpt2-train-overlap's gates and its ``train-overlap metrics``
+    line; returns its launches."""
+    if arm["axes"] != TRAIN_SHARDED_AXES or arm["mesh"] != TRAIN_SHARDED_AXES:
+        raise AssertionError(f"train-overlap: mesh_axes {arm['axes']} built "
+                             f"{arm['mesh']}, want {TRAIN_SHARDED_AXES}")
+    worst = max(arm["grad_shares"], key=arm["grad_shares"].get)
+    print(f"train-overlap: loss {arm['overlap_loss']:.6f} vs gspmd "
+          f"{arm['gspmd_loss']:.6f} (relative {arm['loss_rel']:.3e}, bound "
+          f"{OVERLAP_LOSS_REL}); largest gradient share "
+          f"{arm['grad_shares'][worst]:.3e} at {worst} (bound "
+          f"{TRAIN_BF16_TOL['grad']})", flush=True)
+    if not arm["loss_rel"] <= OVERLAP_LOSS_REL:
+        raise AssertionError("train-overlap: the loss parts from the gspmd "
+                             "arm's")
+    if not arm["grad_shares"][worst] <= TRAIN_BF16_TOL["grad"]:
+        raise AssertionError(f"train-overlap: gradient {worst} parts from "
+                             "the gspmd arm's")
+    expect_launches("train-overlap", arm["launches"],
+                    {k: n * OVERLAP_CALLS for k, n in OVERLAP_LAUNCHES.items()})
+    out = {"cell": "gpt2-train-overlap", "card": card(),
+           "mesh_axes": arm["axes"], "calls": OVERLAP_CALLS,
+           **{k: arm[k] for k in (
+               "gspmd_loss", "overlap_loss", "loss_rel",
+               "gspmd_median_ms", "overlap_median_ms", "gspmd_walls_ms",
+               "overlap_walls_ms", "gspmd_peak_gib", "overlap_peak_gib")},
+           "max_grad_share": arm["grad_shares"][worst],
+           "max_grad_share_leaf": worst,
+           "launches_per_call": {k: v // OVERLAP_CALLS for k, v in
+                                 _nonzero(arm["launches"]).items()},
+           "gspmd_launches_per_call": {
+               k: v // OVERLAP_CALLS
+               for k, v in _nonzero(arm["gspmd_launches"]).items()}}
+    print("train-overlap metrics " + json.dumps(out), flush=True)
+    return arm["launches"]
+
+
+# the int8 wire's codec (parallel/overlap.py's quant_all_gather_start and
+# quant_psum run it; plain PyTorch, as the reference's is plain XLA): the
+# unbiasedness bound of tests/test_quant.py:89-107 (the mean of 512 draws
+# of a [4, 64] block within 0.08 of a step), and the timed calls
+CODEC_DRAWS = 512
+CODEC_MEAN_TOL = 0.08
+CODEC_TREE_ITERS = 5
+
+
+def _wire_leaves(cfg, params) -> dict:
+    """The leaves the fsdp gathers quantize, in ``overlap._to2d``
+    layout: the embedding and each layer's slice of every stacked weight
+    with an ``embed_fsdp`` dimension, that dimension first and the rest
+    flattened."""
+    from ray_tpu_torch.models.gpt import param_logical_axes
+    from ray_tpu_torch.parallel import overlap
+    axes = param_logical_axes(cfg)
+    out = {"embed": overlap._to2d(params["embed"],
+                                  axes["embed"].index("embed_fsdp"))[0]}
+    for k in sorted(params["layers"]):
+        lax_ = axes["layers"][k]
+        if "embed_fsdp" not in lax_:
+            continue
+        for i in range(cfg.n_layers):
+            out[f"layers/{k}[{i}]"] = overlap._to2d(
+                params["layers"][k][i], lax_.index("embed_fsdp") - 1)[0]
+    return out
+
+
+def wire_codec_phase(dev) -> dict:
+    """The int8 wire's codec on the card, over GPT-2 124M's bf16 tree from
+    seed 0 in the fsdp gathers' layout (``_wire_leaves``): nearest-mode
+    codes and scales bit-equal to the CPU's on every leaf; one stochastic
+    draw from a device generator within one step of its input on the
+    largest leaf (the embedding, 768 x 50,304 in that layout);
+    CODEC_DRAWS draws of a [4, 64] block with a mean within
+    CODEC_MEAN_TOL of a step; the tree's wire bytes (int8 codes and one
+    f32 scale a WIRE_BLOCK) equal to ``collective_bytes_per_step``'s
+    payload.  Times (``time_ms``) a nearest and a stochastic quantize +
+    dequantize of the largest leaf and of the whole tree; GB/s is the
+    bf16 bytes coded over that time.  Prints ``wire-codec metrics
+    {...}``."""
+    from ray_tpu_torch import GPTConfig, init_params
+    from ray_tpu_torch.parallel import overlap
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.quant import (INT8_MAX, dequantize_block,
+                                     quantize_block, stochastic_generator,
+                                     wire_bytes)
+    B = overlap.WIRE_BLOCK
+    cfg = GPTConfig.gpt2(**TRAIN_CFG, dtype=torch.bfloat16)
+    leaves = _wire_leaves(cfg, init_params(
+        cfg, torch.Generator().manual_seed(0), device=dev))
+    for k, x in leaves.items():
+        q, sc = quantize_block(x.float(), block=B, mode="nearest")
+        cq, cs = quantize_block(x.cpu().float(), block=B, mode="nearest")
+        bad_q = int((q.cpu() != cq).sum())
+        bad_s = int((sc.cpu().view(torch.int32) != cs.view(torch.int32))
+                    .sum())
+        if bad_q or bad_s:
+            raise AssertionError(f"wire codec: {k}: {bad_q} codes and "
+                                 f"{bad_s} scales differ from the CPU's")
+    big = leaves["embed"]
+    gen = stochastic_generator(1, 0, dev)
+    q, sc = quantize_block(big.float(), block=B, mode="stochastic",
+                           generator=gen)
+    back = dequantize_block(q, sc, block=B)
+    step = torch.repeat_interleave(sc, B, dim=-1)[:, :big.shape[1]]
+    one_err = ((back - big.float()).abs() / step.clamp_min(1e-30)).max()
+    if not one_err.item() <= 1 + 1e-6:
+        raise AssertionError(f"wire codec: a stochastic draw moved a value "
+                             f"by {one_err.item():.4f} steps")
+    x = torch.randn(4, 64, generator=torch.Generator().manual_seed(0)).to(dev)
+    g64 = stochastic_generator(5, 0, dev)
+    mean = torch.stack([dequantize_block(*quantize_block(
+        x, block=64, mode="stochastic", generator=g64), block=64)
+        for _ in range(CODEC_DRAWS)]).mean(0)
+    scale = x.abs().amax(-1, keepdim=True) / INT8_MAX
+    mean_err = ((mean - x).abs().max() / scale.max()).item()
+    if not mean_err <= CODEC_MEAN_TOL:
+        raise AssertionError(f"wire codec: the mean of {CODEC_DRAWS} draws "
+                             f"is {mean_err:.4f} steps from its input")
+    wire = sum(t.shape[0] * wire_bytes(t.shape[1], block=B)
+               for t in leaves.values())
+    bf16 = sum(2 * t.numel() for t in leaves.values())
+    cb = overlap.collective_bytes_per_step(
+        cfg, MeshSpec.create(fsdp=2), batch=TRAIN_B, seq=TRAIN_S,
+        comm_mode="overlap", quant="int8")
+    if wire != 2 * cb["ici"]["weight_allgather"]["bytes"]:
+        raise AssertionError(f"wire codec: {wire} wire bytes, the "
+                             f"accounting's {cb['ici']['weight_allgather']}")
+
+    def codec(t, mode, g=None):
+        qq, ss = quantize_block(t.float(), block=B, mode=mode, generator=g)
+        return dequantize_block(qq, ss, block=B, dtype=t.dtype)
+
+    def tree(mode, g=None):
+        for t in leaves.values():
+            codec(t, mode, g)
+
+    times = {"largest_nearest_ms": time_ms(lambda: codec(big, "nearest")),
+             "largest_stochastic_ms": time_ms(
+                 lambda: codec(big, "stochastic", gen)),
+             "tree_nearest_ms": time_ms(lambda: tree("nearest"),
+                                        iters=CODEC_TREE_ITERS),
+             "tree_stochastic_ms": time_ms(lambda: tree("stochastic", gen),
+                                           iters=CODEC_TREE_ITERS)}
+    big_bytes = 2 * big.numel()
+    out = {"cell": "gpt2-wire-codec", "card": card(),
+           "leaves": len(leaves), "largest": list(big.shape),
+           "tree_elements": sum(t.numel() for t in leaves.values()),
+           "tree_bf16_bytes": bf16, "tree_wire_bytes": wire,
+           "wire_vs_bf16": wire / bf16,
+           "stochastic_max_steps": one_err.item(),
+           "mean_of_draws_steps": mean_err, **times,
+           **{k.replace("_ms", "_gbps"): (
+               big_bytes if k.startswith("largest") else bf16) / (v * 1e6)
+              for k, v in times.items()}}
+    print(f"wire codec: {len(leaves)} leaves' nearest codes and scales "
+          "bit-equal to the CPU's; a stochastic draw within "
+          f"{one_err.item():.4f} steps; the mean of {CODEC_DRAWS} draws "
+          f"within {mean_err:.4f} steps (bound {CODEC_MEAN_TOL})",
+          flush=True)
+    print("wire-codec metrics " + json.dumps(out), flush=True)
+    return out
 
 
 # One step's loss and gradients, kernel path against the port's plain
@@ -5223,7 +5524,7 @@ def main() -> None:
         train.pop("launches")
         gc.collect()
         torch.cuda.empty_cache()
-        launches, _ = train_worker_phase(dev, train)
+        launches, _, _ = train_worker_phase(dev, train)
         print("train-worker: every check passed; launches "
               + json.dumps(_nonzero(launches)), flush=True)
         return
@@ -5236,8 +5537,19 @@ def main() -> None:
         train.pop("launches")
         gc.collect()
         torch.cuda.empty_cache()
-        _, launches = train_worker_phase(dev, train, sharded=True)
+        _, launches, _ = train_worker_phase(dev, train, sharded=True)
         print("train-sharded: every check passed; launches "
+              + json.dumps(_nonzero(launches)), flush=True)
+        return
+    if sys.argv[1:] == ["--train-overlap"]:
+        train = train_phase(dev)
+        train.pop("launches")
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, _, launches = train_worker_phase(dev, train, sharded=True,
+                                            overlap=True)
+        wire_codec_phase(dev)
+        print("train-overlap: every check passed; launches "
               + json.dumps(_nonzero(launches)), flush=True)
         return
     if sys.argv[1:] in (["--profile"], ["--profile", "int8"]):
@@ -5286,8 +5598,10 @@ def main() -> None:
     paths.update(train_arms_phase(dev, train))
     gc.collect()
     torch.cuda.empty_cache()
-    paths["train_worker"], paths["train_sharded"] = train_worker_phase(
-        dev, train, sharded=True)
+    (paths["train_worker"], paths["train_sharded"],
+     paths["train_overlap"]) = train_worker_phase(dev, train, sharded=True,
+                                                  overlap=True)
+    wire_codec_phase(dev)
     train_correctness_phase(dev, fused_ce=True)
     train_correctness_phase(dev, n_layers=2, norm_kernel=True)
     width_checks(dev)

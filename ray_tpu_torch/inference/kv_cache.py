@@ -608,7 +608,10 @@ def _quantize_page(x: HostArray) -> Tuple[torch.Tensor, torch.Tensor]:
     zero vector takes scale 0 and divides by 1.  Runs on ``x``'s
     device."""
     x = _as_tensor(x).float()
-    scale = x.abs().amax(-1) / 127.0
+    amax = x.abs().amax(-1)
+    # a tensor divisor: CUDA divides by a Python scalar as a multiply by
+    # its reciprocal, which rounds some scales differently
+    scale = amax / torch.full_like(amax, 127.0)
     safe = torch.where(scale == 0.0, torch.ones_like(scale), scale)
     codes = torch.round(x / safe[..., None]).clamp(-127, 127)
     return codes.to(torch.int8), scale

@@ -38,15 +38,22 @@ is already the same on every tp rank.  The clip's global norm counts
 each element once.  Every rank starts from the first rank's parameters
 (broadcast by ``init_fn``, then cut into shards).
 
-The overlap schedule and its wire quantisation (ROADMAP Queue 1 item
-9b-ii), the pipeline (``pp``, 9b-iii), experts (``ep``, 9b-iv) and LoRA
-(item 11) raise ``NotImplementedError`` naming the item that ports them.
+``comm_mode="overlap"`` (or ``RAY_TPU_COMM=overlap``) takes the loss and
+gradients through the overlap schedule instead
+(``parallel/overlap.py``: prefetched per-block fsdp gathers, per-block
+gradient reduce-scatters, ring all-gather-matmul tp, and the int8 wire
+of ``comm_quant``); the optimizer, the global norm and the clip are the
+same.  It falls back loudly to gspmd where the reference's does
+(:func:`resolve_comm`).  The pipeline (``pp``, ROADMAP Queue 1 item
+9b-iii), experts (``ep``, 9b-iv) and LoRA (item 11) raise
+``NotImplementedError`` naming the item that ports them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import sys
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -278,22 +285,54 @@ def _flat_collective(tensors: List[torch.Tensor], op: Callable
     return out
 
 
-def _check_options(sp_impl, comm_mode, comm_quant) -> None:
-    if sp_impl not in ("ring", "ulysses"):
-        raise ValueError(f"unknown sp_impl {sp_impl!r}; expected 'ring' or "
-                         "'ulysses'")
-    if comm_mode not in (None, "gspmd"):
-        if comm_mode == "overlap":
-            raise _unported("the overlap schedule (comm_mode='overlap')",
-                            "9b-ii")
-        raise ValueError(f"unknown comm_mode {comm_mode!r}; expected "
-                         "'gspmd' or 'overlap'")
-    if comm_quant not in (None, "none"):
-        if comm_quant in ("int8", "dcn"):
-            raise _unported(f"the overlap schedule's int8 wire (comm_quant="
-                            f"{comm_quant!r})", "9b-ii")
-        raise ValueError(f"unknown comm_quant {comm_quant!r}; expected "
-                         "'none', 'int8' or 'dcn'")
+def resolve_comm(cfg, mesh, comm_mode: Optional[str] = None,
+                 comm_quant: Optional[str] = None, *, lora=None,
+                 accum_steps: int = 1) -> "tuple[str, str]":
+    """The (schedule, wire) a step of ``cfg`` on ``mesh`` runs, resolved
+    as the reference's ``build_gpt_train`` resolves them
+    (``ray_tpu/models/training.py:292-331``): None reads
+    ``overlap.comm_config()``, unknown values raise ``ValueError``, and
+    "overlap" falls back to "gspmd" with ``lora``, on a mesh of one
+    device (silently), with ``accum_steps > 1`` and for any reason
+    ``overlap_supported`` gives; a wire other than "none" is dropped
+    under gspmd.  Each loud fallback is printed on stderr."""
+    from ray_tpu_torch.parallel import overlap as ovl
+    if comm_mode is None:
+        comm_mode = ovl.comm_config().mode
+    if comm_mode not in ("gspmd", "overlap"):
+        raise ValueError(f"unknown comm_mode {comm_mode!r}; "
+                         "expected 'gspmd' or 'overlap'")
+    if comm_mode == "overlap":
+        if lora:
+            print("comm_mode=overlap has no trainable-adapter formulation "
+                  "(the schedule gathers base weights per block); falling "
+                  "back to gspmd", file=sys.stderr)
+            comm_mode = "gspmd"
+        elif int(getattr(mesh, "size", 1)) <= 1:
+            comm_mode = "gspmd"   # one device: nothing to schedule
+        elif accum_steps > 1:
+            print(f"comm_mode=overlap does not support accum_steps="
+                  f"{accum_steps} (the schedule's prefetch would nest "
+                  "inside the microbatch loop); falling back to gspmd",
+                  file=sys.stderr)
+            comm_mode = "gspmd"
+        else:
+            reason = ovl.overlap_supported(cfg, mesh)
+            if reason is not None:
+                print(f"comm_mode=overlap unsupported ({reason}); falling "
+                      "back to gspmd", file=sys.stderr)
+                comm_mode = "gspmd"
+    if comm_quant is None:
+        comm_quant = ovl.comm_config().quant
+    if comm_quant not in ("none", "int8", "dcn"):
+        raise ValueError(f"unknown comm_quant {comm_quant!r}; "
+                         "expected 'none', 'int8' or 'dcn'")
+    if comm_quant != "none" and comm_mode != "overlap":
+        print(f"comm_quant={comm_quant} needs the overlap schedule "
+              f"(comm_mode is {comm_mode!r}); wire stays "
+              f"{str(cfg.dtype).split('.')[-1]}", file=sys.stderr)
+        comm_quant = "none"
+    return comm_mode, comm_quant
 
 
 @torch.no_grad()
@@ -326,6 +365,7 @@ def _maybe_instrument(fns: Dict[str, Any], cfg, mesh, *,
             enabled=True,
             profile_dir=tel_mod.telemetry_config().profile_dir)
     return tel_mod.instrument(fns, cfg, mesh, comm_mode=fns["comm_mode"],
+                              comm_quant=fns["comm_quant"],
                               ce_mode=ce_mode, config=config)
 
 
@@ -340,7 +380,8 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
                     telemetry: Optional[bool] = None,
                     lora=None) -> Dict[str, Any]:
     """Returns dict(init_fn, step_fn, loss_fn, forward_fn, attn_fn,
-    value_and_grad_fn, shard_batch, accum_steps, comm_mode), and
+    value_and_grad_fn, shard_batch, accum_steps, comm_mode, comm_quant),
+    and
     ``telemetry`` and ``raw_step_fn`` when the step recorder is on.
 
     ``init_fn(generator=None, *, params=None) -> TrainState``: random
@@ -363,19 +404,34 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
     ``parallel.mesh.make_mesh`` over ``dcn``, ``dp``, ``fsdp``, ``sp``
     and ``tp``; under sp above 1 attention is ring (``sp_impl="ring"``,
     the default) or Ulysses (``"ulysses"``), the sequence shards
-    contiguous.  ``comm_mode`` "gspmd" (the default schedule: gradients
-    reduced once, after the backward) is the one ported.  ``telemetry``
+    contiguous.  ``comm_mode`` (None: ``RAY_TPU_COMM``) is "gspmd" (the
+    collectives where GSPMD puts them; gradients reduced once, after the
+    backward) or "overlap" (``parallel.overlap.build_overlap_step_fns``
+    takes ``value_and_grad_fn``, ``step_fn``'s gradients and ``loss_fn``;
+    a packed batch raises), and ``comm_quant`` (None:
+    ``RAY_TPU_COMM_QUANT``) its wire, "none", "int8" or "dcn";
+    :func:`resolve_comm` gives the fallbacks, and ``fns["comm_mode"]``
+    and ``fns["comm_quant"]`` what runs.  ``telemetry``
     (None: ``RAY_TPU_TELEMETRY``, default on) wraps ``step_fn`` in a
     ``StepTelemetry``.  Runs on the card unless ``device="cpu"``."""
     groups = mesh_groups(mesh)
-    _check_options(sp_impl, comm_mode, comm_quant)
+    if sp_impl not in ("ring", "ulysses"):
+        raise ValueError(f"unknown sp_impl {sp_impl!r}; expected 'ring' or "
+                         "'ulysses'")
     if lora:
         raise _unported("trainable-adapter mode (lora=)", "11")
     accum_steps = int(accum_steps)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     gpt_mod.check_supported(cfg)
+    comm_mode, comm_quant = resolve_comm(cfg, mesh, comm_mode, comm_quant,
+                                         accum_steps=accum_steps)
     dev = resolve_device(device)
+    overlap_fns = None
+    if comm_mode == "overlap":
+        from ray_tpu_torch.parallel.overlap import build_overlap_step_fns
+        overlap_fns = build_overlap_step_fns(cfg, mesh, quant=comm_quant,
+                                             device=dev)
     tx = optimizer or default_optimizer()
     sp = groups.size("sp")
     if sp > 1:
@@ -481,7 +537,20 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
         dist.all_reduce(total)
         return torch.sqrt(total.sum())
 
+    def check_unpacked(batch):
+        if "segment_ids" in batch:
+            # training a packed batch without its mask would let
+            # co-packed documents attend to each other
+            raise ValueError(
+                "sample-packed batches (segment_ids) are not supported by "
+                "the overlap schedule yet: build with comm_mode='gspmd' "
+                "for streamed packed input")
+
     def loss_and_grads(params, batch):
+        if overlap_fns is not None:
+            check_unpacked(batch)
+            return overlap_fns["value_and_grad"](params, batch["tokens"],
+                                                 batch["targets"])
         w = count_weights(batch) if groups.count is not None else None
         if accum_steps > 1:
             loss_val, grads = _accum_value_and_grad(
@@ -504,6 +573,10 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
 
     @torch.no_grad()
     def loss_eval(params, batch):
+        if overlap_fns is not None:
+            check_unpacked(batch)
+            return overlap_fns["loss"](params, batch["tokens"],
+                                       batch["targets"])
         return loss(params, batch)
 
     @torch.no_grad()
@@ -521,13 +594,11 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
             return batch
         return shd.shard_batch(batch, mesh, accum_steps=accum_steps)
 
-    # "gspmd": the reference's name for the default schedule, in which
-    # the gradients are reduced once, after the backward
     fns = {"init_fn": init, "step_fn": step, "loss_fn": loss_eval,
            "forward_fn": forward_logits, "attn_fn": attn_fn,
            "value_and_grad_fn": loss_and_grads,
-           "shard_batch": shard_batch,
-           "accum_steps": accum_steps, "comm_mode": "gspmd"}
+           "shard_batch": shard_batch, "accum_steps": accum_steps,
+           "comm_mode": comm_mode, "comm_quant": comm_quant}
     return _maybe_instrument(fns, cfg, mesh, ce_mode=ce_mode,
                              telemetry=telemetry)
 

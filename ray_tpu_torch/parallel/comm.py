@@ -17,6 +17,26 @@ over a ``torch.distributed`` group:
 - :func:`ring_shift`: one step of a ring, no gradient (ring attention's
   own backward moves its gradients).
 
+The overlap schedule (``parallel/overlap.py``) differentiates each
+rank's *distinct share* of the loss, whose sum over the ranks is the
+objective, as the reference's ``shard_map`` body does.  Its collectives
+therefore transpose as ``lax``'s do:
+
+- :func:`psum`: all-reduce, all-reduce of the gradient (``lax.psum``);
+  :func:`all_reduce_max` is its ``pmax`` of a stopped value;
+- :func:`psum_scatter`: reduce-scatter along a dimension, all-gather of
+  the gradient (``lax.psum_scatter``);
+- :func:`ring_shift_start`: a send to the next rank of the group,
+  received from the previous one, whose gradient shifts back
+  (``lax.ppermute``);
+- :func:`all_gather_start`: :func:`all_gather_dim` issued now and waited
+  on at first use (the schedule's prefetch).
+
+The two ``*_start`` functions return a :class:`Pending`: the transfer is
+in flight once it returns, and ``wait()`` lands it (on a card, the
+current stream waits for it) as the output of an autograd node whose
+input is the tensor sent, so the gradient flows back to it.
+
 Every function is the identity when ``group`` is None.
 """
 
@@ -32,23 +52,31 @@ def group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    src = x.movedim(dim, 0).contiguous()
+    full = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    dist.all_gather_into_tensor(full, src, group=group)
+    return full.movedim(0, dim)
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    src = x.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim)
+
+
 class _GatherDim(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim: int, group):
         ctx.dim, ctx.group = dim, group
-        n = dist.get_world_size(group)
-        src = x.movedim(dim, 0).contiguous()
-        full = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
-        dist.all_gather_into_tensor(full, src, group=group)
-        return full.movedim(0, dim)
+        return _gather(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
-        n = dist.get_world_size(ctx.group)
-        src = g.movedim(ctx.dim, 0).contiguous()
-        out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
-        dist.reduce_scatter_tensor(out, src, group=ctx.group)
-        return out.movedim(0, ctx.dim), None, None
+        return _reduce_scatter(g, ctx.dim, ctx.group), None, None
 
 
 def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -154,3 +182,142 @@ def ring_shift(flat: torch.Tensor, group) -> "List":
 def wait_all(reqs: Optional[List]) -> None:
     for r in reqs or ():
         r.wait()
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the group of every rank's ``x``; the gradient is the
+    sum over the group of every rank's gradient (``lax.psum``: each rank
+    differentiates its own share of a summed objective)."""
+    if group_size(group) == 1:
+        return x
+    return _PSum.apply(x, group)
+
+
+class _PSumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim: int, group):
+        ctx.dim, ctx.group = dim, group
+        return _reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.group), None, None
+
+
+def psum_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over the group of every rank's ``x``, of which this rank
+    keeps its chunk along ``dim`` (chunk r to group rank r); the
+    gradient is all-gathered along ``dim`` (``lax.psum_scatter`` with
+    ``tiled=True``)."""
+    if group_size(group) == 1:
+        return x
+    return _PSumScatter.apply(x, dim, group)
+
+
+class Pending:
+    """A collective in flight.  ``wait()`` lands it once and returns its
+    output, the output of an autograd node whose input is the tensor it
+    sent (``_Land``); what the collective holds is released then.
+    ``grad(g)`` gives that input's gradient, under the profiler range
+    ``name`` when one is given."""
+
+    def __init__(self, x: torch.Tensor, works: List, finish, grad,
+                 name: Optional[str] = None):
+        self._x, self._works, self._finish = x, works, finish
+        self.grad, self.name = grad, name
+        self._out: Optional[torch.Tensor] = None
+
+    def wait(self) -> torch.Tensor:
+        if self._out is None:
+            self._out = _Land.apply(self._x, self)
+            self._x = None
+        return self._out
+
+    def land(self) -> torch.Tensor:
+        wait_all(self._works)
+        out = self._finish()
+        self._works = self._finish = None
+        return out
+
+
+class _Land(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pending: Pending):
+        # the node keeps the gradient rule, not the Pending (whose output
+        # would then live as long as the graph)
+        ctx.grad, ctx.name = pending.grad, pending.name
+        return pending.land()
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.name is None:
+            return ctx.grad(g), None
+        with torch.profiler.record_function(ctx.name):
+            return ctx.grad(g), None
+
+
+class Landed:
+    """What a ``*_start`` returns for a group of one: ``x`` itself."""
+
+    def __init__(self, x: torch.Tensor):
+        self._x = x
+
+    def wait(self) -> torch.Tensor:
+        return self._x
+
+
+def all_gather_start(x: torch.Tensor, dim: int, group, *,
+                     name: Optional[str] = None) -> Pending:
+    """:func:`all_gather_dim` issued now (``async_op``); ``wait()`` gives
+    the gathered tensor, whose gradient reduce-scatters back to ``x``
+    when autograd reaches the wait."""
+    if group_size(group) == 1:
+        return Landed(x)
+    n = dist.get_world_size(group)
+    src = x.detach().movedim(dim, 0).contiguous()
+    full = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    work = dist.all_gather_into_tensor(full, src, group=group, async_op=True)
+    return Pending(x, [work], lambda: full.movedim(0, dim),
+                   lambda g: _reduce_scatter(g, dim, group), name=name)
+
+
+def ring_shift_start(x: torch.Tensor, group) -> Pending:
+    """Send ``x`` to the next rank of the group and receive the previous
+    rank's (``lax.ppermute`` with ``perm = [(i, i + 1 mod n)]``), posted
+    now; ``wait()`` gives the received tensor, whose gradient is shifted
+    back to the previous rank when autograd reaches the wait."""
+    if group_size(group) == 1:
+        return Landed(x)
+    flat = x.detach().contiguous()
+    recv, reqs = ring_shift(flat, group)
+    return Pending(x, reqs, lambda: recv,
+                   lambda g: _shift_back(g, group))
+
+
+def _shift_back(g: torch.Tensor, group) -> torch.Tensor:
+    """The adjoint of a shift to the next rank: a shift to the previous
+    one."""
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    nxt = dist.get_global_rank(group, (me + 1) % n)
+    prv = dist.get_global_rank(group, (me - 1) % n)
+    g = g.contiguous()
+    recv = torch.empty_like(g)
+    wait_all(dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, g, prv, group),
+        dist.P2POp(dist.irecv, recv, nxt, group)]))
+    return recv

@@ -273,7 +273,8 @@ def _axes_group(mesh, axes: Tuple[str, ...]):
         return None
     if present not in mesh._groups:
         raise ValueError(f"no process group over {present} on this mesh: "
-                         f"make_mesh creates those of {_PRECREATED}")
+                         f"make_mesh creates those of {_PRECREATED}, "
+                         "add_axes_groups the others")
     return mesh._groups[present]
 
 
@@ -290,13 +291,22 @@ def _member_sets(shape: Tuple[int, ...], names: Tuple[str, ...],
 
 
 def _create_groups(mesh) -> None:
-    """The process groups of the axis sets in ``_PRECREATED`` that
-    neither one axis's group nor the world covers.  Every rank creates
-    every set's group, in one order (``new_group`` is collective)."""
-    import torch.distributed as dist
+    """The process groups of the axis sets in ``_PRECREATED``."""
     mesh._groups = {}
+    add_axes_groups(mesh, _PRECREATED)
+
+
+def add_axes_groups(mesh, axis_sets) -> None:
+    """Create the process groups of the axis sets in ``axis_sets`` that
+    neither one axis's group, the world nor an earlier call covers, for
+    ``Mesh.axes_group``.  Collective: every rank calls it with the same
+    sets in one order, and creates every set's group (``new_group``).
+    A mesh without a live process group needs none."""
+    if not mesh._with_group:
+        return
+    import torch.distributed as dist
     world = dist.get_world_size()
-    for axes in _PRECREATED:
+    for axes in axis_sets:
         present = tuple(a for a in mesh.axis_names if a in axes)
         size = math.prod(mesh.shape[a] for a in present)
         if len(present) < 2 or size in (1, world) or present in mesh._groups:
@@ -440,6 +450,10 @@ def single_device_mesh(device=None):
 
 
 def mesh_axis_size(mesh, axis: str) -> int:
+    """``axis``'s size on a live mesh or a :class:`MeshSpec` (1 when
+    absent)."""
+    if isinstance(mesh, MeshSpec):
+        return mesh.to_dict().get(axis, 1)
     return mesh.shape.get(axis, 1) if hasattr(mesh, "shape") else 1
 
 

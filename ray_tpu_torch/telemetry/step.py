@@ -33,8 +33,9 @@ reads both from ``memory_analysis()``, which eager PyTorch has not.
 Records flow to three sinks: the Chrome-trace exporter
 (:mod:`ray_tpu_torch.telemetry.chrome_trace`), Prometheus series through
 the runtime's metrics (``train_step_seconds``, ``train_mfu``,
-``train_tokens_per_sec``, ``train_collective_bytes``) when a runtime is
-up, and :meth:`StepTelemetry.summary`.  ``RAY_TPU_TELEMETRY=0`` makes
+``train_tokens_per_sec``, ``train_collective_bytes``: the ``total`` of
+:meth:`StepTelemetry.collective_bytes`) when a runtime is up, and
+:meth:`StepTelemetry.summary`.  ``RAY_TPU_TELEMETRY=0`` makes
 the wrapper the identity.  ``RAY_TPU_PROFILE=<dir>`` captures a
 ``torch.profiler`` trace of the first steady steps into that directory.
 """
@@ -273,27 +274,28 @@ class StepTelemetry:
         return None if self._fpt < 0 else self._fpt
 
     def collective_bytes(self) -> Optional[Dict[str, Any]]:
-        """Logical bytes each rank sends a step: the data-parallel
-        gradient all-reduce of every parameter in its dtype (a ring moves
-        ``2 (W - 1) / W`` of the buffer), plus the loss.  None on a mesh
-        that shards the model or the sequence (fsdp, sp or tp above 1),
-        whose traffic this count does not model."""
-        if self.cfg is None or self.mesh is None:
+        """The step's collective bytes per tier,
+        ``parallel.overlap.collective_bytes_per_step`` under this
+        recorder's schedule and wire, as the reference's recorder gives
+        them; None before a step has run or for a non-GPT config.  The
+        recorder sees this rank's batch, so the global batch and
+        sequence it passes are the rank's times the mesh's data axes
+        (dcn, dp, fsdp) and sp."""
+        if self.cfg is None or self.mesh is None or self._seq is None:
             return None
         try:
+            from ray_tpu_torch.parallel import overlap as ovl
             from ray_tpu_torch.parallel.mesh import mesh_axis_size
-            if any(mesh_axis_size(self.mesh, a) > 1
-                   for a in ("fsdp", "sp", "tp")):
-                return None
-            world = (mesh_axis_size(self.mesh, "dcn")
-                     * mesh_axis_size(self.mesh, "dp"))
-            import torch
-            elt = torch.empty((), dtype=self.cfg.dtype).element_size()
-            grads = gpt_param_count(self.cfg) * elt + 4
+            rows = 1
+            for a in ("dcn", "dp", "fsdp"):
+                rows *= mesh_axis_size(self.mesh, a)
+            return ovl.collective_bytes_per_step(
+                self.cfg, self.mesh, batch=self._batch * rows,
+                seq=self._seq * mesh_axis_size(self.mesh, "sp"),
+                comm_mode=self.comm_mode or "gspmd",
+                quant=self.comm_quant or "none")
         except Exception:  # noqa: BLE001 — non-GPT cfg / odd mesh
             return None
-        total = int(2 * (world - 1) * grads / world) if world > 1 else 0
-        return {"total": total, "dp_allreduce": total, "world": world}
 
     # ---------------------------------------------------------- summary --
 
@@ -328,7 +330,17 @@ class StepTelemetry:
                     out["chip_peak_tflops"] = self.chip_peak()
                     out["mfu"] = flops_mod.mfu(tok_s, fpt, self.chip_peak())
         out["hbm"] = self.memory
-        out["collective_bytes_per_step"] = self.collective_bytes()
+        cb = self.collective_bytes()
+        out["collective_bytes_per_step"] = cb
+        if cb is not None:
+            # each tier's total and priced seconds, flattened
+            for tier in ("ici", "dcn"):
+                t = cb.get(tier) or {}
+                out[f"collective_bytes_{tier}"] = t.get("total", 0)
+                out[f"collective_seconds_{tier}"] = t.get("seconds", 0.0)
+            red = (cb.get("dcn") or {}).get("reduction_vs_flat")
+            if red is not None:
+                out["dcn_reduction_vs_flat"] = red
         if self.comm_mode is not None:
             out["comm_mode"] = self.comm_mode
         if self.comm_quant is not None:
@@ -461,15 +473,6 @@ class StepTelemetry:
                 self._bytes_emitted = True
         except Exception:  # noqa: BLE001 — never tax the step loop
             self._metrics_dead = True
-
-
-def gpt_param_count(cfg) -> int:
-    """Parameters of ``cfg``'s tree (``models.gpt.init_params``'s
-    layout), counted from the config."""
-    d, H, hd, f, L = (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.ff_dim,
-                      cfg.n_layers)
-    layer = 2 * d + 3 * d * H * hd + H * hd * d + 3 * d * f
-    return cfg.vocab_size * d + L * layer + d
 
 
 def instrument(fns: Dict[str, Any], cfg=None, mesh=None, *,

@@ -64,8 +64,90 @@ def test_dequantize_round_trip_within_bound():
     assert TQ.wire_bytes(1000, block=64) == JQ.wire_bytes(1000, block=64)
 
 
-def test_stochastic_mode_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 9"):
+def _stochastic_input():
+    return np.random.RandomState(0).randn(4, 64).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["aligned", "ragged", "middle_axis"])
+def test_stochastic_codes_bit_equal_on_fed_noise(case):
+    """``mode="stochastic"`` on the same uniform draws: the JAX package's
+    ``quantize_block(key=)`` draws ``jax.random.uniform(key, xb.shape)``
+    in the blocked layout; fed that noise, the port's codes and scales
+    are bit-equal (the fast path, the padded reference, another axis)."""
+    import jax
+
+    x, block, axis = {"aligned": (_stochastic_input(), 32, -1),
+                      "ragged": (_stochastic_input()[:, :50], 32, -1),
+                      "middle_axis": (np.random.RandomState(1).randn(
+                          3, 8, 5).astype(np.float32), 4, 1)}[case]
+    xm = np.moveaxis(x, axis, -1)
+    nb = -(-xm.shape[-1] // block)
+    key = jax.random.PRNGKey(7)
+    u = np.asarray(jax.random.uniform(key, xm.shape[:-1] + (nb, block),
+                                      jnp.float32))
+    wq, ws = JQ.quantize_block(jnp.asarray(x), block=block, axis=axis,
+                               mode="stochastic", key=key)
+    gq, gs = TQ.quantize_block(torch.from_numpy(x), block=block, axis=axis,
+                               mode="stochastic", noise=torch.tensor(u))
+    np.testing.assert_array_equal(gq.numpy(), np.asarray(wq))
+    np.testing.assert_array_equal(gs.numpy().view(np.int32),
+                                  np.asarray(ws).view(np.int32))
+    rq, _ = TQ.quantize_block_ref(torch.from_numpy(x), block=block,
+                                  axis=axis, mode="stochastic",
+                                  noise=np.array(u))
+    np.testing.assert_array_equal(rq.numpy(), np.asarray(wq))
+
+
+def test_stochastic_rounding_unbiased_over_generator_draws():
+    """The mean over 512 generator draws of ``dequant(quant_stochastic(x))``
+    is within the reference's CLT bound of x (``tests/test_quant.py:
+    89-107``: 0.08 of a step), and a single draw within one step."""
+    x = torch.from_numpy(_stochastic_input())
+    g = TQ.stochastic_generator(5, 0)
+    draws = torch.stack([TQ.dequantize_block(*TQ.quantize_block(
+        x, block=64, mode="stochastic", generator=g), block=64)
+        for _ in range(512)])
+    scale = x.abs().amax(-1, keepdim=True) / TQ.INT8_MAX
+    assert (draws.mean(0) - x).abs().max() <= 0.08 * scale.max()
+    assert ((draws[0] - x).abs() <= scale + 1e-7).all()
+    # successive draws differ: the generator advances
+    assert not torch.equal(draws[0], draws[1])
+
+
+def test_stochastic_generators_per_stream_and_rank():
+    """Each (base, rank) its own seeded stream: equal pairs draw equal
+    noise, other pairs other noise."""
+    def draw(base, rank):
+        return torch.rand(8, generator=TQ.stochastic_generator(base, rank))
+
+    assert torch.equal(draw(16, 1), draw(16, 1))
+    assert not torch.equal(draw(16, 1), draw(16, 2))
+    assert not torch.equal(draw(16, 1), draw(17, 1))
+
+
+def test_stochastic_needs_a_noise_source_and_mode_validates():
+    with pytest.raises(ValueError, match="noise source"):
         TQ.quantize_block(torch.zeros(4, 128), mode="stochastic")
+    with pytest.raises(ValueError, match="noise source"):
+        TQ.quantize_block_ref(torch.zeros(4, 100), mode="stochastic")
     with pytest.raises(ValueError, match="rounding mode"):
         TQ.quantize_block(torch.zeros(4, 128), mode="floor")
+
+
+def test_data_salt_equals_reference():
+    """``data_salt``: the bit pattern of the f32 sum as int32.  Where the
+    sum is exact in f32 (whole numbers, halves), whatever the order of
+    summation, it equals the reference's bit for bit; elsewhere the two
+    sums differ only by their summation order, within f32 rounding."""
+    rng = np.random.RandomState(2)
+    for x in (rng.randint(-50, 50, (4, 64)).astype(np.float32) * 0.5,
+              np.zeros((3, 5), np.float32),
+              np.full((7,), -1.5, np.float32)):
+        assert int(TQ.data_salt(torch.from_numpy(x))) == \
+            int(JQ.data_salt(jnp.asarray(x)))
+    x = _stochastic_input()
+    got = TQ.data_salt(torch.from_numpy(x))
+    assert got.dtype == torch.int32
+    want = np.asarray(JQ.data_salt(jnp.asarray(x))).view(np.float32)
+    np.testing.assert_allclose(got.reshape(1).view(torch.float32).item(),
+                               want, rtol=1e-5)

@@ -279,3 +279,100 @@ def test_profile_dir_captures_steps_one_to_three(tmp_path):
     events = json.loads(trace.read_text())["traceEvents"]
     assert any("add" in str(e.get("name", "")) for e in events)
     assert sorted(p.name for p in tmp_path.iterdir()) == ["prof_steps.json"]
+
+
+# ---------------------------------------------------------------------------
+# collective bytes: the reference's per-tier accounting
+# ---------------------------------------------------------------------------
+
+BYTES_MESHES = [dict(dp=2), dict(fsdp=4), dict(fsdp=2, tp=2),
+                dict(dcn=2, fsdp=2), dict(sp=2, tp=2)]
+BYTES_ARMS = [("gspmd", "none"), ("overlap", "none"), ("overlap", "int8"),
+              ("overlap", "dcn"), ("gspmd", "int8")]
+
+
+def _bytes_summaries(axes, mode, quant, dtype):
+    """The port's and the JAX package's recorder summaries after one
+    step of a stand-in step function: the JAX recorder sees the global
+    batch (8 x 32), the port's one rank's rows and sequence shard."""
+    import jax
+    import jax.numpy as jnp
+
+    from ray_tpu.models.gpt import GPTConfig as JGPTConfig
+    from ray_tpu.parallel.mesh import make_mesh
+    from ray_tpu.telemetry import StepTelemetry as JStepTelemetry
+    from ray_tpu.telemetry.config import TelemetryConfig as JTelemetryConfig
+    from ray_tpu_torch.models.gpt import GPTConfig
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.telemetry import StepTelemetry, TelemetryConfig
+
+    kw = dict(vocab_size=256, d_model=64, n_layers=3, n_heads=4, max_seq=32)
+    B, S = 8, 32
+    n = 1
+    for a in axes.values():
+        n *= a
+    jmesh = make_mesh(**axes, devices=jax.devices()[:n])
+    jtel = JStepTelemetry(JGPTConfig(**kw, dtype=getattr(jnp, dtype)), jmesh,
+                          comm_mode=mode, comm_quant=quant,
+                          config=JTelemetryConfig(enabled=True))
+    jtel.wrap(lambda b: (b, {"loss": 0.0}))(
+        {"tokens": jnp.zeros((B, S), jnp.int32)})
+    rows = B // (axes.get("dcn", 1) * axes.get("dp", 1)
+                 * axes.get("fsdp", 1))
+    tel = StepTelemetry(GPTConfig(**kw, dtype=getattr(torch, dtype)),
+                        MeshSpec.create(**axes), comm_mode=mode,
+                        comm_quant=quant,
+                        config=TelemetryConfig(enabled=True))
+    tel.wrap(lambda b: (b, {"loss": 0.0}))(
+        {"tokens": torch.zeros(rows, S // axes.get("sp", 1),
+                               dtype=torch.int32)})
+    return tel.summary(), jtel.summary()
+
+
+@pytest.mark.parametrize("arm", BYTES_ARMS, ids=["-".join(a) for a in
+                                                  BYTES_ARMS])
+@pytest.mark.parametrize("axes", BYTES_MESHES,
+                         ids=["-".join(f"{k}{v}" for k, v in a.items())
+                              for a in BYTES_MESHES])
+def test_collective_bytes_equal_the_reference(axes, arm):
+    """``summary()["collective_bytes_per_step"]`` and its flattened tier
+    totals equal the JAX package's recorder's for the same config,
+    global batch and sequence, entry for entry, on each mesh, under both
+    schedules and the int8 and "dcn" wires (bf16, so the int8 wire's
+    bytes differ from the plain ones); each tier's ``seconds`` is its
+    bytes over the port's price (the H100 specification's figures)."""
+    from ray_tpu_torch.parallel import overlap
+
+    got, want = _bytes_summaries(axes, *arm, "bfloat16")
+    g, w = got["collective_bytes_per_step"], want["collective_bytes_per_step"]
+    assert g.keys() == w.keys() == {"ici", "dcn", "total"}
+    assert g["total"] == w["total"]
+    for tier in ("ici", "dcn"):
+        assert g[tier].keys() == w[tier].keys()
+        for k, v in w[tier].items():
+            if k != "seconds":
+                assert g[tier][k] == v, (tier, k, g[tier][k], v)
+        assert g[tier]["seconds"] == g[tier]["total"] / (
+            overlap.TIER_BANDWIDTH_GBPS[tier] * 1e9)
+        assert got[f"collective_bytes_{tier}"] == w[tier]["total"]
+        assert got[f"collective_seconds_{tier}"] == g[tier]["seconds"]
+    assert got.get("dcn_reduction_vs_flat") == \
+        want.get("dcn_reduction_vs_flat")
+    assert (got["comm_mode"], got["comm_quant"]) == arm
+
+
+def test_collective_bytes_f32_and_tier_prices():
+    """f32 on {dcn 2, fsdp 2} under the "dcn" wire: the port's bytes equal
+    the reference's, and the prices are the H100 SXM specification's
+    figures (NVLink 4 at 450 GB/s each way, one 400 Gb/s InfiniBand port
+    at 50 GB/s), not the reference's TPU figures."""
+    from ray_tpu_torch.parallel import overlap
+
+    got, want = _bytes_summaries(dict(dcn=2, fsdp=2), "overlap", "dcn",
+                                 "float32")
+    for tier in ("ici", "dcn"):
+        assert got[f"collective_bytes_{tier}"] == \
+            want[f"collective_bytes_{tier}"]
+    assert got["collective_bytes_dcn"] > 0
+    assert overlap.TIER_BANDWIDTH_GBPS == {"ici": 450.0, "dcn": 50.0}
+    assert overlap.tier_seconds(450_000_000_000, "ici") == 1.0

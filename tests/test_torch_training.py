@@ -246,21 +246,103 @@ def test_training_step_rotates_inside_the_kernel(monkeypatch):
                  "must name its axes", id="kw0-item 9"),
     pytest.param(dict(sp_impl="bogus"), ValueError, "unknown sp_impl",
                  id="kw1-item 9"),
-    pytest.param(dict(comm_mode="overlap"), NotImplementedError,
-                 "item 9b-ii", id="kw2-item 9"),
-    pytest.param(dict(comm_quant="int8"), NotImplementedError, "item 9b-ii",
-                 id="kw3-item 9"),
     pytest.param(dict(lora=True), NotImplementedError, "item 11",
                  id="kw4-item 11"),
 ])
 def test_unported_training_options_raise(kw, exc, item):
-    """The overlap schedule and its int8 wire (item 9b-ii) and LoRA
-    (item 11) raise, naming their item; an unknown ``sp_impl`` raises
-    as the reference does, and so does a mesh of several devices
+    """LoRA (item 11) raises, naming its item; an unknown ``sp_impl``
+    raises as the reference does, and so does a mesh of several devices
     without named axes."""
     _jcfg, tcfg = _cfgs()
     with pytest.raises(exc, match=item):
         ttrain.build_gpt_train(tcfg, device="cpu", **kw)
+
+
+def test_comm_config_and_fallback_dispatch(monkeypatch, capsys):
+    """``overlap.comm_config``'s env resolution (aliases, unknown values
+    printed and replaced) and ``training.resolve_comm``'s loud gspmd
+    fallbacks, as ``tests/test_parallel.py::
+    test_comm_config_and_fallback_dispatch`` holds the reference's; the
+    multi-device meshes are ``MeshSpec`` shapes here (the gloo worlds of
+    ``tests/test_torch_overlap.py`` build the real ones)."""
+    from ray_tpu_torch.parallel import overlap as ovl
+    from ray_tpu_torch.parallel.mesh import MeshSpec, single_device_mesh
+
+    monkeypatch.setenv("RAY_TPU_COMM", "overlap")
+    assert ovl.comm_config(refresh=True).mode == "overlap"
+    monkeypatch.setenv("RAY_TPU_COMM", "bogus")
+    assert ovl.comm_config(refresh=True).mode == "gspmd"
+    assert "RAY_TPU_COMM='bogus' unknown" in capsys.readouterr().err
+    monkeypatch.delenv("RAY_TPU_COMM")
+    assert ovl.comm_config(refresh=True).mode == "gspmd"
+    assert ovl.comm_config(refresh=True).quant == "none"
+    for raw, want in (("int8", "int8"), ("dcn", "dcn"), ("off", "none"),
+                      ("all", "int8"), ("int4", "none")):
+        monkeypatch.setenv("RAY_TPU_COMM_QUANT", raw)
+        assert ovl.comm_config(refresh=True).quant == want, raw
+    assert "RAY_TPU_COMM_QUANT='int4' unknown" in capsys.readouterr().err
+    monkeypatch.delenv("RAY_TPU_COMM_QUANT")
+    ovl.comm_config(refresh=True)
+
+    _jcfg, cfg = _cfgs()
+    mesh = MeshSpec.create
+    # sp mesh: outside the overlap schedule's cover, falls back, says why
+    assert "sp" in ovl.overlap_supported(cfg, mesh(dp=2, sp=4))
+    assert ttrain.resolve_comm(cfg, mesh(dp=2, sp=4), "overlap") == \
+        ("gspmd", "none")
+    assert "overlap unsupported (mesh has sp>1" in capsys.readouterr().err
+    cfg3 = dataclasses.replace(cfg, d_model=66, n_heads=3)
+    assert "n_heads" in ovl.overlap_supported(cfg3, mesh(tp=2))
+    assert "d_ff" in ovl.overlap_supported(
+        dataclasses.replace(cfg, d_ff=129), mesh(tp=2))
+    assert "vocab" in ovl.overlap_supported(
+        dataclasses.replace(cfg, vocab_size=511), mesh(tp=2))
+    assert "d_model" in ovl.overlap_supported(cfg, mesh(fsdp=3))
+    assert "MoE" in ovl.overlap_supported(
+        dataclasses.replace(cfg, n_experts=2), mesh(fsdp=2))
+    assert ovl.overlap_supported(cfg, mesh(fsdp=4, tp=2)) is None
+    assert ttrain.resolve_comm(cfg, mesh(fsdp=4, tp=2), "overlap",
+                               "int8") == ("overlap", "int8")
+    # one device: nothing to schedule, silently
+    for one in (None, single_device_mesh()):
+        assert ttrain.resolve_comm(cfg, one, "overlap") == ("gspmd", "none")
+    assert capsys.readouterr().err == ""
+    fns1 = ttrain.build_gpt_train(cfg, single_device_mesh(),
+                                  comm_mode="overlap", device="cpu",
+                                  telemetry=False)
+    assert (fns1["comm_mode"], fns1["comm_quant"]) == ("gspmd", "none")
+    # accumulation and adapters fall back loudly
+    assert ttrain.resolve_comm(cfg, mesh(fsdp=4), "overlap",
+                               accum_steps=2) == ("gspmd", "none")
+    assert "accum_steps=2" in capsys.readouterr().err
+    assert ttrain.resolve_comm(cfg, mesh(fsdp=4), "overlap",
+                               lora=True) == ("gspmd", "none")
+    assert "trainable-adapter" in capsys.readouterr().err
+    # the wire needs the overlap schedule: dropped loudly under gspmd
+    # (asked for or fallen back to)
+    assert ttrain.resolve_comm(cfg, mesh(fsdp=4, tp=2), "gspmd",
+                               "int8") == ("gspmd", "none")
+    assert "comm_quant=int8 needs the overlap schedule" in \
+        capsys.readouterr().err
+    assert ttrain.resolve_comm(cfg, mesh(dp=2, sp=4), "overlap",
+                               "dcn") == ("gspmd", "none")
+    fns2 = ttrain.build_gpt_train(cfg, comm_mode="gspmd", comm_quant="int8",
+                                  device="cpu", telemetry=False)
+    assert (fns2["comm_mode"], fns2["comm_quant"]) == ("gspmd", "none")
+    with pytest.raises(ValueError, match="comm_quant"):
+        ttrain.build_gpt_train(cfg, comm_mode="overlap", comm_quant="fp8",
+                               device="cpu")
+    with pytest.raises(ValueError, match="comm_mode"):
+        ttrain.build_gpt_train(cfg, comm_mode="zero", device="cpu")
+    # the env reaches build_gpt_train through comm_config
+    monkeypatch.setenv("RAY_TPU_COMM_QUANT", "all")
+    ovl.comm_config(refresh=True)
+    try:
+        assert ttrain.resolve_comm(cfg, mesh(fsdp=4), "overlap") == \
+            ("overlap", "int8")
+    finally:
+        monkeypatch.delenv("RAY_TPU_COMM_QUANT")
+        ovl.comm_config(refresh=True)
 
 
 def test_remat_step_matches_jax_remat():
