@@ -5,6 +5,9 @@
     python3 chip_smoke.py --profile        # where the serving time goes
     python3 chip_smoke.py --profile int8   # the same on the int8 cache
     python3 chip_smoke.py --profile train  # where a training step's goes
+    python3 chip_smoke.py --profile train-pp   # the same for gpt2-train-pp
+                                               # (GPipe, 1F1B) and
+    python3 chip_smoke.py --profile train-moe  # gpt2-train-moe
     python3 chip_smoke.py --profile epilogue  # the epilogue entry points'
                                               # kernels at N = 24576
     python3 chip_smoke.py --profile ce     # the flash-CE entry points'
@@ -29,6 +32,14 @@
                                            # gpt2-train-sharded and
                                            # gpt2-train-overlap (8c), and
                                            # the wire codec (8d)
+    python3 chip_smoke.py --train-pp       # the kernels at the -pp and
+                                           # -moe shapes, the default
+                                           # arm, then 8b with
+                                           # gpt2-train-pp (8e) and
+                                           # gpt2-train-moe (8f)
+    python3 chip_smoke.py --multi-gpu      # on four cards: the pipeline
+                                           # and MoE steps over NCCL
+                                           # against one process's
     python3 chip_smoke.py --decode         # the decode checks and times
     python3 chip_smoke.py --edges          # the wgmma tile checks, the
                                            # decode checks, the
@@ -69,6 +80,13 @@
    bit-identical.  The flash-CE forward and backward likewise at N = 1,
    63, 65 and 200 against V = 1000 and 50257, with and without the norm
    prologue, at d = 768 (bf16 and f32) and at 1024 and 1280 (bf16).
+   The training kernels also at the shapes of the later training arms
+   (bf16, against the plain versions in f32, as extra shapes of their
+   rows): the attention pair at a tp rank's 6 and 3 heads
+   (``tp_attention_phase``), and the attention pair, the epilogue
+   forward and backward and flash-CE forward and backward at a
+   gpt2-train-pp microbatch's 6 x 1024 rows and gpt2-train-moe's 4 x
+   1024 (``stage_shape_phase``).
 3. Engine phase (gpt2-serve-mixed): GPT-2 124M (random weights from a
    seed, bf16) serves 16 requests through the paged-KV engine with its
    defaults (prefix caching on; the random prompts share no page, so
@@ -231,6 +249,30 @@
    ``collective_bytes_per_step``'s; prints ``wire-codec metrics {...}``
    (ms and GB/s of the largest leaf and of the tree, nearest and
    stochastic).
+8e. gpt2-train-pp (``train_pp_arm``, in the same worker after
+   gpt2-train-overlap): gpt2-train-b24 through ``build_gpt_train_pp`` on
+   ``make_mesh(pp=1)`` (one stage), M = 4 microbatches of 6 rows, GPipe
+   and 1F1B, WARMUP_STEPS + TIMED_STEPS steps each from the dp arm's
+   seeds: every loss and grad norm against the dp arm's (the first two
+   steps, on equal parameters, within 2e-4 and PP_EQUAL_NORM_REL, the
+   drifting later ones within PP_LOSS_ABS and PP_NORM_REL), the loss and
+   every gradient against the dp step's on the last parameters (2e-4,
+   0.06 of each leaf's largest value), exact launches
+   (``PP_STEP_LAUNCHES``: the one stage is the last, whose 1F1B forward
+   of a microbatch shares the tick of its backward and runs once, under
+   autograd, as GPipe's), ``bubble_fraction`` 0 and the
+   reference's in-flight count for one stage, and 1F1B's peak memory
+   below GPipe's; prints ``train-pp metrics {...}`` (ms/step, tokens/s,
+   MFU, peak GiB per schedule).
+8f. gpt2-train-moe (``train_moe_arm``, then): GPT-2 124M's widths with 8
+   experts a layer (top 2, capacity factor 1.5) in bf16 at batch 4 x
+   1024 (the one-hot dispatch grows as T^2).  One step of the kernel
+   path against the plain path at full depth, batch 2 x 1024, in f32
+   (TRAIN_F32_TOL; the bf16 readings printed), exact launches; 6 steps
+   whose loss falls with exact launches; one step at capacity factor 0.5
+   whose every layer keeps fewer than T * 2 assignments; prints
+   ``train-moe metrics {...}`` (ms/step, peak GiB, the dispatch tensor's
+   bytes).
 9. Training correctness: one step's loss and every gradient of the
    kernel path against the port's plain path (local attention, unfused
    epilogue, dense CE) at full width and depth, batch 2 x 1024: in f32
@@ -735,7 +777,8 @@ def kernel_phase(rec: Recorder, dev) -> None:
         epilogue_fwd_check(rec, randn, g, dev, N, bf)
 
 
-def epilogue_fwd_check(rec: Recorder, randn, g, dev, N: int, bf) -> None:
+def epilogue_fwd_check(rec: Recorder, randn, g, dev, N: int, bf, *,
+                       own: bool = True) -> None:
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import fused_norm as FN
@@ -766,7 +809,7 @@ def epilogue_fwd_check(rec: Recorder, randn, g, dev, N: int, bf) -> None:
                (N * K + K * d + N * d + d) * 2 + 2 * N * d * 2 + N * 4,
                2 * N * K * d,
                "ray_tpu_torch/ops/csrc/matmul_residual_norm.cu",
-               "ray_tpu/ops/fused_norm.py:202")
+               "ray_tpu/ops/fused_norm.py:202", own=own)
 
 
 def rmsnorm_checks(rec: Recorder, randn, g, dev) -> None:
@@ -1314,14 +1357,16 @@ def ragged_flash_ce_checks(dev) -> None:
 
 
 def attention_kernel_checks(rec: Recorder, randn, dev, H: int, *,
-                            main: bool) -> dict:
-    """The attention pair at [24, 1024, H, 64] with the training path's
-    RoPE tables (positions 0..S-1, theta 10000, cast to bf16), bf16,
-    against its plain version on the same inputs; returns the times.
+                            main: bool, B: int = None) -> dict:
+    """The attention pair at [B, 1024, H, 64] (B: TRAIN_B unless given)
+    with the training path's RoPE tables (positions 0..S-1, theta 10000,
+    cast to bf16), bf16, against its plain version on the same inputs;
+    returns the times.
     ``main``: GPT-2's 12 heads, the kernels' rows (``Recorder.record``)
     with the f32 instantiations and the times without RoPE besides;
-    otherwise a tp rank's local heads, an extra shape of the rows
-    (``Recorder.record(own=False)``).
+    otherwise an extra shape of the rows (``Recorder.record(own=False)``):
+    a tp rank's local heads, or a pipeline microbatch's or the MoE arm's
+    batch.
 
     The bf16 kernel rounds the rotated q and k to bf16
     (attention.py:_rot), so its plain version in f32 takes them so
@@ -1333,7 +1378,7 @@ def attention_kernel_checks(rec: Recorder, randn, dev, H: int, *,
     from ray_tpu_torch.ops import attention as A
 
     bf = torch.bfloat16
-    B, S, D = TRAIN_B, TRAIN_S, TRAIN_D
+    B, S, D = B or TRAIN_B, TRAIN_S, TRAIN_D
     shape = f"[{B},{S},{H},{D}]"
     record = functools.partial(rec.record, own=main)
     scale = D ** -0.5
@@ -1450,12 +1495,6 @@ def train_kernel_phase(rec: Recorder, dev) -> None:
     backward, the epilogue forward and backward at N = 24576, flash-CE
     forward and backward with the norm prologue.  bf16 (timed) and f32,
     each against the plain version in f32 on the same inputs."""
-    import torch.nn.functional as F
-
-    from ray_tpu_torch.ops import _build
-    from ray_tpu_torch.ops import flash_ce as FC
-    from ray_tpu_torch.ops import fused_norm as FN
-
     g = torch.Generator(device=dev).manual_seed(1)
     randn = _randn(g, dev)
     bf = torch.bfloat16
@@ -1464,12 +1503,25 @@ def train_kernel_phase(rec: Recorder, dev) -> None:
           flush=True)
 
     attention_kernel_checks(rec, randn, dev, TRAIN_H, main=True)
-
     # the out-proj epilogue at the training path's N, forward then
-    # backward with cotangents into both outputs
-    N, K = TRAIN_N, 768
-    d = K
-    epilogue_fwd_check(rec, randn, g, dev, N, bf)
+    # backward, then flash-CE
+    epilogue_fwd_check(rec, randn, g, dev, TRAIN_N, bf)
+    epilogue_bwd_check(rec, randn, g, dev, TRAIN_N)
+    rmsnorm_checks(rec, randn, g, dev)
+    flash_ce_checks(rec, randn, g, dev, TRAIN_N)
+
+
+def epilogue_bwd_check(rec: Recorder, randn, g, dev, N: int, *,
+                       own: bool = True) -> None:
+    """The epilogue's backward at [N, 768] in bf16, with cotangents into
+    both outputs, against its plain version in f32 on the same inputs;
+    ``own``: the row's shape, with the f32 instantiation checked too."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import fused_norm as FN
+
+    bf = torch.bfloat16
+    K = d = 768
     a = randn(N, K)
     w = randn(K, d, s=K ** -0.5)
     resid = randn(N, d)
@@ -1480,14 +1532,17 @@ def train_kernel_phase(rec: Recorder, dev) -> None:
     ins32 = (*_f32(a, w, rout, sc), rstd, *_f32(drout, dy))
     got = FN.matmul_residual_norm_bwd(*ins)
     want = FN.plain_matmul_residual_norm_bwd(*ins32)
-    got32 = FN.matmul_residual_norm_bwd(*ins32)
     torch.cuda.synchronize()
     what = f"matmul_residual_norm_bwd N={N}"
     names = ("da", "dw", "dresid", "dscale")
     err = max(check(f"{what} {n}", x, y, **GRAD_BF16_TOL)
               for n, x, y in zip(names, got, want))
-    for n, x, y in zip(names, got32, want):
-        check(f"{what} f32 {n}", x, y, **F32_GRAD_TOL)
+    if own:
+        got32 = FN.matmul_residual_norm_bwd(*ins32)
+        torch.cuda.synchronize()
+        for n, x, y in zip(names, got32, want):
+            check(f"{what} f32 {n}", x, y, **F32_GRAD_TOL)
+        del got32
 
     def lib_epilogue():
         args = [x.detach().requires_grad_(True) for x in (a, w, resid, sc)]
@@ -1503,15 +1558,26 @@ def train_kernel_phase(rec: Recorder, dev) -> None:
                + d * 4,
                4 * N * K * d,
                "ray_tpu_torch/ops/csrc/matmul_residual_norm_bwd.cu",
-               "ray_tpu/ops/fused_norm.py:247")
-    del a, w, resid, rout, rstd, drout, dy, ins, ins32, got, want, got32
+               "ray_tpu/ops/fused_norm.py:247", own=own)
+    del a, w, resid, rout, rstd, drout, dy, ins, ins32, got, want
     torch.cuda.empty_cache()
-    rmsnorm_checks(rec, randn, g, dev)
 
-    # flash-CE with the final-norm prologue: x the raw residual stream,
-    # w the tied embedding [V, d] at its init scale, one target in seven
-    # masked; the backward with the cotangent of the summed loss (1)
-    V = TRAIN_V
+
+def flash_ce_checks(rec: Recorder, randn, g, dev, N: int, *,
+                    own: bool = True) -> None:
+    """flash-CE with the final-norm prologue at N rows: x the raw
+    residual stream, w the tied embedding [V, d] at its init scale, one
+    target in seven masked; the forward, then the backward with the
+    cotangent of the summed loss (1), in bf16 against the plain versions
+    in f32 on the same inputs; ``own``: the rows' shape, with the f32
+    instantiations checked too."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import flash_ce as FC
+
+    bf = torch.bfloat16
+    V, d = TRAIN_V, 768
     x = randn(N, d)
     w = randn(V, d, s=0.02)
     sc = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(bf)
@@ -1522,15 +1588,18 @@ def train_kernel_phase(rec: Recorder, dev) -> None:
     eps = 1e-6
     lse, true, rstd = FC.flash_ce_fwd(x, w, tgt, (sc, eps))
     want = FC.plain_flash_ce_fwd(*_f32(x, w), tgt, (sc.float(), eps))
-    got32 = FC.flash_ce_fwd(*_f32(x, w), tgt, (sc.float(), eps))
     torch.cuda.synchronize()
     what = f"flash_ce_fwd norm N={N} V={V}"
     err = max(check(f"{what} lse", lse, want[0], **CE_LSE_TOL),
               check(f"{what} true", true, want[1], **CE_TRUE_TOL),
               check(f"{what} rstd", rstd, want[2], **RSTD_TOL))
-    for n, x32, y in zip(("lse", "true", "rstd"), got32, want):
-        check(f"{what} f32 {n}", x32, y, **F32_GRAD_TOL)
-    del want, got32
+    if own:
+        got32 = FC.flash_ce_fwd(*_f32(x, w), tgt, (sc.float(), eps))
+        torch.cuda.synchronize()
+        for n, x32, y in zip(("lse", "true", "rstd"), got32, want):
+            check(f"{what} f32 {n}", x32, y, **F32_GRAD_TOL)
+        del got32
+    del want
     torch.cuda.empty_cache()
     mask = tgt >= 0
     tgt_lib = tgt.long().masked_fill(~mask, -100)
@@ -1551,7 +1620,7 @@ def train_kernel_phase(rec: Recorder, dev) -> None:
                (N * d + V * d + d) * 2 + N * 4 + 3 * N * 4,
                2 * N * d * V,
                "ray_tpu_torch/ops/csrc/flash_ce_fwd.cu",
-               "ray_tpu/ops/flash_ce.py:223")
+               "ray_tpu/ops/flash_ce.py:223", own=own)
 
     norm = (sc, eps, rstd)
     norm32 = (sc.float(), eps, rstd)
@@ -1566,15 +1635,18 @@ def train_kernel_phase(rec: Recorder, dev) -> None:
           flush=True)
     del again
     want = FC.plain_flash_ce_bwd(*_f32(x, w), tgt, lse, srow, norm32)
-    got32 = FC.flash_ce_bwd(*_f32(x, w), tgt, lse, srow, norm32)
     torch.cuda.synchronize()
     what = f"flash_ce_bwd norm N={N} V={V}"
     names = ("dx", "dw", "dscale")
     err = max(check(f"{what} {n}", a_, b_, **GRAD_BF16_TOL)
               for n, a_, b_ in zip(names, got, want))
-    for n, a_, b_ in zip(names, got32, want):
-        check(f"{what} f32 {n}", a_, b_, **F32_GRAD_TOL)
-    del got, want, got32
+    if own:
+        got32 = FC.flash_ce_bwd(*_f32(x, w), tgt, lse, srow, norm32)
+        torch.cuda.synchronize()
+        for n, a_, b_ in zip(names, got32, want):
+            check(f"{what} f32 {n}", a_, b_, **F32_GRAD_TOL)
+        del got32
+    del got, want
     torch.cuda.empty_cache()
     rec.record("flash_ce_bwd", [N, d, V], err,
                time_ms(lambda: FC.flash_ce_bwd(x, w, tgt, lse, srow, norm),
@@ -1585,9 +1657,25 @@ def train_kernel_phase(rec: Recorder, dev) -> None:
                (2 * N * d + 2 * V * d + d) * 2 + 5 * N * 4 + d * 4,
                3 * 2 * N * d * V,
                "ray_tpu_torch/ops/csrc/flash_ce_bwd.cu",
-               "ray_tpu/ops/flash_ce.py:352")
+               "ray_tpu/ops/flash_ce.py:352", own=own)
     del x, w, tgt, lse, true, rstd, srow
     torch.cuda.empty_cache()
+
+
+def stage_shape_phase(rec: Recorder, dev) -> None:
+    """The training kernels at the per-call shapes of gpt2-train-pp (a
+    microbatch of TRAIN_B / PP_M rows) and gpt2-train-moe (MOE_B rows):
+    the attention pair, the epilogue forward and backward and flash-CE
+    forward and backward, bf16 against their plain versions in f32 at
+    the bounds above, as extra shapes of the rows."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    randn = _randn(g, dev)
+    for B in (TRAIN_B // PP_M, MOE_B):
+        N = B * TRAIN_S
+        attention_kernel_checks(rec, randn, dev, TRAIN_H, main=False, B=B)
+        epilogue_fwd_check(rec, randn, g, dev, N, torch.bfloat16, own=False)
+        epilogue_bwd_check(rec, randn, g, dev, N, own=False)
+        flash_ce_checks(rec, randn, g, dev, N, own=False)
 
 
 GPT2 = dict(vocab_size=50304, max_seq=1024)
@@ -4534,6 +4622,9 @@ def train_worker_loop(config: dict) -> None:
         rep["sharded"] = train_sharded_arm(cfg, dev)
     if config.get("overlap"):
         rep["overlap"] = train_overlap_arm(cfg, dev)
+    if config.get("pp"):
+        rep["pp"] = train_pp_arm(cfg, dev)
+        rep["moe"] = train_moe_arm(dev)
     ckpt = None
     if train.get_context().get_world_rank() == 0:
         path = config["ckpt_dir"]
@@ -4545,7 +4636,7 @@ def train_worker_loop(config: dict) -> None:
 
 
 def train_worker_phase(dev, default: dict, *, sharded: bool = False,
-                       overlap: bool = False) -> tuple:
+                       overlap: bool = False, pp: bool = False) -> dict:
     """gpt2-train-worker: ``ray_tpu_torch.init`` and a ``TorchTrainer``
     of one ``num_gpus=1`` worker (``ScalingConfig(use_gpu=True)``) whose
     backend forms an NCCL world of 1; its loop (``train_worker_loop``)
@@ -4570,9 +4661,13 @@ def train_worker_phase(dev, default: dict, *, sharded: bool = False,
     within OVERLAP_LOSS_REL of the gspmd arm's, every gradient leaf within
     TRAIN_BF16_TOL's share of its largest value, and whose timed calls
     must launch OVERLAP_LAUNCHES each and nothing else; prints
-    ``train-overlap metrics {...}``.  Returns the launches of the
-    data-parallel arm, of the sharded arm and of the overlap arm (None
-    where not run)."""
+    ``train-overlap metrics {...}``.  ``pp``: the worker then runs
+    gpt2-train-pp (``train_pp_arm``: the pipeline trainer on
+    ``make_mesh(pp=1)`` with both schedules, gated by ``pp_report``) and
+    gpt2-train-moe (``train_moe_arm``, gated by ``moe_report``).  Returns
+    the launches of each arm run, by path (``train_worker``,
+    ``train_sharded``, ``train_overlap``, ``train_pp_gpipe``,
+    ``train_pp_1f1b``, ``train_moe``)."""
     import shutil
     import tempfile
 
@@ -4595,7 +4690,7 @@ def train_worker_phase(dev, default: dict, *, sharded: bool = False,
             train_loop_config={"card": torch.cuda.get_device_name(0),
                                "ckpt_dir": os.path.join(storage, "state"),
                                "sharded": sharded,
-                               "overlap": overlap},
+                               "overlap": overlap, "pp": pp},
             scaling_config=ScalingConfig(
                 num_workers=1, use_gpu=True,
                 mesh_axes=TRAIN_SHARDED_AXES if sharded else None),
@@ -4693,11 +4788,24 @@ def train_worker_phase(dev, default: dict, *, sharded: bool = False,
           f"loaded, worker gone and card free {release_s:.3f} s after "
           "fit()", flush=True)
     print("train-worker metrics " + json.dumps(metrics), flush=True)
-    if not sharded:
-        return last["launches"], None, None
-    arm = last["sharded"]
+    paths = {"train_worker": last["launches"]}
     dp_losses = [h["loss"] for h in hist]
     dp_norms = [h["grad_norm"] for h in hist]
+    if sharded:
+        paths["train_sharded"] = sharded_report(last["sharded"], last,
+                                                dp_losses, dp_norms, steps)
+    if overlap:
+        paths["train_overlap"] = overlap_report(last["overlap"])
+    if pp:
+        paths.update(pp_report(last["pp"], dp_losses, dp_norms))
+        paths.update(moe_report(last["moe"]))
+    return paths
+
+
+def sharded_report(arm: dict, last: dict, dp_losses: list, dp_norms: list,
+                   steps: int) -> dict:
+    """gpt2-train-sharded's gates and its ``train-sharded metrics`` line;
+    returns its launches."""
     if arm["axes"] != TRAIN_SHARDED_AXES or arm["mesh"] != TRAIN_SHARDED_AXES:
         raise AssertionError(f"train-sharded: mesh_axes {arm['axes']} built "
                              f"{arm['mesh']}, want {TRAIN_SHARDED_AXES}")
@@ -4722,9 +4830,7 @@ def train_worker_phase(dev, default: dict, *, sharded: bool = False,
           "losses and grad norms equal the data-parallel arm's exactly, "
           "launches equal", flush=True)
     print("train-sharded metrics " + json.dumps(out), flush=True)
-    if not overlap:
-        return last["launches"], arm["launches"], None
-    return last["launches"], arm["launches"], overlap_report(last["overlap"])
+    return arm["launches"]
 
 
 def overlap_report(arm: dict) -> dict:
@@ -4762,6 +4868,560 @@ def overlap_report(arm: dict) -> dict:
                for k, v in _nonzero(arm["gspmd_launches"]).items()}}
     print("train-overlap metrics " + json.dumps(out), flush=True)
     return arm["launches"]
+
+
+# gpt2-train-pp: the same worker trains gpt2-train-b24 again through the
+# pipeline trainer on make_mesh(pp=1) (one stage: a world of 1), both
+# schedules at M = 4 microbatches of 6 rows, from the dp arm's seeds.
+# Launches of one step: GPipe runs each microbatch's stage forward once
+# and its backward once.  1F1B runs a stage's forward at its tick
+# without a graph and again, under autograd, at its backward tick, but
+# the last stage's two ticks are one and it runs the forward once; the
+# one stage here is the last, so both schedules launch alike.
+# Bounds against the dp arm: the first two steps run on equal parameters
+# (the warmup's lr is 0 at step 0), so their losses hold TRAIN_BF16_TOL's
+# 2e-4 (only the loss's f32 summation differs) and their grad norms
+# PP_EQUAL_NORM_REL (each microbatch's bf16 gradients are rounded before
+# the f32 sum).  Later steps run on parameters that drift apart: AdamW
+# turns those roundings into steps of up to lr on near-zero gradients
+# (on an H100: 3.7e-3 and 3.9% by step 10, with steps 0-1 equal; PERF.md
+# section 6), so the trajectory is held to PP_LOSS_ABS and PP_NORM_REL,
+# and the pipeline's gradients are held to the dp step's on the same
+# parameters after the last step (``build_gpt_train``'s
+# ``value_and_grad_fn``): the loss within TRAIN_BF16_TOL's 2e-4, every
+# leaf within its 0.06 share.
+PP_M = 4
+PP_EQUAL_NORM_REL = 1e-3
+PP_LOSS_ABS = 1e-2
+PP_NORM_REL = 0.1
+
+
+PP_STEP_LAUNCHES = {"flash_attention_fwd": 12 * PP_M,
+                    "flash_attention_bwd": 12 * PP_M,
+                    "matmul_residual_norm_fwd": 12 * PP_M,
+                    "matmul_residual_norm_bwd": 12 * PP_M,
+                    "flash_ce_fwd": PP_M, "flash_ce_bwd": PP_M}
+
+
+def train_pp_arm(cfg, dev) -> dict:
+    """gpt2-train-pp, in the train worker after the overlap arm:
+    ``build_gpt_train_pp(cfg, make_mesh(pp=1), num_microbatches=PP_M)``
+    with each schedule, WARMUP_STEPS + TIMED_STEPS steps from the dp
+    arm's seeds and batch; each schedule's losses, grad norms, timed
+    steps' launches and wall, the peak memory over its steps (the
+    allocator's peak reset after its state is made) and the dict's
+    schedule figures; then its loss and gradients against the dp step's
+    (``build_gpt_train``) on the same final parameters and batch.  One
+    stage: nothing here measures a transfer between stages or the
+    bubble."""
+    from ray_tpu_torch.convert import fold_stages
+    from ray_tpu_torch.models.training import (build_gpt_train,
+                                               build_gpt_train_pp,
+                                               default_optimizer,
+                                               synthetic_lm_batch)
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(pp=1)
+    dp = build_gpt_train(cfg, device=dev, telemetry=False)
+    out = {}
+    for schedule in ("gpipe", "1f1b"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        fns = build_gpt_train_pp(cfg, mesh, num_microbatches=PP_M,
+                                 schedule=schedule,
+                                 optimizer=default_optimizer(**TRAIN_OPT),
+                                 device=dev, telemetry=False)
+        state = fns["init_fn"](torch.Generator().manual_seed(0))
+        batch = fns["shard_batch"](synthetic_lm_batch(
+            torch.Generator().manual_seed(1), TRAIN_B, TRAIN_S,
+            cfg.vocab_size, device=dev))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, walls = [], [], []
+        for i in range(WARMUP_STEPS + TIMED_STEPS):
+            if i == WARMUP_STEPS:
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                t0 = time.monotonic()
+            t_step = time.monotonic()
+            state, m = fns["step_fn"](state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            if i >= WARMUP_STEPS:
+                walls.append(1e3 * (time.monotonic() - t_step))
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = _build.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        loss, grads = fns["value_and_grad_fn"](state.params, batch)
+        want_loss, want = dp["value_and_grad_fn"](fold_stages(state.params),
+                                                  batch)
+        shares = {k: ((g.float() - want_k.float()).abs().max()
+                      / want_k.float().abs().max()).item()
+                  for (k, g), want_k in zip(
+                      _flat_tree(fold_stages(grads)).items(),
+                      _flat_tree(want).values())}
+        worst = max(shares, key=shares.get)
+        del grads, want
+        out[schedule] = {
+            "losses": losses, "grad_norms": norms,
+            "launches": launches,
+            "same_params_loss_diff": float(loss) - float(want_loss),
+            "same_params_worst_share": shares[worst],
+            "same_params_worst_leaf": worst,
+            "step_ms": 1e3 * wall / TIMED_STEPS,
+            "median_step_ms": float(np.median(walls)),
+            "step_walls_ms": walls, "peak_gib": peak,
+            **{k: fns[k] for k in ("schedule", "stage_axis",
+                                   "num_microbatches", "bubble_fraction",
+                                   "in_flight_microbatches")}}
+        del state, fns, batch
+    return out
+
+
+def pp_report(arms: dict, dp_losses: list, dp_norms: list) -> dict:
+    """gpt2-train-pp's gates and its ``train-pp metrics`` line; returns
+    each schedule's launches by path."""
+    from ray_tpu_torch import GPTConfig
+    from ray_tpu_torch.parallel.pipeline import pipeline_schedule_stats
+    from ray_tpu_torch.telemetry import flops
+    cfg = GPTConfig.gpt2(**TRAIN_CFG, dtype=torch.bfloat16)
+    fpt = flops.gpt_train_flops_per_token(cfg, TRAIN_S, ce_recompute=True)
+    metrics = {"cell": "gpt2-train-pp", "card": card(),
+               "num_microbatches": PP_M, "batch": [TRAIN_B, TRAIN_S]}
+    for schedule, arm in arms.items():
+        stats = pipeline_schedule_stats(1, PP_M, schedule)
+        if (arm["schedule"], arm["stage_axis"], arm["num_microbatches"]) \
+                != (schedule, "pp", PP_M) \
+                or arm["bubble_fraction"] != 0.0 \
+                or arm["in_flight_microbatches"] != \
+                stats["in_flight_microbatches"]:
+            raise AssertionError(f"train-pp {schedule}: figures {arm}")
+        d_first = max(abs(a - b) for a, b in zip(arm["losses"][:2],
+                                                  dp_losses[:2]))
+        n_first = max(abs(a - b) / b for a, b in zip(arm["grad_norms"][:2],
+                                                     dp_norms[:2]))
+        d_loss = max(abs(a - b) for a, b in zip(arm["losses"], dp_losses))
+        d_norm = max(abs(a - b) / b for a, b in zip(arm["grad_norms"],
+                                                    dp_norms))
+        print(f"train-pp {schedule}: steps 0-1 (equal parameters) |loss - "
+              f"dp arm's| {d_first:.3e}, grad norm {n_first:.3e} relative "
+              f"(bounds {TRAIN_BF16_TOL['loss_abs']}, {PP_EQUAL_NORM_REL}); "
+              f"all steps {d_loss:.3e}, {d_norm:.3e} (bounds {PP_LOSS_ABS}, "
+              f"{PP_NORM_REL}); on the last parameters loss "
+              f"{arm['same_params_loss_diff']:+.3e}, worst gradient share "
+              f"{arm['same_params_worst_share']:.3e} at "
+              f"{arm['same_params_worst_leaf']} (bounds "
+              f"{TRAIN_BF16_TOL['loss_abs']}, {TRAIN_BF16_TOL['grad']})",
+              flush=True)
+        if not (d_first <= TRAIN_BF16_TOL["loss_abs"]
+                and n_first <= PP_EQUAL_NORM_REL
+                and d_loss <= PP_LOSS_ABS and d_norm <= PP_NORM_REL
+                and abs(arm["same_params_loss_diff"])
+                <= TRAIN_BF16_TOL["loss_abs"]
+                and arm["same_params_worst_share"] <= TRAIN_BF16_TOL["grad"]):
+            raise AssertionError(f"train-pp {schedule}: losses "
+                                 f"{arm['losses']} or grad norms "
+                                 f"{arm['grad_norms']} part from the dp "
+                                 f"arm's {dp_losses} {dp_norms}")
+        expect_launches(f"train-pp {schedule}", arm["launches"],
+                        {k: n * TIMED_STEPS for k, n in
+                         PP_STEP_LAUNCHES.items()})
+        tok_s = TRAIN_B * TRAIN_S * 1e3 / arm["step_ms"]
+        metrics[schedule] = {
+            "step_ms": arm["step_ms"], "median_step_ms":
+                arm["median_step_ms"], "step_walls_ms": arm["step_walls_ms"],
+            "tokens_per_s": tok_s, "mfu": flops.mfu(tok_s, fpt),
+            "peak_gib": arm["peak_gib"], "max_loss_diff": d_loss,
+            "max_grad_norm_rel_diff": d_norm,
+            **{k: arm[k] for k in ("same_params_loss_diff",
+                                   "same_params_worst_share",
+                                   "same_params_worst_leaf")},
+            "bubble_fraction": arm["bubble_fraction"],
+            "in_flight_microbatches": arm["in_flight_microbatches"],
+            "launches_per_step": PP_STEP_LAUNCHES}
+    if not arms["1f1b"]["peak_gib"] < arms["gpipe"]["peak_gib"]:
+        raise AssertionError(f"train-pp: 1F1B's peak "
+                             f"{arms['1f1b']['peak_gib']:.3f} GiB is not "
+                             f"below GPipe's {arms['gpipe']['peak_gib']:.3f}")
+    print("train-pp: both schedules' losses and grad norms hold the dp "
+          "arm's, launches exact, 1F1B's peak below GPipe's", flush=True)
+    print("train-pp metrics " + json.dumps(metrics), flush=True)
+    return {f"train_pp_{s}": arm["launches"] for s, arm in arms.items()}
+
+
+# gpt2-train-moe: GPT-2 124M's widths with every FFN a MoE of 8 experts
+# (top 2, capacity factor 1.5), bf16, in the same worker (a world of 1).
+# Batch 4 x 1024, not 24 x 1024: the reference's dispatch and combine are
+# one-hot [T, E, C] f32 tensors, T * E * C * 4 bytes each, which grow as
+# T^2 (C = 1.5 T 2 / 8): 7.25 GB each at 24,576 tokens (two a layer plus
+# temporaries), 201 MB at 4,096.  Launches per step: the dense step's
+# (the kernels run around the plain expert matmuls and router).
+# Kernel path against plain path (one step, full depth, batch 2 x 1024):
+# the router's top-2 choice flips for near-tied tokens when its input
+# moves by one bf16 rounding, and each flip moves a token's expert
+# gradients whole, kernels or not: on an H100 the bf16 kernel path and
+# the plain path in bf16 read worst gradient shares of 0.31 and 0.33
+# against the plain path in f32 (PERF.md section 6; a dense model's stay
+# under phase 9's 0.06).  So the gate is phase 9's f32 one
+# (TRAIN_F32_TOL, kernel path in f32 against the plain path in f32: no
+# bf16 rounding moves the router), and the bf16 paths' loss and
+# gradient shares are printed, not gated.  Drops: one more step at
+# capacity factor 0.5 must keep fewer than T * top_k assignments in
+# every layer.
+MOE_CFG = dict(n_experts=8, moe_top_k=2, moe_capacity_factor=1.5)
+MOE_B = 4
+MOE_CHECK_B = 2
+MOE_DROP_CF = 0.5
+
+
+def _moe_correctness(dev) -> dict:
+    """One step of the MoE model at full depth, batch MOE_CHECK_B x 1024:
+    the kernel path in f32 and bf16 and the plain path in f32 and bf16
+    (``gpt.loss_fn(..., fuse_norm=False, ce_mode="xla")`` with local
+    attention): losses, the kernel launches of the kernel runs, and the
+    largest gradient share of each run against the f32 plain path."""
+    from ray_tpu_torch import GPTConfig, init_params
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models.training import (synthetic_lm_batch,
+                                               value_and_grad)
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops.attention import make_flash_attention_fn
+
+    cfg32 = GPTConfig.gpt2(**TRAIN_CFG, **MOE_CFG, dtype=torch.float32)
+    cfg16 = dataclasses.replace(cfg32, dtype=torch.bfloat16)
+    p32 = init_params(cfg32, torch.Generator().manual_seed(2), device=dev)
+    batch = synthetic_lm_batch(torch.Generator().manual_seed(3), MOE_CHECK_B,
+                               TRAIN_S, cfg32.vocab_size, device=dev)
+    attn = make_flash_attention_fn(rope_theta=cfg32.rope_theta)
+
+    def to(tree, dtype):
+        return {k: to(v, dtype) if isinstance(v, dict) else v.to(dtype)
+                for k, v in tree.items()}
+
+    def run(cfg, p, kernels):
+        _build.reset_launches()
+        if kernels:
+            fn = (lambda p_, b_: gpt.loss_fn(p_, b_, cfg, attn_fn=attn))
+        else:
+            fn = (lambda p_, b_: gpt.loss_fn(p_, b_, cfg, fuse_norm=False,
+                                             ce_mode="xla"))
+        loss, grads = value_and_grad(fn, p, batch)
+        torch.cuda.synchronize()
+        return float(loss), _flat_tree(grads), _build.launch_counts()
+
+    ref_loss, ref, _ = run(cfg32, p32, False)
+    out = {"plain_f32_loss": ref_loss}
+    p16 = to(p32, torch.bfloat16)
+    for label, cfg, p, kernels in (("kernel_f32", cfg32, p32, True),
+                                   ("kernel_bf16", cfg16, p16, True),
+                                   ("plain_bf16", cfg16, p16, False)):
+        loss, grads, launches = run(cfg, p, kernels)
+        shares = {k: ((g.float() - ref[k].float()).abs().max()
+                      / ref[k].float().abs().max()).item()
+                  for k, g in grads.items()}
+        worst = max(shares, key=shares.get)
+        out[label] = {"loss": loss, "loss_diff": loss - ref_loss,
+                      "worst_share": shares[worst], "worst_leaf": worst,
+                      "launches": _nonzero(launches)}
+        del grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_moe_arm(dev) -> dict:
+    """gpt2-train-moe, in the train worker after the pipeline arm: the
+    correctness step (``_moe_correctness``), then ``build_gpt_train`` of
+    the MoE model on ``make_mesh(dp=1, ep=1)``, WARMUP_STEPS +
+    ARM_TIMED_STEPS steps at MOE_B x 1024 from seed 0 (the timed steps'
+    launches, wall and the peak over the steps), then one step at
+    capacity factor MOE_DROP_CF with ``moe.route`` counted: the
+    assignments each layer's dispatch kept."""
+    from ray_tpu_torch import GPTConfig
+    from ray_tpu_torch.models.training import (build_gpt_train,
+                                               default_optimizer,
+                                               synthetic_lm_batch)
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.parallel import moe
+    from ray_tpu_torch.parallel.mesh import make_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"correctness": _moe_correctness(dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = GPTConfig.gpt2(**TRAIN_CFG, **MOE_CFG, dtype=torch.bfloat16)
+    mesh = make_mesh(dp=1, ep=1)
+    fns = build_gpt_train(cfg, mesh, optimizer=default_optimizer(**TRAIN_OPT),
+                          device=dev, telemetry=False)
+    state = fns["init_fn"](torch.Generator().manual_seed(0))
+    batch = synthetic_lm_batch(torch.Generator().manual_seed(1), MOE_B,
+                               TRAIN_S, cfg.vocab_size, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for i in range(WARMUP_STEPS + ARM_TIMED_STEPS):
+        if i == WARMUP_STEPS:
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.monotonic()
+        t_step = time.monotonic()
+        state, m = fns["step_fn"](state, batch)
+        losses.append(float(m["loss"]))
+        if i >= WARMUP_STEPS:
+            walls.append(1e3 * (time.monotonic() - t_step))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    out.update(losses=losses, launches=_build.launch_counts(),
+               step_ms=1e3 * wall / ARM_TIMED_STEPS,
+               median_step_ms=float(np.median(walls)), step_walls_ms=walls,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    T = MOE_B * TRAIN_S
+    cap = moe.capacity(T, cfg.n_experts, cfg.moe_top_k,
+                       cfg.moe_capacity_factor)
+    out.update(tokens=T, capacity=cap,
+               dispatch_bytes=T * cfg.n_experts * cap * 4)
+    del fns
+    drop = build_gpt_train(
+        dataclasses.replace(cfg, moe_capacity_factor=MOE_DROP_CF), mesh,
+        optimizer=default_optimizer(**TRAIN_OPT), device=dev,
+        telemetry=False)
+    kept = []
+    route = moe.route
+
+    def counted(*args, **kwargs):
+        d, c, a = route(*args, **kwargs)
+        kept.append(int(d.sum().item()))
+        return d, c, a
+
+    moe.route = counted
+    try:
+        drop["step_fn"](state, batch)
+    finally:
+        moe.route = route
+    out.update(drop_kept=kept, drop_capacity=moe.capacity(
+        T, cfg.n_experts, cfg.moe_top_k, MOE_DROP_CF))
+    return out
+
+
+def moe_report(arm: dict) -> dict:
+    """gpt2-train-moe's gates and its ``train-moe metrics`` line; returns
+    its launches by path."""
+    c = arm["correctness"]
+    ref = c["plain_f32_loss"]
+    f32, b16, p16 = c["kernel_f32"], c["kernel_bf16"], c["plain_bf16"]
+    print(f"train-moe correctness: f32 kernel path loss {f32['loss']:.6f} "
+          f"vs plain {ref:.6f} (share_of_tol="
+          f"{abs(f32['loss_diff']) / (TRAIN_F32_TOL['loss_rel'] * abs(ref)):.3f}),"
+          f" worst gradient {f32['worst_leaf']} share_of_tol="
+          f"{f32['worst_share'] / TRAIN_F32_TOL['grad']:.3f}; bf16 readings: "
+          f"kernel path loss {b16['loss_diff']:+.3e}, worst gradient share "
+          f"{b16['worst_share']:.3e} at {b16['worst_leaf']}; plain path in "
+          f"bf16 {p16['loss_diff']:+.3e}, {p16['worst_share']:.3e} at "
+          f"{p16['worst_leaf']}", flush=True)
+    if not (abs(f32["loss_diff"]) <= TRAIN_F32_TOL["loss_rel"] * abs(ref)
+            and f32["worst_share"] <= TRAIN_F32_TOL["grad"]):
+        raise AssertionError("train-moe: the f32 kernel path disagrees with "
+                             "the plain path")
+    step = {k: n for k, n in TRAIN_LAUNCHES.items()}
+    for label in ("kernel_f32", "kernel_bf16"):
+        expect_launches(f"train-moe correctness {label}", c[label]["launches"],
+                        step)
+    if c["plain_bf16"]["launches"]:
+        raise AssertionError(f"train-moe: the plain path launched "
+                             f"{c['plain_bf16']['launches']}")
+    losses = arm["losses"]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"train-moe: losses {losses}")
+    expect_launches("train-moe", arm["launches"],
+                    {k: n * ARM_TIMED_STEPS for k, n in step.items()})
+    T, k = arm["tokens"], MOE_CFG["moe_top_k"]
+    if not arm["drop_kept"] or not all(n < T * k and n <= MOE_CFG[
+            "n_experts"] * arm["drop_capacity"] for n in arm["drop_kept"]):
+        raise AssertionError(f"train-moe: at capacity factor {MOE_DROP_CF} "
+                             f"the dispatch kept {arm['drop_kept']} of "
+                             f"{T * k} assignments")
+    metrics = {"cell": "gpt2-train-moe", "card": card(),
+               "batch": [MOE_B, TRAIN_S], **MOE_CFG,
+               "step_ms": arm["step_ms"],
+               "median_step_ms": arm["median_step_ms"],
+               "step_walls_ms": arm["step_walls_ms"],
+               "tokens_per_s": arm["tokens"] * 1e3 / arm["step_ms"],
+               "peak_gib": arm["peak_gib"], "losses": losses,
+               "capacity": arm["capacity"],
+               "dispatch_bytes": arm["dispatch_bytes"],
+               "drop_capacity": arm["drop_capacity"],
+               "drop_kept_per_layer": arm["drop_kept"],
+               "assignments": T * k, "correctness": c}
+    print(f"train-moe: {len(losses)} steps, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; launches exact; at capacity factor "
+          f"{MOE_DROP_CF} each layer kept {min(arm['drop_kept'])}-"
+          f"{max(arm['drop_kept'])} of {T * k} assignments", flush=True)
+    print("train-moe metrics " + json.dumps(metrics), flush=True)
+    return {"train_moe": arm["launches"]}
+
+
+# gpt2-multi-gpu (``--multi-gpu``, four cards of one host): the pipeline
+# and experts across real NCCL ranks, which a world of 1 cannot reach:
+# GPT-2 124M's widths at 4 layers in f32 (the kernels' f32 builds), batch
+# 8 x 1024 from the driver's seeds, each rank's loss and gathered
+# gradients against the single-process step (``build_gpt_train`` with no
+# mesh) on its own card: the pipeline's stage transfers (GPipe and 1F1B
+# over pp, 1F1B over dcn, with dp, fsdp and tp inside the stages) and the
+# MoE step (8 experts, capacity factor 0.5, tokens dropped) over dp, ep
+# and tp.  Bounds: TRAIN_F32_TOL (summation order only).
+MULTI_WORLD = 4
+MULTI_LAYERS = 4
+MULTI_B = 8
+MULTI_PP_CASES = [("pp4-gpipe", dict(pp=4), "gpipe"),
+                  ("pp4-1f1b", dict(pp=4), "1f1b"),
+                  ("pp2-dp2-1f1b", dict(pp=2, dp=2), "1f1b"),
+                  ("pp2-tp2-gpipe", dict(pp=2, tp=2), "gpipe"),
+                  ("dcn2-fsdp2-1f1b", dict(dcn=2, fsdp=2), "1f1b")]
+MULTI_MOE_CASES = [("moe-dp4", dict(dp=4)), ("moe-ep4", dict(ep=4)),
+                   ("moe-dp2-ep2", dict(dp=2, ep=2)),
+                   ("moe-ep2-tp2", dict(ep=2, tp=2))]
+MULTI_CALLS = 5
+
+
+def _multi_gpu_rank(rank: int, store: str, out: str,
+                    device_type: str = "cuda") -> None:
+    """One rank of gpt2-multi-gpu: every case in turn on this rank's
+    card (NCCL; ``device_type="cpu"`` runs the same on gloo, for a
+    rehearsal); rank 0 writes the results to ``out`` as JSON."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import GPTConfig, init_params
+    from ray_tpu_torch.convert import fold_stages
+    from ray_tpu_torch.models.gpt import param_logical_axes
+    from ray_tpu_torch.models.training import (build_gpt_train,
+                                               build_gpt_train_pp,
+                                               synthetic_lm_batch)
+    from ray_tpu_torch.parallel import sharding
+    from ray_tpu_torch.parallel.mesh import make_mesh
+
+    cuda = device_type == "cuda"
+    if cuda:
+        torch.cuda.set_device(rank)
+        torch_flags()
+    dev = torch.device(device_type, rank if cuda else None)
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            store=dist.FileStore(store, MULTI_WORLD),
+                            rank=rank, world_size=MULTI_WORLD)
+    base = dataclasses.replace(
+        GPTConfig.gpt2(**TRAIN_CFG, dtype=torch.float32),
+        n_layers=MULTI_LAYERS)
+    batch = synthetic_lm_batch(torch.Generator().manual_seed(1), MULTI_B,
+                               TRAIN_S, base.vocab_size, device=dev)
+
+    def clone(tree):
+        return {k: clone(v) if isinstance(v, dict) else v.clone()
+                for k, v in tree.items()}
+
+    def compare(cfg, loss, grads, full_params):
+        ref = build_gpt_train(cfg, device=dev, telemetry=False)
+        want_loss, want = ref["value_and_grad_fn"](full_params, batch)
+        shares = {k: ((g.float() - w.float()).abs().max()
+                      / w.float().abs().max()).item()
+                  for (k, g), w in zip(_flat_tree(grads).items(),
+                                       _flat_tree(want).values())}
+        worst = max(shares, key=shares.get)
+        return {"loss": float(loss), "ref_loss": float(want_loss),
+                "loss_rel": abs(float(loss) - float(want_loss))
+                / abs(float(want_loss)),
+                "worst_share": shares[worst], "worst_leaf": worst}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def timed(fn) -> float:
+        walls = []
+        for _ in range(MULTI_CALLS + 1):
+            dist.barrier()
+            sync()
+            t = time.monotonic()
+            fn()
+            sync()
+            walls.append(1e3 * (time.monotonic() - t))
+        return float(np.median(walls[1:]))
+
+    results = {}
+    full = init_params(base, torch.Generator().manual_seed(0), device=dev)
+    for name, axes, schedule in MULTI_PP_CASES:
+        mesh = make_mesh(**axes)
+        fns = build_gpt_train_pp(base, mesh, num_microbatches=4,
+                                 schedule=schedule, device=dev,
+                                 telemetry=False)
+        state = fns["init_fn"](params=clone(full))
+        local = fns["shard_batch"](batch)
+        loss, grads = fns["value_and_grad_fn"](state.params, local)
+        gathered = fold_stages(fns["gather_params"](grads))
+        results[name] = compare(base, loss, gathered, full)
+        results[name]["ms"] = timed(
+            lambda: fns["value_and_grad_fn"](state.params, local))
+        del fns, state, grads, gathered
+    moe_cfg = dataclasses.replace(base, moe_capacity_factor=MOE_DROP_CF,
+                                  **{k: v for k, v in MOE_CFG.items()
+                                     if k != "moe_capacity_factor"})
+    moe_full = init_params(moe_cfg, torch.Generator().manual_seed(0),
+                           device=dev)
+    for name, axes in MULTI_MOE_CASES:
+        mesh = make_mesh(**axes)
+        fns = build_gpt_train(moe_cfg, mesh, device=dev, telemetry=False)
+        state = fns["init_fn"](params=clone(moe_full))
+        local = fns["shard_batch"](batch)
+        loss, grads = fns["value_and_grad_fn"](state.params, local)
+        gathered = sharding.gather_params(grads, mesh,
+                                          param_logical_axes(moe_cfg))
+        results[name] = compare(moe_cfg, loss, gathered, moe_full)
+        results[name]["ms"] = timed(
+            lambda: fns["value_and_grad_fn"](state.params, local))
+        del fns, state, grads, gathered
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(results, f)
+    dist.destroy_process_group()
+
+
+def multi_gpu_phase() -> dict:
+    """gpt2-multi-gpu on MULTI_WORLD cards (``_multi_gpu_rank``): every
+    case's loss within TRAIN_F32_TOL's relative bound and every gradient
+    leaf within its share of the single-process step's; prints
+    ``multi-gpu metrics {...}`` (each case's ms a ``value_and_grad``,
+    the median of MULTI_CALLS after one)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    import chip_smoke
+    if torch.cuda.device_count() < MULTI_WORLD:
+        raise AssertionError(f"--multi-gpu needs {MULTI_WORLD} cards, "
+                             f"found {torch.cuda.device_count()}")
+    tmp = tempfile.mkdtemp(prefix="gpt2_multi_gpu_")
+    out = os.path.join(tmp, "results.json")
+    t0 = time.monotonic()
+    mp.start_processes(chip_smoke._multi_gpu_rank,
+                       args=(os.path.join(tmp, "store"), out),
+                       nprocs=MULTI_WORLD, join=True, start_method="spawn")
+    with open(out) as f:
+        results = json.load(f)
+    for name, r in results.items():
+        print(f"multi-gpu {name}: loss {r['loss']:.6f} vs single process "
+              f"{r['ref_loss']:.6f} (relative {r['loss_rel']:.3e}), worst "
+              f"gradient share {r['worst_share']:.3e} at {r['worst_leaf']}; "
+              f"{r['ms']:.2f} ms a value_and_grad", flush=True)
+        if not (r["loss_rel"] <= TRAIN_F32_TOL["loss_rel"]
+                and r["worst_share"] <= TRAIN_F32_TOL["grad"]):
+            raise AssertionError(f"multi-gpu {name}: parts from the "
+                                 "single-process step")
+    metrics = {"cell": "gpt2-multi-gpu", "cards": MULTI_WORLD,
+               "card": card(), "batch": [MULTI_B, TRAIN_S],
+               "seconds": time.monotonic() - t0, "cases": results}
+    print("multi-gpu metrics " + json.dumps(metrics), flush=True)
+    return metrics
 
 
 # the int8 wire's codec (parallel/overlap.py's quant_all_gather_start and
@@ -5097,6 +5757,26 @@ def width_checks(dev) -> None:
     train_correctness_phase(dev, n_layers=2, norm_kernel=True, seed=7)
 
 
+class PhaseClock:
+    """Prints each phase's seconds of the main run as it ends, and the
+    list of them at the end (``phase seconds {...}``)."""
+
+    def __init__(self):
+        self.last = self.start = time.monotonic()
+        self.seconds = {}
+
+    def lap(self, phase: str) -> None:
+        now = time.monotonic()
+        self.seconds[phase] = round(now - self.last, 2)
+        self.last = now
+        print(f"phase {phase}: {self.seconds[phase]:.2f} s", flush=True)
+
+    def report(self) -> None:
+        print("phase seconds " + json.dumps(dict(
+            self.seconds, total=round(self.last - self.start, 2))),
+              flush=True)
+
+
 def start_up() -> str:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5339,22 +6019,43 @@ def spec_profile_phase(params, cfg, dev, *, kv_dtype: str = "model"
           flush=True)
 
 
-def train_profile_phase(dev) -> None:
-    """Where one training step of the gpt2-train-b24 cell spends its
-    device time (torch.profiler), after two unprofiled steps."""
+# a training step's device time by kind: the port's hand-written kernels
+# and cuBLAS's matmuls (nvjet, cutlass and xmma kernels; the rest:
+# PyTorch's elementwise, copy, scan and reduction kernels).  No kernel
+# name may match both groups (the port's CE GEMM is "ce_gemm_kernel")
+TRAIN_GROUPS = {"port kernels": ("flash_", "mrn_", "ce_", "dscale_sum",
+                                 "rmsnorm"),
+                "cuBLAS": ("nvjet", "cutlass", "xmma")}
+
+
+def train_profile_phase(dev, cell: str = "gpt2-train-b24") -> None:
+    """Where one training step of ``cell`` spends its device time
+    (torch.profiler), after two unprofiled steps: gpt2-train-b24,
+    gpt2-train-pp-gpipe / -1f1b (``build_gpt_train_pp`` on one stage, M =
+    PP_M) or gpt2-train-moe (batch MOE_B), split by TRAIN_GROUPS."""
     from torch.profiler import ProfilerActivity, profile
 
     from ray_tpu_torch import GPTConfig
     from ray_tpu_torch.models.training import (build_gpt_train,
+                                               build_gpt_train_pp,
                                                default_optimizer,
                                                synthetic_lm_batch)
+    from ray_tpu_torch.parallel.mesh import make_mesh
 
-    cfg = GPTConfig.gpt2(**TRAIN_CFG, dtype=torch.bfloat16)
-    fns = build_gpt_train(cfg, optimizer=default_optimizer(**TRAIN_OPT),
-                          device=dev, telemetry=False)
+    moe_kw = MOE_CFG if cell == "gpt2-train-moe" else {}
+    cfg = GPTConfig.gpt2(**TRAIN_CFG, **moe_kw, dtype=torch.bfloat16)
+    opt = default_optimizer(**TRAIN_OPT)
+    if cell.startswith("gpt2-train-pp-"):
+        fns = build_gpt_train_pp(cfg, make_mesh(pp=1), num_microbatches=PP_M,
+                                 schedule=cell.rsplit("-", 1)[1],
+                                 optimizer=opt, device=dev, telemetry=False)
+    else:
+        fns = build_gpt_train(cfg, optimizer=opt, device=dev,
+                              telemetry=False)
     state = fns["init_fn"](torch.Generator().manual_seed(0))
-    batch = synthetic_lm_batch(torch.Generator().manual_seed(1), TRAIN_B,
-                               TRAIN_S, cfg.vocab_size, device=dev)
+    batch = synthetic_lm_batch(torch.Generator().manual_seed(1),
+                               MOE_B if moe_kw else TRAIN_B, TRAIN_S,
+                               cfg.vocab_size, device=dev)
     for _ in range(2):
         state, _m = fns["step_fn"](state, batch)
     torch.cuda.synchronize()
@@ -5364,7 +6065,8 @@ def train_profile_phase(dev) -> None:
         state, _m = fns["step_fn"](state, batch)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    report("training step (gpt2-train-b24)", prof, wall, 1, top=20)
+    report(f"training step ({cell})", prof, wall, 1, top=20,
+           groups=TRAIN_GROUPS)
 
 
 def epilogue_profile_phase(dev) -> None:
@@ -5442,6 +6144,15 @@ def main() -> None:
     dev = torch.device("cuda")
     if sys.argv[1:] == ["--profile", "train"]:
         train_profile_phase(dev)
+        return
+    if sys.argv[1:] == ["--profile", "train-pp"]:
+        for schedule in ("gpipe", "1f1b"):
+            train_profile_phase(dev, f"gpt2-train-pp-{schedule}")
+            gc.collect()
+            torch.cuda.empty_cache()
+        return
+    if sys.argv[1:] == ["--profile", "train-moe"]:
+        train_profile_phase(dev, "gpt2-train-moe")
         return
     if sys.argv[1:] == ["--profile", "epilogue"]:
         epilogue_profile_phase(dev)
@@ -5524,9 +6235,24 @@ def main() -> None:
         train.pop("launches")
         gc.collect()
         torch.cuda.empty_cache()
-        launches, _, _ = train_worker_phase(dev, train)
+        launches = train_worker_phase(dev, train)["train_worker"]
         print("train-worker: every check passed; launches "
               + json.dumps(_nonzero(launches)), flush=True)
+        return
+    if sys.argv[1:] == ["--multi-gpu"]:
+        multi_gpu_phase()
+        print("multi-gpu: every check passed", flush=True)
+        return
+    if sys.argv[1:] == ["--train-pp"]:
+        stage_shape_phase(Recorder(name), dev)
+        train = train_phase(dev)
+        train.pop("launches")
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths = train_worker_phase(dev, train, pp=True)
+        print("train-pp: every check passed; launches "
+              + json.dumps({p: _nonzero(n) for p, n in paths.items()}),
+              flush=True)
         return
     if sys.argv[1:] == ["--train-sharded"]:
         rec = Recorder(name)
@@ -5537,7 +6263,8 @@ def main() -> None:
         train.pop("launches")
         gc.collect()
         torch.cuda.empty_cache()
-        _, launches, _ = train_worker_phase(dev, train, sharded=True)
+        launches = train_worker_phase(dev, train,
+                                      sharded=True)["train_sharded"]
         print("train-sharded: every check passed; launches "
               + json.dumps(_nonzero(launches)), flush=True)
         return
@@ -5546,8 +6273,8 @@ def main() -> None:
         train.pop("launches")
         gc.collect()
         torch.cuda.empty_cache()
-        _, _, launches = train_worker_phase(dev, train, sharded=True,
-                                            overlap=True)
+        launches = train_worker_phase(dev, train, sharded=True,
+                                      overlap=True)["train_overlap"]
         wire_codec_phase(dev)
         print("train-overlap: every check passed; launches "
               + json.dumps(_nonzero(launches)), flush=True)
@@ -5561,14 +6288,19 @@ def main() -> None:
         return
     if sys.argv[1:]:
         raise SystemExit(f"unknown arguments {sys.argv[1:]}")
+    clock = PhaseClock()
     rec = Recorder(name)
     wgmma_tile_checks(dev)
     kernel_phase(rec, dev)
+    clock.lap("kernels")
     ragged_attention_checks(dev)
     ragged_epilogue_checks(dev)
     ragged_flash_ce_checks(dev)
+    clock.lap("ragged edges")
     train_kernel_phase(rec, dev)
     tp_attention_phase(rec, dev)
+    stage_shape_phase(rec, dev)
+    clock.lap("training kernels")
     from ray_tpu_torch import GPTConfig, init_params
     cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
     params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
@@ -5579,13 +6311,20 @@ def main() -> None:
     int8_correctness_phase(params, cfg, dev)
     paths["serve_norm"] = correctness_phase(params, cfg, dev,
                                             norm_kernel=True)
+    clock.lap("engine (3-6)")
     paths["serve_spec"] = spec_phase(params, cfg, dev)
+    clock.lap("spec (7)")
     paths["serve_disagg"] = disagg_phase(params, cfg, dev)
     paths["serve_tiers"] = tiers_phase(params, cfg, dev)
+    clock.lap("disagg, tiers (7b, 7c)")
     paths.update(fleet_phase(params, cfg, dev))
+    clock.lap("fleet (7d)")
     serving_obs_phase(params, cfg, dev)
+    clock.lap("serving obs (7e)")
     paths["serve_runtime"] = runtime_phase(params, cfg, dev)
+    clock.lap("runtime (7f)")
     paths["serve_deployment"] = serve_deployment_phase(params, cfg, dev)
+    clock.lap("serve deployment (7g)")
     del params
     torch.cuda.empty_cache()
     train = train_phase(dev)
@@ -5596,15 +6335,20 @@ def main() -> None:
     print(f"training ms/step: {train['step_ms']:.2f} default, "
           f"{train_norm['step_ms']:.2f} with the RMSNorm kernels", flush=True)
     paths.update(train_arms_phase(dev, train))
+    clock.lap("training (8, 8a)")
     gc.collect()
     torch.cuda.empty_cache()
-    (paths["train_worker"], paths["train_sharded"],
-     paths["train_overlap"]) = train_worker_phase(dev, train, sharded=True,
-                                                  overlap=True)
+    paths.update(train_worker_phase(dev, train, sharded=True, overlap=True,
+                                    pp=True))
+    clock.lap("train worker (8b, 8c, 8e, 8f)")
     wire_codec_phase(dev)
+    clock.lap("wire codec (8d)")
     train_correctness_phase(dev, fused_ce=True)
     train_correctness_phase(dev, n_layers=2, norm_kernel=True)
+    clock.lap("training correctness (9)")
     width_checks(dev)
+    clock.lap("width checks (10)")
+    clock.report()
     for row in rec.rows.values():
         # (a worker process registers only the kernels its path imports)
         by_path = {p: n.get(row["name"], 0) for p, n in paths.items()}

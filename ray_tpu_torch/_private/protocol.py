@@ -67,6 +67,11 @@ class ConnectionClosed(ConnectionError):
     pass
 
 
+class MaybeDelivered(ConnectionError):
+    """A request was sent whole, then its connection closed before the
+    reply: the server may have received it and acted on it."""
+
+
 def send_frame(sock: socket.socket, payload: bytes) -> None:
     sock.sendall(_LEN.pack(len(payload)) + payload)
 
@@ -220,6 +225,34 @@ class RpcClient:
                 self._local.sock = None
                 if attempt == 1:
                     raise
+        if status == "ok":
+            return payload
+        raise payload
+
+    def call_once(self, method: str, *args, **kwargs) -> Any:
+        """:meth:`call` for a request that must not run twice: a stale
+        cached connection is replaced only while nothing was sent, and a
+        connection lost once the request went out raises
+        :class:`MaybeDelivered` instead of sending it again."""
+        for attempt in (0, 1):
+            sock = self._conn()
+            try:
+                send_msg(sock, ("call", method, args, kwargs))
+            except (ConnectionClosed, ConnectionResetError, BrokenPipeError,
+                    OSError):
+                self._local.sock = None
+                if attempt == 1:
+                    raise
+                continue
+            try:
+                status, payload = recv_msg(sock)
+            except (ConnectionClosed, ConnectionResetError, BrokenPipeError,
+                    OSError) as e:
+                self._local.sock = None
+                raise MaybeDelivered(
+                    f"{method}: connection to {self.sock_path} closed after "
+                    "the request was sent") from e
+            break
         if status == "ok":
             return payload
         raise payload

@@ -20,7 +20,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import cloudpickle
 
-from ray_tpu_torch._private import serialization
+from ray_tpu_torch._private import protocol, serialization
 from ray_tpu_torch._private.config import GLOBAL_CONFIG
 from ray_tpu_torch._private.ids import (ActorID, JobID, ObjectID, TaskID,
                                         WorkerID)
@@ -72,6 +72,11 @@ class CoreWorker:
         self._fn_keys: Dict[int, bytes] = {}  # id(fn) -> registered key
         self._actor_nm_cache: Dict[bytes, Any] = {}
         self._actor_direct_cache: Dict[bytes, Any] = {}
+        # the incarnation (num_restarts) each cached direct client dials
+        self._actor_direct_incarnation: Dict[bytes, int] = {}
+        # task_id -> the direct address whose connection closed between
+        # the call's request and its reply (protocol.MaybeDelivered)
+        self._maybe_delivered: Dict[bytes, str] = {}
         # direct_addr whose dial failed: calls stay on the NM relay
         # (which preserves per-caller order) until the actor publishes
         # a *different* addr — mixing paths could reorder calls
@@ -799,9 +804,32 @@ class CoreWorker:
                                 "payload": None, "error": False,
                                 "actor": spec.actor_id}
                 try:
-                    direct.call("call_actor", spec)
+                    direct.call_once("call_actor", spec)
                     self._record_inflight(spec, streaming,
                                           restarts_seen)
+                    return
+                except protocol.MaybeDelivered:
+                    # the actor may have taken the call and then died
+                    # (a method that exits its process): resending it
+                    # through the relay would run it again on the next
+                    # incarnation.  An actor call runs at most once
+                    # unless max_task_retries, so it is watched as in
+                    # flight on the incarnation it was sent to: the
+                    # watcher fails it (or resends it, with retries)
+                    # when that incarnation is gone, and asks it
+                    # whether it took the call while it lives
+                    # (_settle_maybe_delivered)
+                    incarnation = self._actor_direct_incarnation.get(
+                        spec.actor_id)
+                    if oid is not None:
+                        with self._direct_pending_lock:
+                            self._direct_pending.pop(oid, None)
+                    self._actor_direct_cache.pop(spec.actor_id, None)
+                    self._actor_state_cache.pop(spec.actor_id, None)
+                    self._actor_direct_failed[spec.actor_id] = (
+                        direct.sock_path)
+                    self._maybe_delivered[spec.task_id] = direct.sock_path
+                    self._record_inflight(spec, streaming, incarnation)
                     return
                 except Exception:  # noqa: BLE001 — stale addr: relay
                     if oid is not None:
@@ -847,6 +875,7 @@ class CoreWorker:
         client = RpcClient(addr, connect_timeout=2.0)
         self._start_direct_result_reader(actor_id, client)
         self._actor_direct_cache[actor_id] = client
+        self._actor_direct_incarnation[actor_id] = info.get("num_restarts", 0)
         return client
 
     def _start_direct_result_reader(self, actor_id: bytes,
@@ -950,6 +979,7 @@ class CoreWorker:
                     if self._call_committed(spec, streaming)]
             for tid in done:
                 tasks.pop(tid)
+                self._maybe_delivered.pop(tid, None)
             with self._inflight_lock:
                 for tid in done:
                     self._inflight_actor.get(actor_id, {}).pop(tid, None)
@@ -979,13 +1009,18 @@ class CoreWorker:
                     actor_tasks = self._inflight_actor.get(actor_id, {})
                     for tid in tasks:
                         actor_tasks.pop(tid, None)
+                        self._maybe_delivered.pop(tid, None)
                     if not actor_tasks:
                         self._inflight_actor.pop(actor_id, None)
             elif state == "ALIVE":
                 restarts = info.get("num_restarts", 0)
                 for tid, (spec, streaming, seen) in tasks.items():
                     if restarts <= seen:
+                        addr = self._maybe_delivered.get(tid)
+                        if addr is not None:
+                            self._settle_maybe_delivered(spec, addr)
                         continue  # same incarnation; still running
+                    self._maybe_delivered.pop(tid, None)
                     if self._call_committed(spec, streaming):
                         continue
                     if spec.max_task_retries != 0:
@@ -1005,6 +1040,26 @@ class CoreWorker:
                         with self._inflight_lock:
                             self._inflight_actor.get(
                                 actor_id, {}).pop(tid, None)
+
+    def _settle_maybe_delivered(self, spec: TaskSpec, addr: str) -> None:
+        """A direct call whose connection closed between its request and
+        its reply, on an incarnation that is still alive (its server
+        dropped the connection): ask that incarnation's server whether
+        it took the call, and send the call again if it did not.  The
+        actor drops a task id it has seen, so a resend there cannot run
+        it twice.  A server that cannot be reached is asked again on the
+        next tick; once the incarnation is gone the watcher fails or
+        resends the call as for any call in flight."""
+        from ray_tpu_torch._private.protocol import RpcClient
+        client = RpcClient(addr, connect_timeout=2.0)
+        try:
+            if not client.call("task_seen", spec.task_id):
+                client.call_once("call_actor", spec)
+        except (OSError, ConnectionError):
+            return
+        finally:
+            client.close()
+        self._maybe_delivered.pop(spec.task_id, None)
 
     def _fail_actor_call(self, spec: TaskSpec, streaming: bool,
                          error: BaseException) -> None:

@@ -464,6 +464,14 @@ class WorkerProcess:
             self._proc._dispatch_actor_task(spec, notify_nm=False)
             return True
 
+        def task_seen(self, task_id: bytes) -> bool:
+            """Whether this incarnation took the call ``task_id`` (it
+            runs, or ran): a caller whose connection closed before the
+            reply asks before it sends the call again."""
+            proc = self._proc
+            with proc._seen_lock:
+                return task_id in proc._seen_tasks
+
         def stream_results(self, conn: socket.socket,
                            caller_id: bytes) -> None:
             """Hijacked per-caller channel for inline result push-back.

@@ -23,7 +23,8 @@ from ray_tpu_torch.inference import kv_cache as kvc
 from ray_tpu_torch.models.gpt import (GPTConfig, check_supported,
                                       param_logical_axes)
 from ray_tpu_torch.ops.substrate import resolve_device
-from ray_tpu_torch.parallel.sharding import shard_params
+from ray_tpu_torch.parallel.sharding import (pp_rules, shard_params,
+                                             stage_stacked_axes)
 
 
 def array_to_tensor(arr, device) -> torch.Tensor:
@@ -36,15 +37,22 @@ def array_to_tensor(arr, device) -> torch.Tensor:
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: GPTConfig,
-                    device=None, *, mesh=None) -> Dict[str, Any]:
+                    device=None, *, mesh=None,
+                    stage_axis: Optional[str] = None) -> Dict[str, Any]:
     """The JAX package's GPT parameter tree (numpy leaves) -> the port's.
 
     Checks the tree against ``cfg``: every leaf must carry the model
     dtype, and the embedding and stacked attention weights must have the
-    shapes ``cfg`` implies.  With ``mesh``, returns this rank's shards
-    (``parallel.sharding.shard_params`` by the model's logical axes): the
-    part of each leaf that JAX device r holds on the same mesh shape
-    lands on rank r."""
+    shapes ``cfg`` implies (the MoE leaves ride along as they are).  With
+    ``mesh``, returns this rank's shards (``parallel.sharding.
+    shard_params`` by the model's logical axes): the part of each leaf
+    that JAX device r holds on the same mesh shape lands on rank r.
+
+    A stage-stacked tree (``build_gpt_train_pp``'s ``init_fn``: layer
+    leaves ``[stages, L / stages, ...]``) is taken as well; with ``mesh``
+    each rank gets its stage's slice (``[1, L / stages, ...]``) and its
+    shards of it, the stage over ``stage_axis`` (default ``pp`` when the
+    mesh has it, else ``dcn``), as ``build_gpt_train_pp`` holds them."""
     check_supported(cfg)
     dev = resolve_device(device)
 
@@ -59,9 +67,14 @@ def params_from_jax(tree: Dict[str, Any], cfg: GPTConfig,
 
     out = convert(tree)
     d, H, hd, L = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.n_layers
+    stacked = out["layers"]["wq"].dim() == 5
+    lead = tuple(out["layers"]["wq"].shape[:2]) if stacked else (L,)
+    if stacked and lead[0] * lead[1] != L:
+        raise ValueError(f"stage-stacked layers {lead} do not hold "
+                         f"n_layers={L}")
     want = {("embed",): (cfg.vocab_size, d),
-            ("layers", "wq"): (L, d, H, hd),
-            ("layers", "wo"): (L, H, hd, d),
+            ("layers", "wq"): lead + (d, H, hd),
+            ("layers", "wo"): lead + (H, hd, d),
             ("ln_f",): (d,)}
     for path, shape in want.items():
         node = out
@@ -70,9 +83,15 @@ def params_from_jax(tree: Dict[str, Any], cfg: GPTConfig,
         if tuple(node.shape) != shape:
             raise ValueError(f"{'/'.join(path)} has shape "
                              f"{tuple(node.shape)}, expected {shape}")
-    if mesh is not None:
-        out = shard_params(out, mesh, param_logical_axes(cfg))
-    return out
+    if mesh is None:
+        return out
+    if not stacked:
+        return shard_params(out, mesh, param_logical_axes(cfg))
+    if stage_axis is None:
+        stage_axis = "pp" if "pp" in dict(mesh.shape.items()) else "dcn"
+    return shard_params(out, mesh,
+                        stage_stacked_axes(param_logical_axes(cfg)),
+                        pp_rules(stage_axis))
 
 
 def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
@@ -80,13 +99,25 @@ def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
     of tensors -> the same tree of numpy arrays on the host, so a test can
     hold post-step parameters against the JAX package's leaf by leaf.
     bf16 leaves come back as f32 (exact: every bf16 value is an f32
-    value), since numpy has no bf16."""
+    value), since numpy has no bf16.  A pipeline's shards are put back
+    together first by ``build_gpt_train_pp``'s ``gather_params`` (the
+    stage-stacked tree); :func:`fold_stages` then gives the layer
+    leaves ``[L, ...]``."""
     def leaf(t):
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     return {k: params_to_numpy(v) if isinstance(v, dict) else leaf(v)
             for k, v in tree.items()}
+
+
+def fold_stages(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A stage-stacked tree (layer leaves ``[stages, L / stages, ...]``,
+    tensors or numpy arrays) -> layer leaves ``[L, ...]``."""
+    out = dict(tree)
+    out["layers"] = {k: v.reshape((-1,) + tuple(v.shape[2:]))
+                     for k, v in tree["layers"].items()}
+    return out
 
 
 def _host_from_jax(a):

@@ -212,6 +212,8 @@ class InferenceEngine:
                  ttft_deadline: Optional[float] = None,
                  deadline: Optional[float] = None,
                  debug_logits: bool = False):
+        if cfg.n_experts > 0:
+            raise NotImplementedError("MoE decode cache not supported yet")
         gpt_mod.check_supported(cfg)
         icfg = infer_config()
         if lora:

@@ -6,9 +6,10 @@ weights stacked ``[L, ...]`` (``wq [L, d, H, hd]``, ``wo [L, H, hd,
 d]``), a tied ``embed`` and no biases.  A tree made by the JAX package
 (``convert.params_from_jax``) therefore drives this module unchanged.
 
-The port runs the main configuration: RMSNorm, SwiGLU, RoPE, dense
-FFNs, tied embeddings, no biases.  Other modes raise
-``NotImplementedError``.  The layer loop is a Python loop (PyTorch runs
+The port runs the main configuration: RMSNorm, SwiGLU, RoPE, tied
+embeddings, no biases, with dense FFNs or (``n_experts > 0``) MoE FFNs
+of SwiGLU experts (:func:`_moe_ffn`, ``parallel/moe.py``).  Other modes
+raise ``NotImplementedError``.  The layer loop is a Python loop (PyTorch runs
 eagerly; ``lax.scan`` has no counterpart to port); ``remat`` recomputes
 each block in the backward (``torch.utils.checkpoint``).
 
@@ -49,7 +50,7 @@ from ray_tpu_torch.ops import fused_norm as fnorm
 from ray_tpu_torch.ops import rmsnorm as rms
 from ray_tpu_torch.ops.attention import rope_rotate
 from ray_tpu_torch.ops.substrate import resolve_device
-from ray_tpu_torch.parallel import comm
+from ray_tpu_torch.parallel import comm, moe
 from ray_tpu_torch.parallel.mesh import mesh_groups
 from ray_tpu_torch.parallel.ring_attention import local_attention
 
@@ -111,10 +112,6 @@ class GPTConfig:
 
 def check_supported(cfg: GPTConfig) -> None:
     """Raise for the model modes this slice of the port does not run."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "MoE FFNs are not ported yet (ROADMAP Queue 1 item 9b-iv: "
-            "parallel/moe.py and the MoE FFN)")
     unported = [
         (cfg.norm != "rmsnorm", f"norm={cfg.norm!r}"),
         (cfg.act != "swiglu", f"act={cfg.act!r}"),
@@ -161,9 +158,16 @@ def init_params(cfg: GPTConfig, generator: Optional[torch.Generator] = None,
         "wo": norm_init((L, H, hd, d), (H * hd) ** -0.5 / (2 * L) ** 0.5),
         "ln2": ones((L, d)),
     }
-    layers["w1"] = norm_init((L, d, f), d ** -0.5)
-    layers["w3"] = norm_init((L, d, f), d ** -0.5)
-    layers["w2"] = norm_init((L, f, d), f ** -0.5 / (2 * L) ** 0.5)
+    if cfg.n_experts > 0:
+        E = cfg.n_experts
+        layers["moe_wg"] = norm_init((L, d, E), d ** -0.5)
+        layers["moe_w1"] = norm_init((L, E, d, f), d ** -0.5)
+        layers["moe_w3"] = norm_init((L, E, d, f), d ** -0.5)
+        layers["moe_w2"] = norm_init((L, E, f, d), f ** -0.5 / (2 * L) ** 0.5)
+    else:
+        layers["w1"] = norm_init((L, d, f), d ** -0.5)
+        layers["w3"] = norm_init((L, d, f), d ** -0.5)
+        layers["w2"] = norm_init((L, f, d), f ** -0.5 / (2 * L) ** 0.5)
     return {"embed": embed, "layers": layers, "ln_f": ones((d,))}
 
 
@@ -179,10 +183,16 @@ def param_logical_axes(cfg: GPTConfig) -> Dict[str, Any]:
         "wv": (None, "embed_fsdp", "heads", None),
         "wo": (None, "heads", None, "embed_fsdp"),
         "ln2": (None, None),
-        "w1": (None, "embed_fsdp", "mlp"),
-        "w3": (None, "embed_fsdp", "mlp"),
-        "w2": (None, "mlp", "embed_fsdp"),
     }
+    if cfg.n_experts > 0:
+        layer["moe_wg"] = (None, None, None)
+        layer["moe_w1"] = (None, "experts", "embed_fsdp", "expert_mlp")
+        layer["moe_w3"] = (None, "experts", "embed_fsdp", "expert_mlp")
+        layer["moe_w2"] = (None, "experts", "expert_mlp", "embed_fsdp")
+    else:
+        layer["w1"] = (None, "embed_fsdp", "mlp")
+        layer["w3"] = (None, "embed_fsdp", "mlp")
+        layer["w2"] = (None, "mlp", "embed_fsdp")
     return {"embed": ("vocab", "embed_fsdp"), "layers": layer,
             "ln_f": (None,)}
 
@@ -191,10 +201,15 @@ def param_shapes(cfg: GPTConfig) -> Dict[str, Any]:
     """The full shape of each leaf of :func:`init_params`' tree."""
     d, H, hd, f, L = (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.ff_dim,
                       cfg.n_layers)
-    return {"embed": (cfg.vocab_size, d), "ln_f": (d,), "layers": {
-        "ln1": (L, d), "wq": (L, d, H, hd), "wk": (L, d, H, hd),
-        "wv": (L, d, H, hd), "wo": (L, H, hd, d), "ln2": (L, d),
-        "w1": (L, d, f), "w3": (L, d, f), "w2": (L, f, d)}}
+    layers = {"ln1": (L, d), "wq": (L, d, H, hd), "wk": (L, d, H, hd),
+              "wv": (L, d, H, hd), "wo": (L, H, hd, d), "ln2": (L, d)}
+    if cfg.n_experts > 0:
+        E = cfg.n_experts
+        layers.update(moe_wg=(L, d, E), moe_w1=(L, E, d, f),
+                      moe_w3=(L, E, d, f), moe_w2=(L, E, f, d))
+    else:
+        layers.update(w1=(L, d, f), w3=(L, d, f), w2=(L, f, d))
+    return {"embed": (cfg.vocab_size, d), "ln_f": (d,), "layers": layers}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,7 +255,9 @@ def _gather_layer(lp: Params, sh: _Shards) -> Params:
     return out
 
 
-_LAYER_AXES = param_logical_axes(GPTConfig())["layers"]
+# every layer leaf's logical axes, the dense and the MoE FFN's together
+_LAYER_AXES = dict(param_logical_axes(GPTConfig())["layers"],
+                   **param_logical_axes(GPTConfig(n_experts=1))["layers"])
 
 
 def layer_params(params: Params, i: int) -> Params:
@@ -284,6 +301,61 @@ def _dense_ffn(lp, x, cfg: GPTConfig):
     h = torch.matmul(x, lp["w1"])
     g = torch.matmul(x, lp["w3"])
     return torch.matmul(F.silu(h) * g, lp["w2"])
+
+
+def _swiglu_experts(w1w3, w2, tokens):
+    """The reference's silu-gated expert FFN (``gpt.py:_moe_ffn``): w3
+    folded into w1 by concatenation, tokens [E, C, d] -> [E, C, d]."""
+    h = torch.einsum("ecd,edh->ech", tokens, w1w3)
+    a, b = h.chunk(2, dim=-1)
+    return torch.einsum("ech,ehd->ecd", F.silu(a) * b, w2)
+
+
+def _moe_ffn(lp, x, cfg: GPTConfig, *, mesh=None):
+    """The MoE FFN (``ray_tpu/models/gpt.py:_moe_ffn``): x [B, S, d] ->
+    (out [B, S, d] in x's dtype, aux).
+
+    Routing is the reference's GSPMD step's: over the global batch, in
+    batch order (``moe.ShardedTokenOrder`` over the mesh's data axes and
+    sp, whose ranks hold distinct tokens; capacity, priority and the
+    aux loss's means global).  Every rank computes the router on its
+    tokens.  Under ``ep`` each rank runs its shard of the experts and
+    the outputs are summed over ep; under ``tp`` each expert's hidden
+    dimension is split (Megatron within the expert).  Gradient
+    convention: the expert path's input enters through
+    ``copy_to_group`` over tp and ep (its gradient is partial there);
+    the router's gate values through ``copy_to_group`` over ep (each ep
+    rank combines only its experts' outputs), while its aux-loss path
+    is whole on every rank and is not summed; the router weight's
+    gradient is then whole on every ep and tp rank."""
+    B, S, d = x.shape
+    g = mesh_groups(mesh)
+    tp = g.tp if g.size("tp") > 1 else None
+    ep = g.ep if g.size("ep") > 1 else None
+    n_tok = comm.group_size(g.count)
+    if n_tok > 1:
+        order = moe.ShardedTokenOrder(g.count, rows=B, width=S,
+                                      seq_shards=g.size("sp"),
+                                      num_tokens=B * S * n_tok)
+    else:
+        order = moe.TokenOrder(B * S)
+    E, k = cfg.n_experts, cfg.moe_top_k
+    cap = moe.capacity(order.num_tokens, E, k, cfg.moe_capacity_factor)
+    flat = x.reshape(B * S, d)
+    dispatch, combine, aux = moe.route(flat, lp["moe_wg"], k, cap, order,
+                                       gate_group=ep)
+    E_local = lp["moe_w1"].shape[0]
+    lo = g.coord("ep") * E_local
+    tokens = comm.copy_to_group(comm.copy_to_group(flat, tp), ep)
+    expert_in = torch.einsum("tec,td->ecd", dispatch[:, lo:lo + E_local],
+                             tokens.float())
+    w1w3 = torch.cat([lp["moe_w1"], lp["moe_w3"]], dim=-1).float()
+    expert_out = comm.reduce_from_group(
+        _swiglu_experts(w1w3, lp["moe_w2"].float(), expert_in), tp)
+    out = torch.einsum("tec,ecd->td", combine[:, lo:lo + E_local],
+                       expert_out)
+    out = comm.reduce_from_group(out, ep)
+    return out.to(x.dtype).reshape(B, S, d), aux
 
 
 def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
@@ -356,9 +428,13 @@ def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
             torch.matmul(attn.reshape(B, S, Hn * hd),
                          lp["wo"].reshape(Hn * hd, d)), tp)
         h2 = _norm(x, lp["ln2"], cfg.norm, eps=eps)
-    x = x + comm.reduce_from_group(
-        _dense_ffn(lp, comm.copy_to_group(h2, tp), cfg), tp)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.n_experts > 0:
+        ffn_out, aux = _moe_ffn(lp, h2, cfg, mesh=mesh)
+        x = x + ffn_out
+    else:
+        x = x + comm.reduce_from_group(
+            _dense_ffn(lp, comm.copy_to_group(h2, tp), cfg), tp)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cache is not None:
         return x, aux, cache
     return x, aux
@@ -404,17 +480,30 @@ def forward_hidden(params: Params, tokens, cfg: GPTConfig, *,
     x = embed_tokens(params, tokens, cfg, mesh=mesh)
     if positions is None:
         positions = torch.arange(S, device=tokens.device)
+    x, aux_total = run_layers(params["layers"], x, cfg, positions=positions,
+                              attn_fn=attn_fn, fuse_norm=fuse_norm,
+                              mesh=mesh)
+    if final_norm:
+        x = _norm(x, params["ln_f"], cfg.norm, eps=norm_eps(cfg))
+    return x, aux_total
+
+
+def run_layers(layers: Params, x, cfg: GPTConfig, *, positions,
+               attn_fn: Callable, fuse_norm: Optional[bool] = None,
+               mesh=None):
+    """The blocks of a stacked layer tree (leaves ``[n, ...]``, any n:
+    the whole model, or a pipeline stage's slice) over the hidden ``x``
+    in order -> (hidden, summed aux); each block is recomputed in the
+    backward under ``cfg.remat``."""
     block = functools.partial(layer_apply, cfg=cfg, positions=positions,
                               attn_fn=attn_fn, fuse_norm=fuse_norm,
                               mesh=mesh)
     if cfg.remat and torch.is_grad_enabled():
         block = _remat(block)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, aux = block(layer_params(params, i), x)
+    for i in range(next(iter(layers.values())).shape[0]):
+        x, aux = block({k: v[i] for k, v in layers.items()}, x)
         aux_total = aux_total + aux
-    if final_norm:
-        x = _norm(x, params["ln_f"], cfg.norm, eps=norm_eps(cfg))
     return x, aux_total
 
 
@@ -586,6 +675,19 @@ def _vocab_parallel_ce(x, head, targets, sh: _Shards, *, chunk: int):
     return _rows_remat(chunk_loss, x, targets, chunk)
 
 
+def uses_ce_norm(cfg: GPTConfig, n_rows: int, device, *,
+                 ce_mode: Optional[str] = None,
+                 fuse_norm: Optional[bool] = None, mesh=None) -> bool:
+    """Whether the loss over ``n_rows`` hidden rows folds ``ln_f`` into
+    the flash-CE prologue (no tp split of the head, and the gate takes
+    the shape)."""
+    return _tp_group(_shards(mesh)) is None and \
+        flash_ce.uses_flash_ce_norm(
+            n_rows, cfg.d_model, cfg.vocab_size, mode=ce_mode or "flash",
+            norm=cfg.norm, has_bias=cfg.use_bias,
+            enabled=fuse_norm is not False, device=device, dtype=cfg.dtype)
+
+
 def loss_fn(params: Params, batch, cfg: GPTConfig, *,
             attn_fn: Optional[Callable] = None, aux_weight: float = 0.01,
             ce_mode: Optional[str] = None,
@@ -601,12 +703,8 @@ def loss_fn(params: Params, batch, cfg: GPTConfig, *,
             "sample-packed batches (segment_ids) are not ported yet "
             "(ROADMAP Queue 1 item 10: the data-plane slice)")
     B, S = batch["tokens"].shape
-    ce_norm = _tp_group(_shards(mesh)) is None and \
-        flash_ce.uses_flash_ce_norm(
-            B * S, cfg.d_model, cfg.vocab_size, mode=ce_mode or "flash",
-            norm=cfg.norm, has_bias=cfg.use_bias,
-            enabled=fuse_norm is not False,
-            device=batch["tokens"].device, dtype=cfg.dtype)
+    ce_norm = uses_ce_norm(cfg, B * S, batch["tokens"].device,
+                           ce_mode=ce_mode, fuse_norm=fuse_norm, mesh=mesh)
     x, aux = forward_hidden(params, batch["tokens"], cfg, attn_fn=attn_fn,
                             fuse_norm=fuse_norm, final_norm=not ce_norm,
                             positions=batch.get("positions"), mesh=mesh)

@@ -44,9 +44,15 @@ gradients through the overlap schedule instead
 gradient reduce-scatters, ring all-gather-matmul tp, and the int8 wire
 of ``comm_quant``); the optimizer, the global norm and the clip are the
 same.  It falls back loudly to gspmd where the reference's does
-(:func:`resolve_comm`).  The pipeline (``pp``, ROADMAP Queue 1 item
-9b-iii), experts (``ep``, 9b-iv) and LoRA (item 11) raise
-``NotImplementedError`` naming the item that ports them.
+(:func:`resolve_comm`).  LoRA (ROADMAP Queue 1 item 11) raises
+``NotImplementedError`` naming the item that ports it.
+
+A MoE config (``cfg.n_experts``) trains on any of these meshes and on
+``ep``: each rank holds its experts' shard (their hidden dimension split
+over tp), and the router decides over the global batch
+(``models/gpt.py:_moe_ffn``).  :func:`build_gpt_train_pp` is the
+pipeline's trainer: stages over ``pp`` (or ``dcn``), GPipe or 1F1B
+(``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -63,7 +69,7 @@ from ray_tpu_torch.models import gpt as gpt_mod
 from ray_tpu_torch.ops.attention import make_flash_attention_fn
 from ray_tpu_torch.ops.substrate import resolve_device
 from ray_tpu_torch.parallel import sharding as shd
-from ray_tpu_torch.parallel.mesh import mesh_groups
+from ray_tpu_torch.parallel.mesh import MeshSpec, mesh_groups
 from ray_tpu_torch.parallel.ring_attention import make_ring_attention_fn
 from ray_tpu_torch.parallel.ulysses import make_ulysses_attention_fn
 
@@ -335,6 +341,25 @@ def resolve_comm(cfg, mesh, comm_mode: Optional[str] = None,
     return comm_mode, comm_quant
 
 
+def _sharded_global_norm(grads: Params, specs, groups) -> torch.Tensor:
+    """The global norm of a tree of shards, each element counted once: a
+    leaf's sum of squares comes from the ranks at coordinate 0 along the
+    mesh axes that replicate it (those its spec does not name), summed
+    over the world."""
+    import torch.distributed as dist
+    mesh_axes = [a for a, n in groups.sizes.items() if n > 1]
+    parts = []
+    for p, g in zip(_paths(grads), _leaves(grads)):
+        axes = shd.spec_axes(_at(specs, p))
+        owner = all(groups.coord(a) == 0 for a in mesh_axes
+                    if a not in axes)
+        parts.append(g.float().square().sum() if owner else
+                     torch.zeros((), dtype=torch.float32, device=g.device))
+    total = torch.stack(parts)
+    dist.all_reduce(total)
+    return torch.sqrt(total.sum())
+
+
 @torch.no_grad()
 def _broadcast_from_first(params: Params, group) -> None:
     """Every rank's parameters become the group's first rank's, in place,
@@ -349,13 +374,19 @@ def _broadcast_from_first(params: Params, group) -> None:
 
 
 def _maybe_instrument(fns: Dict[str, Any], cfg, mesh, *,
+                      comm_mode: Optional[str] = None,
+                      comm_quant: Optional[str] = None,
                       ce_mode: Optional[str] = None,
+                      label: str = "train",
+                      batch_axes=("dcn", "dp", "fsdp"),
                       telemetry: Optional[bool] = None) -> Dict[str, Any]:
     """Wrap ``fns["step_fn"]`` with a ``StepTelemetry`` recorder.
 
     ``telemetry``: None follows ``RAY_TPU_TELEMETRY`` (default on),
     False skips, True forces on.  When on, the dict gains ``telemetry``
-    (the recorder) and ``raw_step_fn``."""
+    (the recorder) and ``raw_step_fn``.  ``batch_axes``: the mesh axes
+    the step's batch rows are split over (the recorder's global batch
+    is its rank's rows times their sizes)."""
     if telemetry is False:
         return fns
     from ray_tpu_torch import telemetry as tel_mod
@@ -364,9 +395,10 @@ def _maybe_instrument(fns: Dict[str, Any], cfg, mesh, *,
         config = tel_mod.TelemetryConfig(
             enabled=True,
             profile_dir=tel_mod.telemetry_config().profile_dir)
-    return tel_mod.instrument(fns, cfg, mesh, comm_mode=fns["comm_mode"],
-                              comm_quant=fns["comm_quant"],
-                              ce_mode=ce_mode, config=config)
+    return tel_mod.instrument(fns, cfg, mesh, comm_mode=comm_mode,
+                              comm_quant=comm_quant, ce_mode=ce_mode,
+                              label=label, batch_axes=batch_axes,
+                              config=config)
 
 
 def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
@@ -445,7 +477,6 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
              else shd.tree_map(lambda _a: (), logical))
     full_shapes = gpt_mod.param_shapes(cfg)
     sharded = any(shd.spec_axes(_at(specs, p)) for p in _paths(specs))
-    mesh_axes = [a for a, n in groups.sizes.items() if n > 1]
 
     def loss(params, batch):
         if sp > 1:
@@ -519,23 +550,9 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
         return _rebuild(grads, flat), loss_val
 
     def grad_norm(grads):
-        """The global norm, each element counted once: a leaf's sum of
-        squares comes from the ranks at coordinate 0 along the mesh axes
-        that replicate it, summed over the world."""
         if not sharded:
             return global_norm(grads)
-        import torch.distributed as dist
-        parts = []
-        for p, g in zip(_paths(grads), _leaves(grads)):
-            axes = shd.spec_axes(_at(specs, p))
-            owner = all(groups.coord(a) == 0 for a in mesh_axes
-                        if a not in axes)
-            parts.append(g.float().square().sum() if owner else
-                         torch.zeros((), dtype=torch.float32,
-                                     device=g.device))
-        total = torch.stack(parts)
-        dist.all_reduce(total)
-        return torch.sqrt(total.sum())
+        return _sharded_global_norm(grads, specs, groups)
 
     def check_unpacked(batch):
         if "segment_ids" in batch:
@@ -599,8 +616,321 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
            "value_and_grad_fn": loss_and_grads,
            "shard_batch": shard_batch, "accum_steps": accum_steps,
            "comm_mode": comm_mode, "comm_quant": comm_quant}
-    return _maybe_instrument(fns, cfg, mesh, ce_mode=ce_mode,
+    return _maybe_instrument(fns, cfg, mesh, comm_mode=comm_mode,
+                             comm_quant=comm_quant, ce_mode=ce_mode,
                              telemetry=telemetry)
+
+
+def default_pp_schedule() -> str:
+    """``RAY_TPU_PP_SCHEDULE`` (default ``gpipe``): the pipeline
+    microbatch schedule ``build_gpt_train_pp`` uses when ``schedule``
+    is not pinned: ``gpipe`` (all forwards, then all backwards; in
+    flight M) or ``1f1b`` (one forward, one backward; in flight at most
+    ``2 stages - 1``)."""
+    import os
+    raw = os.environ.get("RAY_TPU_PP_SCHEDULE", "gpipe").strip().lower()
+    if raw not in ("gpipe", "1f1b"):
+        print(f"RAY_TPU_PP_SCHEDULE={raw!r} unknown (want 'gpipe' or "
+              "'1f1b'); using gpipe", file=sys.stderr)
+        return "gpipe"
+    return raw
+
+
+def default_pp_microbatches() -> Optional[int]:
+    """``RAY_TPU_PP_MICROBATCH`` (default unset): the microbatch count
+    of ``build_gpt_train_pp`` when ``num_microbatches`` is not pinned;
+    unset falls back to ``2 * stages``."""
+    import os
+    raw = os.environ.get("RAY_TPU_PP_MICROBATCH", "").strip()
+    if not raw:
+        return None
+    try:
+        m = int(raw)
+    except ValueError:
+        print(f"RAY_TPU_PP_MICROBATCH={raw!r} is not an integer; "
+              "ignoring", file=sys.stderr)
+        return None
+    if m < 1:
+        print(f"RAY_TPU_PP_MICROBATCH={m} must be >= 1; ignoring",
+              file=sys.stderr)
+        return None
+    return m
+
+
+def stack_stages(params: Params, stages: int) -> Params:
+    """A full tree (layers ``[L, ...]``) -> the stage-stacked one (layers
+    ``[stages, L / stages, ...]``), the reference's ``init_fn`` layout."""
+    out = dict(params)
+    out["layers"] = {k: v.reshape((stages, v.shape[0] // stages)
+                                  + tuple(v.shape[1:]))
+                     for k, v in params["layers"].items()}
+    return out
+
+
+def build_gpt_train_pp(cfg: "gpt_mod.GPTConfig", mesh, *,
+                       num_microbatches: Optional[int] = None,
+                       schedule: Optional[str] = None,
+                       optimizer: Optional[DefaultOptimizer] = None,
+                       telemetry: Optional[bool] = None,
+                       device=None) -> Dict[str, Any]:
+    """Pipeline-parallel GPT training over a ``pp`` (or ``dcn``) axis
+    (``ray_tpu/models/training.py:760``).
+
+    The layer stack ``[L, ...]`` is cut into ``[stages, L / stages,
+    ...]`` and each rank holds its stage's slice (``[1, L / stages,
+    ...]``, its shards of the reference's stage-stacked tree; the
+    embedding and final norm on every stage).  Two schedules
+    (``parallel/pipeline.py``): ``gpipe`` (default; ``pp`` axis only)
+    and ``1f1b`` (in flight at most ``2 stages - 1``), staged over ``pp``
+    when the mesh has it, else over ``dcn`` above 1.  The first stage
+    embeds, the last computes the loss; inside a stage the blocks run
+    as in ``build_gpt_train`` at sp 1: flash attention with in-kernel
+    RoPE, the fused epilogue, flash-CE with the norm prologue, and the
+    fsdp gathers and Megatron tp of the mesh's other axes.  The batch's
+    rows split over the data axes but the stage axis
+    (``fns["shard_batch"]``), microbatch by microbatch, so each
+    microbatch visits every stage whole.
+
+    Each microbatch's loss is weighted by its share of the global count
+    of valid targets (``n_u / n_total``), so the weighted sum is the
+    global masked mean; the f32 stage gradients and the stage-summed
+    shared gradients are then reduced over the data axes (an fsdp-sharded
+    leaf's over them but fsdp: its gather's backward reduce-scatters) and
+    cast to each parameter's dtype, as the reference's.
+
+    ``schedule`` defaults to ``RAY_TPU_PP_SCHEDULE`` (gpipe),
+    ``num_microbatches`` to ``RAY_TPU_PP_MICROBATCH``, else ``2 *
+    stages``.  Returns dict(init_fn, step_fn, loss_fn, value_and_grad_fn,
+    shard_batch, gather_params, attn_fn, num_microbatches, schedule,
+    stage_axis, bubble_fraction, in_flight_microbatches), with
+    ``telemetry`` and ``raw_step_fn`` when the ``train_pp`` recorder is
+    on.  ``init_fn(generator=None, *, params=None)`` takes a full tree,
+    a stage-stacked one (broadcast from the first rank and cut) or this
+    rank's shards (``convert.params_from_jax(..., mesh=)`` of a stacked
+    tree); ``gather_params(params)`` gives back the stage-stacked full
+    tree on every rank.  Runs on the card unless ``device="cpu"``."""
+    from ray_tpu_torch.parallel import pipeline as pipe
+    from ray_tpu_torch.parallel.mesh import add_axes_groups
+
+    if schedule is None:
+        schedule = default_pp_schedule()
+    if schedule not in ("gpipe", "1f1b"):
+        raise ValueError(f"unknown pipeline schedule {schedule!r}; "
+                         "expected 'gpipe' or '1f1b'")
+    shape = MeshSpec.from_mesh(mesh).to_dict() if mesh is not None else {}
+    if schedule == "gpipe":
+        if "pp" not in shape:
+            raise ValueError("schedule='gpipe' needs a 'pp' mesh axis "
+                             "(1f1b can also stage over 'dcn')")
+        stage_axis = "pp"
+    elif shape.get("pp", 1) > 1 or "pp" in shape:
+        stage_axis = "pp"
+    elif shape.get("dcn", 1) > 1:
+        stage_axis = "dcn"
+    else:
+        raise ValueError(
+            "schedule='1f1b' needs a 'pp' axis or a 'dcn' axis > 1 to "
+            f"stage over; mesh has {shape}")
+    pp = shape[stage_axis]
+    if cfg.n_layers % pp:
+        raise ValueError(f"n_layers={cfg.n_layers} not divisible by "
+                         f"stages={pp} (axis {stage_axis!r})")
+    if cfg.n_experts > 0:
+        raise ValueError("MoE + pipeline parallelism not supported yet")
+    gpt_mod.check_supported(cfg)
+    groups = mesh_groups(mesh)
+    if groups.size("sp") > 1:
+        raise ValueError("the pipeline's stages run whole sequences: sp="
+                         f"{groups.size('sp')} is not supported with "
+                         "pipeline parallelism (use build_gpt_train)")
+    M = num_microbatches or default_pp_microbatches() or 2 * pp
+    tx = optimizer or default_optimizer()
+    stats = pipe.pipeline_schedule_stats(pp, M, schedule)
+    dev = resolve_device(device)
+    rules = shd.pp_rules(stage_axis)
+    logical = shd.stage_stacked_axes(gpt_mod.param_logical_axes(cfg))
+    specs = shd.tree_specs(mesh, logical, rules)
+    full = gpt_mod.param_shapes(cfg)
+    stacked_shapes = dict(full, layers={
+        k: (pp, v[0] // pp) + tuple(v[1:]) for k, v in full["layers"].items()})
+    data = tuple(a for a in ("dcn", "dp", "fsdp")
+                 if a != stage_axis and groups.size(a) > 1)
+    data_nf = tuple(a for a in data if a != "fsdp")
+    if groups.grouped:
+        add_axes_groups(mesh, (data, data_nf))
+    g_data = mesh.axes_group(data) if data and groups.grouped else None
+    g_data_nf = (mesh.axes_group(data_nf) if data_nf and groups.grouped
+                 else None)
+    attn_fn = make_flash_attention_fn(
+        mesh, rope_theta=cfg.rope_theta if cfg.pos == "rope" else None)
+    first = groups.coord(stage_axis) == 0
+    last = groups.coord(stage_axis) == pp - 1
+
+    def stage_fn(stage_params, shared, act, mb):
+        tokens = mb["tokens"]
+        S = tokens.shape[1]
+        x = gpt_mod.embed_tokens(shared, tokens, cfg, mesh=mesh) \
+            if first else act
+        x, _aux = gpt_mod.run_layers(
+            {k: v[0] for k, v in stage_params.items()}, x, cfg,
+            positions=torch.arange(S, device=tokens.device),
+            attn_fn=attn_fn, mesh=mesh)
+        if not last:
+            return x, None
+        ce_norm = gpt_mod.uses_ce_norm(cfg, tokens.numel(), tokens.device,
+                                       mesh=mesh)
+        h = x if ce_norm else gpt_mod._norm(x, shared["ln_f"], cfg.norm,
+                                            eps=gpt_mod.norm_eps(cfg))
+        loss_u = gpt_mod.loss_from_hidden(
+            shared, h, mb["targets"], cfg,
+            norm_scale=shared["ln_f"] if ce_norm else None, mesh=mesh)
+        return x, loss_u
+
+    def check_batch(batch):
+        B = batch["tokens"].shape[0]
+        if B % M:
+            raise ValueError(f"batch={B} not divisible by microbatches={M}")
+        if "segment_ids" in batch:
+            # dropping the mask would let co-packed documents attend to
+            # each other (the overlap schedule's guard)
+            raise ValueError(
+                "sample-packed batches (segment_ids) are not supported "
+                "by the pipeline-parallel trainer yet — stream unpacked "
+                "(RAY_TPU_DATA_PACK=0) or use build_gpt_train")
+
+    def microbatches(params, batch):
+        """The stage runner's arguments: the [M, ...] inputs, each
+        microbatch's weight (its share of the global count of valid
+        targets) and the activation's template."""
+        check_batch(batch)
+        tokens, targets = batch["tokens"], batch["targets"]
+        B, S = tokens.shape
+        mbs = {"tokens": tokens.reshape(M, B // M, S),
+               "targets": targets.reshape(M, B // M, S)}
+        n_u = (mbs["targets"] >= 0).sum((1, 2)).float()
+        total = n_u.sum()
+        if g_data is not None:
+            import torch.distributed as dist
+            total = total.clone()
+            dist.all_reduce(total, group=g_data)
+        act = torch.empty((B // M, S, cfg.d_model), dtype=cfg.dtype,
+                          device=tokens.device)
+        shared = {k: v for k, v in params.items() if k != "layers"}
+        return shared, mbs, n_u / total.clamp_min(1.0), act
+
+    def reduce(grads, loss):
+        """The gradients and the loss summed over the data axes (the
+        fsdp-sharded leaves' over them but fsdp), in f32."""
+        import torch.distributed as dist
+        paths, flat = _paths(grads), _leaves(grads)
+        by_fsdp = {False: [], True: []}
+        for i in _path_order(grads):
+            by_fsdp["fsdp" in shd.spec_axes(_at(specs, paths[i]))].append(i)
+        for on_fsdp, group in ((False, g_data), (True, g_data_nf)):
+            idx = by_fsdp[on_fsdp]
+            extra = [] if on_fsdp else [loss]
+            if group is None or not idx + extra:
+                continue
+            got = _flat_collective(
+                [flat[i] for i in idx] + extra,
+                lambda f, g=group: dist.all_reduce(f, group=g))
+            if extra:
+                loss = got.pop()
+            for i, t in zip(idx, got):
+                flat[i] = t
+        return _rebuild(grads, flat), loss
+
+    runner = (pipe.pipeline_1f1b_value_and_grad if schedule == "1f1b"
+              else pipe.pipeline_gpipe_value_and_grad)
+
+    def loss_and_grads(params, batch):
+        shared, mbs, w, act = microbatches(params, batch)
+        loss, g_stage, g_shared = runner(
+            stage_fn, params["layers"], shared, mbs, mesh=mesh,
+            num_microbatches=M, act_example=act, axis=stage_axis,
+            cot_weights=w)
+        grads = {k: g_stage if k == "layers" else g_shared[k]
+                 for k in params}
+        grads, loss = reduce(grads, loss)
+        grads = _rebuild(grads, [g.to(p.dtype) for g, p in
+                                 zip(_leaves(grads), _leaves(params))])
+        return loss, grads
+
+    def grad_norm(grads):
+        if not groups.grouped:
+            return global_norm(grads)
+        return _sharded_global_norm(grads, specs, groups)
+
+    def step(state: TrainState, batch):
+        loss_val, grads = loss_and_grads(state.params, batch)
+        gnorm = grad_norm(grads)
+        opt_state = tx.update(grads, state.opt_state, state.params,
+                              g_norm=gnorm)
+        return (TrainState(state.params, opt_state, state.step + 1),
+                {"loss": loss_val, "grad_norm": gnorm,
+                 "step": state.step + 1})
+
+    @torch.no_grad()
+    def loss_eval(params, batch):
+        shared, mbs, w, act = microbatches(params, batch)
+        loss = pipe.pipeline_forward_loss(
+            stage_fn, params["layers"], shared, mbs, mesh=mesh,
+            num_microbatches=M, act_example=act, axis=stage_axis,
+            cot_weights=w)
+        if g_data is not None:
+            import torch.distributed as dist
+            dist.all_reduce(loss, group=g_data)
+        return loss
+
+    def tree_kind(params) -> str:
+        """"local" (this rank's shards), "stacked" or "full"."""
+        if params["layers"]["wq"].dim() == 4:
+            return "full"
+        local = all(tuple(t.shape) == shd.local_shape(_at(stacked_shapes, p),
+                                                      _at(specs, p), mesh)
+                    for p, t in zip(_paths(params), _leaves(params)))
+        return "local" if local else "stacked"
+
+    def init(generator: Optional[torch.Generator] = None, *,
+             params: Optional[Params] = None) -> TrainState:
+        kind = "full" if params is None else tree_kind(params)
+        if params is None:
+            params = gpt_mod.init_params(cfg, generator, device=dev)
+        if kind != "local":
+            if groups.grouped:
+                import torch.distributed as dist
+                _broadcast_from_first(params, dist.group.WORLD)
+            if kind == "full":
+                params = stack_stages(params, pp)
+            params = shd.shard_params(params, mesh, logical, rules)
+        return TrainState(params, tx.init(params), 0)
+
+    def shard_batch(batch):
+        check_batch(batch)
+        if mesh is None:
+            return batch
+        return shd.shard_batch(batch, mesh, accum_steps=M,
+                               exclude=stage_axis)
+
+    def gather_params(params):
+        return shd.gather_params(params, mesh, logical, rules)
+
+    fns = {"init_fn": init, "step_fn": step, "loss_fn": loss_eval,
+           "value_and_grad_fn": loss_and_grads, "shard_batch": shard_batch,
+           "gather_params": gather_params, "attn_fn": attn_fn,
+           "num_microbatches": M, "schedule": schedule,
+           "stage_axis": stage_axis,
+           "bubble_fraction": stats["bubble_fraction"],
+           "in_flight_microbatches": stats["in_flight_microbatches"]}
+    return _maybe_instrument(fns, cfg, mesh, label="train_pp",
+                             telemetry=telemetry,
+                             batch_axes=pp_batch_axes(stage_axis))
+
+
+def pp_batch_axes(stage_axis: str) -> tuple:
+    """The axes a pipeline's batch rows split over: the data axes but
+    the stage axis."""
+    return tuple(a for a in ("dcn", "dp", "fsdp") if a != stage_axis)
 
 
 def synthetic_lm_batch(generator: torch.Generator, batch_size: int,

@@ -38,6 +38,12 @@ current stream waits for it) as the output of an autograd node whose
 input is the tensor sent, so the gradient flows back to it.
 
 Every function is the identity when ``group`` is None.
+
+The pipeline (``parallel/pipeline.py``) moves activations and their
+cotangents between neighbouring stages with :func:`stage_exchange`: one
+tick's sends and receives, posted together (``batch_isend_irecv``) and
+waited on together.  These are plain transfers, outside autograd: the
+pipeline schedules its backward by hand.
 """
 
 from __future__ import annotations
@@ -53,11 +59,13 @@ def group_size(group) -> int:
 
 
 def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The gathered tensor, contiguous (the kernels take contiguous
+    operands) whatever ``dim``."""
     n = dist.get_world_size(group)
     src = x.movedim(dim, 0).contiguous()
     full = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
     dist.all_gather_into_tensor(full, src, group=group)
-    return full.movedim(0, dim)
+    return full.movedim(0, dim).contiguous()
 
 
 def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -292,7 +300,7 @@ def all_gather_start(x: torch.Tensor, dim: int, group, *,
     src = x.detach().movedim(dim, 0).contiguous()
     full = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
     work = dist.all_gather_into_tensor(full, src, group=group, async_op=True)
-    return Pending(x, [work], lambda: full.movedim(0, dim),
+    return Pending(x, [work], lambda: full.movedim(0, dim).contiguous(),
                    lambda g: _reduce_scatter(g, dim, group), name=name)
 
 
@@ -321,3 +329,16 @@ def _shift_back(g: torch.Tensor, group) -> torch.Tensor:
         dist.P2POp(dist.isend, g, prv, group),
         dist.P2POp(dist.irecv, recv, nxt, group)]))
     return recv
+
+
+def stage_exchange(sends: "List[tuple]", recvs: "List[tuple]") -> None:
+    """One pipeline tick's point-to-point transfers: ``sends`` are
+    ``(tensor, global rank)`` pairs, ``recvs`` ``(buffer, global rank)``
+    pairs filled in place.  Every transfer of the tick is posted at once
+    and all are waited on before this returns, so two neighbours that
+    each send to the other in the same tick cannot block each other (on
+    gloo or NCCL); a tick with no transfer does nothing."""
+    ops = [dist.P2POp(dist.isend, t.contiguous(), peer) for t, peer in sends]
+    ops += [dist.P2POp(dist.irecv, buf, peer) for buf, peer in recvs]
+    if ops:
+        wait_all(dist.batch_isend_irecv(ops))

@@ -15,16 +15,18 @@ reference's callers read a JAX mesh, and which gives each axis's process
 group (``get_group``), this rank's coordinate (``coordinate``) and the
 group of several axes together (``axes_group``).
 
-The axes ``dcn``, ``dp``, ``fsdp``, ``sp`` and ``tp`` are ported; ``pp``
-and ``ep`` above 1 raise ``NotImplementedError`` (ROADMAP Queue 1 items
-9b-iii and 9b-iv), in :func:`make_mesh` and in :func:`mesh_groups`,
-which the training step, the model and the attention hooks call.
+Every axis of ``AXIS_ORDER`` is ported: ``dcn``, ``dp``, ``fsdp``,
+``sp`` and ``tp`` for the training step and the model, ``pp`` (or
+``dcn``) for the pipeline's stages (``parallel/pipeline.py``) and ``ep``
+for the experts (``parallel/moe.py``).  :func:`mesh_groups` gives what
+the training step, the model and the attention hooks read of a mesh,
+the ``pp`` and ``ep`` groups and this rank's stage neighbours included.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -247,16 +249,6 @@ GRAD_AXES = ("dcn", "dp", "sp")
 _PRECREATED = (COUNT_AXES, GRAD_AXES)
 
 
-def _unported_axes(axes: Dict[str, int]) -> None:
-    unported = {"pp": "9b-iii: pipeline parallelism, GPipe and 1F1B",
-                "ep": "9b-iv: expert parallelism and the MoE FFN"}
-    for a, item in unported.items():
-        if axes.get(a, 1) != 1:
-            raise NotImplementedError(
-                f"mesh axis {a}={axes[a]} is not ported yet (ROADMAP "
-                f"Queue 1 item {item})")
-
-
 def _axes_group(mesh, axes: Tuple[str, ...]):
     if not mesh._with_group:
         return None
@@ -323,11 +315,13 @@ def add_axes_groups(mesh, axis_sets) -> None:
 @dataclass(frozen=True)
 class MeshGroups:
     """What a training step and the model read of a mesh: each axis's
-    size and this rank's coordinate, and the process groups of ``fsdp``
-    and ``tp`` (the model's) and of the two axis sets training reduces
-    over (``COUNT_AXES``, ``GRAD_AXES``); the attention hooks take the
-    ``sp`` group from the mesh.  A group is None where no process group
-    is live or the axes span one rank (outside a world of one)."""
+    size and this rank's coordinate, the process groups of ``fsdp``,
+    ``tp`` and ``ep`` (the model's), of ``pp`` (the pipeline's) and of
+    the two axis sets training reduces over (``COUNT_AXES``,
+    ``GRAD_AXES``), and this rank's neighbours along each axis a
+    pipeline can stage over (``pp``, ``dcn``); the attention hooks take
+    the ``sp`` group from the mesh.  A group is None where no process
+    group is live or the axes span one rank (outside a world of one)."""
 
     sizes: Dict[str, int]
     coords: Dict[str, int]
@@ -336,6 +330,10 @@ class MeshGroups:
     tp: Any = None
     count: Any = None
     grad: Any = None
+    pp: Any = None
+    ep: Any = None
+    neighbours: Dict[str, Tuple[Optional[int], Optional[int]]] = field(
+        default_factory=dict)
 
     def size(self, axis: str) -> int:
         return self.sizes.get(axis, 1)
@@ -343,14 +341,30 @@ class MeshGroups:
     def coord(self, axis: str) -> int:
         return self.coords.get(axis, 0)
 
+    def stage_neighbours(self, axis: str = "pp"
+                         ) -> Tuple[Optional[int], Optional[int]]:
+        """The global ranks of this rank's previous and next stage along
+        ``axis`` (None at either end, and for an axis of one)."""
+        return self.neighbours.get(axis, (None, None))
+
+
+STAGE_AXES = ("pp", "dcn")
+
+
+def _neighbours(mesh, axis: str) -> Tuple[Optional[int], Optional[int]]:
+    import torch.distributed as dist
+    n, me = mesh.shape[axis], mesh.coordinate(axis)
+    group = mesh.get_group(axis)
+    return (dist.get_global_rank(group, me - 1) if me > 0 else None,
+            dist.get_global_rank(group, me + 1) if me < n - 1 else None)
+
 
 def mesh_groups(mesh) -> MeshGroups:
     """The one place the port reads a mesh for training: axis sizes,
-    this rank's coordinates and the groups (:class:`MeshGroups`).  No
-    mesh, or one outside a process group, gives sizes of 1 and no
-    groups.  ``pp`` or ``ep`` above 1 raises (ROADMAP Queue 1 items
-    9b-iii, 9b-iv), and so does a mesh of several devices without named
-    axes."""
+    this rank's coordinates, the groups and the stage neighbours
+    (:class:`MeshGroups`).  No mesh, or one outside a process group,
+    gives sizes of 1 and no groups.  A mesh of several devices without
+    named axes raises."""
     if mesh is None:
         return MeshGroups({}, {}, False)
     cached = getattr(mesh, "_mesh_groups", None)
@@ -364,7 +378,6 @@ def mesh_groups(mesh) -> MeshGroups:
                              "(parallel.mesh.make_mesh)")
         return MeshGroups({}, {}, False)
     sizes = {a: int(n) for a, n in dict(shape.items()).items()}
-    _unported_axes(sizes)
     coord = getattr(mesh, "coordinate", None)
     coords = {a: (coord(a) if coord else 0) for a in sizes}
     grouped = bool(getattr(mesh, "_with_group", False))
@@ -379,7 +392,13 @@ def mesh_groups(mesh) -> MeshGroups:
                                    fsdp=mesh.axes_group(("fsdp",)),
                                    tp=mesh.axes_group(("tp",)),
                                    count=mesh.axes_group(COUNT_AXES),
-                                   grad=mesh.axes_group(GRAD_AXES))
+                                   grad=mesh.axes_group(GRAD_AXES),
+                                   pp=mesh.axes_group(("pp",)),
+                                   ep=mesh.axes_group(("ep",)),
+                                   neighbours={
+                                       a: _neighbours(mesh, a)
+                                       for a in STAGE_AXES
+                                       if sizes.get(a, 1) > 1})
     return mesh._mesh_groups
 
 
@@ -396,8 +415,7 @@ def make_mesh(spec: Optional[MeshSpec] = None, devices=None,
     (``ray_tpu/parallel/mesh.py:211``), so rank r holds the shard JAX
     device r holds.  ``devices``: a ``torch.device`` or device type for
     the mesh (default: ``"cuda"`` when the group's backend is NCCL, else
-    ``"cpu"``).  ``pp`` or ``ep`` above 1 raises (ROADMAP Queue 1 items
-    9b-iii, 9b-iv)."""
+    ``"cpu"``)."""
     import torch
     import torch.distributed as dist
 
@@ -405,7 +423,6 @@ def make_mesh(spec: Optional[MeshSpec] = None, devices=None,
         if not sizes:
             sizes = {"dp": -1}
         spec = MeshSpec.create(**sizes)
-    _unported_axes(dict(spec.axes))
     grouped = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if grouped else 1
     spec = spec.resolve(world)

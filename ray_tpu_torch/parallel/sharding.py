@@ -193,16 +193,39 @@ def gather_params(params, mesh, logical_tree,
     return tree_map(lambda t, s: gather_tensor(t, s, mesh), params, specs)
 
 
-def shard_batch(batch: Dict[str, Any], mesh, *, accum_steps: int = 1
-                ) -> Dict[str, Any]:
+def pp_rules(stage_axis: str) -> Rules:
+    """The pipeline trainers' rule table: ``stage`` follows the stage
+    axis and the batch never splits over it (``DEFAULT_RULES`` when
+    staging over pp)."""
+    return tuple(
+        ("stage", stage_axis) if k == "stage" else
+        (("batch", tuple(a for a in ("dcn", "dp", "fsdp")
+                         if a != stage_axis)) if k == "batch" else (k, v))
+        for k, v in DEFAULT_RULES)
+
+
+def stage_stacked_axes(logical_tree) -> Dict[str, Any]:
+    """A model's logical-axes tree for its stage-stacked parameters:
+    every layer leaf ``[stages, L / stages, ...]``, its first dimension
+    ``stage``."""
+    out = dict(logical_tree)
+    out["layers"] = {k: ("stage",) + v
+                     for k, v in logical_tree["layers"].items()}
+    return out
+
+
+def shard_batch(batch: Dict[str, Any], mesh, *, accum_steps: int = 1,
+                exclude: Optional[str] = None) -> Dict[str, Any]:
     """This rank's part of a global batch (leaves [B, S, ...]): its rows
     along the data axes (``data_axes``) and, when ``sp`` > 1, its
     contiguous sequence shard, as the reference's ``_batch_sharding``
     lays a batch out.  With ``accum_steps`` k the rows are those of its
     data-axes shard of each of the k microbatches (rows ``[i B/k, (i+1)
     B/k)`` for microbatch i), in microbatch order, as the reference's
-    accumulation splits a sharded batch."""
-    axes = _axes(data_axes(mesh))
+    accumulation splits a sharded batch.  ``exclude``: a data axis the
+    rows do not split over (a pipeline's stage axis, the reference's
+    ``_pp_batch_sharding``: each microbatch visits every stage whole)."""
+    axes = tuple(a for a in _axes(data_axes(mesh)) if a != exclude)
     d_idx, d_n = shard_index(mesh, axes)
     sp = mesh.shape.get("sp", 1)
     sp_idx = mesh.coordinate("sp") if sp > 1 else 0

@@ -107,6 +107,7 @@ class StepTelemetry:
                  label: str = "train",
                  aot: bool = False,
                  chip_peak_tflops: Optional[float] = None,
+                 batch_axes=("dcn", "dp", "fsdp"),
                  config=None):
         tcfg = config or telemetry_config()
         self.enabled: bool = tcfg.enabled
@@ -116,6 +117,7 @@ class StepTelemetry:
         self.comm_quant = comm_quant
         self.ce_mode = ce_mode
         self.label = label
+        self.batch_axes = tuple(batch_axes)
         self.records: List[Dict[str, Any]] = []
         self.step_count = 0      # total steps seen (survives trimming)
         self.compile_s: Optional[float] = None
@@ -279,15 +281,16 @@ class StepTelemetry:
         recorder's schedule and wire, as the reference's recorder gives
         them; None before a step has run or for a non-GPT config.  The
         recorder sees this rank's batch, so the global batch and
-        sequence it passes are the rank's times the mesh's data axes
-        (dcn, dp, fsdp) and sp."""
+        sequence it passes are the rank's times the mesh's batch axes
+        (``batch_axes``: dcn, dp and fsdp, but a pipeline's stage axis)
+        and sp."""
         if self.cfg is None or self.mesh is None or self._seq is None:
             return None
         try:
             from ray_tpu_torch.parallel import overlap as ovl
             from ray_tpu_torch.parallel.mesh import mesh_axis_size
             rows = 1
-            for a in ("dcn", "dp", "fsdp"):
+            for a in self.batch_axes:
                 rows *= mesh_axis_size(self.mesh, a)
             return ovl.collective_bytes_per_step(
                 self.cfg, self.mesh, batch=self._batch * rows,
@@ -479,7 +482,7 @@ def instrument(fns: Dict[str, Any], cfg=None, mesh=None, *,
                comm_mode: Optional[str] = None,
                comm_quant: Optional[str] = None,
                ce_mode: Optional[str] = None, label: str = "train",
-               aot: bool = False,
+               aot: bool = False, batch_axes=("dcn", "dp", "fsdp"),
                config=None) -> Dict[str, Any]:
     """Wrap the ``step_fn`` of a train-fns dict with a fresh recorder.
 
@@ -488,7 +491,8 @@ def instrument(fns: Dict[str, Any], cfg=None, mesh=None, *,
     unwrapped step).  No-op (no extra keys) when telemetry is off."""
     rec = StepTelemetry(cfg, mesh, comm_mode=comm_mode,
                         comm_quant=comm_quant, ce_mode=ce_mode,
-                        label=label, aot=aot, config=config)
+                        label=label, aot=aot, batch_axes=batch_axes,
+                        config=config)
     if not rec.enabled:
         return fns
     fns["raw_step_fn"] = fns["step_fn"]

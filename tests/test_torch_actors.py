@@ -189,6 +189,98 @@ def test_actor_restart(ray_start_regular):
         pytest.fail("actor did not restart")
 
 
+def test_call_lost_with_its_incarnation_runs_at_most_once(
+        ray_start_regular):
+    """A direct call the actor takes and dies on before acknowledging it
+    runs at most once: it is not sent again through the node manager to
+    the restarted incarnation (which it would kill again, or whose
+    counter it would bump), the caller gets ``ActorDiedError`` for it,
+    and the new incarnation answers the next calls from its fresh state.
+    The armed incarnation exits inside its direct server's
+    ``call_actor``, so the connection always closes after the request
+    went out and before the reply (ROADMAP Queue 3, fault 9)."""
+    ray = ray_start_regular
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.exceptions import ActorDiedError
+
+    @ray.remote(max_restarts=1)
+    class Flaky:
+        def __init__(self):
+            self.n = 0
+
+        def incr(self):
+            self.n += 1
+            return self.n
+
+        def arm(self):
+            import os
+
+            from ray_tpu_torch._private import worker_proc
+
+            def call_actor(handler, spec):
+                os._exit(1)
+
+            worker_proc.WorkerProcess._DirectHandler.call_actor = call_actor
+            return True
+
+    f = Flaky.remote()
+    assert ray.get(f.incr.remote()) == 1
+    assert ray.get(f.arm.remote())
+    assert global_worker()._actor_direct(f._actor_id) is not None
+    lost = f.incr.remote()
+    with pytest.raises(ActorDiedError):
+        ray.get(lost, timeout=60)
+    assert [ray.get(f.incr.remote(), timeout=60) for _ in range(3)] == \
+        [1, 2, 3]
+
+
+@pytest.mark.parametrize("taken", [False, True], ids=["dropped", "taken"])
+def test_call_whose_connection_drops_is_answered_once(ray_start_regular,
+                                                      taken):
+    """The actor's direct server closes a call's connection between its
+    request and its reply while the actor lives on: its error reply
+    cannot be pickled, raised after the call was queued (``taken``) or
+    before.  The caller asks the same incarnation whether it took the
+    call and sends it again only if it did not, so the call is answered,
+    and run, exactly once either way."""
+    ray = ray_start_regular
+    from ray_tpu_torch._private.worker import global_worker
+
+    @ray.remote
+    class Counter:
+        def __init__(self):
+            self.n = 0
+
+        def incr(self):
+            self.n += 1
+            return self.n
+
+        def arm(self, taken):
+            import threading
+
+            from ray_tpu_torch._private import worker_proc
+            handler_cls = worker_proc.WorkerProcess._DirectHandler
+            original = handler_cls.call_actor
+
+            def call_actor(handler, spec):
+                handler_cls.call_actor = original   # fires once
+                if taken:
+                    original(handler, spec)
+                err = RuntimeError("the reply is lost")
+                err.lock = threading.Lock()         # fails to pickle
+                raise err
+
+            handler_cls.call_actor = call_actor
+            return True
+
+    c = Counter.remote()
+    assert ray.get(c.incr.remote()) == 1
+    assert ray.get(c.arm.remote(taken))
+    assert global_worker()._actor_direct(c._actor_id) is not None
+    assert ray.get(c.incr.remote(), timeout=60) == 2
+    assert ray.get(c.incr.remote(), timeout=60) == 3
+
+
 def test_async_actor(ray_start_regular):
     ray = ray_start_regular
 

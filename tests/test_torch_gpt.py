@@ -104,5 +104,20 @@ def test_forward_matches_jax(attn):
 @pytest.mark.parametrize("kw", [dict(norm="layernorm"), dict(pos="learned"),
                                 dict(use_bias=True), dict(n_experts=4)])
 def test_unported_modes_raise(kw):
+    """The layernorm, learned-position and bias modes raise, naming their
+    ROADMAP item.  MoE is ported (item 9b-iv): its config builds the
+    expert leaves, and only the serving engine refuses it, with the
+    reference's message."""
+    if kw.get("n_experts"):
+        from ray_tpu_torch.inference.engine import InferenceEngine
+        cfg = tgpt.GPTConfig.tiny(**kw)
+        params = tgpt.init_params(cfg, device="cpu")
+        assert params["layers"]["moe_w1"].shape == (
+            cfg.n_layers, 4, cfg.d_model, cfg.ff_dim)
+        assert "w1" not in params["layers"]
+        with pytest.raises(NotImplementedError,
+                           match="MoE decode cache not supported yet"):
+            InferenceEngine(cfg, params, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgpt.init_params(tgpt.GPTConfig.tiny(**kw), device="cpu")

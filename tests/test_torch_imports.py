@@ -139,7 +139,9 @@ _SLICE_MODULES = ("ray_tpu_torch/ops/flash_ce.py",
                   "ray_tpu_torch/train/storage.py",
                   "ray_tpu_torch/train/worker_group.py",
                   "ray_tpu_torch/train/torch/__init__.py",
-                  "ray_tpu_torch/train/torch/config.py")
+                  "ray_tpu_torch/train/torch/config.py",
+                  "ray_tpu_torch/parallel/pipeline.py",
+                  "ray_tpu_torch/parallel/moe.py")
 
 
 def _imported_roots(path):

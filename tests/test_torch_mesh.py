@@ -1,9 +1,13 @@
 """Port parity: ``ray_tpu_torch.parallel.mesh`` against
 ``ray_tpu.parallel.mesh``: the copied axis bookkeeping gives the
 reference's answers and errors, and ``make_mesh`` builds a data-parallel
-``DeviceMesh`` read as the reference's callers read a JAX mesh; ``pp``
-and ``ep`` raise, naming their sub-items of ROADMAP item 9b (the other
-axes: tests/test_torch_parallel.py)."""
+``DeviceMesh`` read as the reference's callers read a JAX mesh; in a
+4-rank gloo world ``pp`` and ``ep`` meshes build, and ``mesh_groups``
+gives the ``pp`` and ``ep`` groups and each rank's stage neighbours (the
+other axes: tests/test_torch_parallel.py)."""
+
+import json
+import os
 
 import pytest
 import torch
@@ -97,16 +101,16 @@ def test_make_mesh_outside_a_process_group():
                  id="axes1"),
     pytest.param(dict(sp=2), ValueError, "exceeds device count 1",
                  id="axes2"),
-    pytest.param(dict(pp=2), NotImplementedError, "item 9b-iii",
+    pytest.param(dict(pp=2), ValueError, "exceeds device count 1",
                  id="axes3"),
-    pytest.param(dict(ep=2), NotImplementedError, "item 9b-iv",
+    pytest.param(dict(ep=2), ValueError, "exceeds device count 1",
                  id="axes4"),
 ])
 def test_non_dp_axes_raise_item_9b(axes, exc, match):
-    """Outside a process group a mesh of tp, fsdp or sp above 1 asks for
-    more ranks than the world of one holds (inside a group they build:
-    tests/test_torch_parallel.py); pp and ep still raise, naming their
-    sub-items of ROADMAP item 9b."""
+    """Outside a process group a mesh of tp, fsdp, sp, pp or ep above 1
+    asks for more ranks than the world of one holds (inside a group they
+    build: tests/test_torch_parallel.py, tests/test_torch_pipeline.py,
+    tests/test_torch_moe.py); no axis raises for being unported."""
     with pytest.raises(exc, match=match):
         tmesh.make_mesh(**axes)
 
@@ -132,3 +136,54 @@ def test_attention_and_training_take_a_dp_mesh_only():
         training.build_gpt_train(cfg, SP, device="cpu")
     fns = training.build_gpt_train(cfg, dp, device="cpu", telemetry=False)
     assert fns["attn_fn"].fused_rope
+
+
+def _neighbour_world(rank, store, tmp):
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.FileStore(store, 4),
+                            rank=rank, world_size=4)
+    out = {}
+    for name, axes in (("pp4", dict(pp=4)), ("pp2-dp2", dict(pp=2, dp=2)),
+                       ("dcn2-ep2", dict(dcn=2, ep=2)),
+                       ("ep2-tp2", dict(ep=2, tp=2))):
+        mesh = tmesh.make_mesh(**axes)
+        g = tmesh.mesh_groups(mesh)
+        out[name] = {"pp": list(g.stage_neighbours("pp")),
+                     "dcn": list(g.stage_neighbours("dcn")),
+                     "pp_size": dist.get_world_size(g.pp) if g.pp else 1,
+                     "ep_size": dist.get_world_size(g.ep) if g.ep else 1,
+                     "coords": g.coords}
+    with open(os.path.join(tmp, f"r{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def test_pp_and_ep_meshes_build_with_stage_neighbours(tmp_path):
+    """In a world of 4, ``make_mesh`` builds {pp 4}, {pp 2, dp 2},
+    {dcn 2, ep 2} and {ep 2, tp 2}; ``mesh_groups`` gives the pp and ep
+    groups and, along pp and dcn, each rank's previous and next stage
+    (global ranks, None at the ends): rank r sits at the JAX device
+    order's coordinate of r."""
+    import torch.multiprocessing as mp
+    mp.start_processes(_neighbour_world,
+                       args=(str(tmp_path / "store"), str(tmp_path)),
+                       nprocs=4, join=True, start_method="spawn")
+    got = [json.loads((tmp_path / f"r{r}.json").read_text())
+           for r in range(4)]
+    none = [None, None]
+    assert [g["pp4"]["pp"] for g in got] == [[None, 1], [0, 2], [1, 3],
+                                             [2, None]]
+    assert [g["pp4"]["pp_size"] for g in got] == [4] * 4
+    # {pp 2, dp 2}: rank = 2 pp + dp
+    assert [g["pp2-dp2"]["pp"] for g in got] == [[None, 2], [None, 3],
+                                                [0, None], [1, None]]
+    assert [g["pp2-dp2"]["dcn"] for g in got] == [none] * 4
+    # {dcn 2, ep 2}: stages along dcn, the ep pairs (0, 1) and (2, 3)
+    assert [g["dcn2-ep2"]["dcn"] for g in got] == [[None, 2], [None, 3],
+                                                  [0, None], [1, None]]
+    assert [g["dcn2-ep2"]["ep_size"] for g in got] == [2] * 4
+    assert [g["dcn2-ep2"]["coords"] for g in got] == [
+        {"dcn": 0, "ep": 0}, {"dcn": 0, "ep": 1}, {"dcn": 1, "ep": 0},
+        {"dcn": 1, "ep": 1}]
+    assert [g["ep2-tp2"]["pp"] for g in got] == [none] * 4
+    assert [g["ep2-tp2"]["ep_size"] for g in got] == [2] * 4

@@ -247,16 +247,20 @@ def _world(rank, store, in_path, out_dir):
     # which kernel entry points one loss-and-gradient step calls
     from ray_tpu_torch.models import training
     from ray_tpu_torch.ops import flash_ce, fused_norm
-    calls = {}
+    calls, strided = {}, {}
     for mod, fn in ((fused_norm, "matmul_residual_norm"),
                     (flash_ce, "flash_ce_norm_sum"),
                     (flash_ce, "flash_ce_sum")):
         def counted(*a, _f=getattr(mod, fn), _n=fn, **k):
             calls[_n] = calls.get(_n, 0) + 1
+            if _n == "matmul_residual_norm" and not all(
+                    t.is_contiguous() for t in a[:4]):
+                # the card's wrapper takes contiguous a, w, resid, scale
+                strided[_n] = strided.get(_n, 0) + 1
             return _f(*a, **k)
         setattr(mod, fn, counted)
     cfg = gpt.GPTConfig(**SMALL, dtype=torch.float32)
-    gates = {}
+    gates, strides = {}, {}
     for name, axes in GATE_MESHES:
         mesh = make_mesh(**axes)
         fns = training.build_gpt_train(cfg, mesh, device="cpu",
@@ -265,11 +269,15 @@ def _world(rank, store, in_path, out_dir):
         batch = {n: torch.from_numpy(data["gate_" + n]) for n in
                  ("tokens", "targets")}
         calls.clear()
+        strided.clear()
         fns["value_and_grad_fn"](state.params, fns["shard_batch"](batch))
         gates[name] = dict(calls)
+        strides[name] = dict(strided)
     if rank == 0:
         with open(os.path.join(out_dir, "gates.json"), "w") as f:
             json.dump(gates, f)
+        with open(os.path.join(out_dir, "strides.json"), "w") as f:
+            json.dump(strides, f)
     dist.destroy_process_group()
 
 
@@ -361,13 +369,16 @@ def world(tmp_path_factory):
         meshes = json.load(f)
     with open(tmp / "gates.json") as f:
         gates = json.load(f)
+    with open(tmp / "strides.json") as f:
+        strides = json.load(f)
     port = {(name, variant): [np.load(tmp / f"{name}-{variant}.npz")[n]
                               for n in ("out", "dq", "dk", "dv")]
             for name, _ in ATTN for variant in VARIANTS}
     print(f"JAX side {jax_s:.1f} s; world of {WORLD} "
           f"{time.monotonic() - t0:.1f} s")
     return {"meshes": meshes, "devices": devices, "jshapes": jshapes,
-            "ref": ref, "port": port, "local": local, "gates": gates}
+            "ref": ref, "port": port, "local": local, "gates": gates,
+            "strides": strides}
 
 
 @pytest.mark.parametrize("name", MESH_IDS)
@@ -448,3 +459,13 @@ def test_tp_declines_the_fused_epilogue_and_flash_ce(world):
     plan = fused_norm.out_proj_norm_plan(24576, 384, 768, seq=1024,
                                          tp_size=2, device=cuda)
     assert not plan and "tp=2" in plan.reason
+
+
+def test_fsdp_gathers_hand_the_epilogue_contiguous_weights(world):
+    """On {fsdp: 4} each layer's out-projection weight is all-gathered
+    along its last dimension; the epilogue's entry point, whose kernel
+    on the card takes only contiguous operands, gets every operand
+    contiguous in every call (``comm.all_gather_dim`` returns a
+    contiguous tensor whatever the dimension)."""
+    assert world["gates"]["fsdp4"]["matmul_residual_norm"] == 2
+    assert world["strides"] == {"fsdp4": {}, "dp2-tp2": {}}

@@ -376,3 +376,73 @@ def test_collective_bytes_f32_and_tier_prices():
     assert got["collective_bytes_dcn"] > 0
     assert overlap.TIER_BANDWIDTH_GBPS == {"ici": 450.0, "dcn": 50.0}
     assert overlap.tier_seconds(450_000_000_000, "ici") == 1.0
+
+
+# the pipeline's recorder ("train_pp", its rows split over the data axes
+# but the stage axis) and a MoE mesh's (the expert leaves over ep)
+PP_TEL_CASES = [("pp2", dict(pp=2), "train_pp", {}),
+                ("pp2-dp2", dict(pp=2, dp=2), "train_pp", {}),
+                ("moe-dp2-ep2", dict(dp=2, ep=2), "train",
+                 dict(n_experts=4))]
+
+
+@pytest.mark.parametrize("case", PP_TEL_CASES,
+                         ids=[c[0] for c in PP_TEL_CASES])
+def test_train_pp_and_moe_recorders_equal_the_reference(case):
+    """The ``train_pp`` recorder of ``build_gpt_train_pp`` (as
+    ``_maybe_instrument`` makes it, with ``pp_batch_axes``) on {pp 2} and
+    {pp 2, dp 2}, and ``build_gpt_train``'s on the MoE mesh {dp 2, ep 2},
+    after one step of a stand-in step function: ``summary()``'s fields
+    and ``collective_bytes()`` equal the JAX package's recorder's
+    (made as its trainers make it, for the global batch 8 x 32), every
+    byte entry exact; ``seconds`` are the port's prices (the H100's)."""
+    import jax
+    import jax.numpy as jnp
+
+    from ray_tpu.models.gpt import GPTConfig as JGPTConfig
+    from ray_tpu.parallel.mesh import make_mesh
+    from ray_tpu.telemetry import StepTelemetry as JStepTelemetry
+    from ray_tpu.telemetry.config import TelemetryConfig as JTelemetryConfig
+    from ray_tpu_torch.models import training
+    from ray_tpu_torch.models.gpt import GPTConfig
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+
+    _name, axes, label, extra = case
+    kw = dict(vocab_size=256, d_model=64, n_layers=4, n_heads=4, max_seq=32,
+              **extra)
+    B, S = 8, 32
+    n = 1
+    for a in axes.values():
+        n *= a
+    jmesh = make_mesh(**axes, devices=jax.devices()[:n])
+    jtel = JStepTelemetry(JGPTConfig(**kw, dtype=jnp.bfloat16), jmesh,
+                          label=label, config=JTelemetryConfig(enabled=True))
+    jtel.wrap(lambda b: (b, {"loss": 0.0}))(
+        {"tokens": jnp.zeros((B, S), jnp.int32)})
+    batch_axes = (training.pp_batch_axes("pp") if label == "train_pp"
+                  else ("dcn", "dp", "fsdp"))
+    rows = B
+    for a in batch_axes:
+        rows //= axes.get(a, 1)
+    fns = training._maybe_instrument(
+        {"step_fn": lambda b: (b, {"loss": 0.0})},
+        GPTConfig(**kw, dtype=torch.bfloat16), MeshSpec.create(**axes),
+        label=label, batch_axes=batch_axes, telemetry=True)
+    fns["step_fn"]({"tokens": torch.zeros(rows, S, dtype=torch.int32)})
+    got, want = fns["telemetry"].summary(), jtel.summary()
+    assert got["label"] == want["label"] == label
+    assert got["steps"] == want["steps"] == 1
+    assert "comm_mode" not in got and "comm_mode" not in want
+    assert got.keys() == want.keys()
+    g, w = fns["telemetry"].collective_bytes(), jtel.collective_bytes()
+    assert g.keys() == w.keys() == {"ici", "dcn", "total"}
+    assert g["total"] == w["total"]
+    for tier in ("ici", "dcn"):
+        assert {k: v for k, v in g[tier].items() if k != "seconds"} == \
+            {k: v for k, v in w[tier].items() if k != "seconds"}
+        assert got[f"collective_bytes_{tier}"] == \
+            want[f"collective_bytes_{tier}"]
+    if extra:
+        # the expert leaves shard over ep: a dp all-reduce of less than
+        # the whole tree
+        assert g["ici"]["grad_allreduce_dp"]["bytes"] > 0

@@ -504,3 +504,47 @@ def test_fused_rope_attention_refuses_a_cache():
         tgpt.layer_apply(tgpt.layer_params(params, 0), x, tcfg,
                          positions=torch.arange(4), attn_fn=attn,
                          cache=object())
+
+
+@pytest.mark.parametrize("raw", [None, "gpipe", "1f1b", " 1F1B ", "zb-h1",
+                                 ""])
+def test_pp_schedule_env_matches_jax(raw, monkeypatch, capsys):
+    """``RAY_TPU_PP_SCHEDULE``: the same schedule as the JAX package's
+    ``default_pp_schedule`` (default gpipe; an unknown name falls back to
+    gpipe) and the same stderr warning."""
+    if raw is None:
+        monkeypatch.delenv("RAY_TPU_PP_SCHEDULE", raising=False)
+    else:
+        monkeypatch.setenv("RAY_TPU_PP_SCHEDULE", raw)
+    got = ttrain.default_pp_schedule()
+    got_err = capsys.readouterr().err
+    want = jtrain.default_pp_schedule()
+    assert got == want
+    assert got_err == capsys.readouterr().err
+
+
+@pytest.mark.parametrize("raw", [None, "", "4", " 8 ", "0", "-2", "x",
+                                 "2.5"])
+def test_pp_microbatch_env_matches_jax(raw, monkeypatch, capsys):
+    """``RAY_TPU_PP_MICROBATCH``: the same count as the JAX package's
+    ``default_pp_microbatches`` (unset, non-integers and counts below 1
+    give None, the latter two with a warning) and the same stderr; the
+    trainer falls back to ``2 * stages``."""
+    if raw is None:
+        monkeypatch.delenv("RAY_TPU_PP_MICROBATCH", raising=False)
+    else:
+        monkeypatch.setenv("RAY_TPU_PP_MICROBATCH", raw)
+    got = ttrain.default_pp_microbatches()
+    got_err = capsys.readouterr().err
+    want = jtrain.default_pp_microbatches()
+    assert got == want
+    assert got_err == capsys.readouterr().err
+    if raw in ("x", "0"):
+        assert got_err
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    monkeypatch.setenv("RAY_TPU_PP_SCHEDULE", "1f1b")
+    _jcfg, cfg = _cfgs()
+    fns = ttrain.build_gpt_train_pp(cfg, make_mesh(pp=1), device="cpu",
+                                    telemetry=False)
+    assert fns["schedule"] == "1f1b"
+    assert fns["num_microbatches"] == (want or 2)
