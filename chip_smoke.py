@@ -8,6 +8,7 @@
     python3 chip_smoke.py --profile train-pp   # the same for gpt2-train-pp
                                                # (GPipe, 1F1B) and
     python3 chip_smoke.py --profile train-moe  # gpt2-train-moe
+    python3 chip_smoke.py --profile train-stream  # gpt2-train-stream
     python3 chip_smoke.py --profile epilogue  # the epilogue entry points'
                                               # kernels at N = 24576
     python3 chip_smoke.py --profile ce     # the flash-CE entry points'
@@ -37,8 +38,13 @@
                                            # arm, then 8b with
                                            # gpt2-train-pp (8e) and
                                            # gpt2-train-moe (8f)
+    python3 chip_smoke.py --train-stream   # the kernels at the -stream
+                                           # shapes, the default arm,
+                                           # then gpt2-train-stream and
+                                           # the accumulation arm (8g)
     python3 chip_smoke.py --multi-gpu      # on four cards: the pipeline
-                                           # and MoE steps over NCCL
+                                           # and MoE steps and the
+                                           # elastic loop over NCCL
                                            # against one process's
     python3 chip_smoke.py --decode         # the decode checks and times
     python3 chip_smoke.py --edges          # the wgmma tile checks, the
@@ -273,6 +279,25 @@
    whose every layer keeps fewer than T * 2 assignments; prints
    ``train-moe metrics {...}`` (ms/step, peak GiB, the dispatch tensor's
    bytes).
+8g. gpt2-train-stream (``train_stream_phase``, after 8a): GPT-2 124M in
+   bf16 trains 6 steps from ``data.StreamingLoader`` (packed batches of
+   8 x 1024 from ``SyntheticDocs``, through the pinned double buffer)
+   with an async checkpoint every 2 (``resilience.TrainCheckpointer``),
+   launching per step exactly the epilogue pair per layer and the
+   flash-CE pair (packed attention is the plain segment attention, as in
+   the reference); the snapshot after step 4 is dropped and a second
+   loop resumes from step 4's: its losses and final parameters equal the
+   first loop's bit for bit if one whole step is (``determinism step``),
+   else within TRAIN_BF16_TOL.  The kernels are held to their plain
+   versions at 8 x 1024 first (``stream_shape_phase``, with the packed
+   batch's -1 targets), each piece of the step called twice for equal
+   bits (``determinism kernels``).  Then the accumulation arm:
+   ``accum_steps=2`` against 1 at the same width, unpacked: loss and
+   every gradient within TRAIN_BF16_TOL, exact launches.  Prints
+   ``train-stream metrics {...}`` (steady ms/step beside the dp arm's,
+   checkpoint write seconds on the background thread, the share of
+   steps that waited on input, peak GiB) and ``train-accum metrics
+   {...}``.
 9. Training correctness: one step's loss and every gradient of the
    kernel path against the port's plain path (local attention, unfused
    epilogue, dense CE) at full width and depth, batch 2 x 1024: in f32
@@ -1564,13 +1589,14 @@ def epilogue_bwd_check(rec: Recorder, randn, g, dev, N: int, *,
 
 
 def flash_ce_checks(rec: Recorder, randn, g, dev, N: int, *,
-                    own: bool = True) -> None:
+                    own: bool = True, targets=None) -> None:
     """flash-CE with the final-norm prologue at N rows: x the raw
     residual stream, w the tied embedding [V, d] at its init scale, one
-    target in seven masked; the forward, then the backward with the
-    cotangent of the summed loss (1), in bf16 against the plain versions
-    in f32 on the same inputs; ``own``: the rows' shape, with the f32
-    instantiations checked too."""
+    target in seven masked (or ``targets``: a packed batch's, ``-1`` at
+    every document's end and on padding); the forward, then the backward
+    with the cotangent of the summed loss (1), in bf16 against the plain
+    versions in f32 on the same inputs; ``own``: the rows' shape, with
+    the f32 instantiations checked too."""
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import _build
@@ -1581,9 +1607,12 @@ def flash_ce_checks(rec: Recorder, randn, g, dev, N: int, *,
     x = randn(N, d)
     w = randn(V, d, s=0.02)
     sc = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(bf)
-    tgt = torch.randint(0, V, (N,), generator=g, device=dev,
-                        dtype=torch.int32)
-    tgt[::7] = -1
+    if targets is None:
+        tgt = torch.randint(0, V, (N,), generator=g, device=dev,
+                            dtype=torch.int32)
+        tgt[::7] = -1
+    else:
+        tgt = targets.reshape(N).to(dev, torch.int32)
     srow = (tgt >= 0).float()
     eps = 1e-6
     lse, true, rstd = FC.flash_ce_fwd(x, w, tgt, (sc, eps))
@@ -4372,6 +4401,385 @@ def train_arms_phase(dev, default: dict) -> dict:
             "train_fused_ce": fused["launches"]}
 
 
+# gpt2-train-stream (8g): GPT-2 124M trains from the streaming data plane
+# (``data.StreamingLoader`` over ``run_train_stream_loop``'s
+# ``SyntheticDocs`` from the seed: documents of 128 to 768 tokens packed
+# whole into rows of 1024) at STREAM_B x 1024, a third of
+# gpt2-train-b24's rows: the plain segment attention holds f32 [B, H, S,
+# S] scores.  STREAM_STEPS steps, an async checkpoint every
+# STREAM_CKPT_EVERY; then the snapshots after step STREAM_STEPS -
+# STREAM_RESUMED are dropped (the run died there) and a second loop
+# restores the latest one and runs the last STREAM_RESUMED steps again.
+STREAM_B = 8
+STREAM_STEPS = 6
+STREAM_CKPT_EVERY = 2
+STREAM_RESUMED = 2
+# one packed step launches the epilogue pair per layer and the flash-CE
+# pair; attention on a packed batch is the plain segment attention, the
+# reference's route (``attention.py:1232-1237``: no Pallas kernel)
+STREAM_LAUNCHES = {"matmul_residual_norm_fwd": 12,
+                   "matmul_residual_norm_bwd": 12,
+                   "flash_ce_fwd": 1, "flash_ce_bwd": 1}
+# a pop of the prefetch queue that blocked the trainer longer than this
+# counts as a step that waited on input
+STREAM_WAIT_S = 1e-3
+
+
+def stream_packed_batch(dev=None) -> dict:
+    """The first batch of gpt2-train-stream's stream (host arrays, or
+    tensors on ``dev``)."""
+    from ray_tpu_torch.data import StreamingLoader, SyntheticDocs
+    S = TRAIN_S
+    src = SyntheticDocs(1, num_shards=4, docs_per_shard=256,
+                        vocab=TRAIN_V, min_len=S // 8, max_len=3 * S // 4)
+    with StreamingLoader(src, batch_size=STREAM_B, seq_len=S, seed=0,
+                         device_put=dev is not None, device=dev) as ld:
+        return ld.next().batch
+
+
+def _twice_equal(fn) -> bool:
+    """Whether two calls of ``fn`` on the same inputs give equal bits."""
+    a, b = fn(), fn()
+    a = a if isinstance(a, (tuple, list)) else (a,)
+    b = b if isinstance(b, (tuple, list)) else (b,)
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def stream_shape_phase(rec: Recorder, dev) -> dict:
+    """The training kernels at gpt2-train-stream's shapes, bf16 against
+    their plain versions in f32 at the bounds above, as extra shapes of
+    their rows: the epilogue forward and backward at N = STREAM_B x 1024
+    and flash-CE forward and backward on a packed batch's targets (-1 at
+    every document's end and on padding).  Then whether each piece of a
+    packed step gives equal bits on two calls (the epilogue pair,
+    flash-CE pair, cuBLAS at the step's projection shape, the segment
+    attention forward and backward, the embedding's backward); prints
+    ``determinism kernels {...}`` and returns it."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import flash_ce as FC
+    from ray_tpu_torch.ops import fused_norm as FN
+    from ray_tpu_torch.ops.attention import segment_attention
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    randn = _randn(g, dev)
+    N = STREAM_B * TRAIN_S
+    batch = stream_packed_batch(dev)
+    masked = int((batch["targets"] < 0).sum())
+    print(f"gpt2-train-stream kernels: N={N}, {masked} of the packed "
+          f"batch's targets masked", flush=True)
+    epilogue_fwd_check(rec, randn, g, dev, N, torch.bfloat16, own=False)
+    epilogue_bwd_check(rec, randn, g, dev, N, own=False)
+    flash_ce_checks(rec, randn, g, dev, N, own=False,
+                    targets=batch["targets"])
+    d, V = 768, TRAIN_V
+    a, w, resid = randn(N, d), randn(d, d, s=d ** -0.5), randn(N, d)
+    sc = torch.ones(d, device=dev, dtype=torch.bfloat16)
+    r, _y, rstd = FN.matmul_residual_norm_fwd(a, w, resid, sc)
+    up = randn(d, 4 * d, s=d ** -0.5)
+    x, head = randn(N, d), randn(V, d, s=0.02)
+    tgt = batch["targets"].reshape(N).to(torch.int32)
+    lse, _t, ce_rstd = FC.flash_ce_fwd(x, head, tgt, (sc, 1e-6))
+    srow = (tgt >= 0).float()
+    q, k, v = (randn(STREAM_B, TRAIN_S, TRAIN_H, TRAIN_D) for _ in range(3))
+    do = randn(STREAM_B, TRAIN_S, TRAIN_H, TRAIN_D)
+    table = randn(V, d, s=0.02)
+    dx = randn(STREAM_B, TRAIN_S, d)
+
+    def seg():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o = segment_attention(qq, kk, vv, batch["segment_ids"])
+        return (o, *torch.autograd.grad(o, (qq, kk, vv), do))
+
+    def embed_bwd():
+        t = table.detach().requires_grad_(True)
+        return torch.autograd.grad(t[batch["tokens"]], t, dx)[0]
+
+    out = {
+        "matmul_residual_norm_fwd": _twice_equal(
+            lambda: FN.matmul_residual_norm_fwd(a, w, resid, sc)),
+        "matmul_residual_norm_bwd": _twice_equal(
+            lambda: FN.matmul_residual_norm_bwd(a, w, r, sc, rstd, resid,
+                                                resid)),
+        "flash_ce_fwd": _twice_equal(
+            lambda: FC.flash_ce_fwd(x, head, tgt, (sc, 1e-6))),
+        "flash_ce_bwd": _twice_equal(
+            lambda: FC.flash_ce_bwd(x, head, tgt, lse, srow,
+                                    (sc, 1e-6, ce_rstd))),
+        "cublas_matmul": _twice_equal(lambda: a @ up),
+        "segment_attention_fwd_bwd": _twice_equal(seg),
+        "embedding_bwd": _twice_equal(embed_bwd),
+    }
+    torch.cuda.synchronize()
+    print("determinism kernels " + json.dumps(out), flush=True)
+    del a, w, resid, r, rstd, up, x, head, lse, q, k, v, do, table, dx
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stall_log():
+    """A data recorder that also keeps each pop's stall (the loader's
+    ``telemetry``), for the share of steps that waited on input."""
+    from ray_tpu_torch.telemetry import DataTelemetry
+
+    class StallLog(DataTelemetry):
+        def __init__(self):
+            super().__init__(label="gpt2-train-stream")
+            self.each = []
+
+        def record_stall(self, seconds: float) -> None:
+            self.each.append(float(seconds))
+            super().record_stall(seconds)
+
+    return StallLog()
+
+
+def _tree_pairs(a, b, prefix=""):
+    for k, v in a.items():
+        if isinstance(v, dict):
+            yield from _tree_pairs(v, b[k], prefix + k + "/")
+        else:
+            yield prefix + k, v, b[k]
+
+
+def stream_step_determinism(fns, cfg, dev) -> dict:
+    """Whether one whole packed step's loss and every gradient leaf come
+    out bit-equal on two calls on the same parameters and batch."""
+    params = fns["init_fn"](torch.Generator().manual_seed(3)).params
+    batch = stream_packed_batch(dev)
+    l1, g1 = fns["value_and_grad_fn"](params, batch)
+    l2, g2 = fns["value_and_grad_fn"](params, batch)
+    unequal = [n for n, x, y in _tree_pairs(g1, g2) if not torch.equal(x, y)]
+    out = {"loss_equal": bool(torch.equal(l1, l2)),
+           "grad_leaves": len(list(_tree_pairs(g1, g2))),
+           "grad_leaves_unequal": unequal}
+    print("determinism step " + json.dumps(out), flush=True)
+    del params, g1, g2
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_stream_phase(dev, default: dict) -> dict:
+    """gpt2-train-stream (above): the uninterrupted loop with its exact
+    launches, losses finite near ln V, the checkpoints written on the
+    background thread; the resumed loop from the last snapshot before
+    step STREAM_STEPS - STREAM_RESUMED, whose losses and final
+    parameters must equal the uninterrupted loop's bit for bit when
+    ``stream_step_determinism`` finds the step deterministic, and
+    otherwise within TRAIN_BF16_TOL's loss bound and its 0.06 of each
+    leaf's largest value.  Then the accumulation arm.  Prints
+    ``train-stream metrics {...}``; returns each loop's launches."""
+    import shutil
+    import statistics
+    import tempfile
+
+    from ray_tpu_torch import GPTConfig
+    from ray_tpu_torch.models.training import (build_gpt_train,
+                                               default_optimizer)
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.resilience import (TrainCheckpointer,
+                                          run_train_stream_loop)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = GPTConfig.gpt2(**TRAIN_CFG, dtype=torch.bfloat16)
+    fns = build_gpt_train(cfg, optimizer=default_optimizer(**TRAIN_OPT),
+                          device=dev, telemetry=False)
+    determinism = stream_step_determinism(fns, cfg, dev)
+    deterministic = determinism["loss_equal"] and \
+        not determinism["grad_leaves_unequal"]
+    step_s = []
+
+    def timed(_step, fn):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+        return out
+
+    kw = dict(steps=STREAM_STEPS, batch_size=STREAM_B, seq_len=TRAIN_S,
+              seed=0, fns=fns, device=dev)
+    root = tempfile.mkdtemp(prefix="gpt2-train-stream-")
+    try:
+        stalls = _stall_log()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.monotonic()
+        with TrainCheckpointer(root, every=STREAM_CKPT_EVERY,
+                               keep=STREAM_STEPS, telemetry=True) as ck:
+            full = run_train_stream_loop(cfg, ckpt=ck, step_hook=timed,
+                                         loader_kwargs={"telemetry": stalls},
+                                         **kw)
+            ck.flush()
+            wall = time.monotonic() - t0
+            written = ck.telemetry.summary()
+            snapshot_s = list(ck.snapshot_s)
+            cut = STREAM_STEPS - STREAM_RESUMED
+            kept = [c.path for c, m in ck.manager.best_checkpoints()
+                    if m["step"] <= cut]
+            for c, m in ck.manager.best_checkpoints():
+                if m["step"] > cut:          # the run died after step cut
+                    shutil.rmtree(c.path)
+        launches = _build.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        expect_launches(f"gpt2-train-stream ({STREAM_STEPS} steps)",
+                        launches, {k: n * STREAM_STEPS
+                                   for k, n in STREAM_LAUNCHES.items()})
+        # uniform random documents, each batch new: the loss stays near
+        # ln V (chance) rather than falling as on the dp arm's one batch
+        losses = full["losses"]
+        if not all(math.isfinite(x) and
+                   abs(x - math.log(cfg.vocab_size)) <= 0.5 for x in losses):
+            raise AssertionError(f"gpt2-train-stream losses {losses}")
+        if written["checkpoints"] != STREAM_STEPS // STREAM_CKPT_EVERY or \
+                written["failed"]:
+            raise AssertionError(f"gpt2-train-stream checkpoints {written}")
+        ckpt_bytes = os.path.getsize(os.path.join(kept[0],
+                                                  "train_state.pt"))
+        _build.reset_launches()
+        with TrainCheckpointer(root, every=STREAM_CKPT_EVERY,
+                               keep=STREAM_STEPS) as ck2:
+            t1 = time.monotonic()
+            rest = run_train_stream_loop(cfg, ckpt=ck2, resume=True, **kw)
+            resume_wall = time.monotonic() - t1
+        rlaunches = _build.launch_counts()
+        expect_launches(f"gpt2-train-stream resumed ({STREAM_RESUMED} "
+                        "steps)", rlaunches,
+                        {k: n * STREAM_RESUMED
+                         for k, n in STREAM_LAUNCHES.items()})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if rest["start_step"] != cut or rest["restored_from"] is None:
+        raise AssertionError(f"resume started at {rest['start_step']} "
+                             f"from {rest['restored_from']}")
+    loss_diff = max(abs(a - b) for a, b in zip(rest["losses"],
+                                               losses[cut:]))
+    worst_share, worst = 0.0, ""
+    params_equal = True
+    for name, x, y in _tree_pairs(rest["state"].params,
+                                  full["state"].params):
+        params_equal &= bool(torch.equal(x, y))
+        err = (x.float() - y.float()).abs().max().item()
+        share = err / (TRAIN_BF16_TOL["grad"]
+                       * y.float().abs().max().item() + 1e-30)
+        if share > worst_share:
+            worst_share, worst = share, name
+    bit_equal = rest["losses"] == losses[cut:] and params_equal
+    if deterministic and not bit_equal:
+        raise AssertionError(
+            "gpt2-train-stream: the step is deterministic but the resumed "
+            f"loop parts from the uninterrupted one (losses "
+            f"{rest['losses']} vs {losses[cut:]}, worst parameter {worst})")
+    if not (loss_diff <= TRAIN_BF16_TOL["loss_abs"] and worst_share <= 1):
+        raise AssertionError(f"gpt2-train-stream resume: loss diff "
+                             f"{loss_diff:.3e}, parameter {worst} "
+                             f"share_of_tol={worst_share:.3f}")
+    data = full["data"]
+    steady = statistics.median(step_s[2:]) * 1e3
+    waited = sum(s > STREAM_WAIT_S for s in stalls.each)
+    tokens = STREAM_B * TRAIN_S
+    metrics = {
+        "cell": "gpt2-train-stream", "card": card(),
+        "batch": [STREAM_B, TRAIN_S], "steps": STREAM_STEPS,
+        "step_ms": [1e3 * s for s in step_s], "step_ms_steady": steady,
+        "ms_per_1k_tokens": steady / tokens * 1e3,
+        "dp_step_ms": default["step_ms"],
+        "dp_batch": [TRAIN_B, TRAIN_S],
+        "dp_ms_per_1k_tokens": default["step_ms"] / (TRAIN_B * TRAIN_S)
+        * 1e3,
+        "packed_tokens_per_step": data.get("packed_tokens_per_batch"),
+        "input_tok_s": data["input_tok_s"],
+        "input_wait_share": waited / max(1, len(stalls.each)),
+        "stall_s_total": data["stall_s_total"],
+        "stall_s_max": data["stall_s_max"],
+        "loop_wall_s": wall,
+        "ckpt_write_s": written.get("write_s"),
+        "ckpt_write_max_s": written.get("write_max_s"),
+        "ckpt_snapshot_s": statistics.median(snapshot_s),
+        "ckpt_bytes": ckpt_bytes,
+        "resume_wall_s": resume_wall,
+        "max_memory_allocated_gib": peak,
+        "losses": losses,
+        "resumed_losses": rest["losses"],
+        "resume_bit_equal": bit_equal,
+        "resume_max_loss_diff": loss_diff,
+        "resume_worst_param_share": worst_share,
+        "step_deterministic": deterministic,
+    }
+    print(f"gpt2-train-stream: {STREAM_STEPS} steps, loss {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f}, launches per step {STREAM_LAUNCHES} "
+          f"exact; resumed from step {cut}: "
+          + ("bit-equal" if bit_equal else
+             f"loss within {loss_diff:.3e}, parameters within "
+             f"{worst_share:.3f} of the bound"), flush=True)
+    print("train-stream metrics " + json.dumps(metrics), flush=True)
+    del fns, full, rest
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"train_stream": add_launches(dict(launches), rlaunches)}
+    out["train_accum"] = train_accum_arm(dev)
+    return out
+
+
+def train_accum_arm(dev) -> dict:
+    """gpt2-train-stream's width unpacked at STREAM_B x 1024: one
+    ``value_and_grad_fn`` with ``accum_steps=2`` against ``accum_steps=1``
+    on the same parameters and batch (global-batch invariance held on
+    the gradients, not on an AdamW step: ROADMAP Queue 3 "looked like
+    faults" (b)): the loss within TRAIN_BF16_TOL's 2e-4, every gradient
+    leaf within its 0.06 of the leaf's largest value, exact launches
+    (every kernel once per microbatch); each arm timed on a second, warm
+    call.  Prints ``train-accum metrics {...}``; returns the first
+    calls' launches."""
+    from ray_tpu_torch import GPTConfig, init_params
+    from ray_tpu_torch.models.training import (build_gpt_train,
+                                               synthetic_lm_batch)
+    from ray_tpu_torch.ops import _build
+
+    cfg = GPTConfig.gpt2(**TRAIN_CFG, dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    batch = synthetic_lm_batch(torch.Generator().manual_seed(1), STREAM_B,
+                               TRAIN_S, cfg.vocab_size, device=dev)
+    runs, total = {}, {}
+    for k in (1, 2):
+        fns = build_gpt_train(cfg, accum_steps=k, device=dev,
+                              telemetry=False)
+        _build.reset_launches()
+        loss, grads = fns["value_and_grad_fn"](params, batch)
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+        t0 = time.monotonic()                   # a second call, warm
+        fns["value_and_grad_fn"](params, batch)
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t0) * 1e3
+        expect_launches(f"accum_steps={k}", launches,
+                        {n: c * k for n, c in TRAIN_LAUNCHES.items()})
+        total = add_launches(total, launches)
+        runs[k] = (float(loss), grads, ms)
+    dl = abs(runs[2][0] - runs[1][0])
+    worst_share, worst = 0.0, ""
+    for name, x, y in _tree_pairs(runs[2][1], runs[1][1]):
+        err = (x.float() - y.float()).abs().max().item()
+        share = err / (TRAIN_BF16_TOL["grad"]
+                       * y.float().abs().max().item() + 1e-30)
+        if not math.isfinite(share) or share > worst_share:
+            worst_share, worst = share, name
+    out = {"cell": "gpt2-train-accum", "card": card(),
+           "batch": [STREAM_B, TRAIN_S], "loss_k1": runs[1][0],
+           "loss_k2": runs[2][0], "loss_diff": dl,
+           "worst_grad": worst, "worst_grad_share_of_tol": worst_share,
+           "value_and_grad_ms_k1": runs[1][2],
+           "value_and_grad_ms_k2": runs[2][2]}
+    print("train-accum metrics " + json.dumps(out), flush=True)
+    if not (dl <= TRAIN_BF16_TOL["loss_abs"] and worst_share <= 1):
+        raise AssertionError(f"accum_steps=2 parts from accum_steps=1: "
+                             f"loss {dl:.3e}, {worst} {worst_share:.3f}")
+    del params, runs
+    torch.cuda.empty_cache()
+    return total
+
+
 # the cell "gpt2-train-worker": gpt2-train-b24 in a TorchTrainer worker
 # (num_gpus=1), its gradients reduced over the trainer's NCCL world of 1
 TRAIN_WORKER_TEL_TOL = 0.10     # recorder's steady step vs the window's
@@ -5284,6 +5692,31 @@ MULTI_MOE_CASES = [("moe-dp4", dict(dp=4)), ("moe-ep4", dict(ep=4)),
                    ("moe-dp2-ep2", dict(dp=2, ep=2)),
                    ("moe-ep2-tp2", dict(ep=2, tp=2))]
 MULTI_CALLS = 5
+# the elastic loop over the four ranks: {fsdp 4} -> {fsdp 2} (the first
+# two ranks, accum_steps 2) -> {fsdp 4} under this plan, against the
+# uninterrupted 4-rank run, in f32 with plain SGD (the reference test's
+# optimizer, so the losses test the data and state movement); losses
+# within the reference test's rel=1e-4, abs=1e-5
+ELASTIC_STEPS = 8
+ELASTIC_PLAN = "mesh.loss@3,mesh.restore@6"
+ELASTIC_TOL = dict(rel=1e-4, abs=1e-5)
+
+
+class PlainSGD:
+    """``optax.sgd(lr)`` on the port's tensors, in place."""
+
+    def __init__(self, lr: float = 1e-2):
+        self.lr = lr
+
+    def init(self, params):
+        return None
+
+    @torch.no_grad()
+    def update(self, grads, state, params, g_norm=None):
+        from ray_tpu_torch.models.training import _leaves
+        for p, g in zip(_leaves(params), _leaves(grads)):
+            p.copy_(p + (-self.lr) * g)
+        return state
 
 
 def _multi_gpu_rank(rank: int, store: str, out: str,
@@ -5380,10 +5813,41 @@ def _multi_gpu_rank(rank: int, store: str, out: str,
         results[name]["ms"] = timed(
             lambda: fns["value_and_grad_fn"](state.params, local))
         del fns, state, grads, gathered
+    results["elastic"] = _elastic_case(base, full, dev)
     if rank == 0:
         with open(out, "w") as f:
             json.dump(results, f)
     dist.destroy_process_group()
+
+
+def _elastic_case(cfg, full, dev) -> dict:
+    """The elastic loop (``resilience.run_elastic_train_loop``) on this
+    world, uninterrupted and under ELASTIC_PLAN, from the same
+    parameters and batches."""
+    from ray_tpu_torch.resilience import run_elastic_train_loop
+    from ray_tpu_torch.util import chaos
+    kw = dict(steps=ELASTIC_STEPS, batch_size=MULTI_B, seq_len=TRAIN_S,
+              params=full, optimizer=PlainSGD(), device=dev,
+              topologies={}, telemetry=True)
+    base = run_elastic_train_loop(cfg, **kw)
+    plan = chaos.install_faults(ELASTIC_PLAN)
+    t0 = time.monotonic()
+    rec = run_elastic_train_loop(cfg, **kw)
+    wall = time.monotonic() - t0
+    chaos.clear_faults()
+    # (a rank outside the shrunk mesh has no loss for its steps)
+    rel = max(abs(a - b) / max(abs(b), 1e-30)
+              for a, b in zip(rec["losses"], base["losses"])
+              if a is not None)
+    return {"losses": rec["losses"], "base_losses": base["losses"],
+            "batch_cursors": rec["batch_cursors"],
+            "base_cursors": base["batch_cursors"],
+            "fired": [f[0] for f in plan.fired],
+            "transitions": rec["transitions"],
+            "accum_steps": rec["accum_steps"],
+            "final_devices": rec["final_devices"],
+            "max_loss_rel": rel, "seconds": wall,
+            "elastic": rec["elastic"]}
 
 
 def multi_gpu_phase() -> dict:
@@ -5408,6 +5872,7 @@ def multi_gpu_phase() -> dict:
                        nprocs=MULTI_WORLD, join=True, start_method="spawn")
     with open(out) as f:
         results = json.load(f)
+    elastic = results.pop("elastic")
     for name, r in results.items():
         print(f"multi-gpu {name}: loss {r['loss']:.6f} vs single process "
               f"{r['ref_loss']:.6f} (relative {r['loss_rel']:.3e}), worst "
@@ -5417,9 +5882,23 @@ def multi_gpu_phase() -> dict:
                 and r["worst_share"] <= TRAIN_F32_TOL["grad"]):
             raise AssertionError(f"multi-gpu {name}: parts from the "
                                  "single-process step")
+    moves = [(t["kind"], t["from"], t["to"]) for t in elastic["transitions"]]
+    print(f"multi-gpu elastic: {moves}, accum_steps back to "
+          f"{elastic['accum_steps']}; losses {elastic['losses']} vs "
+          f"uninterrupted {elastic['base_losses']} (worst relative "
+          f"{elastic['max_loss_rel']:.3e})", flush=True)
+    if not (moves == [("shrink", 4, 2), ("expand", 2, 4)]
+            and elastic["batch_cursors"] == elastic["base_cursors"]
+            and elastic["accum_steps"] == 1
+            and all(abs(a - b) <= max(ELASTIC_TOL["abs"],
+                                      ELASTIC_TOL["rel"] * abs(b))
+                    for a, b in zip(elastic["losses"],
+                                    elastic["base_losses"]))):
+        raise AssertionError(f"multi-gpu elastic loop: {elastic}")
     metrics = {"cell": "gpt2-multi-gpu", "cards": MULTI_WORLD,
                "card": card(), "batch": [MULTI_B, TRAIN_S],
-               "seconds": time.monotonic() - t0, "cases": results}
+               "seconds": time.monotonic() - t0, "cases": results,
+               "elastic": elastic}
     print("multi-gpu metrics " + json.dumps(metrics), flush=True)
     return metrics
 
@@ -5815,14 +6294,15 @@ def start_up() -> str:
 
 def report(what, prof, wall, steps, top=8, groups=None):
     """The busiest device-side events of a profile (kernels, copies; an
-    operator's device time is its kernels', which would count twice) and
-    the device's busy share of the wall time.  ``groups`` (label: name
-    substrings) adds each group's device time per step, its kernels
-    listed, and the rest's."""
+    operator's device time is its kernels', and a ``record_function``
+    range's (``spec/...``, ``attn/...``) the span of the kernels inside
+    it, both of which would count twice) and the device's busy share of
+    the wall time.  ``groups`` (label: name substrings) adds each group's
+    device time per step, its kernels listed, and the rest's."""
     evs = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA
            and e.self_device_time_total > 0
-           and not e.key.startswith("spec/")]
+           and not e.key.startswith(("spec/", "attn/"))]
     busy = sum(e.self_device_time_total for e in evs) / 1e3
     print(f"profile {what}: wall {1e3 * wall / steps:.3f} ms/step, "
           f"device busy {busy / steps:.3f} ms/step "
@@ -6023,8 +6503,10 @@ def spec_profile_phase(params, cfg, dev, *, kv_dtype: str = "model"
 # and cuBLAS's matmuls (nvjet, cutlass and xmma kernels; the rest:
 # PyTorch's elementwise, copy, scan and reduction kernels).  No kernel
 # name may match both groups (the port's CE GEMM is "ce_gemm_kernel")
-TRAIN_GROUPS = {"port kernels": ("flash_", "mrn_", "ce_", "dscale_sum",
-                                 "rmsnorm"),
+# (flash-CE's kernels are matched after a space or "::": a bare "ce_"
+# also matches PyTorch's "reduce_kernel")
+TRAIN_GROUPS = {"port kernels": ("flash_", "mrn_", " ce_", "::ce_",
+                                 "dscale_sum", "rmsnorm"),
                 "cuBLAS": ("nvjet", "cutlass", "xmma")}
 
 
@@ -6032,7 +6514,8 @@ def train_profile_phase(dev, cell: str = "gpt2-train-b24") -> None:
     """Where one training step of ``cell`` spends its device time
     (torch.profiler), after two unprofiled steps: gpt2-train-b24,
     gpt2-train-pp-gpipe / -1f1b (``build_gpt_train_pp`` on one stage, M =
-    PP_M) or gpt2-train-moe (batch MOE_B), split by TRAIN_GROUPS."""
+    PP_M), gpt2-train-moe (batch MOE_B) or gpt2-train-stream (its first
+    packed batch), split by TRAIN_GROUPS."""
     from torch.profiler import ProfilerActivity, profile
 
     from ray_tpu_torch import GPTConfig
@@ -6053,9 +6536,12 @@ def train_profile_phase(dev, cell: str = "gpt2-train-b24") -> None:
         fns = build_gpt_train(cfg, optimizer=opt, device=dev,
                               telemetry=False)
     state = fns["init_fn"](torch.Generator().manual_seed(0))
-    batch = synthetic_lm_batch(torch.Generator().manual_seed(1),
-                               MOE_B if moe_kw else TRAIN_B, TRAIN_S,
-                               cfg.vocab_size, device=dev)
+    if cell == "gpt2-train-stream":
+        batch = stream_packed_batch(dev)
+    else:
+        batch = synthetic_lm_batch(torch.Generator().manual_seed(1),
+                                   MOE_B if moe_kw else TRAIN_B, TRAIN_S,
+                                   cfg.vocab_size, device=dev)
     for _ in range(2):
         state, _m = fns["step_fn"](state, batch)
     torch.cuda.synchronize()
@@ -6153,6 +6639,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--profile", "train-moe"]:
         train_profile_phase(dev, "gpt2-train-moe")
+        return
+    if sys.argv[1:] == ["--profile", "train-stream"]:
+        train_profile_phase(dev, "gpt2-train-stream")
         return
     if sys.argv[1:] == ["--profile", "epilogue"]:
         epilogue_profile_phase(dev)
@@ -6254,6 +6743,17 @@ def main() -> None:
               + json.dumps({p: _nonzero(n) for p, n in paths.items()}),
               flush=True)
         return
+    if sys.argv[1:] == ["--train-stream"]:
+        stream_shape_phase(Recorder(name), dev)
+        train = train_phase(dev)
+        train.pop("launches")
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths = train_stream_phase(dev, train)
+        print("train-stream: every check passed; launches "
+              + json.dumps({p: _nonzero(n) for p, n in paths.items()}),
+              flush=True)
+        return
     if sys.argv[1:] == ["--train-sharded"]:
         rec = Recorder(name)
         randn = _randn(torch.Generator(device=dev).manual_seed(1), dev)
@@ -6300,6 +6800,7 @@ def main() -> None:
     train_kernel_phase(rec, dev)
     tp_attention_phase(rec, dev)
     stage_shape_phase(rec, dev)
+    stream_shape_phase(rec, dev)
     clock.lap("training kernels")
     from ray_tpu_torch import GPTConfig, init_params
     cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
@@ -6336,6 +6837,8 @@ def main() -> None:
           f"{train_norm['step_ms']:.2f} with the RMSNorm kernels", flush=True)
     paths.update(train_arms_phase(dev, train))
     clock.lap("training (8, 8a)")
+    paths.update(train_stream_phase(dev, train))
+    clock.lap("train stream (8g)")
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(train_worker_phase(dev, train, sharded=True, overlap=True,

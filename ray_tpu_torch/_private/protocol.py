@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import select
 import socket
 import socketserver
 import struct
@@ -69,7 +70,12 @@ class ConnectionClosed(ConnectionError):
 
 class MaybeDelivered(ConnectionError):
     """A request was sent whole, then its connection closed before the
-    reply: the server may have received it and acted on it."""
+    reply: the server read it and may have acted on it."""
+
+
+class Fenced(ConnectionError):
+    """A server refused a request it can no longer answer for (an actor
+    worker whose node manager is gone): the request was not taken."""
 
 
 def send_frame(sock: socket.socket, payload: bytes) -> None:
@@ -108,12 +114,20 @@ class RpcServer:
     ``("err", exc)``.  Connections may also be *hijacked*: if the handler
     method name starts with ``stream_`` it receives the raw socket and owns
     the connection from then on (used for worker task channels).
+
+    ``gate`` (optional): an object whose ``admit()`` is asked once a
+    request has arrived and before it is read, and whose ``done()`` is
+    called once its reply is sent.  An ``admit()`` of False closes the
+    connection with the request unread, so the client sees a reset and
+    knows the request was not taken (``RpcClient.call_once``).
     """
 
-    def __init__(self, sock_path: str, handler: Any, name: str = "rpc"):
+    def __init__(self, sock_path: str, handler: Any, name: str = "rpc",
+                 gate: Any = None):
         self.sock_path = sock_path
         self.handler = handler
         self.name = name
+        self.gate = gate
         if is_tcp_address(sock_path):
             host, port = parse_tcp_address(sock_path)
             self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -144,37 +158,57 @@ class RpcServer:
                                  name=f"{self.name}-conn", daemon=True)
             t.start()
 
+    def _admit(self, conn: socket.socket) -> bool:
+        """Wait for the next request (or the peer's close) and ask the
+        gate whether to read it."""
+        poller = select.poll()
+        poller.register(conn, select.POLLIN)
+        poller.poll()
+        return self.gate.admit()
+
     def _serve_conn(self, conn: socket.socket):
+        gate = self.gate
         try:
             while True:
-                try:
-                    req = recv_msg(conn)
-                except (ConnectionClosed, ConnectionResetError, OSError,
-                        EOFError):
+                if gate is not None and not self._admit(conn):
                     return
-                kind = req[0]
-                if kind != "call":
-                    send_msg(conn, ("err", ValueError(f"bad frame {kind}")))
-                    continue
-                _, method, args, kwargs = req
-                if method.startswith("stream_"):
-                    # Connection handoff: handler owns the socket now.
-                    fn = getattr(self.handler, method)
-                    fn(conn, *args, **kwargs)
-                    return
+                held = gate is not None
                 try:
-                    fn = getattr(self.handler, method)
-                    if method.startswith("_"):
-                        raise AttributeError(method)
-                    result = fn(*args, **kwargs)
-                    reply = ("ok", result)
-                except BaseException as e:  # noqa: BLE001 - ship to caller
-                    e._remote_tb = traceback.format_exc()  # type: ignore
-                    reply = ("err", e)
-                try:
-                    send_msg(conn, reply)
-                except (BrokenPipeError, OSError):
-                    return
+                    try:
+                        req = recv_msg(conn)
+                    except (ConnectionClosed, ConnectionResetError, OSError,
+                            EOFError):
+                        return
+                    kind = req[0]
+                    if kind != "call":
+                        send_msg(conn, ("err",
+                                        ValueError(f"bad frame {kind}")))
+                        continue
+                    _, method, args, kwargs = req
+                    if method.startswith("stream_"):
+                        # Connection handoff: handler owns the socket now.
+                        if held:
+                            gate.done()
+                            held = False
+                        fn = getattr(self.handler, method)
+                        fn(conn, *args, **kwargs)
+                        return
+                    try:
+                        fn = getattr(self.handler, method)
+                        if method.startswith("_"):
+                            raise AttributeError(method)
+                        result = fn(*args, **kwargs)
+                        reply = ("ok", result)
+                    except BaseException as e:  # noqa: BLE001 - to caller
+                        e._remote_tb = traceback.format_exc()  # type: ignore
+                        reply = ("err", e)
+                    try:
+                        send_msg(conn, reply)
+                    except (BrokenPipeError, OSError):
+                        return
+                finally:
+                    if held:
+                        gate.done()
         finally:
             try:
                 conn.close()
@@ -231,9 +265,10 @@ class RpcClient:
 
     def call_once(self, method: str, *args, **kwargs) -> Any:
         """:meth:`call` for a request that must not run twice: a stale
-        cached connection is replaced only while nothing was sent, and a
-        connection lost once the request went out raises
-        :class:`MaybeDelivered` instead of sending it again."""
+        cached connection is replaced only while the server has not read
+        the request (the send failed, or the connection was reset with
+        it unread), and a connection that closes once the server read it
+        raises :class:`MaybeDelivered` instead of sending it again."""
         for attempt in (0, 1):
             sock = self._conn()
             try:
@@ -246,8 +281,16 @@ class RpcClient:
                 continue
             try:
                 status, payload = recv_msg(sock)
-            except (ConnectionClosed, ConnectionResetError, BrokenPipeError,
-                    OSError) as e:
+            except ConnectionResetError:
+                # the server closed with the request unread in its queue
+                # (AF_UNIX sets ECONNRESET on the peer of a socket closed
+                # with unread data; TCP answers such a close with a
+                # reset): it never took the request, so it may go again
+                self._local.sock = None
+                if attempt == 1:
+                    raise
+                continue
+            except (ConnectionClosed, BrokenPipeError, OSError) as e:
                 self._local.sock = None
                 raise MaybeDelivered(
                     f"{method}: connection to {self.sock_path} closed after "

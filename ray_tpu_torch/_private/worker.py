@@ -831,7 +831,9 @@ class CoreWorker:
                     self._maybe_delivered[spec.task_id] = direct.sock_path
                     self._record_inflight(spec, streaming, incarnation)
                     return
-                except Exception:  # noqa: BLE001 — stale addr: relay
+                except Exception:  # noqa: BLE001 — stale addr, or the
+                    # call was never taken (refused, reset unread, or
+                    # protocol.Fenced by an orphan): relay it
                     if oid is not None:
                         with self._direct_pending_lock:
                             self._direct_pending.pop(oid, None)

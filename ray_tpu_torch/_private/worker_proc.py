@@ -90,6 +90,14 @@ class WorkerProcess:
             collections.deque()
         self._late_notify: "set[bytes]" = set()
         self._seen_lock = threading.Lock()
+        # the fence: once the node manager is gone the direct server
+        # reads no new request, and the requests it read are answered
+        # and the calls it took run to their end before the process
+        # exits (_fence)
+        self._fence_cond = threading.Condition()
+        self._fenced = False
+        self._direct_busy = 0          # direct requests read, unanswered
+        self._direct_taken: "set[bytes]" = set()
 
     def _send(self, msg: Dict[str, Any]):
         with self._send_lock:
@@ -103,10 +111,12 @@ class WorkerProcess:
             except (protocol.ConnectionClosed, ConnectionResetError,
                     OSError, EOFError):
                 # NM channel dropped without an "exit" handshake: the
-                # node manager died.  Exit NOW — a lingering actor
+                # node manager died.  Exit now — a lingering actor
                 # worker keeps answering cached direct-channel calls,
                 # split-braining with the incarnation the health loop
-                # restarts elsewhere.
+                # restarts elsewhere — but only once the direct calls
+                # it took have run (_fence).
+                self._fence()
                 sys.stdout.flush()
                 sys.stderr.flush()
                 os._exit(1)
@@ -407,8 +417,11 @@ class WorkerProcess:
             self._send({"type": "done", "task_id": spec.task_id,
                         "error": error})
         if not notify_nm:
-            self._push_direct_result(spec, error, inline)
-            self._purge_direct_pins(spec)
+            try:
+                self._push_direct_result(spec, error, inline)
+                self._purge_direct_pins(spec)
+            finally:
+                self._direct_done(spec.task_id)
 
     def _push_direct_result(self, spec: TaskSpec, error: bool,
                             inline: "Optional[bytes]") -> None:
@@ -433,10 +446,62 @@ class WorkerProcess:
         except (OSError, BrokenPipeError):  # caller gone: CP path holds
             pass
 
+    def _nm_alive(self) -> bool:
+        """Whether the node manager's channel is still open: a peek that
+        neither blocks nor consumes (the main thread owns the reads)."""
+        try:
+            return self.stream.recv(
+                1, socket.MSG_PEEK | socket.MSG_DONTWAIT) != b""
+        except BlockingIOError:
+            return True
+        except OSError:
+            return False
+
+    def _fence(self, timeout: float = 1.0) -> None:
+        """The node manager is gone: the direct server reads no new
+        request (it closes the connection with the request unread, which
+        its caller sees as a reset), and this waits, at most ``timeout``
+        seconds, until every request already read is answered and every
+        call taken has committed its result.  A call this process took is
+        answered by it; one it did not goes to the next incarnation."""
+        with self._fence_cond:
+            self._fenced = True
+            self._fence_cond.wait_for(
+                lambda: not self._direct_taken and not self._direct_busy,
+                timeout)
+
+    def _direct_done(self, task_id: bytes) -> None:
+        with self._fence_cond:
+            self._direct_taken.discard(task_id)
+            self._fence_cond.notify_all()
+
+    class _DirectGate:
+        """The direct server's gate (``protocol.RpcServer``): a request
+        is read only while the process is not fenced."""
+
+        def __init__(self, proc: "WorkerProcess"):
+            self._proc = proc
+
+        def admit(self) -> bool:
+            proc = self._proc
+            with proc._fence_cond:
+                if proc._fenced:
+                    return False
+                proc._direct_busy += 1
+                return True
+
+        def done(self) -> None:
+            proc = self._proc
+            with proc._fence_cond:
+                proc._direct_busy -= 1
+                proc._fence_cond.notify_all()
+
     def _dispatch_actor_task(self, spec: TaskSpec,
-                             notify_nm: bool = True):
+                             notify_nm: bool = True) -> bool:
+        """Run or queue an actor call; False when it was a duplicate
+        delivery and nothing was dispatched."""
         if self._dedup(spec, notify_nm):
-            return
+            return False
         if self.is_async_actor and self.actor_loop is not None:
             asyncio.run_coroutine_threadsafe(
                 self._run_actor_task_async(spec, notify_nm),
@@ -445,6 +510,7 @@ class WorkerProcess:
             self.actor_pool.submit(self._run_actor_task, spec, notify_nm)
         else:
             self._run_actor_task(spec, notify_nm)
+        return True
 
     # ------------------------------------------------------------------
     # Direct caller->callee channel.  Reference:
@@ -460,8 +526,19 @@ class WorkerProcess:
             """Enqueue one actor call; returns once queued (results
             travel through the object store as usual).  Per-caller
             ordering: RpcClient conns are FIFO and the actor executor
-            drains submissions in order."""
-            self._proc._dispatch_actor_task(spec, notify_nm=False)
+            drains submissions in order.  Once this process's node
+            manager is gone the call is refused with
+            :class:`protocol.Fenced`, untaken: the caller sends it on to
+            the next incarnation."""
+            proc = self._proc
+            with proc._fence_cond:
+                if proc._fenced or not proc._nm_alive():
+                    raise protocol.Fenced(
+                        "actor worker's node manager is gone: call "
+                        "refused, not taken")
+                proc._direct_taken.add(spec.task_id)
+            if not proc._dispatch_actor_task(spec, notify_nm=False):
+                proc._direct_done(spec.task_id)
             return True
 
         def task_seen(self, task_id: bytes) -> bool:
@@ -510,6 +587,7 @@ class WorkerProcess:
         try:
             self._direct_server = protocol.RpcServer(
                 path, self._DirectHandler(self),
+                gate=self._DirectGate(self),
                 name=f"actor-{actor_id.hex()[:6]}")
             self.cp.call("update_actor", actor_id,
                          direct_addr=self._direct_server.address)

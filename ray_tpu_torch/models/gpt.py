@@ -459,10 +459,23 @@ def embed_tokens(params: Params, tokens, cfg: GPTConfig, *, mesh=None):
     return comm.reduce_from_group(x, sh.tp)
 
 
+def _with_segments(attn_fn: Callable, segment_ids) -> Callable:
+    """``attn_fn`` with ``segment_ids`` closed over, keeping the
+    ``fused_rope`` mark ``layer_apply`` dispatches on
+    (``gpt.py:_with_segments``).  Every attention hook of the port
+    (``local_attention``, ``flash_attention`` and the
+    ``make_flash_attention_fn`` wrappers) takes the keyword and runs
+    ``ops.attention.segment_attention`` for it."""
+    fn = functools.partial(attn_fn, segment_ids=segment_ids)
+    fn.fused_rope = getattr(attn_fn, "fused_rope", False)
+    return fn
+
+
 def forward_hidden(params: Params, tokens, cfg: GPTConfig, *,
                    attn_fn: Optional[Callable] = None,
                    fuse_norm: Optional[bool] = None,
-                   final_norm: bool = True, positions=None, mesh=None):
+                   final_norm: bool = True, positions=None, mesh=None,
+                   segment_ids=None):
     """tokens [B, S] int -> (final hidden [B, S, d], aux).
 
     ``attn_fn(q, k, v) -> out`` defaults to causal ``local_attention``
@@ -472,11 +485,24 @@ def forward_hidden(params: Params, tokens, cfg: GPTConfig, *,
     and returns the raw residual stream (for the fused-norm CE).
     ``mesh``: ``params`` are this rank's shards on it (``layer_apply``);
     ``tokens`` and ``positions`` are this rank's rows and, under sp, its
-    sequence shard with that shard's global positions."""
+    sequence shard with that shard's global positions.
+
+    ``segment_ids``/``positions`` [B, S] carry a sample-packed batch
+    (``data.SamplePacker``): attention masks block-diagonally per
+    segment and RoPE restarts at every document start, so the packed
+    forward equals the per-document unpacked one."""
     check_supported(cfg)
     S = tokens.shape[1]
     if attn_fn is None:
         attn_fn = functools.partial(local_attention, causal=True)
+    if segment_ids is not None:
+        if positions is None:
+            # arange positions across packed documents would break the
+            # packed == per-document parity: RoPE restarts per document
+            raise ValueError(
+                "segment_ids without positions: a packed batch needs "
+                "its per-document positions (SamplePacker emits both)")
+        attn_fn = _with_segments(attn_fn, segment_ids)
     x = embed_tokens(params, tokens, cfg, mesh=mesh)
     if positions is None:
         positions = torch.arange(S, device=tokens.device)
@@ -545,12 +571,13 @@ def lm_head(params: Params, cfg: GPTConfig, *, mesh=None):
 
 def forward(params: Params, tokens, cfg: GPTConfig, *,
             attn_fn: Optional[Callable] = None,
-            fuse_norm: Optional[bool] = None, positions=None, mesh=None):
+            fuse_norm: Optional[bool] = None, positions=None, mesh=None,
+            segment_ids=None):
     """tokens [B, S] int -> (logits [B, S, V] f32, aux); under tp each
     rank's vocabulary columns are all-gathered into the full V."""
     x, aux = forward_hidden(params, tokens, cfg, attn_fn=attn_fn,
                             fuse_norm=fuse_norm, positions=positions,
-                            mesh=mesh)
+                            mesh=mesh, segment_ids=segment_ids)
     tp = _tp_group(_shards(mesh))
     logits = torch.matmul(comm.copy_to_group(x, tp),
                           lm_head(params, cfg, mesh=mesh))
@@ -697,17 +724,19 @@ def loss_fn(params: Params, batch, cfg: GPTConfig, *,
     ``fuse_norm`` (None means on) pins the fused norm epilogues: the
     per-layer out-proj epilogue, and, when the flash-CE-with-norm gate
     passes, ``ln_f`` folded into the vocab-matmul kernel's prologue
-    instead of running here."""
-    if batch.get("segment_ids") is not None:
-        raise NotImplementedError(
-            "sample-packed batches (segment_ids) are not ported yet "
-            "(ROADMAP Queue 1 item 10: the data-plane slice)")
+    instead of running here.
+
+    A sample-packed batch also carries ``segment_ids`` and ``positions``
+    [B, S] (``ray_tpu_torch.data``): attention masks block-diagonally
+    and positions restart per document; the packer's ``targets``
+    already mask document ends and padding with ``-1``."""
     B, S = batch["tokens"].shape
     ce_norm = uses_ce_norm(cfg, B * S, batch["tokens"].device,
                            ce_mode=ce_mode, fuse_norm=fuse_norm, mesh=mesh)
     x, aux = forward_hidden(params, batch["tokens"], cfg, attn_fn=attn_fn,
                             fuse_norm=fuse_norm, final_norm=not ce_norm,
-                            positions=batch.get("positions"), mesh=mesh)
+                            positions=batch.get("positions"), mesh=mesh,
+                            segment_ids=batch.get("segment_ids"))
     loss = loss_from_hidden(params, x, batch["targets"], cfg,
                             ce_mode=ce_mode,
                             norm_scale=params["ln_f"] if ce_norm else None,

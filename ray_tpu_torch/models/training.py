@@ -229,6 +229,25 @@ def value_and_grad(loss: Callable, params: Params, batch
     return val.detach(), _rebuild(params, grads)
 
 
+def default_accum_steps() -> int:
+    """``RAY_TPU_ACCUM`` (default 1): the microbatch count
+    :func:`build_gpt_train` takes when ``accum_steps`` is not pinned
+    (``training.py:default_accum_steps``) — the global-batch knob of
+    elastic training: a mesh that shrinks by k multiplies it by k."""
+    import os
+    raw = os.environ.get("RAY_TPU_ACCUM", "1")
+    try:
+        k = int(raw)
+    except ValueError:
+        print(f"RAY_TPU_ACCUM={raw!r} is not an integer; using 1",
+              file=sys.stderr)
+        return 1
+    if k < 1:
+        print(f"RAY_TPU_ACCUM={k} must be >= 1; using 1", file=sys.stderr)
+        return 1
+    return k
+
+
 def _split_microbatches(batch: Dict[str, Any], accum_steps: int):
     sizes = {k: v.shape[0] for k, v in batch.items()}
     bad = {k: b for k, b in sizes.items() if b % accum_steps}
@@ -345,7 +364,7 @@ def _sharded_global_norm(grads: Params, specs, groups) -> torch.Tensor:
     """The global norm of a tree of shards, each element counted once: a
     leaf's sum of squares comes from the ranks at coordinate 0 along the
     mesh axes that replicate it (those its spec does not name), summed
-    over the world."""
+    over the mesh's ranks."""
     import torch.distributed as dist
     mesh_axes = [a for a, n in groups.sizes.items() if n > 1]
     parts = []
@@ -356,7 +375,8 @@ def _sharded_global_norm(grads: Params, specs, groups) -> torch.Tensor:
         parts.append(g.float().square().sum() if owner else
                      torch.zeros((), dtype=torch.float32, device=g.device))
     total = torch.stack(parts)
-    dist.all_reduce(total)
+    if groups.mesh is not None:
+        dist.all_reduce(total, group=groups.mesh)
     return torch.sqrt(total.sum())
 
 
@@ -405,7 +425,7 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
                     optimizer: Optional[DefaultOptimizer] = None,
                     ce_mode: Optional[str] = None,
                     fuse_norm: Optional[bool] = None,
-                    accum_steps: int = 1, device=None,
+                    accum_steps: Optional[int] = None, device=None,
                     sp_impl: str = "ring",
                     comm_mode: Optional[str] = None,
                     comm_quant: Optional[str] = None,
@@ -430,7 +450,8 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
     ``ce_mode``
     ("flash" default, "fused" with ``cfg.ce_chunk < 0``, or "xla") and
     ``fuse_norm`` (None means on) pin the loss head and the fused
-    epilogues; ``accum_steps`` runs the step as that many microbatches
+    epilogues; ``accum_steps`` (None: ``RAY_TPU_ACCUM``,
+    :func:`default_accum_steps`) runs the step as that many microbatches
     with f32 gradient accumulation and one update; ``cfg.remat``
     recomputes each block in the backward.  ``mesh``: a mesh of
     ``parallel.mesh.make_mesh`` over ``dcn``, ``dp``, ``fsdp``, ``sp``
@@ -452,7 +473,8 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
                          "'ulysses'")
     if lora:
         raise _unported("trainable-adapter mode (lora=)", "11")
-    accum_steps = int(accum_steps)
+    accum_steps = (default_accum_steps() if accum_steps is None
+                   else int(accum_steps))
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     gpt_mod.check_supported(cfg)
@@ -511,9 +533,8 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
         if params is None:
             params = gpt_mod.init_params(cfg, generator, device=dev)
         if not local_tree(params):
-            if groups.grouped:
-                import torch.distributed as dist
-                _broadcast_from_first(params, dist.group.WORLD)
+            if groups.grouped and groups.mesh is not None:
+                _broadcast_from_first(params, groups.mesh)
             if sharded:
                 params = shd.shard_params(params, mesh, logical)
         return TrainState(params, tx.init(params), 0)
@@ -897,9 +918,8 @@ def build_gpt_train_pp(cfg: "gpt_mod.GPTConfig", mesh, *,
         if params is None:
             params = gpt_mod.init_params(cfg, generator, device=dev)
         if kind != "local":
-            if groups.grouped:
-                import torch.distributed as dist
-                _broadcast_from_first(params, dist.group.WORLD)
+            if groups.grouped and groups.mesh is not None:
+                _broadcast_from_first(params, groups.mesh)
             if kind == "full":
                 params = stack_stages(params, pp)
             params = shd.shard_params(params, mesh, logical, rules)

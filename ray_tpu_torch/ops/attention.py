@@ -291,6 +291,41 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def segment_attention(q, k, v, segment_ids, *, causal: bool = True,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """Packed-batch attention: block-diagonal masking by segment
+    (``attention.py:segment_attention``, plain XLA there and plain
+    PyTorch here: it has no Pallas kernel, so no Hopper kernel).
+
+    q, k, v: ``[B, S, H, D]``; ``segment_ids``: ``[B, S]``, the sample
+    packer's per-row document index (1-based; ``0`` = padding).
+    Position ``i`` attends to ``j`` iff ``seg[i] == seg[j]``, both are
+    nonzero, and (``causal``) ``j <= i``.  Scores and the softmax
+    statistics are f32 (``preferred_element_type`` there: bf16 products
+    are exact in f32); the probabilities are rounded to v's dtype before
+    the second product, as the reference rounds them.  Fully masked rows
+    (padding queries) normalize against a floor and come out zero, not
+    NaN; their targets are ``-1``, so no loss or gradient flows through
+    them.  The f32 ``[B, H, S, S]`` scores are the memory cost."""
+    B, S, H, D = q.shape
+    if scale is None:
+        scale = D ** -0.5
+    seg = segment_ids.to(torch.int32)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = ((seg[:, None, :, None] == seg[:, None, None, :])
+            & (seg[:, None, :, None] > 0))
+    if causal:
+        mask = mask & torch.ones(S, S, dtype=torch.bool,
+                                 device=q.device).tril()
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    l_q = l.transpose(1, 2)                       # [B, S, H, 1]
+    return (o / l_q.clamp_min(1e-30)).to(q.dtype)
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: Optional[float] = None, positions=None,
                     rope_theta: float = 10000.0,
@@ -302,12 +337,22 @@ def flash_attention(q, k, v, *, causal: bool = True,
     edge, so there is no shape-based fallback.  ``positions`` [S] turns
     on the in-kernel RoPE (q and k arrive unrotated); the tables are
     ``rope_tables(positions, D, rope_theta, q.dtype)``, as in the
-    reference (``attention.py:1257``)."""
+    reference (``attention.py:1257``).
+
+    ``segment_ids`` [B, S] (a sample-packed batch) takes
+    :func:`segment_attention`, as the reference's gate does
+    (``attention.py:1232-1237``): q and k are rotated here by the
+    per-row ``positions`` [B, S] when given."""
     if segment_ids is not None:
-        raise NotImplementedError(
-            "segment_ids (sample-packed batches) is not ported yet "
-            "(ROADMAP Queue 1 item 10: packed-batch attention comes with "
-            "the data-plane slice)")
+        if positions is not None:
+            if positions.shape[-1] != k.shape[1]:
+                raise ValueError(f"rope needs q and kv positions to match: "
+                                 f"S={q.shape[1]} vs Sk={k.shape[1]}")
+            q = rope_rotate(q, positions, rope_theta)
+            k = rope_rotate(k, positions, rope_theta)
+        with torch.profiler.record_function("attn/segment"):
+            return segment_attention(q, k, v, segment_ids, causal=causal,
+                                     scale=scale)
     if not causal:
         raise NotImplementedError(
             "non-causal flash attention is not ported yet (ROADMAP "

@@ -208,6 +208,12 @@ def _device_mesh_cls():
             return tuple(self.mesh_dim_names)
 
         @property
+        def member(self) -> bool:
+            """Whether this rank is one of the mesh's (a mesh over the
+            first ``ranks`` ranks leaves the others out)."""
+            return self._coords is not None
+
+        @property
         def group(self):
             """The process group of the ``dp`` axis, or None for a mesh
             built without a live process group."""
@@ -246,7 +252,8 @@ def _mesh_cls():
 # and sp; the fsdp-sharded gradients over the batch axes but fsdp, and sp
 COUNT_AXES = ("dcn", "dp", "fsdp", "sp")
 GRAD_AXES = ("dcn", "dp", "sp")
-_PRECREATED = (COUNT_AXES, GRAD_AXES)
+# and every rank of the mesh (the world, unless the mesh spans fewer)
+_PRECREATED = (COUNT_AXES, GRAD_AXES, AXIS_ORDER)
 
 
 def _axes_group(mesh, axes: Tuple[str, ...]):
@@ -261,7 +268,7 @@ def _axes_group(mesh, axes: Tuple[str, ...]):
     import torch.distributed as dist
     if size == dist.get_world_size():
         return dist.group.WORLD
-    if size == 1:
+    if size == 1 or not mesh.member:
         return None
     if present not in mesh._groups:
         raise ValueError(f"no process group over {present} on this mesh: "
@@ -291,9 +298,10 @@ def _create_groups(mesh) -> None:
 def add_axes_groups(mesh, axis_sets) -> None:
     """Create the process groups of the axis sets in ``axis_sets`` that
     neither one axis's group, the world nor an earlier call covers, for
-    ``Mesh.axes_group``.  Collective: every rank calls it with the same
-    sets in one order, and creates every set's group (``new_group``).
-    A mesh without a live process group needs none."""
+    ``Mesh.axes_group``.  Collective: every rank of the world calls it
+    with the same sets in one order, and creates every set's group
+    (``new_group``), the ranks outside a mesh of fewer ranks too.  A
+    mesh without a live process group needs none."""
     if not mesh._with_group:
         return
     import torch.distributed as dist
@@ -315,7 +323,8 @@ def add_axes_groups(mesh, axis_sets) -> None:
 @dataclass(frozen=True)
 class MeshGroups:
     """What a training step and the model read of a mesh: each axis's
-    size and this rank's coordinate, the process groups of ``fsdp``,
+    size and this rank's coordinate, the process group of all its ranks
+    (``mesh``), the process groups of ``fsdp``,
     ``tp`` and ``ep`` (the model's), of ``pp`` (the pipeline's) and of
     the two axis sets training reduces over (``COUNT_AXES``,
     ``GRAD_AXES``), and this rank's neighbours along each axis a
@@ -326,6 +335,7 @@ class MeshGroups:
     sizes: Dict[str, int]
     coords: Dict[str, int]
     grouped: bool
+    mesh: Any = None
     fsdp: Any = None
     tp: Any = None
     count: Any = None
@@ -378,6 +388,9 @@ def mesh_groups(mesh) -> MeshGroups:
                              "(parallel.mesh.make_mesh)")
         return MeshGroups({}, {}, False)
     sizes = {a: int(n) for a, n in dict(shape.items()).items()}
+    if not getattr(mesh, "member", True):
+        raise ValueError(f"this rank is not in the mesh {sizes}: it "
+                         "takes no part in its step")
     coord = getattr(mesh, "coordinate", None)
     coords = {a: (coord(a) if coord else 0) for a in sizes}
     grouped = bool(getattr(mesh, "_with_group", False))
@@ -389,6 +402,7 @@ def mesh_groups(mesh) -> MeshGroups:
     # the model reads this at every layer: kept on the mesh, since
     # looking up its groups costs ~0.5 ms a call on a 4-axis mesh
     mesh._mesh_groups = MeshGroups(sizes, coords, True,
+                                   mesh=mesh.axes_group(AXIS_ORDER),
                                    fsdp=mesh.axes_group(("fsdp",)),
                                    tp=mesh.axes_group(("tp",)),
                                    count=mesh.axes_group(COUNT_AXES),
@@ -403,7 +417,7 @@ def mesh_groups(mesh) -> MeshGroups:
 
 
 def make_mesh(spec: Optional[MeshSpec] = None, devices=None,
-              **sizes: int):
+              ranks: Optional[int] = None, **sizes: int):
     """A :class:`Mesh` over the live process group, its axes in
     ``AXIS_ORDER`` order.
 
@@ -415,7 +429,14 @@ def make_mesh(spec: Optional[MeshSpec] = None, devices=None,
     (``ray_tpu/parallel/mesh.py:211``), so rank r holds the shard JAX
     device r holds.  ``devices``: a ``torch.device`` or device type for
     the mesh (default: ``"cuda"`` when the group's backend is NCCL, else
-    ``"cpu"``)."""
+    ``"cpu"``).
+
+    ``ranks``: a mesh over the world's first ``ranks`` ranks only (the
+    reference's ``make_mesh(..., devices=devices[:n])``, an elastic
+    loop's shrunk mesh).  Creating it is collective over the whole
+    world: every rank calls ``make_mesh`` with the same arguments, and
+    the ranks left out get a mesh whose ``member`` is False, which they
+    must not step on."""
     import torch
     import torch.distributed as dist
 
@@ -425,11 +446,15 @@ def make_mesh(spec: Optional[MeshSpec] = None, devices=None,
         spec = MeshSpec.create(**sizes)
     grouped = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if grouped else 1
-    spec = spec.resolve(world)
-    if spec.size != world:
-        raise ValueError(
-            f"a mesh spans the whole process group: {spec.describe()} "
-            f"holds {spec.size} ranks but the world has {world}")
+    n = world if ranks is None else int(ranks)
+    if not 1 <= n <= world:
+        raise ValueError(f"a mesh over {n} ranks in a world of {world}")
+    spec = spec.resolve(n)
+    if spec.size != n:
+        span = ("the whole process group" if ranks is None
+                else f"the first {n} ranks")
+        raise ValueError(f"a mesh spans {span}: {spec.describe()} holds "
+                         f"{spec.size} ranks but the world has {world}")
     if devices is None:
         devices = ("cuda" if grouped and dist.get_backend() == "nccl"
                    else "cpu")
@@ -437,17 +462,18 @@ def make_mesh(spec: Optional[MeshSpec] = None, devices=None,
         devices, (list, tuple)) else torch.device(devices[0]).type
     shape = tuple(s for _, s in spec.axes) or (1,)
     names = spec.axis_names or ("dp",)
-    ranks = torch.arange(world).reshape(shape)
+    rank_grid = torch.arange(n).reshape(shape)
     cls = _mesh_cls()
     if grouped:
-        mesh = cls(dev_type, ranks, mesh_dim_names=names)
+        mesh = cls(dev_type, rank_grid, mesh_dim_names=names)
         rank = dist.get_rank()
     else:
-        mesh = cls(dev_type, ranks, mesh_dim_names=names,
+        mesh = cls(dev_type, rank_grid, mesh_dim_names=names,
                    _init_backend=False, _rank=0)
         rank = 0
     mesh._with_group = grouped
-    mesh._coords = tuple(int(c) for c in np.unravel_index(rank, shape))
+    mesh._coords = (tuple(int(c) for c in np.unravel_index(rank, shape))
+                    if rank < n else None)
     mesh._groups = {}
     if grouped:
         _create_groups(mesh)

@@ -59,8 +59,14 @@ def _block_attn(q, k, v, mask, scale: float
 
 
 def local_attention(q, k, v, *, causal: bool = True,
-                    scale: Optional[float] = None):
-    """q, k, v: [B, S, H, D] -> [B, S, H, D] in q's dtype."""
+                    scale: Optional[float] = None, segment_ids=None):
+    """q, k, v: [B, S, H, D] -> [B, S, H, D] in q's dtype.
+    ``segment_ids`` [B, S] (a sample-packed batch, 0 = pad) takes
+    ``ops.attention.segment_attention``."""
+    if segment_ids is not None:
+        from ray_tpu_torch.ops.attention import segment_attention
+        return segment_attention(q, k, v, segment_ids, causal=causal,
+                                 scale=scale)
     S, D = q.shape[1], q.shape[3]
     if scale is None:
         scale = D ** -0.5

@@ -281,6 +281,110 @@ def test_call_whose_connection_drops_is_answered_once(ray_start_regular,
     assert ray.get(c.incr.remote(), timeout=60) == 3
 
 
+def test_call_unread_by_a_dying_incarnation_goes_to_the_next(
+        ray_start_regular):
+    """A direct call that reaches an incarnation which exits before it
+    reads the request was never taken: the connection resets with the
+    request unread, and the caller sends the call on through the node
+    manager, so the restarted incarnation answers it (ROADMAP Queue 3,
+    fault 11, case a).  The armed incarnation's direct server exits as
+    soon as its next request arrives, without reading it."""
+    ray = ray_start_regular
+    from ray_tpu_torch._private.worker import global_worker
+
+    @ray.remote(max_restarts=1)
+    class Flaky:
+        def __init__(self):
+            self.n = 0
+
+        def incr(self):
+            self.n += 1
+            return self.n
+
+        def arm(self):
+            import os
+            import select
+
+            from ray_tpu_torch._private import protocol
+            from ray_tpu_torch._private.worker import global_worker
+            core = global_worker()
+            direct = core.cp.get_actor_info(
+                core.current_actor_id)["direct_addr"]
+            original = protocol.recv_msg
+
+            def recv_msg(sock):
+                if sock.getsockname() == direct:
+                    select.select([sock], [], [])
+                    os._exit(1)
+                return original(sock)
+
+            protocol.recv_msg = recv_msg
+            return True
+
+        def ping(self):
+            return "pong"
+
+    f = Flaky.remote()
+    assert ray.get(f.incr.remote()) == 1
+    assert ray.get(f.arm.remote())
+    assert global_worker()._actor_direct(f._actor_id) is not None
+    # read by the server's old recv_msg, which then loops into the armed
+    # one: the next request arrives at a server that will not read it
+    assert ray.get(f.ping.remote(), timeout=60) == "pong"
+    assert ray.get(f.incr.remote(), timeout=60) == 1
+    assert ray.get(f.incr.remote(), timeout=60) == 2
+
+
+def test_orphaned_incarnation_refuses_direct_calls(ray_start_regular):
+    """Once an actor worker's node manager is gone, its direct server
+    refuses every new call with ``protocol.Fenced`` rather than take a
+    call it cannot answer: the caller relays the call through the node
+    manager, and it runs exactly once (ROADMAP Queue 3, fault 11, case
+    b).  The armed worker sees its node-manager channel as closed while
+    the node manager lives, so the relayed call reaches the same
+    incarnation over that channel."""
+    ray = ray_start_regular
+    from ray_tpu_torch._private.worker import global_worker
+
+    @ray.remote
+    class Counter:
+        def __init__(self):
+            self.n = 0
+            self.refused = 0
+
+        def incr(self):
+            self.n += 1
+            return self.n
+
+        def arm(self):
+            from ray_tpu_torch._private import protocol, worker_proc
+            proc_cls = worker_proc.WorkerProcess
+            handler_cls = proc_cls._DirectHandler
+            original = handler_cls.call_actor
+            proc_cls._nm_alive = lambda proc: False
+
+            def call_actor(handler, spec):
+                try:
+                    return original(handler, spec)
+                except protocol.Fenced:
+                    self.refused += 1
+                    raise
+
+            handler_cls.call_actor = call_actor
+            return True
+
+        def refusals(self):
+            return self.refused
+
+    c = Counter.remote()
+    assert ray.get(c.incr.remote()) == 1
+    assert ray.get(c.arm.remote())
+    assert global_worker()._actor_direct(c._actor_id) is not None
+    assert ray.get(c.incr.remote(), timeout=60) == 2
+    assert ray.get(c.refusals.remote(), timeout=60) == 1
+    assert ray.get(c.incr.remote(), timeout=60) == 3
+
+
 def test_async_actor(ray_start_regular):
     ray = ray_start_regular
 

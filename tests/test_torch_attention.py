@@ -19,6 +19,7 @@ import torch
 
 from ray_tpu.ops import attention as JA
 from ray_tpu_torch.ops import attention as TA
+from ray_tpu_torch.parallel.ring_attention import local_attention
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -394,9 +395,12 @@ def test_make_flash_attention_fn_marks_fused_rope():
     assert TA.make_flash_attention_fn().fused_rope is False
     with pytest.raises(ValueError, match="must name its axes"):
         TA.make_flash_attention_fn(type("Mesh", (), {"size": 4})())
-    q = torch.zeros(1, 8, 2, 64)
-    with pytest.raises(NotImplementedError, match="data-plane"):
-        TA.flash_attention(q, q, q, segment_ids=torch.ones(1, 8))
+    # a packed batch of one document per row is plain causal attention
+    q, k, v = torch.randn(3, 1, 8, 2, 64, generator=torch.Generator()
+                          .manual_seed(0)).unbind(0)
+    got = TA.flash_attention(q, k, v, segment_ids=torch.ones(1, 8))
+    torch.testing.assert_close(got, local_attention(q, k, v), atol=1e-6,
+                               rtol=1e-5)
 
 
 CUDA = torch.device("cuda")

@@ -80,7 +80,10 @@ def test_every_module_imports_first():
 # the API, the CLI and the GPU manager) and serving on the runtime's
 # (serve's controller, replica, handle and proxies) and the training
 # options' and data parallelism's (the fused CE, the step recorder, the
-# dp mesh, the collectives and train/), which the probe above must reach
+# dp mesh, the collectives and train/) and the data plane's and
+# resilience's (sources, packer, stream, checkpointer, elastic loop,
+# straggler supervisor and their recorders), which the probe above must
+# reach
 _SLICE_MODULES = ("ray_tpu_torch/ops/flash_ce.py",
                   "ray_tpu_torch/models/training.py",
                   "ray_tpu_torch/telemetry/flops.py",
@@ -141,7 +144,20 @@ _SLICE_MODULES = ("ray_tpu_torch/ops/flash_ce.py",
                   "ray_tpu_torch/train/torch/__init__.py",
                   "ray_tpu_torch/train/torch/config.py",
                   "ray_tpu_torch/parallel/pipeline.py",
-                  "ray_tpu_torch/parallel/moe.py")
+                  "ray_tpu_torch/parallel/moe.py",
+                  "ray_tpu_torch/data/__init__.py",
+                  "ray_tpu_torch/data/config.py",
+                  "ray_tpu_torch/data/source.py",
+                  "ray_tpu_torch/data/packer.py",
+                  "ray_tpu_torch/data/stream.py",
+                  "ray_tpu_torch/telemetry/data.py",
+                  "ray_tpu_torch/telemetry/ckpt.py",
+                  "ray_tpu_torch/telemetry/elastic.py",
+                  "ray_tpu_torch/resilience/__init__.py",
+                  "ray_tpu_torch/resilience/config.py",
+                  "ray_tpu_torch/resilience/checkpoint.py",
+                  "ray_tpu_torch/resilience/straggler.py",
+                  "ray_tpu_torch/resilience/elastic.py")
 
 
 def _imported_roots(path):

@@ -263,6 +263,34 @@ def test_stale_sweep_sees_only_its_own_root(tmp_path, monkeypatch):
         assert os.path.isdir(shm_a[name])
 
 
+def test_init_starts_beside_a_stale_node_shm_root(tmp_path, monkeypatch):
+    """An extra node's shm root left by a head that died before its
+    shutdown (``<shm root>_node_<12 hex digits>``) whose digits happen
+    all to be decimal, and a session name whose trailing number is too
+    large for a pid: the sweep at ``init`` skips the first and drops the
+    second, and the session starts.  The reference's sweep passes such a
+    number to ``os.kill`` and fails every later ``init`` on the host
+    (ROADMAP Queue 3, reference-side list)."""
+    monkeypatch.setattr(port_node, "_shm_base",
+                        lambda: str(tmp_path / "shm"))
+    node_root = port_node._shm_root(
+        "session_20261018_070142_24025_node_266937476824")
+    huge = port_node._shm_root("session_20261018_070142_266937476824")
+    os.makedirs(node_root)
+    os.makedirs(huge)
+    ray_tpu_torch.init(num_cpus=1)
+    try:
+        @ray_tpu_torch.remote
+        def one():
+            return 1
+
+        assert ray_tpu_torch.get(one.remote(), timeout=60) == 1
+    finally:
+        ray_tpu_torch.shutdown()
+    assert os.path.isdir(node_root)
+    assert not os.path.exists(huge)
+
+
 def test_stop_reclaims_a_journaled_dead_sessions_shm(tmp_path, monkeypatch):
     """``scripts stop`` frees a journaled dead session's shm objects
     (nothing restarts it after ``stop``) and keeps its journal; a
