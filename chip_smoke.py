@@ -42,6 +42,9 @@
                                            # shapes, the default arm,
                                            # then gpt2-train-stream and
                                            # the accumulation arm (8g)
+    python3 chip_smoke.py --train-dataset  # gpt2-train-dataset (11) alone
+    python3 chip_smoke.py --serve-lora     # gpt2-serve-lora (12) alone
+    python3 chip_smoke.py --train-lora     # gpt2-train-lora (13) alone
     python3 chip_smoke.py --multi-gpu      # on four cards: the pipeline
                                            # and MoE steps and the
                                            # elastic loop over NCCL
@@ -92,7 +95,9 @@
    (``tp_attention_phase``), and the attention pair, the epilogue
    forward and backward and flash-CE forward and backward at a
    gpt2-train-pp microbatch's 6 x 1024 rows and gpt2-train-moe's 4 x
-   1024 (``stage_shape_phase``).
+   1024 (``stage_shape_phase``), and the attention pair at
+   gpt2-train-dataset's and -lora's 8 x 1024 (``dataset_shape_phase``,
+   also run by ``--train-dataset`` and ``--train-lora``).
 3. Engine phase (gpt2-serve-mixed): GPT-2 124M (random weights from a
    seed, bf16) serves 16 requests through the paged-KV engine with its
    defaults (prefix caching on; the random prompts share no page, so
@@ -311,6 +316,34 @@
    step at two seeds, as in 9, with exact launches: every kernel their
    widths take runs, and none of the card's tensors goes to a plain
    version in a kernel's place.
+11. gpt2-train-dataset (``train_dataset_phase``): 512 token rows of
+   1025 ids (vocab 50304, from a seed) in 8 ``.npy`` shards, read by
+   ``data.read_numpy``, feed a ``TorchTrainer`` of one GPU worker
+   (``datasets={"train": ds}``: its ``DataIterator`` from
+   ``streaming_split``); the worker trains GPT-2 124M 8 steps at 8 x 1024
+   on ``iter_torch_batches(batch_size=8, device="cuda")``.  Every row is
+   taken at most once, launches exact, every loss within 1e-5 relative
+   of the same batches fed by hand to this process's step; prints
+   ``train-dataset metrics {...}`` (ms/step, the share of steps that
+   waited on input, peak GiB).
+12. gpt2-serve-lora (``serve_lora_phase``): the engine with a LoRA bank
+   (rank 16 on every target, 4 tenants and the identity), 3 tenants'
+   random adapters and base traffic in one co-batch of 8 requests of 16
+   greedy tokens, bf16 and int8 KV: every stream equals the plain engine
+   over the merged weights under 7a's rule, exact launches with 0 of the
+   fused epilogue (declined under LoRA); a republish mid-decode keeps
+   the pinned version's tokens, the bank written in place; prints
+   ``serve-lora metrics {...}`` (TTFT and tokens/s beside a fresh
+   LoRA-off engine's, and of a second co-batch with the tenants
+   resident; every timed co-batch prefills cold, 0 prefix hits
+   asserted).
+13. gpt2-train-lora (``train_lora_phase``): ``build_gpt_train(lora=...)``
+   over a frozen GPT-2 124M, 12 steps at 8 x 1024 (10 timed) beside the
+   full-parameter arm: step 0 is the base model, the base bit-unchanged,
+   exact launches with no epilogue, the adapter's gradients against the
+   f32 plain path at 2 x 1024 within 9's bf16 bound; prints
+   ``train-lora metrics {...}`` (ms/step and peak beside the full
+   arm's).
 
 Any failure raises and the script exits non-zero.  The line before the
 last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
@@ -1705,6 +1738,19 @@ def stage_shape_phase(rec: Recorder, dev) -> None:
         epilogue_fwd_check(rec, randn, g, dev, N, torch.bfloat16, own=False)
         epilogue_bwd_check(rec, randn, g, dev, N, own=False)
         flash_ce_checks(rec, randn, g, dev, N, own=False)
+
+
+def dataset_shape_phase(rec: Recorder, dev) -> dict:
+    """The attention pair at the per-call shape of gpt2-train-dataset and
+    gpt2-train-lora ([DATASET_B, 1024, 12, 64]), bf16 against its plain
+    version in f32 at the bounds above, as an extra shape of its rows;
+    returns the times."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    times = attention_kernel_checks(rec, _randn(g, dev), dev, TRAIN_H,
+                                    main=False, B=DATASET_B)
+    print(f"gpt2-train-dataset/-lora attention [{DATASET_B},{TRAIN_S},"
+          f"{TRAIN_H},{TRAIN_D}]: " + json.dumps(times), flush=True)
+    return times
 
 
 GPT2 = dict(vocab_size=50304, max_seq=1024)
@@ -6625,6 +6671,535 @@ def ce_profile_phase(dev) -> None:
         report(f"{what} [{N}, {d}, {V}] (per call)", prof, wall, 3)
 
 
+# ------------------------------------------------------------------ 11-13
+# gpt2-train-dataset: token rows of TRAIN_S + 1 ids over the training
+# vocabulary, from DATASET_SEED, in DATASET_SHARDS .npy shards read by
+# ``data.read_numpy``; a TorchTrainer worker takes DATASET_STEPS steps of
+# DATASET_B rows through ``iter_torch_batches(device="cuda")``.  A step
+# "waited on input" when its ``next()`` blocked longer than
+# DATASET_WAIT_MS.  Its losses are held, within DATASET_LOSS_REL
+# relative, to the same batches fed by hand to this process's step.
+DATASET_SEED, DATASET_ROWS, DATASET_SHARDS = 19, 512, 8
+DATASET_B, DATASET_STEPS = 8, 8
+DATASET_WAIT_MS = 1.0
+DATASET_LOSS_REL = 1e-5
+# gpt2-serve-lora: rank 16 on every target, a bank of 4 tenants plus the
+# identity; 3 tenants and base traffic in one co-batch of 8 requests
+LORA_RANK, LORA_SLOTS, LORA_NEW = 16, 4, 16
+LORA_TENANTS = ("tenant-0", "tenant-1", "tenant-2")
+# each tenant's published scale: with init_adapter's random B a delta of
+# ~0.25 a unit input per target, the size of the base matmuls' outputs
+LORA_SERVE_SCALE = 0.25
+# gpt2-train-lora: LORA_TRAIN_STEPS steps at 8 x 1024 in each arm, the
+# first LORA_UNTIMED untimed (the first step allocates the optimizer's
+# state and warms the allocator); the gradient check at phase 9's
+# 2 x 1024 with an adapter whose B factors are drawn and scaled by
+# LORA_GRAD_B (a delta of ~0.1 a unit input: the bf16 bound of phase 9
+# holds for a perturbation of the base's size)
+LORA_TRAIN_STEPS, LORA_UNTIMED, LORA_GRAD_B = 12, 2, 0.1
+
+
+def dataset_rows() -> np.ndarray:
+    return np.random.default_rng(DATASET_SEED).integers(
+        0, TRAIN_CFG["vocab_size"], (DATASET_ROWS, TRAIN_S + 1),
+        dtype=np.int64)
+
+
+def train_dataset_loop(config: dict) -> None:
+    """gpt2-train-dataset's loop, in the train worker: GPT-2 124M from
+    seed 0 takes DATASET_STEPS steps, each on the next batch of
+    ``get_dataset_shard("train").iter_torch_batches(batch_size=
+    DATASET_B, device="cuda")``; reports each step's loss, the first
+    four ids of every row it took, its input wait and wall, and the
+    launches and peak of the run."""
+    from ray_tpu_torch import GPTConfig, train
+    from ray_tpu_torch.models.training import (build_gpt_train,
+                                               default_optimizer)
+    from ray_tpu_torch.ops import _build
+
+    torch_flags()
+    if torch.cuda.get_device_name(0) != config["card"]:
+        raise AssertionError("train worker sees "
+                             f"{torch.cuda.get_device_name(0)!r}")
+    dev = torch.device("cuda")
+    cfg = GPTConfig.gpt2(**TRAIN_CFG, dtype=torch.bfloat16)
+    fns = build_gpt_train(cfg, optimizer=default_optimizer(**TRAIN_OPT),
+                          device=dev, telemetry=False)
+    state = fns["init_fn"](torch.Generator().manual_seed(0))
+    shard = train.get_dataset_shard("train")
+    batches = shard.iter_torch_batches(batch_size=DATASET_B, device="cuda")
+    _build.load()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    losses, heads, waits, walls = [], [], [], []
+    for _ in range(DATASET_STEPS):
+        t0 = time.monotonic()
+        rows = next(batches)["data"]
+        t_in = time.monotonic()
+        if rows.device.type != "cuda" or rows.shape != (DATASET_B,
+                                                        TRAIN_S + 1):
+            raise AssertionError(f"batch {tuple(rows.shape)} on "
+                                 f"{rows.device}")
+        state, m = fns["step_fn"](state, {
+            "tokens": rows[:, :-1].contiguous(),
+            "targets": rows[:, 1:].contiguous()})
+        losses.append(float(m["loss"]))
+        heads.extend(rows[:, :4].tolist())
+        waits.append(t_in - t0)
+        walls.append(time.monotonic() - t0)
+    torch.cuda.synchronize()
+    train.report({"losses": losses, "heads": heads, "waits": waits,
+                  "walls": walls, "launches": _build.launch_counts(),
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                  "shard": type(shard).__module__})
+
+
+def train_dataset_phase(dev) -> dict:
+    """gpt2-train-dataset: ``data.read_numpy`` over DATASET_SHARDS token
+    shards feeds a ``TorchTrainer`` of one ``num_gpus=1`` worker
+    (``datasets={"train": ds}``: ``streaming_split(1, equal=True)``, the
+    worker's ``DataIterator``), whose loop (``train_dataset_loop``)
+    trains GPT-2 124M at full width for DATASET_STEPS steps of
+    DATASET_B x TRAIN_S.  Gates: every row the worker took is a row of
+    the data, none twice; the worker's launches exactly TRAIN_LAUNCHES a
+    step; every loss within DATASET_LOSS_REL of the same batches fed by
+    hand to this process's step from the same seeds.  Prints
+    ``train-dataset metrics {...}`` (ms/step over the steps after the
+    first, the share of steps that waited on input, peak GiB) and
+    returns the worker's launches."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.data as rdata
+    from ray_tpu_torch import GPTConfig
+    from ray_tpu_torch.models.training import (build_gpt_train,
+                                               default_optimizer)
+    from ray_tpu_torch.train import RunConfig, ScalingConfig
+    from ray_tpu_torch.train.torch import TorchConfig, TorchTrainer
+
+    import chip_smoke
+    rows = dataset_rows()
+    where = {tuple(r[:4].tolist()): i for i, r in enumerate(rows)}
+    if len(where) != len(rows):
+        raise AssertionError("the data's rows are not told apart by their "
+                             "first four ids")
+    storage = tempfile.mkdtemp(prefix="gpt2_train_dataset_")
+    shards = os.path.join(storage, "shards")
+    os.makedirs(shards)
+    for i, part in enumerate(np.array_split(rows, DATASET_SHARDS)):
+        np.save(os.path.join(shards, f"part-{i:02d}.npy"), part)
+    rt.init(num_cpus=RUNTIME_CPUS)
+    try:
+        ds = rdata.read_numpy(shards)
+        trainer = TorchTrainer(
+            chip_smoke.train_dataset_loop,
+            torch_config=TorchConfig(host_collective=False),
+            train_loop_config={"card": torch.cuda.get_device_name(0)},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(name="gpt2-train-dataset",
+                                 storage_path=storage),
+            datasets={"train": ds})
+        t_fit = time.time()
+        result = trainer.fit()
+        fit_s = time.time() - t_fit
+        if result.error is not None:
+            raise AssertionError(f"train-dataset worker failed: "
+                                 f"{result.error}")
+        rep = result.metrics_history[-1]
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    if rep["shard"] != "ray_tpu_torch.data.iterator":
+        raise AssertionError(f"the worker's shard came from {rep['shard']}")
+    taken = [where.get(tuple(h)) for h in rep["heads"]]
+    if None in taken or len(set(taken)) != len(taken) \
+            or len(taken) != DATASET_B * DATASET_STEPS:
+        raise AssertionError(f"rows taken: {taken}")
+    expect_launches("train-dataset worker", rep["launches"],
+                    {k: n * DATASET_STEPS
+                     for k, n in TRAIN_LAUNCHES.items()})
+    # the same batches, fed by hand to this process's step
+    cfg = GPTConfig.gpt2(**TRAIN_CFG, dtype=torch.bfloat16)
+    fns = build_gpt_train(cfg, optimizer=default_optimizer(**TRAIN_OPT),
+                          device=dev, telemetry=False)
+    state = fns["init_fn"](torch.Generator().manual_seed(0))
+    here = []
+    for s in range(DATASET_STEPS):
+        b = torch.from_numpy(rows[taken[s * DATASET_B:
+                                        (s + 1) * DATASET_B]]).to(dev)
+        state, m = fns["step_fn"](state, {
+            "tokens": b[:, :-1].contiguous(),
+            "targets": b[:, 1:].contiguous()})
+        here.append(float(m["loss"]))
+    del fns, state
+    rel = max(abs(a - b) / abs(b) for a, b in zip(rep["losses"], here))
+    print(f"train-dataset: losses {rep['losses'][0]:.4f} -> "
+          f"{rep['losses'][-1]:.4f}, largest relative difference from the "
+          f"same batches fed by hand {rel:.3e} (bound {DATASET_LOSS_REL})",
+          flush=True)
+    if not rel <= DATASET_LOSS_REL:
+        raise AssertionError("train-dataset: the worker's losses part from "
+                             "the same batches fed by hand")
+    walls = rep["walls"][1:]
+    waited = [w * 1e3 > DATASET_WAIT_MS for w in rep["waits"]]
+    metrics = {
+        "cell": "gpt2-train-dataset", "batch": [DATASET_B, TRAIN_S],
+        "steps": DATASET_STEPS, "rows": DATASET_ROWS,
+        "shards": DATASET_SHARDS, "fit_s": fit_s,
+        "step_ms": 1e3 * float(np.mean(walls)),
+        "median_step_ms": 1e3 * float(np.median(walls)),
+        "first_step_ms": 1e3 * rep["walls"][0],
+        "input_wait_ms": [1e3 * w for w in rep["waits"]],
+        "waited_share": sum(waited) / len(waited),
+        "waited_share_after_first": sum(waited[1:]) / (len(waited) - 1),
+        "peak_gib": rep["peak_gib"], "max_loss_rel_diff": rel}
+    print("train-dataset: every row taken once, launches read back exact",
+          flush=True)
+    print("train-dataset metrics " + json.dumps(metrics), flush=True)
+    return rep["launches"]
+
+
+def lora_engines(cfg, params, adapters, dev, **kw):
+    """One plain engine over each tenant's merged weights (and the base
+    for base traffic): the streams a banked engine must give."""
+    from ray_tpu_torch import InferenceEngine
+    from ray_tpu_torch.adapters import lora as lora_mod
+    out = {None: InferenceEngine(cfg, params, device=dev, **ENGINE, **kw)}
+    for t, a in adapters.items():
+        out[t] = InferenceEngine(
+            cfg, lora_mod.merge_adapter(params, a, cfg,
+                                        scale=LORA_SERVE_SCALE),
+            device=dev, **ENGINE, **kw)
+    return out
+
+
+def lora_streams_hold(what, prompts, tenants, got, refs, params32, cfg32,
+                      adapters32) -> list:
+    """Each stream against its tenant's merged-weights engine, under
+    phase 7a's rule (``parted_within_margin`` on the f32 merged
+    weights); returns the partings (request, position, margin)."""
+    from ray_tpu_torch import SamplingParams
+    from ray_tpu_torch.adapters import lora as lora_mod
+    greedy = SamplingParams(temperature=0.0)
+    partings = []
+    merged32 = {}
+    changed = 0
+    for i, (p, t, g) in enumerate(zip(prompts, tenants, got)):
+        want = refs[t].generate([p], LORA_NEW, greedy)[0]
+        if t is not None:
+            changed += want != refs[None].generate([p], LORA_NEW, greedy)[0]
+        if t not in merged32:
+            merged32[t] = params32 if t is None else lora_mod.merge_adapter(
+                params32, adapters32[t], cfg32, scale=LORA_SERVE_SCALE)
+        parted = parted_within_margin(f"{what} request {i} ({t})", p, g,
+                                      want, merged32[t], cfg32)
+        if parted is not None:
+            partings.append((i, *parted))
+    if changed < 2:
+        raise AssertionError(f"{what}: only {changed} tenant streams "
+                             "differ from the base model's")
+    return partings
+
+
+def cold_serve(engine, prompts, sampling) -> dict:
+    """``serve`` of LORA_NEW tokens each, raising if any request found a
+    prefix hit: a timed arm prefills every prompt."""
+    hits0 = engine.stats()["prefix"]["requests_hit"]
+    run = serve(engine, prompts, sampling, max_new_tokens=LORA_NEW)
+    if engine.stats()["prefix"]["requests_hit"] != hits0:
+        raise AssertionError("serve-lora: a timed co-batch hit the "
+                             "prefix cache")
+    return run
+
+
+def serve_lora_phase(params, cfg, dev) -> dict:
+    """gpt2-serve-lora: GPT-2 124M with a bank of LORA_SLOTS tenants
+    (rank LORA_RANK on every target, slot 0 the identity), 8 slots, page
+    128.  LORA_TENANTS (random non-zero B factors from a
+    ``torch.Generator``, published to an ``AdapterStore``) and base
+    traffic in one co-batch of 8 requests of LORA_NEW greedy tokens.
+    Gates: every stream equals the plain engine serving
+    ``merge_adapter(base, adapter)`` under phase 7a's rule; exact
+    launches with 0 of ``matmul_residual_norm`` (declined under LoRA);
+    a republish mid-decode keeps the pinned version's tokens while a
+    request after it takes the new version, the bank written in place
+    (the same tensors); the int8 KV arm against merged int8 engines.
+    Prints ``serve-lora metrics {...}`` (TTFT and decode tokens/s beside
+    the LoRA-off engine's on the same prompts: each arm a warmed engine
+    whose prefix cache holds none of them, asserted by 0 prefix hits;
+    the first LoRA co-batch loads its tenants, a second with the prefix
+    cache flushed finds them resident) and returns the launches of the
+    bf16 and int8 co-batches by path."""
+    from ray_tpu_torch import InferenceEngine, SamplingParams
+    from ray_tpu_torch.adapters import (ALL_TARGETS, AdapterStore,
+                                        LoraConfig)
+    from ray_tpu_torch.adapters import lora as lora_mod
+
+    L = cfg.n_layers
+    lcfg = LoraConfig(enabled=True, rank=LORA_RANK, targets=ALL_TARGETS,
+                      cache_slots=LORA_SLOTS)
+    gen = torch.Generator().manual_seed(21)
+    adapters = {t: lora_mod.init_adapter(cfg, lcfg, gen, random_b=True,
+                                         device=dev) for t in LORA_TENANTS}
+    # the f32 references of 7a's rule run on the CPU
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = to_cpu32(params)
+    adapters32 = {t: to_cpu32(a) for t, a in adapters.items()}
+
+    def store_of(pairs):
+        store = AdapterStore(use_object_store=False)
+        for t, a in pairs:
+            store.put(t, a, scale=LORA_SERVE_SCALE)
+        return store
+
+    prompts = mixed_prompts()[:8]
+    tenants = [LORA_TENANTS[i % 4] if i % 4 < 3 else None
+               for i in range(len(prompts))]
+    greedy = [SamplingParams(temperature=0.0, model_id=t) for t in tenants]
+    report, paths = {}, {}
+    for kv_dtype in ("model", "int8"):
+        store = store_of(adapters.items())
+        engine = InferenceEngine(cfg, params, device=dev, lora=lcfg,
+                                 adapter_store=store, kv_dtype=kv_dtype,
+                                 **ENGINE)
+        engine.generate([[1, 2, 3]], max_new_tokens=2)     # warm-up
+        ptrs = {k: v.data_ptr() for k, v in engine.lora_bank.items()}
+        run = cold_serve(engine, prompts, greedy)
+        launches = run["launches"]
+        if launches.get("matmul_residual_norm_fwd", 0):
+            raise AssertionError("serve-lora: the fused epilogue launched "
+                                 "under LoRA")
+        want = serve_launches(L, run["calls"], kv_dtype)
+        want.pop("matmul_residual_norm_fwd")
+        expect_launches(f"serve-lora {kv_dtype}", launches, want)
+        got = [run["out"][r] for r in run["rids"]]
+        refs = lora_engines(cfg, params, adapters, dev, kv_dtype=kv_dtype)
+        partings = lora_streams_hold(f"serve-lora {kv_dtype}", prompts,
+                                     tenants, got, refs, params32, cfg32,
+                                     adapters32)
+        if len({tuple(g) for g in got}) < 4:
+            raise AssertionError("serve-lora: the tenants' streams are "
+                                 "not told apart")
+        arm = {"launches": launches, "partings": partings,
+               "mean_ttft_ms": 1e3 * float(np.mean(list(
+                   run["ttft"].values()))),
+               "decode_tokens_per_s": sum(len(v) - 1 for v in
+                                          run["out"].values())
+               / run["secs"]["decode"]}
+        if kv_dtype == "model":
+            # the same co-batch with every tenant resident
+            engine.scheduler.flush_prefix()
+            resident = cold_serve(engine, prompts, greedy)
+            if [resident["out"][r] for r in resident["rids"]] != got:
+                raise AssertionError("serve-lora: the resident co-batch "
+                                     "gave other tokens")
+            arm["resident_mean_ttft_ms"] = 1e3 * float(np.mean(list(
+                resident["ttft"].values())))
+            arm["resident_decode_tokens_per_s"] = sum(
+                len(v) - 1 for v in resident["out"].values()) \
+                / resident["secs"]["decode"]
+            # republish mid-decode: tenant-0's v1 request keeps v1's
+            # factors; one submitted after the publish takes v2
+            rid1 = engine.submit(prompts[0], max_new_tokens=LORA_NEW,
+                                 sampling=greedy[0])
+            out = {rid1: []}
+            rid2 = None
+            while engine.has_work():
+                for rid, tok, _d in engine.step():
+                    out[rid].append(tok)
+                if rid2 is None:
+                    store.put(LORA_TENANTS[0], adapters[LORA_TENANTS[1]],
+                              scale=LORA_SERVE_SCALE)
+                    rid2 = engine.submit(prompts[1],
+                                         max_new_tokens=LORA_NEW,
+                                         sampling=greedy[0])
+                    out[rid2] = []
+            if out[rid1] != got[0] or out[rid2] != got[1]:
+                raise AssertionError(
+                    "serve-lora: after a republish mid-decode the pinned "
+                    f"request gave {out[rid1]} (v1's {got[0]}) and the "
+                    f"next {out[rid2]} (v2's {got[1]})")
+            if {k: v.data_ptr() for k, v in engine.lora_bank.items()} \
+                    != ptrs or not engine.leak_free():
+                raise AssertionError("serve-lora: the republish moved the "
+                                     "bank or leaked")
+            arm["adapters"] = engine.stats()["adapters"]
+            plain = InferenceEngine(cfg, params, device=dev, **ENGINE)
+            plain.generate([[1, 2, 3]], max_new_tokens=2)  # warm-up
+            base = cold_serve(plain, prompts, [SamplingParams(
+                temperature=0.0)] * len(prompts))
+            del plain
+            arm["lora_off_mean_ttft_ms"] = 1e3 * float(np.mean(list(
+                base["ttft"].values())))
+            arm["lora_off_decode_tokens_per_s"] = sum(
+                len(v) - 1 for v in base["out"].values()) \
+                / base["secs"]["decode"]
+        report[kv_dtype] = arm
+        paths["serve_lora" if kv_dtype == "model"
+              else "serve_lora_int8"] = launches
+        print(f"serve-lora {kv_dtype}: {len(prompts)} requests of 3 "
+              f"tenants and base in one co-batch, launches {launches} == "
+              f"implied with 0 epilogue launches, streams equal the "
+              f"merged-weights engines' ({len(partings)} partings at "
+              "bf16 ties)", flush=True)
+        del engine, refs
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("serve-lora: republish mid-decode kept the pinned version's "
+          "tokens, the bank written in place", flush=True)
+    print("serve-lora metrics " + json.dumps(
+        {"cell": "gpt2-serve-lora", "rank": LORA_RANK,
+         "bank_slots": lcfg.bank_slots, **report}), flush=True)
+    return paths
+
+
+def train_lora_phase(dev) -> dict:
+    """gpt2-train-lora: ``build_gpt_train(lora=..., base_params=...)``
+    over GPT-2 124M (rank LORA_RANK on every target) for
+    LORA_TRAIN_STEPS steps at DATASET_B x TRAIN_S, beside the
+    full-parameter arm at the same batch.  Gates: step 0's loss is the
+    base model's; exact launches (the attention and flash-CE pairs, no
+    epilogue: declined under LoRA); the base parameters bit-unchanged;
+    the loss falls; the adapter's gradients on the kernel path against
+    the f32 plain path at 2 x TRAIN_S within phase 9's bf16 bound.
+    Prints ``train-lora metrics {...}`` and returns the launches."""
+    from ray_tpu_torch import GPTConfig, init_params
+    from ray_tpu_torch.adapters import ALL_TARGETS, LoraConfig
+    from ray_tpu_torch.adapters import lora as lora_mod
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models.training import (build_gpt_train,
+                                               default_optimizer,
+                                               synthetic_lm_batch,
+                                               value_and_grad)
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops.attention import make_flash_attention_fn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = GPTConfig.gpt2(**TRAIN_CFG, dtype=torch.bfloat16)
+    lcfg = LoraConfig(enabled=True, rank=LORA_RANK, targets=ALL_TARGETS,
+                      cache_slots=LORA_SLOTS)
+    base = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    batch = synthetic_lm_batch(torch.Generator().manual_seed(1), DATASET_B,
+                               TRAIN_S, cfg.vocab_size, device=dev)
+    arms = {}
+    for arm in ("full", "lora"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if arm == "full":
+            fns = build_gpt_train(cfg, optimizer=default_optimizer(
+                **TRAIN_OPT), device=dev, telemetry=False)
+            state = fns["init_fn"](params={k: (
+                {n: v.clone() for n, v in t.items()} if isinstance(t, dict)
+                else t.clone()) for k, t in base.items()})
+            base_loss = float(fns["loss_fn"](state.params, batch))
+        else:
+            snapshot = {k: ({n: v.clone() for n, v in t.items()}
+                            if isinstance(t, dict) else t.clone())
+                        for k, t in base.items()}
+            fns = build_gpt_train(cfg, optimizer=default_optimizer(
+                **TRAIN_OPT), lora=lcfg, base_params=base, device=dev,
+                telemetry=False)
+            state = fns["init_fn"](torch.Generator().manual_seed(3))
+            lora_loss0 = float(fns["loss_fn"](state.params, batch))
+        _build.reset_launches()
+        losses, walls = [], []
+        for _ in range(LORA_TRAIN_STEPS):
+            t0 = time.monotonic()
+            state, m = fns["step_fn"](state, batch)
+            losses.append(float(m["loss"]))
+            walls.append(time.monotonic() - t0)
+        torch.cuda.synchronize()
+        timed = 1e3 * np.array(walls[LORA_UNTIMED:])
+        arms[arm] = {"launches": _build.launch_counts(), "losses": losses,
+                     "step_ms": float(timed.mean()),
+                     "step_ms_min_max": [float(timed.min()),
+                                         float(timed.max())],
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del fns, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    lora = arms["lora"]
+    want = {k: n * LORA_TRAIN_STEPS for k, n in TRAIN_LAUNCHES.items()
+            if not k.startswith("matmul_residual_norm")}
+    expect_launches("train-lora", lora["launches"], want)
+    for k, t in base.items():
+        for n, v in (t.items() if isinstance(t, dict) else [(k, t)]):
+            ref = snapshot[k][n] if isinstance(t, dict) else snapshot[k]
+            if not torch.equal(v, ref):
+                raise AssertionError(f"train-lora: base parameter {k}/{n} "
+                                     "moved")
+    d0 = abs(lora_loss0 - base_loss)
+    if not d0 <= TRAIN_BF16_TOL["loss_abs"]:
+        raise AssertionError(f"train-lora: step 0's loss {lora_loss0} is "
+                             f"not the base model's {base_loss}")
+    if not lora["losses"][-1] < lora["losses"][0]:
+        raise AssertionError(f"train-lora: the loss did not fall "
+                             f"{lora['losses']}")
+    # gradients: a non-identity adapter, kernel path against plain f32
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    base32 = {k: ({n: v.float() for n, v in t.items()}
+                  if isinstance(t, dict) else t.float())
+              for k, t in base.items()}
+    adapter = lora_mod.init_adapter(cfg32, lcfg,
+                                    torch.Generator().manual_seed(5),
+                                    random_b=True, device=dev)
+    adapter = {k: v * LORA_GRAD_B if k.endswith("_b") else v
+               for k, v in adapter.items()}
+    small = synthetic_lm_batch(torch.Generator().manual_seed(6), 2,
+                               TRAIN_S, cfg.vocab_size, device=dev)
+    attn = make_flash_attention_fn(rope_theta=cfg.rope_theta)
+    ref_loss, ref_grads = value_and_grad(
+        lambda a, b: gpt.loss_fn(base32, b, cfg32, fuse_norm=False,
+                                 ce_mode="xla", lora={**a, "scale": 1.0}),
+        adapter, small)
+    _build.reset_launches()
+    loss, grads = value_and_grad(
+        lambda a, b: gpt.loss_fn(base, b, cfg, attn_fn=attn,
+                                 lora={**a, "scale": 1.0}),
+        {k: v.to(torch.bfloat16) for k, v in adapter.items()}, small)
+    torch.cuda.synchronize()
+    grad_launches = _build.launch_counts()
+    expect_launches("train-lora gradient", grad_launches,
+                    {k: n for k, n in TRAIN_LAUNCHES.items()
+                     if not k.startswith("matmul_residual_norm")})
+    dl = abs(float(loss) - float(ref_loss))
+    worst_share, worst = 0.0, ""
+    for k, g in grads.items():
+        want_g = ref_grads[k].float()
+        share = (g.float() - want_g).abs().max().item() / (
+            TRAIN_BF16_TOL["grad"] * want_g.abs().max().item() + 1e-30)
+        if not math.isfinite(share) or share > worst_share:
+            worst_share, worst = share, k
+    print(f"train-lora gradient: loss {float(loss):.6f} vs plain f32 "
+          f"{float(ref_loss):.6f} (|diff| {dl:.3e}); worst adapter "
+          f"gradient {worst} share_of_tol={worst_share:.3f} (bound "
+          f"{TRAIN_BF16_TOL['grad']} of each leaf's largest value)",
+          flush=True)
+    if not dl <= TRAIN_BF16_TOL["loss_abs"] or not worst_share <= 1:
+        raise AssertionError("train-lora: the adapter's gradients part "
+                             "from the plain path")
+    metrics = {"cell": "gpt2-train-lora", "batch": [DATASET_B, TRAIN_S],
+               "rank": LORA_RANK, "steps": LORA_TRAIN_STEPS,
+               "timed_steps": LORA_TRAIN_STEPS - LORA_UNTIMED,
+               "step_ms": lora["step_ms"],
+               "step_ms_min_max": lora["step_ms_min_max"],
+               "peak_gib": lora["peak_gib"], "losses": lora["losses"],
+               "full_step_ms": arms["full"]["step_ms"],
+               "full_step_ms_min_max": arms["full"]["step_ms_min_max"],
+               "full_peak_gib": arms["full"]["peak_gib"],
+               "full_losses": arms["full"]["losses"],
+               "adapter_params": sum(v.numel() for v in adapter.values()),
+               "step0_loss_minus_base": lora_loss0 - base_loss,
+               "grad_loss_diff": dl, "grad_worst_share": worst_share}
+    print("train-lora: the base bit-unchanged, launches exact with no "
+          "epilogue", flush=True)
+    print("train-lora metrics " + json.dumps(metrics), flush=True)
+    return lora["launches"]
+
+
 def main() -> None:
     name = start_up()
     dev = torch.device("cuda")
@@ -6779,6 +7354,28 @@ def main() -> None:
         print("train-overlap: every check passed; launches "
               + json.dumps(_nonzero(launches)), flush=True)
         return
+    if sys.argv[1:] == ["--train-dataset"]:
+        dataset_shape_phase(Recorder(name), dev)
+        launches = train_dataset_phase(dev)
+        print("train-dataset: every check passed; launches "
+              + json.dumps(_nonzero(launches)), flush=True)
+        return
+    if sys.argv[1:] == ["--serve-lora"]:
+        from ray_tpu_torch import GPTConfig, init_params
+        cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device=dev)
+        paths = serve_lora_phase(params, cfg, dev)
+        print("serve-lora: every check passed; launches "
+              + json.dumps({p: _nonzero(n) for p, n in paths.items()}),
+              flush=True)
+        return
+    if sys.argv[1:] == ["--train-lora"]:
+        dataset_shape_phase(Recorder(name), dev)
+        launches = train_lora_phase(dev)
+        print("train-lora: every check passed; launches "
+              + json.dumps(_nonzero(launches)), flush=True)
+        return
     if sys.argv[1:] in (["--profile"], ["--profile", "int8"]):
         from ray_tpu_torch import GPTConfig, init_params
         cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
@@ -6801,6 +7398,7 @@ def main() -> None:
     tp_attention_phase(rec, dev)
     stage_shape_phase(rec, dev)
     stream_shape_phase(rec, dev)
+    dataset_shape_phase(rec, dev)
     clock.lap("training kernels")
     from ray_tpu_torch import GPTConfig, init_params
     cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
@@ -6851,6 +7449,14 @@ def main() -> None:
     clock.lap("training correctness (9)")
     width_checks(dev)
     clock.lap("width checks (10)")
+    paths["train_dataset"] = train_dataset_phase(dev)
+    clock.lap("train dataset (11)")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    paths.update(serve_lora_phase(params, cfg, dev))
+    del params
+    clock.lap("serve lora (12)")
+    paths["train_lora"] = train_lora_phase(dev)
+    clock.lap("train lora (13)")
     clock.report()
     for row in rec.rows.values():
         # (a worker process registers only the kernels its path imports)

@@ -94,6 +94,41 @@ def params_from_jax(tree: Dict[str, Any], cfg: GPTConfig,
                         pp_rules(stage_axis))
 
 
+def adapter_from_jax(tree: Dict[str, Any], cfg: GPTConfig, lcfg,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """The JAX package's adapter tree (``adapters.lora.init_adapter``'s
+    ``{"<t>_a": [L, in, r], "<t>_b": [L, r, out]}``, numpy leaves, a
+    ``scale`` leaf allowed) -> the port's, bf16 bit-exact.  Every factor
+    must be one the port's bank for ``(cfg, lcfg)`` carries, with its
+    shape."""
+    from ray_tpu_torch.adapters import lora as lora_mod
+    dev = resolve_device(device)
+    dims = lora_mod.target_dims(cfg)
+    want = {}
+    for t in lora_mod.effective_targets(cfg, lcfg):
+        i, o = dims[t]
+        want[f"{t}_a"] = (cfg.n_layers, i, lcfg.rank)
+        want[f"{t}_b"] = (cfg.n_layers, lcfg.rank, o)
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in tree.items():
+        t = array_to_tensor(v, dev)
+        if k != "scale" and tuple(t.shape) != want.get(k):
+            raise ValueError(f"adapter factor {k!r} of shape "
+                             f"{tuple(t.shape)} where the bank holds "
+                             f"{want.get(k)}")
+        out[k] = t
+    return out
+
+
+def bank_from_jax(bank: Dict[str, Any], device=None
+                  ) -> Dict[str, torch.Tensor]:
+    """The JAX package's adapter bank (``bank_zeros``/``bank_install``:
+    ``[N, L, in, r]``/``[N, L, r, out]`` factors and an f32 ``scale``
+    [N], numpy leaves) -> the port's bank, bf16 bit-exact."""
+    dev = resolve_device(device)
+    return {k: array_to_tensor(v, dev) for k, v in bank.items()}
+
+
 def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
     """The inverse direction of :func:`params_from_jax`: the port's tree
     of tensors -> the same tree of numpy arrays on the host, so a test can

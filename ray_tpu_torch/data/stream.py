@@ -238,7 +238,7 @@ class _DocSchedule:
     restartable readers with a bounded retry budget.
 
     The reference shares it with its RL prompt dataset
-    (``ray_tpu/rl/rollout.py``, ROADMAP Queue 1 item 11)."""
+    (``ray_tpu/rl/rollout.py``, ROADMAP Queue 1 item 11b)."""
 
     def __init__(self, source: DocumentSource, cursor: StreamCursor, *,
                  readers: int = 0, retries: int = 3,
@@ -436,9 +436,15 @@ class _DeviceStager:
 
     def put(self, batch: Dict[str, np.ndarray], sharding=None
             ) -> Dict[str, Any]:
+        import warnings
+
         import torch
-        host = {k: torch.from_numpy(np.ascontiguousarray(v))
-                for k, v in batch.items()}
+        with warnings.catch_warnings():
+            # a batch read from the object store is a read-only view; it
+            # is only read here (cloned, or copied into a pinned buffer)
+            warnings.filterwarnings("ignore", message=".*not writable")
+            host = {k: torch.from_numpy(np.ascontiguousarray(v))
+                    for k, v in batch.items()}
         if sharding is not None:
             host = sharding(host)
         if not self._cuda:

@@ -39,8 +39,7 @@ class FleetConfig:
       ``model_id`` is already resident in a replica's LoRA bank scores
       toward that replica (skipping the store fetch + bank install a
       cold replica would pay), composing with the prefix-affinity
-      score above; ``0`` is the residency-blind A/B arm
-      (the port has no adapter bank yet, ROADMAP Queue 1 item 11).
+      score above; ``0`` is the residency-blind A/B arm.
     - ``RAY_TPU_FLEET_UP_DEPTH`` (default ``4``): mean waiting-queue
       depth per running replica that, sustained for the dwell, scales
       the fleet up.

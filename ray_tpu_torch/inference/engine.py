@@ -78,11 +78,21 @@ counters (``call_counts``) and wall seconds (``seconds``) take the place
 of the JAX engine's compile counters.  CUDA-graph capture of the steps
 is later work.
 
-LoRA adapter banks are not ported yet: ``lora=`` raises
-``NotImplementedError`` (ROADMAP Queue 1 item 11) and a request or
-handoff naming a ``model_id`` raises ``AdapterUnavailableError``, as the
-JAX engine does without adapter support.  The engine runs on the card
-unless the caller passes ``device="cpu"``; without a card it raises.
+- **Multi-tenant LoRA** (``lora=``, ``RAY_TPU_LORA``): the engine holds
+  an adapter bank (``adapters/lora.py``: ``[N, L, in, r]`` factors per
+  target, slot 0 the all-zeros identity) and a registry of which
+  ``(model_id, version)`` sits in which row.  A request's
+  ``SamplingParams.model_id`` resolves, at the tick's start, to a
+  resident row (loading through the ``adapter_store`` on a miss, into a
+  fresh row when the tenant republished while a pinned version still
+  decodes) and salts its prefix-chain root; every step gathers each
+  row's factors by slot id (``gpt.lora_delta``), so tenants and base
+  traffic co-batch.  A load writes the bank in place: no new tensor, and
+  the steps read the same bank.  Under LoRA the fused out-proj epilogue
+  is declined, as the reference declines it.
+
+The engine runs on the card unless the caller passes ``device="cpu"``;
+without a card it raises.
 """
 
 from __future__ import annotations
@@ -96,7 +106,10 @@ from typing import Any, Dict, List, Optional, Set, Tuple, Union
 import numpy as np
 import torch
 
-from ray_tpu_torch.adapters import AdapterUnavailableError
+from ray_tpu_torch.adapters import (AdapterRegistry, AdapterStore,
+                                    AdapterUnavailableError, LoraConfig,
+                                    lora_config, salt_bytes)
+from ray_tpu_torch.adapters import lora as lora_mod
 # the module, not its name: convert imports this package, and either
 # may be imported first
 from ray_tpu_torch import convert
@@ -207,7 +220,8 @@ class InferenceEngine:
                  host_pages: Optional[int] = None,
                  store: Union["kvc.KVPageStore", bool, None] = None,
                  spill_dtype: Optional[str] = None,
-                 lora=None,
+                 lora: Union["LoraConfig", bool, None] = None,
+                 adapter_store: Optional["AdapterStore"] = None,
                  telemetry: Optional[bool] = None,
                  ttft_deadline: Optional[float] = None,
                  deadline: Optional[float] = None,
@@ -216,10 +230,6 @@ class InferenceEngine:
             raise NotImplementedError("MoE decode cache not supported yet")
         gpt_mod.check_supported(cfg)
         icfg = infer_config()
-        if lora:
-            raise NotImplementedError(
-                "LoRA adapter banks are not ported yet (ROADMAP Queue 1 "
-                "item 11: adapters and RL)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = _params_to(params, self.device, cfg.dtype)
@@ -307,6 +317,29 @@ class InferenceEngine:
         self.fetches = 0
         self.fetch_seconds = 0.0
         self.fetch_faults = 0
+        # multi-tenant LoRA: ``lora`` takes a LoraConfig, True (the
+        # env's geometry, forced on), or None/False (None follows
+        # RAY_TPU_LORA).  On, the engine holds the bank on its device,
+        # the registry of resident (model_id, version) rows and an
+        # adapter store (a private one unless the fleet shares one)
+        if isinstance(lora, LoraConfig):
+            self.lora_cfg: Optional[LoraConfig] = lora
+        elif lora is True or (lora is None and lora_config().enabled):
+            self.lora_cfg = lora_config()
+        else:
+            self.lora_cfg = None
+        if self.lora_cfg is not None:
+            self.lora_bank: Optional[Dict[str, torch.Tensor]] = \
+                lora_mod.bank_zeros(cfg, self.lora_cfg, device=self.device)
+            self.adapters: Optional[AdapterRegistry] = AdapterRegistry(
+                self.lora_cfg.cache_slots)
+            self.adapter_store: Optional[AdapterStore] = (
+                adapter_store if adapter_store is not None
+                else AdapterStore())
+        else:
+            self.lora_bank = None
+            self.adapters = None
+            self.adapter_store = adapter_store
         kinds = ("prefill", "prefill_cached", "decode", "verify")
         self.call_counts: Dict[str, int] = {k: 0 for k in kinds}
         self.seconds: Dict[str, float] = {k: 0.0 for k in kinds}
@@ -363,10 +396,7 @@ class InferenceEngine:
         request's spans off that trace.  Deadlines default to the
         engine's; 0 turns one off."""
         sampling = sampling or SamplingParams()
-        if sampling.model_id:
-            raise AdapterUnavailableError(
-                sampling.model_id, "engine built without adapter "
-                "support (adapters are ROADMAP Queue 1 item 11)")
+        model_id = sampling.model_id
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
@@ -381,6 +411,21 @@ class InferenceEngine:
                              f"largest prefill bucket {self.buckets[-1]}")
         spec_k = self._resolve_spec_k(sampling)
         with self._lock:
+            # validate the tenant here (a typed rejection the router
+            # re-routes) and leave the bank load to step(), the only
+            # thread that writes the bank; under the lock, so the
+            # residency probe cannot race an eviction
+            if model_id:
+                if self.lora_cfg is None:
+                    raise AdapterUnavailableError(
+                        model_id, "engine built without adapter "
+                        "support (RAY_TPU_LORA / lora=)")
+                if (self.adapters.lookup(model_id) is None
+                        and (self.adapter_store is None
+                             or model_id not in self.adapter_store)):
+                    raise AdapterUnavailableError(
+                        model_id, "never published to the adapter "
+                        "store")
             rid = self._next_rid
             self._next_rid += 1
             req = Request(rid=rid, prompt=prompt,
@@ -392,7 +437,8 @@ class InferenceEngine:
                           deadline_s=(self.deadline if deadline_s is None
                                       else deadline_s or None),
                           hold_pages=bool(hold_pages), spec_k=spec_k,
-                          trace=trace_ctx)
+                          trace=trace_ctx, model_id=model_id or None,
+                          adapter_slot=-1 if model_id else 0)
             self.scheduler.submit(req)    # validates; may raise
             self._requests[rid] = req
             depth = len(self.scheduler.waiting)
@@ -430,10 +476,12 @@ class InferenceEngine:
                     sched.retire(slot)
                     self._requests.pop(req.rid, None)
                     self._drafts.pop(req.rid, None)
+                    self._adapter_release(req)
             for req in [r for r in sched.waiting if r.rid in cancelled]:
                 sched.waiting.remove(req)
                 req.done = True
                 self._requests.pop(req.rid, None)
+                self._adapter_release(req)
 
     def _expire_deadlines(self, events) -> None:
         """Retire every request past its deadline, at the tick's start
@@ -464,6 +512,7 @@ class InferenceEngine:
                 req.error = err
                 req.done = True
                 self._requests.pop(req.rid, None)
+                self._adapter_release(req)
                 expired.append(req)
             for slot, req in list(sched.active.items()):
                 err = expiry(req, False)
@@ -472,6 +521,7 @@ class InferenceEngine:
                     req.error = err
                     self._requests.pop(req.rid, None)
                     self._drafts.pop(req.rid, None)
+                    self._adapter_release(req)
                     expired.append(req)
         for req in expired:
             self.deadline_exceeded += 1
@@ -583,10 +633,11 @@ class InferenceEngine:
                 f"context ({len(context)}) + remaining tokens "
                 f"({1 + max_new_tokens}) exceeds max_seq "
                 f"{self.cfg.max_seq}")
-        if handoff.model_id:
+        model_id = handoff.model_id
+        if model_id and self.lora_cfg is None:
             raise AdapterUnavailableError(
-                handoff.model_id, "decode-side engine built without "
-                "adapter support (adapters are ROADMAP Queue 1 item 11)")
+                model_id, "decode-side engine built without adapter "
+                "support (RAY_TPU_LORA / lora=)")
         sampling = sampling or SamplingParams()
         with self._lock:
             rid = self._next_rid
@@ -601,7 +652,16 @@ class InferenceEngine:
                           import_payload=handoff,
                           spec_k=self._resolve_spec_k(sampling),
                           trace=trace_mod.TraceContext.from_wire(
-                              handoff.trace))
+                              handoff.trace),
+                          # the importer decodes under the exact factors
+                          # the prefill used: the version pins the store
+                          # fetch across republishes, and the handoff's
+                          # chain hashes are already salted
+                          model_id=model_id or None,
+                          adapter_slot=-1 if model_id else 0,
+                          adapter_version=handoff.adapter_version,
+                          hash_salt=salt_bytes(model_id,
+                                               handoff.adapter_version))
             self.scheduler.submit(req)    # validates; may raise
             self._requests[rid] = req
             depth = len(self.scheduler.waiting)
@@ -609,16 +669,139 @@ class InferenceEngine:
             self.telemetry.record_queue_depth(depth)
         return rid
 
-    def load_adapter(self, model_id: str, adapter, **kw):
-        raise AdapterUnavailableError(
-            model_id, "engine built without adapter support (adapters "
-            "are ROADMAP Queue 1 item 11)")
+    # ------------------------------------------------ multi-tenant LoRA
+    def _adapter_release(self, req: Request) -> None:
+        """Drop a retiring request's pin on its exact (tenant, version);
+        idempotent (the slot resets, so a second retire path cannot
+        unpin twice)."""
+        if req.adapter_slot > 0 and self.adapters is not None:
+            self.adapters.unpin(req.model_id, req.adapter_version)
+        req.adapter_slot = 0
+
+    def _check_adapter(self, model_id: str, adapter) -> None:
+        """Gate factors against the bank's geometry before the install:
+        another rank, target set or dims surfaces as the typed
+        per-request error, never as a shape error out of step()."""
+        why = lora_mod.bank_mismatch(self.lora_bank, adapter)
+        if why is not None:
+            raise AdapterUnavailableError(
+                model_id, "published factors do not fit the serving "
+                f"bank: {why}")
+
+    def _load_adapter(self, model_id: str, version: Optional[int] = None,
+                      *, pin: bool = False) -> Tuple[int, int]:
+        """Resolve ``model_id`` to a resident bank slot -> ``(slot,
+        installed version)``, loading through the adapter store on a miss
+        (``version=None`` tracks the store's latest; a republish lands
+        in a fresh row, never over a pinned one).  The install writes
+        the bank in place.  ``pin=True`` pins the resolved (tenant,
+        version) under the lock that resolves it.  The chaos site
+        ``serve.adapter_load`` fires on the load leg only and surfaces
+        as :class:`AdapterUnavailableError`.  Takes ``self._lock``
+        itself: callers must not hold it (the store checkout may wait on
+        an object-store fetch)."""
+        reg = self.adapters
+        want = version
+        if want is None and self.adapter_store is not None:
+            want = self.adapter_store.latest_version(model_id)
+        with self._lock:
+            ent = reg.lookup(model_id, want)
+            if ent is not None:
+                reg.touch(model_id, ent[1])
+                if pin:
+                    reg.pin(model_id, ent[1])
+                reg.hits += 1
+            else:
+                reg.misses += 1
+        if self.telemetry.enabled:
+            self.telemetry.record_adapter_cache(hit=ent is not None)
+        if ent is not None:
+            return ent
+        try:
+            chaos.maybe_fail("serve.adapter_load")
+        except chaos.InjectedFault as fault:
+            raise AdapterUnavailableError(
+                model_id, f"load failed: {fault}") from fault
+        if self.adapter_store is None:
+            raise AdapterUnavailableError(
+                model_id, "not resident and the engine has no "
+                "adapter store to fetch through")
+        t0 = time.monotonic()
+        got, adapter, scale = self.adapter_store.checkout(model_id, want)
+        try:
+            self._check_adapter(model_id, adapter)
+            with self._lock:
+                slot, _evicted = reg.place(model_id, got)
+                lora_mod.bank_install(self.lora_bank, slot, adapter,
+                                      scale=scale)
+                if pin:
+                    reg.pin(model_id, got)
+        finally:
+            self.adapter_store.checkin()
+        wall = time.monotonic() - t0
+        reg.loads += 1
+        reg.load_seconds += wall
+        if self.telemetry.enabled:
+            self.telemetry.record_adapter_load(
+                wall, resident=len(reg.resident_ids))
+        return slot, got
+
+    def load_adapter(self, model_id: str, adapter, *,
+                     scale: float = 1.0, version: int = 1) -> int:
+        """Install an adapter's factors (tensors or numpy) directly into
+        the bank, with no store (tests, a colocated learner); returns
+        the bank slot.  Requests naming ``model_id`` resolve to it."""
+        if self.lora_cfg is None:
+            raise AdapterUnavailableError(
+                model_id, "engine built without adapter support "
+                "(RAY_TPU_LORA / lora=)")
+        self._check_adapter(model_id, adapter)
+        with self._lock:
+            slot, _evicted = self.adapters.place(model_id, int(version))
+            lora_mod.bank_install(self.lora_bank, slot, adapter,
+                                  scale=scale)
+            self.adapters.loads += 1
+        return slot
+
+    def _resolve_adapters(self, events: List[StepEvent]) -> None:
+        """Give every waiting tenant request a resident, pinned bank row
+        before admission (step() only, like every bank write).  The
+        resolution sets the prefix-chain salt before the prompt is first
+        hashed, so adapter K/V never aliases base K/V.  A failed load
+        retires the request with the typed error."""
+        if self.lora_cfg is None:
+            return
+        with self._lock:
+            pending = [r for r in self.scheduler.waiting
+                       if r.adapter_slot == -1]
+        for req in pending:
+            try:
+                slot, got = self._load_adapter(
+                    req.model_id, req.adapter_version or None, pin=True)
+            except AdapterUnavailableError as err:
+                with self._lock:
+                    if req in self.scheduler.waiting:
+                        self.scheduler.waiting.remove(req)
+                    self._requests.pop(req.rid, None)
+                req.error = err
+                req.done = True
+                events.append(StepEvent(req.rid, -1, True, 0.0, error=err))
+                continue
+            req.adapter_slot = slot
+            req.adapter_version = got
+            req.hash_salt = salt_bytes(req.model_id, got)
+            if req.import_payload is None:
+                # a chain hashed before the salt was known is unsalted
+                # (an import's chain comes salted in its handoff)
+                req.chain_hashes = None
 
     def adapter_digest(self) -> frozenset:
         """Resident tenant model_ids, which the fleet router composes
-        into its affinity score beside the prefix digest: none, since
-        the engine has no adapter bank (ROADMAP Queue 1 item 11)."""
-        return frozenset()
+        into its affinity score beside the prefix digest."""
+        if self.adapters is None:
+            return frozenset()
+        with self._lock:
+            return self.adapters.digest()
 
     def set_params(self, params, *, version: Optional[int] = None) -> int:
         """Swap in a new parameter snapshot (tensors or numpy leaves, same
@@ -693,6 +876,15 @@ class InferenceEngine:
                 "store": (self.store.stats()
                           if self.store is not None else None),
             },
+            # the registry's residency and hit counters, and the shared
+            # store's publish/fetch accounting
+            "adapters": {
+                "enabled": self.lora_cfg is not None,
+                **(self.adapters.stats()
+                   if self.adapters is not None else {}),
+                "store": (self.adapter_store.stats()
+                          if self.adapter_store is not None else None),
+            },
         }
 
     def leak_free(self) -> bool:
@@ -701,7 +893,9 @@ class InferenceEngine:
         refcount is the number of active or export-held requests that
         hold it; the host pool is within its capacity and holds no hash
         that is also resident (a demoted entry lives in exactly one
-        local tier); and no store fetch is in flight."""
+        local tier); no store fetch is in flight; and every adapter pin
+        belongs to a live tenant request, with no adapter-store checkout
+        outstanding."""
         alloc = self.scheduler.allocator
         holders = list(self.scheduler.active.values()) + \
             list(self._held.values())
@@ -716,7 +910,15 @@ class InferenceEngine:
                             self.scheduler.prefix_index.digest()}
                 if resident & set(self.host_pool._entries):
                     return False
-        return self.store is None or self.store.in_flight == 0
+        if self.store is not None and self.store.in_flight != 0:
+            return False
+        if self.adapters is not None:
+            live = sum(1 for r in self._requests.values()
+                       if r.adapter_slot > 0)
+            if self.adapters.pinned_total != live:
+                return False
+        return (self.adapter_store is None
+                or self.adapter_store.in_flight == 0)
 
     # ------------------------------------------------------ engine tick
     @torch.inference_mode()
@@ -725,6 +927,7 @@ class InferenceEngine:
         events: List[StepEvent] = []
         self._process_cancels()
         self._expire_deadlines(events)
+        self._resolve_adapters(events)
         while True:
             with self._lock:
                 req = self.scheduler.try_admit()
@@ -826,6 +1029,7 @@ class InferenceEngine:
         with tracing.span(f"infer/{kind}", rid=req.rid, bucket=bucket,
                           cached=cached):
             sampling = self._sampling_inputs([req])
+            lora_ids = self._lora_ids([req.adapter_slot])
             page_row = torch.from_numpy(sched.page_table[slot]).to(
                 self.device)
             if cached:
@@ -833,10 +1037,11 @@ class InferenceEngine:
                                         sched.prefix_index, req.pages,
                                         cached, plen - 1, self.page_size)
                 logits = self._prefill_cached_step(
-                    tokens.to(self.device), cached, len(fill), page_row)
+                    tokens.to(self.device), cached, len(fill), page_row,
+                    lora_ids)
             else:
                 logits = self._prefill_step(tokens.to(self.device), plen,
-                                            page_row)
+                                            page_row, lora_ids)
             toks, logps = self._sample(logits, sampling)
         now = time.monotonic()
         self.seconds[kind] += now - t0
@@ -894,6 +1099,7 @@ class InferenceEngine:
             sched.retire(slot)
             req.error = kvc.HandoffContentMissing(req.rid, len(missing))
             self._requests.pop(req.rid, None)
+            self._adapter_release(req)
             events.append(StepEvent(req.rid, -1, True, 0.0,
                                     error=req.error))
             return
@@ -1048,13 +1254,14 @@ class InferenceEngine:
         self._write_prompt(cache, k[0], v[0], page_row, 0, k.shape[1])
         return flash_attention(q, k, v, causal=True), cache
 
-    def _prefill_step(self, tokens, length: int, page_row):
-        """(tokens [1, bucket], valid length, page_row [max_pages]) ->
-        the last valid token's logits [1, V] f32."""
+    def _prefill_step(self, tokens, length: int, page_row, lora_ids=None):
+        """(tokens [1, bucket], valid length, page_row [max_pages], the
+        request's bank slot [1] or None) -> the last valid token's logits
+        [1, V] f32."""
         cfg = self.cfg
         positions = torch.arange(tokens.shape[1], device=self.device)
         hook = functools.partial(self._prefill_attention, page_row=page_row)
-        x = self._run_layers(self._embed(tokens), positions, hook)
+        x = self._run_layers(self._embed(tokens), positions, hook, lora_ids)
         h = x[0, length - 1][None]                        # [1, d]
         return torch.matmul(h, gpt_mod.lm_head(self.params, cfg)).float()
 
@@ -1077,7 +1284,7 @@ class InferenceEngine:
         return _cached_context_attention(q, kctx, vctx, k, v, cached), cache
 
     def _cached_layers(self, tokens, cached: int, suffix_len: int,
-                       page_row):
+                       page_row, lora_ids=None):
         """The layer stack over a suffix at positions ``cached..`` of one
         slot, its context read back from the cache -> the final hidden
         states [1, S, d]."""
@@ -1086,13 +1293,15 @@ class InferenceEngine:
         hook = functools.partial(
             self._cached_prefill_attention, page_row=page_row,
             cached=cached, suffix_len=suffix_len)
-        return self._run_layers(self._embed(tokens), positions, hook)
+        return self._run_layers(self._embed(tokens), positions, hook,
+                                lora_ids)
 
     def _prefill_cached_step(self, tokens, cached: int, suffix_len: int,
-                             page_row):
+                             page_row, lora_ids=None):
         """(suffix tokens [1, bucket], cached prefix length, valid suffix
         length, page_row) -> the last suffix token's logits [1, V] f32."""
-        x = self._cached_layers(tokens, cached, suffix_len, page_row)
+        x = self._cached_layers(tokens, cached, suffix_len, page_row,
+                                lora_ids)
         h = x[0, suffix_len - 1][None]
         return torch.matmul(h, gpt_mod.lm_head(self.params,
                                                 self.cfg)).float()
@@ -1125,10 +1334,14 @@ class InferenceEngine:
         t0 = time.monotonic()
         with tracing.span("infer/decode", active=len(active)):
             sampling = self._sampling_inputs(reqs)
+            # each row's bank slot: co-batched tenants share this tick,
+            # dead and base rows ride the identity slot 0
+            lora_ids = self._lora_ids([r.adapter_slot if r else 0
+                                       for r in reqs])
             logits = self._decode_step(
                 torch.from_numpy(tokens).to(self.device),
                 torch.from_numpy(sched.lengths).to(self.device),
-                torch.from_numpy(page_table).to(self.device))
+                torch.from_numpy(page_table).to(self.device), lora_ids)
             sampled, logps = self._sample(logits, sampling)
         wall = time.monotonic() - t0
         self.seconds["decode"] += wall
@@ -1168,7 +1381,7 @@ class InferenceEngine:
                                    ctx_lengths, **scales)
         return o[:, None], cache
 
-    def _decode_step(self, tokens, lengths, page_table):
+    def _decode_step(self, tokens, lengths, page_table, lora_ids=None):
         """(tokens [slots], lengths [slots] = the new token's position,
         page_table [slots, max_pages]) -> logits [slots, V] f32."""
         hook = functools.partial(
@@ -1176,7 +1389,7 @@ class InferenceEngine:
             table32=page_table.to(torch.int32), lengths=lengths,
             ctx_lengths=(lengths + 1).to(torch.int32))
         x = self._run_layers(self._embed(tokens[:, None]),
-                             lengths[:, None], hook)
+                             lengths[:, None], hook, lora_ids)
         logits = torch.matmul(x, gpt_mod.lm_head(self.params, self.cfg))
         return logits[:, 0].float()
 
@@ -1244,10 +1457,11 @@ class InferenceEngine:
             c = len(req.generated)
             sampling = self._sampling_rows(
                 [(req.sampling, c + i) for i in range(n_drafts + 1)])
+            lora_ids = self._lora_ids([req.adapter_slot])
             page_row = torch.from_numpy(sched.page_table[slot]).to(
                 self.device)
             logits = self._verify_step(tokens.to(self.device), L,
-                                       n_drafts + 1, page_row)
+                                       n_drafts + 1, page_row, lora_ids)
             toks, logps = self._sample(logits[:n_drafts + 1], sampling)
         wall = time.monotonic() - t0
         self.seconds["verify"] += wall
@@ -1279,14 +1493,15 @@ class InferenceEngine:
             self.telemetry.record_verify(wall, proposed=n_drafts,
                                          accepted=m, emitted=delivered)
 
-    def _verify_step(self, tokens, cached: int, n_rows: int, page_row):
+    def _verify_step(self, tokens, cached: int, n_rows: int, page_row,
+                     lora_ids=None):
         """The verify forward: the cached-context prefill in all-rows
         mode.  (tokens [1, kb + 1] = [last_token, drafts, pad], the
         slot's length ``cached``, valid rows ``n_rows``, page_row) ->
         logits [kb + 1, V] f32, row i scoring the token after input i.
         Its N = kb + 1 rows go through the fused out-proj epilogue like
         any prefill's; the head runs over every row."""
-        x = self._cached_layers(tokens, cached, n_rows, page_row)
+        x = self._cached_layers(tokens, cached, n_rows, page_row, lora_ids)
         return torch.matmul(x[0], gpt_mod.lm_head(self.params,
                                                    self.cfg)).float()
 
@@ -1294,15 +1509,33 @@ class InferenceEngine:
     def _embed(self, tokens):
         return gpt_mod.embed_tokens(self.params, tokens, self.cfg)
 
-    def _run_layers(self, x, positions, attn_hook):
+    def _lora_ids(self, slots: List[int]):
+        """The rows' bank slots on the device, or None when the engine has
+        no bank.  An unresolved slot (-1) never reaches a step: admission
+        waits for its resolution."""
+        if self.lora_cfg is None:
+            return None
+        if min(slots) < 0:
+            raise RuntimeError(f"unresolved adapter slot in {slots}")
+        return torch.tensor(slots, dtype=torch.int64, device=self.device)
+
+    def _run_layers(self, x, positions, attn_hook, lora_ids=None):
         """The layer stack with each layer's cache slice handed to the
-        attention hook, then the final norm."""
+        attention hook, then the final norm.  ``lora_ids`` [B] routes each
+        row through its bank slot's factors (the bank's layer ``i``
+        slice, gathered by slot in ``gpt.lora_delta``)."""
         cfg = self.cfg
+        lora = None
         for i in range(cfg.n_layers):
+            if lora_ids is not None:
+                lora = {k: v[:, i] for k, v in self.lora_bank.items()
+                        if k != "scale"}
+                lora["scale"] = self.lora_bank["scale"]
+                lora["ids"] = lora_ids
             x, _aux, _cache = gpt_mod.layer_apply(
                 gpt_mod.layer_params(self.params, i), x, cfg,
                 positions=positions, attn_fn=attn_hook,
-                cache=self.cache.layer(i))
+                cache=self.cache.layer(i), lora=lora)
         return gpt_mod._norm(x, self.params["ln_f"], cfg.norm,
                              eps=gpt_mod.norm_eps(cfg))
 
@@ -1320,6 +1553,10 @@ class InferenceEngine:
                 self._held[req.rid] = req
             else:
                 self.scheduler.retire(req.slot)
+            # the adapter unpins with the slot either way: an export
+            # needs only the pages, and the importer pins the adapter on
+            # its own replica through the handoff's metadata
+            self._adapter_release(req)
             if self.telemetry.enabled:
                 self.telemetry.record_request_done()
             self._drafts.pop(req.rid, None)

@@ -117,9 +117,13 @@ class Request:
     tier_plan: int = 0
     # the request's telemetry.trace.TraceContext (None = untraced)
     trace: Optional[Any] = None
-    # the adapter this request decodes under (None = base; adapters are
-    # ROADMAP Queue 1 item 11)
+    # the adapter this request decodes under (None = base).
+    # ``adapter_slot`` is the engine's bank row: 0 = the identity slot,
+    # -1 = not yet resolved (the engine loads and pins the adapter before
+    # the request's first admission attempt); ``adapter_version`` pins
+    # the store version (0 = latest, resolved in place)
     model_id: Optional[str] = None
+    adapter_slot: int = 0
     adapter_version: int = 0
     # the prefix-chain root (adapter traffic salts it; base traffic keeps
     # the unsalted root, so its hashes are the JAX package's)
@@ -214,6 +218,12 @@ class SlotScheduler:
         if not self.waiting or not self.free_slots:
             return None
         req = self.waiting[0]
+        if req.adapter_slot == -1:
+            # a tenant request that arrived after this tick resolved the
+            # bank rows: it waits, unhashed, for the next tick's
+            # resolution, so it never rides the identity slot and its
+            # chain is hashed under the tenant's salt
+            return None
         need = pages_needed(len(req.prompt) + req.max_new_tokens,
                             self.page_size)
         walk_t0 = time.monotonic()

@@ -297,10 +297,57 @@ def _proj_heads(h, w):
     return torch.matmul(h, w.reshape(d, -1)).view(B, S, *w.shape[1:])
 
 
-def _dense_ffn(lp, x, cfg: GPTConfig):
+def lora_delta(lora, name: str, x):
+    """Low-rank delta ``scale * (x @ A) @ B`` for one target matmul, or
+    None when the adapter carries no factors for ``name``
+    (``ray_tpu/models/gpt.py:lora_delta``).
+
+    Two modes, told apart by ``ids``:
+
+    - **single adapter** (training): ``<name>_a`` [in, r] and
+      ``<name>_b`` [r, out] shared across the batch, a scalar
+      ``scale``;
+    - **banked** (serving): the factors carry a leading bank axis
+      ([N, in, r] / [N, r, out], ``scale`` [N]) and ``ids`` [B] picks
+      one bank slot per batch row, so co-batched tenants share one
+      step.  Slot 0 is all zeros: base rows land on the base output.
+
+    The rank-space products run in the activation dtype, as the base
+    matmuls do; the f32 scale is applied last."""
+    a = lora.get(name + "_a")
+    if a is None:
+        return None
+    b = lora[name + "_b"]
+    scale = lora["scale"]
+    ids = lora.get("ids")
+    if ids is None:
+        t = torch.matmul(x, a.to(x.dtype))
+        d = torch.matmul(t, b.to(x.dtype))
+        scale = torch.as_tensor(scale, dtype=torch.float32,
+                                device=x.device)
+        return (d.float() * scale).to(x.dtype)
+    av = a.index_select(0, ids).to(x.dtype)
+    bv = b.index_select(0, ids).to(x.dtype)
+    s = scale.index_select(0, ids).float()
+    d = torch.bmm(torch.bmm(x, av), bv)
+    return (d.float() * s[:, None, None]).to(x.dtype)
+
+
+def _plus(y, delta):
+    return y if delta is None else y + delta.reshape(y.shape)
+
+
+def _dense_ffn(lp, x, cfg: GPTConfig, lora=None):
     h = torch.matmul(x, lp["w1"])
     g = torch.matmul(x, lp["w3"])
-    return torch.matmul(F.silu(h) * g, lp["w2"])
+    if lora is not None:
+        h = _plus(h, lora_delta(lora, "w1", x))
+        g = _plus(g, lora_delta(lora, "w3", x))
+    a = F.silu(h) * g
+    out = torch.matmul(a, lp["w2"])
+    if lora is not None:
+        out = _plus(out, lora_delta(lora, "w2", a))
+    return out
 
 
 def _swiglu_experts(w1w3, w2, tokens):
@@ -359,7 +406,8 @@ def _moe_ffn(lp, x, cfg: GPTConfig, *, mesh=None):
 
 
 def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
-                cache=None, fuse_norm: Optional[bool] = None, mesh=None):
+                cache=None, fuse_norm: Optional[bool] = None, mesh=None,
+                lora=None):
     """One transformer block: ``(layer params, hidden [B, S, d]) ->
     (hidden, aux)``.
 
@@ -384,10 +432,28 @@ def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
     over tp before each residual add, where GSPMD puts the reference's
     collectives.  The fused epilogue declines under tp, as the
     reference's gate declines a sharded mesh: the tp sum sits between
-    the matmul and the residual add."""
+    the matmul and the residual add.
+
+    ``lora``: this layer's low-rank adapter factors (:func:`lora_delta`'s
+    layout, single or banked) added to the q/k/v, out-proj and MLP
+    matmul outputs before RoPE, so the block equals the base block over
+    the merged weights ``W + scale * A @ B``.  An active ``lora``
+    declines the fused out-proj epilogue (the kernel folds the wo
+    matmul, which would skip the wo delta), as the reference's does; a
+    ``lora`` on an MoE config raises as the reference's does, and on a
+    mesh that shards the model it raises too (the reference's adapter
+    path replicates the factors; the port's sharded layers have no
+    adapter formulation)."""
     eps = norm_eps(cfg)
     B, S, d = x.shape
     sh = _shards(mesh)
+    if lora is not None:
+        if cfg.n_experts > 0:
+            raise ValueError("LoRA adapters are dense-FFN only "
+                             "(see adapters.lora.effective_targets)")
+        if sh is not None:
+            raise ValueError("LoRA adapters run on an unsharded model "
+                             "(a mesh of dp only, or no mesh)")
     if sh is not None:
         lp = _gather_layer(lp, sh)
     tp = _tp_group(sh)
@@ -395,6 +461,10 @@ def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
     q = _proj_heads(h, lp["wq"])
     k = _proj_heads(h, lp["wk"])
     v = _proj_heads(h, lp["wv"])
+    if lora is not None:
+        q = _plus(q, lora_delta(lora, "wq", h))
+        k = _plus(k, lora_delta(lora, "wk", h))
+        v = _plus(v, lora_delta(lora, "wv", h))
     fused_rope = cfg.pos == "rope" and getattr(attn_fn, "fused_rope", False)
     if not fused_rope:
         q = _rope(q, positions, cfg.rope_theta)
@@ -411,11 +481,10 @@ def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
     else:
         attn = attn_fn(q, k, v)
     Hn, hd = attn.shape[2], attn.shape[3]
-    plan = fnorm.out_proj_norm_plan(B * S, Hn * hd, d, norm=cfg.norm,
-                                    has_bias=False, seq=S,
-                                    enabled=fuse_norm is not False,
-                                    tp_size=1 if sh is None else sh.tp_size,
-                                    device=x.device)
+    plan = lora is None and fnorm.out_proj_norm_plan(
+        B * S, Hn * hd, d, norm=cfg.norm, has_bias=False, seq=S,
+        enabled=fuse_norm is not False,
+        tp_size=1 if sh is None else sh.tp_size, device=x.device)
     if plan:
         # out-proj + residual add + pre-FFN norm in one kernel
         r2, y2 = fnorm.matmul_residual_norm(
@@ -424,16 +493,18 @@ def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
         x = r2.view(B, S, d)
         h2 = y2.view(B, S, d)
     else:
-        x = x + comm.reduce_from_group(
-            torch.matmul(attn.reshape(B, S, Hn * hd),
-                         lp["wo"].reshape(Hn * hd, d)), tp)
+        a2 = attn.reshape(B, S, Hn * hd)
+        proj = torch.matmul(a2, lp["wo"].reshape(Hn * hd, d))
+        if lora is not None:
+            proj = _plus(proj, lora_delta(lora, "wo", a2))
+        x = x + comm.reduce_from_group(proj, tp)
         h2 = _norm(x, lp["ln2"], cfg.norm, eps=eps)
     if cfg.n_experts > 0:
         ffn_out, aux = _moe_ffn(lp, h2, cfg, mesh=mesh)
         x = x + ffn_out
     else:
         x = x + comm.reduce_from_group(
-            _dense_ffn(lp, comm.copy_to_group(h2, tp), cfg), tp)
+            _dense_ffn(lp, comm.copy_to_group(h2, tp), cfg, lora=lora), tp)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cache is not None:
         return x, aux, cache
@@ -475,7 +546,7 @@ def forward_hidden(params: Params, tokens, cfg: GPTConfig, *,
                    attn_fn: Optional[Callable] = None,
                    fuse_norm: Optional[bool] = None,
                    final_norm: bool = True, positions=None, mesh=None,
-                   segment_ids=None):
+                   segment_ids=None, lora=None):
     """tokens [B, S] int -> (final hidden [B, S, d], aux).
 
     ``attn_fn(q, k, v) -> out`` defaults to causal ``local_attention``
@@ -490,7 +561,12 @@ def forward_hidden(params: Params, tokens, cfg: GPTConfig, *,
     ``segment_ids``/``positions`` [B, S] carry a sample-packed batch
     (``data.SamplePacker``): attention masks block-diagonally per
     segment and RoPE restarts at every document start, so the packed
-    forward equals the per-document unpacked one."""
+    forward equals the per-document unpacked one.
+
+    ``lora``: one adapter's stacked factors ([L, in, r] / [L, r, out]
+    per target, and a scalar ``scale``) applied to every adapted matmul,
+    the trainable-adapter forward of ``models/training.py`` over a
+    frozen base."""
     check_supported(cfg)
     S = tokens.shape[1]
     if attn_fn is None:
@@ -508,7 +584,7 @@ def forward_hidden(params: Params, tokens, cfg: GPTConfig, *,
         positions = torch.arange(S, device=tokens.device)
     x, aux_total = run_layers(params["layers"], x, cfg, positions=positions,
                               attn_fn=attn_fn, fuse_norm=fuse_norm,
-                              mesh=mesh)
+                              mesh=mesh, lora=lora)
     if final_norm:
         x = _norm(x, params["ln_f"], cfg.norm, eps=norm_eps(cfg))
     return x, aux_total
@@ -516,19 +592,27 @@ def forward_hidden(params: Params, tokens, cfg: GPTConfig, *,
 
 def run_layers(layers: Params, x, cfg: GPTConfig, *, positions,
                attn_fn: Callable, fuse_norm: Optional[bool] = None,
-               mesh=None):
+               mesh=None, lora=None):
     """The blocks of a stacked layer tree (leaves ``[n, ...]``, any n:
     the whole model, or a pipeline stage's slice) over the hidden ``x``
     in order -> (hidden, summed aux); each block is recomputed in the
-    backward under ``cfg.remat``."""
-    block = functools.partial(layer_apply, cfg=cfg, positions=positions,
-                              attn_fn=attn_fn, fuse_norm=fuse_norm,
-                              mesh=mesh)
+    backward under ``cfg.remat``.  ``lora``'s stacked factors (leading
+    ``n``) go layer by layer beside the weights; its scale is shared."""
+    def block(lp, la, x):
+        layer_lora = None if la is None else {**la, "scale": lora["scale"]}
+        return layer_apply(lp, x, cfg, positions=positions,
+                           attn_fn=attn_fn, fuse_norm=fuse_norm, mesh=mesh,
+                           lora=layer_lora)
+
     if cfg.remat and torch.is_grad_enabled():
         block = _remat(block)
+    factors = None if lora is None else {
+        k: v for k, v in lora.items() if k != "scale"}
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(next(iter(layers.values())).shape[0]):
-        x, aux = block({k: v[i] for k, v in layers.items()}, x)
+        la = None if factors is None else {k: v[i]
+                                           for k, v in factors.items()}
+        x, aux = block({k: v[i] for k, v in layers.items()}, la, x)
         aux_total = aux_total + aux
     return x, aux_total
 
@@ -545,16 +629,16 @@ def _remat(block: Callable) -> Callable:
     forward."""
     pallas = _PALLAS_NORM
 
-    def pinned(lp, x):
+    def pinned(*args):
         global _PALLAS_NORM
         saved, _PALLAS_NORM = _PALLAS_NORM, pallas
         try:
-            return block(lp, x)
+            return block(*args)
         finally:
             _PALLAS_NORM = saved
 
-    def run(lp, x):
-        return torch.utils.checkpoint.checkpoint(pinned, lp, x,
+    def run(*args):
+        return torch.utils.checkpoint.checkpoint(pinned, *args,
                                                  use_reentrant=False)
 
     return run
@@ -572,12 +656,12 @@ def lm_head(params: Params, cfg: GPTConfig, *, mesh=None):
 def forward(params: Params, tokens, cfg: GPTConfig, *,
             attn_fn: Optional[Callable] = None,
             fuse_norm: Optional[bool] = None, positions=None, mesh=None,
-            segment_ids=None):
+            segment_ids=None, lora=None):
     """tokens [B, S] int -> (logits [B, S, V] f32, aux); under tp each
     rank's vocabulary columns are all-gathered into the full V."""
     x, aux = forward_hidden(params, tokens, cfg, attn_fn=attn_fn,
                             fuse_norm=fuse_norm, positions=positions,
-                            mesh=mesh, segment_ids=segment_ids)
+                            mesh=mesh, segment_ids=segment_ids, lora=lora)
     tp = _tp_group(_shards(mesh))
     logits = torch.matmul(comm.copy_to_group(x, tp),
                           lm_head(params, cfg, mesh=mesh))
@@ -718,7 +802,7 @@ def uses_ce_norm(cfg: GPTConfig, n_rows: int, device, *,
 def loss_fn(params: Params, batch, cfg: GPTConfig, *,
             attn_fn: Optional[Callable] = None, aux_weight: float = 0.01,
             ce_mode: Optional[str] = None,
-            fuse_norm: Optional[bool] = None, mesh=None):
+            fuse_norm: Optional[bool] = None, mesh=None, lora=None):
     """batch: dict(tokens [B, S], targets [B, S]) -> scalar loss.
 
     ``fuse_norm`` (None means on) pins the fused norm epilogues: the
@@ -729,14 +813,16 @@ def loss_fn(params: Params, batch, cfg: GPTConfig, *,
     A sample-packed batch also carries ``segment_ids`` and ``positions``
     [B, S] (``ray_tpu_torch.data``): attention masks block-diagonally
     and positions restart per document; the packer's ``targets``
-    already mask document ends and padding with ``-1``."""
+    already mask document ends and padding with ``-1``.  ``lora``: a
+    single adapter's factors over these (frozen) ``params``
+    (:func:`forward_hidden`)."""
     B, S = batch["tokens"].shape
     ce_norm = uses_ce_norm(cfg, B * S, batch["tokens"].device,
                            ce_mode=ce_mode, fuse_norm=fuse_norm, mesh=mesh)
     x, aux = forward_hidden(params, batch["tokens"], cfg, attn_fn=attn_fn,
                             fuse_norm=fuse_norm, final_norm=not ce_norm,
                             positions=batch.get("positions"), mesh=mesh,
-                            segment_ids=batch.get("segment_ids"))
+                            segment_ids=batch.get("segment_ids"), lora=lora)
     loss = loss_from_hidden(params, x, batch["targets"], cfg,
                             ce_mode=ce_mode,
                             norm_scale=params["ln_f"] if ce_norm else None,

@@ -44,8 +44,8 @@ gradients through the overlap schedule instead
 gradient reduce-scatters, ring all-gather-matmul tp, and the int8 wire
 of ``comm_quant``); the optimizer, the global norm and the clip are the
 same.  It falls back loudly to gspmd where the reference's does
-(:func:`resolve_comm`).  LoRA (ROADMAP Queue 1 item 11) raises
-``NotImplementedError`` naming the item that ports it.
+(:func:`resolve_comm`).  ``lora=`` with ``base_params`` trains an
+adapter alone over a frozen base (:func:`build_gpt_train`).
 
 A MoE config (``cfg.n_experts``) trains on any of these meshes and on
 ``ep``: each rank holds its experts' shard (their hidden dimension split
@@ -285,9 +285,21 @@ def _weighted(loss: Callable, w) -> Callable:
     return lambda p, b: loss(p, b) * w
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                               f"item {item})")
+def _resolve_lora(lora, base_params):
+    """``lora=`` -> the effective ``LoraConfig`` (None when off), with
+    the base requirement enforced up front, as the reference's
+    ``_resolve_lora``: adapter-only training differentiates through a
+    frozen base, so there must be one to freeze."""
+    if not lora:
+        return None
+    from ray_tpu_torch.adapters import LoraConfig, lora_config
+    lcfg = lora if isinstance(lora, LoraConfig) else lora_config()
+    if base_params is None:
+        raise ValueError(
+            "trainable-adapter mode (lora=...) needs base_params — the "
+            "frozen base weights the adapter is trained against (e.g. "
+            "gpt.init_params(...) or a served checkpoint)")
+    return lcfg
 
 
 def _flat_collective(tensors: List[torch.Tensor], op: Callable
@@ -430,7 +442,8 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
                     comm_mode: Optional[str] = None,
                     comm_quant: Optional[str] = None,
                     telemetry: Optional[bool] = None,
-                    lora=None) -> Dict[str, Any]:
+                    lora=None, base_params: Optional[Params] = None
+                    ) -> Dict[str, Any]:
     """Returns dict(init_fn, step_fn, loss_fn, forward_fn, attn_fn,
     value_and_grad_fn, shard_batch, accum_steps, comm_mode, comm_quant),
     and
@@ -466,21 +479,41 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
     :func:`resolve_comm` gives the fallbacks, and ``fns["comm_mode"]``
     and ``fns["comm_quant"]`` what runs.  ``telemetry``
     (None: ``RAY_TPU_TELEMETRY``, default on) wraps ``step_fn`` in a
-    ``StepTelemetry``.  Runs on the card unless ``device="cpu"``."""
+    ``StepTelemetry``.  Runs on the card unless ``device="cpu"``.
+
+    ``lora`` (an ``adapters.LoraConfig``, or True for the env's) trains
+    an adapter alone: ``TrainState.params`` is the A/B factor tree
+    (``init_fn`` draws the standard LoRA init from its generator, so
+    step 0 is exactly the base model), ``base_params`` (required) stay
+    frozen and get no gradient, and the optimizer state is adapter
+    sized.  The overlap schedule has no adapter formulation and falls
+    back to gspmd, as the reference's does; a mesh that shards the
+    parameters (fsdp or tp above 1) raises.  ``fns["lora"]`` is the
+    effective config (None when off)."""
     groups = mesh_groups(mesh)
     if sp_impl not in ("ring", "ulysses"):
         raise ValueError(f"unknown sp_impl {sp_impl!r}; expected 'ring' or "
                          "'ulysses'")
-    if lora:
-        raise _unported("trainable-adapter mode (lora=)", "11")
+    lcfg = _resolve_lora(lora, base_params)
     accum_steps = (default_accum_steps() if accum_steps is None
                    else int(accum_steps))
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     gpt_mod.check_supported(cfg)
     comm_mode, comm_quant = resolve_comm(cfg, mesh, comm_mode, comm_quant,
-                                         accum_steps=accum_steps)
+                                         lora=lcfg, accum_steps=accum_steps)
     dev = resolve_device(device)
+    base = None
+    if lcfg is not None:
+        from ray_tpu_torch.adapters import lora as lora_mod
+        if groups.size("fsdp") > 1 or groups.size("tp") > 1:
+            raise ValueError(
+                "trainable-adapter mode runs on a mesh that shards no "
+                "parameter (dp and sp only): the port's sharded layers "
+                "have no adapter formulation")
+        base = shd.tree_map(lambda t: t.detach().to(dev), base_params)
+        adapter_keys = [k for t in lora_mod.effective_targets(cfg, lcfg)
+                        for k in (f"{t}_a", f"{t}_b")]
     overlap_fns = None
     if comm_mode == "overlap":
         from ray_tpu_torch.parallel.overlap import build_overlap_step_fns
@@ -495,8 +528,13 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
         attn_fn = make_flash_attention_fn(
             mesh, rope_theta=cfg.rope_theta if cfg.pos == "rope" else None)
     logical = gpt_mod.param_logical_axes(cfg)
-    specs = (shd.tree_specs(mesh, logical) if mesh is not None
-             else shd.tree_map(lambda _a: (), logical))
+    if lcfg is not None:
+        # the adapter is replicated: every rank holds all of it
+        specs = {k: () for k in adapter_keys}
+    elif mesh is not None:
+        specs = shd.tree_specs(mesh, logical)
+    else:
+        specs = shd.tree_map(lambda _a: (), logical)
     full_shapes = gpt_mod.param_shapes(cfg)
     sharded = any(shd.spec_axes(_at(specs, p)) for p in _paths(specs))
 
@@ -509,9 +547,17 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
             S = batch["tokens"].shape[1]
             batch = dict(batch, positions=groups.coord("sp") * S
                          + torch.arange(S, device=batch["tokens"].device))
-        return gpt_mod.loss_fn(params, batch, cfg, attn_fn=attn_fn,
+        model, adapter = model_of(params)
+        return gpt_mod.loss_fn(model, batch, cfg, attn_fn=attn_fn,
                                ce_mode=ce_mode, fuse_norm=fuse_norm,
-                               mesh=mesh)
+                               mesh=mesh, lora=adapter)
+
+    def model_of(params):
+        """(the model's tree, the ``lora=`` tree): in adapter mode the
+        frozen base and the trained factors with their scale."""
+        if lcfg is None:
+            return params, None
+        return base, {**params, "scale": lcfg.scale}
 
     def local_tree(params) -> bool:
         """Whether ``params`` are shards (else the full tree)."""
@@ -530,6 +576,15 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
 
     def init(generator: Optional[torch.Generator] = None, *,
              params: Optional[Params] = None) -> TrainState:
+        if lcfg is not None:
+            params = (lora_mod.init_adapter(cfg, lcfg, generator,
+                                            device=dev)
+                      if params is None else
+                      {k: v.detach().to(dev).clone()
+                       for k, v in params.items()})
+            if groups.grouped and groups.mesh is not None:
+                _broadcast_from_first(params, groups.mesh)
+            return TrainState(params, tx.init(params), 0)
         if params is None:
             params = gpt_mod.init_params(cfg, generator, device=dev)
         if not local_tree(params):
@@ -622,9 +677,11 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
         S = batch["tokens"].shape[1]
         positions = (groups.coord("sp") * S + torch.arange(
             S, device=batch["tokens"].device)) if sp > 1 else None
-        logits, _ = gpt_mod.forward(params, batch["tokens"], cfg,
+        model, adapter = model_of(params)
+        logits, _ = gpt_mod.forward(model, batch["tokens"], cfg,
                                     attn_fn=attn_fn, fuse_norm=fuse_norm,
-                                    positions=positions, mesh=mesh)
+                                    positions=positions, mesh=mesh,
+                                    lora=adapter)
         return logits
 
     def shard_batch(batch):
@@ -636,7 +693,8 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
            "forward_fn": forward_logits, "attn_fn": attn_fn,
            "value_and_grad_fn": loss_and_grads,
            "shard_batch": shard_batch, "accum_steps": accum_steps,
-           "comm_mode": comm_mode, "comm_quant": comm_quant}
+           "comm_mode": comm_mode, "comm_quant": comm_quant,
+           "lora": lcfg}
     return _maybe_instrument(fns, cfg, mesh, comm_mode=comm_mode,
                              comm_quant=comm_quant, ce_mode=ce_mode,
                              telemetry=telemetry)

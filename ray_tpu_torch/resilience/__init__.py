@@ -16,7 +16,7 @@ and serving, the counterpart of ``ray_tpu.resilience``:
 
 Config via ``RAY_TPU_CKPT_*``, ``RAY_TPU_ELASTIC_*`` and
 ``RAY_TPU_STRAGGLER_*`` (:func:`resilience_config`).  The supervised RL
-loop (``resilience/supervisor.py``) comes with ROADMAP Queue 1 item 11.
+loop (``resilience/supervisor.py``) comes with ROADMAP Queue 1 item 11b.
 """
 
 from ray_tpu_torch.resilience.checkpoint import (  # noqa: F401

@@ -239,7 +239,10 @@ def test_page_allocator_invariants():
 
 
 def _lora_engine(tcfg, tparams):
-    InferenceEngine(tcfg, tparams, device="cpu", **GEOMETRY, lora=True)
+    engine = InferenceEngine(tcfg, tparams, device="cpu", **GEOMETRY,
+                             lora=True)
+    engine.submit([1, 2, 3], max_new_tokens=2,
+                  sampling=SamplingParams(model_id="tenant-a"))
 
 
 def _adapter_request(tcfg, tparams):
@@ -249,13 +252,14 @@ def _adapter_request(tcfg, tparams):
 
 
 @pytest.mark.parametrize("make,exc,match", [
-    (_lora_engine, NotImplementedError, "ROADMAP Queue 1 item 11"),
-    (_adapter_request, AdapterUnavailableError, "tenant-a")],
+    (_lora_engine, AdapterUnavailableError, "never published"),
+    (_adapter_request, AdapterUnavailableError, "without adapter")],
     ids=["lora", "model_id"])
 def test_unported_engine_options_raise(models, make, exc, match):
-    """What the port does not run yet raises, naming its ROADMAP item:
-    LoRA banks and a request for an adapter (the JAX engine's typed
-    error without adapter support)."""
+    """A request for an adapter the engine cannot serve raises the JAX
+    engine's typed error at submit: on an engine with a bank, a tenant
+    never published to its store; on an engine built without one, any
+    tenant (``tests/test_torch_adapters.py`` holds the bank itself)."""
     _j, _jp, tcfg, tparams = models
     with pytest.raises(exc, match=match):
         make(tcfg, tparams)

@@ -1050,7 +1050,7 @@ def test_fleet_stream_logprobs_parity(models):
 
 
 def test_adapter_requests_are_refused_typed(models):
-    """The port's engines have no adapter bank: ``adapter_digest()`` is
+    """Engines built without an adapter bank: ``adapter_digest()`` is
     empty, and a request naming a ``model_id`` is rejected by every
     replica (retry cause ``adapter``) and fails typed."""
     reps = [_replica(models, f"a{i}") for i in range(2)]

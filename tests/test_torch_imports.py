@@ -82,8 +82,10 @@ def test_every_module_imports_first():
 # options' and data parallelism's (the fused CE, the step recorder, the
 # dp mesh, the collectives and train/) and the data plane's and
 # resilience's (sources, packer, stream, checkpointer, elastic loop,
-# straggler supervisor and their recorders), which the probe above must
-# reach
+# straggler supervisor and their recorders) and the Dataset API's and
+# the adapters' (blocks, the executor, datasets, iterators, readers,
+# connectors; LoRA config, factor math, store and registry), which the
+# probe above must reach
 _SLICE_MODULES = ("ray_tpu_torch/ops/flash_ce.py",
                   "ray_tpu_torch/models/training.py",
                   "ray_tpu_torch/telemetry/flops.py",
@@ -157,7 +159,19 @@ _SLICE_MODULES = ("ray_tpu_torch/ops/flash_ce.py",
                   "ray_tpu_torch/resilience/config.py",
                   "ray_tpu_torch/resilience/checkpoint.py",
                   "ray_tpu_torch/resilience/straggler.py",
-                  "ray_tpu_torch/resilience/elastic.py")
+                  "ray_tpu_torch/resilience/elastic.py",
+                  "ray_tpu_torch/data/block.py",
+                  "ray_tpu_torch/data/context.py",
+                  "ray_tpu_torch/data/streaming_executor.py",
+                  "ray_tpu_torch/data/dataset.py",
+                  "ray_tpu_torch/data/iterator.py",
+                  "ray_tpu_torch/data/read_api.py",
+                  "ray_tpu_torch/data/io_extra.py",
+                  "ray_tpu_torch/data/connectors.py",
+                  "ray_tpu_torch/adapters/config.py",
+                  "ray_tpu_torch/adapters/lora.py",
+                  "ray_tpu_torch/adapters/store.py",
+                  "ray_tpu_torch/adapters/registry.py")
 
 
 def _imported_roots(path):

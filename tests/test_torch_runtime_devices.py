@@ -34,10 +34,22 @@ def _wait_resources(pkg, want, timeout=30.0):
         time.sleep(0.05)
 
 
-def _device_sequence(side):
+def _quiet_reference_sweep(monkeypatch):
+    """A dead head's extra-node shm root with all-decimal digits makes
+    the reference's stale-session sweep fail every init on the host
+    (ROADMAP Queue 3, reference side). These tests hold the port against
+    the reference's session, so the reference's sweep is patched out for
+    that session only; the port's own sweep runs as always."""
+    monkeypatch.setattr(ref_node, "_gc_stale_sessions",
+                        lambda *a, **k: None)
+
+
+def _device_sequence(side, monkeypatch):
     """Two 1-device actors, a third that pends until a kill frees a
     device, a CPU task, and the resources back at their start."""
     pkg, num_kw, res, var = _PKGS[side]
+    if side == "ref":
+        _quiet_reference_sweep(monkeypatch)
     pkg.init(num_cpus=4, **{num_kw: 2})
     try:
         start = pkg.available_resources()
@@ -78,9 +90,9 @@ def _device_sequence(side):
         pkg.shutdown()
 
 
-def test_device_accounting_matches_reference():
-    ref = _device_sequence("ref")
-    port = _device_sequence("port")
+def test_device_accounting_matches_reference(monkeypatch):
+    ref = _device_sequence("ref", monkeypatch)
+    port = _device_sequence("port", monkeypatch)
     for rec in (ref, port):
         assert rec["total"] == rec["start"] == 2.0
         assert rec["lists"] == ["0", "1"]            # disjoint, one each
@@ -189,13 +201,14 @@ def test_num_tpus_and_bind_raise():
         ray_tpu_torch.shutdown()
 
 
-def test_sessions_are_the_ports_own():
+def test_sessions_are_the_ports_own(monkeypatch):
     """The port's session root and shm roots are not the reference's,
     so ``address="auto"`` and the stale-session sweep never see a
     JAX-package cluster."""
     assert port_node._default_tmp_root() != ref_node._default_tmp_root()
     assert port_node._shm_root("session_x") != ref_node._shm_root(
         "session_x")
+    _quiet_reference_sweep(monkeypatch)
     ray_tpu.init(num_cpus=1)
     try:
         ref_session = ray_tpu._private.worker.global_node().session_dir

@@ -335,12 +335,19 @@ def test_infer_telemetry_summary_matches_reference(enabled):
         assert got == {"enabled": False}
 
 
-def _series_script(pkg, infer_cls, fleet_cls, config):
+def _series_script(pkg, infer_cls, fleet_cls, config, monkeypatch):
     """The reference's Prometheus record sequence for the inference and
     fleet recorders under a session of ``pkg``; returns the exposition's
     ``infer_*`` / ``serve_*`` lines."""
     from importlib import import_module
     metrics = import_module(pkg.__name__ + ".util.metrics")
+    if pkg.__name__ == "ray_tpu":
+        # a dead head's extra-node shm root with all-decimal digits makes
+        # the reference's stale-session sweep fail every init on the host
+        # (ROADMAP Queue 3, reference side); this test holds the series
+        from ray_tpu._private import node as ref_node
+        monkeypatch.setattr(ref_node, "_gc_stale_sessions",
+                            lambda *a, **k: None)
     pkg.init(num_cpus=1)
     try:
         infer = infer_cls(label="obs", config=config)
@@ -381,7 +388,7 @@ def _series_script(pkg, infer_cls, fleet_cls, config):
                   if any(f in ln for f in ("infer_", "serve_")))
 
 
-def test_prometheus_series_under_a_session_match_reference():
+def test_prometheus_series_under_a_session_match_reference(monkeypatch):
     """Under a runtime session the inference and fleet recorders emit
     the reference's Prometheus series, line for line (names, labels and
     values); without one they emit nothing."""
@@ -390,9 +397,9 @@ def test_prometheus_series_under_a_session_match_reference():
     from ray_tpu.telemetry.fleet import FleetTelemetry as JaxFleetTel
     from ray_tpu_torch.telemetry.fleet import FleetTelemetry
     got = _series_script(ray_tpu_torch, InferTelemetry, FleetTelemetry,
-                         TelemetryConfig(enabled=True))
+                         TelemetryConfig(enabled=True), monkeypatch)
     want = _series_script(ray_tpu, JaxInferTelemetry, JaxFleetTel,
-                          JaxTelConfig(enabled=True))
+                          JaxTelConfig(enabled=True), monkeypatch)
     assert got == want
     text = "\n".join(got)
     for name in ("infer_ttft_seconds", "infer_queue_depth",

@@ -246,13 +246,14 @@ def test_training_step_rotates_inside_the_kernel(monkeypatch):
                  "must name its axes", id="kw0-item 9"),
     pytest.param(dict(sp_impl="bogus"), ValueError, "unknown sp_impl",
                  id="kw1-item 9"),
-    pytest.param(dict(lora=True), NotImplementedError, "item 11",
+    pytest.param(dict(lora=True), ValueError, "needs base_params",
                  id="kw4-item 11"),
 ])
 def test_unported_training_options_raise(kw, exc, item):
-    """LoRA (item 11) raises, naming its item; an unknown ``sp_impl``
-    raises as the reference does, and so does a mesh of several devices
-    without named axes."""
+    """Trainable-adapter mode without ``base_params`` raises as the
+    reference's does (``tests/test_torch_adapters.py`` trains adapters);
+    an unknown ``sp_impl`` raises as the reference does, and so does a
+    mesh of several devices without named axes."""
     _jcfg, tcfg = _cfgs()
     with pytest.raises(exc, match=item):
         ttrain.build_gpt_train(tcfg, device="cpu", **kw)
