@@ -45,6 +45,9 @@
     python3 chip_smoke.py --train-dataset  # gpt2-train-dataset (11) alone
     python3 chip_smoke.py --serve-lora     # gpt2-serve-lora (12) alone
     python3 chip_smoke.py --train-lora     # gpt2-train-lora (13) alone
+    python3 chip_smoke.py --rl             # the attention kernels at the
+                                           # RL learner's S = 20, then the
+                                           # RL phases (14) alone
     python3 chip_smoke.py --multi-gpu      # on four cards: the pipeline
                                            # and MoE steps and the
                                            # elastic loop over NCCL
@@ -80,7 +83,7 @@
    masked SDPA and ``gather_pages`` + SDPA.
    The attention kernels also at their ragged edges: the prefill forward
    at S = 1, 65 and 200, the training forward and backward at [2, S, 12,
-   64] with and without RoPE for S = 65 and 200, and two bf16 backward
+   64] with and without RoPE for S = 20 (the RL learner's), 65 and 200, and two bf16 backward
    calls on the same inputs must agree bit for bit.  The out-proj
    epilogue forward and backward likewise at N = 1, 63, 65 and 200 (K =
    768) and K = 384 and 1536 (N = 200), and at d = 1024 and 1280 (the
@@ -89,6 +92,8 @@
    bit-identical.  The flash-CE forward and backward likewise at N = 1,
    63, 65 and 200 against V = 1000 and 50257, with and without the norm
    prologue, at d = 768 (bf16 and f32) and at 1024 and 1280 (bf16).
+   The epilogue forward and backward also at the RL learner's N = 8 x 20
+   = 160 rows.
    The training kernels also at the shapes of the later training arms
    (bf16, against the plain versions in f32, as extra shapes of their
    rows): the attention pair at a tp rank's 6 and 3 heads
@@ -344,6 +349,37 @@
    f32 plain path at 2 x 1024 within 9's bf16 bound; prints
    ``train-lora metrics {...}`` (ms/step and peak beside the full
    arm's).
+14. The RL loop (``rl_phases``), GPT-2 124M as ``bench.py --rl`` runs it
+   (``RLConfig()``'s defaults: batch 8, horizon 16; prompt 4, seed 1, lr
+   1e-4; the engine's default geometry):
+   gpt2-rl: ``run_rl_loop`` for 30 steps in-process: every metric
+   finite, param_version 31, no drop, the engine clean, exact launches
+   (the engine's prefills and decode steps; per learner step the
+   attention and epilogue forward and backward; flash-CE 0), after every
+   weight swap the engine holding the published tree bit for bit, from
+   the second swap on no device allocation and the engine's parameters
+   where they were; the first rollout's logprobs against the learner's
+   teacher-forced ``log_softmax`` (ENGINE_TOL), ``pg_grad_fn`` against
+   the f32 plain path (RL_LOSS_REL, TRAIN_BF16_TOL's gradient bound) and
+   ``RLOptimizer`` against a plain clip-then-Adam (RL_OPT_TOL).  At this
+   setting every reward is -1, so the learner stands still.
+   gpt2-rl-moving: the same loop for 6 steps with a reward that varies
+   across a rollout's rows: every swap also changes at least
+   RL_MOVED_MIN of the engine's elements.
+   gpt2-rl-group: gpt2-rl-moving's loop with its learner in a
+   ``num_gpus=1`` actor of a port session: its first step equals
+   gpt2-rl-moving's within 1e-5, its version 2 differs in at most
+   RL_V2_PARTED of the elements, and every swap moves the engine.
+   gpt2-rl-lora: an adapter-only learner over the frozen base trains 4
+   steps on a bank engine's rollouts under its tenant with seeded normal
+   rewards, publishing the adapter after each: the base bit-unchanged,
+   no epilogue on either side, every B moved, the tenant's greedy
+   stream the merged weights' under 7a's rule.
+   gpt2-rl-supervised: ``run_supervised_rl_loop`` for 8 steps under the
+   faults ``rl.rollout@3,rl.learner@5`` with a checkpoint every 2 steps:
+   one restart each, 8 records, the engines clean, exact launches (the
+   dead engine's included), no kernel built after the replacement.
+   Each prints ``<cell> metrics {...}``.
 
 Any failure raises and the script exits non-zero.  The line before the
 last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
@@ -1004,9 +1040,10 @@ def _guarded_writes(what: str, launch, expect, scratch=()) -> None:
 
 
 def ragged_attention_checks(dev, *, B: int = 2, H: int = 12,
-                            D: int = 64) -> None:
-    """The attention kernels at ragged lengths (S = 65 and 200: a partial
-    last tile, rows past S masked in-kernel) with and without RoPE:
+                            D: int = 64, lengths=(20, 65, 200)) -> None:
+    """The attention kernels at ragged lengths (S = 20, the RL learner's
+    prompt 4 + horizon 16, inside one tile; 65 and 200: a partial last
+    tile, rows past S masked in-kernel) with and without RoPE:
     forward and backward in bf16 (against the plain version in f32 / f64)
     and in f32 (against the f32 plain version), under the tolerances of
     the main-path checks.  Every input sits between NaN guard bands
@@ -1021,7 +1058,7 @@ def ragged_attention_checks(dev, *, B: int = 2, H: int = 12,
     randn = _randn(g, dev)
     bf = torch.bfloat16
     scale = D ** -0.5
-    for S in (65, 200):
+    for S in lengths:
         for with_rope in (False, True):
             q, k, v, do = (_guarded(randn(B, S, H, D)) for _ in range(4))
             rope = (tuple(map(_guarded, A.rope_tables(
@@ -1561,8 +1598,11 @@ def train_kernel_phase(rec: Recorder, dev) -> None:
           flush=True)
 
     attention_kernel_checks(rec, randn, dev, TRAIN_H, main=True)
-    # the out-proj epilogue at the training path's N, forward then
-    # backward, then flash-CE
+    # the out-proj epilogue at the RL learner's N = 8 x 20 (extra shapes
+    # of its rows) and at the training path's N, forward then backward,
+    # then flash-CE
+    epilogue_fwd_check(rec, randn, g, dev, RL_N, bf, own=False)
+    epilogue_bwd_check(rec, randn, g, dev, RL_N, own=False)
     epilogue_fwd_check(rec, randn, g, dev, TRAIN_N, bf)
     epilogue_bwd_check(rec, randn, g, dev, TRAIN_N)
     rmsnorm_checks(rec, randn, g, dev)
@@ -7200,6 +7240,790 @@ def train_lora_phase(dev) -> dict:
     return lora["launches"]
 
 
+# gpt2-rl, -group, -lora and -supervised: bench.py --rl's setting (GPT-2
+# 124M at full width, bf16, random weights from seed 0; RLConfig()'s
+# defaults: 1 actor, batch 8, horizon 16, queue 4, max_lag 1, rloo,
+# temperature 1.0; prompt length 4, seed 1, lr 1e-4; the engine's default
+# geometry)
+RL_STEPS, RL_GROUP_STEPS, RL_LORA_STEPS, RL_SUP_STEPS = 30, 6, 4, 8
+RL_LR, RL_SEED, RL_PROMPT = 1e-4, 1, 4
+RL_N = 8 * (RL_PROMPT + 16)     # the learner's rows: batch x (prompt +
+                                # horizon)
+RL_FAULTS = "rl.rollout@3,rl.learner@5"
+RL_CKPT_EVERY = 2
+RL_GROUP_REL = 1e-5
+# a swap while the learner moves changes at least this share of the
+# engine's elements (a bf16 parameter moves by one Adam step of ~lr =
+# 1e-4 unless its spacing is over 2 lr, i.e. |p| >= 2^-5; most of
+# GPT-2's are smaller)
+RL_MOVED_MIN = 0.1
+# gpt2-rl-group's version 2 (one step of its learner actor) against
+# gpt2-rl-moving's (one step in-process on the same batch): at most this
+# share of the elements may differ (by one bf16 step where a gradient
+# sits near Adam's eps)
+RL_V2_PARTED = 1e-4
+# RLOptimizer on the card against a plain clip-then-Adam in f32, two
+# steps: each parameter within this share of the learning rate, beside
+# two f32 roundings of the parameter itself (4 * 2^-23 * |p|: a norm
+# scale at 1.0 has a spacing of 1.2e-3 lr)
+RL_OPT_TOL = 1e-3
+# the policy-gradient step on the kernel path against the plain path in
+# f32: each gradient leaf within TRAIN_BF16_TOL["grad"] of its largest
+# value; the loss within 2e-4 of the scale of its terms, (1/B) sum_b
+# |adv_b| sum_t |logp|: the advantages sum to 0, so the loss is a
+# cancellation of per-row terms ~100 times its size, and each term
+# carries its tokens' bf16 logits (the CE loss's own 2e-4 is against a
+# mean of ~10.8)
+RL_LOSS_REL = 2e-4
+# one learner step's launches: the training step's without flash-CE (the
+# RL loss is the reference's plain f32 log_softmax)
+RL_STEP_LAUNCHES = {k: n for k, n in TRAIN_LAUNCHES.items()
+                    if not k.startswith("flash_ce")}
+
+
+def rl_config(**over):
+    from ray_tpu_torch.rl import RLConfig
+    return RLConfig(**over)
+
+
+def rl_model():
+    from ray_tpu_torch import GPTConfig
+    return GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
+
+
+def rl_param_ptrs(engine) -> tuple:
+    from ray_tpu_torch.models.training import _leaves
+    return tuple(t.data_ptr() for t in _leaves(engine.params))
+
+
+def rl_moving_reward(vocab: int):
+    """A reward that varies across a rollout's rows at any vocabulary:
+    the share of a completion's tokens in the lower half of it.  (At
+    vocab 50304 bench.py's target-token reward is -1 on every row, so
+    RLOO's advantages are 0 and Adam moves nothing.)"""
+    half = vocab // 2
+
+    def reward(completion) -> float:
+        return float(np.mean([t < half for t in completion]))
+    return reward
+
+
+def rl_changed_share(a: list, b: list) -> float:
+    """The share of the elements of two like lists of leaves that
+    differ."""
+    return (sum(int((torch.as_tensor(x) != torch.as_tensor(y)).sum())
+                for x, y in zip(a, b))
+            / sum(torch.as_tensor(x).numel() for x in a))
+
+
+class RLProbe:
+    """Wraps the RL loop's seams for one phase.  Per swap
+    (``RolloutActor.sync``): its seconds and device-memory change, the
+    engine's parameter addresses after it, whether the engine then holds
+    the published tree bit for bit, and the share of the engine's
+    elements it changed.  The engine calls the rollouts made (dead
+    engines' too; ``rollout_launches`` reads them), the first rollout
+    batch, the first publication's params and the first swap's, each
+    injected fault's time and each learner step's end.  ``close()`` puts
+    the originals back."""
+
+    def __init__(self):
+        from ray_tpu_torch.models.training import _leaves
+        from ray_tpu_torch.rl import learner, replay, rollout
+        from ray_tpu_torch.util import chaos
+        self.swaps, self.faults, self.steps_done = [], [], []
+        self.calls = {}
+        self.first_batch = self.first_params = self.swap_params = None
+        self._orig = [(rollout.RolloutActor, "sync"),
+                      (rollout.RolloutActor, "rollout"),
+                      (replay.WeightStore, "publish"),
+                      (learner.InProcessLearner, "update"),
+                      (chaos, "maybe_fail")]
+        self._saved = [getattr(o, n) for o, n in self._orig]
+        sync, roll, publish, update, maybe_fail = self._saved
+        probe = self
+
+        def t_sync(actor, version, params):
+            old = [t.clone() for t in _leaves(actor.engine.params)]
+            torch.cuda.synchronize()
+            before, t0 = torch.cuda.memory_allocated(), time.monotonic()
+            sync(actor, version, params)
+            torch.cuda.synchronize()
+            took = time.monotonic() - t0
+            alloc = torch.cuda.memory_allocated() - before
+            new, pub = _leaves(actor.engine.params), _leaves(params)
+            held = len(new) == len(pub) and all(
+                torch.equal(x, torch.as_tensor(y).to(x.device))
+                for x, y in zip(new, pub))
+            moved = rl_changed_share(old, new)
+            del old
+            if probe.swap_params is None:
+                probe.swap_params = params
+            probe.swaps.append({
+                "version": version, "s": took, "alloc": alloc,
+                "ptrs": rl_param_ptrs(actor.engine), "held": held,
+                "moved": moved})
+
+        def t_rollout(actor, *a, **k):
+            calls0 = dict(actor.engine.stats()["calls"])
+            try:
+                batch = roll(actor, *a, **k)
+            finally:
+                for n, v in actor.engine.stats()["calls"].items():
+                    probe.calls[n] = (probe.calls.get(n, 0) + v
+                                      - calls0.get(n, 0))
+            if probe.first_batch is None:
+                probe.first_batch = batch
+            return batch
+
+        def t_publish(store, params, **k):
+            if probe.first_params is None and isinstance(params, dict):
+                probe.first_params = params
+            return publish(store, params, **k)
+
+        def t_update(lrn, batch):
+            out = update(lrn, batch)
+            probe.steps_done.append(time.monotonic())
+            return out
+
+        def t_maybe_fail(site):
+            try:
+                maybe_fail(site)
+            except chaos.InjectedFault:
+                probe.faults.append((site, time.monotonic()))
+                raise
+
+        for (o, n), f in zip(self._orig, (t_sync, t_rollout, t_publish,
+                                          t_update, t_maybe_fail)):
+            setattr(o, n, f)
+
+    def close(self):
+        for (o, n), f in zip(self._orig, self._saved):
+            setattr(o, n, f)
+
+    def rollout_launches(self, cfg) -> dict:
+        """The launches the rollouts imply: their prefills and decode
+        steps (``serve_launches``)."""
+        return serve_launches(cfg.n_layers, self.calls, "model")
+
+    def swap_report(self, what, moving: bool) -> dict:
+        """Gates: after every swap the engine holds the published tree
+        bit for bit; from the second swap on a swap allocates nothing
+        and leaves the engine's parameter addresses where they were;
+        when the learner moves (``moving``), every swap changes at least
+        RL_MOVED_MIN of the engine's elements."""
+        later = self.swaps[1:]
+        if not later:
+            raise AssertionError(f"{what}: fewer than 2 weight swaps")
+        moved = [s["version"] for s in later
+                 if s["alloc"] != 0 or s["ptrs"] != later[0]["ptrs"]]
+        if self.swaps[0]["ptrs"] != later[0]["ptrs"] or moved:
+            raise AssertionError(f"{what}: swaps {moved} allocated device "
+                                 "memory or moved the engine's parameters")
+        stale = [s["version"] for s in self.swaps if not s["held"]]
+        if stale:
+            raise AssertionError(f"{what}: after the swaps to versions "
+                                 f"{stale} the engine does not hold the "
+                                 "published weights")
+        still = [s["version"] for s in self.swaps
+                 if s["moved"] < RL_MOVED_MIN]
+        if moving and still:
+            raise AssertionError(f"{what}: the swaps to versions {still} "
+                                 f"changed under {RL_MOVED_MIN} of the "
+                                 "engine's elements")
+        shares = [s["moved"] for s in self.swaps]
+        return {"swaps": len(self.swaps),
+                "first_swap_alloc_bytes": self.swaps[0]["alloc"],
+                "swap_alloc_bytes_from_2": max(s["alloc"] for s in later),
+                "swap_s_median": float(np.median([s["s"]
+                                                  for s in self.swaps])),
+                "swap_changed_share_min": min(shares),
+                "swap_changed_share_max": max(shares)}
+
+
+def rl_finite(what, history) -> None:
+    for i, h in enumerate(history):
+        bad = [k for k, v in h.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{what}: step {i} has non-finite {bad}")
+
+
+def rl_thirds(curve) -> list:
+    return [float(np.mean(t)) for t in np.array_split(np.array(curve), 3)]
+
+
+def rl_plain_pg(params32, cfg32, batch, adv):
+    """The policy-gradient loss and gradients on the plain path in f32:
+    ``gpt.forward`` with the plain attention and epilogue, a plain f32
+    ``log_softmax``; and the scale of the loss's terms."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models.training import value_and_grad
+    tokens, targets = batch["tokens"], batch["targets"]
+    mask = (targets >= 0).float()
+
+    def loss(p, _b):
+        logits, _ = gpt.forward(p, tokens, cfg32, fuse_norm=False)
+        logp = torch.log_softmax(logits.float(), -1)
+        chosen = logp.gather(-1, targets.clamp_min(0)[..., None])[..., 0]
+        return -(adv * (chosen * mask).sum(-1)).mean()
+
+    val, grads = value_and_grad(loss, params32, None)
+    with torch.no_grad():
+        logits, _ = gpt.forward(params32, tokens, cfg32, fuse_norm=False)
+        logp = torch.log_softmax(logits.float(), -1)
+        chosen = logp.gather(-1, targets.clamp_min(0)[..., None])[..., 0]
+        scale = float((adv.abs() * (chosen * mask).abs().sum(-1)).mean())
+    return float(val), grads, scale
+
+
+def rl_optimizer_check(fns, params, grads) -> dict:
+    """``RLOptimizer`` through ``apply_grads_fn`` on the card: two steps
+    (``grads``, then -0.5 times them) on f32 copies of ``params``,
+    against a clip-then-Adam written here from optax's definitions
+    (``clip_by_global_norm(1)``, ``adam(RL_LR)``: b1 0.9, b2 0.999, eps
+    1e-8).  Gate: each parameter within RL_OPT_TOL of the learning rate
+    beside two f32 roundings of itself, and the update not 0."""
+    from ray_tpu_torch.models.training import _leaves, _rebuild
+    p0 = [p.float() for p in _leaves(params)]
+    g1 = [g.float() for g in _leaves(grads)]
+    tx = fns["optimizer"]
+    live = _rebuild(params, [p.clone() for p in p0])
+    state = tx.init(live)
+    want = [p.clone() for p in p0]
+    mu = [torch.zeros_like(p) for p in p0]
+    nu = [torch.zeros_like(p) for p in p0]
+    for t, c in ((1, 1.0), (2, -0.5)):
+        g = [c * x for x in g1]
+        live, state = fns["apply_grads_fn"](live, state,
+                                            _rebuild(grads, g))
+        norm = torch.sqrt(sum((x * x).sum() for x in g))
+        g = [x * (1.0 / torch.clamp(norm, min=1.0)) for x in g]
+        mu = [0.9 * m + 0.1 * x for m, x in zip(mu, g)]
+        nu = [0.999 * v + 0.001 * x * x for v, x in zip(nu, g)]
+        want = [w - RL_LR * (m / (1 - 0.9 ** t))
+                / (torch.sqrt(v / (1 - 0.999 ** t)) + 1e-8)
+                for w, m, v in zip(want, mu, nu)]
+    got = _leaves(live)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    share = max(float(((a - b).abs() / (RL_OPT_TOL * RL_LR
+                                         + 4 * 2.0 ** -23 * p.abs())).max())
+                for a, b, p in zip(got, want, p0))
+    step = max(float((a - b).abs().max()) for a, b in zip(got, p0))
+    print(f"gpt2-rl RLOptimizer: two steps on the card against plain "
+          f"clip-then-Adam: max |diff| {err / RL_LR:.3e} lr, "
+          f"share_of_tol={share:.3f} (bound {RL_OPT_TOL} lr + two f32 "
+          f"roundings of the parameter), largest move {step / RL_LR:.3f} "
+          f"lr, grad norm {float(norm):.4f}", flush=True)
+    if not share <= 1 or not step > 0:
+        raise AssertionError("gpt2-rl: RLOptimizer's update parts from "
+                             "the plain clip-then-Adam")
+    return {"optimizer_max_abs_err_lr": err / RL_LR,
+            "optimizer_share_of_tol": share,
+            "optimizer_largest_move_lr": step / RL_LR}
+
+
+def rl_kernel_checks(probe, cfg, dev) -> dict:
+    """gpt2-rl's equalities on its first rollout: the actor's logprobs
+    against the learner's teacher-forced ``log_softmax`` at version 1
+    (kernel path, ENGINE_TOL); ``pg_grad_fn`` on that rollout's tokens
+    with seeded normal rewards against the plain path in f32; and
+    ``rl_optimizer_check`` on those gradients."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models.training import _leaves, _paths, _at
+    from ray_tpu_torch.models.training import (build_gpt_rl_train,
+                                               rl_optimizer)
+    from ray_tpu_torch.ops.attention import make_flash_attention_fn
+    batch = probe.first_batch
+    if batch.param_version != 1:
+        raise AssertionError(f"gpt2-rl: the first rollout ran at version "
+                             f"{batch.param_version}")
+    params = {k: ({n: v.to(dev) for n, v in t.items()}
+                  if isinstance(t, dict) else t.to(dev))
+              for k, t in probe.first_params.items()}
+    tokens = torch.from_numpy(batch.tokens).long().to(dev)
+    targets = torch.from_numpy(batch.targets).long().to(dev)
+    attn = make_flash_attention_fn(rope_theta=cfg.rope_theta)
+    with torch.no_grad():
+        logits, _ = gpt.forward(params, tokens, cfg, attn_fn=attn)
+        logp = torch.log_softmax(logits.float(), -1).cpu()
+    got, want = [], []
+    for b, comp in enumerate(batch.completions):
+        lo = RL_PROMPT - 1
+        for i, tok in enumerate(comp):
+            got.append(batch.logprobs[b][i])
+            want.append(float(logp[b, lo + i, tok]))
+    lp_err = check("gpt2-rl actor logprobs vs learner log_softmax",
+                   torch.tensor(got), torch.tensor(want), **ENGINE_TOL)
+    rewards = torch.randn(len(batch.completions),
+                          generator=torch.Generator().manual_seed(7))
+    fns = build_gpt_rl_train(cfg, optimizer=rl_optimizer(RL_LR),
+                             device=dev)
+    lb = {"tokens": tokens, "targets": targets, "rewards": rewards}
+    (loss, _m), grads = fns["pg_grad_fn"](params, lb)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = {k: ({n: v.float() for n, v in t.items()}
+                    if isinstance(t, dict) else t.float())
+                for k, t in params.items()}
+    from ray_tpu_torch.models.training import rl_advantages
+    adv = rl_advantages(rewards).to(dev)
+    ref_loss, ref_grads, scale = rl_plain_pg(params32, cfg32,
+                                             {"tokens": tokens,
+                                              "targets": targets}, adv)
+    dl = abs(float(loss) - ref_loss)
+    worst_share, worst = 0.0, ""
+    for p, g in zip(_paths(grads), _leaves(grads)):
+        want_g = _at(ref_grads, p).float()
+        share = (g.float() - want_g).abs().max().item() / (
+            TRAIN_BF16_TOL["grad"] * want_g.abs().max().item() + 1e-30)
+        if not math.isfinite(share) or share > worst_share:
+            worst_share, worst = share, "/".join(p)
+    print(f"gpt2-rl pg_grad_fn: loss {float(loss):.6f} vs plain f32 "
+          f"{ref_loss:.6f} (|diff| {dl:.3e}, {dl / scale:.3e} of the "
+          f"terms' scale {scale:.3f}; bound {RL_LOSS_REL}); worst "
+          f"gradient {worst} share_of_tol={worst_share:.3f} (bound "
+          f"{TRAIN_BF16_TOL['grad']} of each leaf's largest value)",
+          flush=True)
+    if not dl <= RL_LOSS_REL * scale or not worst_share <= 1:
+        raise AssertionError("gpt2-rl: pg_grad_fn on the kernel path parts "
+                             "from the plain path")
+    del ref_grads, params32
+    opt = rl_optimizer_check(fns, params, grads)
+    return {"logprob_max_abs_err": lp_err, "pg_loss_diff": dl,
+            "pg_loss_term_scale": scale, "pg_grad_worst_share": worst_share,
+            **opt}
+
+
+def rl_phase(dev) -> tuple:
+    """gpt2-rl: ``run_rl_loop`` for RL_STEPS learner steps, in-process.
+    Gates: every metric finite, param_version RL_STEPS + 1, no drop, the
+    engine drained clean, exact launches (the engine's prefills and
+    decode steps, and per learner step the attention and epilogue
+    forward and backward; flash-CE 0), after every swap the engine
+    holding the published tree, from the second on nothing allocated and
+    the engine's parameters where they were; then ``rl_kernel_checks``.
+    Prints ``gpt2-rl metrics {...}``; returns (the launches, the publish
+    seconds)."""
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.rl import run_rl_loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = rl_model()
+    probe = RLProbe()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.monotonic()
+        res = run_rl_loop(cfg, steps=RL_STEPS, rlcfg=rl_config(),
+                          prompt_len=RL_PROMPT, seed=RL_SEED, lr=RL_LR,
+                          device=dev, telemetry=True)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = _build.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        probe.close()
+    rl_finite("gpt2-rl", res["history"])
+    if res["param_version"] != RL_STEPS + 1:
+        raise AssertionError(f"gpt2-rl: param_version "
+                             f"{res['param_version']} != {RL_STEPS + 1}")
+    if res["drops_stale"] or res["drops_overflow"]:
+        raise AssertionError(f"gpt2-rl: drops stale {res['drops_stale']} "
+                             f"overflow {res['drops_overflow']}")
+    if not all(e.leak_free() for e in res["actors"]):
+        raise AssertionError("gpt2-rl: an engine is not idle at the end")
+    want = add_launches(probe.rollout_launches(cfg),
+                        {k: n * RL_STEPS for k, n in
+                         RL_STEP_LAUNCHES.items()})
+    expect_launches("gpt2-rl", launches, want)
+    swaps = probe.swap_report("gpt2-rl", moving=False)
+    checks = rl_kernel_checks(probe, cfg, dev)
+    tel = res["telemetry"]
+    curve = res["reward_curve"]
+    metrics = {"cell": "gpt2-rl", "steps": RL_STEPS, "wall_s": wall,
+               "rollout_tokens_per_sec": tel["rollout_tokens_per_sec"],
+               "rollout_s": tel["rollout_s"],
+               "learner_ms_per_step": 1e3 * tel["learner_step_s"],
+               "publish_host_copy_s_median": tel["publish_s"],
+               "publish_host_copy_s_max": tel["publish_max_s"],
+               "version_lag_mean": tel["version_lag_mean"],
+               "version_lag_max": tel["version_lag_max"],
+               "reward_thirds": rl_thirds(curve),
+               "reward_first_third": curve[:RL_STEPS // 3],
+               "reward_last_third": curve[-(RL_STEPS // 3):],
+               "peak_gib": peak, **swaps, **checks}
+    print("gpt2-rl: every gate held; launches exact, flash-CE 0",
+          flush=True)
+    print("gpt2-rl metrics " + json.dumps(metrics), flush=True)
+    return launches, tel["publish_s"]
+
+
+def rl_moving_phase(dev) -> tuple:
+    """gpt2-rl-moving: gpt2-rl's loop for RL_GROUP_STEPS steps with
+    ``rl_moving_reward``, whose rewards vary across a rollout's rows, so
+    RLOO's advantages are not 0 and every learner step moves the weights.
+    Gates: every metric finite, param_version RL_GROUP_STEPS + 1, the
+    engine clean, exact launches, after every swap the engine holding
+    the published tree with at least RL_MOVED_MIN of its elements
+    changed.  Prints ``gpt2-rl-moving metrics {...}``; returns (the
+    launches, the history, the first swap's published params) for
+    gpt2-rl-group."""
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.rl import run_rl_loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = rl_model()
+    probe = RLProbe()
+    try:
+        _build.reset_launches()
+        res = run_rl_loop(cfg, steps=RL_GROUP_STEPS, rlcfg=rl_config(),
+                          reward_fn=rl_moving_reward(cfg.vocab_size),
+                          prompt_len=RL_PROMPT, seed=RL_SEED, lr=RL_LR,
+                          device=dev, telemetry=True)
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+    finally:
+        probe.close()
+    rl_finite("gpt2-rl-moving", res["history"])
+    if res["param_version"] != RL_GROUP_STEPS + 1:
+        raise AssertionError(f"gpt2-rl-moving: param_version "
+                             f"{res['param_version']}")
+    if not all(e.leak_free() for e in res["actors"]):
+        raise AssertionError("gpt2-rl-moving: an engine is not idle")
+    expect_launches("gpt2-rl-moving", launches,
+                    add_launches(probe.rollout_launches(cfg),
+                                 {k: n * RL_GROUP_STEPS for k, n in
+                                  RL_STEP_LAUNCHES.items()}))
+    swaps = probe.swap_report("gpt2-rl-moving", moving=True)
+    tel = res["telemetry"]
+    metrics = {"cell": "gpt2-rl-moving", "steps": RL_GROUP_STEPS,
+               "reward_curve": res["reward_curve"],
+               "pg_loss": [h["pg_loss"] for h in res["history"]],
+               "grad_norm": [h["grad_norm"] for h in res["history"]],
+               "learner_ms_per_step": 1e3 * tel["learner_step_s"],
+               "publish_host_copy_s_median": tel["publish_s"], **swaps}
+    print("gpt2-rl-moving: every gate held; every swap moved the engine's "
+          "weights to the published ones", flush=True)
+    print("gpt2-rl-moving metrics " + json.dumps(metrics), flush=True)
+    return launches, res["history"], probe.swap_params
+
+
+def rl_group_phase(dev, ref: list, ref_v2, publish_s: float) -> dict:
+    """gpt2-rl-group: gpt2-rl-moving's loop (``rl_moving_reward``) for
+    RL_GROUP_STEPS steps under a port session, the learner in an actor
+    holding the card (``num_gpus=1``), the rollout engine in this
+    process on the same card, publications through the object store.
+    Gates: its first step's metrics equal gpt2-rl-moving's (``ref``)
+    within RL_GROUP_REL relative (the same params and seeds give the same
+    first trajectories); its version 2 (one step of the learner actor's
+    ``apply_grads``) differs from gpt2-rl-moving's (``ref_v2``) in at
+    most RL_V2_PARTED of the elements; every swap moved the engine to the
+    published tree; exact rollout launches here.  Prints each later
+    step's largest relative difference.  Prints ``gpt2-rl-group metrics
+    {...}``; returns this process's launches."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.rl import learner as learner_mod
+    from ray_tpu_torch.rl import run_rl_loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = rl_model()
+    cold = []
+    real_init = learner_mod.LearnerGroupAdapter.__init__
+
+    def timed_init(self, *a, **k):
+        t0 = time.monotonic()
+        real_init(self, *a, **k)
+        cold.append(time.monotonic() - t0)
+
+    rt.init(num_cpus=RUNTIME_CPUS)
+    learner_mod.LearnerGroupAdapter.__init__ = timed_init
+    probe = RLProbe()
+    try:
+        _build.reset_launches()
+        res = run_rl_loop(cfg, steps=RL_GROUP_STEPS, rlcfg=rl_config(),
+                          reward_fn=rl_moving_reward(cfg.vocab_size),
+                          prompt_len=RL_PROMPT, seed=RL_SEED, lr=RL_LR,
+                          num_learners=1, device=dev, telemetry=True)
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+    finally:
+        probe.close()
+        learner_mod.LearnerGroupAdapter.__init__ = real_init
+        rt.shutdown()
+    rl_finite("gpt2-rl-group", res["history"])
+    expect_launches("gpt2-rl-group", launches, probe.rollout_launches(cfg))
+
+    def rel(got, want):
+        return max((abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+                    for k in want if k in got), default=0.0)
+
+    got, first = res["history"][0], ref[0]
+    if not rel(got, first) <= RL_GROUP_REL:
+        raise AssertionError(f"gpt2-rl-group: first step parts from "
+                             f"gpt2-rl-moving's: {got} vs {first}")
+    from ray_tpu_torch.models.training import _leaves
+    v2_parted = rl_changed_share(_leaves(probe.swap_params),
+                                 _leaves(ref_v2))
+    print(f"gpt2-rl-group: version 2 differs from gpt2-rl-moving's in "
+          f"{v2_parted:.3e} of its elements (bound {RL_V2_PARTED})",
+          flush=True)
+    if not v2_parted <= RL_V2_PARTED:
+        raise AssertionError("gpt2-rl-group: the learner actor's first "
+                             "update parts from the in-process learner's")
+    later = [rel(g, w) for g, w in zip(res["history"], ref)]
+    print("gpt2-rl-group: each step's largest relative difference from "
+          f"gpt2-rl-moving's: {later}", flush=True)
+    swaps = probe.swap_report("gpt2-rl-group", moving=True)
+    tel = res["telemetry"]
+    metrics = {"cell": "gpt2-rl-group", "steps": RL_GROUP_STEPS,
+               "learner_cold_start_s": cold[0],
+               "publish_object_store_s_median": tel["publish_s"],
+               "publish_object_store_s_max": tel["publish_max_s"],
+               "gpt2_rl_publish_host_copy_s_median": publish_s,
+               "learner_ms_per_step": 1e3 * tel["learner_step_s"],
+               "rollout_tokens_per_sec": tel["rollout_tokens_per_sec"],
+               "first_step": {k: got[k] for k in first if k in got},
+               "step_rel_diff": later, "v2_parted_share": v2_parted,
+               **swaps}
+    print("gpt2-rl-group: the first step and version 2 equal "
+          "gpt2-rl-moving's", flush=True)
+    print("gpt2-rl-group metrics " + json.dumps(metrics), flush=True)
+    return launches
+
+
+def rl_lora_phase(dev) -> dict:
+    """gpt2-rl-lora: an adapter-only ``InProcessLearner`` (rank
+    LORA_RANK on every target) over a frozen GPT-2 trains RL_LORA_STEPS
+    steps on sampled rollouts of a bank engine serving its tenant, with
+    seeded normal rewards (so the advantages are not 0), and
+    ``publish_adapter``s into an ``AdapterStore`` after each step, which
+    the engine serves from its next rollout.  Gates: the base
+    bit-unchanged; exact launches with 0 of the epilogue on both sides;
+    every B of the published adapter moved from its zeros; the tenant's
+    greedy stream equals an engine over ``merge_adapter(base, adapter)``
+    under 7a's rule.  Prints how far the adapter moves the f32 logits and
+    whether the tenant's stream differs from the base's, and
+    ``gpt2-rl-lora metrics {...}``; returns the launches."""
+    from ray_tpu_torch import InferenceEngine, SamplingParams, init_params
+    from ray_tpu_torch.adapters import (ALL_TARGETS, AdapterStore,
+                                        LoraConfig, adapter_nbytes)
+    from ray_tpu_torch.adapters import lora as lora_mod
+    from ray_tpu_torch.models.gpt import forward
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.rl import InProcessLearner, trajectories_to_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = rl_model()
+    lcfg = LoraConfig(enabled=True, rank=LORA_RANK, targets=ALL_TARGETS)
+    base = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    snapshot = {k: ({n: v.clone() for n, v in t.items()}
+                    if isinstance(t, dict) else t.clone())
+                for k, t in base.items()}
+    learner = InProcessLearner(cfg, lora=lcfg, base_params=base, lr=RL_LR,
+                               seed=RL_SEED, device=dev)
+    store = AdapterStore(use_object_store=False)
+    engine = InferenceEngine(cfg, base, lora=lcfg, adapter_store=store,
+                             device=dev, telemetry=False, ttft_deadline=0,
+                             deadline=0)
+    rng = np.random.RandomState(RL_SEED)
+    prompt = [int(t) for t in rng.randint(0, cfg.vocab_size, RL_PROMPT)]
+    rlcfg = rl_config()
+    _build.reset_launches()
+    calls0 = dict(engine.stats()["calls"])
+    walls = []
+    for step in range(RL_LORA_STEPS):
+        version = learner.publish_adapter(store, "tenant-rl")
+        t0 = time.monotonic()
+        rids = [engine.submit(prompt, max_new_tokens=rlcfg.horizon,
+                              sampling=SamplingParams(
+                                  temperature=1.0, seed=1000 * step + i,
+                                  model_id="tenant-rl"))
+                for i in range(rlcfg.batch)]
+        toks = {r: [] for r in rids}
+        while engine.has_work():
+            for ev in engine.step():
+                if ev.error is not None:
+                    raise ev.error
+                if ev[1] >= 0:
+                    toks[ev[0]].append(int(ev[1]))
+        comps = [toks[r] for r in rids]
+        batch = trajectories_to_batch([prompt] * rlcfg.batch, comps,
+                                      RL_PROMPT + rlcfg.horizon)
+        batch["rewards"] = torch.randn(
+            rlcfg.batch, generator=torch.Generator().manual_seed(
+                7 + step)).numpy()
+        m = learner.update(batch)
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+        rl_finite("gpt2-rl-lora", [m])
+    launches = _build.launch_counts()
+    calls = {k: v - calls0.get(k, 0)
+             for k, v in engine.stats()["calls"].items()}
+    want = serve_launches(cfg.n_layers, calls, "model")
+    want.pop("matmul_residual_norm_fwd")
+    want = add_launches(want, {k: n * RL_LORA_STEPS for k, n in
+                               RL_STEP_LAUNCHES.items()
+                               if not k.startswith("matmul_residual_norm")})
+    expect_launches("gpt2-rl-lora", launches, want)
+    for k, t in base.items():
+        for n, v in (t.items() if isinstance(t, dict) else [(k, t)]):
+            ref = snapshot[k][n] if isinstance(t, dict) else snapshot[k]
+            if not torch.equal(v, ref):
+                raise AssertionError(f"gpt2-rl-lora: base parameter {k}/{n} "
+                                     "moved")
+    version = learner.publish_adapter(store, "tenant-rl")
+    _v, adapter, scale = store.get("tenant-rl")
+    b_max = {k: float(v.abs().max()) for k, v in adapter.items()
+             if k.endswith("_b")}
+    if not b_max or not all(v > 0 for v in b_max.values()):
+        raise AssertionError(f"gpt2-rl-lora: the published adapter's B "
+                             f"did not move: {b_max}")
+    greedy = SamplingParams(temperature=0.0, model_id="tenant-rl")
+    got = engine.generate([prompt], LORA_NEW, greedy)[0]
+    base_toks = engine.generate([prompt], LORA_NEW,
+                                SamplingParams(temperature=0.0))[0]
+    if not engine.leak_free():
+        raise AssertionError("gpt2-rl-lora: the bank engine leaked")
+    merged = lora_mod.merge_adapter(base, {k: v.to(dev) for k, v in
+                                           adapter.items()}, cfg,
+                                    scale=scale)
+    ref_engine = InferenceEngine(cfg, merged, device=dev, telemetry=False)
+    want_toks = ref_engine.generate([prompt], LORA_NEW,
+                                    SamplingParams(temperature=0.0))[0]
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    merged32 = lora_mod.merge_adapter(
+        to_cpu32(base), {k: v.float().cpu() for k, v in adapter.items()},
+        cfg32, scale=scale)
+    parted = parted_within_margin("gpt2-rl-lora tenant stream", prompt,
+                                  got, want_toks, merged32, cfg32)
+    with torch.inference_mode():
+        ctx = torch.tensor(prompt)[None]
+        shift = float((forward(merged32, ctx, cfg32)[0]
+                       - forward(to_cpu32(base), ctx, cfg32)[0]).abs().max())
+    differs = got != base_toks
+    print(f"gpt2-rl-lora: the adapter's largest |B| "
+          f"{max(b_max.values()):.3e}; it moves the f32 logits at the "
+          f"prompt by up to {shift:.4f}; the tenant's greedy stream "
+          f"{'differs from' if differs else 'equals'} the base's",
+          flush=True)
+    nbytes = adapter_nbytes(adapter)
+    full = sum(t.numel() * t.element_size() for t in
+               (v for x in base.values()
+                for v in (x.values() if isinstance(x, dict) else [x])))
+    metrics = {"cell": "gpt2-rl-lora", "steps": RL_LORA_STEPS,
+               "rank": LORA_RANK, "published_version": version,
+               "step_s_median": float(np.median(walls)),
+               "adapter_bytes_per_publication": nbytes,
+               "full_tree_bytes": full, "parted": parted,
+               "adapter_b_max": max(b_max.values()),
+               "adapter_logit_shift_f32": shift,
+               "stream_differs_from_base": differs}
+    print("gpt2-rl-lora: the base bit-unchanged, launches exact with no "
+          "epilogue, the adapter moved, the tenant's stream the merged "
+          "weights'", flush=True)
+    print("gpt2-rl-lora metrics " + json.dumps(metrics), flush=True)
+    del engine, ref_engine, learner, base, merged
+    return launches
+
+
+def rl_supervised_phase(dev) -> dict:
+    """gpt2-rl-supervised: ``run_supervised_rl_loop`` for RL_SUP_STEPS
+    steps under the fault plan RL_FAULTS with a ``TrainCheckpointer``
+    every RL_CKPT_EVERY steps.  Gates: both faults fired, one actor and
+    one learner restart, RL_SUP_STEPS records after the roll-back, the
+    engines clean, exact launches (every engine's rollouts, the dead
+    one's too, and every completed learner step), no kernel built after
+    the replacement (0 by construction here).  Prints each
+    fault's time to the next completed learner step and
+    ``gpt2-rl-supervised metrics {...}``; returns the launches."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.resilience import (TrainCheckpointer,
+                                          run_supervised_rl_loop)
+    from ray_tpu_torch.util import chaos
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = rl_model()
+    d = tempfile.mkdtemp(prefix="chip_smoke_rl_")
+    probe = RLProbe()
+    plan = chaos.install_faults(RL_FAULTS)
+    try:
+        _build.reset_launches()
+        with TrainCheckpointer(d, every=0, keep=3) as ck:
+            res = run_supervised_rl_loop(
+                cfg, steps=RL_SUP_STEPS, rlcfg=rl_config(),
+                prompt_len=RL_PROMPT, seed=RL_SEED, lr=RL_LR, ckpt=ck,
+                ckpt_every=RL_CKPT_EVERY, device=dev, telemetry=True)
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+    finally:
+        chaos.clear_faults()
+        probe.close()
+        shutil.rmtree(d, ignore_errors=True)
+    rl_finite("gpt2-rl-supervised", res["history"])
+    fired = sorted(plan.fired)
+    if fired != [("rl.learner", 5), ("rl.rollout", 3)]:
+        raise AssertionError(f"gpt2-rl-supervised: fired {fired}")
+    if (res["actor_restarts"], res["learner_restarts"]) != (1, 1):
+        raise AssertionError(f"gpt2-rl-supervised: restarts "
+                             f"{res['actor_restarts']} actor, "
+                             f"{res['learner_restarts']} learner")
+    if len(res["reward_curve"]) != RL_SUP_STEPS:
+        raise AssertionError(f"gpt2-rl-supervised: "
+                             f"{len(res['reward_curve'])} records")
+    stale = [w["version"] for w in probe.swaps if not w["held"]]
+    if stale:
+        raise AssertionError(f"gpt2-rl-supervised: after the swaps to "
+                             f"versions {stale} an engine does not hold "
+                             "the published weights")
+    if not all(e.leak_free() for e in res["actors"]):
+        raise AssertionError("gpt2-rl-supervised: an engine is not idle")
+    # the dead engine's rollouts count too (the probe's calls), and only
+    # the learner steps that completed launched
+    expect_launches("gpt2-rl-supervised", launches,
+                    add_launches(probe.rollout_launches(cfg),
+                                 {k: n * len(probe.steps_done) for k, n in
+                                  RL_STEP_LAUNCHES.items()}))
+    # 0 by construction in the eager port (the library is built once per
+    # process, before any engine launches): held as the reference holds
+    # restart_compiles
+    if res["restart_builds"] != [0]:
+        raise AssertionError(f"gpt2-rl-supervised: the replacement engine "
+                             f"built kernels {res['restart_builds']}")
+    recover = {site: next((t - at for t in probe.steps_done if t > at),
+                          None) for site, at in probe.faults}
+    tel = res["telemetry"]
+    metrics = {"cell": "gpt2-rl-supervised", "steps": RL_SUP_STEPS,
+               "faults": RL_FAULTS, "fault_to_next_step_s": recover,
+               "publishes": res["publishes"],
+               "learner_steps_run": len(probe.steps_done),
+               "learner_ms_per_step": 1e3 * tel["learner_step_s"],
+               "checkpoint": {k: v for k, v in res["checkpoint"].items()
+                              if not isinstance(v, (list, dict))},
+               "restart_builds": res["restart_builds"]}
+    print("gpt2-rl-supervised: both faults survived, one restart each, "
+          "launches exact, no kernel built after the replacement",
+          flush=True)
+    print("gpt2-rl-supervised metrics " + json.dumps(metrics), flush=True)
+    return launches
+
+
+def rl_phases(dev) -> dict:
+    """The RL phases, each driven with the counts at 0 just before it;
+    returns their launches by path (gpt2-rl-group's are the rollout
+    engine's: its learner launches in its actor)."""
+    launches, publish_s = rl_phase(dev)
+    paths = {"rl": launches}
+    paths["rl_moving"], ref, ref_v2 = rl_moving_phase(dev)
+    paths["rl_group"] = rl_group_phase(dev, ref, ref_v2, publish_s)
+    paths["rl_lora"] = rl_lora_phase(dev)
+    paths["rl_supervised"] = rl_supervised_phase(dev)
+    return paths
+
+
 def main() -> None:
     name = start_up()
     dev = torch.device("cuda")
@@ -7376,6 +8200,13 @@ def main() -> None:
         print("train-lora: every check passed; launches "
               + json.dumps(_nonzero(launches)), flush=True)
         return
+    if sys.argv[1:] == ["--rl"]:
+        ragged_attention_checks(dev, lengths=(RL_PROMPT + 16,))
+        paths = rl_phases(dev)
+        print("rl: every check passed; launches "
+              + json.dumps({p: _nonzero(n) for p, n in paths.items()}),
+              flush=True)
+        return
     if sys.argv[1:] in (["--profile"], ["--profile", "int8"]):
         from ray_tpu_torch import GPTConfig, init_params
         cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
@@ -7457,6 +8288,8 @@ def main() -> None:
     clock.lap("serve lora (12)")
     paths["train_lora"] = train_lora_phase(dev)
     clock.lap("train lora (13)")
+    paths.update(rl_phases(dev))
+    clock.lap("rl (14)")
     clock.report()
     for row in rec.rows.values():
         # (a worker process registers only the kernels its path imports)

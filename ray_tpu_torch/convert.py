@@ -146,6 +146,47 @@ def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
             for k, v in tree.items()}
 
 
+def rl_state_from_jax(host_state, cfg: GPTConfig, device=None):
+    """The JAX package's RL learner state (``InProcessLearner.
+    state_host()``: ``TrainState(params, opt_state, step)`` with numpy
+    leaves, ``opt_state`` optax's ``clip_by_global_norm -> adam`` chain,
+    whose one ``ScaleByAdamState(count, mu, nu)`` holds the moments) ->
+    the port learner's ``TrainState(params, AdamWState(count, mu, nu),
+    step)``, bf16 bit-exact, for ``InProcessLearner.load_state``: the
+    port then takes the step the reference would take next.  A full
+    model's params are checked against ``cfg`` (:func:`params_from_jax`);
+    an adapter-only learner's factor tree is taken as it is."""
+    from ray_tpu_torch.models.training import AdamWState, TrainState
+    params, opt_state, step = host_state
+
+    def find_adam(node):
+        if all(hasattr(node, a) for a in ("count", "mu", "nu")):
+            return node
+        if isinstance(node, (list, tuple)):
+            for child in node:
+                got = find_adam(child)
+                if got is not None:
+                    return got
+        return None
+
+    adam = find_adam(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optimizer "
+                         "state: expected optax's clip_by_global_norm -> "
+                         "adam chain")
+    dev = resolve_device(device)
+
+    def tree(t):
+        if "embed" in t:
+            return params_from_jax(t, cfg, dev)
+        return {k: array_to_tensor(v, dev) for k, v in t.items()}
+
+    return TrainState(tree(params),
+                      AdamWState(int(np.asarray(adam.count)),
+                                 tree(adam.mu), tree(adam.nu)),
+                      int(np.asarray(step)))
+
+
 def fold_stages(tree: Dict[str, Any]) -> Dict[str, Any]:
     """A stage-stacked tree (layer leaves ``[stages, L / stages, ...]``,
     tensors or numpy arrays) -> layer leaves ``[L, ...]``."""

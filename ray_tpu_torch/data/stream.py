@@ -237,8 +237,8 @@ class _DocSchedule:
     epoch wrap when every shard drains, chunked fetches through
     restartable readers with a bounded retry budget.
 
-    The reference shares it with its RL prompt dataset
-    (``ray_tpu/rl/rollout.py``, ROADMAP Queue 1 item 11b)."""
+    The RL prompt dataset draws its prompts through it
+    (``rl/rollout.py:PromptDataset``), as the reference's does."""
 
     def __init__(self, source: DocumentSource, cursor: StreamCursor, *,
                  readers: int = 0, retries: int = 3,

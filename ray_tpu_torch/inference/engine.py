@@ -151,16 +151,40 @@ class StepEvent(tuple):
         return (self[0], self[1], self[2], self.logprob, self.error)
 
 
-def _params_to(tree, device, dtype) -> Dict[str, Any]:
-    """A parameter tree (tensors or numpy leaves) on ``device``."""
+def _params_to(tree, device, dtype, *, copy: bool = False
+               ) -> Dict[str, Any]:
+    """A parameter tree (tensors or numpy leaves) on ``device``.  A
+    tensor already there is the caller's own unless ``copy``."""
     if isinstance(tree, dict):
-        return {k: _params_to(v, device, dtype) for k, v in tree.items()}
-    t = tree.to(device) if isinstance(tree, torch.Tensor) else \
-        convert.array_to_tensor(tree, device)
+        return {k: _params_to(v, device, dtype, copy=copy)
+                for k, v in tree.items()}
+    t = tree.to(device, copy=copy) if isinstance(tree, torch.Tensor) \
+        else convert.array_to_tensor(tree, device)
     if t.dtype != dtype:
         raise ValueError(f"parameter of dtype {t.dtype} for a {dtype} "
                          "model")
     return t
+
+
+@torch.no_grad()
+def _copy_params_into(dst, src, path: str = "") -> None:
+    """Write the tree ``src`` (tensors or numpy leaves) into ``dst``'s
+    tensors in place; the trees must match key for key, shape for shape
+    and in dtype."""
+    if isinstance(dst, dict):
+        if not isinstance(src, dict) or src.keys() != dst.keys():
+            raise ValueError(f"parameter tree at {path or '/'} does not "
+                             "match the engine's")
+        for k, v in dst.items():
+            _copy_params_into(v, src[k], f"{path}/{k}")
+        return
+    t = src if isinstance(src, torch.Tensor) else \
+        convert.array_to_tensor(src, "cpu")
+    if t.shape != dst.shape or t.dtype != dst.dtype:
+        raise ValueError(f"parameter {path} of {tuple(t.shape)} {t.dtype} "
+                         f"where the engine holds {tuple(dst.shape)} "
+                         f"{dst.dtype}")
+    dst.copy_(t)
 
 
 def _cached_context_attention(q, kctx, vctx, ks, vs, cached_len: int):
@@ -232,7 +256,10 @@ class InferenceEngine:
         icfg = infer_config()
         self.device = resolve_device(device)
         self.cfg = cfg
+        # the caller's tree as it is (replicas built from one tree share
+        # it); the first set_params gives the engine its own
         self.params = _params_to(params, self.device, cfg.dtype)
+        self._owns_params = False
         self.slots = slots if slots is not None else icfg.slots
         self.page_size = (page_size if page_size is not None
                           else icfg.page_size)
@@ -805,15 +832,29 @@ class InferenceEngine:
 
     def set_params(self, params, *, version: Optional[int] = None) -> int:
         """Swap in a new parameter snapshot (tensors or numpy leaves, same
-        tree and dtype) between ticks; returns the new version.  The
-        prefix cache is flushed and the host pool dropped: their pages
-        hold K/V of the old weights, and the index is keyed by tokens
-        alone.  The store's entries carry the old version in their key
-        and never match again."""
+        tree and dtype) between ticks, never during :meth:`step`; returns
+        the new version.
+
+        The engine's weights never alias the caller's tensors after a
+        swap: the first swap allocates the engine's own tree (a copy),
+        and every later one ``copy_``s into those same tensors, so a
+        learner that goes on updating its tree in place cannot change
+        the engine between publications, and the steady state holds one
+        resident snapshot and allocates nothing (the reference's
+        ``_owns_params``: it deletes the previous snapshot).  The prefix
+        cache is flushed and the host pool dropped: their pages hold K/V
+        of the old weights, and the index is keyed by tokens alone.  The
+        store's entries carry the old version in their key and never
+        match again."""
         self.scheduler.flush_prefix()
         if self.host_pool is not None:
             self.host_pool.clear()
-        self.params = _params_to(params, self.device, self.cfg.dtype)
+        if self._owns_params:
+            _copy_params_into(self.params, params)
+        else:
+            self.params = _params_to(params, self.device, self.cfg.dtype,
+                                     copy=True)
+            self._owns_params = True
         self.param_version = (self.param_version + 1 if version is None
                               else int(version))
         return self.param_version

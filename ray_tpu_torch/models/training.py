@@ -149,6 +149,15 @@ class AdamWState:
     nu: Params
 
 
+def _adam_init(params: Params) -> AdamWState:
+    """Count 0 and zero moments in each parameter's dtype (optax's
+    ``zeros_like(params)``)."""
+    return AdamWState(0, _rebuild(params, [torch.zeros_like(p) for p in
+                                           _leaves(params)]),
+                      _rebuild(params, [torch.zeros_like(p) for p in
+                                        _leaves(params)]))
+
+
 @dataclasses.dataclass(frozen=True)
 class DefaultOptimizer:
     """``optax.chain(clip_by_global_norm(grad_clip), adamw(schedule,
@@ -178,10 +187,7 @@ class DefaultOptimizer:
         return self.lr * ((1.0 - alpha) * cos + alpha)
 
     def init(self, params: Params) -> AdamWState:
-        return AdamWState(0, _rebuild(params, [torch.zeros_like(p) for p in
-                                               _leaves(params)]),
-                          _rebuild(params, [torch.zeros_like(p) for p in
-                                            _leaves(params)]))
+        return _adam_init(params)
 
     @torch.no_grad()
     def update(self, grads: Params, state: AdamWState, params: Params,
@@ -190,24 +196,62 @@ class DefaultOptimizer:
         place; returns the state with its count advanced.  ``g_norm``:
         the gradients' global norm when they are shards (default: the
         norm of ``grads`` as they are)."""
-        if g_norm is None:
-            g_norm = global_norm(grads)
-        keep = g_norm < self.grad_clip
-        count_inc = state.count + 1
-        f32 = np.float32
-        bc1 = float(f32(1) - f32(B1) ** f32(count_inc))
-        bc2 = float(f32(1) - f32(B2) ** f32(count_inc))
-        step_size = -self.schedule(state.count)
-        for p, g, mu, nu in zip(_leaves(params), _leaves(grads),
-                                _leaves(state.mu), _leaves(state.nu)):
-            g = g.float()
-            g = torch.where(keep, g, g / g_norm * self.grad_clip)
-            mu.copy_((1 - B1) * g + B1 * mu.float())
-            nu.copy_((1 - B2) * g.square() + B2 * nu.float())
-            u = (mu.float() / bc1) / (torch.sqrt(nu.float() / bc2) + EPS)
-            u = (u + self.weight_decay * p.float()) * step_size
-            p.copy_(p.float() + u)
-        return AdamWState(count_inc, state.mu, state.nu)
+        return _clipped_adam(grads, state, params, g_norm,
+                             grad_clip=self.grad_clip, b2=B2,
+                             lr=self.schedule(state.count),
+                             weight_decay=self.weight_decay)
+
+
+def _clipped_adam(grads: Params, state: AdamWState, params: Params,
+                  g_norm: Optional[torch.Tensor], *, grad_clip: float,
+                  b2: float, lr: float, weight_decay: float) -> AdamWState:
+    """``clip_by_global_norm(grad_clip)`` then Adam (b1 ``B1``, ``b2``,
+    eps ``EPS``) at ``lr``, with decoupled ``weight_decay`` when it is
+    not 0, written into ``params`` and the moments in place."""
+    if g_norm is None:
+        g_norm = global_norm(grads)
+    keep = g_norm < grad_clip
+    count_inc = state.count + 1
+    f32 = np.float32
+    bc1 = float(f32(1) - f32(B1) ** f32(count_inc))
+    bc2 = float(f32(1) - f32(b2) ** f32(count_inc))
+    for p, g, mu, nu in zip(_leaves(params), _leaves(grads),
+                            _leaves(state.mu), _leaves(state.nu)):
+        g = g.float()
+        g = torch.where(keep, g, g / g_norm * grad_clip)
+        mu.copy_((1 - B1) * g + B1 * mu.float())
+        nu.copy_((1 - b2) * g.square() + b2 * nu.float())
+        u = (mu.float() / bc1) / (torch.sqrt(nu.float() / bc2) + EPS)
+        if weight_decay:
+            u = u + weight_decay * p.float()
+        p.copy_(p.float() + u * -lr)
+    return AdamWState(count_inc, state.mu, state.nu)
+
+
+@dataclasses.dataclass(frozen=True)
+class RLOptimizer:
+    """``optax.chain(clip_by_global_norm(grad_clip), adam(lr))``, the RL
+    learner's optimizer (``ray_tpu/rl/learner.py:_rl_optimizer``): b1
+    0.9, b2 0.999, eps 1e-8, a constant learning rate and no weight
+    decay.  Not :class:`DefaultOptimizer`: its warmup starts at lr 0, so
+    an RL run's first steps would move nothing.  The clip divides by the
+    norm exactly."""
+    lr: float = 3e-4
+    grad_clip: float = 1.0
+
+    def init(self, params: Params) -> AdamWState:
+        return _adam_init(params)
+
+    @torch.no_grad()
+    def update(self, grads: Params, state: AdamWState, params: Params,
+               g_norm: Optional[torch.Tensor] = None) -> AdamWState:
+        return _clipped_adam(grads, state, params, g_norm,
+                             grad_clip=self.grad_clip, b2=0.999, lr=self.lr,
+                             weight_decay=0.0)
+
+
+def rl_optimizer(lr: float = 3e-4, grad_clip: float = 1.0) -> RLOptimizer:
+    return RLOptimizer(lr=lr, grad_clip=grad_clip)
 
 
 def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
@@ -694,10 +738,228 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
            "value_and_grad_fn": loss_and_grads,
            "shard_batch": shard_batch, "accum_steps": accum_steps,
            "comm_mode": comm_mode, "comm_quant": comm_quant,
-           "lora": lcfg}
+           "lora": lcfg,
+           # the machinery another loss builds on (build_gpt_rl_train)
+           "model_of": model_of, "reduce_grads": reduce_grads,
+           "grad_norm_fn": grad_norm, "groups": groups, "device": dev}
     return _maybe_instrument(fns, cfg, mesh, comm_mode=comm_mode,
                              comm_quant=comm_quant, ce_mode=ce_mode,
                              telemetry=telemetry)
+
+
+def rl_advantages(rewards, baseline: str = "rloo") -> torch.Tensor:
+    """Per-trajectory advantages from scalar rewards ([B] -> [B] f32),
+    the reference's ``rl_advantages``:
+
+    - ``rloo``: the leave-one-out baseline, ``(B r_b - sum r) / (B -
+      1)``; raw rewards at B = 1, where there is no other trajectory;
+    - ``mean``: the batch mean subtracted;
+    - ``none``: the raw rewards (plain REINFORCE).
+
+    ``rewards``: a tensor or a numpy array."""
+    r = (rewards if isinstance(rewards, torch.Tensor)
+         else torch.from_numpy(np.asarray(rewards))).float()
+    B = r.shape[0]
+    if baseline == "rloo" and B > 1:
+        return (B * r - r.sum()) / (B - 1)
+    if baseline == "mean":
+        return r - r.mean()
+    if baseline in ("rloo", "none"):
+        return r
+    raise ValueError(f"unknown baseline {baseline!r}; "
+                     "expected 'rloo', 'mean' or 'none'")
+
+
+def build_gpt_rl_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
+                       optimizer=None, baseline: str = "rloo",
+                       accum_steps: int = 1, lora=None,
+                       base_params: Optional[Params] = None,
+                       device=None) -> Dict[str, Any]:
+    """The policy-gradient (REINFORCE/RLOO) step for the GPT family, the
+    learner half of ``ray_tpu_torch.rl`` (``ray_tpu/models/training.py:
+    build_gpt_rl_train``), built on :func:`build_gpt_train`'s parameters,
+    shardings, attention and reduction: dp, fsdp, tp and sp meshes and
+    ``lora=``/``base_params=`` come with it.
+
+    Batch: ``tokens`` [B, S] (prompt and sampled completion, padded),
+    ``targets`` [B, S] (the sampled token at position ``t + 1`` where it
+    is part of the completion, else -1) and ``rewards`` [B].  The loss is
+    the reference's step for step: the forward's f32 logits, a plain f32
+    ``log_softmax``, the chosen log-probabilities gathered at
+    ``clamp(targets, 0)`` and masked at ``targets >= 0``, and ``loss =
+    -mean_b(adv_b * sum_t logp)`` with :func:`rl_advantages` of the whole
+    batch.  Flash-CE is not used: the reference has no
+    advantage-weighted variant, so the logits materialise as in the
+    reference.  Metrics: ``pg_loss``, ``reward_mean``, ``reward_max``,
+    ``logp_mean``, ``entropy`` (mean over action positions),
+    ``action_tokens``, then ``step`` and ``grad_norm`` (the global norm
+    before the clip).
+
+    ``accum_steps > 1`` computes the advantages over the full batch
+    first, then sums the microbatches' partial losses, each already
+    scaled by ``1 / B``, and their gradients in f32: the same gradient
+    up to summation order.  The optimizer defaults to
+    ``rl_optimizer()`` (clip 1.0, Adam at 3e-4).
+
+    On a mesh, ``fns["shard_batch"](global_batch)`` gives this rank's
+    rows and sequence shard with their advantages (computed over the
+    global batch) and keeps the global ``rewards`` for the metrics;
+    each rank's loss is its rows' share of the global sum, the sums are
+    reduced over the batch axes and sp, and under tp (where every rank
+    holds the whole vocabulary's logits) each rank differentiates
+    ``1 / tp`` of it, since the logits' gather sums its gradient over
+    tp.
+
+    Returns dict(init_fn, step_fn, loss_fn, pg_grad_fn, apply_grads_fn,
+    optimizer, baseline, accum_steps, lora, shard_batch, attn_fn,
+    device): ``pg_grad_fn(params, batch) -> ((loss, metrics), grads)``
+    (the reduced gradients, before the update) and
+    ``apply_grads_fn(params, opt_state, grads) -> (params, opt_state)``
+    (in place) are the split step a learner group allreduces between.
+    Runs on the card unless ``device="cpu"``."""
+    import torch.distributed as dist
+
+    rl_advantages(torch.zeros(2), baseline)      # validate loudly, once
+    accum_steps = int(accum_steps)
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    tx = optimizer or rl_optimizer()
+    base = build_gpt_train(cfg, mesh, optimizer=tx, accum_steps=1,
+                           device=device, comm_mode="gspmd",
+                           comm_quant="none", telemetry=False, lora=lora,
+                           base_params=base_params)
+    groups, model_of, attn_fn = (base["groups"], base["model_of"],
+                                 base["attn_fn"])
+    dev = base["device"]
+    tp, sp = groups.size("tp"), groups.size("sp")
+
+    def positions_of(tokens):
+        if sp <= 1:
+            return None
+        S = tokens.shape[1]
+        return groups.coord("sp") * S + torch.arange(S, device=tokens.device)
+
+    def micro_terms(params, mb, b_global):
+        """(-sum_b adv_b seq_logp_b / B, [sum of chosen logp, entropy
+        sum, action count]) of one microbatch of this rank's rows."""
+        tokens, targets = mb["tokens"], mb["targets"]
+        model, adapter = model_of(params)
+        logits, _aux = gpt_mod.forward(model, tokens, cfg, attn_fn=attn_fn,
+                                       positions=positions_of(tokens),
+                                       mesh=mesh, lora=adapter)
+        logp = torch.log_softmax(logits.float(), dim=-1)   # [b, S, V] f32
+        chosen = logp.gather(-1, targets.clamp_min(0)[..., None])[..., 0]
+        mask = (targets >= 0).float()
+        seq_logp = (chosen * mask).sum(-1)                 # [b]
+        part = -(mb["adv"][:, 0] * seq_logp).sum() / b_global
+        ent_sum = -((logp.exp() * logp).sum(-1) * mask).sum()
+        return part, torch.stack([(chosen * mask).sum(), ent_sum,
+                                  mask.sum()]).detach()
+
+    def pg_value_and_grad(params, batch, *, with_grads: bool = True):
+        if "adv" not in batch:
+            if groups.grouped:
+                raise ValueError("a batch on a mesh comes from "
+                                 "fns['shard_batch'] (each row carries its "
+                                 "advantage over the global batch)")
+            batch = shard_batch(batch)
+        rewards = batch["rewards"]
+        micro = _split_microbatches(
+            {k: batch[k] for k in ("tokens", "targets", "adv")},
+            accum_steps)
+        leaves = [p.detach().requires_grad_(with_grads)
+                  for p in _leaves(params)]
+        tree = _rebuild(params, leaves)
+        loss = sums = acc = None
+        for mb in micro:
+            part, s = micro_terms(tree, mb, rewards.shape[0])
+            loss = part.detach() if loss is None else loss + part.detach()
+            sums = s if sums is None else sums + s
+            if not with_grads:
+                continue
+            got = torch.autograd.grad(part / tp if tp > 1 else part, leaves,
+                                      allow_unused=True)
+            got = [torch.zeros_like(p) if g is None else g
+                   for p, g in zip(leaves, got)]
+            if accum_steps == 1:
+                acc = got
+            elif acc is None:
+                acc = [g.float() for g in got]
+            else:
+                for a, g in zip(acc, got):
+                    a.add_(g.float())
+        grads = None if not with_grads else _rebuild(
+            params, [a.to(p.dtype) for a, p in zip(acc, _leaves(params))])
+        if groups.count is not None:
+            dist.all_reduce(sums, group=groups.count)
+            if grads is not None:
+                grads, loss = base["reduce_grads"](grads, loss)
+            else:
+                dist.all_reduce(loss, group=groups.count)
+        n_act = sums[2].clamp_min(1.0)
+        metrics = {"pg_loss": loss.float(),
+                   "reward_mean": rewards.mean(),
+                   "reward_max": rewards.max(),
+                   "logp_mean": sums[0] / n_act,
+                   "entropy": sums[1] / n_act,
+                   "action_tokens": sums[2]}
+        return (loss.float(), metrics), grads
+
+    def step(state: TrainState, batch):
+        (_loss, metrics), grads = pg_value_and_grad(state.params, batch)
+        gnorm = base["grad_norm_fn"](grads)
+        opt_state = tx.update(grads, state.opt_state, state.params,
+                              g_norm=gnorm)
+        metrics.update(step=state.step + 1, grad_norm=gnorm)
+        return TrainState(state.params, opt_state, state.step + 1), metrics
+
+    def pg_grad_fn(params, batch):
+        return pg_value_and_grad(params, batch)
+
+    def apply_grads(params, opt_state, grads):
+        opt_state = tx.update(grads, opt_state, params,
+                              g_norm=base["grad_norm_fn"](grads))
+        return params, opt_state
+
+    @torch.no_grad()
+    def loss_eval(params, batch):
+        return pg_value_and_grad(params, batch, with_grads=False)[0][0]
+
+    def shard_batch(batch):
+        """This rank's rows of a global batch (tensors or numpy), on the
+        step's device, each row with its advantage over the global
+        batch, and the global ``rewards``."""
+        def on_dev(x, dtype):
+            # (a copy of a numpy array: one read from the object store is
+            # read-only)
+            x = x if isinstance(x, torch.Tensor) else torch.tensor(
+                np.asarray(x))
+            return x.to(dev, dtype)
+
+        host = batch["rewards"]
+        host = (host.detach().cpu() if isinstance(host, torch.Tensor)
+                else torch.tensor(np.asarray(host)))
+        # the advantages are computed on the host: on the card a division
+        # by a scalar multiplies by its reciprocal, so RLOO's (B r - sum
+        # r) / (B - 1) would part by an ulp from the host's, and an
+        # in-process learner's step from a group-hosted one's (whose
+        # driver computes them, ``LearnerGroupAdapter``)
+        adv = rl_advantages(host, baseline).to(dev)
+        rewards = host.to(dev, torch.float32)
+        tokens = on_dev(batch["tokens"], torch.long)
+        rows = {"tokens": tokens,
+                "targets": on_dev(batch["targets"], torch.long),
+                "adv": adv[:, None].expand(tokens.shape)}
+        if groups.grouped:
+            rows = shd.shard_batch(rows, mesh, accum_steps=accum_steps)
+        return dict(rows, rewards=rewards)
+
+    return {"init_fn": base["init_fn"], "step_fn": step,
+            "loss_fn": loss_eval, "pg_grad_fn": pg_grad_fn,
+            "apply_grads_fn": apply_grads, "optimizer": tx,
+            "baseline": baseline, "accum_steps": accum_steps,
+            "lora": base["lora"], "shard_batch": shard_batch,
+            "attn_fn": attn_fn, "device": dev}
 
 
 def default_pp_schedule() -> str:

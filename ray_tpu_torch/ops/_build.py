@@ -36,6 +36,7 @@ _lib: Optional[ctypes.CDLL] = None
 _REGISTRY: Dict[str, "Kernel"] = {}
 # what the last build printed (ptxas register / spill lines)
 build_log = ""
+builds = 0
 
 
 def _nvcc() -> str:
@@ -61,10 +62,11 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile and link the kernel library unless it is already built.
+    """Compile and link the kernel library unless it is already built
+    (``builds`` counts the builds this process ran).
 
     Raises with the compiler's output when a source does not build."""
-    global build_log
+    global build_log, builds
     lib = library_path()
     if lib.exists():
         return lib
@@ -98,6 +100,7 @@ def build() -> Path:
             raise RuntimeError("linking the kernel library failed:\n"
                                + link.stdout.decode(errors="replace"))
         os.replace(out_tmp, lib)
+        builds += 1
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return lib

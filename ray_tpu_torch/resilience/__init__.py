@@ -12,11 +12,14 @@ and serving, the counterpart of ``ray_tpu.resilience``:
   :func:`run_elastic_train_loop` driven by the ``mesh.loss`` /
   ``mesh.restore`` / ``mesh.step`` chaos sites, with the
   :class:`StragglerSupervisor`;
-- **serving** — the :class:`EngineWatchdog` wedge detector.
+- **serving** — the :class:`EngineWatchdog` wedge detector;
+- **RL** — the supervised actor/learner loop
+  :func:`run_supervised_rl_loop`: dead rollout actors replaced, a dead
+  learner restored from its checkpoint and republished, a killed loop
+  resumed, a failed publication skipped.
 
 Config via ``RAY_TPU_CKPT_*``, ``RAY_TPU_ELASTIC_*`` and
-``RAY_TPU_STRAGGLER_*`` (:func:`resilience_config`).  The supervised RL
-loop (``resilience/supervisor.py``) comes with ROADMAP Queue 1 item 11b.
+``RAY_TPU_STRAGGLER_*`` (:func:`resilience_config`).
 """
 
 from ray_tpu_torch.resilience.checkpoint import (  # noqa: F401
@@ -29,6 +32,8 @@ from ray_tpu_torch.resilience.elastic import (  # noqa: F401
     validate_resharding)
 from ray_tpu_torch.resilience.straggler import (  # noqa: F401
     StragglerSupervisor)
+from ray_tpu_torch.resilience.supervisor import (  # noqa: F401
+    run_supervised_rl_loop)
 from ray_tpu_torch.resilience.watchdog import EngineWatchdog  # noqa: F401
 
 __all__ = [
@@ -39,4 +44,5 @@ __all__ = [
     "validate_resharding", "reshard_state", "run_elastic_train_loop",
     "StragglerSupervisor",
     "EngineWatchdog",
+    "run_supervised_rl_loop",
 ]

@@ -1,4 +1,4 @@
-"""Deterministic fault injection for the serving stack.
+"""Deterministic fault injection for the serving stack and the RL loop.
 
 Counterpart of the fault-plan half of ``ray_tpu/util/chaos.py``: named
 injection **sites** call :func:`maybe_fail` (raise sites) or
@@ -28,6 +28,16 @@ and the fleet's (:mod:`ray_tpu_torch.fleet`):
   fault re-routes the request;
 - ``serve.handoff`` — the disaggregated handoff's export and import
   legs: a fault re-prefills the stream from its prompt.
+
+and the RL loop's (:mod:`ray_tpu_torch.rl`,
+:mod:`ray_tpu_torch.resilience.supervisor`):
+
+- ``rl.rollout`` — a rollout actor dies entering its Nth rollout,
+  before it submits anything (the supervisor replaces it);
+- ``rl.learner`` — the learner dies entering its Nth update (the
+  supervisor restores it from its checkpoint and republishes);
+- ``rl.publish`` — the Nth weight publication fails before the store
+  changes (the loop keeps the previous version).
 
 Spec grammar, comma-separated entries::
 

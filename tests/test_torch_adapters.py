@@ -17,9 +17,9 @@ adapters (``init_adapter`` with ``jax.random`` keys 11 and 22,
 - ``salt_bytes``, the registry's LRU and pin order, the store's
   versions and counters: exact.
 
-``test_rl_published_adapter_serves_merged_parity`` has no counterpart
-here: it trains through ``rl/learner.py``, which is ROADMAP item 11b.
-The JAX package's compile counters have no meaning in an eager engine;
+The RL learner's adapter publication (``rl/learner.py``) is held by the
+learner half of the adapter-only training test and by
+``test_rl_published_adapter_serves_merged_parity``.  The JAX package's compile counters have no meaning in an eager engine;
 their test holds the property they stand for: a hot load or republish
 writes the bank in place (the same tensors, at the same addresses).
 """
@@ -789,6 +789,76 @@ def test_adapter_only_training_identity_grads_and_publish(tiny, adapters):
     with pytest.raises(ValueError, match="base_params"):
         ttrain.build_gpt_train(tcfg, lora=lcfg, telemetry=False,
                                device="cpu")
+
+
+def test_rl_learner_publishes_adapter_sized_versions(tiny, adapters):
+    """The learner half of the reference's adapter-only training test:
+    an adapter-only ``InProcessLearner`` over the reference's base takes
+    an RL step whose gradients equal the reference learner's, its
+    publications are adapter-sized and versioned, and a full-weights
+    learner refuses adapter publication."""
+    from ray_tpu.rl.learner import InProcessLearner as JLearner
+    from ray_tpu_torch.rl.learner import InProcessLearner
+    jcfg, jparams, tcfg, tparams = tiny
+    lcfg = _lcfg()
+    learner = InProcessLearner(tcfg, lora=lcfg, base_params=tparams, seed=3,
+                               device="cpu")
+    jl = JLearner(jcfg, lora=_jlcfg(), base_params=jparams, seed=3)
+    ja, ta = adapters["t1"]
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, tcfg.vocab_size, (4, 24)
+                                    ).astype(np.int32),
+             "targets": rng.integers(0, tcfg.vocab_size, (4, 24)
+                                     ).astype(np.int32),
+             "rewards": rng.standard_normal(4).astype(np.float32)}
+    (jloss, _jm), jgrads = jl.fns["pg_grad_fn"](ja, batch)
+    (loss, _m), grads = learner.fns["pg_grad_fn"](ta, batch)
+    # the loss cancels per-row terms of ~100 (24 action tokens each) to
+    # ~0.04: summation order moves it by ~1e-7 of the terms
+    assert float(loss) == pytest.approx(float(jloss), abs=2e-5)
+    for k, g in jgrads.items():
+        np.testing.assert_allclose(grads[k].numpy(), np.asarray(g),
+                                   atol=2e-5, rtol=2e-5, err_msg=k)
+    learner.update(batch)
+    store = AdapterStore(use_object_store=False)
+    assert learner.publish_adapter(store, "tenant-rl") == 1
+    assert learner.publish_adapter(store, "tenant-rl") == 2
+    nbytes = tad.adapter_nbytes(learner.params_host())
+    assert store.stats()["bytes_published"] == 2 * nbytes
+    assert nbytes < tgpt.num_params(tparams) * 4 / 10
+    plain = InProcessLearner(tcfg, fns=ttrain.build_gpt_rl_train(
+        tcfg, device="cpu"))
+    with pytest.raises(ValueError, match="WeightStore"):
+        plain.publish_adapter(store, "x")
+
+
+def test_rl_published_adapter_serves_merged_parity(tiny):
+    """The RL -> serve seam: train adapter-only through the RL learner,
+    publish to the store, decode under the tenant; the stream equals an
+    engine serving the merged weights."""
+    from ray_tpu_torch.rl.learner import InProcessLearner
+    _jcfg, _jp, tcfg, tparams = tiny
+    lcfg = _lcfg(scale=1.0)
+    learner = InProcessLearner(tcfg, lora=lcfg, base_params=tparams, seed=4,
+                               device="cpu")
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, tcfg.vocab_size, (4, 24)
+                                    ).astype(np.int32),
+             "targets": rng.integers(0, tcfg.vocab_size, (4, 24)
+                                     ).astype(np.int32),
+             "rewards": rng.standard_normal(4).astype(np.float32)}
+    for _ in range(2):
+        learner.update(batch)
+    store = AdapterStore(use_object_store=False)
+    learner.publish_adapter(store, "tenant-rl")
+    eng = _engine(tiny, lora=lcfg, adapter_store=store)
+    p = _prompt(8, tcfg.vocab_size, seed=12)
+    out = eng.generate([p], 8, _greedy("tenant-rl"))
+    _, host, scale = store.get("tenant-rl")
+    ref = _engine(tiny, params=tlora.merge_adapter(tparams, host, tcfg,
+                                                   scale=scale))
+    assert out == ref.generate([p], 8, _greedy())
+    assert eng.leak_free()
 
 
 # --------------------------------------------------------------- fleet

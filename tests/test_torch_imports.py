@@ -84,8 +84,9 @@ def test_every_module_imports_first():
 # resilience's (sources, packer, stream, checkpointer, elastic loop,
 # straggler supervisor and their recorders) and the Dataset API's and
 # the adapters' (blocks, the executor, datasets, iterators, readers,
-# connectors; LoRA config, factor math, store and registry), which the
-# probe above must reach
+# connectors; LoRA config, factor math, store and registry) and the RL
+# loop's (rl/, the learner group, its recorder and the supervised
+# loop), which the probe above must reach
 _SLICE_MODULES = ("ray_tpu_torch/ops/flash_ce.py",
                   "ray_tpu_torch/models/training.py",
                   "ray_tpu_torch/telemetry/flops.py",
@@ -171,7 +172,19 @@ _SLICE_MODULES = ("ray_tpu_torch/ops/flash_ce.py",
                   "ray_tpu_torch/adapters/config.py",
                   "ray_tpu_torch/adapters/lora.py",
                   "ray_tpu_torch/adapters/store.py",
-                  "ray_tpu_torch/adapters/registry.py")
+                  "ray_tpu_torch/adapters/registry.py",
+                  "ray_tpu_torch/rl/__init__.py",
+                  "ray_tpu_torch/rl/config.py",
+                  "ray_tpu_torch/rl/reward.py",
+                  "ray_tpu_torch/rl/rollout.py",
+                  "ray_tpu_torch/rl/replay.py",
+                  "ray_tpu_torch/rl/learner.py",
+                  "ray_tpu_torch/rl/loop.py",
+                  "ray_tpu_torch/rllib/__init__.py",
+                  "ray_tpu_torch/rllib/core/__init__.py",
+                  "ray_tpu_torch/rllib/core/learner_group.py",
+                  "ray_tpu_torch/telemetry/rl.py",
+                  "ray_tpu_torch/resilience/supervisor.py")
 
 
 def _imported_roots(path):
@@ -212,6 +225,47 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                              page_size=16, buckets=(16,))
     assert len(engine.generate([[1, 2, 3]], max_new_tokens=2)[0]) == 2
     assert _build._lib is None
+
+
+_RL_PROBE = r"""
+import sys
+import torch
+assert not torch.cuda.is_available()
+import ray_tpu_torch.rl
+import ray_tpu_torch.rllib.core.learner_group
+import ray_tpu_torch.telemetry.rl
+import ray_tpu_torch.resilience.supervisor
+from ray_tpu_torch.models.gpt import GPTConfig
+from ray_tpu_torch.rl import InProcessLearner, run_rl_loop
+from ray_tpu_torch.resilience import run_supervised_rl_loop
+cfg = GPTConfig.tiny(dtype=torch.float32)
+for call in (lambda: InProcessLearner(cfg), lambda: run_rl_loop(cfg, steps=1),
+             lambda: run_supervised_rl_loop(cfg, steps=1)):
+    try:
+        call()
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e), e
+    else:
+        raise AssertionError("an RL entry point ran without a card")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu", "triton"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_rl_slice_imports_no_jax_and_needs_a_card():
+    """``rl``, the learner group, the RL recorder and the supervised loop
+    import with no jax, no ``ray_tpu`` and no triton in ``sys.modules``
+    and no card visible; their entry points then raise rather than
+    drift to the CPU."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, "-c", _RL_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 _WORKER_PROBE = r"""

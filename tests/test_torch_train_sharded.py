@@ -20,7 +20,11 @@ The port side runs in one 4-rank gloo world (``torch.multiprocessing``,
 a ``FileStore`` under the test's directory) that takes every mesh shape
 in turn; its ranks import only ``torch`` and the port, and write their
 results to ``.npz`` files.  One case also goes end to end through
-``TorchTrainer`` with ``ScalingConfig.mesh_axes``.
+``TorchTrainer`` with ``ScalingConfig.mesh_axes``, and the same world
+runs the RL learner's step (``build_gpt_rl_train``) on {fsdp: 2, tp: 2}
+against the reference's on that mesh shape (its own test's mesh axes,
+``tests/test_rl.py``), on the batch's tokens and targets with rewards
+from a seed.
 
 Bounds (``tests/test_parallel.py::_overlap_vs_gspmd``'s): the loss within
 rtol 2e-4, atol 2e-5; every gradient leaf, gathered to full, within rtol
@@ -57,6 +61,13 @@ IDS = [c[0] for c in CASES]
 # the port against itself only: 2 microbatches and remat on a sharded
 # mesh against the unsharded step with the same options
 ACCUM = ("fsdp2-tp2-accum2-remat", dict(fsdp=2, tp=2), "ring")
+# the RL learner's policy-gradient step on a sharded mesh
+RL = ("rl-fsdp2-tp2", dict(fsdp=2, tp=2))
+RL_LR = 1e-3
+
+
+def _rewards():
+    return np.random.default_rng(4).standard_normal(B).astype(np.float32)
 
 
 def _global_batch():
@@ -142,13 +153,72 @@ def _world(rank, store, in_path, out_dir):
                      logits=logits.numpy(),
                      **{"g/" + k: v for k, v in
                         _flat(_np_tree(full)).items()})
+    _rl_case(rank, params, batch, out_dir)
     dist.destroy_process_group()
+
+
+def _rl_case(rank, params, batch, out_dir):
+    """The RL step on RL's mesh: its loss, metrics and full gradients,
+    then STEPS steps' (pg_loss, grad_norm)."""
+    from ray_tpu_torch.convert import params_from_jax
+    from ray_tpu_torch.models import gpt, training
+    from ray_tpu_torch.parallel import sharding
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    t0 = time.monotonic()
+    cfg = gpt.GPTConfig(**MODEL, dtype=torch.float32)
+    mesh = make_mesh(**RL[1])
+    fns = training.build_gpt_rl_train(
+        cfg, mesh, optimizer=training.rl_optimizer(RL_LR), device="cpu")
+    state = fns["init_fn"](params=params_from_jax(params, cfg, device="cpu",
+                                                  mesh=mesh))
+    local = fns["shard_batch"](dict(batch, rewards=_rewards()))
+    (loss, metrics), grads = fns["pg_grad_fn"](state.params, local)
+    full = sharding.gather_params(grads, mesh, gpt.param_logical_axes(cfg))
+    steps = []
+    for _ in range(STEPS):
+        state, m = fns["step_fn"](state, local)
+        steps.append((float(m["pg_loss"]), float(m["grad_norm"])))
+    if rank == 0:
+        np.savez(os.path.join(out_dir, f"{RL[0]}.npz"), loss=float(loss),
+                 steps=np.array(steps), secs=time.monotonic() - t0,
+                 **{"m/" + k: float(v) for k, v in metrics.items()},
+                 **{"g/" + k: v for k, v in _flat(_np_tree(full)).items()})
 
 
 def _np_tree(node):
     if isinstance(node, dict):
         return {k: _np_tree(v) for k, v in node.items()}
     return node.detach().numpy()
+
+
+def _jax_rl_reference(params0, batch):
+    """The reference's ``build_gpt_rl_train`` on RL's mesh: the loss,
+    metrics and gradients of its ``pg_grad_fn``, then STEPS steps'
+    (pg_loss, grad_norm) of its ``step_fn`` from ``params0``."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from ray_tpu.models import gpt as jgpt
+    from ray_tpu.models import training as jtrain
+    from ray_tpu.parallel.mesh import make_mesh
+
+    cfg = jgpt.GPTConfig(**MODEL, dtype=jnp.float32)
+    mesh = make_mesh(**RL[1], devices=jax.devices()[:WORLD])
+    tx = optax.chain(optax.clip_by_global_norm(1.0), optax.adam(RL_LR))
+    fns = jtrain.build_gpt_rl_train(cfg, mesh, optimizer=tx)
+    rl_batch = dict(batch, rewards=_rewards())
+    (loss, metrics), grads = fns["pg_grad_fn"](params0, rl_batch)
+    first = (float(loss), {k: float(v) for k, v in metrics.items()},
+             _flat(jax.device_get(grads)))
+    state = jax.device_put(
+        jtrain.TrainState(params0, tx.init(params0),
+                          jnp.zeros((), jnp.int32)), fns["state_shardings"])
+    steps = []
+    for _ in range(STEPS):
+        state, m = fns["step_fn"](state, rl_batch)
+        steps.append((float(m["pg_loss"]), float(m["grad_norm"])))
+    return first + (np.array(steps),)
 
 
 def _jax_reference(axes, impl, params0, batch, update):
@@ -229,6 +299,7 @@ def runs(tmp_path_factory):
 
     jax_out = {name: _jax_reference(axes, impl, params0, batch, update)
                for name, axes, impl in CASES}
+    jax_rl = _jax_rl_reference(params0, batch)
     jax_s = time.monotonic() - t0
 
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
@@ -253,11 +324,17 @@ def runs(tmp_path_factory):
         port[name] = (float(d["loss"]), {k[2:]: v for k, v in d.items()
                                          if k.startswith("g/")},
                       d["steps"], float(d["secs"]), d["logits"])
+    d = dict(np.load(tmp / f"{RL[0]}.npz"))
+    port_rl = (float(d["loss"]), {k[2:]: float(v) for k, v in d.items()
+                                  if k.startswith("m/")},
+               {k[2:]: v for k, v in d.items() if k.startswith("g/")},
+               d["steps"])
     print(f"JAX side {jax_s:.1f} s; world of {WORLD} "
           f"{time.monotonic() - t0:.1f} s; per case "
           f"{ {n: round(p[3], 2) for n, p in port.items()} }")
     return {"jax": jax_out, "port": port, "plain": plain,
-            "params0": params0, "batch": batch}
+            "params0": params0, "batch": batch,
+            "rl": {"jax": jax_rl, "port": port_rl}}
 
 
 def _assert_close(got, want, what):
@@ -305,6 +382,27 @@ def test_sharded_accumulation_and_remat_match_unsharded_port(runs):
     and tp collectives recomputed in the backward) against the
     unsharded step with the same options, at the same bounds."""
     _assert_close(runs["port"][ACCUM[0]], runs["plain"][True], ACCUM[0])
+
+
+def test_sharded_rl_step_matches_jax_gspmd(runs):
+    """``build_gpt_rl_train`` on {fsdp: 2, tp: 2} (each rank's rows with
+    their advantages over the global batch, the whole vocabulary's
+    logits on every tp rank) against the reference's on that mesh shape:
+    the loss and metrics within rtol 2e-4 (atol 2e-5), every gradient
+    leaf gathered to full within the bounds above, and 3 steps' losses
+    and grad norms within 1e-4 relative."""
+    w_loss, w_metrics, w_grads, w_steps = runs["rl"]["jax"]
+    g_loss, g_metrics, g_grads, g_steps = runs["rl"]["port"]
+    np.testing.assert_allclose(g_loss, w_loss, rtol=2e-4, atol=2e-5)
+    assert g_metrics.keys() == w_metrics.keys()
+    for k, v in w_metrics.items():
+        np.testing.assert_allclose(g_metrics[k], v, rtol=2e-4, atol=2e-5,
+                                   err_msg=k)
+    assert g_grads.keys() == w_grads.keys()
+    for path, w in w_grads.items():
+        np.testing.assert_allclose(g_grads[path], w, rtol=5e-3, atol=5e-5,
+                                   err_msg=f"rl grad {path}")
+    np.testing.assert_allclose(g_steps, w_steps, rtol=1e-4, atol=1e-6)
 
 
 def test_loss_counts_every_valid_target_once(runs):
