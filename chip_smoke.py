@@ -48,8 +48,11 @@
     python3 chip_smoke.py --rl             # the attention kernels at the
                                            # RL learner's S = 20, then the
                                            # RL phases (14) alone
+    python3 chip_smoke.py --profile-api    # gpt2-profile (15) alone
+    python3 chip_smoke.py --rllib          # the rllib learners (16) alone
     python3 chip_smoke.py --multi-gpu      # on four cards: the pipeline
-                                           # and MoE steps and the
+                                           # (with sp too), MoE and
+                                           # sharded-LoRA steps and the
                                            # elastic loop over NCCL
                                            # against one process's
     python3 chip_smoke.py --decode         # the decode checks and times
@@ -380,6 +383,27 @@
    one restart each, 8 records, the engines clean, exact launches (the
    dead engine's included), no kernel built after the replacement.
    Each prints ``<cell> metrics {...}``.
+15. gpt2-profile (``profile_api_phase``): ``util.profiling.
+   profile_device`` around 2 steps of gpt2-train-b24 with
+   ``annotate("train-step")`` around each: the trace file exists, names
+   the annotation and the CUDA kernels of the training entry points as
+   often as ``_build.launch_counts`` says they launched (exact), in the
+   main run's own process after its earlier profiler sessions;
+   ``device_memory_stats()`` has the card with ``bytes_in_use`` > 0 and
+   the peak at least that; prints the profiled and unprofiled ms/step
+   and how many of ``profile_device``'s warm-up records the session kept.
+16. rllib (``rllib_phase``), at the reference's default widths: one
+   update each of PPO (4 x 256 CartPole-shaped rows, 6 epochs), DQN,
+   IMPALA (4 segments of 64, v-trace), SAC (Pendulum-shaped, fed
+   noise) and BC on the card against the same learner on the CPU (TF32
+   is off: ``torch_flags``): every metric finite and within 1e-4
+   relative (1e-6 absolute) of the CPU's, the parameters moved and
+   within 1e-4 of each leaf's largest value; then a ``LearnerGroup``
+   of one ``num_gpus_per_learner=1`` PPO learner actor, whose two
+   updates equal an in-process learner's on the card within 1e-5
+   relative; its cold start printed.  The env-driven arm (PPO on
+   CartPole) runs where ``gymnasium`` imports, else the line says it did
+   not.  Prints ``rllib metrics {...}``.
 
 Any failure raises and the script exits non-zero.  The line before the
 last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
@@ -5763,9 +5787,13 @@ def moe_report(arm: dict) -> dict:
 # 8 x 1024 from the driver's seeds, each rank's loss and gathered
 # gradients against the single-process step (``build_gpt_train`` with no
 # mesh) on its own card: the pipeline's stage transfers (GPipe and 1F1B
-# over pp, 1F1B over dcn, with dp, fsdp and tp inside the stages) and the
-# MoE step (8 experts, capacity factor 0.5, tokens dropped) over dp, ep
-# and tp.  Bounds: TRAIN_F32_TOL (summation order only).
+# over pp, 1F1B over dcn, with dp, fsdp and tp inside the stages, GPipe
+# and 1F1B over pp with each stage's sequence over sp), the MoE step (8
+# experts, capacity factor 0.5, tokens dropped) over dp, ep and tp, and
+# adapter-only training on {fsdp 2, tp 2} (MULTI_LORA; in f32, so its
+# loss is held to the f32 bound, tighter than the bf16 gates; the base
+# bit-unchanged, every B moved, the adapter bit-equal on every rank).
+# Bounds: TRAIN_F32_TOL (summation order only).
 MULTI_WORLD = 4
 MULTI_LAYERS = 4
 MULTI_B = 8
@@ -5773,7 +5801,16 @@ MULTI_PP_CASES = [("pp4-gpipe", dict(pp=4), "gpipe"),
                   ("pp4-1f1b", dict(pp=4), "1f1b"),
                   ("pp2-dp2-1f1b", dict(pp=2, dp=2), "1f1b"),
                   ("pp2-tp2-gpipe", dict(pp=2, tp=2), "gpipe"),
-                  ("dcn2-fsdp2-1f1b", dict(dcn=2, fsdp=2), "1f1b")]
+                  ("dcn2-fsdp2-1f1b", dict(dcn=2, fsdp=2), "1f1b"),
+                  # each stage's sequence over sp (ring attention)
+                  ("pp2-sp2-gpipe", dict(pp=2, sp=2), "gpipe"),
+                  ("pp2-sp2-1f1b", dict(pp=2, sp=2), "1f1b")]
+# adapter-only training over the frozen base sharded on {fsdp 2, tp 2}:
+# rank 16 on every target; the gradients of a random-B adapter and
+# MULTI_LORA_STEPS steps from the standard init against one process's
+MULTI_LORA = ("lora-fsdp2-tp2", dict(fsdp=2, tp=2))
+MULTI_LORA_RANK = 16
+MULTI_LORA_STEPS = 3
 MULTI_MOE_CASES = [("moe-dp4", dict(dp=4)), ("moe-ep4", dict(ep=4)),
                    ("moe-dp2-ep2", dict(dp=2, ep=2)),
                    ("moe-ep2-tp2", dict(ep=2, tp=2))]
@@ -5867,9 +5904,12 @@ def _multi_gpu_rank(rank: int, store: str, out: str,
             walls.append(1e3 * (time.monotonic() - t))
         return float(np.median(walls[1:]))
 
+    from ray_tpu_torch.ops import _build
+
     results = {}
     full = init_params(base, torch.Generator().manual_seed(0), device=dev)
     for name, axes, schedule in MULTI_PP_CASES:
+        _build.reset_launches()
         mesh = make_mesh(**axes)
         fns = build_gpt_train_pp(base, mesh, num_microbatches=4,
                                  schedule=schedule, device=dev,
@@ -5881,6 +5921,7 @@ def _multi_gpu_rank(rank: int, store: str, out: str,
         results[name] = compare(base, loss, gathered, full)
         results[name]["ms"] = timed(
             lambda: fns["value_and_grad_fn"](state.params, local))
+        results[name]["launches"] = _nonzero(_build.launch_counts())
         del fns, state, grads, gathered
     moe_cfg = dataclasses.replace(base, moe_capacity_factor=MOE_DROP_CF,
                                   **{k: v for k, v in MOE_CFG.items()
@@ -5888,6 +5929,7 @@ def _multi_gpu_rank(rank: int, store: str, out: str,
     moe_full = init_params(moe_cfg, torch.Generator().manual_seed(0),
                            device=dev)
     for name, axes in MULTI_MOE_CASES:
+        _build.reset_launches()
         mesh = make_mesh(**axes)
         fns = build_gpt_train(moe_cfg, mesh, device=dev, telemetry=False)
         state = fns["init_fn"](params=clone(moe_full))
@@ -5898,12 +5940,85 @@ def _multi_gpu_rank(rank: int, store: str, out: str,
         results[name] = compare(moe_cfg, loss, gathered, moe_full)
         results[name]["ms"] = timed(
             lambda: fns["value_and_grad_fn"](state.params, local))
+        results[name]["launches"] = _nonzero(_build.launch_counts())
         del fns, state, grads, gathered
+    _build.reset_launches()
+    results[MULTI_LORA[0]] = _multi_lora_case(base, full, batch, dev)
+    results[MULTI_LORA[0]]["launches"] = _nonzero(_build.launch_counts())
     results["elastic"] = _elastic_case(base, full, dev)
     if rank == 0:
         with open(out, "w") as f:
             json.dump(results, f)
     dist.destroy_process_group()
+
+
+def _multi_lora_case(cfg, full, batch, dev) -> dict:
+    """MULTI_LORA on this world against one process on the same global
+    batch: the loss and every factor's gradient of a random-B adapter
+    (``value_and_grad_fn``), then MULTI_LORA_STEPS steps from the
+    standard init (B zero); the trained adapter's spread over the ranks,
+    the smallest change of a B factor and the base's largest change."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.adapters import ALL_TARGETS, LoraConfig
+    from ray_tpu_torch.adapters.lora import init_adapter
+    from ray_tpu_torch.models.training import (_leaves, _path_order,
+                                               build_gpt_train,
+                                               default_optimizer)
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    lcfg = LoraConfig(enabled=True, rank=MULTI_LORA_RANK,
+                      targets=ALL_TARGETS)
+    snapshot = [t.clone() for t in _leaves(full)]
+    start = init_adapter(cfg, lcfg, torch.Generator().manual_seed(5),
+                         device=dev)
+    probe = init_adapter(cfg, lcfg, torch.Generator().manual_seed(6),
+                         random_b=True, device=dev)
+
+    def build(mesh):
+        fns = build_gpt_train(cfg, mesh,
+                              optimizer=default_optimizer(**TRAIN_OPT),
+                              device=dev, telemetry=False, lora=lcfg,
+                              base_params=full)
+        return fns, (fns["shard_batch"](batch) if mesh is not None
+                     else batch)
+
+    def run(mesh):
+        fns, local = build(mesh)
+        loss, grads = fns["value_and_grad_fn"](
+            fns["init_fn"](params=probe).params, local)
+        state = fns["init_fn"](params=start)
+        losses = []
+        for _ in range(MULTI_LORA_STEPS):
+            state, m = fns["step_fn"](state, local)
+            losses.append(float(m["loss"]))
+        return float(loss), grads, losses, state.params
+
+    ref_loss, ref_grads, ref_losses, _p = run(None)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.monotonic()
+    loss, grads, losses, trained = run(make_mesh(**MULTI_LORA[1]))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    ms = 1e3 * (time.monotonic() - t0)
+    shares = {k: float((grads[k] - ref_grads[k]).abs().max()
+                       / ref_grads[k].abs().max()) for k in ref_grads}
+    worst = max(shares, key=shares.get)
+    leaves = _leaves(trained)
+    flat = torch.cat([leaves[i].reshape(-1) for i in _path_order(trained)])
+    every = [torch.empty_like(flat) for _ in range(MULTI_WORLD)]
+    dist.all_gather(every, flat)
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip([loss] + losses, [ref_loss] + ref_losses))
+    return {"loss": loss, "ref_loss": ref_loss, "loss_rel": rel,
+            "worst_share": shares[worst], "worst_leaf": worst,
+            "losses": losses, "ref_losses": ref_losses, "ms": ms,
+            "rank_spread": max(float((e - every[0]).abs().max())
+                               for e in every),
+            "b_moved_min": min(float((trained[k] - start[k]).abs().max())
+                               for k in trained if k.endswith("_b")),
+            "base_moved": max(float((a - b).abs().max()) for a, b in
+                              zip(_leaves(full), snapshot))}
 
 
 def _elastic_case(cfg, full, dev) -> dict:
@@ -5963,11 +6078,21 @@ def multi_gpu_phase() -> dict:
         print(f"multi-gpu {name}: loss {r['loss']:.6f} vs single process "
               f"{r['ref_loss']:.6f} (relative {r['loss_rel']:.3e}), worst "
               f"gradient share {r['worst_share']:.3e} at {r['worst_leaf']}; "
-              f"{r['ms']:.2f} ms a value_and_grad", flush=True)
+              f"{r['ms']:.2f} ms a value_and_grad; rank 0's launches "
+              f"{r['launches']}", flush=True)
         if not (r["loss_rel"] <= TRAIN_F32_TOL["loss_rel"]
                 and r["worst_share"] <= TRAIN_F32_TOL["grad"]):
             raise AssertionError(f"multi-gpu {name}: parts from the "
                                  "single-process step")
+    lora = results[MULTI_LORA[0]]
+    print(f"multi-gpu {MULTI_LORA[0]}: {MULTI_LORA_STEPS} steps' losses "
+          f"{lora['losses']} vs one process's {lora['ref_losses']}; the "
+          f"adapter's spread over the ranks {lora['rank_spread']}, the "
+          f"smallest B change {lora['b_moved_min']:.3e}, the base's "
+          f"largest change {lora['base_moved']}", flush=True)
+    if not (lora["rank_spread"] == 0.0 and lora["b_moved_min"] > 0
+            and lora["base_moved"] == 0.0):
+        raise AssertionError(f"multi-gpu {MULTI_LORA[0]}: {lora}")
     moves = [(t["kind"], t["from"], t["to"]) for t in elastic["transitions"]]
     print(f"multi-gpu elastic: {moves}, accum_steps back to "
           f"{elastic['accum_steps']}; losses {elastic['losses']} vs "
@@ -8024,6 +8149,383 @@ def rl_phases(dev) -> dict:
     return paths
 
 
+# gpt2-profile: the profiled steps, and the symbol of one CUDA kernel
+# each training entry point launches exactly once a call (bf16 at the
+# training shape: the tensor-core attention, epilogue and flash-CE)
+PROFILE_STEPS = 2
+PROFILE_ANNOTATION = "train-step"
+PROFILE_SYMBOLS = {
+    "flash_attention_fwd": ("flash_fwd_tc_kernel",),
+    "flash_attention_bwd": ("flash_dq_tc_kernel", "flash_dkv_tc_kernel"),
+    "matmul_residual_norm_fwd": ("mrn_tc_kernel",),
+    "matmul_residual_norm_bwd": ("mrn_bwd_da_kernel", "mrn_bwd_dw_kernel"),
+    "flash_ce_fwd": ("ce_combine_kernel",),
+    "flash_ce_bwd": ("ce_dscale_sum_kernel",)}
+
+
+def _profile_warmup_kept(events: list, annotation: str) -> int:
+    """How many of the launches under ``annotation`` (host side) have
+    their GPU record in the trace: ``profile_device``'s warm-up burst
+    less the records the session lost at its start."""
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("name") == annotation
+             and e.get("cat") == "user_annotation"]
+    gpu = {e.get("args", {}).get("correlation") for e in events
+           if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")}
+    return sum(1 for e in events
+               if e.get("cat") in ("cuda_runtime", "cuda_driver")
+               and "aunch" in e.get("name", "")
+               and any(a <= e["ts"] <= b for a, b in spans)
+               and e.get("args", {}).get("correlation") in gpu)
+
+
+def profile_api_phase(dev) -> dict:
+    """gpt2-profile: ``util.profiling.profile_device`` around
+    PROFILE_STEPS steps of gpt2-train-b24 (2 unprofiled warm-up steps,
+    then PROFILE_STEPS unprofiled and PROFILE_STEPS profiled, each under
+    ``annotate(PROFILE_ANNOTATION)``).  Gates: one trace file, naming the
+    annotation; each training entry point's kernels (PROFILE_SYMBOLS) in
+    it as often as the entry point launched, which is exactly
+    ``train_step_launches`` a step; ``device_memory_stats`` with the
+    card's bytes in use > 0 and the peak at least that.  The main run
+    takes it in its own long-lived process, after earlier profiler
+    sessions, where a session loses its first GPU records
+    (``profiling.WARMUP_OPS``); it prints how many of the warm-up's
+    records the session kept.  Returns the profiled steps' launches."""
+    import glob
+    import tempfile
+
+    from ray_tpu_torch import GPTConfig
+    from ray_tpu_torch.models.training import (build_gpt_train,
+                                               default_optimizer,
+                                               synthetic_lm_batch)
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.util import profiling
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = GPTConfig.gpt2(**TRAIN_CFG, dtype=torch.bfloat16)
+    fns = build_gpt_train(cfg, optimizer=default_optimizer(**TRAIN_OPT),
+                          device=dev, telemetry=False)
+    state = fns["init_fn"](torch.Generator().manual_seed(0))
+    batch = synthetic_lm_batch(torch.Generator().manual_seed(1), TRAIN_B,
+                               TRAIN_S, cfg.vocab_size, device=dev)
+
+    def steps(n):
+        nonlocal state
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(n):
+            with profiling.annotate(PROFILE_ANNOTATION):
+                state, m = fns["step_fn"](state, batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        return 1e3 * (time.monotonic() - t0) / n, [float(x) for x in losses]
+
+    steps(2)
+    plain_ms, _ = steps(PROFILE_STEPS)
+    _build.reset_launches()
+    with tempfile.TemporaryDirectory(prefix="gpt2_profile_") as tmp:
+        t0 = time.monotonic()
+        with profiling.profile_device(tmp) as logdir:
+            prof_ms, losses = steps(PROFILE_STEPS)
+        export_s = time.monotonic() - t0 - PROFILE_STEPS * prof_ms / 1e3
+        launches = _build.launch_counts()
+        traces = glob.glob(os.path.join(logdir, "*" + profiling.TRACE_SUFFIX))
+        if len(traces) != 1:
+            raise AssertionError(f"gpt2-profile: traces {traces}")
+        trace_mb = os.path.getsize(traces[0]) / 2 ** 20
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+    expect_launches("gpt2-profile", launches,
+                    {k: n * PROFILE_STEPS
+                     for k, n in train_step_launches().items()})
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"gpt2-profile: losses {losses}")
+    annotated = sum(1 for e in events
+                    if e.get("name") == PROFILE_ANNOTATION)
+    if annotated < PROFILE_STEPS:
+        raise AssertionError(f"gpt2-profile: the trace names "
+                             f"{PROFILE_ANNOTATION!r} {annotated} times")
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    counts = {sym: sum(1 for k in kernels if sym in k)
+              for symbols in PROFILE_SYMBOLS.values() for sym in symbols}
+    want = {sym: launches.get(entry, 0)
+            for entry, symbols in PROFILE_SYMBOLS.items() for sym in symbols}
+    if counts != want:
+        raise AssertionError(f"gpt2-profile: kernels in the trace {counts}, "
+                             f"launched {want}")
+    warmup_kept = _profile_warmup_kept(events, profiling.WARMUP_ANNOTATION)
+    stats = profiling.device_memory_stats()
+    if len(stats) != torch.cuda.device_count():
+        raise AssertionError(f"gpt2-profile: memory stats {stats}")
+    mem = stats["cuda:0"]
+    if not (mem["bytes_in_use"] > 0
+            and mem["peak_bytes_in_use"] >= mem["bytes_in_use"]
+            and mem["bytes_limit"] >= mem["peak_bytes_in_use"]):
+        raise AssertionError(f"gpt2-profile: memory stats {mem}")
+    metrics = {"cell": "gpt2-profile", "card": card(),
+               "batch": [TRAIN_B, TRAIN_S], "steps": PROFILE_STEPS,
+               "step_ms_unprofiled": plain_ms, "step_ms_profiled": prof_ms,
+               "profiler_overhead": prof_ms / plain_ms - 1.0,
+               "trace_export_s": export_s, "trace_mb": trace_mb,
+               "kernel_events": len(kernels), "symbol_counts": counts,
+               "annotations": annotated, "memory": mem,
+               "warmup_ops": profiling.WARMUP_OPS,
+               "warmup_records_kept": warmup_kept}
+    print(f"gpt2-profile: the trace names {PROFILE_ANNOTATION!r} and each "
+          f"training kernel as often as it launched; {plain_ms:.2f} ms a "
+          f"step unprofiled, {prof_ms:.2f} profiled; the session kept "
+          f"{warmup_kept} of the warm-up's {profiling.WARMUP_OPS} "
+          f"records", flush=True)
+    print("gpt2-profile metrics " + json.dumps(metrics), flush=True)
+    return launches
+
+
+# rllib on the card: the learners' updates against the CPU's (f32, TF32
+# off): metrics within RLLIB_REL (RLLIB_ABS for those near 0), params
+# within RLLIB_REL of each leaf's largest value; the learner group's two
+# updates within RLLIB_GROUP_REL of the in-process learner's
+RLLIB_REL = 1e-4
+RLLIB_ABS = 1e-6
+RLLIB_GROUP_REL = 1e-5
+RLLIB_ENV_ITERS = 5
+
+
+def _rllib_batches() -> dict:
+    """Seeded fed batches at the reference's default shapes: PPO's 4
+    runners x 256 CartPole steps, DQN's 64, IMPALA's 4 segments of 64,
+    SAC's 256 Pendulum steps, BC's 256."""
+    rng = np.random.default_rng(0)
+
+    def f32(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    n = 4 * 256
+    adv, values = f32(n), f32(n)
+    ppo = {"obs": f32(n, 4), "actions": rng.integers(0, 2, n),
+           "logp": np.log(rng.uniform(0.3, 0.7, n)).astype(np.float32),
+           "values": values, "advantages": adv,
+           "value_targets": adv + values}
+    dqn = {"obs": f32(64, 4), "next_obs": f32(64, 4),
+           "actions": rng.integers(0, 2, 64),
+           "rewards": np.ones(64, np.float32),
+           "terminateds": (rng.random(64) < 0.05).astype(np.float32)}
+    B, T = 4, 64
+    impala = {"obs": f32(B, T, 4), "actions": rng.integers(0, 2, (B, T)),
+              "logp": np.log(rng.uniform(0.2, 0.8, (B, T))).astype(
+                  np.float32),
+              "values": f32(B, T), "rewards": np.ones((B, T), np.float32),
+              "terminateds": (rng.random((B, T)) < 0.05).astype(
+                  np.float32),
+              "bootstrap_value": f32(B)}
+    sac = {"obs": f32(256, 3), "next_obs": f32(256, 3),
+           "actions": rng.uniform(-2, 2, (256, 1)).astype(np.float32),
+           "rewards": f32(256, scale=3.0),
+           "terminateds": np.zeros(256, np.float32)}
+    bc = {"obs": f32(256, 4), "actions": rng.integers(0, 2, 256)}
+    return {"ppo": ppo, "dqn": dqn, "impala": impala, "sac": sac,
+            "bc": bc, "sac_noise": f32(2, 256, 1)}
+
+
+def _rllib_compare(name, run, dev) -> dict:
+    """``run(device) -> (params before, params after, metrics)`` on the
+    card and on the CPU from the same draws: the gates above; returns the
+    card's update ms (a fresh learner's, after one untimed run on the
+    card), the CPU's, and the largest shares."""
+    from ray_tpu_torch.models.training import _leaves
+    t0 = time.monotonic()
+    cpu_before, cpu_after, cpu_m = run("cpu")
+    cpu_ms = 1e3 * (time.monotonic() - t0)
+    run(dev)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    before, after, m = run(dev)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.monotonic() - t0)
+    for k, v in cpu_m.items():
+        got = float(m[k])
+        if not (math.isfinite(got)
+                and abs(got - float(v)) <= RLLIB_ABS + RLLIB_REL * abs(
+                    float(v))):
+            raise AssertionError(f"rllib {name}: metric {k} {got} on the "
+                                 f"card, {float(v)} on the CPU")
+    moved = max(float((a.cpu() - b.cpu()).abs().max())
+                for a, b in zip(_leaves(after), _leaves(before)))
+    if not moved > 0:
+        raise AssertionError(f"rllib {name}: the parameters did not move")
+    share = 0.0
+    for a, b in zip(_leaves(after), _leaves(cpu_after)):
+        top = float(b.abs().max())
+        if top:
+            share = max(share, float((a.cpu() - b).abs().max()) / top)
+    if not share <= RLLIB_REL:
+        raise AssertionError(f"rllib {name}: params part from the CPU's by "
+                             f"{share:.3e} of a leaf's largest value")
+    return {"update_ms": ms, "cpu_update_ms": cpu_ms, "param_share": share,
+            "moved": moved}
+
+
+def _rllib_learners(dev) -> dict:
+    """One update of each learner on the card against the CPU's."""
+    from ray_tpu_torch.models.training import _leaves, _rebuild
+    from ray_tpu_torch.rllib.algorithms import bc, dqn, impala, ppo, sac
+    from ray_tpu_torch.rllib.core import rl_module as rm
+    data = _rllib_batches()
+
+    def init(module, device):
+        return module.init_params(torch.Generator().manual_seed(0),
+                                 device=device)
+
+    def snap(tree):
+        return _rebuild(tree, [t.detach().clone() for t in _leaves(tree)])
+
+    disc = rm.DiscreteMLPModule(rm.MLPModuleConfig())
+
+    def run_ppo(device):
+        lr = ppo.PPOLearner(disc, ppo.PPOConfig(), device=device)
+        params = init(disc, device)
+        before = snap(params)
+        params, _o, m = lr.update(params, lr.tx.init(params), data["ppo"])
+        return before, params, m
+
+    def run_dqn(device):
+        lr = dqn.DQNLearner(disc, dqn.DQNConfig(), device=device)
+        params = init(disc, device)
+        target = disc.init_params(torch.Generator().manual_seed(1),
+                                  device=device)
+        before = snap(params)
+        params, _o, m = lr.update(params, target, lr.tx.init(params),
+                                  data["dqn"])
+        return before, params, m
+
+    def run_impala(device):
+        lr = impala.IMPALALearner(disc, impala.IMPALAConfig(), device=device)
+        params = init(disc, device)
+        before = snap(params)
+        params, _o, m = lr.update(params, lr.tx.init(params),
+                                  data["impala"])
+        return before, params, m
+
+    def run_bc(device):
+        lr = bc.BCLearner(disc, bc.BCConfig(), device=device)
+        params = init(disc, device)
+        before = snap(params)
+        params, _o, loss, acc = lr.update(params, lr.tx.init(params),
+                                          data["bc"]["obs"],
+                                          data["bc"]["actions"])
+        return before, params, {"loss": loss, "action_accuracy": acc}
+
+    ccfg = rm.ContinuousModuleConfig(act_low=(-2.0,), act_high=(2.0,))
+    actor, critic = rm.SquashedGaussianModule(ccfg), rm.TwinQModule(ccfg)
+
+    def run_sac(device):
+        lr = sac.SACLearner(actor, critic, sac.SACConfig(), device=device)
+        st = lr.init_state(torch.Generator().manual_seed(0))
+        before = snap({"actor": st.actor, "critic": st.critic})
+        st, m = lr.update(st, data["sac"], data["sac_noise"])
+        return before, {"actor": st.actor, "critic": st.critic}, m
+
+    out = {}
+    for name, run in (("ppo", run_ppo), ("dqn", run_dqn),
+                      ("impala", run_impala), ("sac", run_sac),
+                      ("bc", run_bc)):
+        out[name] = _rllib_compare(name, run, dev)
+        print(f"rllib {name}: the card's update equals the CPU's (params "
+              f"within {out[name]['param_share']:.3e} of a leaf's largest "
+              f"value); {out[name]['update_ms']:.2f} ms on the card, "
+              f"{out[name]['cpu_update_ms']:.2f} on the CPU", flush=True)
+    return out
+
+
+def _rllib_group(dev) -> dict:
+    """A LearnerGroup of one ``num_gpus_per_learner=1`` PPO learner (the
+    default learner_cls) under a port session: two updates against an
+    in-process PPO learner on the card from the same seed."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models.training import _leaves
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig, PPOLearner
+    from ray_tpu_torch.rllib.core.learner_group import LearnerGroup
+    from ray_tpu_torch.rllib.core.rl_module import (DiscreteMLPModule,
+                                                    MLPModuleConfig)
+    data = _rllib_batches()["ppo"]
+    cfg = PPOConfig(seed=3)
+    module = DiscreteMLPModule(MLPModuleConfig())
+    solo = PPOLearner(module, cfg, device=dev)
+    params, opt = solo.init_state(torch.Generator().manual_seed(3))
+    rt.init(num_cpus=RUNTIME_CPUS)
+    try:
+        t0 = time.monotonic()
+        group = LearnerGroup(module, cfg, num_learners=1,
+                             num_gpus_per_learner=1)
+        cold = time.monotonic() - t0
+        try:
+            rows = []
+            for i in range(2):
+                half = {k: v[i * 512:(i + 1) * 512] for k, v in data.items()}
+                got = group.update(half)
+                params, opt, want = solo.update(params, opt, half)
+                rows.append(max(abs(got[k] - want[k]) / max(abs(want[k]),
+                                                            1e-30)
+                                for k in want))
+            remote = group.get_params()
+        finally:
+            group.stop()
+    finally:
+        rt.shutdown()
+    share = max(float((a - b.cpu()).abs().max()) / float(b.abs().max())
+                for a, b in zip(_leaves(remote), _leaves(params)))
+    if not (max(rows) <= RLLIB_GROUP_REL and share <= RLLIB_GROUP_REL):
+        raise AssertionError(f"rllib group: metrics {rows}, params {share}")
+    print(f"rllib group: one num_gpus_per_learner=1 PPO learner actor, "
+          f"two updates equal the in-process learner's (metrics {rows}, "
+          f"params {share:.3e}); cold start {cold:.2f} s", flush=True)
+    return {"cold_start_s": cold, "metric_rel": rows, "param_share": share}
+
+
+def _rllib_env_arm(dev) -> dict:
+    """PPO on CartPole-v1 for RLLIB_ENV_ITERS iterations with its learner
+    on the card, where ``gymnasium`` imports."""
+    import importlib.util
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig
+    if importlib.util.find_spec("gymnasium") is None:
+        print("rllib env arm: not run (gymnasium missing)", flush=True)
+        return {"run": False, "reason": "gymnasium missing"}
+    rt.init(num_cpus=RUNTIME_CPUS)
+    try:
+        algo = PPOConfig().environment("CartPole-v1").build()
+        try:
+            t0 = time.monotonic()
+            rows = [algo.train() for _ in range(RLLIB_ENV_ITERS)]
+            wall = time.monotonic() - t0
+        finally:
+            algo.stop()
+    finally:
+        rt.shutdown()
+    curve = [r["episode_return_mean"] for r in rows]
+    if not all(math.isfinite(r["learner/total_loss"]) for r in rows):
+        raise AssertionError(f"rllib env arm: {rows}")
+    steps = rows[-1]["timesteps_total"]
+    print(f"rllib env arm: PPO on CartPole-v1, returns {curve}, "
+          f"{steps / wall:.1f} steps/s", flush=True)
+    return {"run": True, "episode_return_mean": curve,
+            "steps_per_s": steps / wall}
+
+
+def rllib_phase(dev) -> None:
+    """rllib: the learners on fed batches, the learner group and the
+    env arm; prints ``rllib metrics {...}``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    metrics = {"cell": "rllib", "card": card(),
+               "learners": _rllib_learners(dev),
+               "group": _rllib_group(dev), "env": _rllib_env_arm(dev)}
+    print("rllib metrics " + json.dumps(metrics), flush=True)
+
+
 def main() -> None:
     name = start_up()
     dev = torch.device("cuda")
@@ -8207,6 +8709,17 @@ def main() -> None:
               + json.dumps({p: _nonzero(n) for p, n in paths.items()}),
               flush=True)
         return
+    if sys.argv[1:] == ["--profile-api"]:
+        # an earlier profiler session, as the main run's process has had
+        _kernel_device_ms(lambda: torch.ones(1 << 20, device=dev).sum())
+        launches = profile_api_phase(dev)
+        print("profile-api: every check passed; launches "
+              + json.dumps(_nonzero(launches)), flush=True)
+        return
+    if sys.argv[1:] == ["--rllib"]:
+        rllib_phase(dev)
+        print("rllib: every check passed", flush=True)
+        return
     if sys.argv[1:] in (["--profile"], ["--profile", "int8"]):
         from ray_tpu_torch import GPTConfig, init_params
         cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
@@ -8290,6 +8803,10 @@ def main() -> None:
     clock.lap("train lora (13)")
     paths.update(rl_phases(dev))
     clock.lap("rl (14)")
+    paths["train_profile"] = profile_api_phase(dev)
+    clock.lap("gpt2-profile (15)")
+    rllib_phase(dev)
+    clock.lap("rllib (16)")
     clock.report()
     for row in rec.rows.values():
         # (a worker process registers only the kernels its path imports)

@@ -187,6 +187,24 @@ def rl_state_from_jax(host_state, cfg: GPTConfig, device=None):
                       int(np.asarray(step)))
 
 
+def rl_module_params_from_jax(tree, device=None):
+    """An rllib module's parameter tree from the JAX package
+    (``ray_tpu.rllib.core.rl_module``'s ``init_params``: dicts and the
+    trunk's list of ``{"w", "b"}`` layers, numpy leaves) -> the port
+    module's, the same structure with tensor leaves, bit-exact.  A tuple
+    (SAC's ``(actor, critic)`` pair) comes back as a tuple."""
+    dev = resolve_device(device)
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(convert(v) for v in node)
+        return array_to_tensor(node, dev)
+
+    return convert(tree)
+
+
 def fold_stages(tree: Dict[str, Any]) -> Dict[str, Any]:
     """A stage-stacked tree (layer leaves ``[stages, L / stages, ...]``,
     tensors or numpy arrays) -> layer leaves ``[L, ...]``."""

@@ -337,17 +337,68 @@ def _plus(y, delta):
     return y if delta is None else y + delta.reshape(y.shape)
 
 
-def _dense_ffn(lp, x, cfg: GPTConfig, lora=None):
+def _col_delta(lora, name: str, x, sh: Optional["_Shards"]):
+    """A column-parallel target's delta under tp: this rank's output
+    columns of ``scale * (x @ A) @ B``, from the whole (replicated) A
+    and its column slice of B.  Both factors enter through
+    ``copy_to_group`` over tp: each rank's gradient is its columns'
+    part (A's a partial sum, B's its slice), summed over tp into the
+    whole, equal on every rank, as the reference's GSPMD step computes
+    it for a replicated factor."""
+    if lora is None or lora.get(name + "_a") is None:
+        return None
+    if sh is None or sh.tp is None:
+        return lora_delta(lora, name, x)
+    a = comm.copy_to_group(lora[name + "_a"], sh.tp)
+    b = comm.copy_to_group(lora[name + "_b"], sh.tp)
+    n = b.shape[-1] // sh.tp_size
+    return lora_delta({name + "_a": a,
+                       name + "_b": b[..., sh.tp_rank * n:
+                                      (sh.tp_rank + 1) * n],
+                       "scale": lora["scale"]}, name, x)
+
+
+def _row_delta(lora, name: str, x, sh: Optional["_Shards"]):
+    """A row-parallel target's delta under tp, whole on every rank: the
+    input ``x`` holds this rank's rows (heads or ``mlp`` columns), so
+    ``x @ A[rows]`` is this rank's partial of ``x @ A``, summed over tp
+    (``reduce_from_group``: its gradient is the whole rank-space
+    gradient on every rank) before ``@ B``.  A enters through
+    ``copy_to_group`` (each rank's gradient is its rows', summed into
+    the whole); B's gradient is whole on every rank as it is.  The
+    caller adds the delta after the base output's tp sum."""
+    if lora is None or lora.get(name + "_a") is None:
+        return None
+    if sh is None or sh.tp is None:
+        return lora_delta(lora, name, x)
+    a = comm.copy_to_group(lora[name + "_a"], sh.tp)
+    n = a.shape[0] // sh.tp_size
+    t = comm.reduce_from_group(
+        torch.matmul(x, a[sh.tp_rank * n:(sh.tp_rank + 1) * n].to(x.dtype)),
+        sh.tp)
+    d = torch.matmul(t, lora[name + "_b"].to(x.dtype))
+    scale = torch.as_tensor(lora["scale"], dtype=torch.float32,
+                            device=x.device)
+    return (d.float() * scale).to(x.dtype)
+
+
+def _dense_ffn(lp, x, cfg: GPTConfig, lora=None, sh=None):
+    """The SwiGLU FFN -> (output before the tp sum, the w2 delta to add
+    after it, or None).  Unsharded, the w2 delta is already in the
+    output."""
     h = torch.matmul(x, lp["w1"])
     g = torch.matmul(x, lp["w3"])
     if lora is not None:
-        h = _plus(h, lora_delta(lora, "w1", x))
-        g = _plus(g, lora_delta(lora, "w3", x))
+        h = _plus(h, _col_delta(lora, "w1", x, sh))
+        g = _plus(g, _col_delta(lora, "w3", x, sh))
     a = F.silu(h) * g
     out = torch.matmul(a, lp["w2"])
-    if lora is not None:
-        out = _plus(out, lora_delta(lora, "w2", a))
-    return out
+    if lora is None:
+        return out, None
+    delta = _row_delta(lora, "w2", a, sh)
+    if _tp_group(sh) is None:
+        return _plus(out, delta), None
+    return out, delta
 
 
 def _swiglu_experts(w1w3, w2, tokens):
@@ -440,10 +491,13 @@ def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
     the merged weights ``W + scale * A @ B``.  An active ``lora``
     declines the fused out-proj epilogue (the kernel folds the wo
     matmul, which would skip the wo delta), as the reference's does; a
-    ``lora`` on an MoE config raises as the reference's does, and on a
-    mesh that shards the model it raises too (the reference's adapter
-    path replicates the factors; the port's sharded layers have no
-    adapter formulation)."""
+    ``lora`` on an MoE config raises as the reference's does.  On a mesh
+    that shards the model the factors are whole on every rank (the
+    reference replicates them): fsdp gathers only the base weights, and
+    under tp the column-parallel targets add this rank's columns of the
+    delta (:func:`_col_delta`) and the row-parallel ones their delta
+    after the tp sum (:func:`_row_delta`); a banked adapter there
+    raises."""
     eps = norm_eps(cfg)
     B, S, d = x.shape
     sh = _shards(mesh)
@@ -451,9 +505,9 @@ def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
         if cfg.n_experts > 0:
             raise ValueError("LoRA adapters are dense-FFN only "
                              "(see adapters.lora.effective_targets)")
-        if sh is not None:
-            raise ValueError("LoRA adapters run on an unsharded model "
-                             "(a mesh of dp only, or no mesh)")
+        if sh is not None and lora.get("ids") is not None:
+            raise ValueError("a banked adapter (ids=) runs on an unsharded "
+                             "model; a sharded mesh takes one adapter")
     if sh is not None:
         lp = _gather_layer(lp, sh)
     tp = _tp_group(sh)
@@ -462,9 +516,9 @@ def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
     k = _proj_heads(h, lp["wk"])
     v = _proj_heads(h, lp["wv"])
     if lora is not None:
-        q = _plus(q, lora_delta(lora, "wq", h))
-        k = _plus(k, lora_delta(lora, "wk", h))
-        v = _plus(v, lora_delta(lora, "wv", h))
+        q = _plus(q, _col_delta(lora, "wq", h, sh))
+        k = _plus(k, _col_delta(lora, "wk", h, sh))
+        v = _plus(v, _col_delta(lora, "wv", h, sh))
     fused_rope = cfg.pos == "rope" and getattr(attn_fn, "fused_rope", False)
     if not fused_rope:
         q = _rope(q, positions, cfg.rope_theta)
@@ -495,16 +549,20 @@ def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
     else:
         a2 = attn.reshape(B, S, Hn * hd)
         proj = torch.matmul(a2, lp["wo"].reshape(Hn * hd, d))
-        if lora is not None:
-            proj = _plus(proj, lora_delta(lora, "wo", a2))
+        delta = _row_delta(lora, "wo", a2, sh)
+        if tp is None:
+            proj = _plus(proj, delta)
         x = x + comm.reduce_from_group(proj, tp)
+        if tp is not None:
+            x = _plus(x, delta)
         h2 = _norm(x, lp["ln2"], cfg.norm, eps=eps)
     if cfg.n_experts > 0:
         ffn_out, aux = _moe_ffn(lp, h2, cfg, mesh=mesh)
         x = x + ffn_out
     else:
-        x = x + comm.reduce_from_group(
-            _dense_ffn(lp, comm.copy_to_group(h2, tp), cfg, lora=lora), tp)
+        ffn_out, delta = _dense_ffn(lp, comm.copy_to_group(h2, tp), cfg,
+                                    lora=lora, sh=sh)
+        x = _plus(x + comm.reduce_from_group(ffn_out, tp), delta)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cache is not None:
         return x, aux, cache

@@ -85,11 +85,21 @@ class TrainState(NamedTuple):
     step: int
 
 
+def _items(node):
+    """(key, child) pairs of a tree node: a dict's in insertion order, a
+    list's by index (the rllib modules' layer lists)."""
+    return node.items() if isinstance(node, dict) else enumerate(node)
+
+
+def _is_node(v) -> bool:
+    return isinstance(v, (dict, list))
+
+
 def _leaves(tree: Params) -> List[torch.Tensor]:
     """The tensors of a parameter tree, in its (insertion) order."""
     out = []
-    for v in tree.values():
-        out.extend(_leaves(v) if isinstance(v, dict) else [v])
+    for _k, v in _items(tree):
+        out.extend(_leaves(v) if _is_node(v) else [v])
     return out
 
 
@@ -98,8 +108,8 @@ def _paths(tree: Params) -> List[tuple]:
     paths = []
 
     def walk(node, prefix):
-        for k, v in node.items():
-            if isinstance(v, dict):
+        for k, v in _items(node):
+            if _is_node(v):
                 walk(v, prefix + (k,))
             else:
                 paths.append(prefix + (k,))
@@ -128,7 +138,9 @@ def _rebuild(tree: Params, leaves: List[Any]) -> Params:
     it = iter(leaves)
 
     def build(node):
-        return {k: build(v) if isinstance(v, dict) else next(it)
+        if isinstance(node, list):
+            return [build(v) if _is_node(v) else next(it) for v in node]
+        return {k: build(v) if _is_node(v) else next(it)
                 for k, v in node.items()}
 
     return build(tree)
@@ -531,9 +543,13 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
     step 0 is exactly the base model), ``base_params`` (required) stay
     frozen and get no gradient, and the optimizer state is adapter
     sized.  The overlap schedule has no adapter formulation and falls
-    back to gspmd, as the reference's does; a mesh that shards the
-    parameters (fsdp or tp above 1) raises.  ``fns["lora"]`` is the
-    effective config (None when off)."""
+    back to gspmd, as the reference's does.  On a mesh that shards the
+    parameters the base (always the full tree) is cut into this rank's
+    shards as the model is, and the adapter is
+    whole on every rank, its gradient summed over tp inside the layers
+    (``gpt._col_delta``/``_row_delta``) and averaged over the data ranks
+    like any replicated leaf's.  ``fns["lora"]`` is the effective config
+    (None when off)."""
     groups = mesh_groups(mesh)
     if sp_impl not in ("ring", "ulysses"):
         raise ValueError(f"unknown sp_impl {sp_impl!r}; expected 'ring' or "
@@ -550,12 +566,11 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
     base = None
     if lcfg is not None:
         from ray_tpu_torch.adapters import lora as lora_mod
-        if groups.size("fsdp") > 1 or groups.size("tp") > 1:
-            raise ValueError(
-                "trainable-adapter mode runs on a mesh that shards no "
-                "parameter (dp and sp only): the port's sharded layers "
-                "have no adapter formulation")
         base = shd.tree_map(lambda t: t.detach().to(dev), base_params)
+        if mesh is not None:
+            # the frozen base is sharded as the model is
+            base = shd.shard_params(base, mesh,
+                                    gpt_mod.param_logical_axes(cfg))
         adapter_keys = [k for t in lora_mod.effective_targets(cfg, lcfg)
                         for k in (f"{t}_a", f"{t}_b")]
     overlap_fns = None
@@ -1025,12 +1040,16 @@ def build_gpt_train_pp(cfg: "gpt_mod.GPTConfig", mesh, *,
     and ``1f1b`` (in flight at most ``2 stages - 1``), staged over ``pp``
     when the mesh has it, else over ``dcn`` above 1.  The first stage
     embeds, the last computes the loss; inside a stage the blocks run
-    as in ``build_gpt_train`` at sp 1: flash attention with in-kernel
-    RoPE, the fused epilogue, flash-CE with the norm prologue, and the
-    fsdp gathers and Megatron tp of the mesh's other axes.  The batch's
-    rows split over the data axes but the stage axis
-    (``fns["shard_batch"]``), microbatch by microbatch, so each
-    microbatch visits every stage whole.
+    as in ``build_gpt_train``: flash attention with in-kernel RoPE, the
+    fused epilogue, flash-CE with the norm prologue, and the fsdp
+    gathers and Megatron tp of the mesh's other axes.  The batch's rows
+    split over the data axes but the stage axis (``fns["shard_batch"]``),
+    microbatch by microbatch, so each microbatch visits every stage
+    whole; under ``sp`` above 1 each rank holds its contiguous sequence
+    shard (the reference's ``_pp_batch_sharding``, ``P(data, "sp")``),
+    attention is ring attention over sp with the shard's global
+    positions, and the stage-to-stage transfers carry each rank's
+    shard.
 
     Each microbatch's loss is weighted by its share of the global count
     of valid targets (``n_u / n_total``), so the weighted sum is the
@@ -1080,10 +1099,6 @@ def build_gpt_train_pp(cfg: "gpt_mod.GPTConfig", mesh, *,
         raise ValueError("MoE + pipeline parallelism not supported yet")
     gpt_mod.check_supported(cfg)
     groups = mesh_groups(mesh)
-    if groups.size("sp") > 1:
-        raise ValueError("the pipeline's stages run whole sequences: sp="
-                         f"{groups.size('sp')} is not supported with "
-                         "pipeline parallelism (use build_gpt_train)")
     M = num_microbatches or default_pp_microbatches() or 2 * pp
     tx = optimizer or default_optimizer()
     stats = pipe.pipeline_schedule_stats(pp, M, schedule)
@@ -1094,7 +1109,9 @@ def build_gpt_train_pp(cfg: "gpt_mod.GPTConfig", mesh, *,
     full = gpt_mod.param_shapes(cfg)
     stacked_shapes = dict(full, layers={
         k: (pp, v[0] // pp) + tuple(v[1:]) for k, v in full["layers"].items()})
-    data = tuple(a for a in ("dcn", "dp", "fsdp")
+    # the axes whose ranks hold distinct tokens of a microbatch: its
+    # rows' (the data axes but the stage axis) and its sequence's (sp)
+    data = tuple(a for a in ("dcn", "dp", "fsdp", "sp")
                  if a != stage_axis and groups.size(a) > 1)
     data_nf = tuple(a for a in data if a != "fsdp")
     if groups.grouped:
@@ -1102,8 +1119,11 @@ def build_gpt_train_pp(cfg: "gpt_mod.GPTConfig", mesh, *,
     g_data = mesh.axes_group(data) if data and groups.grouped else None
     g_data_nf = (mesh.axes_group(data_nf) if data_nf and groups.grouped
                  else None)
-    attn_fn = make_flash_attention_fn(
-        mesh, rope_theta=cfg.rope_theta if cfg.pos == "rope" else None)
+    if groups.size("sp") > 1:
+        attn_fn = make_ring_attention_fn(mesh)
+    else:
+        attn_fn = make_flash_attention_fn(
+            mesh, rope_theta=cfg.rope_theta if cfg.pos == "rope" else None)
     first = groups.coord(stage_axis) == 0
     last = groups.coord(stage_axis) == pp - 1
 
@@ -1114,7 +1134,8 @@ def build_gpt_train_pp(cfg: "gpt_mod.GPTConfig", mesh, *,
             if first else act
         x, _aux = gpt_mod.run_layers(
             {k: v[0] for k, v in stage_params.items()}, x, cfg,
-            positions=torch.arange(S, device=tokens.device),
+            positions=groups.coord("sp") * S + torch.arange(
+                S, device=tokens.device),
             attn_fn=attn_fn, mesh=mesh)
         if not last:
             return x, None

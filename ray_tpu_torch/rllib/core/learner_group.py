@@ -13,9 +13,10 @@ The group hosts the ``ray_tpu_torch.rl`` actor/learner loop's learners
 (``learner_cls="ray_tpu_torch.rl.learner.GPTPolicyLearner"``): batches
 there are trajectory batches (``tokens``/``targets``/``rewards``, no
 ``obs``), and :meth:`LearnerGroup.publish_params` hands out the versioned
-object-store weight snapshots the rollout actors swap in.  The
-reference's default learner, PPO, is not ported yet (ROADMAP Queue 1
-item 12): the default ``learner_cls`` raises ``NotImplementedError``.
+object-store weight snapshots the rollout actors swap in.  The default
+``learner_cls`` is the reference's, PPO
+(:class:`~ray_tpu_torch.rllib.algorithms.ppo.PPOLearner`); each learner
+runs where its config's ``device`` says (None: the card).
 """
 
 from __future__ import annotations
@@ -100,11 +101,6 @@ class LearnerGroup:
                  num_gpus_per_learner: float = 0.0,
                  backend: str = "host",
                  learner_cls: str = PPO_LEARNER):
-        if learner_cls == PPO_LEARNER:
-            raise NotImplementedError(
-                "the PPO learner (the reference's default learner_cls) is "
-                "not ported yet (ROADMAP Queue 1 item 12); pass "
-                "learner_cls='ray_tpu_torch.rl.learner.GPTPolicyLearner'")
         import cloudpickle
         blob = cloudpickle.dumps(module)
         group = f"learner_{uuid.uuid4().hex[:8]}"

@@ -400,6 +400,9 @@ class StepTelemetry:
                     acts.append(torch.profiler.ProfilerActivity.CUDA)
                 self._profiler = torch.profiler.profile(activities=acts)
                 self._profiler.__enter__()
+                if torch.cuda.is_available():
+                    from ray_tpu_torch.util.profiling import session_warmup
+                    session_warmup()
             elif not before and self._profiler is not None and i >= last:
                 self.stop()
         except Exception as e:  # noqa: BLE001 — profiling is best-effort

@@ -11,8 +11,11 @@ local path or any fsspec URI (:mod:`.storage`).
 ``<name>.pt``, with every tensor moved to the host.  :func:`load_pytree`
 also reads the JAX package's npz checkpoints (``<name>.npz`` and its
 ``<name>.treedef.pkl``, ``ray_tpu/train/checkpoint.py:save_pytree``'s
-fallback writer) without importing JAX; reading its orbax directories
-is ROADMAP Queue 1 item 10b and raises.
+fallback writer) and its orbax directories (``<name>/``, what it writes
+where ``orbax.checkpoint`` imports: the tree's key paths in
+``_METADATA``, each array a zarr array in an OCDBT key-value store)
+without importing JAX or orbax: the arrays are read through
+``tensorstore``, which is imported only when such a directory is read.
 """
 
 from __future__ import annotations
@@ -282,27 +285,185 @@ def _load_jax_npz(path: str, name: str, map_location):
     return treedef.unflatten(leaves)
 
 
+# orbax's key kinds in ``_METADATA``'s ``key_metadata``
+_SEQUENCE_KEY, _DICT_KEY = 1, 2
+
+
+def _np_to_tensor(arr):
+    """A numpy array (tensorstore's read) -> tensor; bf16 and fp8 through
+    a same-width integer view, bit for bit."""
+    import numpy as np
+    import torch
+    arr = np.ascontiguousarray(arr) if arr.ndim else np.asarray(arr)
+    name = arr.dtype.name
+    if name in _EXOTIC_DTYPES:
+        bits = np.int16 if arr.dtype.itemsize == 2 else np.uint8
+        return torch.from_numpy(arr.view(bits).copy()).view(
+            getattr(torch, name))
+    if arr.dtype.kind == "V":
+        raise ValueError(f"array of dtype {name} has no torch counterpart")
+    return torch.from_numpy(arr.copy())
+
+
+def _orbax_leaves(directory: str):
+    """[(key path, tensor or None)] of an orbax ``StandardCheckpointer``
+    directory, in ``_METADATA``'s order: sequence keys as ints, dict keys
+    as strings; a value orbax skips (``None``, an empty state) is
+    None."""
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise NotImplementedError(
+            f"{directory} is a JAX-package orbax checkpoint; reading it "
+            "needs the tensorstore library, which does not import in this "
+            f"environment ({e})") from e
+    with open(os.path.join(directory, "_METADATA")) as f:
+        meta = json.load(f)
+    if meta.get("use_zarr3"):
+        raise NotImplementedError(f"{directory}: zarr3 arrays are not read "
+                                  "(the reference writes zarr v2)")
+    root = os.path.abspath(directory)
+    kvstore = ({"driver": "ocdbt", "base": f"file://{root}/"}
+               if meta.get("use_ocdbt", True)
+               else {"driver": "file", "path": root + "/"})
+    out = []
+    for node in meta["tree_metadata"].values():
+        keys = node["key_metadata"]
+        path = tuple(int(k["key"]) if k["key_type"] == _SEQUENCE_KEY
+                     else k["key"] for k in keys)
+        value = node["value_metadata"]
+        if value.get("skip_deserialize") or value["value_type"] == "None":
+            out.append((path, None))
+            continue
+        arr = ts.open({"driver": "zarr", "kvstore": kvstore,
+                       "path": ".".join(k["key"] for k in keys)},
+                      open=True).result().read().result()
+        out.append((path, _np_to_tensor(arr)))
+    return out
+
+
+def _nest(leaves):
+    """The nested dicts and lists that ``leaves``' key paths describe
+    (what orbax restores with no target)."""
+    def build(items):
+        if len(items) == 1 and items[0][0] == ():
+            return items[0][1]
+        groups: Dict[Any, list] = {}
+        for path, leaf in items:
+            groups.setdefault(path[0], []).append((path[1:], leaf))
+        if all(isinstance(k, int) for k in groups):
+            return [build(groups[i]) for i in sorted(groups)]
+        return {k: build(v) for k, v in groups.items()}
+
+    return build(list(leaves))
+
+
+def _place(target, leaves, map_location):
+    """``target``'s structure (dicts, lists, tuples, NamedTuples and
+    dataclasses) with each leaf taken from ``leaves`` by key path, in
+    the target's dtype (a Python number as its type).  One mismatch is
+    bridged, an optax chain's state tuple against the port's flat
+    optimizer state: a NamedTuple or dataclass whose fields the
+    checkpoint lacks at its path takes them from the chain's first state
+    under it (a path of sequence keys) that has every field (Adam's
+    ``count``/``mu``/``nu`` before a schedule's ``count``).  Any other
+    path the checkpoint lacks, or a leaf of another shape, raises."""
+    import dataclasses
+
+    import torch
+    exact = dict(leaves)
+    prefixes = {path[:i] for path in exact for i in range(len(path) + 1)}
+
+    def chain_state(path, fields):
+        """The first ``path + q`` (q of sequence keys) holding every one
+        of ``fields``, or None."""
+        for full in exact:
+            if full[:len(path)] != path:
+                continue
+            q = []
+            for k in full[len(path):]:
+                if not isinstance(k, int):
+                    break
+                q.append(k)
+            base = path + tuple(q)
+            if q and all(base + (f,) in prefixes for f in fields):
+                return base
+        return None
+
+    def leaf_at(path, want):
+        if path not in exact:
+            raise KeyError(f"checkpoint has no leaf for the target's path "
+                           f"{path}")
+        got = exact[path]
+        if want is None or got is None:
+            return got
+        if isinstance(want, (bool, int, float)):
+            if got.numel() != 1:
+                raise ValueError(f"{path}: checkpoint leaf of shape "
+                                 f"{tuple(got.shape)} for a scalar")
+            return type(want)(got.item())
+        if isinstance(want, torch.Tensor) and got.shape != want.shape:
+            raise ValueError(f"{path}: checkpoint leaf of shape "
+                             f"{tuple(got.shape)}, target "
+                             f"{tuple(want.shape)}")
+        if isinstance(want, torch.Tensor):
+            return got.to(device=map_location, dtype=want.dtype)
+        return got.to(map_location)
+
+    def record(node, path, fields, make):
+        if not all(path + (f,) in prefixes for f in fields):
+            path = chain_state(path, fields) or path
+        return make({f: build(getattr(node, f), path + (f,))
+                     for f in fields})
+
+    def build(node, path):
+        if isinstance(node, dict):
+            return {k: build(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return record(node, path, node._fields,
+                          lambda kw: type(node)(**kw))
+        if dataclasses.is_dataclass(node) and not isinstance(node, type):
+            return record(node, path,
+                          [f.name for f in dataclasses.fields(node)],
+                          lambda kw: type(node)(**kw))
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v, path + (i,))
+                              for i, v in enumerate(node))
+        return leaf_at(path, node)
+
+    return build(target, ())
+
+
 def load_pytree(path: str, *, name: str = "state", target=None,
                 map_location="cpu"):
     """Load a tree saved by :func:`save_pytree`, its tensors on
-    ``map_location``.  ``target`` (an example tree) is accepted for the
-    JAX package's signature; the file carries its own structure.
+    ``map_location``.  ``target`` (an example tree) shapes a JAX-package
+    orbax checkpoint (below); the port's own file and an npz checkpoint
+    carry their own structure.
 
     A JAX-package npz checkpoint (``<name>.npz`` + ``<name>.treedef.pkl``)
     loads as the same tree of torch tensors: dicts, lists, tuples, its
     ``TrainState`` as the port's, optax's states as NamedTuples of the
-    same names and fields; bf16 and fp8 leaves keep their bits.  An
-    orbax directory raises (item 10b)."""
+    same names and fields; bf16 and fp8 leaves keep their bits.  A
+    JAX-package orbax directory (``<name>/``) loads, with no ``target``,
+    as the nested dicts and lists that orbax restores (a ``TrainState``
+    as a dict, optax's chain as lists, an empty state as None); with
+    ``target`` (a port tree, e.g. the port's ``TrainState``), as
+    ``target``'s structure with each leaf taken by key path
+    (:func:`_place`).  Reading orbax needs ``tensorstore``; where it
+    does not import, this raises ``NotImplementedError`` naming it."""
     import torch
     pt = os.path.join(path, f"{name}.pt")
     if not os.path.exists(pt):
         if os.path.exists(os.path.join(path, f"{name}.npz")):
             return _load_jax_npz(path, name, map_location)
-        if os.path.isdir(os.path.join(path, name)):
-            raise NotImplementedError(
-                f"{path} holds a JAX-package orbax checkpoint ({name}/); "
-                "reading orbax directories is not ported yet (ROADMAP "
-                "Queue 1 item 10b: the card has no orbax)")
+        orbax_dir = os.path.join(path, name)
+        if os.path.isdir(orbax_dir):
+            leaves = _orbax_leaves(orbax_dir)
+            if target is not None:
+                return _place(target, leaves, map_location)
+            return _nest([(p, None if t is None else t.to(map_location))
+                          for p, t in leaves])
         raise FileNotFoundError(pt)
     # the file is this package's own (save_pytree): its NamedTuples and
     # dataclasses are unpickled as written

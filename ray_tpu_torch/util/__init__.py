@@ -1,7 +1,7 @@
 """``ray_tpu_torch.util`` — placement groups and scheduling strategies
 (counterpart of ``ray_tpu/util``), fault injection (:mod:`.chaos`), the
-local span recorder (:mod:`.tracing`), metrics (:mod:`.metrics`) and the
-state API (:mod:`.state`).  ``ActorPool``, ``queue``, ``multiprocessing``
+local span recorder (:mod:`.tracing`), metrics (:mod:`.metrics`), the
+state API (:mod:`.state`) and device profiling (:mod:`.profiling`).  ``ActorPool``, ``queue``, ``multiprocessing``
 and ``joblib`` are ROADMAP Queue 1 item 13."""
 
 from ray_tpu_torch.util.placement_group import (PlacementGroup,

@@ -86,7 +86,8 @@ def test_every_module_imports_first():
 # the adapters' (blocks, the executor, datasets, iterators, readers,
 # connectors; LoRA config, factor math, store and registry) and the RL
 # loop's (rl/, the learner group, its recorder and the supervised
-# loop), which the probe above must reach
+# loop) and this slice's (rllib's modules, env runners and algorithms,
+# and the profiling helpers), which the probe above must reach
 _SLICE_MODULES = ("ray_tpu_torch/ops/flash_ce.py",
                   "ray_tpu_torch/models/training.py",
                   "ray_tpu_torch/telemetry/flops.py",
@@ -184,7 +185,18 @@ _SLICE_MODULES = ("ray_tpu_torch/ops/flash_ce.py",
                   "ray_tpu_torch/rllib/core/__init__.py",
                   "ray_tpu_torch/rllib/core/learner_group.py",
                   "ray_tpu_torch/telemetry/rl.py",
-                  "ray_tpu_torch/resilience/supervisor.py")
+                  "ray_tpu_torch/resilience/supervisor.py",
+                  "ray_tpu_torch/rllib/core/rl_module.py",
+                  "ray_tpu_torch/rllib/core/learner.py",
+                  "ray_tpu_torch/rllib/env/env_runner.py",
+                  "ray_tpu_torch/rllib/env/multi_agent_env.py",
+                  "ray_tpu_torch/rllib/algorithms/ppo.py",
+                  "ray_tpu_torch/rllib/algorithms/dqn.py",
+                  "ray_tpu_torch/rllib/algorithms/bc.py",
+                  "ray_tpu_torch/rllib/algorithms/impala.py",
+                  "ray_tpu_torch/rllib/algorithms/sac.py",
+                  "ray_tpu_torch/rllib/algorithms/multi_agent_ppo.py",
+                  "ray_tpu_torch/util/profiling.py")
 
 
 def _imported_roots(path):
@@ -263,6 +275,62 @@ def test_rl_slice_imports_no_jax_and_needs_a_card():
     env["PYTHONPATH"] = REPO
     env["CUDA_VISIBLE_DEVICES"] = ""
     out = subprocess.run([sys.executable, "-c", _RL_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+_RLLIB_PROBE = r"""
+import sys
+import torch
+assert not torch.cuda.is_available()
+import ray_tpu_torch.rllib
+import ray_tpu_torch.rllib.algorithms.bc
+import ray_tpu_torch.rllib.algorithms.dqn
+import ray_tpu_torch.rllib.algorithms.impala
+import ray_tpu_torch.rllib.algorithms.multi_agent_ppo
+import ray_tpu_torch.rllib.algorithms.ppo
+import ray_tpu_torch.rllib.algorithms.sac
+import ray_tpu_torch.rllib.core.rl_module
+import ray_tpu_torch.rllib.env.env_runner
+import ray_tpu_torch.rllib.env.multi_agent_env
+import ray_tpu_torch.train.checkpoint
+import ray_tpu_torch.util.profiling
+from ray_tpu_torch.rllib.algorithms import bc, dqn, impala, ppo, sac
+from ray_tpu_torch.rllib.core import rl_module as rm
+disc = rm.DiscreteMLPModule(rm.MLPModuleConfig())
+cont = rm.ContinuousModuleConfig()
+for call in (lambda: ppo.PPOLearner(disc, ppo.PPOConfig()),
+             lambda: dqn.DQNLearner(disc, dqn.DQNConfig()),
+             lambda: bc.BCLearner(disc, bc.BCConfig()),
+             lambda: impala.IMPALALearner(disc, impala.IMPALAConfig()),
+             lambda: sac.SACLearner(rm.SquashedGaussianModule(cont),
+                                    rm.TwinQModule(cont), sac.SACConfig())):
+    try:
+        call()
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e), e
+    else:
+        raise AssertionError("an rllib learner built without a card")
+ppo.PPOLearner(disc, ppo.PPOConfig(), device="cpu")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu", "triton",
+                                    "gymnasium", "tensorstore"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_rllib_profiling_checkpoint_import_alone_and_need_a_card():
+    """``rllib`` (its algorithms, env runners and modules),
+    ``util.profiling`` and ``train.checkpoint`` import with no jax, no
+    ``ray_tpu``, no triton, no gymnasium and no tensorstore in
+    ``sys.modules`` and no card visible; each learner then raises rather
+    than drift to the CPU, and runs there when asked."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, "-c", _RLLIB_PROBE], cwd=REPO,
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

@@ -1,9 +1,10 @@
 """Port counterparts of ``tests/test_observability.py``: the same test
 bodies run against ``ray_tpu_torch``, the PyTorch port's runtime.
 
-Left for later items (ROADMAP Queue 1): ``test_dashboard_api`` (item 13,
-dashboard/), ``test_device_profiling_helpers`` (item 12,
-util/profiling.py).
+Left for a later item (ROADMAP Queue 1): ``test_dashboard_api`` (item 13,
+dashboard/).  ``test_device_profiling_helpers`` keeps the reference's
+``slow`` mark; ``test_profile_device_trace_and_annotation`` holds the same
+helpers without a session, in tier 1.
 
 The reference file's docstring: State API, metrics, timeline, dashboard,
 CLI, microbench.
@@ -201,6 +202,65 @@ def test_native_store_stats_exposed(ray_start_regular):
     stats = global_node().store.stats()
     if "arena" in stats:  # native lib built
         assert stats["arena"]["num_puts"] >= 1
+
+
+def _profile_matmul(logdir):
+    import torch
+
+    from ray_tpu_torch.util.profiling import annotate, profile_device
+    with profile_device(logdir) as out:
+        with annotate("test-matmul"):
+            x = torch.ones((128, 128))
+            (x @ x).sum().item()
+    return out
+
+
+@pytest.mark.slow
+def test_device_profiling_helpers(ray_start_regular, tmp_path):
+    """profile_device captures a torch.profiler trace; annotate + memory
+    stats work on the active backend."""
+    import glob
+
+    from ray_tpu_torch.util.profiling import device_memory_stats
+
+    logdir = _profile_matmul(str(tmp_path / "prof"))
+    traces = glob.glob(os.path.join(logdir, "**", "*.pt.trace.json"),
+                       recursive=True)
+    assert traces, f"no trace under {logdir}"
+    stats = device_memory_stats()
+    assert len(stats) >= 1
+
+
+def test_profile_device_trace_and_annotation(tmp_path):
+    """On the CPU: the trace file is a Chrome trace whose events name the
+    annotation and the matmul under it; ``device_memory_stats`` has one
+    entry per device with the reference's three keys; a default log
+    directory lies under the process's temporary directory."""
+    import glob
+    import tempfile
+
+    from ray_tpu_torch.util.profiling import device_memory_stats
+
+    logdir = _profile_matmul(str(tmp_path / "prof"))
+    traces = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    assert len(traces) == 1, traces
+    with open(traces[0]) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "test-matmul" in names
+    assert any(n and "mm" in n for n in names), sorted(n for n in names
+                                                        if n)[:20]
+    stats = device_memory_stats()
+    assert len(stats) >= 1
+    for entry in stats.values():
+        assert set(entry) == {"bytes_in_use", "peak_bytes_in_use",
+                              "bytes_limit"}
+    import ray_tpu_torch.util.profiling as prof
+    with prof.profile_device() as default_dir:
+        pass
+    assert default_dir.startswith(tempfile.gettempdir())
+    assert glob.glob(os.path.join(default_dir, "*.pt.trace.json"))
+    import shutil
+    shutil.rmtree(default_dir)
 
 
 def test_stack_dump_signal(ray_start_regular):

@@ -27,7 +27,8 @@ back); 1F1B on {pp 2, fsdp 2}; masked targets on {pp 2, dp 2} with one
 microbatch holding no valid target; bf16 on {pp 2, tp 2}; 1F1B on
 {pp 4} at M = 8 > 2 pp - 1 (the saved inputs wrap); and 1F1B staged over
 ``dcn`` ({dcn 2, dp 2}, which the reference cannot run on this jax)
-against GPipe on {pp 2, dp 2} at the same global batch.
+against GPipe on {pp 2, dp 2} at the same global batch; GPipe and 1F1B
+on {pp 2, sp 2}, each stage's sequence sharded over sp.
 
 Bounds: f32 losses within rtol 2e-5, atol 2e-6 and grad norms within
 rtol 2e-4, atol 2e-5 (the reference test's); every gradient leaf and
@@ -70,6 +71,13 @@ CASES = [
      dict(BASE, n_layers=2), "1f1b", 2, 4, 32, None),
     ("gpipe-pp2-dp2-l2", dict(pp=2, dp=2), dict(pp=2, dp=2),
      dict(BASE, n_layers=2), "gpipe", 2, 4, 32, None),
+    # each stage's sequence sharded over sp (ring attention), the
+    # transfers carrying each rank's shard; the reference's GSPMD shards
+    # it through _pp_batch_sharding
+    ("gpipe-pp2-sp2", dict(pp=2, sp=2), dict(pp=2, sp=2), dict(BASE),
+     "gpipe", 4, 8, 32, None),
+    ("1f1b-pp2-sp2", dict(pp=2, sp=2), dict(pp=2, sp=2), dict(BASE),
+     "1f1b", 4, 8, 32, None),
 ]
 IDS = [c[0] for c in CASES]
 PARITY = "1f1b-pp2-dp2-remat"

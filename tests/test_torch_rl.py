@@ -601,12 +601,22 @@ def test_learner_group_two_cpu_learners_match_one(tiny_rl, port_session):
     value) to one in-process learner's 2 updates on the full batches;
     the loss and reward metrics agree, and publish_params versions the
     snapshot.  The
-    reference's default learner (PPO) is not ported and raises."""
+    group's default ``learner_cls`` is the reference's, PPO: it builds a
+    PPO learner actor whose params are the module's tree."""
     from ray_tpu_torch.rl import InProcessLearner, LearnerGroupAdapter
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig
     from ray_tpu_torch.rllib.core.learner_group import LearnerGroup
+    from ray_tpu_torch.rllib.core.rl_module import (DiscreteMLPModule,
+                                                    MLPModuleConfig)
     _j, _jp, tcfg, _tp = tiny_rl
-    with pytest.raises(NotImplementedError, match="item 12"):
-        LearnerGroup(tcfg, object())
+    ppo = LearnerGroup(DiscreteMLPModule(MLPModuleConfig()),
+                       PPOConfig(device="cpu"), num_learners=1)
+    try:
+        got = ppo.get_params()
+        assert set(got) == {"layers", "pi", "vf"}
+        assert tuple(got["pi"]["w"].shape) == (64, 2)
+    finally:
+        ppo.stop()
     group = LearnerGroupAdapter(tcfg, num_learners=2, lr=1e-2, seed=4,
                                 device="cpu")
     solo = InProcessLearner(tcfg, lr=1e-2, seed=4, device="cpu")

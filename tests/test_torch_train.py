@@ -10,6 +10,7 @@ workers hold no card).  Each test starts its own runtime.
 
 import os
 import time
+from typing import Any, NamedTuple
 
 import numpy as np
 import pytest
@@ -231,21 +232,96 @@ def test_pytree_checkpoint_roundtrip(tmp_path):
                                   np.ones((3, 3)))
 
 
-def test_jax_package_checkpoint_raises_item_10(tmp_path, monkeypatch):
-    """A checkpoint the JAX package wrote as npz (its writer without
-    orbax) loads into the port, leaves bit-equal; an orbax directory
-    still raises, naming ROADMAP item 10b."""
+def _np_bits(x):
+    """A leaf as numpy, bf16 as its 16-bit pattern (bit-equal checks)."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy()
+        return x.numpy()
+    a = np.asarray(x)
+    return a.view(np.int16) if a.dtype.name == "bfloat16" else a
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_jax_package_checkpoint_loads(tmp_path, monkeypatch, dtype):
+    """A ``build_gpt_train`` state (``GPTConfig.tiny``, one step taken, a
+    0-d step counter; f32, and bf16 leaves) that the JAX package's
+    ``save_pytree`` wrote as an orbax directory loads into the port
+    bit-equal, leaf for leaf, to the JAX package's ``load_pytree`` of
+    the same directory: with no target as the same nested dicts and
+    lists (None where orbax restores None), and with the port's
+    ``TrainState`` as target as that state, its ``AdamWState`` taking
+    the chain's Adam count and moments.  Without ``tensorstore`` the
+    orbax directory raises, naming it.  A checkpoint written as npz (the
+    writer without orbax) loads too, leaves bit-equal."""
     import sys
 
+    import jax
     import jax.numpy as jnp
     import torch
 
+    from ray_tpu.models import gpt as jgpt
+    from ray_tpu.models import training as jtrain
+    from ray_tpu.parallel.mesh import make_mesh
+    from ray_tpu.train.checkpoint import load_pytree as jax_load
     from ray_tpu.train.checkpoint import save_pytree as jax_save
+    from ray_tpu_torch.convert import params_from_jax
+    from ray_tpu_torch.models import gpt, training
+    from ray_tpu_torch.models.training import AdamWState, TrainState
     from ray_tpu_torch.train.checkpoint import load_pytree
-    jax_save({"w": jnp.arange(4.0)}, str(tmp_path / "jck"))
-    if (tmp_path / "jck" / "state").is_dir():         # orbax wrote it
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            load_pytree(str(tmp_path / "jck"))
+
+    jcfg = jgpt.GPTConfig.tiny(dtype=getattr(jnp, dtype))
+    fns = jtrain.build_gpt_train(
+        jcfg, make_mesh(dp=1, devices=jax.devices()[:1]), telemetry=False)
+    state = fns["init_fn"](jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, jcfg.vocab_size, (2, 17)).astype(np.int32)
+    state, _ = fns["step_fn"](state, {"tokens": tok[:, :-1],
+                                      "targets": tok[:, 1:]})
+    ck = str(tmp_path / "jck")
+    jax_save(state, ck)
+    assert (tmp_path / "jck" / "state" / "_METADATA").is_file()
+
+    want = jax_load(ck)
+    got = load_pytree(ck)
+    assert jax.tree.structure(jax.tree.map(_np_bits, got)) == \
+        jax.tree.structure(jax.tree.map(_np_bits, want))
+    assert got["opt_state"][0] is None and got["opt_state"][1][1] is None
+    assert got["step"].dim() == 0
+    pairs = list(zip(jax.tree.leaves(jax.tree.map(_np_bits, got)),
+                     jax.tree.leaves(jax.tree.map(_np_bits, want))))
+    assert len(pairs) > 20
+    for a, b in pairs:
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+    tcfg = gpt.GPTConfig.tiny(dtype=getattr(torch, dtype))
+    tfns = training.build_gpt_train(tcfg, None, device="cpu",
+                                    telemetry=False)
+    target = tfns["init_fn"](params=params_from_jax(
+        jax.tree.map(np.asarray, jax.device_get(state.params)), tcfg,
+        device="cpu"))
+    jwant = jax_load(ck, target=state)
+    placed = load_pytree(ck, target=target)
+    assert isinstance(placed, TrainState)
+    assert isinstance(placed.opt_state, AdamWState)
+    assert placed.step == int(jwant.step) == 1
+    adam = jwant.opt_state[1][0]
+    assert placed.opt_state.count == int(adam.count) == 1
+    for got_tree, want_tree in ((placed.params, jwant.params),
+                                (placed.opt_state.mu, adam.mu),
+                                (placed.opt_state.nu, adam.nu)):
+        g = jax.tree.leaves(jax.tree.map(_np_bits, got_tree))
+        w = jax.tree.leaves(jax.tree.map(_np_bits, want_tree))
+        assert len(g) == len(w) > 5
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
+    assert placed.params["embed"].dtype == getattr(torch, dtype)
+
+    monkeypatch.setitem(sys.modules, "tensorstore", None)
+    with pytest.raises(NotImplementedError, match="tensorstore"):
+        load_pytree(ck)
     monkeypatch.setitem(sys.modules, "orbax.checkpoint", None)
     jax_save({"w": jnp.arange(4.0), "b": [jnp.ones(2, jnp.bfloat16), None]},
              str(tmp_path / "npz"))
@@ -255,6 +331,63 @@ def test_jax_package_checkpoint_raises_item_10(tmp_path, monkeypatch):
     np.testing.assert_array_equal(out["b"][0].float().numpy(), np.ones(2))
     with pytest.raises(FileNotFoundError):
         load_pytree(str(tmp_path / "empty"))
+
+
+class _ChainAdam(NamedTuple):
+    count: Any
+    mu: Any
+
+
+class _ChainSchedule(NamedTuple):
+    count: Any
+
+
+class _FlatOpt(NamedTuple):
+    count: int
+    mu: Any
+
+
+class _FlatOptExtra(NamedTuple):
+    count: int
+    nu: Any
+
+
+def test_jax_package_checkpoint_target_mismatch_raises(tmp_path):
+    """Into a target it does not match, a JAX-package orbax checkpoint
+    raises rather than filling leaves from others: a ``layers`` list
+    longer than the checkpoint's, a leaf of another shape, and a flat
+    optimizer state whose fields no state of the checkpoint's chain
+    holds.  The one bridged mismatch, the chain against a flat state,
+    takes the first chain state with every field (Adam's count, not the
+    schedule's)."""
+    import jax.numpy as jnp
+    import torch
+
+    from ray_tpu.train.checkpoint import save_pytree as jax_save
+    from ray_tpu_torch.train.checkpoint import load_pytree
+
+    ck = str(tmp_path / "jck")
+    jax_save({"layers": [{"w": jnp.ones((2, 3))}, {"w": jnp.zeros((2, 3))}],
+              "opt": (None, (_ChainAdam(jnp.int32(1), jnp.full(3, 2.0)),
+                             _ChainSchedule(jnp.int32(7))))}, ck)
+
+    def target(n_layers=2, shape=(2, 3), opt=None):
+        return {"layers": [{"w": torch.empty(shape)}
+                           for _ in range(n_layers)],
+                "opt": opt or _FlatOpt(0, torch.empty(3))}
+
+    out = load_pytree(ck, target=target())
+    assert isinstance(out["opt"], _FlatOpt) and out["opt"].count == 1
+    np.testing.assert_array_equal(out["opt"].mu.numpy(), np.full(3, 2.0))
+    np.testing.assert_array_equal(out["layers"][1]["w"].numpy(),
+                                  np.zeros((2, 3)))
+    with pytest.raises(KeyError, match="no leaf"):
+        load_pytree(ck, target=target(n_layers=3))
+    with pytest.raises(ValueError, match="shape"):
+        load_pytree(ck, target=target(shape=(3, 2)))
+    with pytest.raises(KeyError, match="no leaf"):
+        load_pytree(ck, target=target(
+            opt=_FlatOptExtra(0, torch.empty(3))))
 
 
 def test_trainer_restore_resumes_from_checkpoint(ray_start_regular,

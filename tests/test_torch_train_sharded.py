@@ -24,7 +24,9 @@ results to ``.npz`` files.  One case also goes end to end through
 runs the RL learner's step (``build_gpt_rl_train``) on {fsdp: 2, tp: 2}
 against the reference's on that mesh shape (its own test's mesh axes,
 ``tests/test_rl.py``), on the batch's tokens and targets with rewards
-from a seed.
+from a seed, and both steps again in adapter-only mode
+(``lora=LoraConfig(rank=4)``, every target, a random B) against the
+reference's ``lora=...`` steps from the same adapter.
 
 Bounds (``tests/test_parallel.py::_overlap_vs_gspmd``'s): the loss within
 rtol 2e-4, atol 2e-5; every gradient leaf, gathered to full, within rtol
@@ -64,6 +66,10 @@ ACCUM = ("fsdp2-tp2-accum2-remat", dict(fsdp=2, tp=2), "ring")
 # the RL learner's policy-gradient step on a sharded mesh
 RL = ("rl-fsdp2-tp2", dict(fsdp=2, tp=2))
 RL_LR = 1e-3
+# adapter-only training on a mesh that shards the frozen base: every
+# target, a random B so that every factor has a gradient
+LORA = ("fsdp2-tp2-lora", dict(fsdp=2, tp=2))
+LORA_RANK = 4
 
 
 def _rewards():
@@ -154,7 +160,68 @@ def _world(rank, store, in_path, out_dir):
                      **{"g/" + k: v for k, v in
                         _flat(_np_tree(full)).items()})
     _rl_case(rank, params, batch, out_dir)
+    adapter = {k[2:]: v for k, v in data.items() if k.startswith("a/")}
+    _lora_case(rank, params, adapter, batch, out_dir)
     dist.destroy_process_group()
+
+
+def _rank_spread(tree) -> float:
+    """The largest difference of ``tree``'s leaves between any rank and
+    rank 0 (0.0: equal on every rank)."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.training import _leaves, _path_order
+    leaves = _leaves(tree)
+    flat = torch.cat([leaves[i].detach().reshape(-1).float()
+                      for i in _path_order(tree)])
+    got = [torch.empty_like(flat) for _ in range(WORLD)]
+    dist.all_gather(got, flat)
+    return max(float((g - got[0]).abs().max()) for g in got)
+
+
+def _lora_case(rank, params, adapter, batch, out_dir):
+    """Adapter-only training on LORA's mesh: the loss, the adapter's
+    gradient and STEPS steps of ``build_gpt_train(lora=...)``, then the
+    RL step's ``pg_grad_fn`` and one step with ``lora=``; the gradient's
+    and the trained adapter's spread over the ranks."""
+    from ray_tpu_torch.adapters import LoraConfig
+    from ray_tpu_torch.convert import adapter_from_jax, params_from_jax
+    from ray_tpu_torch.models import gpt, training
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    t0 = time.monotonic()
+    cfg = gpt.GPTConfig(**MODEL, dtype=torch.float32)
+    mesh = make_mesh(**LORA[1])
+    lcfg = LoraConfig(enabled=True, rank=LORA_RANK)
+    base = params_from_jax(params, cfg, device="cpu")
+    snapshot = {k: v.clone() for k, v in base["layers"].items()}
+    start = adapter_from_jax(adapter, cfg, lcfg, device="cpu")
+    fns = training.build_gpt_train(
+        cfg, mesh, optimizer=training.default_optimizer(**OPT),
+        device="cpu", telemetry=False, lora=lcfg, base_params=base)
+    state = fns["init_fn"](params=start)
+    local = fns["shard_batch"](batch)
+    loss, grads, steps = _port_run(fns, state, local)
+    spread = [_rank_spread(grads), _rank_spread(state.params)]
+    rfns = training.build_gpt_rl_train(
+        cfg, mesh, optimizer=training.rl_optimizer(RL_LR), device="cpu",
+        lora=lcfg, base_params=base)
+    rstate = rfns["init_fn"](params=start)
+    rlocal = rfns["shard_batch"](dict(batch, rewards=_rewards()))
+    (rloss, rmetrics), rgrads = rfns["pg_grad_fn"](rstate.params, rlocal)
+    spread.append(_rank_spread(rgrads))
+    rstate, rm = rfns["step_fn"](rstate, rlocal)
+    base_moved = max(float((base["layers"][k] - v).abs().max())
+                     for k, v in snapshot.items())
+    if rank == 0:
+        np.savez(os.path.join(out_dir, f"{LORA[0]}.npz"), loss=loss,
+                 steps=np.array(steps), secs=time.monotonic() - t0,
+                 spread=np.array(spread), base_moved=base_moved,
+                 rl_loss=float(rloss),
+                 rl_step=np.array([float(rm["pg_loss"]),
+                                   float(rm["grad_norm"])]),
+                 **{"m/" + k: float(v) for k, v in rmetrics.items()},
+                 **{"g/" + k: v.detach().numpy() for k, v in grads.items()},
+                 **{"r/" + k: v.detach().numpy() for k, v in rgrads.items()})
 
 
 def _rl_case(rank, params, batch, out_dir):
@@ -221,6 +288,71 @@ def _jax_rl_reference(params0, batch):
     return first + (np.array(steps),)
 
 
+def _record_grads():
+    """An optax transformation that passes the gradients on and keeps
+    them as its state: the first link of the reference step's chain, so
+    its own step's gradients can be read back."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    return optax.GradientTransformation(
+        lambda p: jax.tree.map(jnp.zeros_like, p),
+        lambda g, _s, _p=None: (g, g))
+
+
+def _jax_lora_reference(params0, adapter0, batch):
+    """The reference's adapter-only ``build_gpt_train`` and
+    ``build_gpt_rl_train`` on LORA's mesh from ``adapter0``: the first
+    step's loss and adapter gradients (read from the step's own
+    optimizer chain) and STEPS steps' (loss, grad_norm); the RL
+    ``pg_grad_fn``'s loss, metrics and gradients and one RL step's
+    (pg_loss, grad_norm)."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from ray_tpu.adapters import LoraConfig
+    from ray_tpu.models import gpt as jgpt
+    from ray_tpu.models import training as jtrain
+    from ray_tpu.parallel.mesh import make_mesh
+
+    cfg = jgpt.GPTConfig(**MODEL, dtype=jnp.float32)
+    mesh = make_mesh(**LORA[1], devices=jax.devices()[:WORLD])
+    lcfg = LoraConfig(enabled=True, rank=LORA_RANK)
+    tx = optax.chain(_record_grads(), jtrain.default_optimizer(**OPT))
+    fns = jtrain.build_gpt_train(cfg, mesh, optimizer=tx, lora=lcfg,
+                                 base_params=params0, telemetry=False)
+    ad = jax.tree.map(jnp.asarray, adapter0)
+    state = jax.device_put(
+        jtrain.TrainState(ad, tx.init(ad), jnp.zeros((), jnp.int32)),
+        fns["state_shardings"])
+    steps = []
+    for i in range(STEPS):
+        state, m = fns["step_fn"](state, batch)
+        steps.append((float(m["loss"]), float(m["grad_norm"])))
+        if i == 0:
+            grads = jax.tree.map(np.asarray,
+                                 jax.device_get(state.opt_state[0]))
+    rtx = optax.chain(optax.clip_by_global_norm(1.0), optax.adam(RL_LR))
+    rfns = jtrain.build_gpt_rl_train(cfg, mesh, optimizer=rtx, lora=lcfg,
+                                     base_params=params0)
+    rl_batch = dict(batch, rewards=_rewards())
+    # fresh arrays: the steps donate their state
+    ad = jax.tree.map(jnp.asarray, adapter0)
+    (rloss, rmetrics), rgrads = rfns["pg_grad_fn"](ad, rl_batch)
+    ad = jax.tree.map(jnp.asarray, adapter0)
+    rstate = jax.device_put(
+        jtrain.TrainState(ad, rtx.init(ad), jnp.zeros((), jnp.int32)),
+        rfns["state_shardings"])
+    rstate, rm = rfns["step_fn"](rstate, rl_batch)
+    return {"loss": steps[0][0], "grads": grads, "steps": np.array(steps),
+            "rl_loss": float(rloss),
+            "rl_metrics": {k: float(v) for k, v in rmetrics.items()},
+            "rl_grads": jax.tree.map(np.asarray, jax.device_get(rgrads)),
+            "rl_step": np.array([float(rm["pg_loss"]),
+                                 float(rm["grad_norm"])])}
+
+
 def _jax_reference(axes, impl, params0, batch, update):
     """Loss, gradients and STEPS steps' (loss, grad_norm) of the JAX
     package's GSPMD step on ``axes``: its ``value_and_grad`` under the
@@ -273,14 +405,21 @@ def runs(tmp_path_factory):
     from ray_tpu_torch.convert import params_from_jax
     from ray_tpu_torch.models import gpt, training
 
+    from ray_tpu.adapters import LoraConfig
+    from ray_tpu.adapters import lora as jlora
+
     tmp = tmp_path_factory.mktemp("train_sharded")
     jcfg = jgpt.GPTConfig(**MODEL, dtype=jnp.float32)
     params0 = jax.tree.map(np.asarray,
                            jgpt.init_params(jcfg, jax.random.PRNGKey(0)))
+    adapter0 = jax.tree.map(np.asarray, jlora.init_adapter(
+        jcfg, LoraConfig(enabled=True, rank=LORA_RANK),
+        jax.random.PRNGKey(7), random_b=True))
     batch = _global_batch()
     in_path = str(tmp / "inputs.npz")
     np.savez(in_path, **batch,
-             **{"p/" + k: v for k, v in _flat(params0).items()})
+             **{"p/" + k: v for k, v in _flat(params0).items()},
+             **{"a/" + k: v for k, v in adapter0.items()})
     t0 = time.monotonic()
     ctx = mp.start_processes(_world, args=(str(tmp / "store"), in_path,
                                            str(tmp)),
@@ -300,6 +439,7 @@ def runs(tmp_path_factory):
     jax_out = {name: _jax_reference(axes, impl, params0, batch, update)
                for name, axes, impl in CASES}
     jax_rl = _jax_rl_reference(params0, batch)
+    jax_lora = _jax_lora_reference(params0, adapter0, batch)
     jax_s = time.monotonic() - t0
 
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
@@ -329,12 +469,15 @@ def runs(tmp_path_factory):
                                   if k.startswith("m/")},
                {k[2:]: v for k, v in d.items() if k.startswith("g/")},
                d["steps"])
+    port_lora = dict(np.load(tmp / f"{LORA[0]}.npz"))
     print(f"JAX side {jax_s:.1f} s; world of {WORLD} "
           f"{time.monotonic() - t0:.1f} s; per case "
-          f"{ {n: round(p[3], 2) for n, p in port.items()} }")
+          f"{ {n: round(p[3], 2) for n, p in port.items()} }; lora "
+          f"{float(port_lora['secs']):.2f}")
     return {"jax": jax_out, "port": port, "plain": plain,
             "params0": params0, "batch": batch,
-            "rl": {"jax": jax_rl, "port": port_rl}}
+            "rl": {"jax": jax_rl, "port": port_rl},
+            "lora": {"jax": jax_lora, "port": port_lora}}
 
 
 def _assert_close(got, want, what):
@@ -403,6 +546,51 @@ def test_sharded_rl_step_matches_jax_gspmd(runs):
         np.testing.assert_allclose(g_grads[path], w, rtol=5e-3, atol=5e-5,
                                    err_msg=f"rl grad {path}")
     np.testing.assert_allclose(g_steps, w_steps, rtol=1e-4, atol=1e-6)
+
+
+def test_sharded_lora_step_matches_jax_gspmd(runs):
+    """``build_gpt_train(lora=...)`` on {fsdp: 2, tp: 2} (the frozen base
+    sharded as the model is, the adapter whole on every rank) against
+    the reference's on that mesh shape from the same adapter: the loss,
+    every factor's gradient and 3 steps' losses and grad norms at the
+    bounds above; the gradient and the trained adapter equal on every
+    rank, and the base untouched."""
+    got, want = runs["lora"]["port"], runs["lora"]["jax"]
+    np.testing.assert_allclose(float(got["loss"]), want["loss"], rtol=2e-4,
+                               atol=2e-5)
+    grads = {k[2:]: v for k, v in got.items() if k.startswith("g/")}
+    assert grads.keys() == want["grads"].keys()
+    assert len(grads) == 14
+    for k, w in want["grads"].items():
+        assert np.abs(w).max() > 0, k
+        np.testing.assert_allclose(grads[k], w, rtol=5e-3, atol=5e-5,
+                                   err_msg=f"lora grad {k}")
+    np.testing.assert_allclose(got["steps"], want["steps"], rtol=1e-4,
+                               err_msg="lora step losses, grad norms")
+    assert float(got["base_moved"]) == 0.0
+    np.testing.assert_array_equal(got["spread"], 0.0)
+
+
+def test_sharded_lora_rl_step_matches_jax_gspmd(runs):
+    """``build_gpt_rl_train(lora=...)`` on {fsdp: 2, tp: 2} against the
+    reference's: ``pg_grad_fn``'s loss and metrics (rtol 2e-4, atol
+    2e-5), every factor's gradient (rtol 5e-3, atol 5e-5), and one step's
+    pg_loss and grad norm (1e-4 relative)."""
+    got, want = runs["lora"]["port"], runs["lora"]["jax"]
+    np.testing.assert_allclose(float(got["rl_loss"]), want["rl_loss"],
+                               rtol=2e-4, atol=2e-5)
+    metrics = {k[2:]: float(v) for k, v in got.items() if k.startswith("m/")}
+    assert metrics.keys() == want["rl_metrics"].keys()
+    for k, v in want["rl_metrics"].items():
+        np.testing.assert_allclose(metrics[k], v, rtol=2e-4, atol=2e-5,
+                                   err_msg=k)
+    rgrads = {k[2:]: v for k, v in got.items() if k.startswith("r/")}
+    assert rgrads.keys() == want["rl_grads"].keys()
+    for k, w in want["rl_grads"].items():
+        np.testing.assert_allclose(rgrads[k], w, rtol=5e-3, atol=5e-5,
+                                   err_msg=f"rl lora grad {k}")
+    np.testing.assert_allclose(got["rl_step"], want["rl_step"], rtol=1e-4,
+                               atol=1e-6)
 
 
 def test_loss_counts_every_valid_target_once(runs):
