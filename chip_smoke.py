@@ -50,6 +50,10 @@
                                            # RL phases (14) alone
     python3 chip_smoke.py --profile-api    # gpt2-profile (15) alone
     python3 chip_smoke.py --rllib          # the rllib learners (16) alone
+    python3 chip_smoke.py --hf             # the GPT-2 exact architecture
+                                           # (17) alone
+    python3 chip_smoke.py --resnet         # resnet50-train and the
+                                           # card-against-CPU arm (18)
     python3 chip_smoke.py --multi-gpu      # on four cards: the pipeline
                                            # (with sp too), MoE and
                                            # sharded-LoRA steps and the
@@ -124,8 +128,9 @@
 7. The RMSNorm kernels (``gpt._PALLAS_NORM``, ``RAY_TPU_PALLAS_NORM=1``)
    in serving: the correctness phase again, with exact norm launches.
 7a. Speculative decoding (gpt2-serve-spec, ``spec_phase``): the JAX
-   package's spec bench (2 slots, page 16, 4 requests of 512 new tokens
-   one at a time, greedy; a templated and a random mix) with spec off
+   package's spec bench (2 slots, page 16, 4 requests of 256 new tokens,
+   the bench's 512 halved, one at a time, greedy; a templated and a
+   random mix) with spec off
    and spec_k = 4 (``--spec``: 2, 4 and 8), each arm printing decode
    tokens/s, its speedup, the accept rate and histogram, verify calls
    and ms, decode dispatches and inter-token gaps; every stream equal to
@@ -404,6 +409,29 @@
    relative; its cold start printed.  The env-driven arm (PPO on
    CartPole) runs where ``gymnasium`` imports, else the line says it did
    not.  Prints ``rllib metrics {...}``.
+
+17. The GPT-2 exact architecture (``hf_phases``; the kernels at its
+   training shape first, ``hf_shape_phase``: the attention pair without
+   RoPE at [8, 1024, 12, 64] and flash-CE forward and backward at N = 8 x
+   1024, V = 50257, no prologue).  gpt2-hf-serve: GPT-2 124M from a
+   seeded ``GPT2LMHeadModel(GPT2Config())`` through ``port_gpt2`` (the
+   port's ``init_params`` where ``transformers`` is missing), 8 greedy
+   requests of 64-512-token prompts through the engine at the main
+   path's settings, against the f32 CPU forward at the serving gates,
+   launches exact (the epilogue 0).  gpt2-hf-train: ``TransformersTrainer``
+   with one ``num_gpus=1`` worker, 10 steps at 8 x 1024 on one repeated
+   window; finite losses falling from ~ln 50257, a checkpoint, flash-CE
+   forward and backward once a step in the worker and the epilogue
+   never.  Prints ``gpt2-hf-serve metrics`` and ``gpt2-hf-train metrics``
+   (``--hf`` runs this alone).
+18. resnet50-train (``resnet_phases``): ``ResNet50`` in bf16 (f32
+   BatchNorm statistics), batch 64 at 224 x 224, 2 + 8 steps in a
+   ``TorchTrainer`` worker with one card; finite losses that fall and
+   every running statistic finite and moved.  Then one ResNet-18 (32 x
+   32, f32, batch 8) and one MLP step (784 -> 128 -> 128 -> 10, batch
+   256) on the card against the CPU from the same flax-layout
+   parameters, TF32 off (``card-cpu metrics``; ``--resnet`` runs this
+   alone).
 
 Any failure raises and the script exits non-zero.  The line before the
 last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
@@ -1686,21 +1714,26 @@ def epilogue_bwd_check(rec: Recorder, randn, g, dev, N: int, *,
 
 
 def flash_ce_checks(rec: Recorder, randn, g, dev, N: int, *,
-                    own: bool = True, targets=None) -> None:
+                    own: bool = True, targets=None, V: int = None,
+                    norm: bool = True) -> None:
     """flash-CE with the final-norm prologue at N rows: x the raw
     residual stream, w the tied embedding [V, d] at its init scale, one
     target in seven masked (or ``targets``: a packed batch's, ``-1`` at
     every document's end and on padding); the forward, then the backward
     with the cotangent of the summed loss (1), in bf16 against the plain
     versions in f32 on the same inputs; ``own``: the rows' shape, with
-    the f32 instantiations checked too."""
+    the f32 instantiations checked too.  ``V``: the vocabulary (default
+    TRAIN_V); ``norm=False``: no prologue, x the normed hidden itself
+    (the GPT-2 exact architecture's LayerNorm with a bias, which the
+    prologue declines)."""
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import flash_ce as FC
 
     bf = torch.bfloat16
-    V, d = TRAIN_V, 768
+    V, d = V or TRAIN_V, 768
+    tag = "norm" if norm else "no-norm"
     x = randn(N, d)
     w = randn(V, d, s=0.02)
     sc = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(bf)
@@ -1712,15 +1745,19 @@ def flash_ce_checks(rec: Recorder, randn, g, dev, N: int, *,
         tgt = targets.reshape(N).to(dev, torch.int32)
     srow = (tgt >= 0).float()
     eps = 1e-6
-    lse, true, rstd = FC.flash_ce_fwd(x, w, tgt, (sc, eps))
-    want = FC.plain_flash_ce_fwd(*_f32(x, w), tgt, (sc.float(), eps))
+    fnorm, fnorm32 = ((sc, eps), (sc.float(), eps)) if norm else (None, None)
+    out = FC.flash_ce_fwd(x, w, tgt, fnorm)
+    lse, true = out[0], out[1]
+    rstd = out[2] if norm else None
+    want = FC.plain_flash_ce_fwd(*_f32(x, w), tgt, fnorm32)
     torch.cuda.synchronize()
-    what = f"flash_ce_fwd norm N={N} V={V}"
+    what = f"flash_ce_fwd {tag} N={N} V={V}"
     err = max(check(f"{what} lse", lse, want[0], **CE_LSE_TOL),
               check(f"{what} true", true, want[1], **CE_TRUE_TOL),
-              check(f"{what} rstd", rstd, want[2], **RSTD_TOL))
+              *([check(f"{what} rstd", rstd, want[2], **RSTD_TOL)]
+                if norm else []))
     if own:
-        got32 = FC.flash_ce_fwd(*_f32(x, w), tgt, (sc.float(), eps))
+        got32 = FC.flash_ce_fwd(*_f32(x, w), tgt, fnorm32)
         torch.cuda.synchronize()
         for n, x32, y in zip(("lse", "true", "rstd"), got32, want):
             check(f"{what} f32 {n}", x32, y, **F32_GRAD_TOL)
@@ -1732,55 +1769,56 @@ def flash_ce_checks(rec: Recorder, randn, g, dev, N: int, *,
 
     def lib_ce(backward: bool):
         xx, ww = (t.detach().requires_grad_(backward) for t in (x, w))
-        y = F.rms_norm(xx, (d,), sc, eps)
+        y = F.rms_norm(xx, (d,), sc, eps) if norm else xx
         loss = F.cross_entropy(torch.matmul(y, ww.T).float(), tgt_lib,
                                reduction="sum")
         if backward:
             loss.backward()
 
-    rec.record("flash_ce_fwd", [N, d, V], err,
-               time_ms(lambda: FC.flash_ce_fwd(x, w, tgt, (sc, eps)), 5),
-               time_ms(lambda: FC.plain_flash_ce_fwd(x, w, tgt, (sc, eps)),
-                       3),
+    shape = [N, d, V] if norm else [N, d, V, "no-norm"]
+    rec.record("flash_ce_fwd", shape, err,
+               time_ms(lambda: FC.flash_ce_fwd(x, w, tgt, fnorm), 5),
+               time_ms(lambda: FC.plain_flash_ce_fwd(x, w, tgt, fnorm), 3),
                time_ms(lambda: lib_ce(False), 3),
-               (N * d + V * d + d) * 2 + N * 4 + 3 * N * 4,
+               (N * d + V * d + d * norm) * 2 + N * 4 + (2 + norm) * N * 4,
                2 * N * d * V,
                "ray_tpu_torch/ops/csrc/flash_ce_fwd.cu",
                "ray_tpu/ops/flash_ce.py:223", own=own)
 
-    norm = (sc, eps, rstd)
-    norm32 = (sc.float(), eps, rstd)
-    got = FC.flash_ce_bwd(x, w, tgt, lse, srow, norm)
-    again = FC.flash_ce_bwd(x, w, tgt, lse, srow, norm)
+    bnorm = (sc, eps, rstd) if norm else None
+    bnorm32 = (sc.float(), eps, rstd) if norm else None
+    got = FC.flash_ce_bwd(x, w, tgt, lse, srow, bnorm)
+    again = FC.flash_ce_bwd(x, w, tgt, lse, srow, bnorm)
     if not all(torch.equal(a_, b_) for a_, b_ in zip(got, again)):
         raise AssertionError("flash_ce_bwd: two bf16 calls on the same "
                              "inputs differ")
-    rows = _build.query("flash_ce_bwd_chunk_rows", N, d, V, 1, 1)
-    print(f"  flash_ce_bwd norm N={N} V={V}: bf16 backward bit-identical "
+    rows = _build.query("flash_ce_bwd_chunk_rows", N, d, V, int(norm), 1)
+    print(f"  flash_ce_bwd {tag} N={N} V={V}: bf16 backward bit-identical "
           f"over two calls ({rows}-row chunks, as the library sets them)",
           flush=True)
     del again
-    want = FC.plain_flash_ce_bwd(*_f32(x, w), tgt, lse, srow, norm32)
+    want = FC.plain_flash_ce_bwd(*_f32(x, w), tgt, lse, srow, bnorm32)
     torch.cuda.synchronize()
-    what = f"flash_ce_bwd norm N={N} V={V}"
+    what = f"flash_ce_bwd {tag} N={N} V={V}"
     names = ("dx", "dw", "dscale")
     err = max(check(f"{what} {n}", a_, b_, **GRAD_BF16_TOL)
               for n, a_, b_ in zip(names, got, want))
     if own:
-        got32 = FC.flash_ce_bwd(*_f32(x, w), tgt, lse, srow, norm32)
+        got32 = FC.flash_ce_bwd(*_f32(x, w), tgt, lse, srow, bnorm32)
         torch.cuda.synchronize()
         for n, a_, b_ in zip(names, got32, want):
             check(f"{what} f32 {n}", a_, b_, **F32_GRAD_TOL)
         del got32
     del got, want
     torch.cuda.empty_cache()
-    rec.record("flash_ce_bwd", [N, d, V], err,
-               time_ms(lambda: FC.flash_ce_bwd(x, w, tgt, lse, srow, norm),
+    rec.record("flash_ce_bwd", shape, err,
+               time_ms(lambda: FC.flash_ce_bwd(x, w, tgt, lse, srow, bnorm),
                        3),
                time_ms(lambda: FC.plain_flash_ce_bwd(x, w, tgt, lse, srow,
-                                                     norm), 3),
+                                                     bnorm), 3),
                time_ms(lambda: lib_ce(True), 3),
-               (2 * N * d + 2 * V * d + d) * 2 + 5 * N * 4 + d * 4,
+               (2 * N * d + 2 * V * d + d * norm) * 2
+               + (3 + 2 * norm) * N * 4 + d * 4 * norm,
                3 * 2 * N * d * V,
                "ray_tpu_torch/ops/csrc/flash_ce_bwd.cu",
                "ray_tpu/ops/flash_ce.py:352", own=own)
@@ -2054,16 +2092,19 @@ def to_cpu32(tree):
 
 
 def against_reference(label, engine, params32, cfg32, prompts, outs,
-                      tol, mean_tol) -> dict:
+                      tol, mean_tol, rids=None) -> dict:
     """Each request's engine logits against the teacher-forced f32 CPU
     ``forward`` over its own trajectory: every logit within ``tol``, the
     mean error within ``mean_tol``, and greedy tokens equal to the
     reference argmax wherever its top-2 margin is wider than twice the
-    tolerance (at least one such token must occur)."""
+    tolerance (at least one such token must occur).  ``rids``: the
+    engine's ids of the requests (default 0, 1, ...: a fresh engine's
+    ``generate``)."""
     from ray_tpu_torch.models.gpt import forward
 
     worst, errs, checked, agree, total = 0.0, [], 0, 0, 0
-    for rid, (prompt, gen) in enumerate(zip(prompts, outs)):
+    for i, (prompt, gen) in enumerate(zip(prompts, outs)):
+        rid = i if rids is None else rids[i]
         full = torch.tensor(prompt + gen[:-1])[None]
         with torch.inference_mode():
             ref = forward(params32, full, cfg32)[0][0, len(prompt) - 1:]
@@ -2169,13 +2210,15 @@ def int8_correctness_phase(params, cfg, dev) -> None:
 
 # the cell "gpt2-serve-spec": the JAX package's speculative-decoding
 # bench (bench.py:1240-1380, bench_infer_spec) on GPT-2 124M at full
-# width and depth: 2 slots, page 16, 4 requests of 512 new tokens each
-# submitted one at a time (the latency-bound regime), greedy; two mixes
+# width and depth: 2 slots, page 16, 4 requests of 256 new tokens each
+# (the bench's 512 cut in half to keep the main run inside its time
+# limit as the script grows) submitted one at a time (the latency-bound
+# regime), greedy; two mixes
 # from its seed, "templated" (a 48-token shared prefix + a per-request
 # 6-token motif repeated 4 times; from the second request on the prefix
 # hits) and "random" (72 i.i.d. tokens); arms spec off and k = 2, 4, 8
 SPEC = dict(slots=2, page_size=16)
-SPEC_REQUESTS, SPEC_NEW = 4, 512
+SPEC_REQUESTS, SPEC_NEW = 4, 256
 SPEC_ARMS, SPEC_ARMS_FULL = (0, 4), (0, 2, 4, 8)
 # then the serving geometry: 8 templated requests in flight, half greedy
 # and half sampled, spec_k = 4 for all, half or none of them
@@ -8526,6 +8569,529 @@ def rllib_phase(dev) -> None:
     print("rllib metrics " + json.dumps(metrics), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 17-18. the GPT-2 exact architecture (train/huggingface), ResNet, MLP
+# ---------------------------------------------------------------------------
+
+HF_B, HF_S, HF_V = 8, 1024, 50257       # gpt2-hf-train's batch; HF's vocab
+HF_SEED = 0
+HF_NEW = 32
+HF_PROMPTS = (64, 512)                  # gpt2-hf-serve's prompt lengths
+HF_ARGS = dict(seq_len=HF_S, per_device_train_batch_size=HF_B,
+               max_steps=10, logging_steps=1, save_steps=10,
+               learning_rate=1e-3)
+HF_TIMED_FROM = 3                       # the steps timed: 3 .. max_steps
+# a step of the exact architecture: attention (no RoPE) per layer and
+# flash-CE without the prologue (LayerNorm with a bias); the epilogue
+# declines LayerNorm and biases
+HF_LAUNCHES = {"flash_attention_fwd": 12, "flash_attention_bwd": 12,
+               "flash_ce_fwd": 1, "flash_ce_bwd": 1}
+RESNET_B, RESNET_IMAGE = 64, 224
+RESNET_WARMUP, RESNET_TIMED = 2, 8
+# the card against the CPU in f32 (TF32 off): the loss within 1e-4
+# relative; each gradient and new running statistic within 1e-4 of its
+# leaf's largest value, floor 1e-6 (a bias before a BatchNorm has a zero
+# gradient in exact arithmetic and holds only rounding noise)
+CARD_CPU_REL, CARD_CPU_FLOOR = 1e-4, 1e-6
+
+
+def norope_attention_checks(rec: Recorder, randn, dev, B: int,
+                            H: int = TRAIN_H) -> dict:
+    """The attention pair without RoPE (learned positions) at [B, 1024,
+    H, 64], bf16 against its plain version (forward in f32, backward in
+    f64, ``bwd_reference``) on the same inputs at the bounds above;
+    extra shapes of the rows; returns the times."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention as A
+
+    S, D = TRAIN_S, TRAIN_D
+    shape = [B, S, H, D, "no-rope"]
+    scale = D ** -0.5
+    q, k, v, do = (randn(B, S, H, D) for _ in range(4))
+    o, lse = A.flash_attention_fwd(q, k, v, scale=scale)
+    o_ref, lse_ref = A.plain_flash_attention_fwd(*_f32(q, k, v),
+                                                 scale=scale)
+    torch.cuda.synchronize()
+    what = f"flash_attention_fwd no-rope [{B},{S},{H},{D}]"
+    err = max(check(f"{what} o", o, o_ref, **BF16_TOL),
+              check(f"{what} lse", lse, lse_ref, **LSE_TOL))
+    del o_ref, lse_ref
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    tokens = B * S * H * D
+    times = {"fwd_ms": time_ms(lambda: A.flash_attention_fwd(
+        q, k, v, scale=scale), 5)}
+    rec.record("flash_attention_fwd", shape, err, times["fwd_ms"],
+               time_ms(lambda: A.plain_flash_attention_fwd(
+                   q, k, v, scale=scale), 3),
+               time_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True), 5),
+               4 * tokens * 2 + B * H * S * 4,
+               4 * B * H * D * S * (S + 1) / 2,
+               "ray_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+               "ray_tpu/ops/attention.py:477", own=False)
+    grads = A.flash_attention_bwd(q, k, v, o, lse, do, scale=scale)
+    refs = bwd_reference(q.float(), k.float(), v, o, lse, do, scale, None)
+    torch.cuda.synchronize()
+    what = f"flash_attention_bwd no-rope [{B},{S},{H},{D}]"
+    err = max(check(f"{what} {n}", x, y, **GRAD_BF16_TOL)
+              for n, x, y in zip(("dq", "dk", "dv"), grads, refs))
+    del grads, refs
+    torch.cuda.empty_cache()
+
+    def sdpa_fwd_bwd():
+        a, b, c = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+        F.scaled_dot_product_attention(a, b, c, is_causal=True).backward(dot)
+
+    times["bwd_ms"] = time_ms(lambda: A.flash_attention_bwd(
+        q, k, v, o, lse, do, scale=scale), 5)
+    rec.record("flash_attention_bwd", shape, err, times["bwd_ms"],
+               time_ms(lambda: A.plain_flash_attention_bwd(
+                   q, k, v, o, lse, do, scale=scale), 3),
+               time_ms(sdpa_fwd_bwd, 5),
+               8 * tokens * 2 + B * H * S * 4,
+               5 * 2 * B * H * D * S * (S + 1) / 2,
+               "ray_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+               "ray_tpu/ops/attention.py:925", own=False)
+    del q, k, v, do, o, lse, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    return times
+
+
+def hf_shape_phase(rec: Recorder, dev) -> None:
+    """The kernels at gpt2-hf-train's shapes: the attention pair without
+    RoPE at [8, 1024, 12, 64], and flash-CE forward and backward at N =
+    8 x 1024, d = 768, V = 50257 (392 full 128-column vocab tiles and
+    one of 81) without the prologue, bf16 against the plain versions in
+    f32 at the bounds above, as extra shapes of their rows."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    randn = _randn(g, dev)
+    times = norope_attention_checks(rec, randn, dev, HF_B)
+    flash_ce_checks(rec, randn, g, dev, HF_B * HF_S, own=False, V=HF_V,
+                    norm=False)
+    print(f"gpt2-hf-train attention [{HF_B},{TRAIN_S},{TRAIN_H},{TRAIN_D}]"
+          f" without RoPE on {card()}: " + json.dumps(times), flush=True)
+
+
+def hf_model():
+    """GPT-2 124M in the exact architecture: (the HF model or None, the
+    port's config, its parameters as numpy f32 leaves).  A seeded
+    ``GPT2LMHeadModel(GPT2Config())`` through ``port_gpt2`` where
+    ``transformers`` imports; else the port's ``init_params`` on the same
+    config."""
+    from ray_tpu_torch.convert import params_to_numpy
+    from ray_tpu_torch.models.gpt import init_params
+    from ray_tpu_torch.train.huggingface import gpt2_config, port_gpt2
+    try:
+        from transformers import GPT2Config, GPT2LMHeadModel
+    except ImportError:
+        import types
+        print("hf arm: transformers missing, port init used", flush=True)
+        cfg = gpt2_config(types.SimpleNamespace(
+            vocab_size=HF_V, n_embd=768, n_layer=12, n_head=12,
+            n_positions=1024))
+        params = init_params(cfg, torch.Generator().manual_seed(HF_SEED),
+                             device="cpu")
+        return None, cfg, params_to_numpy(params)
+    import transformers
+    torch.manual_seed(HF_SEED)
+    hf = GPT2LMHeadModel(GPT2Config()).eval()
+    cfg, params = port_gpt2(hf, dtype=torch.bfloat16)
+    print(f"hf arm: transformers {transformers.__version__}, a seeded "
+          "GPT2LMHeadModel(GPT2Config()) through port_gpt2", flush=True)
+    return hf, cfg, params
+
+
+def hf_state_dict(params, cfg):
+    """``port_gpt2``'s inverse on numpy leaves: an HF GPT-2 state dict
+    (``Conv1D`` weights ``[in, out]``), for ``TransformersTrainer``'s
+    ``(state_dict, config)`` input where ``transformers`` is missing."""
+    d = cfg.d_model
+    sd = {"transformer.wte.weight": params["embed"],
+          "transformer.wpe.weight": params["pos_embed"],
+          "transformer.ln_f.weight": params["ln_f"],
+          "transformer.ln_f.bias": params["ln_f_b"]}
+    names = {"ln_1.weight": "ln1", "ln_1.bias": "ln1_b",
+             "ln_2.weight": "ln2", "ln_2.bias": "ln2_b",
+             "attn.c_proj.bias": "bo", "mlp.c_fc.weight": "w1",
+             "mlp.c_fc.bias": "b1", "mlp.c_proj.weight": "w2",
+             "mlp.c_proj.bias": "b2"}
+    for i in range(cfg.n_layers):
+        lay = {k: v[i] for k, v in params["layers"].items()}
+        pre = f"transformer.h.{i}."
+        sd[pre + "attn.c_attn.weight"] = np.concatenate(
+            [lay[w].reshape(d, d) for w in ("wq", "wk", "wv")], 1)
+        sd[pre + "attn.c_attn.bias"] = np.concatenate(
+            [lay[b].reshape(d) for b in ("bq", "bk", "bv")])
+        sd[pre + "attn.c_proj.weight"] = lay["wo"].reshape(d, d)
+        sd.update({pre + hf: lay[ours] for hf, ours in names.items()})
+    return sd
+
+
+def hf_serve_phase(dev, cfg, params_np) -> dict:
+    """gpt2-hf-serve: GPT-2 124M in the exact architecture (LayerNorm,
+    gelu, learned positions, biases, tied head, V 50257, bf16) serves 8
+    greedy requests (prompts of 64-512 tokens, HF_NEW new tokens each)
+    through the paged-KV engine at the main path's settings (8 slots,
+    page 128; the engine keeps its logits for the check).  Gates: every
+    request finished, leak-free, no prefix hit, the engine's logits
+    against the f32 CPU forward at the serving gates, greedy tokens its
+    argmax where the margin is wide, and exact launches: prefill and
+    decode attention as the calls imply, the epilogue 0 (it declines
+    LayerNorm and biases).  Prints ``gpt2-hf-serve metrics {...}`` and
+    returns the launches."""
+    from ray_tpu_torch import InferenceEngine
+
+    params = {k: ({kk: torch.from_numpy(vv).to(dev, cfg.dtype)
+                   for kk, vv in v.items()} if isinstance(v, dict)
+                  else torch.from_numpy(v).to(dev, cfg.dtype))
+              for k, v in params_np.items()}
+    engine = InferenceEngine(cfg, params, device=dev, debug_logits=True,
+                             **ENGINE)
+    no_gather_in_decode(engine)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, HF_V, n).tolist()
+               for n in rng.integers(HF_PROMPTS[0], HF_PROMPTS[1] + 1, 8)]
+    run = serve(engine, prompts, [None] * len(prompts), HF_NEW)
+    calls, L = run["calls"], cfg.n_layers
+    if calls["prefill"] != len(prompts) or calls["prefill_cached"]:
+        raise AssertionError(f"gpt2-hf-serve: calls {calls}, want "
+                             f"{len(prompts)} cold prefills")
+    expect_launches("gpt2-hf-serve", run["launches"],
+                    {"flash_attention_fwd": L * calls["prefill"],
+                     "decode_attention": L * calls["decode"]})
+    acc = against_reference(
+        "gpt2-hf-serve", engine, to_cpu32(params),
+        dataclasses.replace(cfg, dtype=torch.float32), prompts,
+        [run["out"][r] for r in run["rids"]], ENGINE_TOL, ENGINE_MEAN_TOL,
+        rids=run["rids"])
+    dec_s, pre_s = run["secs"]["decode"], run["secs"]["prefill"]
+    metrics = {
+        "cell": "gpt2-hf-serve", "card": card(), "requests": len(prompts),
+        "prompt_tokens": [len(p) for p in prompts],
+        "mean_ttft_ms": 1e3 * float(np.mean(list(run["ttft"].values()))),
+        "prefill_ms": 1e3 * pre_s / calls["prefill"],
+        "decode_step_ms": 1e3 * dec_s / calls["decode"],
+        "decode_tokens_per_s": sum(len(v) - 1 for v in
+                                   run["out"].values()) / dec_s,
+        "debug_logits": True, "wall_s": run["wall"], **acc}
+    print(f"gpt2-hf-serve: 8 requests finished, leak-free; launches "
+          f"{launches_line(run['launches'])} == implied (the epilogue "
+          "declined)", flush=True)
+    print("gpt2-hf-serve metrics " + json.dumps(metrics), flush=True)
+    return run["launches"]
+
+
+def hf_train_phase(dev, hf, cfg, params_np) -> dict:
+    """gpt2-hf-train: ``TransformersTrainer`` on the same model (the HF
+    model itself, or its state dict and config), one ``num_gpus=1``
+    worker, its default loop: HF_ARGS over one seeded HF_B x (HF_S + 1)
+    window repeated, so that the loss must fall.  Gates: no error, 10
+    steps reported with finite losses, the first within 0.5 of ln 50257
+    and the last below it, a checkpoint, and in the worker each step
+    launching HF_LAUNCHES exactly (flash-CE forward and backward once, the
+    epilogue never).  Prints the worker's ms/step over steps 3-10,
+    tokens/s, peak GiB and MFU (``gpt_train_flops_per_token`` of the
+    exact architecture: gelu's two FFN matmuls, V 50257, the head once
+    more for flash-CE's recompute) as ``gpt2-hf-train metrics {...}``;
+    returns the launches summed over the steps."""
+    import shutil
+    import tempfile
+    import types
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.telemetry import flops
+    from ray_tpu_torch.train import RunConfig, ScalingConfig
+    from ray_tpu_torch.train.huggingface import TransformersTrainer
+    from ray_tpu_torch.train.torch import TorchConfig
+
+    rng = np.random.default_rng(HF_SEED + 1)
+    # the packer appends eos to every row: one row is one window
+    stream = rng.integers(0, HF_V, HF_B * (HF_S + 1) - 1)
+    model = hf if hf is not None else (hf_state_dict(params_np, cfg),
+                                       types.SimpleNamespace(
+                                           vocab_size=cfg.vocab_size,
+                                           n_embd=cfg.d_model,
+                                           n_layer=cfg.n_layers,
+                                           n_head=cfg.n_heads,
+                                           n_positions=cfg.max_seq))
+    storage = tempfile.mkdtemp(prefix="gpt2_hf_train_runs_")
+    rt.init(num_cpus=RUNTIME_CPUS)
+    try:
+        trainer = TransformersTrainer(
+            model=model, token_stream=stream, training_args=HF_ARGS,
+            dtype=torch.bfloat16,
+            backend_config=TorchConfig(host_collective=False),
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(name="gpt2-hf-train",
+                                 storage_path=storage))
+        t0 = time.time()
+        result = trainer.fit()
+        fit_s = time.time() - t0
+    finally:
+        rt.shutdown()
+    shutil.rmtree(storage, ignore_errors=True)
+    if result.error is not None:
+        raise AssertionError(f"gpt2-hf-train failed: {result.error}")
+    hist = result.metrics_history
+    losses = [h["loss"] for h in hist]
+    if [h["step"] for h in hist] != list(range(1, HF_ARGS["max_steps"] + 1)):
+        raise AssertionError("gpt2-hf-train steps "
+                             f"{[h['step'] for h in hist]}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"gpt2-hf-train: non-finite loss {losses}")
+    if abs(losses[0] - math.log(HF_V)) > 0.5 or not losses[-1] < losses[0]:
+        raise AssertionError(f"gpt2-hf-train: losses {losses} (first not "
+                             f"near ln {HF_V}, or no fall)")
+    if result.checkpoint is None:
+        raise AssertionError("gpt2-hf-train: no checkpoint reported")
+    launches = collections.Counter()
+    for h in hist:
+        if h["kernel_launches"] != HF_LAUNCHES:
+            raise AssertionError(f"gpt2-hf-train step {h['step']}: "
+                                 f"launches {h['kernel_launches']} != "
+                                 f"{HF_LAUNCHES}")
+        launches.update(h["kernel_launches"])
+    timed = [h["step_ms"] for h in hist[HF_TIMED_FROM - 1:]]
+    step_ms = float(np.mean(timed))
+    tok_s = HF_B * HF_S * 1e3 / step_ms
+    fpt = flops.gpt_train_flops_per_token(cfg, HF_S, ce_recompute=True)
+    metrics = {
+        "cell": "gpt2-hf-train", "card": card(), "batch": [HF_B, HF_S],
+        "source": "transformers" if hf is not None else "port init",
+        "fit_s": fit_s, "losses": losses,
+        "worker_step_ms": step_ms, "worker_step_ms_each": timed,
+        "tokens_per_s": tok_s, "train_flops_per_token": fpt,
+        "mfu": flops.mfu(tok_s, fpt),
+        "peak_gib": hist[-1].get("peak_memory_gib")}
+    print(f"gpt2-hf-train: 10 steps in a num_gpus=1 worker, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, checkpoint reported; "
+          f"launches per step {HF_LAUNCHES} exact; {fpt:.0f} FLOPs a "
+          "token", flush=True)
+    print("gpt2-hf-train metrics " + json.dumps(metrics), flush=True)
+    return dict(launches)
+
+
+def hf_phases(dev) -> dict:
+    """gpt2-hf-serve and gpt2-hf-train on one model; returns their
+    launches by path."""
+    hf, cfg, params_np = hf_model()
+    paths = {"serve_hf": hf_serve_phase(dev, cfg, params_np)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["train_hf"] = hf_train_phase(dev, hf, cfg, params_np)
+    return paths
+
+
+def resnet_worker_loop(config: dict) -> None:
+    """resnet50-train's loop, in the train worker (by reference from this
+    file): ``ResNet50(num_classes=1000)`` in bf16 (f32 BatchNorm
+    statistics) through ``build_resnet_train(model, make_mesh(dp=-1))``,
+    RESNET_WARMUP + RESNET_TIMED steps on one seeded batch of RESNET_B
+    224 x 224 x 3 images; reports the losses, the timed ms/step, the
+    peak memory and whether every running statistic is finite and
+    moved."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.resnet import ResNet50, build_resnet_train
+    from ray_tpu_torch.parallel.mesh import make_mesh
+
+    torch_flags()
+    dev = torch.device("cuda")
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16)
+    fns = build_resnet_train(model, make_mesh(dp=-1), lr=0.1, device=dev)
+    state = fns["init_fn"](torch.Generator().manual_seed(0))
+    before = {k: v.clone() for k, v in
+              _flat_tree(state["batch_stats"]).items()}
+    g = torch.Generator(device=dev).manual_seed(1)
+    images = torch.randn(RESNET_B, RESNET_IMAGE, RESNET_IMAGE, 3,
+                         generator=g, device=dev)
+    labels = torch.randint(0, 1000, (RESNET_B,), generator=g, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(RESNET_WARMUP + RESNET_TIMED):
+        if i == RESNET_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+        state, m = fns["step_fn"](state, (images, labels))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    after = _flat_tree(state["batch_stats"])
+    train.report({
+        "losses": [float(x) for x in losses],
+        "step_ms": 1e3 * wall / RESNET_TIMED,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "stats_leaves": len(after),
+        "stats_finite": sum(bool(torch.isfinite(v).all())
+                            for v in after.values()),
+        "stats_moved": sum(bool((v != before[k]).any())
+                           for k, v in after.items()),
+        "pid": os.getpid()})
+
+
+def resnet_train_phase(dev) -> None:
+    """resnet50-train: BASELINE config 3 at a world of 1, a
+    ``TorchTrainer`` of one ``num_gpus=1`` worker running
+    ``resnet_worker_loop``.  Gates: finite losses, the last below the
+    first, every running statistic finite and moved.  Prints
+    ``resnet50-train metrics {...}`` (ms/step, images/s, peak GiB)."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.train import RunConfig, ScalingConfig
+    from ray_tpu_torch.train.torch import TorchConfig, TorchTrainer
+
+    import chip_smoke
+    storage = tempfile.mkdtemp(prefix="resnet50_train_runs_")
+    rt.init(num_cpus=RUNTIME_CPUS)
+    try:
+        trainer = TorchTrainer(
+            chip_smoke.resnet_worker_loop,
+            torch_config=TorchConfig(host_collective=False),
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(name="resnet50-train",
+                                 storage_path=storage))
+        t0 = time.time()
+        result = trainer.fit()
+        fit_s = time.time() - t0
+    finally:
+        rt.shutdown()
+    shutil.rmtree(storage, ignore_errors=True)
+    if result.error is not None:
+        raise AssertionError(f"resnet50-train failed: {result.error}")
+    rep = result.metrics
+    losses = rep["losses"]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"resnet50-train: losses {losses}")
+    n = rep["stats_leaves"]
+    if rep["stats_finite"] != n or rep["stats_moved"] != n:
+        raise AssertionError(f"resnet50-train: of {n} running statistics "
+                             f"{rep['stats_finite']} finite, "
+                             f"{rep['stats_moved']} moved")
+    metrics = {"cell": "resnet50-train", "card": card(),
+               "batch": [RESNET_B, RESNET_IMAGE, RESNET_IMAGE, 3],
+               "dtype": "bf16, f32 BatchNorm statistics", "fit_s": fit_s,
+               "losses": losses, "step_ms": rep["step_ms"],
+               "images_per_s": RESNET_B * 1e3 / rep["step_ms"],
+               "peak_gib": rep["peak_gib"]}
+    print(f"resnet50-train: {len(losses)} steps in a num_gpus=1 worker, "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, all {n} running "
+          "statistics finite and moved", flush=True)
+    print("resnet50-train metrics " + json.dumps(metrics), flush=True)
+
+
+def _card_cpu_close(what, card_tree, cpu_tree) -> float:
+    """Raise unless each leaf of the card's tree is within CARD_CPU_REL of
+    the CPU leaf's largest value (floor CARD_CPU_FLOOR); returns the
+    largest share of that bound used."""
+    a, b = _flat_tree(card_tree), _flat_tree(cpu_tree)
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: trees differ")
+    share = 0.0
+    for k, ref in b.items():
+        err = (a[k].cpu().float() - ref.float()).abs().max().item()
+        tol = max(CARD_CPU_REL * ref.abs().max().item(), CARD_CPU_FLOOR)
+        share = max(share, err / tol)
+        if err > tol:
+            raise AssertionError(f"{what} {k}: card-CPU error {err:.3e} "
+                                 f"> {tol:.3e}")
+    return share
+
+
+def resnet_mlp_card_cpu_arm(dev) -> None:
+    """One ``ResNet18(num_classes=10)`` step at 32 x 32, f32, batch 8, and
+    one ``build_mlp_train`` step at Fashion-MNIST's shape (784 -> 128 ->
+    128 -> 10, batch 256), on the card and on the CPU from the same
+    parameters in flax's layout (``convert.resnet_params_from_flax``,
+    ``mlp_params_from_flax``), TF32 off: the loss within CARD_CPU_REL,
+    every gradient (the SGD trace after one step; Adam's first moment
+    over 1 - b1) and new running statistic within CARD_CPU_REL of its
+    leaf's largest value.  Prints ``card-cpu metrics {...}``."""
+    from ray_tpu_torch.convert import (mlp_params_from_flax,
+                                       resnet_params_from_flax)
+    from ray_tpu_torch.models import mlp as M
+    from ray_tpu_torch.models import resnet as R
+
+    if torch.backends.cudnn.allow_tf32 or \
+            torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("card-cpu arm: TF32 is on")
+    model = R.ResNet18(num_classes=10)
+    port = model.init(torch.Generator().manual_seed(3), device="cpu")
+    flax = {part: {k: v.numpy().transpose(2, 3, 1, 0) if v.dim() == 4
+                   else v.numpy() for k, v in _flat_tree(tree).items()}
+            for part, tree in port.items()}
+
+    def nest(flat):
+        out = {}
+        for path, v in flat.items():
+            node = out
+            *head, last = path.split("/")
+            for k in head:
+                node = node.setdefault(k, {})
+            node[last] = v
+        return out
+
+    flax = {part: nest(tree) for part, tree in flax.items()}
+    rng = np.random.default_rng(4)
+    images = torch.from_numpy(rng.standard_normal((8, 32, 32, 3)).astype(
+        np.float32))
+    labels = torch.from_numpy(rng.integers(0, 10, 8))
+    runs = {}
+    for where in ("cpu", dev):
+        fns = R.build_resnet_train(model, lr=0.1, device=where)
+        st = fns["init_fn"](variables=resnet_params_from_flax(
+            flax, device=where))
+        t0 = time.monotonic()
+        st, m = fns["step_fn"](st, (images.to(where), labels.to(where)))
+        loss = float(m["loss"])
+        runs[str(where)] = (loss, st["opt_state"], st["batch_stats"],
+                            1e3 * (time.monotonic() - t0))
+    (l_cpu, g_cpu, s_cpu, ms_cpu), (l_card, g_card, s_card, ms_card) = \
+        runs["cpu"], runs[str(dev)]
+    if abs(l_card - l_cpu) > CARD_CPU_REL * abs(l_cpu):
+        raise AssertionError(f"resnet18 card-cpu: loss {l_card} vs {l_cpu}")
+    shares = {"resnet18_grads": _card_cpu_close("resnet18 grad", g_card,
+                                                g_cpu),
+              "resnet18_batch_stats": _card_cpu_close("resnet18 stats",
+                                                      s_card, s_cpu)}
+
+    mlp = M.MLP()
+    base = mlp.init_params(torch.Generator().manual_seed(5), "cpu")
+    flax_mlp = {f"Dense_{i}": {"kernel": base[f"Dense_{i}.weight"].T.numpy(),
+                               "bias": base[f"Dense_{i}.bias"].numpy()}
+                for i in range(3)}
+    x = torch.from_numpy(rng.standard_normal((256, 784)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, 256))
+    mlp_runs = {}
+    for where in ("cpu", dev):
+        fns = M.build_mlp_train(M.MLP(), lr=1e-3, device=where)
+        st = fns["init_fn"](params=mlp_params_from_flax(flax_mlp,
+                                                        device=where))
+        st, m = fns["step_fn"](st, (x.to(where), y.to(where)))
+        mlp_runs[str(where)] = (float(m["loss"]), {
+            k: v / 0.1 for k, v in st["opt_state"].mu.items()})
+    (ml_cpu, mg_cpu), (ml_card, mg_card) = mlp_runs["cpu"], \
+        mlp_runs[str(dev)]
+    if abs(ml_card - ml_cpu) > CARD_CPU_REL * abs(ml_cpu):
+        raise AssertionError(f"mlp card-cpu: loss {ml_card} vs {ml_cpu}")
+    shares["mlp_grads"] = _card_cpu_close("mlp grad", mg_card, mg_cpu)
+    metrics = {"card": card(), "resnet18_loss": [l_card, l_cpu],
+               "resnet18_step_ms": [ms_card, ms_cpu],
+               "mlp_loss": [ml_card, ml_cpu], "share_of_tol": shares}
+    print("card-cpu: ResNet-18 and MLP steps on the card equal the CPU's "
+          "(TF32 off)", flush=True)
+    print("card-cpu metrics " + json.dumps(metrics), flush=True)
+
+
+def resnet_phases(dev) -> None:
+    resnet_train_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_mlp_card_cpu_arm(dev)
+
+
 def main() -> None:
     name = start_up()
     dev = torch.device("cuda")
@@ -8720,6 +9286,17 @@ def main() -> None:
         rllib_phase(dev)
         print("rllib: every check passed", flush=True)
         return
+    if sys.argv[1:] == ["--hf"]:
+        hf_shape_phase(Recorder(name), dev)
+        paths = hf_phases(dev)
+        print("hf: every check passed; launches "
+              + json.dumps({p: _nonzero(n) for p, n in paths.items()}),
+              flush=True)
+        return
+    if sys.argv[1:] == ["--resnet"]:
+        resnet_phases(dev)
+        print("resnet: every check passed", flush=True)
+        return
     if sys.argv[1:] in (["--profile"], ["--profile", "int8"]):
         from ray_tpu_torch import GPTConfig, init_params
         cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
@@ -8743,6 +9320,7 @@ def main() -> None:
     stage_shape_phase(rec, dev)
     stream_shape_phase(rec, dev)
     dataset_shape_phase(rec, dev)
+    hf_shape_phase(rec, dev)
     clock.lap("training kernels")
     from ray_tpu_torch import GPTConfig, init_params
     cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
@@ -8807,6 +9385,12 @@ def main() -> None:
     clock.lap("gpt2-profile (15)")
     rllib_phase(dev)
     clock.lap("rllib (16)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(hf_phases(dev))
+    clock.lap("gpt2-hf-serve, -train (17)")
+    resnet_phases(dev)
+    clock.lap("resnet50-train, card-cpu (18)")
     clock.report()
     for row in rec.rows.values():
         # (a worker process registers only the kernels its path imports)

@@ -2,12 +2,14 @@
 
 The JAX package's parameter tree (``ray_tpu.models.gpt.init_params``),
 handed over as numpy arrays, becomes the port's tree of tensors with the
-same keys and shapes; a KV handoff or a spill entry of its KV cache
-becomes the port's (host data: numpy, or CPU tensors for bf16), and the
-port's go back as numpy.  bf16 arrays arrive as ``ml_dtypes`` bfloat16
-numpy arrays; they cross through a 16-bit integer view, bit for bit, so
-neither ``jax`` nor ``ml_dtypes`` is imported here: the way back returns
-that view, or the caller's bf16 dtype (``bf16_dtype=``) over it.
+same keys and shapes (flax's ResNet and MLP trees too, in the port's
+layouts: ``resnet_params_from_flax``, ``mlp_params_from_flax``); a KV
+handoff or a spill entry of its KV cache becomes the port's (host data:
+numpy, or CPU tensors for bf16), and the port's go back as numpy.  bf16
+arrays arrive as ``ml_dtypes`` bfloat16 numpy arrays; they cross
+through a 16-bit integer view, bit for bit, so neither ``jax`` nor
+``ml_dtypes`` is imported here: the way back returns that view, or the
+caller's bf16 dtype (``bf16_dtype=``) over it.
 """
 
 from __future__ import annotations
@@ -20,8 +22,7 @@ import torch
 
 from ray_tpu_torch.inference import kv_cache as kvc
 
-from ray_tpu_torch.models.gpt import (GPTConfig, check_supported,
-                                      param_logical_axes)
+from ray_tpu_torch.models.gpt import GPTConfig, param_logical_axes
 from ray_tpu_torch.ops.substrate import resolve_device
 from ray_tpu_torch.parallel.sharding import (pp_rules, shard_params,
                                              stage_stacked_axes)
@@ -53,7 +54,6 @@ def params_from_jax(tree: Dict[str, Any], cfg: GPTConfig,
     each rank gets its stage's slice (``[1, L / stages, ...]``) and its
     shards of it, the stage over ``stage_axis`` (default ``pp`` when the
     mesh has it, else ``dcn``), as ``build_gpt_train_pp`` holds them."""
-    check_supported(cfg)
     dev = resolve_device(device)
 
     def convert(node):
@@ -92,6 +92,41 @@ def params_from_jax(tree: Dict[str, Any], cfg: GPTConfig,
     return shard_params(out, mesh,
                         stage_stacked_axes(param_logical_axes(cfg)),
                         pp_rules(stage_axis))
+
+
+def resnet_params_from_flax(variables: Dict[str, Any], device=None
+                            ) -> Dict[str, Any]:
+    """A flax ``ResNet``'s ``{"params", "batch_stats"}`` (numpy leaves,
+    ``ray_tpu/models/resnet.py``) -> ``models.resnet.ResNet``'s, the
+    same names: each conv kernel from flax's HWIO to ``[out, in, kh,
+    kw]``, the head's Dense ``[in, out]`` and every BatchNorm scale,
+    bias, mean and variance as they are."""
+    dev = resolve_device(device)
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        a = np.asarray(node)
+        if a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        return array_to_tensor(a, dev)
+
+    return {"params": convert(variables["params"]),
+            "batch_stats": convert(variables.get("batch_stats", {}))}
+
+
+def mlp_params_from_flax(params: Dict[str, Any], device=None
+                         ) -> Dict[str, torch.Tensor]:
+    """A flax ``MLP``'s params (``{"Dense_<i>": {"kernel" [in, out],
+    "bias"}}``, numpy leaves) -> ``models.mlp.MLP``'s ``nn.Linear``
+    state (``Dense_<i>.weight`` [out, in], ``Dense_<i>.bias``)."""
+    dev = resolve_device(device)
+    out = {}
+    for name, layer in params.items():
+        out[f"{name}.weight"] = array_to_tensor(
+            np.asarray(layer["kernel"]).T, dev)
+        out[f"{name}.bias"] = array_to_tensor(layer["bias"], dev)
+    return out
 
 
 def adapter_from_jax(tree: Dict[str, Any], cfg: GPTConfig, lcfg,

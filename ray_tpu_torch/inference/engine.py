@@ -252,7 +252,6 @@ class InferenceEngine:
                  debug_logits: bool = False):
         if cfg.n_experts > 0:
             raise NotImplementedError("MoE decode cache not supported yet")
-        gpt_mod.check_supported(cfg)
         icfg = infer_config()
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -1302,7 +1301,8 @@ class InferenceEngine:
         cfg = self.cfg
         positions = torch.arange(tokens.shape[1], device=self.device)
         hook = functools.partial(self._prefill_attention, page_row=page_row)
-        x = self._run_layers(self._embed(tokens), positions, hook, lora_ids)
+        x = self._run_layers(self._embed(tokens, positions), positions, hook,
+                             lora_ids)
         h = x[0, length - 1][None]                        # [1, d]
         return torch.matmul(h, gpt_mod.lm_head(self.params, cfg)).float()
 
@@ -1334,8 +1334,8 @@ class InferenceEngine:
         hook = functools.partial(
             self._cached_prefill_attention, page_row=page_row,
             cached=cached, suffix_len=suffix_len)
-        return self._run_layers(self._embed(tokens), positions, hook,
-                                lora_ids)
+        return self._run_layers(self._embed(tokens, positions), positions,
+                                hook, lora_ids)
 
     def _prefill_cached_step(self, tokens, cached: int, suffix_len: int,
                              page_row, lora_ids=None):
@@ -1429,8 +1429,9 @@ class InferenceEngine:
             self._decode_attention, page_table=page_table,
             table32=page_table.to(torch.int32), lengths=lengths,
             ctx_lengths=(lengths + 1).to(torch.int32))
-        x = self._run_layers(self._embed(tokens[:, None]),
-                             lengths[:, None], hook, lora_ids)
+        positions = lengths[:, None]
+        x = self._run_layers(self._embed(tokens[:, None], positions),
+                             positions, hook, lora_ids)
         logits = torch.matmul(x, gpt_mod.lm_head(self.params, self.cfg))
         return logits[:, 0].float()
 
@@ -1547,8 +1548,12 @@ class InferenceEngine:
                                                    self.cfg)).float()
 
     # ------------------------------------------------------------ shared
-    def _embed(self, tokens):
-        return gpt_mod.embed_tokens(self.params, tokens, self.cfg)
+    def _embed(self, tokens, positions):
+        """tokens [B, S] at ``positions`` ([S] or [B, S], absolute: a
+        learned table is indexed by each token's place in its sequence,
+        prefix hits, verifies and promoted pages included) -> hidden."""
+        return gpt_mod.embed_tokens(self.params, tokens, self.cfg,
+                                    positions=positions)
 
     def _lora_ids(self, slots: List[int]):
         """The rows' bank slots on the device, or None when the engine has
@@ -1578,6 +1583,7 @@ class InferenceEngine:
                 positions=positions, attn_fn=attn_hook,
                 cache=self.cache.layer(i), lora=lora)
         return gpt_mod._norm(x, self.params["ln_f"], cfg.norm,
+                             bias=self.params.get("ln_f_b"),
                              eps=gpt_mod.norm_eps(cfg))
 
     def _deliver(self, req: Request, tok: int, logp: float,

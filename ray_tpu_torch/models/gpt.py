@@ -3,22 +3,27 @@
 Counterpart of ``ray_tpu/models/gpt.py`` with the same config fields and
 presets and the same parameter tree: a dict of tensors with the layer
 weights stacked ``[L, ...]`` (``wq [L, d, H, hd]``, ``wo [L, H, hd,
-d]``), a tied ``embed`` and no biases.  A tree made by the JAX package
-(``convert.params_from_jax``) therefore drives this module unchanged.
+d]``).  A tree made by the JAX package (``convert.params_from_jax``)
+therefore drives this module unchanged.
 
-The port runs the main configuration: RMSNorm, SwiGLU, RoPE, tied
-embeddings, no biases, with dense FFNs or (``n_experts > 0``) MoE FFNs
-of SwiGLU experts (:func:`_moe_ffn`, ``parallel/moe.py``).  Other modes
-raise ``NotImplementedError``.  The layer loop is a Python loop (PyTorch runs
-eagerly; ``lax.scan`` has no counterpart to port); ``remat`` recomputes
-each block in the backward (``torch.utils.checkpoint``).
+Every mode of the JAX package runs: RMSNorm or LayerNorm, SwiGLU or
+gelu (the tanh approximation, ``jax.nn.gelu``'s default and HF's
+``gelu_new``), RoPE or learned positions (``pos_embed``, indexed by
+absolute position), tied or untied (``lm_head [d, V]``) output head,
+biases on every projection and norm (``use_bias``: the GPT-2
+exact-architecture mode of ``train/huggingface``), with dense FFNs or
+(``n_experts > 0``) MoE FFNs (:func:`_moe_ffn`, ``parallel/moe.py``).
+The layer loop is a Python loop (PyTorch runs eagerly; ``lax.scan``
+has no counterpart to port); ``remat`` recomputes each block in the
+backward (``torch.utils.checkpoint``).
 
 The out-proj + residual + pre-FFN norm of each layer goes through
 ``ops.fused_norm.matmul_residual_norm`` whenever its gate
 (``out_proj_norm_plan``) passes, as in the JAX package; on a CUDA
 tensor that is the hand-written kernel, forward and backward.  The
 training loss (:func:`loss_fn`) goes through ``ops.flash_ce``, with the
-final norm fused into its prologue when ``fuse_norm`` allows.
+final norm fused into its prologue when ``fuse_norm`` allows.  Both
+gates decline LayerNorm and biases, as the JAX package's do.
 
 Each gate takes the operands' device: on a CUDA device a shape the JAX
 package's gate declines takes the plain branch, as there, and a shape
@@ -26,11 +31,12 @@ it takes but no kernel of the port is built for raises, naming ROADMAP
 Queue 2 item A or B.
 
 With ``_PALLAS_NORM`` on (``RAY_TPU_PALLAS_NORM=1``, read once at
-import as in the JAX package; default off) every RMSNorm that
-:func:`_norm` runs goes through ``ops.rmsnorm.rmsnorm``, the hand-written
-forward and backward kernels: ``ln1`` in every layer, and ``ln2`` and
-``ln_f`` wherever the fused epilogue or the flash-CE prologue does not
-take them (the decode step's ``ln2``, the serving path's ``ln_f``).
+import as in the JAX package; default off) every RMSNorm without a bias
+that :func:`_norm` runs goes through ``ops.rmsnorm.rmsnorm``, the
+hand-written forward and backward kernels: ``ln1`` in every layer, and
+``ln2`` and ``ln_f`` wherever the fused epilogue or the flash-CE
+prologue does not take them (the decode step's ``ln2``, the serving
+path's ``ln_f``).
 """
 
 from __future__ import annotations
@@ -110,31 +116,14 @@ class GPTConfig:
         return cls(d_model=64, n_layers=2, n_heads=4, **kw)
 
 
-def check_supported(cfg: GPTConfig) -> None:
-    """Raise for the model modes this slice of the port does not run."""
-    unported = [
-        (cfg.norm != "rmsnorm", f"norm={cfg.norm!r}"),
-        (cfg.act != "swiglu", f"act={cfg.act!r}"),
-        (cfg.pos != "rope", f"pos={cfg.pos!r}"),
-        (cfg.use_bias, "biases (GPT-2 exact-architecture mode)"),
-        (not cfg.tie_embeddings, "an untied lm_head"),
-    ]
-    for bad, what in unported:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP Queue 1 item 12: the "
-                "layernorm/bias/learned-position/untied-head modes come "
-                "with train/huggingface)")
-
-
 def init_params(cfg: GPTConfig, generator: Optional[torch.Generator] = None,
                 *, device=None) -> Params:
-    """Random parameters in the JAX package's tree layout and scales.
+    """Random parameters in the JAX package's tree layout and scales
+    (``ray_tpu/models/gpt.py:94-149``), for every mode of ``cfg``.
 
     Drawn from ``generator`` (default: a CPU generator seeded 0) on its
     device, then moved to ``device``: the card unless the caller passes
     ``device="cpu"`` (without a card and without that, this raises)."""
-    check_supported(cfg)
     dev = resolve_device(device)
     g = generator if generator is not None else \
         torch.Generator().manual_seed(0)
@@ -149,7 +138,12 @@ def init_params(cfg: GPTConfig, generator: Optional[torch.Generator] = None,
     def ones(shape):
         return torch.ones(shape, dtype=dt, device=dev)
 
-    embed = norm_init((cfg.vocab_size, d), 0.02)
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    params: Params = {"embed": norm_init((cfg.vocab_size, d), 0.02)}
+    if cfg.pos == "learned":
+        params["pos_embed"] = norm_init((cfg.max_seq, d), 0.02)
     layers = {
         "ln1": ones((L, d)),
         "wq": norm_init((L, d, H, hd), d ** -0.5),
@@ -158,24 +152,52 @@ def init_params(cfg: GPTConfig, generator: Optional[torch.Generator] = None,
         "wo": norm_init((L, H, hd, d), (H * hd) ** -0.5 / (2 * L) ** 0.5),
         "ln2": ones((L, d)),
     }
+    swiglu = cfg.act == "swiglu"
     if cfg.n_experts > 0:
         E = cfg.n_experts
         layers["moe_wg"] = norm_init((L, d, E), d ** -0.5)
         layers["moe_w1"] = norm_init((L, E, d, f), d ** -0.5)
-        layers["moe_w3"] = norm_init((L, E, d, f), d ** -0.5)
+        if swiglu:
+            layers["moe_w3"] = norm_init((L, E, d, f), d ** -0.5)
         layers["moe_w2"] = norm_init((L, E, f, d), f ** -0.5 / (2 * L) ** 0.5)
     else:
         layers["w1"] = norm_init((L, d, f), d ** -0.5)
-        layers["w3"] = norm_init((L, d, f), d ** -0.5)
+        if swiglu:
+            layers["w3"] = norm_init((L, d, f), d ** -0.5)
         layers["w2"] = norm_init((L, f, d), f ** -0.5 / (2 * L) ** 0.5)
-    return {"embed": embed, "layers": layers, "ln_f": ones((d,))}
+    if cfg.use_bias:
+        for k, shape in _bias_shapes(cfg).items():
+            layers[k] = zeros(shape)
+    params["layers"] = layers
+    params["ln_f"] = ones((d,))
+    if cfg.use_bias:
+        params["ln_f_b"] = zeros((d,))
+    if not cfg.tie_embeddings:
+        params["lm_head"] = norm_init((d, cfg.vocab_size), 0.02)
+    return params
+
+
+def _bias_shapes(cfg: GPTConfig) -> Dict[str, tuple]:
+    """The layer biases of the exact-architecture mode and their full
+    shapes: the norms', q/k/v's per head, the out-proj's and (dense FFNs
+    only, as in the reference) the FFN's."""
+    d, H, hd, f, L = (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.ff_dim,
+                      cfg.n_layers)
+    out = {"ln1_b": (L, d), "ln2_b": (L, d), "bq": (L, H, hd),
+           "bk": (L, H, hd), "bv": (L, H, hd), "bo": (L, d)}
+    if cfg.n_experts == 0:
+        out["b1"] = (L, f)
+        if cfg.act == "swiglu":
+            out["b3"] = (L, f)
+        out["b2"] = (L, d)
+    return out
 
 
 def param_logical_axes(cfg: GPTConfig) -> Dict[str, Any]:
     """The logical axes of each leaf of :func:`init_params`' tree (the
     leading L of a layer stack unnamed), as
-    ``ray_tpu/models/gpt.py:152`` names them for this configuration."""
-    check_supported(cfg)
+    ``ray_tpu/models/gpt.py:152-196`` names them."""
+    swiglu = cfg.act == "swiglu"
     layer = {
         "ln1": (None, None),
         "wq": (None, "embed_fsdp", "heads", None),
@@ -187,14 +209,31 @@ def param_logical_axes(cfg: GPTConfig) -> Dict[str, Any]:
     if cfg.n_experts > 0:
         layer["moe_wg"] = (None, None, None)
         layer["moe_w1"] = (None, "experts", "embed_fsdp", "expert_mlp")
-        layer["moe_w3"] = (None, "experts", "embed_fsdp", "expert_mlp")
+        if swiglu:
+            layer["moe_w3"] = (None, "experts", "embed_fsdp", "expert_mlp")
         layer["moe_w2"] = (None, "experts", "expert_mlp", "embed_fsdp")
     else:
         layer["w1"] = (None, "embed_fsdp", "mlp")
-        layer["w3"] = (None, "embed_fsdp", "mlp")
+        if swiglu:
+            layer["w3"] = (None, "embed_fsdp", "mlp")
         layer["w2"] = (None, "mlp", "embed_fsdp")
-    return {"embed": ("vocab", "embed_fsdp"), "layers": layer,
-            "ln_f": (None,)}
+    if cfg.use_bias:
+        bias_axes = {"ln1_b": (None, None), "ln2_b": (None, None),
+                     "bq": (None, "heads", None), "bk": (None, "heads", None),
+                     "bv": (None, "heads", None), "bo": (None, None),
+                     "b1": (None, "mlp"), "b3": (None, "mlp"),
+                     "b2": (None, None)}
+        layer.update({k: bias_axes[k] for k in _bias_shapes(cfg)})
+    axes: Dict[str, Any] = {"embed": ("vocab", "embed_fsdp")}
+    if cfg.pos == "learned":
+        axes["pos_embed"] = (None, "embed_fsdp")
+    axes["layers"] = layer
+    axes["ln_f"] = (None,)
+    if cfg.use_bias:
+        axes["ln_f_b"] = (None,)
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed_fsdp", "vocab")
+    return axes
 
 
 def param_shapes(cfg: GPTConfig) -> Dict[str, Any]:
@@ -203,13 +242,28 @@ def param_shapes(cfg: GPTConfig) -> Dict[str, Any]:
                       cfg.n_layers)
     layers = {"ln1": (L, d), "wq": (L, d, H, hd), "wk": (L, d, H, hd),
               "wv": (L, d, H, hd), "wo": (L, H, hd, d), "ln2": (L, d)}
+    swiglu = cfg.act == "swiglu"
     if cfg.n_experts > 0:
         E = cfg.n_experts
         layers.update(moe_wg=(L, d, E), moe_w1=(L, E, d, f),
-                      moe_w3=(L, E, d, f), moe_w2=(L, E, f, d))
+                      moe_w2=(L, E, f, d))
+        if swiglu:
+            layers["moe_w3"] = (L, E, d, f)
     else:
-        layers.update(w1=(L, d, f), w3=(L, d, f), w2=(L, f, d))
-    return {"embed": (cfg.vocab_size, d), "ln_f": (d,), "layers": layers}
+        layers.update(w1=(L, d, f), w2=(L, f, d))
+        if swiglu:
+            layers["w3"] = (L, d, f)
+    if cfg.use_bias:
+        layers.update(_bias_shapes(cfg))
+    out: Dict[str, Any] = {"embed": (cfg.vocab_size, d), "ln_f": (d,),
+                           "layers": layers}
+    if cfg.pos == "learned":
+        out["pos_embed"] = (cfg.max_seq, d)
+    if cfg.use_bias:
+        out["ln_f_b"] = (d,)
+    if not cfg.tie_embeddings:
+        out["lm_head"] = (d, cfg.vocab_size)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,9 +309,11 @@ def _gather_layer(lp: Params, sh: _Shards) -> Params:
     return out
 
 
-# every layer leaf's logical axes, the dense and the MoE FFN's together
-_LAYER_AXES = dict(param_logical_axes(GPTConfig())["layers"],
-                   **param_logical_axes(GPTConfig(n_experts=1))["layers"])
+# every layer leaf's logical axes, the dense and the MoE FFN's and the
+# biases together
+_LAYER_AXES = dict(
+    param_logical_axes(GPTConfig(use_bias=True))["layers"],
+    **param_logical_axes(GPTConfig(n_experts=1))["layers"])
 
 
 def layer_params(params: Params, i: int) -> Params:
@@ -275,15 +331,30 @@ def norm_eps(cfg: GPTConfig) -> float:
 _PALLAS_NORM = os.environ.get("RAY_TPU_PALLAS_NORM", "0") == "1"
 
 
-def _norm(x, scale, kind: str, eps: float = 1e-6):
-    """RMSNorm with f32 statistics, result in x's dtype."""
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm={kind!r} is not ported yet")
-    if _PALLAS_NORM:
+def _norm(x, scale, kind: str, bias=None, eps: float = 1e-6):
+    """RMSNorm (``kind="rmsnorm"``) or LayerNorm (any other kind, as in
+    the reference) with f32 statistics, then the scale and the optional
+    ``bias``, result in x's dtype.  The RMSNorm kernel takes only the
+    bias-free RMSNorm (``ray_tpu/models/gpt.py:217``)."""
+    if kind == "rmsnorm" and bias is None and _PALLAS_NORM:
         return rms.rmsnorm(x, scale, eps)
     x32 = x.float()
-    x32 = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
-    return (x32 * scale.float()).to(x.dtype)
+    if kind == "rmsnorm":
+        x32 = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
+    else:
+        mu = x32.mean(-1, keepdim=True)
+        var = (x32 - mu).square().mean(-1, keepdim=True)
+        x32 = (x32 - mu) * torch.rsqrt(var + eps)
+    x32 = x32 * scale.float()
+    if bias is not None:
+        x32 = x32 + bias.float()
+    return x32.to(x.dtype)
+
+
+def _gelu(x):
+    """``jax.nn.gelu``'s default, the tanh approximation (HF GPT-2's
+    ``gelu_new``); ``F.gelu``'s default erf form differs by ~1e-3."""
+    return F.gelu(x, approximate="tanh")
 
 
 def _rope(x, positions, theta: float):
@@ -382,22 +453,37 @@ def _row_delta(lora, name: str, x, sh: Optional["_Shards"]):
     return (d.float() * scale).to(x.dtype)
 
 
+def _after_sum(y, delta, bias):
+    """A row-parallel output's tail, added once after its tp sum: the
+    adapter's delta, then the bias (the reference's order)."""
+    y = _plus(y, delta)
+    return y if bias is None else y + bias
+
+
 def _dense_ffn(lp, x, cfg: GPTConfig, lora=None, sh=None):
-    """The SwiGLU FFN -> (output before the tp sum, the w2 delta to add
-    after it, or None).  Unsharded, the w2 delta is already in the
-    output."""
+    """The SwiGLU or gelu FFN -> (output, the w2 delta or None): under
+    tp the output is this rank's partial, and the caller adds the delta
+    and ``b2`` after the sum (:func:`_after_sum`); unsharded they are
+    already in it.  The column-parallel biases ``b1``/``b3`` hold this
+    rank's ``mlp`` columns."""
     h = torch.matmul(x, lp["w1"])
-    g = torch.matmul(x, lp["w3"])
     if lora is not None:
         h = _plus(h, _col_delta(lora, "w1", x, sh))
-        g = _plus(g, _col_delta(lora, "w3", x, sh))
-    a = F.silu(h) * g
+    if "b1" in lp:
+        h = h + lp["b1"]
+    if cfg.act == "swiglu":
+        g = torch.matmul(x, lp["w3"])
+        if lora is not None:
+            g = _plus(g, _col_delta(lora, "w3", x, sh))
+        if "b3" in lp:
+            g = g + lp["b3"]
+        a = F.silu(h) * g
+    else:
+        a = _gelu(h)
     out = torch.matmul(a, lp["w2"])
-    if lora is None:
-        return out, None
-    delta = _row_delta(lora, "w2", a, sh)
+    delta = None if lora is None else _row_delta(lora, "w2", a, sh)
     if _tp_group(sh) is None:
-        return _plus(out, delta), None
+        return _after_sum(out, delta, lp.get("b2")), None
     return out, delta
 
 
@@ -407,6 +493,13 @@ def _swiglu_experts(w1w3, w2, tokens):
     h = torch.einsum("ecd,edh->ech", tokens, w1w3)
     a, b = h.chunk(2, dim=-1)
     return torch.einsum("ech,ehd->ecd", F.silu(a) * b, w2)
+
+
+def _gelu_experts(w1, w2, tokens):
+    """The reference's default expert FFN (``parallel/moe.py:
+    _expert_ffn``), for ``act="gelu"``."""
+    h = torch.einsum("ecd,edh->ech", tokens, w1)
+    return torch.einsum("ech,ehd->ecd", _gelu(h), w2)
 
 
 def _moe_ffn(lp, x, cfg: GPTConfig, *, mesh=None):
@@ -447,9 +540,13 @@ def _moe_ffn(lp, x, cfg: GPTConfig, *, mesh=None):
     tokens = comm.copy_to_group(comm.copy_to_group(flat, tp), ep)
     expert_in = torch.einsum("tec,td->ecd", dispatch[:, lo:lo + E_local],
                              tokens.float())
-    w1w3 = torch.cat([lp["moe_w1"], lp["moe_w3"]], dim=-1).float()
-    expert_out = comm.reduce_from_group(
-        _swiglu_experts(w1w3, lp["moe_w2"].float(), expert_in), tp)
+    if cfg.act == "swiglu":
+        w1w3 = torch.cat([lp["moe_w1"], lp["moe_w3"]], dim=-1).float()
+        local = _swiglu_experts(w1w3, lp["moe_w2"].float(), expert_in)
+    else:
+        local = _gelu_experts(lp["moe_w1"].float(), lp["moe_w2"].float(),
+                              expert_in)
+    expert_out = comm.reduce_from_group(local, tp)
     out = torch.einsum("tec,ecd->td", combine[:, lo:lo + E_local],
                        expert_out)
     out = comm.reduce_from_group(out, ep)
@@ -483,7 +580,11 @@ def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
     over tp before each residual add, where GSPMD puts the reference's
     collectives.  The fused epilogue declines under tp, as the
     reference's gate declines a sharded mesh: the tp sum sits between
-    the matmul and the residual add.
+    the matmul and the residual add.  With biases (``use_bias``) the
+    column-parallel ``bq``/``bk``/``bv``/``b1``/``b3`` hold this rank's
+    heads and columns, and the row-parallel ``bo``/``b2`` are added once,
+    after the tp sum, as GSPMD places them; the epilogue declines a
+    layer with biases or LayerNorm.
 
     ``lora``: this layer's low-rank adapter factors (:func:`lora_delta`'s
     layout, single or banked) added to the q/k/v, out-proj and MLP
@@ -511,7 +612,8 @@ def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
     if sh is not None:
         lp = _gather_layer(lp, sh)
     tp = _tp_group(sh)
-    h = comm.copy_to_group(_norm(x, lp["ln1"], cfg.norm, eps=eps), tp)
+    h = comm.copy_to_group(
+        _norm(x, lp["ln1"], cfg.norm, bias=lp.get("ln1_b"), eps=eps), tp)
     q = _proj_heads(h, lp["wq"])
     k = _proj_heads(h, lp["wk"])
     v = _proj_heads(h, lp["wv"])
@@ -519,8 +621,12 @@ def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
         q = _plus(q, _col_delta(lora, "wq", h, sh))
         k = _plus(k, _col_delta(lora, "wk", h, sh))
         v = _plus(v, _col_delta(lora, "wv", h, sh))
+    if "bq" in lp:
+        q = q + lp["bq"]
+        k = k + lp["bk"]
+        v = v + lp["bv"]
     fused_rope = cfg.pos == "rope" and getattr(attn_fn, "fused_rope", False)
-    if not fused_rope:
+    if cfg.pos == "rope" and not fused_rope:
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
     if cache is not None:
@@ -536,7 +642,8 @@ def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
         attn = attn_fn(q, k, v)
     Hn, hd = attn.shape[2], attn.shape[3]
     plan = lora is None and fnorm.out_proj_norm_plan(
-        B * S, Hn * hd, d, norm=cfg.norm, has_bias=False, seq=S,
+        B * S, Hn * hd, d, norm=cfg.norm,
+        has_bias="bo" in lp or "ln2_b" in lp, seq=S,
         enabled=fuse_norm is not False,
         tp_size=1 if sh is None else sh.tp_size, device=x.device)
     if plan:
@@ -549,43 +656,58 @@ def layer_apply(lp, x, cfg: GPTConfig, *, positions, attn_fn: Callable,
     else:
         a2 = attn.reshape(B, S, Hn * hd)
         proj = torch.matmul(a2, lp["wo"].reshape(Hn * hd, d))
-        delta = _row_delta(lora, "wo", a2, sh)
-        if tp is None:
-            proj = _plus(proj, delta)
-        x = x + comm.reduce_from_group(proj, tp)
-        if tp is not None:
-            x = _plus(x, delta)
-        h2 = _norm(x, lp["ln2"], cfg.norm, eps=eps)
+        # the row-parallel tail (delta, bo) once, after the tp sum
+        x = x + _after_sum(comm.reduce_from_group(proj, tp),
+                           _row_delta(lora, "wo", a2, sh), lp.get("bo"))
+        h2 = _norm(x, lp["ln2"], cfg.norm, bias=lp.get("ln2_b"), eps=eps)
     if cfg.n_experts > 0:
         ffn_out, aux = _moe_ffn(lp, h2, cfg, mesh=mesh)
         x = x + ffn_out
     else:
         ffn_out, delta = _dense_ffn(lp, comm.copy_to_group(h2, tp), cfg,
                                     lora=lora, sh=sh)
-        x = _plus(x + comm.reduce_from_group(ffn_out, tp), delta)
+        if tp is not None:
+            ffn_out = _after_sum(comm.reduce_from_group(ffn_out, tp), delta,
+                                 lp.get("b2"))
+        x = x + ffn_out
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cache is not None:
         return x, aux, cache
     return x, aux
 
 
-def embed_tokens(params: Params, tokens, cfg: GPTConfig, *, mesh=None):
+def embed_tokens(params: Params, tokens, cfg: GPTConfig, *, mesh=None,
+                 positions=None):
     """tokens [B, S] -> hidden [B, S, d] in the model dtype.
 
     On a mesh the table's d_model is all-gathered over fsdp, and under
     tp the lookup is vocab-parallel: each rank looks up the tokens its
-    vocabulary rows hold, zeros elsewhere, summed over tp."""
+    vocabulary rows hold, zeros elsewhere, summed over tp.  With learned
+    positions the ``pos_embed`` rows of ``positions`` ([S] shared by the
+    rows or [B, S] per row, absolute; default ``arange(S)``) are added
+    after that sum, the table gathered over fsdp; a position past
+    ``max_seq`` takes the last row, as JAX's clamped gather does."""
     sh = _shards(mesh)
     if sh is None:
-        return params["embed"].to(cfg.dtype)[tokens]
-    table = comm.all_gather_dim(params["embed"], 1, sh.fsdp).to(cfg.dtype)
-    if sh.tp is None:
-        return table[tokens]
-    V = table.shape[0]
-    local = tokens - sh.tp_rank * V
-    hit = (local >= 0) & (local < V)
-    x = torch.where(hit[..., None], table[local.clamp(0, V - 1)], 0.0)
-    return comm.reduce_from_group(x, sh.tp)
+        x = params["embed"].to(cfg.dtype)[tokens]
+    else:
+        table = comm.all_gather_dim(params["embed"], 1, sh.fsdp).to(cfg.dtype)
+        if sh.tp is None:
+            x = table[tokens]
+        else:
+            V = table.shape[0]
+            local = tokens - sh.tp_rank * V
+            hit = (local >= 0) & (local < V)
+            x = torch.where(hit[..., None], table[local.clamp(0, V - 1)], 0.0)
+            x = comm.reduce_from_group(x, sh.tp)
+    if cfg.pos != "learned":
+        return x
+    pos = params["pos_embed"]
+    if sh is not None:
+        pos = comm.all_gather_dim(pos, 1, sh.fsdp)
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+    return x + pos.to(cfg.dtype)[positions.clamp(0, cfg.max_seq - 1)]
 
 
 def _with_segments(attn_fn: Callable, segment_ids) -> Callable:
@@ -618,14 +740,13 @@ def forward_hidden(params: Params, tokens, cfg: GPTConfig, *,
 
     ``segment_ids``/``positions`` [B, S] carry a sample-packed batch
     (``data.SamplePacker``): attention masks block-diagonally per
-    segment and RoPE restarts at every document start, so the packed
-    forward equals the per-document unpacked one.
+    segment and RoPE or the learned positions restart at every document
+    start, so the packed forward equals the per-document unpacked one.
 
     ``lora``: one adapter's stacked factors ([L, in, r] / [L, r, out]
     per target, and a scalar ``scale``) applied to every adapted matmul,
     the trainable-adapter forward of ``models/training.py`` over a
     frozen base."""
-    check_supported(cfg)
     S = tokens.shape[1]
     if attn_fn is None:
         attn_fn = functools.partial(local_attention, causal=True)
@@ -637,14 +758,15 @@ def forward_hidden(params: Params, tokens, cfg: GPTConfig, *,
                 "segment_ids without positions: a packed batch needs "
                 "its per-document positions (SamplePacker emits both)")
         attn_fn = _with_segments(attn_fn, segment_ids)
-    x = embed_tokens(params, tokens, cfg, mesh=mesh)
     if positions is None:
         positions = torch.arange(S, device=tokens.device)
+    x = embed_tokens(params, tokens, cfg, mesh=mesh, positions=positions)
     x, aux_total = run_layers(params["layers"], x, cfg, positions=positions,
                               attn_fn=attn_fn, fuse_norm=fuse_norm,
                               mesh=mesh, lora=lora)
     if final_norm:
-        x = _norm(x, params["ln_f"], cfg.norm, eps=norm_eps(cfg))
+        x = _norm(x, params["ln_f"], cfg.norm, bias=params.get("ln_f_b"),
+                  eps=norm_eps(cfg))
     return x, aux_total
 
 
@@ -703,9 +825,15 @@ def _remat(block: Callable) -> Callable:
 
 
 def lm_head(params: Params, cfg: GPTConfig, *, mesh=None):
-    """The tied output projection [d, V] (on a mesh: d gathered over
-    fsdp, this rank's vocabulary columns under tp)."""
+    """The output projection [d, V]: the tied embedding's transpose, or
+    the untied ``lm_head`` leaf (on a mesh: d gathered over fsdp, this
+    rank's vocabulary columns under tp)."""
     sh = _shards(mesh)
+    if not cfg.tie_embeddings:
+        head = params["lm_head"]
+        if sh is not None:
+            head = comm.all_gather_dim(head, 0, sh.fsdp)
+        return head.to(cfg.dtype)
     if sh is None:
         return params["embed"].to(cfg.dtype).T
     return comm.all_gather_dim(params["embed"], 1, sh.fsdp).to(cfg.dtype).T
@@ -743,7 +871,8 @@ def loss_from_hidden(params: Params, x, targets, cfg: GPTConfig, *,
     sh = _shards(mesh)
     if sh is not None and sh.tp is not None:
         if norm_scale is not None:
-            x = _norm(x, norm_scale, cfg.norm, eps=norm_eps(cfg))
+            x = _norm(x, norm_scale, cfg.norm, bias=params.get("ln_f_b"),
+                      eps=norm_eps(cfg))
         s, n = _vocab_parallel_ce(x.reshape(B * S, d),
                                   lm_head(params, cfg, mesh=mesh),
                                   targets.reshape(B * S), sh,
@@ -758,7 +887,8 @@ def loss_from_hidden(params: Params, x, targets, cfg: GPTConfig, *,
                 x.reshape(B * S, d), lm_head(params, cfg, mesh=mesh),
                 targets.reshape(B * S), norm_scale, eps=norm_eps(cfg))
             return s / n.clamp_min(1.0)
-        x = _norm(x, norm_scale, cfg.norm, eps=norm_eps(cfg))
+        x = _norm(x, norm_scale, cfg.norm, bias=params.get("ln_f_b"),
+                  eps=norm_eps(cfg))
     s, n = _chunked_ce(x.reshape(B * S, d), lm_head(params, cfg, mesh=mesh),
                        targets.reshape(B * S), chunk=cfg.ce_chunk,
                        mode=ce_mode)

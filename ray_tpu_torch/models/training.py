@@ -173,9 +173,10 @@ def _adam_init(params: Params) -> AdamWState:
 @dataclasses.dataclass(frozen=True)
 class DefaultOptimizer:
     """``optax.chain(clip_by_global_norm(grad_clip), adamw(schedule,
-    b1=0.9, b2=0.95, weight_decay))`` with ``schedule =
+    b1=0.9, b2=b2, weight_decay))`` with ``schedule =
     warmup_cosine_decay_schedule(0, lr, warmup, max(total_steps,
-    warmup + 1), lr * 0.1)`` (``training.py:102-111``).
+    warmup + 1), lr * 0.1)`` (``training.py:102-111``; ``b2`` 0.95
+    there, 0.999 in the HF fine-tune's chain).
 
     Decoupled weight decay applies to every parameter, as in the
     reference (no parameter groups).  The moments are kept in each
@@ -186,6 +187,7 @@ class DefaultOptimizer:
     warmup: int = 100
     total_steps: int = 10000
     grad_clip: float = 1.0
+    b2: float = B2
 
     def schedule(self, count: int) -> float:
         """The learning rate of update number ``count`` (from 0)."""
@@ -209,7 +211,7 @@ class DefaultOptimizer:
         the gradients' global norm when they are shards (default: the
         norm of ``grads`` as they are)."""
         return _clipped_adam(grads, state, params, g_norm,
-                             grad_clip=self.grad_clip, b2=B2,
+                             grad_clip=self.grad_clip, b2=self.b2,
                              lr=self.schedule(state.count),
                              weight_decay=self.weight_decay)
 
@@ -268,9 +270,11 @@ def rl_optimizer(lr: float = 3e-4, grad_clip: float = 1.0) -> RLOptimizer:
 
 def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
                       warmup: int = 100, total_steps: int = 10000,
-                      grad_clip: float = 1.0) -> DefaultOptimizer:
+                      grad_clip: float = 1.0, b2: float = B2
+                      ) -> DefaultOptimizer:
     return DefaultOptimizer(lr=lr, weight_decay=weight_decay, warmup=warmup,
-                            total_steps=total_steps, grad_clip=grad_clip)
+                            total_steps=total_steps, grad_clip=grad_clip,
+                            b2=b2)
 
 
 def value_and_grad(loss: Callable, params: Params, batch
@@ -559,7 +563,6 @@ def build_gpt_train(cfg: "gpt_mod.GPTConfig", mesh=None, *,
                    else int(accum_steps))
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    gpt_mod.check_supported(cfg)
     comm_mode, comm_quant = resolve_comm(cfg, mesh, comm_mode, comm_quant,
                                          lora=lcfg, accum_steps=accum_steps)
     dev = resolve_device(device)
@@ -1097,7 +1100,6 @@ def build_gpt_train_pp(cfg: "gpt_mod.GPTConfig", mesh, *,
                          f"stages={pp} (axis {stage_axis!r})")
     if cfg.n_experts > 0:
         raise ValueError("MoE + pipeline parallelism not supported yet")
-    gpt_mod.check_supported(cfg)
     groups = mesh_groups(mesh)
     M = num_microbatches or default_pp_microbatches() or 2 * pp
     tx = optimizer or default_optimizer()
@@ -1130,19 +1132,20 @@ def build_gpt_train_pp(cfg: "gpt_mod.GPTConfig", mesh, *,
     def stage_fn(stage_params, shared, act, mb):
         tokens = mb["tokens"]
         S = tokens.shape[1]
-        x = gpt_mod.embed_tokens(shared, tokens, cfg, mesh=mesh) \
-            if first else act
+        positions = groups.coord("sp") * S + torch.arange(
+            S, device=tokens.device)
+        x = gpt_mod.embed_tokens(shared, tokens, cfg, mesh=mesh,
+                                 positions=positions) if first else act
         x, _aux = gpt_mod.run_layers(
             {k: v[0] for k, v in stage_params.items()}, x, cfg,
-            positions=groups.coord("sp") * S + torch.arange(
-                S, device=tokens.device),
-            attn_fn=attn_fn, mesh=mesh)
+            positions=positions, attn_fn=attn_fn, mesh=mesh)
         if not last:
             return x, None
         ce_norm = gpt_mod.uses_ce_norm(cfg, tokens.numel(), tokens.device,
                                        mesh=mesh)
-        h = x if ce_norm else gpt_mod._norm(x, shared["ln_f"], cfg.norm,
-                                            eps=gpt_mod.norm_eps(cfg))
+        h = x if ce_norm else gpt_mod._norm(
+            x, shared["ln_f"], cfg.norm, bias=shared.get("ln_f_b"),
+            eps=gpt_mod.norm_eps(cfg))
         loss_u = gpt_mod.loss_from_hidden(
             shared, h, mb["targets"], cfg,
             norm_scale=shared["ln_f"] if ce_norm else None, mesh=mesh)

@@ -11,9 +11,16 @@ on the CUDA cores, chosen by dtype alone.  On a CPU tensor both run their
 plain versions, which materialise the ``[N, V]`` logits, or with
 ``tile_v`` / ``chunk_rows`` follow the bf16 kernels' order of work.
 
-The kernels take the head as ``w = head^T [V, d]``, the tied embedding's
-own layout, so the training path's head (``embed.T``) reaches them with no
-copy, and its gradient goes back as the transpose of ``dw``.
+The kernels take the head as ``w = head^T [V, d]``, rows contiguous: the
+tied embedding's own layout, so the training path's head (``embed.T``)
+reaches them with no copy, and its gradient goes back as the transpose
+of ``dw``.  An untied head (``lm_head [d, V]``) has a strided transpose:
+:class:`FlashCE` copies it to contiguous ``[V, d]`` rows once a step
+(forward), and the wrappers refuse any non-contiguous ``x``, ``w`` or
+``targets`` (``substrate.check_cuda_args``).  Any V > 1 runs: the last
+vocab tile's columns past V (50,257 = 392 x 128 + 81 for HF GPT-2) are
+masked in the forward's statistics and the true logit, and give a zero
+``dl`` in the backward.
 
 Dispatch is the caller's: ``mode`` and ``enabled`` are arguments (the
 JAX package's ``RAY_TPU_CE`` and ``RAY_TPU_FUSE_NORM`` knobs do not reach
@@ -273,7 +280,8 @@ class FlashCE(torch.autograd.Function):
     """The custom VJP of ``_flash_ce`` / ``_flash_ce_norm``: forward
     ``(sum_nll, n_valid)``; the residuals are [N]-sized (lse, and rstd
     with the prologue) plus the inputs the gradients contract against.
-    ``head`` is [d, V]; the kernels read its transpose in place."""
+    ``head`` is [d, V]; the kernels read its transpose in place when it
+    is contiguous (the tied embedding's), else a contiguous copy."""
 
     @staticmethod
     def forward(ctx, x, head, targets, scale, eps):

@@ -430,7 +430,7 @@ class _Plan:
     fsdp: Any
     reduce: Any
     layer_specs: Dict[str, Any]
-    embed_spec: Any
+    specs: Dict[str, Any]
     attn_fn: Any
     quant: str
     generators: Dict[int, torch.Generator]
@@ -456,41 +456,68 @@ def _block_apply(lp, x, cfg, *, positions, tp, attn_fn):
     into the block, reduce-scatter out of it."""
     from ray_tpu_torch.models import gpt as gpt_mod
     eps = gpt_mod.norm_eps(cfg)
-    h = gpt_mod._norm(x, lp["ln1"], cfg.norm, eps=eps)
+    h = gpt_mod._norm(x, lp["ln1"], cfg.norm, bias=lp.get("ln1_b"), eps=eps)
     q, k, v = ring_allgather_matmul(h, [lp["wq"], lp["wk"], lp["wv"]], tp)
-    if getattr(attn_fn, "fused_rope", False):
+    if "bq" in lp:
+        q = q + lp["bq"]
+        k = k + lp["bk"]
+        v = v + lp["bv"]
+    if cfg.pos == "rope" and getattr(attn_fn, "fused_rope", False):
         attn = attn_fn(q, k, v, positions=positions)
     else:
-        q = gpt_mod._rope(q, positions, cfg.rope_theta)
-        k = gpt_mod._rope(k, positions, cfg.rope_theta)
+        if cfg.pos == "rope":
+            q = gpt_mod._rope(q, positions, cfg.rope_theta)
+            k = gpt_mod._rope(k, positions, cfg.rope_theta)
         attn = attn_fn(q, k, v)
     B, S, Hn, hd = attn.shape
     proj = torch.matmul(attn.reshape(B, S, Hn * hd),
                         lp["wo"].reshape(Hn * hd, -1))
-    x = x + psum_scatter_tokens(proj, tp)
-    h2 = gpt_mod._norm(x, lp["ln2"], cfg.norm, eps=eps)
-    hu, g = ring_allgather_matmul(h2, [lp["w1"], lp["w3"]], tp)
-    down = torch.matmul(F.silu(hu) * g, lp["w2"])
-    return x + psum_scatter_tokens(down, tp)
+    proj = psum_scatter_tokens(proj, tp)
+    if "bo" in lp:
+        proj = proj + lp["bo"]     # after the reduce: once per token
+    x = x + proj
+    h2 = gpt_mod._norm(x, lp["ln2"], cfg.norm, bias=lp.get("ln2_b"), eps=eps)
+    if cfg.act == "swiglu":
+        hu, g = ring_allgather_matmul(h2, [lp["w1"], lp["w3"]], tp)
+        if "b1" in lp:
+            hu = hu + lp["b1"]
+            g = g + lp["b3"]
+        hmid = F.silu(hu) * g
+    else:
+        (hu,) = ring_allgather_matmul(h2, [lp["w1"]], tp)
+        if "b1" in lp:
+            hu = hu + lp["b1"]
+        hmid = gpt_mod._gelu(hu)
+    down = psum_scatter_tokens(torch.matmul(hmid, lp["w2"]), tp)
+    if "b2" in lp:
+        down = down + lp["b2"]
+    return x + down
 
 
-def _embed_local(tokens, cfg, *, d_full_table, tp, tp_rank):
+def _embed_local(tokens, cfg, *, d_full_table, pos_table, tp, tp_rank,
+                 seq_offset: int, s_local: int):
     """Vocabulary-parallel embedding to this rank's sequence shard.
 
     ``d_full_table``: the embedding's shard with d all-gathered over
     fsdp, ``[V/tp, d]``.  Every tp rank looks up all its rows' tokens in
     its vocabulary slice (zeros outside it), and the partial rows
-    reduce-scatter to sequence shards.  Without a tp ring, a lookup."""
+    reduce-scatter to sequence shards.  Without a tp ring, a lookup.
+    ``pos_table`` (learned positions, d gathered): the shard's rows
+    ``seq_offset ..`` are added after the reduce."""
     table = d_full_table.to(cfg.dtype)
     if tp is None:
-        return table[tokens]
-    v_local = table.shape[0]
-    rel = tokens.long() - tp_rank * v_local
-    ok = (rel >= 0) & (rel < v_local)
-    x = table[rel.clamp(0, v_local - 1)]
-    x = torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype,
-                                                  device=x.device))
-    return psum_scatter_tokens(x, tp)
+        x = table[tokens]
+    else:
+        v_local = table.shape[0]
+        rel = tokens.long() - tp_rank * v_local
+        ok = (rel >= 0) & (rel < v_local)
+        x = table[rel.clamp(0, v_local - 1)]
+        x = torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+        x = psum_scatter_tokens(x, tp)
+    if pos_table is not None:
+        x = x + pos_table.to(cfg.dtype)[seq_offset:seq_offset + s_local]
+    return x
 
 
 def _vocab_parallel_ce(logits_local, targets, *, tp, tp_rank):
@@ -540,12 +567,20 @@ def _overlap_local_obj(params, tokens, targets, cfg, *, plan: _Plan):
     positions = torch.arange(S, device=tokens.device)
     quant = plan.quant
     # the generators' bases are the reference's key_base values: 1 the
-    # embedding, 16 the layer gathers (one stream for every block)
-    embed_full_d = _gather_leaf(params["embed"], plan.embed_spec, plan.fsdp,
-                                quant=quant, generator=plan.generator(1))
+    # embedding, 2 the learned positions, 3 the untied head, 16 the
+    # layer gathers (one stream for every block)
+    embed_full_d = _gather_leaf(params["embed"], plan.specs["embed"],
+                                plan.fsdp, quant=quant,
+                                generator=plan.generator(1))
+    pos_table = None
+    if cfg.pos == "learned":
+        pos_table = _gather_leaf(params["pos_embed"], plan.specs["pos_embed"],
+                                 plan.fsdp, quant=quant,
+                                 generator=plan.generator(2))
     with record_function("overlap/embed"):
-        x = _embed_local(tokens, cfg, d_full_table=embed_full_d, tp=tp,
-                         tp_rank=plan.tp_rank)
+        x = _embed_local(tokens, cfg, d_full_table=embed_full_d,
+                         pos_table=pos_table, tp=tp, tp_rank=plan.tp_rank,
+                         seq_offset=seq_offset, s_local=S_local)
 
     layers = params["layers"]
     keys = sorted(layers)
@@ -587,8 +622,15 @@ def _overlap_local_obj(params, tokens, targets, cfg, *, plan: _Plan):
             x = block(i, pending, x)
             pending = nxt
 
-    x = gpt_mod._norm(x, params["ln_f"], cfg.norm, eps=gpt_mod.norm_eps(cfg))
-    head_local = embed_full_d.T.to(cfg.dtype)                 # [d, V/tp]
+    x = gpt_mod._norm(x, params["ln_f"], cfg.norm, bias=params.get("ln_f_b"),
+                      eps=gpt_mod.norm_eps(cfg))
+    if cfg.tie_embeddings:
+        head_local = embed_full_d.T.to(cfg.dtype)             # [d, V/tp]
+    else:
+        head_local = _gather_leaf(params["lm_head"], plan.specs["lm_head"],
+                                  plan.fsdp, quant=quant,
+                                  generator=plan.generator(3)
+                                  ).to(cfg.dtype)
     with record_function("overlap/head_ring"):
         logits = ring_allgather_matmul(x, head_local, tp,
                                        out_dtype=torch.float32)
@@ -658,7 +700,6 @@ def build_overlap_step_fns(cfg, mesh, *, quant: Optional[str] = None,
         raise ValueError(f"unknown comm quant {quant!r}; "
                          "expected 'none', 'int8' or 'dcn' "
                          "(check RAY_TPU_COMM_QUANT)")
-    gpt_mod.check_supported(cfg)
     reason = overlap_supported(cfg, mesh)
     if reason is not None:
         raise ValueError(f"the overlap schedule does not cover this "
@@ -687,7 +728,7 @@ def build_overlap_step_fns(cfg, mesh, *, quant: Optional[str] = None,
         tp_rank=groups.coord("tp"),
         fsdp=groups.fsdp if fsdp_on else None, reduce=group(reduce_axes),
         layer_specs={k: tuple(s)[1:] for k, s in specs["layers"].items()},
-        embed_spec=specs["embed"],
+        specs=specs,
         attn_fn=make_flash_attention_fn(
             mesh, rope_theta=cfg.rope_theta if cfg.pos == "rope" else None),
         quant="int8" if quant == "int8" else "none", generators={},

@@ -215,6 +215,30 @@ def test_tiled_plain_versions_match_dense(N, d, V, norm, tile_v, chunk,
         _close(a, b, 2e-6 if name == "dx" else 1e-6)
 
 
+@pytest.mark.parametrize("norm", [False, True])
+def test_tiled_plain_versions_at_the_hf_vocab(norm):
+    """HF GPT-2's vocabulary, V = 50257 = 392 x 128 + 81: the last
+    128-column tile holds 81 live columns.  The tiled plain versions
+    (the bf16 kernels' order of work) give the dense ones' lse, true
+    logit, dx and dw (f32, the bounds above), with targets at columns 0
+    and V - 1: a padded column that counted would add exp(0) per row to
+    the sum and move lse by ~1e-4."""
+    N, d, V = 64, 128, 50257
+    x, w, tgt, scale = _tiled_inputs(N, d, V, 11, "some")
+    fnorm = (scale, 1e-6) if norm else None
+    dense = TC.plain_flash_ce_fwd(x, w, tgt, fnorm)
+    tiled = TC.plain_flash_ce_fwd(x, w, tgt, fnorm, tile_v=128)
+    for a, b in zip(tiled, dense):
+        _close(a, b, 1e-6)
+    srow = (tgt >= 0).float() * 0.37
+    bnorm = (scale, 1e-6, dense[2]) if norm else None
+    want = TC.plain_flash_ce_bwd(x, w, tgt, dense[0], srow, bnorm)
+    got = TC.plain_flash_ce_bwd(x, w, tgt, dense[0], srow, bnorm,
+                                chunk_rows=32)
+    for name, a, b in zip(("dx", "dw", "dscale"), got, want):
+        _close(a, b, 2e-6 if name == "dx" else 1e-6)
+
+
 @pytest.mark.parametrize("N, d, V, norm, tile_v, chunk, masked", TILED)
 def test_tiled_plain_versions_match_pallas(N, d, V, norm, tile_v, chunk,
                                            masked):

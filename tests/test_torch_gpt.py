@@ -101,23 +101,81 @@ def test_forward_matches_jax(attn):
                                rtol=2e-4)
 
 
-@pytest.mark.parametrize("kw", [dict(norm="layernorm"), dict(pos="learned"),
-                                dict(use_bias=True), dict(n_experts=4)])
-def test_unported_modes_raise(kw):
-    """The layernorm, learned-position and bias modes raise, naming their
-    ROADMAP item.  MoE is ported (item 9b-iv): its config builds the
-    expert leaves, and only the serving engine refuses it, with the
-    reference's message."""
-    if kw.get("n_experts"):
-        from ray_tpu_torch.inference.engine import InferenceEngine
-        cfg = tgpt.GPTConfig.tiny(**kw)
-        params = tgpt.init_params(cfg, device="cpu")
-        assert params["layers"]["moe_w1"].shape == (
-            cfg.n_layers, 4, cfg.d_model, cfg.ff_dim)
-        assert "w1" not in params["layers"]
-        with pytest.raises(NotImplementedError,
-                           match="MoE decode cache not supported yet"):
-            InferenceEngine(cfg, params, device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgpt.init_params(tgpt.GPTConfig.tiny(**kw), device="cpu")
+def test_moe_config_builds_and_the_engine_refuses_it():
+    """MoE is ported (item 9b-iv): its config builds the expert leaves,
+    and only the serving engine refuses it, with the reference's
+    message."""
+    from ray_tpu_torch.inference.engine import InferenceEngine
+    cfg = tgpt.GPTConfig.tiny(n_experts=4)
+    params = tgpt.init_params(cfg, device="cpu")
+    assert params["layers"]["moe_w1"].shape == (
+        cfg.n_layers, 4, cfg.d_model, cfg.ff_dim)
+    assert "w1" not in params["layers"]
+    with pytest.raises(NotImplementedError,
+                       match="MoE decode cache not supported yet"):
+        InferenceEngine(cfg, params, device="cpu")
+
+
+# the JAX package's modes, each alone and all together (the GPT-2
+# exact architecture of train/huggingface)
+MODES = [dict(norm="layernorm"), dict(act="gelu"), dict(pos="learned"),
+         dict(use_bias=True), dict(tie_embeddings=False),
+         dict(norm="layernorm", act="gelu", pos="learned", use_bias=True,
+              tie_embeddings=False),
+         # gelu experts: the reference's default expert FFN, no w3
+         dict(n_experts=4, act="gelu", use_bias=True)]
+MODE_IDS = ["layernorm", "gelu", "learned", "bias", "untied", "all",
+            "moe-gelu-bias"]
+
+
+def perturbed(tree, seed=0):
+    """``tree`` (numpy leaves) with every bias and norm scale moved by a
+    seeded N(0, 0.1): ``init_params`` makes them zeros and ones, which
+    would leave a bias that is never added unseen."""
+    rng = np.random.default_rng(seed)
+
+    def walk(node):
+        out = {}
+        for k, v in sorted(node.items()):
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            elif k.startswith(("ln", "b")):
+                out[k] = (np.asarray(v, np.float32)
+                          + 0.1 * rng.standard_normal(np.shape(v))
+                          ).astype(np.float32)
+            else:
+                out[k] = np.asarray(v)
+        return out
+    return walk(tree)
+
+
+@pytest.mark.parametrize("kw", MODES, ids=MODE_IDS)
+def test_mode_tree_and_forward_match_jax(kw):
+    """Each mode's tree (keys and shapes of ``init_params``, the logical
+    axes) is the reference's, and its forward on the reference's
+    parameters (biases and norms perturbed) gives the reference's logits
+    within 2e-4, through the flash attention hook (RoPE only where
+    ``pos="rope"``)."""
+    jcfg = jgpt.GPTConfig(**SMALL, dtype=jnp.float32, **kw)
+    tcfg = tgpt.GPTConfig(**SMALL, dtype=torch.float32, **kw)
+    jparams = perturbed(jax.tree.map(
+        np.asarray, jgpt.init_params(jcfg, jax.random.PRNGKey(1))))
+    tinit = tgpt.init_params(tcfg, device="cpu")
+    jl, tl = dict(_leaves(jparams)), dict(_leaves(tinit))
+    assert jl.keys() == tl.keys()
+    for path, arr in jl.items():
+        assert tuple(tl[path].shape) == arr.shape, path
+    assert dict(_leaves(tgpt.param_logical_axes(tcfg))) == \
+        dict(_leaves(jgpt.param_logical_axes(jcfg)))
+    assert dict(_leaves(tgpt.param_shapes(tcfg))) == \
+        {p: a.shape for p, a in jl.items()}
+    tparams = params_from_jax(jparams, tcfg, device="cpu")
+    tokens = np.random.RandomState(0).randint(0, 512, (2, 48)).astype(
+        np.int32)
+    want, _ = jgpt.forward(jax.tree.map(jnp.asarray, jparams),
+                           jnp.asarray(tokens), jcfg)
+    got, _ = tgpt.forward(tparams, torch.from_numpy(tokens).long(), tcfg,
+                          attn_fn=functools.partial(flash_attention,
+                                                    causal=True))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4,
+                               rtol=2e-4)

@@ -196,7 +196,12 @@ _SLICE_MODULES = ("ray_tpu_torch/ops/flash_ce.py",
                   "ray_tpu_torch/rllib/algorithms/impala.py",
                   "ray_tpu_torch/rllib/algorithms/sac.py",
                   "ray_tpu_torch/rllib/algorithms/multi_agent_ppo.py",
-                  "ray_tpu_torch/util/profiling.py")
+                  "ray_tpu_torch/util/profiling.py",
+                  "ray_tpu_torch/models/mlp.py",
+                  "ray_tpu_torch/models/resnet.py",
+                  "ray_tpu_torch/train/huggingface/__init__.py",
+                  "ray_tpu_torch/train/huggingface/weights.py",
+                  "ray_tpu_torch/train/huggingface/transformers_trainer.py")
 
 
 def _imported_roots(path):
@@ -331,6 +336,52 @@ def test_rllib_profiling_checkpoint_import_alone_and_need_a_card():
     env["PYTHONPATH"] = REPO
     env["CUDA_VISIBLE_DEVICES"] = ""
     out = subprocess.run([sys.executable, "-c", _RLLIB_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+_MODELS_PROBE = r"""
+import sys
+import torch
+assert not torch.cuda.is_available()
+import ray_tpu_torch.models.mlp
+import ray_tpu_torch.models.resnet
+import ray_tpu_torch.train.huggingface
+from ray_tpu_torch.models.mlp import MLP, build_mlp_train
+from ray_tpu_torch.models.resnet import ResNet18, build_resnet_train
+model = ResNet18(num_classes=10)
+for call in (lambda: model.init(), lambda: build_resnet_train(model),
+             lambda: build_mlp_train(MLP())):
+    try:
+        call()
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e), e
+    else:
+        raise AssertionError("a model entry point ran without a card")
+fns = build_resnet_train(model, device="cpu")
+state = fns["init_fn"](torch.Generator().manual_seed(0))
+state, m = fns["step_fn"](state, (torch.randn(2, 32, 32, 3),
+                                  torch.tensor([1, 2])))
+assert torch.isfinite(m["loss"]), m
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu", "triton",
+                                    "transformers", "flax"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_models_and_huggingface_import_alone_and_need_a_card():
+    """``models.mlp``, ``models.resnet`` and ``train.huggingface`` import
+    with no jax, no ``ray_tpu``, no triton and no ``transformers`` in
+    ``sys.modules`` and no card visible; their entry points then raise
+    rather than drift to the CPU, and a ResNet-18 step runs there when
+    asked."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, "-c", _MODELS_PROBE], cwd=REPO,
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

@@ -61,6 +61,12 @@ CASES = [
     ("dcn2-fsdp2", dict(dcn=2, fsdp=2), dict(BASE), 8, 32, False),
     ("bf16-fsdp2-tp2", dict(fsdp=2, tp=2), dict(BASE, dtype="bfloat16"), 8,
      32, False),
+    # every GPT mode at once: the schedule's biases (bo and b2 after the
+    # reduce-scatter), gelu, the gathered learned positions and the
+    # gathered untied head; biases and norms perturbed
+    ("fsdp2-tp2-modes", dict(fsdp=2, tp=2),
+     dict(BASE, norm="layernorm", act="gelu", pos="learned", use_bias=True,
+          tie_embeddings=False), 8, 32, False),
 ]
 IDS = [c[0] for c in CASES]
 # the int8 wire: {fsdp 4} at 3 layers (three hops a reduce-scatter) and
@@ -366,6 +372,20 @@ def _jax_steps(params, batch):
     return np.array(steps), cb
 
 
+def _perturbed(tree, rng):
+    """Biases and norm scales moved off their zeros and ones."""
+    out = {}
+    for k, v in sorted(tree.items()):
+        if isinstance(v, dict):
+            out[k] = _perturbed(v, rng)
+        elif k.startswith(("ln", "b")):
+            out[k] = (np.asarray(v) + 0.1 * rng.standard_normal(
+                np.shape(v))).astype(np.float32)
+        else:
+            out[k] = np.asarray(v)
+    return out
+
+
 def _make_batch(vocab, b, s, masked):
     import jax
 
@@ -398,6 +418,8 @@ def runs(tmp_path_factory):
         f32 = jgpt.GPTConfig(**dict(cfg_kw, dtype=jnp.float32))
         params = jax.tree.map(np.asarray,
                               jgpt.init_params(f32, jax.random.PRNGKey(0)))
+        if f32.use_bias:
+            params = _perturbed(params, np.random.default_rng(3))
         batch = _make_batch(f32.vocab_size, b, s, masked)
         inputs[name] = (params, batch)
     # the step case starts from the JAX step's own initial parameters

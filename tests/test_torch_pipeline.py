@@ -28,7 +28,9 @@ microbatch holding no valid target; bf16 on {pp 2, tp 2}; 1F1B on
 {pp 4} at M = 8 > 2 pp - 1 (the saved inputs wrap); and 1F1B staged over
 ``dcn`` ({dcn 2, dp 2}, which the reference cannot run on this jax)
 against GPipe on {pp 2, dp 2} at the same global batch; GPipe and 1F1B
-on {pp 2, sp 2}, each stage's sequence sharded over sp.
+on {pp 2, sp 2}, each stage's sequence sharded over sp; GPipe on
+{pp 2, tp 2} in every GPT mode at once (LayerNorm, gelu, learned
+positions, biases, an untied head).
 
 Bounds: f32 losses within rtol 2e-5, atol 2e-6 and grad norms within
 rtol 2e-4, atol 2e-5 (the reference test's); every gradient leaf and
@@ -78,6 +80,13 @@ CASES = [
      "gpipe", 4, 8, 32, None),
     ("1f1b-pp2-sp2", dict(pp=2, sp=2), dict(pp=2, sp=2), dict(BASE),
      "1f1b", 4, 8, 32, None),
+    # every GPT mode at once (the first stage adds the learned positions,
+    # the last the untied head and the final norm's bias; the
+    # row-parallel biases once after each tp sum), biases and norms
+    # perturbed off their zeros and ones
+    ("gpipe-pp2-tp2-modes", dict(pp=2, tp=2), dict(pp=2, tp=2),
+     dict(DENSE, norm="layernorm", act="gelu", pos="learned", use_bias=True,
+          tie_embeddings=False), "gpipe", 4, 8, 16, None),
 ]
 IDS = [c[0] for c in CASES]
 PARITY = "1f1b-pp2-dp2-remat"
@@ -324,6 +333,20 @@ def _jax_seq(w, x):
     return np.asarray(out)
 
 
+def _perturbed(tree, rng):
+    """Biases and norm scales moved off their zeros and ones."""
+    out = {}
+    for k, v in sorted(tree.items()):
+        if isinstance(v, dict):
+            out[k] = _perturbed(v, rng)
+        elif k.startswith(("ln", "b")):
+            out[k] = (np.asarray(v) + 0.1 * rng.standard_normal(
+                np.shape(v))).astype(np.float32)
+        else:
+            out[k] = np.asarray(v)
+    return out
+
+
 def _make_batch(vocab, b, s, mask, M):
     import jax
 
@@ -367,6 +390,8 @@ def runs(tmp_path_factory):
             schedule="gpipe", num_microbatches=M, telemetry=False)
         params = jax.tree.map(np.asarray, jax.device_get(
             fns["init_fn"](jax.random.PRNGKey(0)).params))
+        if cfg.use_bias:
+            params = _perturbed(params, np.random.default_rng(2))
         batch = _make_batch(cfg.vocab_size, b, s, mask, M)
         inputs[name] = (params, batch)
         np.savez(os.path.join(tmp, f"in-{name}.npz"), **batch,

@@ -70,6 +70,14 @@ RL_LR = 1e-3
 # target, a random B so that every factor has a gradient
 LORA = ("fsdp2-tp2-lora", dict(fsdp=2, tp=2))
 LORA_RANK = 4
+# every GPT mode of the JAX package at once (the GPT-2 exact
+# architecture with an untied head) on a mesh with fsdp and tp: the
+# learned positions gathered over fsdp, the column-parallel biases
+# split over tp and the row-parallel ones (bo, b2) added once after the
+# tp sum
+MODES = dict(norm="layernorm", act="gelu", pos="learned", use_bias=True,
+             tie_embeddings=False)
+MODES_CASE = ("fsdp2-tp2-modes", dict(fsdp=2, tp=2), "ring")
 
 
 def _rewards():
@@ -159,10 +167,50 @@ def _world(rank, store, in_path, out_dir):
                      logits=logits.numpy(),
                      **{"g/" + k: v for k, v in
                         _flat(_np_tree(full)).items()})
+    _modes_case(rank, _unflat({k[2:]: v for k, v in data.items()
+                               if k.startswith("m/")}), batch, out_dir)
     _rl_case(rank, params, batch, out_dir)
     adapter = {k[2:]: v for k, v in data.items() if k.startswith("a/")}
     _lora_case(rank, params, adapter, batch, out_dir)
     dist.destroy_process_group()
+
+
+def _modes_case(rank, params, batch, out_dir):
+    """MODES_CASE: the loss, full gradients and step metrics of
+    ``build_gpt_train`` in every mode at once."""
+    from ray_tpu_torch.convert import params_from_jax
+    from ray_tpu_torch.models import gpt, training
+    from ray_tpu_torch.parallel import sharding
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    name, axes, impl = MODES_CASE
+    t0 = time.monotonic()
+    cfg = gpt.GPTConfig(**MODEL, **MODES, dtype=torch.float32)
+    mesh = make_mesh(**axes)
+    fns = training.build_gpt_train(
+        cfg, mesh, optimizer=training.default_optimizer(**OPT),
+        sp_impl=impl, device="cpu", telemetry=False)
+    state = fns["init_fn"](params=params_from_jax(params, cfg, device="cpu",
+                                                  mesh=mesh))
+    loss, grads, steps = _port_run(fns, state, fns["shard_batch"](batch))
+    full = sharding.gather_params(grads, mesh, gpt.param_logical_axes(cfg))
+    if rank == 0:
+        np.savez(os.path.join(out_dir, f"{name}.npz"), loss=loss,
+                 steps=np.array(steps), secs=time.monotonic() - t0,
+                 **{"g/" + k: v for k, v in _flat(_np_tree(full)).items()})
+
+
+def _perturbed(tree, rng):
+    """Biases and norm scales moved off their zeros and ones."""
+    out = {}
+    for k, v in sorted(tree.items()):
+        if isinstance(v, dict):
+            out[k] = _perturbed(v, rng)
+        elif k.startswith(("ln", "b")):
+            out[k] = (np.asarray(v) + 0.1 * rng.standard_normal(
+                np.shape(v))).astype(np.float32)
+        else:
+            out[k] = np.asarray(v)
+    return out
 
 
 def _rank_spread(tree) -> float:
@@ -353,11 +401,11 @@ def _jax_lora_reference(params0, adapter0, batch):
                                  float(rm["grad_norm"])])}
 
 
-def _jax_reference(axes, impl, params0, batch, update):
+def _jax_reference(axes, impl, params0, batch, update, **modes):
     """Loss, gradients and STEPS steps' (loss, grad_norm) of the JAX
-    package's GSPMD step on ``axes``: its ``value_and_grad`` under the
-    step's shardings, its optimizer's update (``update``, one jit on the
-    host, shared by every mesh shape)."""
+    package's GSPMD step on ``axes`` (in ``modes``): its
+    ``value_and_grad`` under the step's shardings, its optimizer's update
+    (``update``, one jit on the host, shared by every mesh shape)."""
     import jax
     import jax.numpy as jnp
     import optax
@@ -366,7 +414,7 @@ def _jax_reference(axes, impl, params0, batch, update):
     from ray_tpu.models import training as jtrain
     from ray_tpu.parallel.mesh import make_mesh
 
-    cfg = jgpt.GPTConfig(**MODEL, dtype=jnp.float32)
+    cfg = jgpt.GPTConfig(**MODEL, **modes, dtype=jnp.float32)
     mesh = make_mesh(**axes, devices=jax.devices()[:WORLD])
     fns = jtrain.build_gpt_train(cfg, mesh, sp_impl=impl,
                                  optimizer=jtrain.default_optimizer(**OPT),
@@ -415,10 +463,14 @@ def runs(tmp_path_factory):
     adapter0 = jax.tree.map(np.asarray, jlora.init_adapter(
         jcfg, LoraConfig(enabled=True, rank=LORA_RANK),
         jax.random.PRNGKey(7), random_b=True))
+    params_modes = _perturbed(jax.tree.map(np.asarray, jgpt.init_params(
+        jgpt.GPTConfig(**MODEL, **MODES, dtype=jnp.float32),
+        jax.random.PRNGKey(0))), np.random.default_rng(5))
     batch = _global_batch()
     in_path = str(tmp / "inputs.npz")
     np.savez(in_path, **batch,
              **{"p/" + k: v for k, v in _flat(params0).items()},
+             **{"m/" + k: v for k, v in _flat(params_modes).items()},
              **{"a/" + k: v for k, v in adapter0.items()})
     t0 = time.monotonic()
     ctx = mp.start_processes(_world, args=(str(tmp / "store"), in_path,
@@ -438,6 +490,8 @@ def runs(tmp_path_factory):
 
     jax_out = {name: _jax_reference(axes, impl, params0, batch, update)
                for name, axes, impl in CASES}
+    jax_modes = _jax_reference(MODES_CASE[1], MODES_CASE[2], params_modes,
+                               batch, update, **MODES)
     jax_rl = _jax_rl_reference(params0, batch)
     jax_lora = _jax_lora_reference(params0, adapter0, batch)
     jax_s = time.monotonic() - t0
@@ -459,11 +513,11 @@ def runs(tmp_path_factory):
     while not ctx.join(timeout=1):
         pass
     port = {}
-    for name, _axes, _impl in CASES + [ACCUM]:
+    for name, _axes, _impl in CASES + [ACCUM, MODES_CASE]:
         d = dict(np.load(tmp / f"{name}.npz"))
         port[name] = (float(d["loss"]), {k[2:]: v for k, v in d.items()
                                          if k.startswith("g/")},
-                      d["steps"], float(d["secs"]), d["logits"])
+                      d["steps"], float(d["secs"]), d.get("logits"))
     d = dict(np.load(tmp / f"{RL[0]}.npz"))
     port_rl = (float(d["loss"]), {k[2:]: float(v) for k, v in d.items()
                                   if k.startswith("m/")},
@@ -475,6 +529,7 @@ def runs(tmp_path_factory):
           f"{ {n: round(p[3], 2) for n, p in port.items()} }; lora "
           f"{float(port_lora['secs']):.2f}")
     return {"jax": jax_out, "port": port, "plain": plain,
+            "jax_modes": jax_modes,
             "params0": params0, "batch": batch,
             "rl": {"jax": jax_rl, "port": port_rl},
             "lora": {"jax": jax_lora, "port": port_lora}}
@@ -517,6 +572,17 @@ def test_sharded_forward_logits_match_unsharded_port(runs, name):
     np.testing.assert_allclose(runs["port"][name][4],
                                runs["plain"][False][3], rtol=2e-4,
                                atol=2e-5)
+
+
+def test_sharded_modes_step_matches_jax_gspmd(runs):
+    """Every GPT mode at once (LayerNorm, gelu, learned positions,
+    biases, an untied head) on {fsdp: 2, tp: 2} against the JAX
+    package's GSPMD step: the loss, every gradient leaf gathered to full
+    and 3 steps' losses and grad norms, at the bounds above.  A
+    row-parallel bias added on every tp rank would double its
+    contribution and part the loss at once."""
+    _assert_close(runs["port"][MODES_CASE[0]], runs["jax_modes"],
+                  MODES_CASE[0])
 
 
 def test_sharded_accumulation_and_remat_match_unsharded_port(runs):

@@ -160,6 +160,64 @@ def test_loss_fn_grads_match_jax_with_the_norm_kernel(fuse_norm,
         assert err < 1e-4, (path, err)
 
 
+# the JAX package's modes, each alone and all together
+MODES = [dict(norm="layernorm"), dict(act="gelu"), dict(pos="learned"),
+         dict(use_bias=True), dict(tie_embeddings=False),
+         dict(norm="layernorm", act="gelu", pos="learned", use_bias=True,
+              tie_embeddings=False)]
+MODE_IDS = ["layernorm", "gelu", "learned", "bias", "untied", "all"]
+
+
+def _perturbed(tree, rng):
+    """Biases and norm scales moved off their zeros and ones."""
+    out = {}
+    for k, v in sorted(tree.items()):
+        if isinstance(v, dict):
+            out[k] = _perturbed(v, rng)
+        elif k.startswith(("ln", "b")):
+            out[k] = (np.asarray(v) + 0.1 * rng.standard_normal(
+                np.shape(v))).astype(np.float32)
+        else:
+            out[k] = np.asarray(v)
+    return out
+
+
+@pytest.mark.parametrize("kw", MODES, ids=MODE_IDS)
+def test_mode_step_grads_match_jax(kw):
+    """``build_gpt_train``'s ``value_and_grad_fn`` in each mode (its own
+    attention hook: in-kernel RoPE, or none for learned positions; the
+    epilogue and the flash-CE prologue where their gates take the mode)
+    against ``jax.value_and_grad`` of the JAX package's loss through its
+    trainer's hook, on parameters whose biases and norms are perturbed:
+    the loss within 2e-5, each gradient leaf within 1e-4 of its largest
+    value.  ``bk``'s gradient is zero in exact arithmetic (a key bias
+    shifts every score of a query alike), so a leaf whose largest value
+    is below 1e-4 is held at 1e-8 absolute."""
+    jcfg = jgpt.GPTConfig(**SMALL, dtype=jnp.float32, **kw)
+    tcfg = tgpt.GPTConfig(**SMALL, dtype=torch.float32, **kw)
+    mesh = make_mesh(dp=1, devices=jax.devices()[:1])
+    jparams = _perturbed(jax.tree.map(np.asarray, jgpt.init_params(
+        jcfg, jax.random.PRNGKey(0))), np.random.default_rng(0))
+    batch = _jax_batch(3)
+    jfns = jtrain.build_gpt_train(jcfg, mesh, telemetry=False)
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jgpt.loss_fn(p, batch, jcfg, attn_fn=jfns["attn_fn"],
+                               mesh=mesh))(jax.tree.map(jnp.asarray,
+                                                        jparams))
+    tfns = ttrain.build_gpt_train(tcfg, device="cpu", telemetry=False)
+    tstate = tfns["init_fn"](params=params_from_jax(jparams, tcfg,
+                                                    device="cpu"))
+    tloss, tgrads = tfns["value_and_grad_fn"](tstate.params,
+                                              _to_torch(batch))
+    assert float(tloss) == pytest.approx(float(jloss), abs=2e-5)
+    jl = dict(_leaves(jax.tree.map(np.asarray, jgrads)))
+    tl = dict(_leaves(params_to_numpy(tgrads)))
+    assert jl.keys() == tl.keys()
+    for path, want in jl.items():
+        err = np.abs(tl[path] - want).max()
+        assert err <= 1e-4 * max(np.abs(want).max(), 1e-4), (path, err)
+
+
 def test_train_steps_match_jax():
     """STEPS optimizer steps (clip engaged, warmup then cosine) from the
     same parameters on the same batches: the loss and grad_norm
