@@ -54,6 +54,7 @@
                                            # (17) alone
     python3 chip_smoke.py --resnet         # resnet50-train and the
                                            # card-against-CPU arm (18)
+    python3 chip_smoke.py --tune           # gpt2-tune (19) alone
     python3 chip_smoke.py --multi-gpu      # on four cards: the pipeline
                                            # (with sp too), MoE and
                                            # sharded-LoRA steps and the
@@ -432,6 +433,18 @@
    256) on the card against the CPU from the same flax-layout
    parameters, TF32 off (``card-cpu metrics``; ``--resnet`` runs this
    alone).
+19. gpt2-tune (``tune_phase``): Ray Tune over GPT-2 124M's training
+   step at 8 x 1024 (bf16, ``init_params`` seed 0, one seeded batch,
+   AdamW without warm-up).  Arm a: ``tune.with_resources(tune_trial,
+   {"GPU": 1})`` over 4 learning rates under ASHA (max_t 8, grace 2,
+   rf 2) on ``loss``, a report each step, the trials one at a time on
+   the card; every first loss bit-equal to the driver's, every loss
+   moving, a stop at a rung that ASHA replayed here repeats, the best
+   result the lowest final loss, exact launches in every report, each
+   stopped trial's process gone and the card as free for the next.
+   Arm b: a ``Tuner`` over a one-worker ``TorchTrainer`` at 2 rates
+   (FIFO), each trial's 4 losses bit-equal to the driver's.  Prints
+   ``tune metrics {...}`` (``--tune`` runs this alone).
 
 Any failure raises and the script exits non-zero.  The line before the
 last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
@@ -5098,6 +5111,16 @@ def train_overlap_arm(cfg, dev) -> dict:
             "gspmd_launches": g["launches"], "launches": o["launches"]}
 
 
+def _card_check(where: str, want: str) -> None:
+    """Raise unless this process sees exactly one card, named ``want``:
+    a worker given the card never carries on without it."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() != 1 \
+            or torch.cuda.get_device_name(0) != want:
+        raise AssertionError(
+            f"{where} sees {torch.cuda.device_count()} cards, want 1 "
+            f"{want!r}")
+
+
 def train_worker_loop(config: dict) -> None:
     """gpt2-train-worker's loop, in the train worker (by reference from
     this file, as ``RuntimeServer``): gates the card and the NCCL world,
@@ -5122,12 +5145,7 @@ def train_worker_loop(config: dict) -> None:
 
     t_start = time.time()
     torch_flags()
-    if torch.cuda.device_count() != 1 or \
-            torch.cuda.get_device_name(0) != config["card"]:
-        raise AssertionError(
-            f"train worker sees {torch.cuda.device_count()} cards "
-            f"({torch.cuda.get_device_name(0)!r}), want 1 "
-            f"{config['card']!r}")
+    _card_check("train worker", config["card"])
     if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
         raise AssertionError(f"train worker's world: {dist.get_backend()}"
                              f" of {dist.get_world_size()} (want nccl of 1)")
@@ -5194,6 +5212,21 @@ def train_worker_loop(config: dict) -> None:
         rep["checkpoint_save_s"] = time.monotonic() - t
         ckpt = Checkpoint.from_directory(path)
     train.report(rep, checkpoint=ckpt)
+
+
+def _wait_card_back(rt, pids, what: str) -> float:
+    """Seconds until every process in ``pids`` is gone and the session
+    has its one card back; raises after TRAIN_WORKER_RELEASE_S."""
+    t0 = time.monotonic()
+    while any(_alive(p) for p in pids) or \
+            rt.available_resources().get("GPU") != 1.0:
+        if time.monotonic() - t0 > TRAIN_WORKER_RELEASE_S:
+            raise AssertionError(
+                f"{what}: pids alive {[p for p in pids if _alive(p)]}, "
+                f"resources {rt.available_resources()} "
+                f"{TRAIN_WORKER_RELEASE_S} s after fit()")
+        time.sleep(0.02)
+    return time.monotonic() - t0
 
 
 def train_worker_phase(dev, default: dict, *, sharded: bool = False,
@@ -5264,17 +5297,7 @@ def train_worker_phase(dev, default: dict, *, sharded: bool = False,
             raise AssertionError(f"train worker failed: {result.error}")
         hist = result.metrics_history
         last = hist[-1]
-        t_ret = time.monotonic()
-        while _alive(last["pid"]) or \
-                rt.available_resources().get("GPU") != 1.0:
-            if time.monotonic() - t_ret > TRAIN_WORKER_RELEASE_S:
-                raise AssertionError(
-                    f"train worker: pid {last['pid']} alive "
-                    f"{_alive(last['pid'])}, resources "
-                    f"{rt.available_resources()} "
-                    f"{TRAIN_WORKER_RELEASE_S} s after fit()")
-            time.sleep(0.02)
-        release_s = time.monotonic() - t_ret
+        release_s = _wait_card_back(rt, [last["pid"]], "train worker")
     finally:
         rt.shutdown()
     steps = WARMUP_STEPS + TIMED_STEPS
@@ -9092,6 +9115,379 @@ def resnet_phases(dev) -> None:
     resnet_mlp_card_cpu_arm(dev)
 
 
+# gpt2-tune (phase 19): Ray Tune over the training step on the card.
+# Arm a sweeps TUNE_LRS with ASHA in trial actors that each take the
+# card ({"GPU": 1}), so they run one at a time, in this order.  ASHA is
+# asynchronous: a rung cuts a trial only against the trials that reached
+# it before, so the order decides who stops whom; the phase prints the
+# order and the steps each trial ran.  Arm b tunes a one-worker
+# TorchTrainer over TUNE_GRID_LRS with FIFO, one trial at a time (a
+# trainer's placement group waits 60 s at most for the card).  The
+# optimizer has no warm-up: under warm-up the first update is at lr 0,
+# and every trial's second loss would equal its first.
+TUNE_B = 8
+TUNE_LRS = (1e-3, 3e-4, 1e-4, 3e-5)
+TUNE_ASHA = dict(max_t=8, grace_period=2, reduction_factor=2)
+TUNE_GRID_LRS = (1e-3, 3e-4)            # a subset of TUNE_LRS
+TUNE_TRAINER_STEPS = 4
+TUNE_OPT = dict(warmup=0, total_steps=100)
+# what a trial's process may find used on the card beyond the first
+# trial's reading: a lingering trial holds its CUDA context (~0.5 GiB)
+# and its model, optimizer and activations (several GiB)
+TUNE_MEM_SLACK = 256 << 20
+
+
+def tune_step_fns(lr: float, dev, mesh=None) -> tuple:
+    """gpt2-tune's step at ``lr``: GPT-2 124M (bf16, the default training
+    path) from ``init_params`` seed 0, AdamW without warm-up, and the one
+    seeded TUNE_B x 1024 batch."""
+    from ray_tpu_torch import GPTConfig
+    from ray_tpu_torch.models.training import (build_gpt_train,
+                                               default_optimizer,
+                                               synthetic_lm_batch)
+    cfg = GPTConfig.gpt2(**TRAIN_CFG, dtype=torch.bfloat16)
+    fns = build_gpt_train(cfg, mesh,
+                          optimizer=default_optimizer(lr=lr, **TUNE_OPT),
+                          device=dev, telemetry=False)
+    state = fns["init_fn"](torch.Generator().manual_seed(0))
+    batch = synthetic_lm_batch(torch.Generator().manual_seed(1), TUNE_B,
+                               TRAIN_S, cfg.vocab_size, device=dev)
+    return fns, state, batch
+
+
+def tune_trial(config: dict) -> None:
+    """gpt2-tune arm a's function trainable, in its trial actor (by
+    reference from this file): ``config["steps"]`` steps at
+    ``config["lr"]``, a ``tune.report`` after each, carrying the loss,
+    the step's wall (the loss read syncs), the launches so far, the
+    process and what the card had free when the trial began."""
+    import ray_tpu_torch.tune as tune
+    from ray_tpu_torch.ops import _build
+
+    t_start = time.time()
+    _card_check("a tune trial", config["card"])
+    free_at_start = torch.cuda.mem_get_info()[0]
+    torch_flags()
+    dev = torch.device("cuda")
+    fns, state, batch = tune_step_fns(config["lr"], dev)
+    _build.load()
+    _build.reset_launches()
+    for i in range(config["steps"]):
+        t0 = time.monotonic()
+        state, m = fns["step_fn"](state, batch)
+        loss = float(m["loss"])
+        rep = {"loss": loss, "step": i + 1,
+               "step_ms": 1e3 * (time.monotonic() - t0),
+               "launches": _build.launch_counts(), "pid": os.getpid(),
+               "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+               "t_start": t_start, "free_at_start": free_at_start}
+        tune.report(rep)
+
+
+def tune_trainer_loop(config: dict) -> None:
+    """gpt2-tune arm b's train loop, in the trainer's one worker (by
+    reference from this file): TUNE_TRAINER_STEPS steps at
+    ``config["lr"]`` on ``make_mesh(dp=-1)`` over the NCCL world of 1;
+    one report at the end with every loss and the launches."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.parallel.mesh import make_mesh
+
+    _card_check("the tuned trainer's worker", config["card"])
+    torch_flags()
+    dev = torch.device("cuda")
+    fns, state, batch = tune_step_fns(config["lr"], dev,
+                                      mesh=make_mesh(dp=-1))
+    _build.load()
+    _build.reset_launches()
+    losses = []
+    for _ in range(TUNE_TRAINER_STEPS):
+        state, m = fns["step_fn"](state, batch)
+        losses.append(float(m["loss"]))
+    train.report({"loss": losses[-1], "losses": losses,
+                  "launches": _build.launch_counts(), "pid": os.getpid()})
+
+
+def tune_watch():
+    """An experiment callback for arm a (``RunConfig.callbacks``): when
+    each trial starts and ends on the driver's clock, and when each ended
+    trial's process is gone (a thread polls its pid).  Its state is plain
+    dicts: the Tuner pickles its run config, callbacks included."""
+    import threading
+
+    from ray_tpu_torch.tune.callbacks import Callback
+
+    class TuneWatch(Callback):
+        def __init__(self):
+            self.started, self.ended, self.gone = {}, {}, {}
+
+        def on_trial_start(self, trial):
+            self.started[trial.trial_id] = time.time()
+
+        def on_trial_complete(self, trial):
+            tid, pid = trial.trial_id, trial.last_result.get("pid")
+            self.ended[tid] = time.time()
+
+            def poll():
+                while pid is not None and _alive(pid):
+                    time.sleep(0.002)
+                self.gone[tid] = time.time()
+
+            threading.Thread(target=poll, daemon=True).start()
+
+        def on_trial_error(self, trial, error):
+            self.on_trial_complete(trial)
+
+    return TuneWatch()
+
+
+def _in_process_losses(lr: float, steps: int, dev) -> tuple:
+    """The driver's own run of gpt2-tune's step: every loss and each
+    step's wall (the loss read syncs, as in a trial)."""
+    fns, state, batch = tune_step_fns(lr, dev)
+    losses, walls = [], []
+    for _ in range(steps):
+        t0 = time.monotonic()
+        state, m = fns["step_fn"](state, batch)
+        losses.append(float(m["loss"]))
+        walls.append(1e3 * (time.monotonic() - t0))
+    del fns, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, walls
+
+
+def _tune_launches(what: str, rep: dict, steps: int) -> dict:
+    got = rep["launches"]
+    want = {k: n * steps for k, n in TRAIN_LAUNCHES.items()}
+    if any(k not in got for k in want):
+        raise AssertionError(f"{what}: kernels {sorted(want)} not all "
+                             f"registered in {sorted(got)}")
+    expect_launches(what, got, want)
+    return got
+
+
+def tune_sweep_arm(name: str, refs: dict, default_step_ms=None) -> dict:
+    """gpt2-tune arm a: ``tune.with_resources(tune_trial, {"GPU": 1})``
+    over TUNE_LRS under ``ASHAScheduler(**TUNE_ASHA)`` on ``loss`` (min).
+    Gates: (i) every trial's losses bit-equal to the driver's own steps
+    at its rate (``refs``), so every first loss to the others'; (ii)
+    every trial's loss moves; (iii) a trial
+    stopped at a rung, and the port's ASHA replayed on the recorded
+    histories in the order the trials ran makes the same decisions;
+    (iv) the best result is the trial with the lowest final loss, no
+    errors; (v) every report's launches exactly its steps times
+    TRAIN_LAUNCHES; (vi) each ended trial's process gone within
+    TRAIN_WORKER_RELEASE_S, each trial finding the card as free as the
+    first did, and after ``fit()`` the card free and given back.
+    Returns the metrics and the launches (path ``tune``)."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.tune as tune
+    from ray_tpu_torch.train import RunConfig
+
+    import chip_smoke
+    max_t = TUNE_ASHA["max_t"]
+    free0 = torch.cuda.mem_get_info()[0]
+    storage = tempfile.mkdtemp(prefix="gpt2_tune_runs_")
+    watch = tune_watch()
+    rt.init(num_cpus=RUNTIME_CPUS)
+    try:
+        if rt.cluster_resources().get("GPU") != 1.0:
+            raise AssertionError(f"gpt2-tune: the node found "
+                                 f"{rt.cluster_resources()}")
+        t0 = time.time()
+        grid = tune.Tuner(
+            tune.with_resources(chip_smoke.tune_trial, {"GPU": 1}),
+            param_space={"lr": tune.grid_search(list(TUNE_LRS)),
+                         "card": name, "steps": max_t},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min",
+                scheduler=tune.ASHAScheduler(metric="loss", mode="min",
+                                             **TUNE_ASHA)),
+            run_config=RunConfig(name="gpt2-tune", storage_path=storage,
+                                 callbacks=[watch])).fit()
+        wall = time.time() - t0
+        hists = [r.metrics_history for r in grid]
+        release_s = _wait_card_back(rt, [h[-1]["pid"] for h in hists],
+                                    "gpt2-tune")
+    finally:
+        rt.shutdown()
+    shutil.rmtree(storage, ignore_errors=True)
+    if grid.errors:
+        raise AssertionError(f"gpt2-tune: trial errors {grid.errors}")
+    free1 = torch.cuda.mem_get_info()[0]
+    if free1 < free0 - TUNE_MEM_SLACK:
+        raise AssertionError(f"gpt2-tune: {(free0 - free1) / 2**30:.2f} "
+                             "GiB of the card still held after fit()")
+    lrs = [h[0]["config"]["lr"] for h in hists]
+    order = sorted(range(len(hists)), key=lambda i: hists[i][0]["t_start"])
+    # (i), (ii)
+    for lr, h in zip(lrs, hists):
+        got = [r["loss"] for r in h]
+        if got != refs[lr][0][:len(got)]:
+            raise AssertionError(f"gpt2-tune at lr {lr}: losses {got} != "
+                                 f"the driver's {refs[lr][0]}")
+    if not all(h[-1]["loss"] < h[0]["loss"] for h in hists):
+        raise AssertionError("gpt2-tune: a trial's loss did not fall: "
+                             f"{[[x['loss'] for x in h] for h in hists]}")
+    # (iii): the port's ASHA replayed in the order the trials ran
+    replay = tune.ASHAScheduler(metric="loss", mode="min", **TUNE_ASHA)
+    replayed = {}
+    for i in order:
+        for rep in hists[i]:
+            if replay.on_result(str(i), rep) == "STOP":
+                replayed[i] = rep["training_iteration"]
+                break
+        replay.on_trial_complete(str(i))
+    steps = {i: len(h) for i, h in enumerate(hists)}
+    if replayed != steps:
+        raise AssertionError(f"gpt2-tune: ASHA replayed stops {replayed} "
+                             f"!= the sweep's {steps}")
+    stopped = [i for i in steps if steps[i] < max_t]
+    if not stopped or any(steps[i] not in (2, 4) for i in stopped):
+        raise AssertionError(f"gpt2-tune: steps run {steps}: want a stop "
+                             "at a rung (2 or 4)")
+    # (iv)
+    best = grid.get_best_result()
+    lowest = min(range(len(hists)), key=lambda i: hists[i][-1]["loss"])
+    if best.metrics["config"]["lr"] != lrs[lowest]:
+        raise AssertionError(f"gpt2-tune: best lr {best.metrics['config']}"
+                             f" != {lrs[lowest]}")
+    # (v)
+    launches = {}
+    for i, h in enumerate(hists):
+        for rep in h:
+            _tune_launches(f"gpt2-tune trial {i} step {rep['step']}", rep,
+                           rep["step"])
+        if h[-1]["visible"] != "0":
+            raise AssertionError(f"gpt2-tune: trial {i} sees "
+                                 f"CUDA_VISIBLE_DEVICES {h[-1]['visible']}")
+        launches = add_launches(launches, h[-1]["launches"])
+    # (vi): each ended trial's process gone, each next trial on a free card
+    tids = {i: grid[i].metrics["trial_id"] for i in range(len(hists))}
+    gone = {i: watch.gone[tids[i]] - watch.ended[tids[i]] for i in tids}
+    if max(gone.values()) > TRAIN_WORKER_RELEASE_S:
+        raise AssertionError(f"gpt2-tune: an ended trial's process lived "
+                             f"on {gone} s")
+    free_first = hists[order[0]][0]["free_at_start"]
+    short = {i: (free_first - h[0]["free_at_start"]) / 2 ** 20
+             for i, h in enumerate(hists)}
+    if max(short.values()) > TUNE_MEM_SLACK / 2 ** 20:
+        raise AssertionError(f"gpt2-tune: trials found the card short by "
+                             f"{short} MiB against the first trial")
+    cold = [hists[order[0]][0]["t_start"] - watch.started[tids[order[0]]]]
+    cold += [hists[b][0]["t_start"] - watch.gone[tids[a]]
+             for a, b in zip(order, order[1:])]
+    trial_ms = [float(np.median([r["step_ms"] for r in h[1:]]))
+                for h in hists]
+    metrics = {
+        "cell": "gpt2-tune", "card": card(), "arm": "asha",
+        "batch": [TUNE_B, TRAIN_S], "lrs_in_launch_order":
+            [lrs[i] for i in order],
+        "steps_run": [steps[i] for i in order],
+        "losses": [[r["loss"] for r in hists[i]] for i in order],
+        "trial_cold_start_s": cold,
+        "trial_median_step_ms": [trial_ms[i] for i in order],
+        "driver_median_step_ms": float(np.median(
+            [w for _, walls in refs.values() for w in walls[1:]])),
+        "default_arm_step_ms": default_step_ms,
+        "stop_to_card_free_s": [gone[i] for i in order if i in stopped],
+        "card_short_mib": [short[i] for i in order],
+        "sweep_wall_s": wall, "release_s": release_s}
+    print(f"gpt2-tune: {len(hists)} trials one at a time on the card, "
+          f"lrs in launch order {metrics['lrs_in_launch_order']}, steps "
+          f"{metrics['steps_run']} (ASHA's stops replayed exact), every "
+          "loss bit-equal to the driver's steps at its rate, launches "
+          "exact, each stopped trial's card free before the next began",
+          flush=True)
+    return {"metrics": metrics, "launches": launches}
+
+
+def tune_trainer_arm(name: str, refs: dict) -> dict:
+    """gpt2-tune arm b: a ``Tuner`` over a one-worker ``TorchTrainer``
+    (``ScalingConfig(num_workers=1, use_gpu=True)``, ``tune_trainer_loop``)
+    with a grid over TUNE_GRID_LRS and FIFO.  The trial actor takes a
+    CPU, the trainer's worker the card.  Gates: each trial's losses
+    bit-equal to the driver's TUNE_TRAINER_STEPS in-process steps at its
+    rate, launches exact, the card given back after ``fit()``.  Returns
+    the metrics and the launches (path ``tune_trainer``)."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.tune as tune
+    from ray_tpu_torch.train import RunConfig, ScalingConfig
+    from ray_tpu_torch.train.torch import TorchConfig, TorchTrainer
+
+    import chip_smoke
+    refs = {lr: refs[lr][0][:TUNE_TRAINER_STEPS] for lr in TUNE_GRID_LRS}
+    storage = tempfile.mkdtemp(prefix="gpt2_tune_trainer_runs_")
+    rt.init(num_cpus=RUNTIME_CPUS)
+    try:
+        trainer = TorchTrainer(
+            chip_smoke.tune_trainer_loop,
+            torch_config=TorchConfig(host_collective=False),
+            train_loop_config={"card": name},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(name="gpt2-tune-trainer",
+                                 storage_path=storage))
+        t0 = time.time()
+        grid = tune.Tuner(
+            trainer, param_space={"lr": tune.grid_search(
+                list(TUNE_GRID_LRS))},
+            tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                        max_concurrent_trials=1),
+            run_config=RunConfig(name="gpt2-tune-outer",
+                                 storage_path=storage)).fit()
+        wall = time.time() - t0
+        release_s = _wait_card_back(rt, [r.metrics["pid"] for r in grid
+                                         if "pid" in r.metrics],
+                                    "gpt2-tune trainer")
+    finally:
+        rt.shutdown()
+    shutil.rmtree(storage, ignore_errors=True)
+    if grid.errors:
+        raise AssertionError(f"gpt2-tune trainer: errors {grid.errors}")
+    launches = {}
+    for r in grid:
+        lr = r.metrics["config"]["lr"]
+        if r.metrics["losses"] != refs[lr]:
+            raise AssertionError(f"gpt2-tune trainer at lr {lr}: losses "
+                                 f"{r.metrics['losses']} != the driver's "
+                                 f"{refs[lr]}")
+        launches = add_launches(launches, _tune_launches(
+            f"gpt2-tune trainer at lr {lr}", r.metrics, TUNE_TRAINER_STEPS))
+    metrics = {"cell": "gpt2-tune", "card": card(), "arm": "trainer",
+               "lrs": list(TUNE_GRID_LRS),
+               "losses": {str(lr): refs[lr] for lr in TUNE_GRID_LRS},
+               "sweep_wall_s": wall, "release_s": release_s}
+    print(f"gpt2-tune trainer: {len(TUNE_GRID_LRS)} trials of a one-worker "
+          "TorchTrainer, losses bit-equal to the driver's "
+          f"{TUNE_TRAINER_STEPS} steps at each rate, launches exact",
+          flush=True)
+    return {"metrics": metrics, "launches": launches}
+
+
+def tune_phase(dev, default_step_ms=None) -> dict:
+    """gpt2-tune (phase 19): the driver's own steps at every rate (the
+    losses and walls both arms are held to), then arms a and b; prints
+    ``tune metrics {...}`` and returns the launches by path (``tune``,
+    ``tune_trainer``)."""
+    name = torch.cuda.get_device_name(0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    refs = {lr: _in_process_losses(lr, TUNE_ASHA["max_t"], dev)
+            for lr in TUNE_LRS}
+    a = tune_sweep_arm(name, refs, default_step_ms)
+    b = tune_trainer_arm(name, refs)
+    print("tune metrics " + json.dumps(
+        {"asha": a["metrics"], "trainer": b["metrics"]}), flush=True)
+    return {"tune": a["launches"], "tune_trainer": b["launches"]}
+
+
 def main() -> None:
     name = start_up()
     dev = torch.device("cuda")
@@ -9297,6 +9693,12 @@ def main() -> None:
         resnet_phases(dev)
         print("resnet: every check passed", flush=True)
         return
+    if sys.argv[1:] == ["--tune"]:
+        paths = tune_phase(dev)
+        print("tune: every check passed; launches "
+              + json.dumps({p: _nonzero(n) for p, n in paths.items()}),
+              flush=True)
+        return
     if sys.argv[1:] in (["--profile"], ["--profile", "int8"]):
         from ray_tpu_torch import GPTConfig, init_params
         cfg = GPTConfig.gpt2(**GPT2, dtype=torch.bfloat16)
@@ -9391,6 +9793,8 @@ def main() -> None:
     clock.lap("gpt2-hf-serve, -train (17)")
     resnet_phases(dev)
     clock.lap("resnet50-train, card-cpu (18)")
+    paths.update(tune_phase(dev, train["step_ms"]))
+    clock.lap("gpt2-tune (19)")
     clock.report()
     for row in rec.rows.values():
         # (a worker process registers only the kernels its path imports)

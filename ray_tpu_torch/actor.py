@@ -136,9 +136,8 @@ class ActorClass:
                            opts.get("max_task_retries", 0))
 
     def bind(self, *args, **kwargs):
-        raise NotImplementedError(
-            "bind() needs ray_tpu_torch.dag, which is not ported yet "
-            "(ROADMAP Queue 1, item 13)")
+        from ray_tpu_torch.dag import ClassNode
+        return ClassNode(self, args, kwargs)
 
 
 def method(*, num_returns: int = 1):

@@ -125,6 +125,5 @@ class RemoteFunction:
 
     def bind(self, *args, **kwargs):
         """DAG-building entrypoint (compiled DAGs / Serve graphs)."""
-        raise NotImplementedError(
-            "bind() needs ray_tpu_torch.dag, which is not ported yet "
-            "(ROADMAP Queue 1, item 13)")
+        from ray_tpu_torch.dag import FunctionNode
+        return FunctionNode(self, args, kwargs)

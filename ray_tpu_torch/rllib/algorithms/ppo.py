@@ -6,8 +6,8 @@ env-runner actors (sampling on the CPU) and a learner (clipped-surrogate
 minibatch SGD on its device, the card unless ``device="cpu"``);
 ``num_learners > 1`` scales out as a data-parallel
 :class:`~ray_tpu_torch.rllib.core.learner_group.LearnerGroup` whose
-actors average gradients on the host ring.  ``PPO.as_trainable`` (the
-Tune hook) waits for ``tune/`` (ROADMAP Queue 1 item 13).
+actors average gradients on the host ring.  ``PPO.as_trainable`` is the
+Tune hook: a function trainable that reports each ``train()``.
 """
 
 from __future__ import annotations
@@ -272,3 +272,20 @@ class PPO:
         lrn.stop_actors(self.env_runners)
         if self.learner_group is not None:
             self.learner_group.stop()
+
+    # Tune integration: PPO as a function trainable
+    @staticmethod
+    def as_trainable(config_dict: Dict[str, Any],
+                     stop_iters: int = 10) -> Callable:
+        def trainable(tune_config):
+            import ray_tpu_torch.tune as tune
+            merged = dict(config_dict)
+            merged.update(tune_config)
+            cfg = PPOConfig(**merged)
+            algo = cfg.build()
+            try:
+                for _ in range(stop_iters):
+                    tune.report(algo.train())
+            finally:
+                algo.stop()
+        return trainable

@@ -250,9 +250,14 @@ def cmd_microbenchmark(args):
 
 
 def cmd_dashboard(args):
-    raise NotImplementedError(
-        "dashboard needs ray_tpu_torch.dashboard, which is not ported "
-        "yet (ROADMAP Queue 1, item 13)")
+    import ray_tpu_torch
+    ray_tpu_torch.init(ignore_reinit_error=True)
+    from ray_tpu_torch.dashboard.app import Dashboard
+    port = Dashboard(args.port).start()
+    print(f"dashboard at http://127.0.0.1:{port}")
+    import time
+    while True:
+        time.sleep(3600)
 
 
 _HEAD_DAEMON = """
@@ -412,10 +417,42 @@ def cmd_stop(args):
 
 
 def cmd_jobs(args):
-    """``ray-tpu jobs ...`` (parity: ``ray job``)."""
-    raise NotImplementedError(
-        "jobs needs ray_tpu_torch.job, which is not ported yet "
-        "(ROADMAP Queue 1, item 13)")
+    """``ray-tpu jobs ...`` against the live session's job table
+    (parity: ``ray job submit/status/logs/list/stop``)."""
+    import json
+    if args.jobs_command == "submit":
+        # submission starts a runtime in this shell, so the CLI always
+        # waits for completion: exiting earlier would tear the runtime
+        # (and the job's supervisor) down with it
+        import ray_tpu_torch
+        from ray_tpu_torch.job import JobSubmissionClient
+        try:
+            # a standing `ray-tpu start --head` session: attach so the
+            # job runs on it and lands in the session's job table
+            ray_tpu_torch.init(address="auto", ignore_reinit_error=True)
+        except Exception:  # noqa: BLE001 — no live session
+            ray_tpu_torch.init(ignore_reinit_error=True)
+        c = JobSubmissionClient()
+        jid = c.submit_job(entrypoint=args.entrypoint)
+        print(jid)
+        status = c.wait_until_finished(jid, timeout=args.timeout)
+        print(status)
+        print(c.get_job_logs(jid), end="")
+        sys.exit(0 if status == "SUCCEEDED" else 1)
+    client = _connect_cp()
+    # read-only commands ride the CP KV of the running session
+    if args.jobs_command == "list":
+        for key in client.call("kv_keys", b"", "_jobs"):
+            raw = client.call("kv_get", key, "_jobs")
+            info = json.loads(raw.decode())
+            print(f"{info['submission_id']}  {info['status']:9s}  "
+                  f"{info['entrypoint'][:60]}")
+    elif args.jobs_command == "status":
+        raw = client.call("kv_get", args.job_id.encode(), "_jobs")
+        if raw is None:
+            print(f"no job {args.job_id}", file=sys.stderr)
+            sys.exit(1)
+        print(json.loads(raw.decode())["status"])
 
 
 def main(argv=None):

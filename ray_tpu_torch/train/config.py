@@ -4,7 +4,8 @@ Counterpart of ``ray_tpu/train/config.py`` (parity: the reference's
 ``python/ray/air/config.py``: ScalingConfig, RunConfig, FailureConfig,
 CheckpointConfig).  ``ScalingConfig.use_gpu`` gives each worker one card
 (``"GPU": 1``) where the JAX package's ``use_tpu`` gives it a TPU host.
-``RunConfig.callbacks`` are tune's (ROADMAP Queue 1 item 13) and raise.
+``RunConfig.callbacks`` are tune's experiment callbacks: the Tuner
+invokes them (``tune/callbacks.py``).
 ``ScalingConfig.mesh_axes`` is the reference's field: each worker's
 training context carries it (``TrainContext.get_mesh_axes``).
 """
@@ -64,15 +65,10 @@ class RunConfig:
     failure_config: FailureConfig = field(default_factory=FailureConfig)
     checkpoint_config: CheckpointConfig = field(
         default_factory=CheckpointConfig)
+    # experiment callbacks (ray_tpu_torch.tune.callbacks.Callback):
+    # invoked by the Tuner controller at trial lifecycle points
     callbacks: Optional[list] = None
     verbose: int = 1
-
-    def __post_init__(self):
-        if self.callbacks:
-            raise NotImplementedError(
-                "RunConfig(callbacks=...) drives tune's experiment "
-                "callbacks, which are not ported yet (ROADMAP Queue 1 "
-                "item 13)")
 
     def resolved_storage_path(self) -> str:
         base = self.storage_path or os.path.expanduser(

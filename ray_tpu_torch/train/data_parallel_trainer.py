@@ -200,3 +200,26 @@ class DataParallelTrainer:
     @staticmethod
     def can_restore(path: str) -> bool:
         return os.path.exists(os.path.join(path, "trainer.pkl"))
+
+    def as_trainable(self):
+        """Adapter so Tune can run this trainer as a trial: each trial
+        fits a copy of the trainer with the trial's config merged into
+        ``train_loop_config`` and returns its final metrics."""
+        trainer = self
+
+        def trainable(config):
+            merged = dict(trainer.train_loop_config)
+            merged.update(config)
+            trainer2 = type(trainer)(
+                trainer.train_loop_per_worker,
+                train_loop_config=merged,
+                backend_config=trainer.backend_config,
+                scaling_config=trainer.scaling_config,
+                run_config=trainer.run_config,
+                datasets=trainer.datasets)
+            result = trainer2.fit()
+            if result.error:
+                raise result.error
+            return result.metrics
+
+        return trainable

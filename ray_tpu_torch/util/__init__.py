@@ -1,9 +1,11 @@
 """``ray_tpu_torch.util`` — placement groups and scheduling strategies
-(counterpart of ``ray_tpu/util``), fault injection (:mod:`.chaos`), the
-local span recorder (:mod:`.tracing`), metrics (:mod:`.metrics`), the
-state API (:mod:`.state`) and device profiling (:mod:`.profiling`).  ``ActorPool``, ``queue``, ``multiprocessing``
-and ``joblib`` are ROADMAP Queue 1 item 13."""
+(counterpart of ``ray_tpu/util``), ``ActorPool``, the actor-backed
+``queue.Queue``, ``multiprocessing.Pool`` and the ``joblib`` backend,
+fault injection (:mod:`.chaos`), the local span recorder
+(:mod:`.tracing`), metrics (:mod:`.metrics`), the state API
+(:mod:`.state`) and device profiling (:mod:`.profiling`)."""
 
+from ray_tpu_torch.util.actor_pool import ActorPool
 from ray_tpu_torch.util.placement_group import (PlacementGroup,
                                                 get_placement_group,
                                                 placement_group,
@@ -13,7 +15,7 @@ from ray_tpu_torch.util.scheduling_strategies import (
     NodeAffinitySchedulingStrategy, PlacementGroupSchedulingStrategy)
 
 __all__ = [
-    "PlacementGroup", "placement_group",
+    "ActorPool", "PlacementGroup", "placement_group",
     "remove_placement_group", "get_placement_group",
     "placement_group_table", "NodeAffinitySchedulingStrategy",
     "PlacementGroupSchedulingStrategy",

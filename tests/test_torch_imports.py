@@ -86,8 +86,10 @@ def test_every_module_imports_first():
 # the adapters' (blocks, the executor, datasets, iterators, readers,
 # connectors; LoRA config, factor math, store and registry) and the RL
 # loop's (rl/, the learner group, its recorder and the supervised
-# loop) and this slice's (rllib's modules, env runners and algorithms,
-# and the profiling helpers), which the probe above must reach
+# loop) and rllib's (modules, env runners and algorithms, and the
+# profiling helpers) and the libraries' (tune with its searchers and
+# schedulers, dag with channels, workflow, util's pools, job, dashboard,
+# autoscaler, air and tqdm_ray), which the probe above must reach
 _SLICE_MODULES = ("ray_tpu_torch/ops/flash_ce.py",
                   "ray_tpu_torch/models/training.py",
                   "ray_tpu_torch/telemetry/flops.py",
@@ -201,7 +203,37 @@ _SLICE_MODULES = ("ray_tpu_torch/ops/flash_ce.py",
                   "ray_tpu_torch/models/resnet.py",
                   "ray_tpu_torch/train/huggingface/__init__.py",
                   "ray_tpu_torch/train/huggingface/weights.py",
-                  "ray_tpu_torch/train/huggingface/transformers_trainer.py")
+                  "ray_tpu_torch/train/huggingface/transformers_trainer.py",
+                  "ray_tpu_torch/tune/__init__.py",
+                  "ray_tpu_torch/tune/callbacks.py",
+                  "ray_tpu_torch/tune/schedulers.py",
+                  "ray_tpu_torch/tune/trainable.py",
+                  "ray_tpu_torch/tune/tuner.py",
+                  "ray_tpu_torch/tune/search/__init__.py",
+                  "ray_tpu_torch/tune/search/sample.py",
+                  "ray_tpu_torch/tune/search/searcher.py",
+                  "ray_tpu_torch/tune/search/tpe.py",
+                  "ray_tpu_torch/tune/search/bayesopt.py",
+                  "ray_tpu_torch/experimental/__init__.py",
+                  "ray_tpu_torch/experimental/channel.py",
+                  "ray_tpu_torch/experimental/tqdm_ray.py",
+                  "ray_tpu_torch/dag/__init__.py",
+                  "ray_tpu_torch/dag/compiled.py",
+                  "ray_tpu_torch/workflow/__init__.py",
+                  "ray_tpu_torch/workflow/events.py",
+                  "ray_tpu_torch/util/actor_pool.py",
+                  "ray_tpu_torch/util/queue.py",
+                  "ray_tpu_torch/util/multiprocessing.py",
+                  "ray_tpu_torch/util/joblib.py",
+                  "ray_tpu_torch/job/__init__.py",
+                  "ray_tpu_torch/dashboard/__init__.py",
+                  "ray_tpu_torch/dashboard/app.py",
+                  "ray_tpu_torch/autoscaler/__init__.py",
+                  "ray_tpu_torch/autoscaler/v2.py",
+                  "ray_tpu_torch/air/__init__.py",
+                  "ray_tpu_torch/air/integrations/__init__.py",
+                  "ray_tpu_torch/air/integrations/wandb.py",
+                  "ray_tpu_torch/air/integrations/mlflow.py")
 
 
 def _imported_roots(path):
@@ -473,6 +505,68 @@ def test_train_and_collectives_import_no_torch():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     out = subprocess.run([sys.executable, "-c", _TRAIN_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+_LIBS_PROBE = r"""
+import sys
+import ray_tpu_torch
+import ray_tpu_torch.air
+import ray_tpu_torch.air.integrations.mlflow
+import ray_tpu_torch.air.integrations.wandb
+import ray_tpu_torch.autoscaler
+import ray_tpu_torch.autoscaler.v2
+import ray_tpu_torch.dag
+import ray_tpu_torch.dag.compiled
+import ray_tpu_torch.dashboard.app
+import ray_tpu_torch.experimental.channel
+import ray_tpu_torch.experimental.tqdm_ray
+import ray_tpu_torch.job
+import ray_tpu_torch.tune
+import ray_tpu_torch.tune.callbacks
+import ray_tpu_torch.tune.search.bayesopt
+import ray_tpu_torch.tune.search.tpe
+import ray_tpu_torch.util
+import ray_tpu_torch.util.joblib
+import ray_tpu_torch.util.multiprocessing
+import ray_tpu_torch.util.queue
+import ray_tpu_torch.workflow
+from ray_tpu_torch.dag import ClassNode, FunctionNode, InputNode
+
+@ray_tpu_torch.remote
+def f(x):
+    return x
+
+@ray_tpu_torch.remote
+class A:
+    def g(self, x):
+        return x
+
+assert isinstance(f.bind(1), FunctionNode)
+with InputNode() as inp:
+    node = A.bind()
+    assert isinstance(node, ClassNode)
+    node.g.bind(inp)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("torch", "jax", "jaxlib", "ray_tpu",
+                                    "triton", "aiohttp"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_libraries_import_no_torch_and_bind_builds_nodes():
+    """tune (its searchers and schedulers), dag, the channels, workflow,
+    util's pools, job, dashboard, autoscaler, air and tqdm_ray import no
+    torch, jax, ``ray_tpu``, triton or aiohttp (only a trial's own
+    function loads torch; the dashboard imports aiohttp when it starts);
+    ``.bind()`` on a remote function and an actor class builds DAG
+    nodes."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _LIBS_PROBE], cwd=REPO,
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

@@ -1,8 +1,10 @@
 """Port counterparts of ``tests/test_observability.py``: the same test
 bodies run against ``ray_tpu_torch``, the PyTorch port's runtime.
 
-Left for a later item (ROADMAP Queue 1): ``test_dashboard_api`` (item 13,
-dashboard/).  ``test_device_profiling_helpers`` keeps the reference's
+Every test of the reference file has its counterpart here
+(``test_dashboard_api`` since ``dashboard/`` was ported, on a free port
+rather than the reference's fixed one).
+``test_device_profiling_helpers`` keeps the reference's
 ``slow`` mark; ``test_profile_device_trace_and_annotation`` holds the same
 helpers without a session, in tier 1.
 
@@ -131,6 +133,60 @@ def test_histogram_prometheus_exposition(ray_start_regular):
     h.observe(0.5, tags={"route": "/x"})
     text = prometheus_text()
     assert 'route="/x"' in text
+
+
+def test_dashboard_api(ray_start_regular):
+    import requests
+
+    from ray_tpu_torch.dashboard.app import Dashboard
+    # a free port (the reference's fixed 18299 may be held by its own
+    # test running beside this one)
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    free = s.getsockname()[1]
+    s.close()
+    port = Dashboard(free).start()
+    cluster = requests.get(
+        f"http://127.0.0.1:{port}/api/cluster", timeout=10).json()
+    assert cluster["resources_total"]["CPU"] == 4.0
+    nodes = requests.get(
+        f"http://127.0.0.1:{port}/api/nodes", timeout=10).json()
+    assert len(nodes) == 1
+    metrics = requests.get(
+        f"http://127.0.0.1:{port}/metrics", timeout=10)
+    assert metrics.status_code == 200
+    # per-entity drill-down + log panes (dashboard/modules parity)
+    node_id = nodes[0]["node_id"]
+    detail = requests.get(
+        f"http://127.0.0.1:{port}/api/nodes/{node_id}",
+        timeout=10).json()
+    assert detail["node_id"] == node_id
+    assert "debug_state" in detail
+    logs = requests.get(
+        f"http://127.0.0.1:{port}/api/logs?node_id={node_id}",
+        timeout=10).json()
+    assert isinstance(logs, list)
+    if logs:
+        tail = requests.get(
+            f"http://127.0.0.1:{port}/api/logs/tail?"
+            f"node_id={node_id}&name={logs[0]['name']}", timeout=10)
+        assert tail.status_code == 200
+
+    @ray_start_regular.remote
+    class Probe:
+        def ping(self):
+            return 1
+
+    a = Probe.remote()
+    ray_start_regular.get(a.ping.remote())
+    actors = requests.get(
+        f"http://127.0.0.1:{port}/api/actors", timeout=10).json()
+    aid = actors[0]["actor_id"]
+    adetail = requests.get(
+        f"http://127.0.0.1:{port}/api/actors/{aid}", timeout=10).json()
+    assert adetail["actor_id"] == aid
+    assert adetail.get("state") == "ALIVE"
 
 
 def test_cli_status_and_list(ray_start_regular):

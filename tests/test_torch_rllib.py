@@ -19,8 +19,8 @@ sampled is compared).  Tolerances, all f32:
   moves the last digits).
 
 The learning tests are the reference's, with its ``slow`` mark and its
-thresholds, on the port's own runs.  ``test_ppo_in_tune`` waits for
-``tune/`` (ROADMAP Queue 1 item 13) and has no counterpart here.
+thresholds, on the port's own runs, ``test_ppo_in_tune`` among them
+(``PPO.as_trainable`` under ``tune.run``).
 """
 
 import jax
@@ -575,6 +575,22 @@ def test_learner_group_ppo_two_cpu_learners_match_one(ray_start_regular):
 def _cpu(cfg):
     cfg.device = "cpu"
     return cfg
+
+
+@pytest.mark.slow
+def test_ppo_in_tune(ray_start_regular, tmp_path):
+    import ray_tpu_torch.tune as tune
+    from ray_tpu_torch.rllib.algorithms.ppo import PPO
+
+    trainable = PPO.as_trainable(
+        {"env": "CartPole-v1", "num_env_runners": 1,
+         "rollout_length": 128, "device": "cpu"}, stop_iters=2)
+    results = tune.run(trainable,
+                       config={"lr": tune.grid_search([3e-4, 1e-3])},
+                       metric="episode_return_mean", mode="max",
+                       storage_path=str(tmp_path))
+    assert len(results) == 2
+    assert results.get_best_result().metrics["training_iteration"] == 2
 
 
 @pytest.mark.slow

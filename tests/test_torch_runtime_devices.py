@@ -175,6 +175,9 @@ def test_gpu_detection_reads_visible_devices(monkeypatch):
 
 
 def test_num_tpus_and_bind_raise():
+    """``num_tpus`` raises (the port's accelerator is ``num_gpus``);
+    ``.bind()`` builds DAG nodes since ``dag/`` was ported."""
+    from ray_tpu_torch.dag import ClassNode, FunctionNode
     with pytest.raises(TypeError, match="num_gpus"):
         ray_tpu_torch.init(num_tpus=1)
     assert not ray_tpu_torch.is_initialized()
@@ -188,15 +191,13 @@ def test_num_tpus_and_bind_raise():
 
         with pytest.raises(TypeError, match="num_gpus"):
             f.remote()
-        with pytest.raises(NotImplementedError, match="item 13"):
-            f.bind()
+        assert isinstance(f.bind(), FunctionNode)
 
         @ray_tpu_torch.remote
         class A:
             pass
 
-        with pytest.raises(NotImplementedError, match="item 13"):
-            A.bind()
+        assert isinstance(A.bind(), ClassNode)
     finally:
         ray_tpu_torch.shutdown()
 

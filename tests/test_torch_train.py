@@ -479,9 +479,26 @@ def test_trainer_cloud_storage_and_restore(ray_start_regular):
 
 
 def test_run_config_callbacks_raise_item_13():
+    """``RunConfig.callbacks`` no longer raises (tune was ported): it
+    holds tune's experiment callbacks, and the controller's fan-out
+    reaches them and survives one that fails."""
     from ray_tpu_torch.train import RunConfig
-    with pytest.raises(NotImplementedError, match="item 13"):
-        RunConfig(callbacks=[object()])
+    from ray_tpu_torch.tune import callbacks as cb_mod
+
+    seen = []
+
+    class Probe(cb_mod.Callback):
+        def on_trial_start(self, trial):
+            seen.append(trial)
+
+    class Broken(cb_mod.Callback):
+        def on_trial_start(self, trial):
+            raise RuntimeError("a failing callback")
+
+    cfg = RunConfig(callbacks=[Broken(), Probe()])
+    assert len(cfg.callbacks) == 2
+    cb_mod.invoke(cfg.callbacks, "on_trial_start", "trial_00000")
+    assert seen == ["trial_00000"]
 
 
 def test_gpu_worker_without_a_card_raises(tmp_path):
