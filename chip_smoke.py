@@ -55,6 +55,10 @@
     python3 chip_smoke.py --resnet         # resnet50-train and the
                                            # card-against-CPU arm (18)
     python3 chip_smoke.py --tune           # gpt2-tune (19) alone
+    python3 chip_smoke.py --microbenchmark # the microbenchmark path (20)
+                                           # alone
+    python3 chip_smoke.py --scale-probe    # scale_probe.main (host-side
+                                           # runtime scaling), its JSON
     python3 chip_smoke.py --multi-gpu      # on four cards: the pipeline
                                            # (with sp too), MoE and
                                            # sharded-LoRA steps and the
@@ -445,6 +449,22 @@
    Arm b: a ``Tuner`` over a one-worker ``TorchTrainer`` at 2 rates
    (FIFO), each trial's 4 losses bit-equal to the driver's.  Prints
    ``tune metrics {...}`` (``--tune`` runs this alone).
+20. The microbenchmark path (``microbenchmark_phase``): first the kernel
+   variants it reaches, against their plain versions under the main
+   path's tolerances: the attention pair without the causal mask and at
+   head dim 128 (causal and not) at ragged S = 300 between guard bands,
+   with and without RoPE, bf16 and f32; the decode kernels at head dim
+   128, padded and paged, bf16, f32 and int8; then their times at
+   ``attention_perf``'s [8, 1024, 12, 64] non-causal and [8, 1024, 12,
+   128] causal, both with RoPE, and decode at [8, 1024, 12, 128] (extra
+   shapes of the rows).  Then, with the counts at 0, the path:
+   ``ray_perf.main`` in a port session, ``attention_perf`` at its
+   defaults, non-causal and at head dim 128, ``decode_perf`` at head
+   dims 64 and 128 in both ``impl`` arms, ``fused_norm_perf`` and
+   ``ce_perf`` in both arms, ``train_step_perf`` and ``collective_perf``
+   in a world of 1: every figure finite, launches exact.  Prints
+   ``microbenchmark metrics {...}`` (``--microbenchmark`` runs this
+   alone); adds ``microbenchmark`` to ``launches_by_path``.
 
 Any failure raises and the script exits non-zero.  The line before the
 last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
@@ -771,7 +791,7 @@ def _cold_ms(fn, inputs: tuple, copies: int = 6) -> float:
 
 
 def decode_timings(rec: Recorder, dev, *, B: int, S: int, H: int,
-                   D: int) -> None:
+                   D: int, own: bool = True) -> None:
     """Both decode kernels timed at the smoke's lengths and with every
     row full, padded and paged (page 128, a shuffled table), beside
     their plain versions and the library's yardsticks: the masked SDPA
@@ -780,7 +800,9 @@ def decode_timings(rec: Recorder, dev, *, B: int, S: int, H: int,
     row's headline (recorded last) is the paged kernel at the smoke's
     lengths, the engine's decode step.  Also prints each kernel's time
     with its inputs out of L2, the device time of the split and the
-    combine kernels apart, and the achieved bandwidth."""
+    combine kernels apart, and the achieved bandwidth.  ``own=False``
+    records the shape as an extra one of the rows (a head-dim variant),
+    keeping each row's headline."""
     import torch.nn.functional as F
 
     from ray_tpu_torch.inference.kv_cache import gather_pages
@@ -872,7 +894,7 @@ def decode_timings(rec: Recorder, dev, *, B: int, S: int, H: int,
                 nb = nbytes + (n_tab * 4 if paged else 0)
                 rec.record(row, [B, S, H, D], err, ms, time_ms(plain_call),
                            time_ms(lib_paged if paged else lib_padded), nb,
-                           flops, src, replaces, entry=entry,
+                           flops, src, replaces, own=own, entry=entry,
                            lengths=list(lens), ms_cold=cold)
                 print(f"  {row} {entry} {tag}: cold {cold:.4f} ms; "
                       f"{nb / ms / 1e6:.1f} GB/s warm, "
@@ -1054,7 +1076,8 @@ DS_BF16_TOL = dict(rtol=2 ** -7, atol=2e-3)
 DS_F32_TOL = dict(rtol=1e-5, atol=2e-3)
 
 
-def bwd_reference(qr, kr, v, o, lse, do, scale, rope32):
+def bwd_reference(qr, kr, v, o, lse, do, scale, rope32, *,
+                  causal: bool = True):
     """The bf16 backward's yardstick: the plain version in f64 on the
     rotated q and k (``qr``, ``kr``), with the transposed rotation of dq
     and dk.  In f64 and not f32 because the first row of a sequence
@@ -1067,7 +1090,7 @@ def bwd_reference(qr, kr, v, o, lse, do, scale, rope32):
 
     dq, dk, dv = A.plain_flash_attention_bwd(
         *(x.double() for x in (qr, kr, v, o)), lse, do.double(),
-        scale=scale)
+        scale=scale, causal=causal)
     return (A._rot_t(dq, *rope32), A._rot_t(dk, *rope32), dv) \
         if rope32 is not None else (dq, dk, dv)
 
@@ -1105,10 +1128,14 @@ def _guarded_writes(what: str, launch, expect, scratch=()) -> None:
 
 
 def ragged_attention_checks(dev, *, B: int = 2, H: int = 12,
-                            D: int = 64, lengths=(20, 65, 200)) -> None:
+                            D: int = 64, lengths=(20, 65, 200),
+                            causal: bool = True) -> None:
     """The attention kernels at ragged lengths (S = 20, the RL learner's
     prompt 4 + horizon 16, inside one tile; 65 and 200: a partial last
-    tile, rows past S masked in-kernel) with and without RoPE:
+    tile, rows past S masked in-kernel) with and without RoPE, causal or
+    not (``causal=False``: every key attends, so the last key tile's
+    zero-filled keys past S are dropped by the kernels' explicit mask
+    alone):
     forward and backward in bf16 (against the plain version in f32 / f64)
     and in f32 (against the f32 plain version), under the tolerances of
     the main-path checks.  Every input sits between NaN guard bands
@@ -1132,25 +1159,26 @@ def ragged_attention_checks(dev, *, B: int = 2, H: int = 12,
             rope32 = None if rope is None else _f32(*rope)
             qr, kr = ((A._rot(x, *rope).float() for x in (q, k))
                       if with_rope else _f32(q, k))
-            what = f"attention ragged [{B},{S},{H},{D}] rope={with_rope}"
+            what = (f"attention ragged [{B},{S},{H},{D}] rope={with_rope}"
+                    + ("" if causal else " non-causal"))
+            cz = dict(scale=scale, causal=causal)
             o, lse = map(_guarded, A.flash_attention_fwd(
-                q, k, v, scale=scale, rope=rope))
+                q, k, v, rope=rope, **cz))
             o_ref, lse_ref = A.plain_flash_attention_fwd(
-                qr, kr, v.float(), scale=scale)
-            o32, lse32 = A.flash_attention_fwd(*_f32(q, k, v), scale=scale,
-                                               rope=rope32)
+                qr, kr, v.float(), **cz)
+            o32, lse32 = A.flash_attention_fwd(*_f32(q, k, v), rope=rope32,
+                                               **cz)
             o_ref32, lse_ref32 = A.plain_flash_attention_fwd(
-                *_f32(q, k, v), scale=scale, rope=rope32)
-            grads = A.flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
-                                          rope=rope)
-            again = A.flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
-                                          rope=rope)
-            refs = bwd_reference(qr, kr, v, o, lse, do, scale, rope32)
+                *_f32(q, k, v), rope=rope32, **cz)
+            grads = A.flash_attention_bwd(q, k, v, o, lse, do, rope=rope,
+                                          **cz)
+            again = A.flash_attention_bwd(q, k, v, o, lse, do, rope=rope,
+                                          **cz)
+            refs = bwd_reference(qr, kr, v, o, lse, do, scale, rope32,
+                                 causal=causal)
             args32 = (*_f32(q, k, v, o), lse, do.float())
-            grads32 = A.flash_attention_bwd(*args32, scale=scale,
-                                            rope=rope32)
-            refs32 = A.plain_flash_attention_bwd(*args32, scale=scale,
-                                                 rope=rope32)
+            grads32 = A.flash_attention_bwd(*args32, rope=rope32, **cz)
+            refs32 = A.plain_flash_attention_bwd(*args32, rope=rope32, **cz)
             torch.cuda.synchronize()
             check(f"{what} o", o, o_ref, **BF16_TOL)
             check(f"{what} lse", lse, lse_ref, **LSE_TOL)
@@ -1165,7 +1193,8 @@ def ragged_attention_checks(dev, *, B: int = 2, H: int = 12,
                                      "the same inputs differ")
             ptr = [None if t is None else t.data_ptr()
                    for t in (q, k, v, o, do, lse, *(rope or (None, None)))]
-            args = (B, S, H, D, scale, A._DTYPE_CODES[bf], A._stream(q))
+            args = (B, S, H, D, scale, A._DTYPE_CODES[bf], int(causal),
+                    A._stream(q))
             _guarded_writes(f"{what} forward", lambda o_, lse_:
                             A.flash_attention_kernel(
                                 *ptr[:3], *ptr[6:], o_.data_ptr(),
@@ -9487,6 +9516,195 @@ def tune_phase(dev, default_step_ms=None) -> dict:
         {"asha": a["metrics"], "trainer": b["metrics"]}), flush=True)
     return {"tune": a["launches"], "tune_trainer": b["launches"]}
 
+# ---------------------------------------------------------------------------
+# 20. the microbenchmark path (_private/ray_perf.py)
+# ---------------------------------------------------------------------------
+
+# the attention variants the microbenchmark path reaches beyond the
+# training path's: attention_perf's defaults ([8, 1024, 12, 64], RoPE)
+# without the causal mask, and head dim 128 (Llama's, Mistral's,
+# Qwen2's), causal with RoPE: (label, head dim, causal)
+MB_ATTN_VARIANTS = (("non-causal", 64, False), ("head_dim 128", 128, True))
+MB_B, MB_S, MB_H = 8, 1024, 12
+MB_DURATION = 0.2   # seconds each ray_perf.main metric is timed
+
+
+def attention_variant_timings(rec: Recorder, dev) -> None:
+    """The attention pair at each of MB_ATTN_VARIANTS with the RoPE
+    tables, bf16, against its plain version on the same inputs (the
+    forward in f32 on the rotated q and k, the backward in f64, as the
+    main path's checks), then timed beside the plain version, SDPA with
+    the same mask and the bound: extra shapes of the rows
+    (``own=False``), each labelled by its variant."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device=dev).manual_seed(20)
+    randn = _randn(g, dev)
+    bf = torch.bfloat16
+    B, S, H = MB_B, MB_S, MB_H
+    for variant, D, causal in MB_ATTN_VARIANTS:
+        shape = [B, S, H, D]
+        scale = D ** -0.5
+        cz = dict(scale=scale, causal=causal)
+        q, k, v, do = (randn(B, S, H, D) for _ in range(4))
+        rope = A.rope_tables(torch.arange(S, device=dev), D, 10000.0, bf)
+        rope32 = _f32(*rope)
+        qr, kr = (A._rot(x, *rope).float() for x in (q, k))
+        o, lse = A.flash_attention_fwd(q, k, v, rope=rope, **cz)
+        o_ref, lse_ref = A.plain_flash_attention_fwd(qr, kr, v.float(),
+                                                     **cz)
+        torch.cuda.synchronize()
+        what = f"flash_attention_fwd {variant} rope {shape}"
+        err_f = max(check(f"{what} o", o, o_ref, **BF16_TOL),
+                    check(f"{what} lse", lse, lse_ref, **LSE_TOL))
+        del o_ref, lse_ref
+        grads = A.flash_attention_bwd(q, k, v, o, lse, do, rope=rope, **cz)
+        refs = bwd_reference(qr, kr, v, o, lse, do, scale, rope32,
+                             causal=causal)
+        torch.cuda.synchronize()
+        what = f"flash_attention_bwd {variant} rope {shape}"
+        err_b = max(check(f"{what} {n}", x, y, **GRAD_BF16_TOL)
+                    for n, x, y in zip(("dq", "dk", "dv"), grads, refs))
+        del grads, refs, qr, kr
+        torch.cuda.empty_cache()
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+
+        def sdpa_fwd_bwd():
+            a, b, c = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+            F.scaled_dot_product_attention(
+                a, b, c, is_causal=causal).backward(dot)
+
+        tokens = B * S * H * D
+        live = S * (S + 1) / 2 if causal else S * S
+        tables = 2 * S * D * 2
+        label = dict(own=False, variant=variant, causal=causal, rope=True)
+        rec.record("flash_attention_fwd", shape, err_f,
+                   time_ms(lambda: A.flash_attention_fwd(
+                       q, k, v, rope=rope, **cz), 5),
+                   time_ms(lambda: A.plain_flash_attention_fwd(
+                       q, k, v, rope=rope, **cz), 3),
+                   time_ms(lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=causal), 5),
+                   4 * tokens * 2 + B * H * S * 4 + tables,
+                   4 * B * H * D * live,
+                   "ray_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+                   "ray_tpu/ops/attention.py:477", **label)
+        rec.record("flash_attention_bwd", shape, err_b,
+                   time_ms(lambda: A.flash_attention_bwd(
+                       q, k, v, o, lse, do, rope=rope, **cz), 5),
+                   time_ms(lambda: A.plain_flash_attention_bwd(
+                       q, k, v, o, lse, do, rope=rope, **cz), 3),
+                   time_ms(sdpa_fwd_bwd, 5),
+                   8 * tokens * 2 + B * H * S * 4 + tables,
+                   5 * 2 * B * H * D * live,
+                   "ray_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+                   "ray_tpu/ops/attention.py:925", **label)
+        del q, k, v, do, o, lse, qt, kt, vt, dot
+        torch.cuda.empty_cache()
+
+
+def _numbers(x):
+    """Every int and float in a nest of dicts and lists."""
+    if isinstance(x, dict):
+        for v in x.values():
+            yield from _numbers(v)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _numbers(v)
+    elif isinstance(x, (int, float)) and not isinstance(x, bool):
+        yield x
+
+
+def microbenchmark_phase(rec: Recorder, dev) -> dict:
+    """The microbenchmark path (``python -m ray_tpu_torch._private.
+    ray_perf``, ``ray_tpu_torch microbenchmark``), phase 20.
+
+    First the kernel variants this path adds, each against its plain
+    version under the main path's tolerances: the attention pair without
+    the causal mask (tensor cores, head dim 64) and at head dim 128
+    (causal and not) at ragged S = 300 between guard bands, with and
+    without RoPE, bf16 and f32; the decode kernels at head dim 128,
+    padded and paged, bf16, f32 and int8 (``decode_checks``); then their
+    times at the path's shapes (``attention_variant_timings``,
+    ``decode_timings``).  Then, with the launch counts at 0, the path
+    itself: ``ray_perf.main`` in a port session (MB_DURATION a metric),
+    ``attention_perf`` at its defaults, with ``causal=False`` and with
+    ``head_dim=128``; ``decode_perf`` at head dims 64 and 128, both
+    ``impl`` arms; ``fused_norm_perf`` and ``ce_perf``, both arms each;
+    ``train_step_perf``; ``collective_perf`` in a world of 1.  Every
+    figure must be finite, the metric names ``main``'s eleven, and the
+    kernels' launches exactly what the probes' steps imply (the plain
+    arms launch none).  Prints ``microbenchmark metrics {...}`` and
+    returns the launches."""
+    import inspect
+
+    import ray_tpu_torch
+    from ray_tpu_torch._private import ray_perf as P
+    from ray_tpu_torch.ops import _build
+
+    ragged_attention_checks(dev, lengths=(300,), causal=False)
+    ragged_attention_checks(dev, D=128, lengths=(300,))
+    ragged_attention_checks(dev, D=128, lengths=(300,), causal=False)
+    decode_checks(dev, B=MB_B, S=MB_S, H=MB_H, D=128,
+                  lengths=DECODE_LENGTHS)
+    attention_variant_timings(rec, dev)
+    decode_timings(rec, dev, B=MB_B, S=MB_S, H=MB_H, D=128, own=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def steps(fn):
+        return inspect.signature(fn).parameters["steps"].default
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.monotonic()
+    ray_tpu_torch.init()
+    try:
+        out = {"main": P.main(duration=MB_DURATION)}
+    finally:
+        ray_tpu_torch.shutdown()
+    out["attention"] = [P.attention_perf(), P.attention_perf(causal=False),
+                        P.attention_perf(head_dim=128)]
+    out["decode"] = [dict(P.decode_perf(head_dim=d, impl=impl), head_dim=d)
+                     for d in (64, 128) for impl in ("pallas", "xla")]
+    out["fused_norm"] = [P.fused_norm_perf(fused=f) for f in (True, False)]
+    out["ce"] = [P.ce_perf(mode=m) for m in ("flash", "noremat")]
+    out["train"] = P.train_step_perf()
+    out["collective"] = P.collective_perf()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _build.launch_counts()
+
+    names = [r["name"] for r in out["main"]]
+    if len(names) != 11 or len(set(names)) != 11:
+        raise AssertionError(f"ray_perf.main's metrics: {names}")
+    bad = [x for x in _numbers(out) if not math.isfinite(x)]
+    if bad:
+        raise AssertionError(f"non-finite microbenchmark figures: {bad}")
+    if not all(r["rate"] > 0 for r in out["main"]):
+        raise AssertionError("a ray_perf.main rate is not positive")
+    if out["train"].get("metric") != "train_step_telemetry" or \
+            not out["train"].get("mfu"):
+        raise AssertionError(f"train_step_perf: {out['train']}")
+    a, d, n, c = (1 + steps(f) for f in (P.attention_perf, P.decode_perf,
+                                         P.fused_norm_perf, P.ce_perf))
+    t = steps(P.train_step_perf)
+    want = {k: t * v for k, v in train_step_launches().items()}
+    for k, extra in (("flash_attention_fwd", 3 * a),
+                     ("flash_attention_bwd", 3 * a),
+                     ("decode_attention", 2 * d),
+                     ("matmul_residual_norm_fwd", n),
+                     ("matmul_residual_norm_bwd", n),
+                     ("flash_ce_fwd", c), ("flash_ce_bwd", c)):
+        want[k] = want.get(k, 0) + extra
+    expect_launches("microbenchmark path", launches, want)
+    print(f"microbenchmark path on {card()}: {wall:.1f} s; launches "
+          f"{_nonzero(launches)} exact", flush=True)
+    print("microbenchmark metrics " + json.dumps(out), flush=True)
+    return launches
+
 
 def main() -> None:
     name = start_up()
@@ -9693,6 +9911,17 @@ def main() -> None:
         resnet_phases(dev)
         print("resnet: every check passed", flush=True)
         return
+    if sys.argv[1:] == ["--microbenchmark"]:
+        rec = Recorder(name)
+        launches = microbenchmark_phase(rec, dev)
+        print("microbenchmark: every check passed; launches "
+              + json.dumps(_nonzero(launches)), flush=True)
+        print(json.dumps({"kernels": list(rec.rows.values())}))
+        return
+    if sys.argv[1:] == ["--scale-probe"]:
+        from ray_tpu_torch._private import scale_probe
+        scale_probe.main()
+        return
     if sys.argv[1:] == ["--tune"]:
         paths = tune_phase(dev)
         print("tune: every check passed; launches "
@@ -9795,6 +10024,8 @@ def main() -> None:
     clock.lap("resnet50-train, card-cpu (18)")
     paths.update(tune_phase(dev, train["step_ms"]))
     clock.lap("gpt2-tune (19)")
+    paths["microbenchmark"] = microbenchmark_phase(rec, dev)
+    clock.lap("microbenchmark (20)")
     clock.report()
     for row in rec.rows.values():
         # (a worker process registers only the kernels its path imports)

@@ -3,8 +3,8 @@
 Counterpart of ``ray_tpu/ops/attention.py``.  Public functions take the
 model layout ``[B, S, H, D]`` as the JAX package does.
 
-- :func:`flash_attention` is causal self-attention for prefill and
-  training, differentiable through :class:`FlashAttention`.  On a CUDA
+- :func:`flash_attention` is self-attention for prefill and training,
+  causal or not, differentiable through :class:`FlashAttention`.  On a CUDA
   tensor its forward launches ``csrc/flash_attention_fwd.cu`` (the port
   of the Pallas ``_fwd_kernel`` / ``_fwd_pack2_kernel``) and its
   backward ``csrc/flash_attention_bwd.cu`` (``_bwd`` / ``_bwd_pack2``):
@@ -26,8 +26,8 @@ model layout ``[B, S, H, D]`` as the JAX package does.
 
 A CUDA tensor launches the kernel or raises; nothing falls back.  The
 kernels are built for the head dims in ``_KERNEL_HEAD_DIMS`` (64, GPT-2's,
-and 16, ``GPTConfig.tiny``'s); :func:`supports` raises for any other on a
-CUDA device.
+16, ``GPTConfig.tiny``'s, and 128, Llama's, Mistral's and Qwen2's);
+:func:`supports` raises for any other on a CUDA device.
 """
 
 from __future__ import annotations
@@ -45,17 +45,18 @@ from ray_tpu_torch.parallel.mesh import mesh_axis_size, mesh_groups
 from ray_tpu_torch.parallel.ring_attention import _block_attn
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the head dims the kernels are built for (GPT-2's 64 and
-# GPTConfig.tiny's 16), read by supports(), which every wrapper's check
-# calls; other head dims: ROADMAP Queue 2 item B
-_KERNEL_HEAD_DIMS = (16, 64)
+# the head dims the kernels are built for (GPT-2's 64, GPTConfig.tiny's
+# 16, and 128, the public decoders' own), read by supports(), which every
+# wrapper's check calls; other head dims: ROADMAP Queue 2 item B
+_KERNEL_HEAD_DIMS = (16, 64, 128)
 
+# (..., scale, dtype code, causal, stream)
 flash_attention_kernel = _build.Kernel(
     "flash_attention_fwd", *[_build.PTR] * 7, *[_build.INT] * 4,
-    _build.FLOAT, _build.INT, _build.PTR)
+    _build.FLOAT, _build.INT, _build.INT, _build.PTR)
 flash_attention_bwd_kernel = _build.Kernel(
     "flash_attention_bwd", *[_build.PTR] * 12, *[_build.INT] * 4,
-    _build.FLOAT, _build.INT, _build.PTR)
+    _build.FLOAT, _build.INT, _build.INT, _build.PTR)
 # one entry point for both input modes (padded, paged), each launching
 # the split and combine kernels: one count per call; the int8 variant is
 # its own entry point, so its launches count apart
@@ -147,29 +148,34 @@ def _rot_t(g, cos2, sinm):
 
 
 # ---------------------------------------------------------------------------
-# causal flash attention: forward, backward, autograd
+# flash attention: forward, backward, autograd
 # ---------------------------------------------------------------------------
 
 Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
-def plain_flash_attention_fwd(q, k, v, *, scale: float, rope: Rope = None
+def _mask(S: int, causal: bool, device) -> torch.Tensor:
+    mask = torch.ones(S, S, dtype=torch.bool, device=device)
+    return mask.tril() if causal else mask
+
+
+def plain_flash_attention_fwd(q, k, v, *, scale: float, rope: Rope = None,
+                              causal: bool = True
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's plain version: (o [B,S,H,D] in q's dtype,
     lse [B,H,S] f32), computed by the ``local_attention`` formulation;
     ``rope`` = (cos2, sinm) [S, D] rotates q and k first."""
     if rope is not None:
         q, k = _rot(q, *rope), _rot(k, *rope)
-    S = q.shape[1]
-    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-    o, m, l = _block_attn(q, k, v, mask, scale)
+    o, m, l = _block_attn(q, k, v, _mask(q.shape[1], causal, q.device),
+                          scale)
     lc = l.clamp_min(1e-30)
     lse = (m + torch.log(lc)).transpose(1, 2).contiguous()
     return (o / lc[..., None]).to(q.dtype), lse
 
 
 def plain_flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
-                              rope: Rope = None
+                              rope: Rope = None, causal: bool = True
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """The backward kernel's plain version (``_grad_blocks`` and the
@@ -182,10 +188,8 @@ def plain_flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
     ct = torch.float64 if dt == torch.float64 else torch.float32
     if rope is not None:
         q, k = _rot(q, *rope), _rot(k, *rope)
-    S = q.shape[1]
-    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(ct), k.to(ct)) * scale
-    s = torch.where(mask, s, NEG_INF)
+    s = torch.where(_mask(q.shape[1], causal, q.device), s, NEG_INF)
     p = torch.exp(s - lse[..., None].to(ct))
     dp = torch.einsum("bqhd,bkhd->bhqk", do.to(ct), v.to(ct))
     delta = (do.to(ct) * o.to(ct)).sum(-1).transpose(1, 2)   # [B, H, S]
@@ -220,11 +224,13 @@ def _check_attn_args(name: str, q, k, v, rope: Rope, *more) -> None:
                          "in 16-byte vectors)")
 
 
-def flash_attention_fwd(q, k, v, *, scale: float, rope: Rope = None
+def flash_attention_fwd(q, k, v, *, scale: float, rope: Rope = None,
+                        causal: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o, lse) of causal attention; the kernel on CUDA tensors."""
+    """(o, lse) of attention; the kernel on CUDA tensors."""
     if not is_cuda(q):
-        return plain_flash_attention_fwd(q, k, v, scale=scale, rope=rope)
+        return plain_flash_attention_fwd(q, k, v, scale=scale, rope=rope,
+                                         causal=causal)
     _check_attn_args("flash_attention", q, k, v, rope)
     B, S, H, D = q.shape
     o = torch.empty_like(q)
@@ -236,17 +242,17 @@ def flash_attention_fwd(q, k, v, *, scale: float, rope: Rope = None
             None if cos2 is None else cos2.data_ptr(),
             None if sinm is None else sinm.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, S, H, D, scale, _DTYPE_CODES[q.dtype],
-            _stream(q))
+            int(causal), _stream(q))
     return o, lse
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
-                        rope: Rope = None
+                        rope: Rope = None, causal: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv); the kernel on CUDA tensors."""
     if not is_cuda(q):
         return plain_flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
-                                         rope=rope)
+                                         rope=rope, causal=causal)
     check_cuda_args("flash_attention_bwd", q, o, do, dtype=q.dtype)
     _check_attn_args("flash_attention_bwd", q, k, v, rope, do)
     B, S, H, D = q.shape
@@ -265,21 +271,22 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
             None if cos2 is None else cos2.data_ptr(),
             None if sinm is None else sinm.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B, S, H, D,
-            scale, _DTYPE_CODES[q.dtype], _stream(q))
+            scale, _DTYPE_CODES[q.dtype], int(causal), _stream(q))
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
-    """Causal flash attention with its backward kernel (the custom VJP
-    of ``_flash_bhsd`` / ``_flash_pack2`` and their ``_rope`` twins).
+    """Flash attention with its backward kernel (the custom VJP of
+    ``_flash_bhsd`` / ``_flash_pack2`` and their ``_rope`` twins).
     Saves q, k, v, o and lse; delta is recomputed in the backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, cos2, sinm, scale):
+    def forward(ctx, q, k, v, cos2, sinm, scale, causal=True):
         rope = None if cos2 is None else (cos2, sinm)
-        o, lse = flash_attention_fwd(q, k, v, scale=scale, rope=rope)
+        o, lse = flash_attention_fwd(q, k, v, scale=scale, rope=rope,
+                                     causal=causal)
         ctx.save_for_backward(q, k, v, o, lse, cos2, sinm)
-        ctx.scale = scale
+        ctx.scale, ctx.causal = scale, causal
         return o
 
     @staticmethod
@@ -287,8 +294,9 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse, cos2, sinm = ctx.saved_tensors
         rope = None if cos2 is None else (cos2, sinm)
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         scale=ctx.scale, rope=rope)
-        return dq, dk, dv, None, None, None
+                                         scale=ctx.scale, rope=rope,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None, None, None, None
 
 
 def segment_attention(q, k, v, segment_ids, *, causal: bool = True,
@@ -330,7 +338,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     scale: Optional[float] = None, positions=None,
                     rope_theta: float = 10000.0,
                     segment_ids=None) -> torch.Tensor:
-    """Fused causal attention.  q, k, v: [B, S, H, D] -> [B, S, H, D].
+    """Fused attention.  q, k, v: [B, S, H, D] -> [B, S, H, D];
+    ``causal`` masks the keys after each query (the training path's),
+    ``causal=False`` attends to all S keys.
 
     Drop-in for ``parallel.ring_attention.local_attention``.  Every
     length takes the kernel on a CUDA tensor: it masks its own ragged
@@ -353,10 +363,6 @@ def flash_attention(q, k, v, *, causal: bool = True,
         with torch.profiler.record_function("attn/segment"):
             return segment_attention(q, k, v, segment_ids, causal=causal,
                                      scale=scale)
-    if not causal:
-        raise NotImplementedError(
-            "non-causal flash attention is not ported yet (ROADMAP "
-            "Queue 2, row 1: the training path is causal)")
     B, S, H, D = q.shape
     if scale is None:
         scale = D ** -0.5
@@ -366,7 +372,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
             raise ValueError(f"positions must be [S] = [{S}] for the fused "
                              f"RoPE, got {tuple(positions.shape)}")
         cos2, sinm = rope_tables(positions, D, rope_theta, q.dtype)
-    return FlashAttention.apply(q, k, v, cos2, sinm, scale)
+    return FlashAttention.apply(q, k, v, cos2, sinm, scale, causal)
 
 
 def make_flash_attention_fn(mesh=None, *, causal: bool = True,

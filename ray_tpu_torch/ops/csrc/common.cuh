@@ -86,11 +86,11 @@ __device__ __forceinline__ float load_rot(const T* row, const T* cos2,
   }
 }
 
-// load_rot's rotation done in place on a bf16 row of D = 64 held in
-// shared memory, 16 bytes at a time: lo and hi are the row's chunks j and
-// j + 4 (columns 8j..8j+7 and 8j+32..8j+39), each the other's partner
-// under the D/2 roll; c_lo, c_hi, s_lo, s_hi the same chunks of the
-// row's cos2 and sinm.
+// load_rot's rotation done in place on a bf16 row of D held in shared
+// memory, 16 bytes at a time: lo and hi are the row's chunks j and
+// j + D/16 (columns 8j..8j+7 and 8j+D/2..8j+D/2+7), each the other's
+// partner under the D/2 roll; c_lo, c_hi, s_lo, s_hi the same chunks of
+// the row's cos2 and sinm.
 __device__ __forceinline__ void rope_chunks(uint4& lo, uint4& hi,
                                             const uint4& c_lo,
                                             const uint4& c_hi,
@@ -112,14 +112,15 @@ __device__ __forceinline__ void rope_chunks(uint4& lo, uint4& hi,
   hi = pack16(oh);
 }
 
-// the same with the table rows read from the [S, 64] tables at pos
+// the same with the table rows read from the [S, D] tables at pos
+template <int D = 64>
 __device__ __forceinline__ void rope_chunks(uint4& lo, uint4& hi,
                                             const __nv_bfloat16* cos2,
                                             const __nv_bfloat16* sinm,
                                             int pos, int j) {
-  const uint4* c = reinterpret_cast<const uint4*>(cos2 + pos * 64L);
-  const uint4* s = reinterpret_cast<const uint4*>(sinm + pos * 64L);
-  rope_chunks(lo, hi, c[j], c[j + 4], s[j], s[j + 4]);
+  const uint4* c = reinterpret_cast<const uint4*>(cos2 + pos * long{D});
+  const uint4* s = reinterpret_cast<const uint4*>(sinm + pos * long{D});
+  rope_chunks(lo, hi, c[j], c[j + D / 16], s[j], s[j + D / 16]);
 }
 
 __device__ __forceinline__ float warp_max(float x) {

@@ -6,8 +6,9 @@
 // modes: the model dtype (decode_attention below) and quantized=True,
 // int8 codes with per-(position, head) f32 scales (decode_attention_int8).
 //
-// Computes, for q [B, H, D] (bf16 or f32; D is 64, GPT-2's head_dim, or
-// 16, GPTConfig.tiny's) and lengths [B] int32:
+// Computes, for q [B, H, D] (bf16 or f32; D is 64, GPT-2's head_dim, 16,
+// GPTConfig.tiny's, or 128, Llama's, Mistral's and Qwen2's) and lengths
+// [B] int32:
 //   o[b, h] = softmax(q[b,h] . k[b, :len, h] * scale) v[b, :len, h]
 // with len = lengths[b] clamped to the context's capacity, scores and
 // statistics in f32, l clamped at 1e-30, and no read at or past len.
@@ -344,6 +345,15 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks,
   if (dtype == rtt::kF32 && D == 16)
     return launch<float, 16, Q>(q, k, v, ks, vs, lengths, table, o, ws, B,
                                 H, ps, max_pages, scale, st);
+  // D = 128: a position's row is 256 bytes in bf16 (16 lanes, 2 positions
+  // a warp-wide load), 512 in f32 (the whole warp, one position), 128 in
+  // int8 (8 lanes, 4 positions); the block's D threads merge the warps
+  if (dtype == rtt::kBF16 && D == 128)
+    return launch<bf16, 128, Q>(q, k, v, ks, vs, lengths, table, o, ws, B, H,
+                                ps, max_pages, scale, st);
+  if (dtype == rtt::kF32 && D == 128)
+    return launch<float, 128, Q>(q, k, v, ks, vs, lengths, table, o, ws, B,
+                                 H, ps, max_pages, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

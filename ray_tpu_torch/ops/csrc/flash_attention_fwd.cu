@@ -1,15 +1,15 @@
-// Causal flash-attention forward for prefill and training.
+// Flash-attention forward for prefill and training, causal or not.
 //
 // Replaces: ray_tpu/ops/attention.py:_fwd_kernel (via _fwd) and its
 // two-head lane-packed sibling _fwd_pack2_kernel (via _fwd_pack2).  The
 // pack2 layout exists to fill the TPU's 128-lane matrix unit at
 // head_dim 64; Hopper has no such lane constraint, so one entry point
 // serves both, at every head count.  It is instantiated for head_dim 64
-// (GPT-2's) and 16 (GPTConfig.tiny's); other head dims come with their
-// configurations.
+// (GPT-2's), 16 (GPTConfig.tiny's) and 128 (Llama's, Mistral's, Qwen2's);
+// other head dims come with their configurations.
 //
 // Computes, for q, k, v [B, S, H, D] (the model layout, bf16 or f32):
-//   o   [B, S, H, D] = softmax(q k^T * scale, causal) v   (storage dtype)
+//   o   [B, S, H, D] = softmax(q k^T * scale [causal mask]) v  (storage dtype)
 //   lse [B, H, S]    = row logsumexp of the scaled scores (f32, saved for
 //                      flash_attention_bwd.cu)
 // with the reference's rounding points: scores and statistics in f32,
@@ -24,19 +24,25 @@
 // bound by the bf16 tensor cores and below that by memory.
 //
 // Two designs, chosen by dtype and head dim:
-// - bf16 at head_dim 64: flash_fwd_tc_kernel, on the tensor cores
-//   (below).
+// - bf16 at head_dim 64 and 128: flash_fwd_tc_kernel, on the tensor
+//   cores (below).
 // - f32, and bf16 at head_dim 16 (a tiny model's, where a 16-wide
 //   product would leave a wgmma tile mostly empty): flash_fwd_kernel,
 //   CUDA-core FMAs in f32 with the storage dtype's rounding points.  In
-//   f32 it is
-//   held to the plain version at summation-order bounds (TF32 tensor
-//   cores would not be).  One block per (64-row q tile, head, batch)
-//   walks the k tiles up to the diagonal; each thread owns a 4x4
-//   micro-tile of the 64x64 score block and 4 x D/16 of the output.
+//   f32 it is held to the plain version at summation-order bounds (TF32
+//   tensor cores would not be).  One block per (64-row q tile, head,
+//   batch) walks the k tiles (causal: up to the diagonal); each thread
+//   owns a 4x4 micro-tile of the 64x64 score block and 4 x D/16 of the
+//   output.
 // Both keep the running max/sum and the output accumulator on chip,
 // never write the [S, S] scores, never load a causally dead tile, and
 // mask rows past S in-kernel, so every length takes the kernel.
+//
+// CAUSAL (a template flag of both designs) selects the mask.  Without
+// it (attention.py's causal=False) a block walks every key tile, and
+// the last one's keys past S, zero-filled on load, would score 0 and
+// take softmax weight: there nothing but the explicit mask of columns
+// >= S drops them (under CAUSAL they lie above the diagonal).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -54,7 +60,7 @@ constexpr size_t smem_bytes() {
          (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
 }
 
-template <typename T, int D, bool ROPE>
+template <typename T, int D, bool ROPE, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ cos2,
@@ -96,7 +102,8 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   const int q_last = min(q0 + BQ, S) - 1;
-  const int n_kt = q_last / BK + 1;  // causal: k tiles with k0 <= q_last
+  // causal: the k tiles with k0 <= q_last; otherwise all of them
+  const int n_kt = CAUSAL ? q_last / BK + 1 : (S + BK - 1) / BK;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's readers of ks/vs/ps are done
@@ -137,7 +144,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kj = k0 + tx + 16 * j;
-        live[j] = kj <= qi && kj < S;
+        live[j] = (!CAUSAL || kj <= qi) && kj < S;
         s[i][j] = live[j] ? s[i][j] * scale : rtt::kNegInf;
         rmax = fmaxf(rmax, s[i][j]);
       }
@@ -192,17 +199,17 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T, int D, bool ROPE>
+template <typename T, int D, bool ROPE, bool CAUSAL>
 int launch(const void* q, const void* k, const void* v, const void* cos2,
            const void* sinm, void* o, void* lse, int B, int S, int H,
            float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D, ROPE>,
+      flash_fwd_kernel<T, D, ROPE, CAUSAL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, D, ROPE><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, D, ROPE, CAUSAL><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(cos2),
       static_cast<const T*>(sinm), static_cast<T*>(o),
@@ -210,16 +217,16 @@ int launch(const void* q, const void* k, const void* v, const void* cos2,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAUSAL>
 int dispatch_cuda_cores(const void* q, const void* k, const void* v,
                         const void* cos2, const void* sinm, void* o,
                         void* lse, int B, int S, int H, float scale,
                         cudaStream_t st) {
   if (cos2 != nullptr)
-    return launch<T, D, true>(q, k, v, cos2, sinm, o, lse, B, S, H, scale,
-                              st);
-  return launch<T, D, false>(q, k, v, cos2, sinm, o, lse, B, S, H, scale,
-                             st);
+    return launch<T, D, true, CAUSAL>(q, k, v, cos2, sinm, o, lse, B, S, H,
+                                      scale, st);
+  return launch<T, D, false, CAUSAL>(q, k, v, cos2, sinm, o, lse, B, S, H,
+                                     scale, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -227,11 +234,14 @@ int dispatch_cuda_cores(const void* q, const void* k, const void* v,
 // ---------------------------------------------------------------------------
 //
 // A block is WG warpgroups (128 threads each), each owning 64 q rows of
-// one (batch, head); the block walks the 64-key tiles up to its last
-// row's diagonal, and a warpgroup stops at its own diagonal, the one
-// tile it masks (the others skip the mask arithmetic).  The grid runs a
-// head's q tiles side by side, longest first, so the blocks in flight
-// share that head's K and V in L2 and causal imbalance leaves no tail.
+// one (batch, head); under CAUSAL the block walks the 64-key tiles up to
+// its last row's diagonal, and a warpgroup stops at its own diagonal,
+// the one tile it masks (the others skip the mask arithmetic).  Without
+// CAUSAL every warpgroup walks every key tile and masks only the last
+// one's columns past S, when S is not a whole number of tiles.  The grid
+// runs a head's q tiles side by side, longest first, so the blocks in
+// flight share that head's K and V in L2 and causal imbalance leaves no
+// tail.
 //
 // WG is chosen by RoPE alone:
 // - without RoPE (serving: q and k arrive rotated), WG = 1: the prefill
@@ -260,8 +270,12 @@ int dispatch_cuda_cores(const void* q, const void* k, const void* v,
 // past S with the next batch's rows instead of zeros, and the in-place
 // RoPE needs each thread to own the chunks it rotates (and their table
 // rows, copied beside the tile so the rotation reads shared memory).
-// Rows are 128 bytes (D = 64 bf16), stored with the 128-byte swizzle that
-// wgmma's descriptors read.
+// A row of D bf16 is D / 64 halves of 128 bytes; each operand tile is
+// stored as its halves, each a [64][64] tile with the 128-byte swizzle
+// that wgmma's descriptors read.  At D = 128, S = Q K^T takes 8 k steps
+// (4 in each half), and O is two [64][64] accumulators, one P V product
+// group per half of V's columns: 64 of a thread's registers, and 162 KB
+// of shared memory under RoPE (WG = 2).
 //
 // Ordering: wgmma reads shared memory through the async proxy, so after
 // the copies land and the RoPE writes its rotated rows back, each thread
@@ -275,102 +289,121 @@ namespace tc_fwd {
 using namespace rtt;
 
 constexpr int BN = 64;             // keys of a tile
-constexpr int D = 64;
-constexpr int TILE = 64 * 128;     // a [64][64] bf16 tile, 128-byte rows
-constexpr int TTILE = 64 * 256;    // RoPE table rows of a tile: cos2 | sinm
+constexpr int TILE = 64 * 128;     // a [64][64] bf16 half tile, 128-byte rows
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory of a block of WG warpgroups (64 WG q rows), in bytes from
 // its 1024-aligned base: Q, K stages 0/1, V stages 0/1, then under RoPE
-// the K stages' table rows; plus the slack that aligns the base.
-template <int WG, bool ROPE>
+// the K stages' table rows; plus the slack that aligns the base.  Each
+// operand region holds its rows' D / 64 halves as [64][64] half tiles
+// (off below); a table tile is 64 rows of cos2 | sinm, 4 D bytes each.
+template <int WG, bool ROPE, int D>
 struct Smem {
-  static constexpr int K = WG * TILE;       // + stage * TILE
-  static constexpr int V = K + 2 * TILE;    // + stage * TILE
-  static constexpr int T = V + 2 * TILE;    // + stage * TTILE
-  static constexpr size_t BYTES = 1024 + T + (ROPE ? 2 * TTILE : 0);
+  static constexpr int NH = D / 64;
+  static constexpr int TT = 64 * 4 * D;
+  static constexpr int K = WG * NH * TILE;     // + (stage NH + half) TILE
+  static constexpr int V = K + 2 * NH * TILE;  // + (stage NH + half) TILE
+  static constexpr int T = V + 2 * NH * TILE;  // + stage * TT
+  static constexpr size_t BYTES = 1024 + T + (ROPE ? 2 * TT : 0);
 };
 
-// byte offset of 16-byte chunk c of row r in a swizzled tile (rows of
-// consecutive tiles follow each other: the pattern repeats every 8 rows)
+// byte offset of 16-byte chunk c of row r in a swizzled half tile (rows
+// of consecutive tiles follow each other: the pattern repeats every 8
+// rows)
 __device__ __forceinline__ uint32_t swz(int r, int c) {
   return r * 128 + ((c ^ (r & 7)) << 4);
 }
 
-// byte offset of chunk c of table row r's half (0 cos2, 1 sinm); odd
-// rows swap their chunk halves, so the two rows that one 8-thread
-// phase of a 16-byte access touches fall on distinct banks
-__device__ __forceinline__ uint32_t tab(int r, int half, int c) {
-  return r * 256 + half * 128 + ((c ^ ((r & 1) << 2)) << 4);
+// byte offset of 16-byte chunk cc (of D / 8) of row r of an operand
+// region: the row's 64-row group, the chunk's 128-byte half, the swizzle
+// (at D = 64 this is swz(r, cc))
+template <int D>
+__device__ __forceinline__ uint32_t off(int r, int cc) {
+  if constexpr (D == 64) return swz(r, cc);
+  return ((r >> 6) * (D / 64) + (cc >> 3)) * TILE + swz(r & 63, cc & 7);
 }
 
-// rows [r0, r0 + ROWS) of x at (b, h) into the swizzled tile at shared
+// byte offset of chunk c of table row r's half (0 cos2, 1 sinm); odd
+// rows swap chunk groups, so the two rows that one 8-thread phase of a
+// 16-byte access touches fall on distinct banks
+template <int D>
+__device__ __forceinline__ uint32_t tab(int r, int half, int c) {
+  return r * (4 * D) + half * (2 * D) + ((c ^ ((r & 1) << 2)) << 4);
+}
+
+// rows [r0, r0 + ROWS) of x at (b, h) into the swizzled region at shared
 // address dst, zero past S, by the block's NT threads.  Thread t copies
-// chunks j and j + 4 of row r, (r, j) = divmod(t + NT i, 4): the pairs
-// the RoPE rotates, so a thread rotates only what it copied and needs no
-// barrier in between.
-template <int NT, int ROWS>
+// chunks j and j + D / 16 of row r, (r, j) = divmod(t + NT i, D / 16):
+// the pairs the RoPE rotates (columns c and c + D / 2), so a thread
+// rotates only what it copied and needs no barrier in between.
+template <int NT, int ROWS, int D>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* x, long base,
                                           long rs, int r0, int S) {
+  constexpr int CH = D / 16;
 #pragma unroll
-  for (int i = 0; i < ROWS * 4 / NT; ++i) {
-    const int p = threadIdx.x + NT * i, r = p >> 2, j = p & 3;
+  for (int i = 0; i < ROWS * CH / NT; ++i) {
+    const unsigned p = threadIdx.x + NT * i;
+    const int r = p / CH, j = p % CH;
     const bool ok = r0 + r < S;
     const __nv_bfloat16* src = x + base + (ok ? (r0 + r) * rs : 0);
-    tc::cp_async16(dst + swz(r, j), src + 8 * j, ok);
-    tc::cp_async16(dst + swz(r, j + 4), src + 8 * j + 32, ok);
+    tc::cp_async16(dst + off<D>(r, j), src + 8 * j, ok);
+    tc::cp_async16(dst + off<D>(r, j + CH), src + 8 * (j + CH), ok);
   }
 }
 
 // the same thread's chunks of the RoPE table rows [r0, r0 + 64) into the
 // table tile at dst, beside the K tile they rotate: the rotation then
 // reads shared memory, not device memory, inside the loop
-template <int NT>
+template <int NT, int D>
 __device__ __forceinline__ void load_table(uint32_t dst,
                                            const __nv_bfloat16* cos2,
                                            const __nv_bfloat16* sinm, int r0,
                                            int S) {
+  constexpr int CH = D / 16;
 #pragma unroll
-  for (int i = 0; i < 256 / NT; ++i) {
-    const int p = threadIdx.x + NT * i, r = p >> 2, j = p & 3;
+  for (int i = 0; i < 64 * CH / NT; ++i) {
+    const unsigned p = threadIdx.x + NT * i;
+    const int r = p / CH, j = p % CH;
     const bool ok = r0 + r < S;
-    const long row = ok ? (r0 + r) * 64L : 0;
+    const long row = ok ? (r0 + r) * static_cast<long>(D) : 0;
 #pragma unroll
-    for (int c = j; c < 8; c += 4) {
-      tc::cp_async16(dst + tab(r, 0, c), cos2 + row + 8 * c, ok);
-      tc::cp_async16(dst + tab(r, 1, c), sinm + row + 8 * c, ok);
+    for (int c = j; c < 2 * CH; c += CH) {
+      tc::cp_async16(dst + tab<D>(r, 0, c), cos2 + row + 8 * c, ok);
+      tc::cp_async16(dst + tab<D>(r, 1, c), sinm + row + 8 * c, ok);
     }
   }
 }
 
 // the RoPE of this thread's landed chunks of a tile, in place, with the
 // table rows from the table tile or, for Q (once a block), device memory
-template <int NT, int ROWS, bool FROM_SMEM>
+template <int NT, int ROWS, bool FROM_SMEM, int D>
 __device__ __forceinline__ void rotate_tile(uint8_t* tile,
                                             const uint8_t* table,
                                             const __nv_bfloat16* cos2,
                                             const __nv_bfloat16* sinm, int r0,
                                             int S) {
+  constexpr int CH = D / 16;
 #pragma unroll
-  for (int i = 0; i < ROWS * 4 / NT; ++i) {
-    const int p = threadIdx.x + NT * i, r = p >> 2, j = p & 3;
+  for (int i = 0; i < ROWS * CH / NT; ++i) {
+    const unsigned p = threadIdx.x + NT * i;
+    const int r = p / CH, j = p % CH;
     if (r0 + r >= S) continue;
-    uint4& lo = *reinterpret_cast<uint4*>(tile + swz(r, j));
-    uint4& hi = *reinterpret_cast<uint4*>(tile + swz(r, j + 4));
+    uint4& lo = *reinterpret_cast<uint4*>(tile + off<D>(r, j));
+    uint4& hi = *reinterpret_cast<uint4*>(tile + off<D>(r, j + CH));
     if constexpr (FROM_SMEM) {
       auto t = [&](int half, int c) {
-        return *reinterpret_cast<const uint4*>(table + tab(r, half, c));
+        return *reinterpret_cast<const uint4*>(table + tab<D>(r, half, c));
       };
-      rope_chunks(lo, hi, t(0, j), t(0, j + 4), t(1, j), t(1, j + 4));
+      rope_chunks(lo, hi, t(0, j), t(0, j + CH), t(1, j), t(1, j + CH));
     } else {
-      rope_chunks(lo, hi, cos2, sinm, r0 + r, j);
+      rope_chunks<D>(lo, hi, cos2, sinm, r0 + r, j);
     }
   }
 }
 
-template <bool ROPE, int WG>
+template <bool ROPE, int WG, bool CAUSAL, int D>
 __global__ void __launch_bounds__(128 * WG)
     flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
@@ -380,7 +413,8 @@ __global__ void __launch_bounds__(128 * WG)
                         __nv_bfloat16* __restrict__ o,
                         float* __restrict__ lse, int S, int H, float scale) {
   constexpr int NT = 128 * WG, BM = 64 * WG;
-  using L = Smem<WG, ROPE>;
+  using L = Smem<WG, ROPE, D>;
+  constexpr int NH = L::NH;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem =
       smem_raw + ((1024 - (tc::smem_addr(smem_raw) & 1023)) & 1023);
@@ -399,43 +433,55 @@ __global__ void __launch_bounds__(128 * WG)
   // first column (+ 8 j + e)
   const int row0 = 16 * warp + (lane >> 2), col0 = 2 * (lane & 3);
   // causal: the block walks the key tiles up to its last row's; this
-  // warpgroup's own last tile is its diagonal, the one it masks
-  const int n_kt = (q0 + BM - 1) / BN + 1;
+  // warpgroup's own last tile is its diagonal, the one it masks.
+  // Otherwise every tile, the last masked at S when S % BN != 0.
+  const int n_kt = CAUSAL ? (q0 + BM - 1) / BN + 1 : (S + BN - 1) / BN;
   const int kt_diag = (q0 + 64 * wg) / BN;
+  const int kt_edge = S % BN ? n_kt - 1 : n_kt;  // no edge tile: none
 
   // key tile t (and under RoPE its table rows) into stage t % 2
   auto load_kv = [&](int t) {
     const int stg = t & 1;
-    load_tile<NT, BN>(sq + L::K + stg * TILE, k, base, rs, t * BN, S);
-    load_tile<NT, BN>(sq + L::V + stg * TILE, v, base, rs, t * BN, S);
+    load_tile<NT, BN, D>(sq + L::K + stg * NH * TILE, k, base, rs, t * BN,
+                         S);
+    load_tile<NT, BN, D>(sq + L::V + stg * NH * TILE, v, base, rs, t * BN,
+                         S);
     if constexpr (ROPE)
-      load_table<NT>(sq + L::T + stg * TTILE, cos2, sinm, t * BN, S);
+      load_table<NT, D>(sq + L::T + stg * L::TT, cos2, sinm, t * BN, S);
     tc::cp_async_commit();
   };
   // this thread's part of tile t landed, rotated and fenced for wgmma
   auto land_kv = [&](int t) {
     tc::cp_async_wait<0>();
     if constexpr (ROPE)
-      rotate_tile<NT, BN, true>(smem + L::K + (t & 1) * TILE,
-                                smem + L::T + (t & 1) * TTILE, cos2, sinm,
-                                t * BN, S);
+      rotate_tile<NT, BN, true, D>(smem + L::K + (t & 1) * NH * TILE,
+                                   smem + L::T + (t & 1) * L::TT, cos2,
+                                   sinm, t * BN, S);
     tc::fence_proxy_async();
   };
 
-  load_tile<NT, BM>(sq, q, base, rs, q0, S);
+  load_tile<NT, BM, D>(sq, q, base, rs, q0, S);
   load_kv(0);  // Q rides with tile 0
   land_kv(0);
   if constexpr (ROPE) {
-    rotate_tile<NT, BM, false>(smem, nullptr, cos2, sinm, q0, S);
+    rotate_tile<NT, BM, false, D>(smem, nullptr, cos2, sinm, q0, S);
     tc::fence_proxy_async();
   }
   __syncthreads();
 
-  float acc[32], s[32];
+  // O's D columns as NH accumulators of 64, one per 128-byte half of V
+  float acc[NH][32], s[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = s[i] = 0.f;
+  for (int i = 0; i < 32; ++i) {
+    s[i] = 0.f;
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) acc[hh][i] = 0.f;
+  }
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const uint64_t desc_q = tc::desc_sw128(sq + wg * TILE);
+  uint64_t desc_q[NH];
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh)
+    desc_q[hh] = tc::desc_sw128(sq + (wg * NH + hh) * TILE);
 
   // Tile kt is landed and rotated when iteration kt begins.  The
   // iteration starts the copy of tile kt + 1 into the other stage (read
@@ -446,20 +492,24 @@ __global__ void __launch_bounds__(128 * WG)
   for (int kt = 0; kt < n_kt; ++kt) {
     const int stg = kt & 1;
     if (kt + 1 < n_kt) load_kv(kt + 1);
-    if (kt <= kt_diag) {  // past it a warpgroup has no live key
-      // S = Q K^T
-      const uint64_t desc_k = tc::desc_sw128(sq + L::K + stg * TILE);
+    if (!CAUSAL || kt <= kt_diag) {  // past it a warpgroup has no live key
+      // S = Q K^T, 16 of D a step (+32 bytes along a half's row)
+      uint64_t desc_k[NH];
+#pragma unroll
+      for (int hh = 0; hh < NH; ++hh)
+        desc_k[hh] = tc::desc_sw128(sq + L::K + (stg * NH + hh) * TILE);
       tc::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)  // +32 bytes along K a step
-        tc::wgmma_ss_m64n64k16(s, desc_q + 2 * kk, desc_k + 2 * kk, kk);
+      for (int kk = 0; kk < D / 16; ++kk)
+        tc::wgmma_ss_m64n64k16(s, desc_q[kk >> 2] + 2 * (kk & 3),
+                               desc_k[kk >> 2] + 2 * (kk & 3), kk);
       tc::wgmma_commit();
       tc::wgmma_wait<0>();
       tc::fence_regs(s);
 
       // online softmax in log2 units; the max is taken on the raw scores
       // (scale > 0) and the scale folded into exp2's argument
-      if (kt == kt_diag) {
+      if (CAUSAL && kt == kt_diag) {
 #pragma unroll
         for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -468,6 +518,13 @@ __global__ void __launch_bounds__(128 * WG)
             for (int e = 0; e < 2; ++e)
               if (8 * j + col0 + e > row0 + 8 * i)
                 s[4 * j + 2 * i + e] = kNegInf;
+      }
+      if (!CAUSAL && kt == kt_edge) {  // the zero-filled keys past S
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            if (kt * BN + 8 * j + col0 + (x & 1) >= S) s[4 * j + x] = kNegInf;
       }
       float alpha[2];
 #pragma unroll
@@ -494,23 +551,31 @@ __global__ void __launch_bounds__(128 * WG)
             l[i] += s[x];  // this thread's share; the quad sums at the end
           }
 #pragma unroll
-      for (int x = 0; x < 32; ++x) acc[x] *= alpha[(x >> 1) & 1];
+      for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+        for (int x = 0; x < 32; ++x) acc[hh][x] *= alpha[(x >> 1) & 1];
 
-      // O += P V, P from registers, 16 keys (2048 bytes of V) a step
+      // O += P V, P from registers, 16 keys (2048 bytes of a V half) a
+      // step, one product group per half of V's columns
       uint32_t pa[BN / 16][4];
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) tc::a_from_acc(pa[kk], &s[8 * kk]);
-      const uint64_t desc_v = tc::desc_sw128(sq + L::V + stg * TILE);
       tc::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
-        tc::wgmma_rs_m64n64k16_tb(acc, pa[kk], desc_v + 128 * kk);
+      for (int hh = 0; hh < NH; ++hh) {
+        const uint64_t desc_v =
+            tc::desc_sw128(sq + L::V + (stg * NH + hh) * TILE);
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+          tc::wgmma_rs_m64n64k16_tb(acc[hh], pa[kk], desc_v + 128 * kk);
+      }
       tc::wgmma_commit();
       // tile kt + 1 lands and rotates on the CUDA cores while the tensor
       // cores run P V (it touches neither acc, pa nor stage kt's V)
       if (kt + 1 < n_kt) land_kv(kt + 1);
       tc::wgmma_wait<0>();
-      tc::fence_regs(acc);
+#pragma unroll
+      for (int hh = 0; hh < NH; ++hh) tc::fence_regs(acc[hh]);
     } else if (kt + 1 < n_kt) {
       land_kv(kt + 1);
     }
@@ -524,24 +589,28 @@ __global__ void __launch_bounds__(128 * WG)
     const int qi = q0 + 64 * wg + row0 + 8 * i;
     if (qi < S) {
       const float lc = fmaxf(l[i], 1e-30f);
-      uint32_t* orow = reinterpret_cast<uint32_t*>(o + base + qi * rs + col0);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        orow[4 * j] = tc::pack_bf16(acc[4 * j + 2 * i] / lc,
-                                    acc[4 * j + 2 * i + 1] / lc);
+      for (int hh = 0; hh < NH; ++hh) {
+        uint32_t* orow = reinterpret_cast<uint32_t*>(o + base + qi * rs +
+                                                     64 * hh + col0);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          orow[4 * j] = tc::pack_bf16(acc[hh][4 * j + 2 * i] / lc,
+                                      acc[hh][4 * j + 2 * i + 1] / lc);
+      }
       if ((lane & 3) == 0)
         lse[(static_cast<long>(b) * H + h) * S + qi] = m[i] * kLn2 + logf(lc);
     }
   }
 }
 
-template <bool ROPE>
+template <bool ROPE, bool CAUSAL, int D>
 int launch(const void* q, const void* k, const void* v, const void* cos2,
            const void* sinm, void* o, void* lse, int B, int S, int H,
            float scale, cudaStream_t stream) {
   constexpr int WG = ROPE ? 2 : 1;  // see the design notes above
-  constexpr size_t smem = Smem<WG, ROPE>::BYTES;
-  auto* kernel = flash_fwd_tc_kernel<ROPE, WG>;
+  constexpr size_t smem = Smem<WG, ROPE, D>::BYTES;
+  auto* kernel = flash_fwd_tc_kernel<ROPE, WG, CAUSAL, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -558,35 +627,58 @@ int launch(const void* q, const void* k, const void* v, const void* cos2,
 
 }  // namespace tc_fwd
 
+template <bool CAUSAL>
+int dispatch(const void* q, const void* k, const void* v, const void* cos2,
+             const void* sinm, void* o, void* lse, int B, int S, int H, int D,
+             float scale, int dtype, cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  if (dtype == rtt::kBF16 && D == 64) {
+    if (cos2 != nullptr)
+      return tc_fwd::launch<true, CAUSAL, 64>(q, k, v, cos2, sinm, o, lse, B,
+                                              S, H, scale, st);
+    return tc_fwd::launch<false, CAUSAL, 64>(q, k, v, cos2, sinm, o, lse, B,
+                                             S, H, scale, st);
+  }
+  if (dtype == rtt::kBF16 && D == 128) {
+    if (cos2 != nullptr)
+      return tc_fwd::launch<true, CAUSAL, 128>(q, k, v, cos2, sinm, o, lse,
+                                               B, S, H, scale, st);
+    return tc_fwd::launch<false, CAUSAL, 128>(q, k, v, cos2, sinm, o, lse,
+                                              B, S, H, scale, st);
+  }
+  if (dtype == rtt::kBF16 && D == 16)
+    return dispatch_cuda_cores<bf16, 16, CAUSAL>(q, k, v, cos2, sinm, o, lse,
+                                                 B, S, H, scale, st);
+  if (dtype == rtt::kF32 && D == 16)
+    return dispatch_cuda_cores<float, 16, CAUSAL>(q, k, v, cos2, sinm, o,
+                                                  lse, B, S, H, scale, st);
+  if (dtype == rtt::kF32 && D == 64)
+    return dispatch_cuda_cores<float, 64, CAUSAL>(q, k, v, cos2, sinm, o,
+                                                  lse, B, S, H, scale, st);
+  if (dtype == rtt::kF32 && D == 128)
+    return dispatch_cuda_cores<float, 128, CAUSAL>(q, k, v, cos2, sinm, o,
+                                                   lse, B, S, H, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // cos2 and sinm [S, D] (storage dtype) select the in-kernel RoPE; pass
-// null for both to take q and k as they are.  D is 64 or 16.  bf16 at
-// D = 64 runs on the tensor cores, the rest on the CUDA cores; there is
-// no other switch.  The bf16
-// kernel reads 16-byte vectors: q, k, v, cos2 and sinm 16-byte aligned.
+// null for both to take q and k as they are.  causal 1 masks keys after
+// each query, 0 attends to all S keys.  D is 16, 64 or 128.  bf16 at
+// D = 64 and 128 runs on the tensor cores, the rest on the CUDA cores;
+// there is no other switch.  The bf16 kernels read 16-byte vectors: q,
+// k, v, cos2 and sinm 16-byte aligned.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const void* cos2,
                                    const void* sinm, void* o, void* lse,
                                    int B, int S, int H, int D, float scale,
-                                   int dtype, void* stream) {
+                                   int dtype, int causal, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rtt::kBF16 && D == 64) {
-    if (cos2 != nullptr)
-      return tc_fwd::launch<true>(q, k, v, cos2, sinm, o, lse, B, S, H,
-                                  scale, st);
-    return tc_fwd::launch<false>(q, k, v, cos2, sinm, o, lse, B, S, H, scale,
-                                 st);
-  }
-  if (dtype == rtt::kBF16 && D == 16)
-    return dispatch_cuda_cores<__nv_bfloat16, 16>(q, k, v, cos2, sinm, o,
-                                                  lse, B, S, H, scale, st);
-  if (dtype == rtt::kF32 && D == 64)
-    return dispatch_cuda_cores<float, 64>(q, k, v, cos2, sinm, o, lse, B, S,
-                                          H, scale, st);
-  if (dtype == rtt::kF32 && D == 16)
-    return dispatch_cuda_cores<float, 16>(q, k, v, cos2, sinm, o, lse, B, S,
-                                          H, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (causal)
+    return dispatch<true>(q, k, v, cos2, sinm, o, lse, B, S, H, D, scale,
+                          dtype, st);
+  return dispatch<false>(q, k, v, cos2, sinm, o, lse, B, S, H, D, scale,
+                         dtype, st);
 }

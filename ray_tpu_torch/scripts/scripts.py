@@ -244,9 +244,13 @@ def cmd_stack(args):
 
 
 def cmd_microbenchmark(args):
-    raise NotImplementedError(
-        "microbenchmark needs _private/ray_perf.py, which is not ported "
-        "yet (ROADMAP Queue 1, item 12)")
+    import ray_tpu_torch
+    from ray_tpu_torch._private import ray_perf
+    ray_tpu_torch.init()
+    try:
+        ray_perf.main(duration=args.duration)
+    finally:
+        ray_tpu_torch.shutdown()
 
 
 def cmd_dashboard(args):

@@ -181,7 +181,7 @@ def _bf16(x):
     return torch.from_numpy(x).bfloat16().float().numpy()
 
 
-def _paged_case(page_size, int8, seed):
+def _paged_case(page_size, int8, seed, D=64):
     """A paged layer and its table, as the engine hands them to the
     decode step: rows of length 1, one page exactly, one page + 1 and
     the full table; pages in shuffled order; rows 2 and 3 share their
@@ -193,7 +193,7 @@ def _paged_case(page_size, int8, seed):
     NaN scales), the port's."""
     from ray_tpu.quant import quantize_block
     rng = np.random.default_rng(seed)
-    H, D = 2, 64
+    H = 2
     S = np.lcm(page_size, 128)
     S = S if S > page_size else 2 * S
     max_pages = S // page_size
@@ -321,6 +321,10 @@ def _grad_err(got, want):
     # the D/2 roll is 8 columns away
     ((2, 128, 4, 16), None),
     ((1, 65, 4, 16), None),
+    # head dim 128 (Llama's): RoPE's partner column is 64 away; JAX takes
+    # the unpacked _fwd/_bwd with RoPE, and einsum at 65
+    ((2, 128, 2, 128), None),
+    ((1, 65, 2, 128), None),
 ])
 def test_flash_attention_rope_grads_match_jax(shape, blocks):
     """``flash_attention(positions=...)``, the training path's fused
@@ -407,13 +411,13 @@ CUDA = torch.device("cuda")
 
 
 @pytest.mark.parametrize("D, ok", [(64, True), (16, True), (32, False),
-                                   (128, False), (256, False)])
+                                   (128, True), (256, False)])
 def test_cuda_gate_declines_unbuilt_head_dims(D, ok):
     """On a CUDA device (constructible without a card) the attention gate
-    takes the head dims the kernels are built for (GPT-2's 64, tiny's 16)
-    and raises for the rest, naming the ROADMAP item: a CUDA tensor never
-    goes to a plain version.  On the CPU every head dim is taken (the
-    plain versions)."""
+    takes the head dims the kernels are built for (GPT-2's 64, tiny's 16,
+    Llama's 128) and raises for the rest, naming the ROADMAP item: a CUDA
+    tensor never goes to a plain version.  On the CPU every head dim is
+    taken (the plain versions)."""
     if ok:
         assert TA.supports(D, device=CUDA)
     else:
@@ -438,3 +442,129 @@ def test_cuda_gate_and_wrapper_check_agree():
                 with pytest.raises(NotImplementedError,
                                    match="Queue 2 item B"):
                     check()
+
+
+# ---------------------------------------------------------------------------
+# non-causal attention and head dim 128
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope"])
+@pytest.mark.parametrize("shape", [
+    # JAX runs its Pallas _fwd/_bwd (pack2 at D = 64) in interpret mode
+    (2, 256, 2, 64),
+    (2, 256, 2, 128),
+    # a ragged length: JAX takes its einsum path (local_attention);
+    # the Hopper kernels' last key tile is cut at S
+    (2, 200, 2, 64),
+    (2, 200, 2, 128),
+])
+def test_flash_attention_noncausal_matches_jax(shape, rope):
+    """``flash_attention(causal=False)``, forward and dq/dk/dv, against
+    the JAX package on the same inputs and cotangent, with and without
+    the fused RoPE.  The port side runs the autograd.Function the card
+    runs, with the plain bodies.  Tolerance: the reference's own
+    (``tests/test_ops.py:24-71``, ``:249-268``): 2e-5 on o and 5e-4
+    absolute on each gradient (f32 on both sides; the gradients here
+    are O(1), and a causal mask left on, or a key past S given weight,
+    moves them by 1e-2 or more)."""
+    B, S, H, D = shape
+    rng = np.random.default_rng(21 + D + S)
+    q, k, v, do = (_rand(rng, *shape) for _ in range(4))
+    pos = np.arange(S, dtype=np.int32)
+    rkw = dict(positions=pos, rope_theta=10000.0) if rope else {}
+
+    def jfn(q, k, v):
+        return JA.flash_attention(
+            q, k, v, causal=False,
+            **{n: jnp.asarray(x) if n == "positions" else x
+               for n, x in rkw.items()})
+
+    o_j, vjp = jax.vjp(jfn, *(jnp.asarray(a) for a in (q, k, v)))
+    g_j = vjp(jnp.asarray(do))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_(True)
+                  for a in (q, k, v))
+    o_t = TA.flash_attention(
+        qt, kt, vt, causal=False,
+        **{n: torch.from_numpy(x) if n == "positions" else x
+           for n, x in rkw.items()})
+    o_t.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(o_t.detach().numpy(), np.asarray(o_j), **TOL)
+    for name, got, want in zip("dq dk dv".split(), (qt.grad, kt.grad,
+                                                   vt.grad), g_j):
+        err = float(np.abs(got.numpy() - np.asarray(want)).max())
+        assert err < 5e-4, (name, err)
+    # and it is not the causal result
+    causal = TA.flash_attention(qt.detach(), kt.detach(), vt.detach())
+    assert (causal - o_t.detach()).abs().max() > 1e-2
+
+
+def test_flash_attention_noncausal_lse():
+    """The forward's lse without the mask: the logsumexp of every key's
+    score, against numpy."""
+    rng = np.random.default_rng(22)
+    q, k, v = (_rand(rng, 1, 65, 2, 128) for _ in range(3))
+    _o, lse = TA.flash_attention_fwd(
+        *(torch.from_numpy(a) for a in (q, k, v)), scale=128 ** -0.5,
+        causal=False)
+    s = np.einsum("bqhd,bkhd->bhqk", q, k) * 128 ** -0.5
+    m = s.max(-1)
+    want = m + np.log(np.exp(s - m[..., None]).sum(-1))
+    np.testing.assert_allclose(lse.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+def test_decode_attention_head_dim_128_matches_jax_pallas(int8):
+    """Decode at head dim 128 over a padded context, ragged lengths (1,
+    a split's 128, one more, the full 256), against the JAX Pallas
+    decode kernel in interpret mode; int8 codes and scales from the JAX
+    ``quantize_block``.  Tolerance 2e-5 (f32, summation order)."""
+    from ray_tpu.quant import quantize_block
+    rng = np.random.default_rng(23)
+    B, S, H, D = 4, 256, 2, 128
+    q = _rand(rng, B, H, D)
+    k, v = _rand(rng, B, S, H, D), _rand(rng, B, S, H, D)
+    lengths = np.array([1, 128, 129, 256], np.int32)
+    scales, tscales = {}, {}
+    if int8:
+        k, ks = (np.array(a) for a in quantize_block(jnp.asarray(k), block=D))
+        v, vs = (np.array(a) for a in quantize_block(jnp.asarray(v), block=D))
+        ks, vs = ks[..., 0].copy(), vs[..., 0].copy()
+        scales = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs),
+                      block_k=128)
+        tscales = dict(k_scale=torch.from_numpy(ks),
+                       v_scale=torch.from_numpy(vs))
+    want = np.asarray(JA.decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths),
+        impl="pallas", **scales))
+    got = TA.decode_attention(
+        *(torch.from_numpy(a) for a in (q, k, v, lengths)), **tscales)
+    assert got.shape == (B, H, D) and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("page_size", [7, 128])
+def test_decode_attention_paged_head_dim_128_matches_jax_pallas(page_size,
+                                                                int8):
+    """The paged entry at head dim 128, as
+    ``test_decode_attention_paged_matches_jax_pallas`` at 64: a
+    shuffled table with a shared prefix page, NaN (int8: extreme codes,
+    NaN scales) in the garbage page and past each length."""
+    from ray_tpu.inference import kv_cache as jkv
+    clean, dirty, table, lengths = _paged_case(page_size, int8,
+                                               seed=31 + page_size, D=128)
+    jt = jnp.asarray(table)
+    ctx = {n: jkv.gather_pages(jnp.asarray(clean[n]), jt)
+           for n in clean if n != "q"}
+    scales = (dict(k_scale=ctx["ks"], v_scale=ctx["vs"]) if int8 else {})
+    want = np.asarray(JA.decode_attention(
+        jnp.asarray(clean["q"]), ctx["k"], ctx["v"], jnp.asarray(lengths),
+        impl="pallas", **scales))
+    t = {n: torch.from_numpy(x) for n, x in dirty.items()}
+    tscales = (dict(k_scale_pages=t["ks"], v_scale_pages=t["vs"])
+               if int8 else {})
+    got = TA.decode_attention_paged(
+        t["q"], t["k"], t["v"], torch.from_numpy(table),
+        torch.from_numpy(lengths), **tscales)
+    assert got.shape[-1] == 128 and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want, **TOL)

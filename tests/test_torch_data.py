@@ -23,6 +23,10 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# how long the streaming test's last map block waits for a pool task
+_POOL_WAIT_S = 60.0
+
+
 @pytest.fixture(scope="module")
 def pkgs():
     """Both runtimes, started once for the module.  A dead head's
@@ -307,10 +311,19 @@ def test_actor_pool_map_operator(pkgs):
     assert sorted(port) == list(range(100, 164))
 
 
-def test_streaming_overlap_and_budget(pkgs, monkeypatch):
+def test_streaming_overlap_and_budget(pkgs, monkeypatch, tmp_path):
     """Downstream work is dispatched while upstream blocks are still in
     flight, and per-operator in-flight stays within the budget, read
-    from the port's scheduling events; the rows are the reference's."""
+    from the port's scheduling events; the rows are the reference's.
+
+    The overlap is forced by the setup, not left to timing: the map
+    stage's last block (ids 56..63) waits until a pool task has run
+    (the pool's UDF touches a file of the run), so that block cannot be
+    done before a pool task was dispatched.  An executor that does not
+    stream runs no pool task while a map task is in flight: the block
+    then gives up after ``_POOL_WAIT_S`` and the order assertion fails.
+    The other seven blocks do not wait, so block 0 (which the pool needs
+    first, outputs being released in order) always finds a CPU."""
     import time
 
     import ray_tpu_torch.data.streaming_executor as se
@@ -328,22 +341,37 @@ def test_streaming_overlap_and_budget(pkgs, monkeypatch):
 
     monkeypatch.setattr(se.PhysicalOperator, "launch_one", launch_one)
     monkeypatch.setattr(se.PhysicalOperator, "on_done", on_done)
-
-    def stage1(batch):
-        # two waves of 4 map tasks on 4 CPUs: the pool is fed between
-        time.sleep(0.2)
-        return batch
-
-    class Stage2:
-        def __call__(self, batch):
-            batch["id"] = batch["id"] + 1
-            return batch
+    runs = iter(range(100))
 
     def pipeline(d):
+        pool_ran = str(tmp_path / f"pool-ran-{next(runs)}")
+
+        def stage1(batch):
+            # two waves of 4 map tasks on 4 CPUs: the pool is fed between
+            time.sleep(0.2)
+            if len(batch["id"]) and batch["id"][0] >= 56:
+                deadline = time.monotonic() + _POOL_WAIT_S
+                while not os.path.exists(pool_ran) and \
+                        time.monotonic() < deadline:
+                    time.sleep(0.01)
+            return batch
+
+        class Stage2:
+            def __call__(self, batch):
+                open(pool_ran, "a").close()
+                batch["id"] = batch["id"] + 1
+                return batch
+
         return [r["id"] for r in d.range(64, override_num_blocks=8)
                 .map_batches(stage1)
                 .map_batches(Stage2, concurrency=2, batch_size=None)
                 .take_all()]
+
+    def warm(d):
+        def stage1(batch):
+            time.sleep(0.2)
+            return batch
+        return d.range(4, override_num_blocks=4).map_batches(stage1)
 
     ref_data, port_data = pkgs
     want = pipeline(ref_data)
@@ -351,8 +379,7 @@ def test_streaming_overlap_and_budget(pkgs, monkeypatch):
     # the pool's actors took two of those workers with them: four map
     # tasks at once leave four task workers warm, so a cold start does
     # not hold back the measured stage's first block
-    assert len(port_data.range(4, override_num_blocks=4)
-               .map_batches(stage1).take_all()) == 4
+    assert len(warm(port_data).take_all()) == 4
     events.clear()
     assert pipeline(port_data) == want
     assert want == list(range(1, 65))

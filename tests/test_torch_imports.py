@@ -228,6 +228,8 @@ _SLICE_MODULES = ("ray_tpu_torch/ops/flash_ce.py",
                   "ray_tpu_torch/job/__init__.py",
                   "ray_tpu_torch/dashboard/__init__.py",
                   "ray_tpu_torch/dashboard/app.py",
+                  "ray_tpu_torch/_private/ray_perf.py",
+                  "ray_tpu_torch/_private/scale_probe.py",
                   "ray_tpu_torch/autoscaler/__init__.py",
                   "ray_tpu_torch/autoscaler/v2.py",
                   "ray_tpu_torch/air/__init__.py",

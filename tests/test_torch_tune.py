@@ -467,11 +467,15 @@ def test_class_trainable_under_asha(ray_start_regular, tmp_path):
 
     tuner = tune.Tuner(
         Counter,
-        # strong trials first: ASHA is asynchronous — a loser can only
-        # be cut at a rung that already saw a better peer
+        # strong trials first, one at a time: ASHA is asynchronous — a
+        # loser can only be cut at a rung that already saw a better
+        # peer, so the cut must not hang on which trial's reports the
+        # controller reads first.  Run in this order, 2.0 sets every
+        # rung and 1.0, 0.2 and 0.1 each fall below the cutoff at the
+        # first rung (iteration 2).
         param_space={"rate": tune.grid_search([2.0, 1.0, 0.2, 0.1])},
         tune_config=tune.TuneConfig(
-            metric="score", mode="max",
+            metric="score", mode="max", max_concurrent_trials=1,
             scheduler=ASHAScheduler(metric="score", mode="max",
                                     grace_period=2,
                                     reduction_factor=2)),
